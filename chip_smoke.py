@@ -1,0 +1,402 @@
+"""Drive lightgbm_tpu_torch's training path on one CUDA card and check it.
+
+Run from the repository root with no arguments:
+
+    python3 chip_smoke.py
+
+Phases, each printed as one JSON line:
+  device  - nvidia-smi's name and power limit, torch and CUDA versions;
+  build   - seconds to build the kernel library from csrc/ (0 on a hit);
+  kernel  - one line per kernel at the main path's shapes: its result
+            against the plain PyTorch version on the same inputs (exact
+            for the integer histograms and take; seg_sum within rtol
+            1e-5 and bitwise equal across two runs), and its median time
+            over CUDA events beside the plain version's, one PyTorch
+            library call's, and the least time the card could take;
+  small   - a small training run on the card against the same run on the
+            CPU (plain versions): predictions within 1e-4;
+  train   - the 1M x 28, 255-leaf binary workload (bench.py:386-406),
+            2 warmup trees then 10 timed trees: trees/s, validation AUC
+            after tree 1 and after the last tree, launches per kernel;
+  profile - torch.profiler over 2 more trees: device busy share and the
+            kernels taking the most device time per tree;
+  model   - save_model -> Booster(model_file=...) -> identical predictions
+            on 1000 validation rows; host predictions match the scores
+            the card accumulated;
+then the `kernels` summary line and, last, {"ok": true, "device": ...}.
+Any failure raises: no `ok` line, non-zero exit. Without a CUDA device,
+or without the package beside it, the script exits non-zero at once.
+"""
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+# the card's published peaks (NVIDIA H100 SXM data sheet)
+HBM_BYTES_PER_S = 3.35e12
+OPS_PER_S = 67e12  # f32 / int32 outside the tensor cores
+
+N_ROWS = 1_001_472  # 1M rows padded to the 2048-row block
+G, BC, S_ROUND, L = 28, 256, 48, 255
+REPLACES = {
+    "hist_nat": "lightgbm_tpu/learner/pallas_hist.py:202",
+    "hist_round": "lightgbm_tpu/learner/pallas_hist.py:505",
+    "take_small": "lightgbm_tpu/learner/pallas_hist.py:569",
+    "seg_sum": "lightgbm_tpu/learner/pallas_hist.py:617",
+}
+SOURCES = {
+    "hist_nat": "lightgbm_tpu_torch/csrc/hist_nat.cu",
+    "hist_round": "lightgbm_tpu_torch/csrc/hist_round.cu",
+    "take_small": "lightgbm_tpu_torch/csrc/take_small.cu",
+    "seg_sum": "lightgbm_tpu_torch/csrc/seg_sum.cu",
+}
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def cuda_ms(fn, reps: int = 15, warm: int = 3) -> float:
+    """Median milliseconds of fn() over CUDA events, after warm-up."""
+    import torch
+
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def bound(bytes_moved: float, ops: float):
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def kernel_phase(torch, hist, ch):
+    """Each kernel at the main path's shapes against its plain version."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cpu").manual_seed(17)
+    bins = torch.randint(0, BC - 1, (G, N_ROWS), generator=gen,
+                         dtype=torch.int32).to(dev)
+    gq = torch.randint(-128, 129, (N_ROWS,), generator=gen)
+    hq = torch.randint(0, 257, (N_ROWS,), generator=gen)
+    cnt = torch.ones(N_ROWS, dtype=torch.int64)
+    cnt[-1472:] = 0  # padding rows carry zero channels
+    gq[-1472:] = 0
+    hq[-1472:] = 0
+    gh = torch.stack([gq, hq, cnt]).to(torch.int32).to(dev)
+    lines = {}
+
+    def hist_key(slot, num_slots):
+        s = slot.to(torch.int64)[None, None, :]
+        c = torch.arange(3, device=dev)[:, None, None]
+        g = torch.arange(G, device=dev)[None, :, None]
+        ok = (s >= 0) & (s < num_slots)
+        size = num_slots * 3 * G * BC
+        key = torch.where(ok, ((s * 3 + c) * G + g) * BC
+                          + bins.to(torch.int64)[None], size)
+        w = gh.to(torch.float64)[:, None, :].expand(3, G, N_ROWS)
+        return key.reshape(-1), w.reshape(-1), size
+
+    # ---- hist_nat: the root histogram (S = 1)
+    slot0 = torch.zeros(N_ROWS, dtype=torch.int32, device=dev)
+    out_k = hist.hist_nat_slots(bins, gh, slot0, 1, BC)
+    out_p = hist.hist_nat_slots_plain(bins, gh, slot0, 1, BC)
+    torch.cuda.synchronize()
+    if not torch.equal(out_k, out_p):
+        raise AssertionError("hist_nat disagrees with its plain version")
+    key, w, size = hist_key(slot0, 1)
+    rows = int((gh[2] != 0).sum())
+    b, bb = bound(N_ROWS * 4 * (G + 4) + 1 * 3 * G * BC * 4, rows * G * 3)
+    lines["hist_nat"] = dict(
+        shape=f"bins ({G},{N_ROWS}) S=1 Bc={BC}", tolerance="exact",
+        max_abs_err=float((out_k - out_p).abs().max()),
+        ms=cuda_ms(lambda: hist.hist_nat_slots(bins, gh, slot0, 1, BC)),
+        plain_ms=cuda_ms(lambda: hist.hist_nat_slots_plain(
+            bins, gh, slot0, 1, BC), reps=10),
+        library_ms=cuda_ms(lambda: torch.bincount(
+            key, weights=w, minlength=size + 1), reps=10),
+        bound_ms=b, bound_by=bb)
+
+    # ---- hist_round: one full-width round (S = 48) with random valid
+    # splits; a few slots decode EFB bundle columns, two are unused
+    pleaf = torch.randint(0, L + 1, (N_ROWS,), generator=gen,
+                          dtype=torch.int32).to(dev)
+    leaves = torch.randperm(L, generator=gen)[:S_ROUND].to(torch.int32)
+    params = torch.zeros((S_ROUND, 16), dtype=torch.int32)
+    params[:, 0] = leaves
+    params[:, 1] = torch.randint(0, G, (S_ROUND,), generator=gen)
+    params[:, 2] = torch.randint(0, BC - 2, (S_ROUND,), generator=gen)
+    params[:, 3] = torch.randint(0, 2, (S_ROUND,), generator=gen)
+    params[:, 4] = torch.where(torch.rand(S_ROUND, generator=gen) < 0.5,
+                               BC - 1, -1)
+    params[:, 5] = torch.randint(0, 2, (S_ROUND,), generator=gen)
+    params[:, 6] = 200 + torch.arange(S_ROUND)
+    params[:, 8] = -1
+    efb = torch.arange(S_ROUND) % 8 == 3
+    params[efb, 7] = 16
+    params[efb, 8] = 2
+    params[efb, 9] = 64
+    params[-2:, 0] = -1
+    params = params.to(dev)
+    (hk, pk) = hist.hist_round(bins, gh, pleaf, params, S_ROUND, BC, L)
+    (hp, pp) = hist.hist_round_plain(bins, gh, pleaf, params, S_ROUND, BC)
+    torch.cuda.synchronize()
+    if not (torch.equal(hk, hp) and torch.equal(pk, pp)):
+        raise AssertionError("hist_round disagrees with its plain version")
+    _, hslot = hist.round_partition_plain(bins, pleaf, params, S_ROUND)
+    n_split = int(torch.isin(pleaf, params[:, 0]).sum())
+    n_small = int((hslot < S_ROUND).sum())
+    key, w, size = hist_key(hslot, S_ROUND)
+    b, bb = bound(N_ROWS * 8 + n_split * 4 + n_small * (G * 4 + 12)
+                  + S_ROUND * 16 * 4 + S_ROUND * 3 * G * BC * 4,
+                  n_small * G * 3 + n_split * 8)
+    lines["hist_round"] = dict(
+        shape=f"bins ({G},{N_ROWS}) S={S_ROUND} Bc={BC}", tolerance="exact",
+        max_abs_err=float((hk - hp).abs().max()),
+        ms=cuda_ms(lambda: hist.hist_round(bins, gh, pleaf, params,
+                                           S_ROUND, BC, L)),
+        plain_ms=cuda_ms(lambda: hist.hist_round_plain(
+            bins, gh, pleaf, params, S_ROUND, BC), reps=10),
+        library_ms=cuda_ms(lambda: torch.bincount(
+            key, weights=w, minlength=size + 1), reps=10),
+        library_note="bincount of the histogram half only",
+        bound_ms=b, bound_by=bb)
+
+    # ---- take_small: score update (k = 1) and traversal (k = 8)
+    idx = torch.randint(-1, L + 1, (N_ROWS,), generator=gen,
+                        dtype=torch.int32).to(dev)
+    takes = {}
+    for k in (1, 8):
+        tab = torch.randn((k, L), generator=gen).to(dev)
+        ok_ = torch.equal(hist.take_cols(tab, idx),
+                          hist.take_cols_plain(tab, idx))
+        if not ok_:
+            raise AssertionError(f"take_small k={k} disagrees")
+        b, bb = bound(N_ROWS * 4 + k * L * 4 + k * N_ROWS * 4, 0)
+        safe = idx.clamp(0, L - 1).long()
+        takes[k] = dict(
+            ms=cuda_ms(lambda: hist.take_cols(tab, idx)),
+            plain_ms=cuda_ms(lambda: hist.take_cols_plain(tab, idx)),
+            library_ms=cuda_ms(lambda: torch.index_select(tab, 1, safe)),
+            bound_ms=b, bound_by=bb)
+    lines["take_small"] = dict(
+        shape=f"tab (8,{L}) idx ({N_ROWS},); k=1 ms in k1",
+        tolerance="exact", max_abs_err=0.0, k1=takes[1], **takes[8])
+
+    # ---- seg_sum: true-gradient renewal (k = 2)
+    vals = torch.randn((2, N_ROWS), generator=gen).to(dev)
+    idx_s = torch.where(torch.rand(N_ROWS, generator=gen).to(dev) < 0.9,
+                        idx, torch.full_like(idx, L))
+    s1 = hist.seg_sum(vals, idx_s, L)
+    s2 = hist.seg_sum(vals, idx_s, L)
+    sp = hist.seg_sum_plain(vals, idx_s, L)
+    torch.cuda.synchronize()
+    if not torch.equal(s1, s2):
+        raise AssertionError("seg_sum is not bitwise reproducible")
+    if not torch.allclose(s1, sp, rtol=1e-5, atol=1e-3):
+        raise AssertionError("seg_sum disagrees with its plain version")
+    b, bb = bound(N_ROWS * 12 + 2 * L * 4, 2 * N_ROWS)
+    ok_i = (idx_s >= 0) & (idx_s < L)
+    safe = torch.where(ok_i, idx_s, L).long()
+    lib_out = torch.zeros((2, L + 1), device=dev)
+    lines["seg_sum"] = dict(
+        shape=f"vals (2,{N_ROWS}) L={L}",
+        tolerance="rtol 1e-5 (atol 1e-3) vs plain; bitwise across runs",
+        max_abs_err=float((s1 - sp).abs().max()), bitwise_repeat=True,
+        ms=cuda_ms(lambda: hist.seg_sum(vals, idx_s, L)),
+        plain_ms=cuda_ms(lambda: hist.seg_sum_plain(vals, idx_s, L)),
+        library_ms=cuda_ms(lambda: lib_out.index_add_(1, safe, vals)),
+        bound_ms=b, bound_by=bb)
+    for name, d in lines.items():
+        emit({"phase": "kernel", "name": name, "kernel_ms": d["ms"],
+              **{k: v for k, v in d.items() if k != "ms"}})
+    return lines
+
+
+def higgs_like(rows: int, feats: int = 28):
+    """bench.py:386-395: RandomState(17), held-out validation rows."""
+    import numpy as np
+
+    rs = np.random.RandomState(17)
+    X = rs.randn(rows, feats).astype(np.float32)
+    w = rs.randn(feats)
+    logits = X[:, : feats // 2] @ w[: feats // 2] + np.sin(X[:, feats // 2]) * 2.0
+    y = (logits + rs.randn(rows) > 0).astype(np.float32)
+    nv = min(rows // 10, 100_000)
+    Xv = rs.randn(nv, feats).astype(np.float32)
+    lv = Xv[:, : feats // 2] @ w[: feats // 2] + np.sin(Xv[:, feats // 2]) * 2.0
+    yv = (lv + rs.randn(nv) > 0).astype(np.float32)
+    return X, y, Xv, yv
+
+
+def small_phase(lgb, np):
+    """A small run on the card against the same run on the CPU."""
+    X, y, Xv, _ = higgs_like(20_000, 8)
+    params = {"objective": "binary", "num_leaves": 31, "verbosity": -1,
+              "min_data_in_leaf": 20}
+    preds = {}
+    for device in ("cuda", "cpu"):
+        p = dict(params, device_type=device)
+        bst = lgb.train(p, lgb.Dataset(X, label=y, params=p), 5)
+        preds[device] = bst.predict(Xv, raw_score=True)
+    err = float(np.abs(preds["cuda"] - preds["cpu"]).max())
+    emit({"phase": "small", "rows": 20000, "trees": 5,
+          "max_abs_pred_diff_card_vs_cpu": err, "tolerance": 1e-4})
+    if not err < 1e-4:
+        raise AssertionError(f"card and CPU runs disagree by {err}")
+
+
+def profile_phase(torch, bst, n_trees: int = 2) -> None:
+    """Where a tree's time goes: torch.profiler over n_trees more trees
+    (CUPTI kernel times), the device's busy share of the wall time, and
+    the kernels that take the most device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n_trees):
+            bst.update()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = []
+    for e in prof.key_averages():
+        if "cuda" not in str(getattr(e, "device_type", "")).lower():
+            continue
+        us = getattr(e, "device_time_total", None)
+        if us is None:
+            us = getattr(e, "cuda_time_total", 0)
+        if us > 0:
+            rows.append((e.key[:80], us / 1e3, e.count))
+    rows.sort(key=lambda r: -r[1])
+    device_ms = sum(r[1] for r in rows)
+    emit({"phase": "profile", "trees": n_trees,
+          "wall_ms_per_tree": wall_ms / n_trees,
+          "device_ms_per_tree": device_ms / n_trees,
+          "device_busy_share": device_ms / wall_ms,
+          "kernel_launches_per_tree": sum(r[2] for r in rows) / n_trees,
+          "top_ms_per_tree": [[k, ms / n_trees, c / n_trees]
+                              for k, ms, c in rows[:12]]})
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        sys.stderr.write("chip_smoke: torch sees no CUDA device\n")
+        return 2
+    import numpy as np
+
+    import lightgbm_tpu_torch as lgb
+    from lightgbm_tpu_torch.learner import cuda_hist as ch
+    from lightgbm_tpu_torch.learner import histogram as hist
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    emit({"phase": "device", "nvidia_smi": smi, "torch": torch.__version__,
+          "cuda": torch.version.cuda,
+          "name": torch.cuda.get_device_name(0)})
+
+    t0 = time.perf_counter()
+    ch.build()
+    ch.load()
+    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+          "nvcc_seconds": ch.BUILD_SECONDS,
+          "library": str(ch.library_path())})
+
+    lines = kernel_phase(torch, hist, ch)
+    small_phase(lgb, np)
+
+    # ---- train: the repo's headline workload at full width
+    X, y, Xv, yv = higgs_like(1_000_000)
+    params = {"objective": "binary", "num_leaves": 255, "max_bin": 255,
+              "learning_rate": 0.1, "min_data_in_leaf": 20, "metric": "auc",
+              "verbosity": -1}
+    t0 = time.perf_counter()
+    ds = lgb.Dataset(X, label=y, free_raw_data=False)
+    ds.construct()
+    vs = lgb.Dataset(Xv, label=yv, reference=ds, free_raw_data=False)
+    t_data = time.perf_counter() - t0
+    ch.reset_launch_counts()
+    bst = lgb.Booster(params, ds)
+    bst.add_valid(vs, "valid")
+    bst.update()
+    auc1 = bst.eval_valid()[0][2]
+    bst.update()
+    torch.cuda.synchronize()
+    n_timed = 10
+    t0 = time.perf_counter()
+    for _ in range(n_timed):
+        bst.update()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    auc_last = bst.eval_valid()[0][2]
+    launches = dict(ch.LAUNCHES)
+    gb = bst._gbdt
+    emit({"phase": "train", "rows": int(X.shape[0]), "features": 28,
+          "num_leaves": 255, "hist_dtype": gb.hist_dtype,
+          "dataset_seconds": t_data, "warmup_trees": 2,
+          "timed_trees": n_timed, "trees_per_s": n_timed / dt,
+          "auc_tree1": auc1, "auc_last": auc_last,
+          "trees": 2 + n_timed, "launches": launches,
+          "peak_device_mb": torch.cuda.max_memory_allocated() / 2 ** 20})
+    if not all(v > 0 for v in launches.values()):
+        raise AssertionError(f"a kernel was not launched: {launches}")
+    if not (auc_last > auc1 and auc_last > 0.85):
+        raise AssertionError(f"AUC did not improve: {auc1} -> {auc_last}")
+    profile_phase(torch, bst)
+
+    # ---- model: text round trip and host-vs-card agreement
+    out_dir = Path("build") / "chip_smoke"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    path = out_dir / "model.txt"
+    bst.save_model(path)
+    loaded = lgb.Booster(model_file=path)
+    p_trained = bst.predict(Xv[:1000], raw_score=True)
+    p_loaded = loaded.predict(Xv[:1000], raw_score=True)
+    card = gb.valids[0].score[0, :1000].cpu().numpy().astype(np.float64)
+    host_vs_card = float(np.abs(p_trained - card).max())
+    emit({"phase": "model", "rows": 1000,
+          "identical_after_reload": bool(np.array_equal(p_trained, p_loaded)),
+          "max_abs_host_vs_card": host_vs_card, "tolerance": 1e-4,
+          "finite": bool(np.isfinite(p_trained).all())})
+    if not np.array_equal(p_trained, p_loaded):
+        raise AssertionError("reloaded model predicts differently")
+    if not (np.isfinite(p_trained).all() and host_vs_card < 1e-4):
+        raise AssertionError("host predictions disagree with card scores")
+
+    kernels = []
+    for name, d in lines.items():
+        kernels.append({
+            "name": name, "route": "cuda", "source": SOURCES[name],
+            "replaces": REPLACES[name], "launches": launches[name],
+            "max_abs_err": d["max_abs_err"], "ms": d["ms"],
+            "plain_ms": d["plain_ms"], "bound_ms": d["bound_ms"],
+            "bound_by": d["bound_by"], "library_ms": d["library_ms"],
+        })
+    emit({"kernels": kernels})
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

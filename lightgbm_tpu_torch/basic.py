@@ -1,0 +1,203 @@
+"""Dataset and Booster, the LightGBM Python API surface of the port.
+
+The port of lightgbm_tpu/basic.py for the main path: a Dataset over a
+dense numeric matrix (with `reference=` for validation sets binned with
+the training set's mappers), and a Booster that trains (update), predicts
+on the host, and saves / loads the text model. Text files, sparse
+matrices, Sequences, pandas and Arrow inputs, subsets, refit, SHAP and
+device prediction are not ported yet (ROADMAP queue A) and raise.
+"""
+
+from __future__ import annotations
+
+import copy
+from pathlib import Path
+from typing import Any, Dict, List, Optional, Tuple, Union
+
+import numpy as np
+
+from .config import Config, resolve_device
+from .dataset import BinnedDataset
+from .log import LightGBMError
+
+
+def _to_2d_numpy(data: Any) -> np.ndarray:
+    if isinstance(data, (str, Path)) or hasattr(data, "tocsr") \
+            or hasattr(data, "to_numpy"):
+        raise NotImplementedError(
+            "only dense numpy-like matrices are ported yet (files, sparse "
+            "and dataframe inputs: ROADMAP queue A)"
+        )
+    arr = np.asarray(data)
+    if arr.ndim == 1:
+        arr = arr.reshape(-1, 1)
+    return arr.astype(np.float64, copy=False)
+
+
+def _to_1d(v: Any) -> Optional[np.ndarray]:
+    return None if v is None else np.asarray(v).ravel()
+
+
+class Dataset:
+    """Dataset wrapper (reference basic.py:1746)."""
+
+    def __init__(
+        self,
+        data: Any,
+        label: Any = None,
+        reference: Optional["Dataset"] = None,
+        weight: Any = None,
+        init_score: Any = None,
+        feature_name: Union[str, List[str]] = "auto",
+        categorical_feature: Union[str, List[Union[int, str]]] = "auto",
+        params: Optional[Dict[str, Any]] = None,
+        free_raw_data: bool = True,
+    ):
+        self.data = data
+        self.label = _to_1d(label)
+        self.reference = reference
+        self.weight = _to_1d(weight)
+        self.init_score = _to_1d(init_score)
+        self.feature_name = feature_name
+        self.categorical_feature = categorical_feature
+        self.params = copy.deepcopy(params) or {}
+        self.free_raw_data = free_raw_data
+        self._binned: Optional[BinnedDataset] = None
+
+    def construct(self) -> "Dataset":
+        """Bin the matrix (host numpy). Like train, this refuses to run
+        when the card is asked for (device_type default) and torch sees
+        none: the port never carries on quietly on the CPU."""
+        if self._binned is not None:
+            return self
+        # a validation set takes its reference's parameters (device,
+        # row block) unless it sets its own
+        base = self.reference.params if self.reference is not None else {}
+        cfg = Config({**base, **self.params})
+        resolve_device(cfg)
+        if self.data is None:
+            raise LightGBMError("Cannot construct Dataset: raw data was freed")
+        if self.categorical_feature not in ("auto", None, []):
+            raise NotImplementedError(
+                "categorical features are not ported yet (ROADMAP queue A)")
+        arr = _to_2d_numpy(self.data)
+        names = ([str(n) for n in self.feature_name]
+                 if isinstance(self.feature_name, list) else None)
+        ref_binned = None
+        if self.reference is not None:
+            self.reference.construct()
+            ref_binned = self.reference._binned
+        self._binned = BinnedDataset.from_numpy(
+            arr, cfg, label=self.label, weight=self.weight,
+            init_score=self.init_score, feature_names=names,
+            reference=ref_binned,
+        )
+        if self.free_raw_data:
+            self.data = None
+        return self
+
+
+class Booster:
+    """Booster wrapper (reference basic.py:3543)."""
+
+    def __init__(
+        self,
+        params: Optional[Dict[str, Any]] = None,
+        train_set: Optional[Dataset] = None,
+        model_file: Optional[Union[str, Path]] = None,
+        model_str: Optional[str] = None,
+    ):
+        self.params = copy.deepcopy(params) or {}
+        self.best_iteration = -1
+        self.best_score: Dict[str, Dict[str, float]] = {}
+        self._train_data_name = "training"
+        if train_set is not None:
+            if not isinstance(train_set, Dataset):
+                raise TypeError("Training data should be Dataset instance, "
+                                f"met {type(train_set).__name__}")
+            from .boosting import GBDT
+            from .config import DATASET_PARAMS, resolve_alias
+
+            train_set.params = {**train_set.params, **self.params}
+            train_set.construct()
+            ds_part = {k: v for k, v in train_set.params.items()
+                       if resolve_alias(k) in DATASET_PARAMS}
+            self.config = Config({**ds_part, **self.params})
+            self._gbdt = GBDT(self.config, train_set._binned)
+            self.train_set = train_set
+            self._valid_sets: List[Dataset] = []
+            self._name_valid_sets: List[str] = []
+        elif model_file is not None or model_str is not None:
+            from .model_io import load_model_string
+
+            if model_file is not None:
+                model_str = Path(model_file).read_text()
+            self.config, self._gbdt = load_model_string(model_str)
+            self.train_set = None
+            self._valid_sets = []
+            self._name_valid_sets = []
+        else:
+            raise TypeError("At least one of train_set, model_file or "
+                            "model_str should be not None.")
+
+    def add_valid(self, data: Dataset, name: str) -> "Booster":
+        if not isinstance(data, Dataset):
+            raise TypeError("Validation data should be Dataset instance, "
+                            f"met {type(data).__name__}")
+        if data.reference is not self.train_set:
+            data.reference = self.train_set
+        data.construct()
+        self._gbdt.add_valid(data._binned, name)
+        self._valid_sets.append(data)
+        self._name_valid_sets.append(name)
+        return self
+
+    def update(self, train_set: Optional[Dataset] = None, fobj=None) -> bool:
+        """One boosting iteration; True if training stopped."""
+        if train_set is not None and train_set is not self.train_set:
+            raise LightGBMError("Resetting train_set is not supported")
+        if fobj is not None:
+            raise NotImplementedError("custom objectives (fobj) are not "
+                                      "ported yet (ROADMAP queue A)")
+        return self._gbdt.train_one_iter()
+
+    def num_trees(self) -> int:
+        return self._gbdt.num_trees()
+
+    def eval_train(self) -> List[Tuple[str, str, float, bool]]:
+        return [(self._train_data_name, n, v, hb)
+                for (_dn, n, v, hb) in self._gbdt.eval_train()]
+
+    def eval_valid(self) -> List[Tuple[str, str, float, bool]]:
+        return self._gbdt.eval_valid()
+
+    def predict(self, data: Any, start_iteration: int = 0,
+                num_iteration: Optional[int] = None, raw_score: bool = False,
+                pred_leaf: bool = False, pred_contrib: bool = False,
+                **kwargs: Any) -> np.ndarray:
+        if pred_leaf or pred_contrib or kwargs:
+            raise NotImplementedError(
+                "pred_leaf / pred_contrib / prediction options are not "
+                "ported yet (ROADMAP queue A)")
+        arr = _to_2d_numpy(data)
+        if num_iteration is None:
+            num_iteration = self.best_iteration if self.best_iteration > 0 \
+                else -1
+        return self._gbdt.predict(arr, start_iteration, num_iteration,
+                                  raw_score=raw_score)
+
+    def model_to_string(self, num_iteration: Optional[int] = None,
+                        start_iteration: int = 0) -> str:
+        from .model_io import save_model_string
+
+        ni = num_iteration
+        if ni is None:
+            ni = self.best_iteration if self.best_iteration > 0 else -1
+        return save_model_string(self._gbdt, self.config, ni, start_iteration)
+
+    def save_model(self, filename: Union[str, Path],
+                   num_iteration: Optional[int] = None,
+                   start_iteration: int = 0) -> "Booster":
+        Path(filename).write_text(
+            self.model_to_string(num_iteration, start_iteration))
+        return self

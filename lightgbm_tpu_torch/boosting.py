@@ -1,0 +1,394 @@
+"""GBDT boosting, the eager training loop (reference src/boosting/gbdt.cpp).
+
+The port of the JAX package's GBDT eager loop (lightgbm_tpu/boosting.py
+_train_one_iter_fast :1212-1278) for the default path. Each iteration:
+
+  gradients (device, objective) -> per class: integer levels with
+  stochastic rounding (_quantize, keyed on fold_in(data_random_seed,
+  it * K + k) like the JAX package) -> rounds grower -> leaf renewal from
+  the true gradients -> score updates: train through the row -> leaf
+  vector (take_small kernel), validation sets through the binned tree
+  traversal -> host Tree, materialized lazily in batches.
+
+Boost-from-average follows gbdt.cpp:327-445: the initial score is added
+to every score set before the first iteration and folded into the first
+tree's stored leaf values, so saved models are self-contained.
+
+The JAX package's fused chunk-scan step (_build_fused, fused_dispatch)
+is not ported: its output is bit-identical to this eager loop. DART, RF,
+bagging, GOSS, feature sampling and the other options the main path
+does not run raise NotImplementedError (ROADMAP queue A).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Any, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from . import log, rng
+from .config import Config, resolve_device
+from .dataset import BinnedDataset
+from .learner.grower import (
+    GrowerSpec,
+    TreeArrays,
+    add_score,
+    grow_tree,
+    make_split_params,
+)
+from .metrics import Metric, create_metrics
+from .objectives import ObjectiveFunction, create_objective
+from .tree import Tree, traverse_tree_bins
+
+
+@dataclass
+class _ScoreSet:
+    dataset: BinnedDataset
+    score: Any  # (K, Npad) f32 on the training device
+    name: str
+    metrics: List[Metric] = field(default_factory=list)
+    dev: Any = None  # the dataset's device arrays
+
+
+def _not_ported(what: str) -> None:
+    raise NotImplementedError(f"{what} is not ported yet (ROADMAP queue A)")
+
+
+def check_supported(config: Config, train_set: BinnedDataset) -> None:
+    """Refuse every option the port does not implement yet, loudly."""
+    c = config
+    if c.tpu_growth_mode == "exact":
+        raise NotImplementedError(
+            "tpu_growth_mode=exact needs the sequential permuted grower "
+            "(learner/permuted.py), which is not ported (ROADMAP queue A)"
+        )
+    if c.boosting != "gbdt":
+        _not_ported(f"boosting={c.boosting}")
+    if c.data_sample_strategy == "goss":
+        _not_ported("data_sample_strategy=goss")
+    if c.bagging_freq > 0 and (c.bagging_fraction < 1.0
+                               or c.pos_bagging_fraction < 1.0
+                               or c.neg_bagging_fraction < 1.0):
+        _not_ported("bagging")
+    if c.feature_fraction < 1.0:
+        _not_ported("feature_fraction < 1 (per-tree feature sampling)")
+    if c.feature_fraction_bynode < 1.0 or c.extra_trees:
+        _not_ported("per-node extras (feature_fraction_bynode, extra_trees)")
+    if (c.cegb_penalty_split > 0.0 or c.cegb_penalty_feature_coupled
+            or c.cegb_penalty_feature_lazy):
+        _not_ported("CEGB penalties")
+    if c.interaction_constraints:
+        _not_ported("interaction_constraints")
+    if c.forcedsplits_filename:
+        _not_ported("forced splits")
+    if c.linear_tree:
+        _not_ported("linear_tree")
+    if c.tree_learner not in ("serial",):
+        _not_ported(f"tree_learner={c.tree_learner} (distributed learners)")
+    if c.tpu_debug_check_split:
+        _not_ported("tpu_debug_check_split")
+    mono = train_set.monotone_constraints
+    if (mono is not None and np.any(mono != 0)
+            and c.monotone_constraints_method in ("intermediate",
+                                                  "advanced")):
+        _not_ported(f"monotone_constraints_method="
+                    f"{c.monotone_constraints_method}")
+    from .binning import BinType
+
+    if any(m.bin_type == BinType.CATEGORICAL
+           for m in train_set.used_mappers()):
+        _not_ported("categorical features")
+
+
+def tree_arrays_to_host(a: TreeArrays) -> TreeArrays:
+    return TreeArrays(*[x.detach().cpu().numpy() for x in a])
+
+
+class GBDT:
+    """Boosting state and the training loop (reference gbdt.h:37)."""
+
+    def __init__(self, config: Config, train_set: Optional[BinnedDataset]):
+        self.config = config
+        self.train_set = train_set
+        self.num_class = config.num_model_per_iteration
+        self.shrinkage_rate = config.learning_rate
+        self.average_output = False
+        self._models: List[Tree] = []  # iteration-major (models_[it*K + k])
+        self.device_trees: List[TreeArrays] = []
+        self.iter_ = 0
+        self.valids: List[_ScoreSet] = []
+        self._pending: List[TreeArrays] = []
+        self._pending_meta: List[Tuple[int, float, float]] = []
+        self._stopped = False
+        self._check_every = 64
+        self.objective: Optional[ObjectiveFunction] = None
+        if train_set is None:
+            return  # prediction-only booster (model loaded from text)
+
+        from .config import warn_unimplemented
+        from .learner.quantize import resolve_hist_dtype
+
+        warn_unimplemented(config)
+        check_supported(config, train_set)
+        self.device = torch.device(resolve_device(config))
+        self.objective = create_objective(config)
+        self.hist_dtype, self._hist_levels = resolve_hist_dtype(
+            config.tpu_hist_dtype, config.use_quantized_grad,
+            config.num_grad_quant_bins,
+        )
+        # leaf renewal bypasses the grower's monotone clamp and path
+        # smoothing, so those configurations keep the grower's outputs
+        mono = train_set.monotone_constraints
+        has_mono = bool(mono is not None and np.any(mono != 0))
+        self._true_renew_ok = not (config.path_smooth > 0 or has_mono)
+        if self.objective is not None:
+            self.objective.init(train_set, self.device)
+        self.dev = train_set.device_arrays(self.device)
+        self.spec = GrowerSpec(
+            num_leaves=config.num_leaves,
+            num_bins=train_set.max_num_bin,
+            max_depth=config.max_depth,
+            rounds_slots=min(config.tpu_round_slots or 48, config.num_leaves),
+            efb=train_set.bundle_layout is not None,
+            col_bins=train_set.col_bins,
+            quant_levels=self._hist_levels,
+            has_mono=has_mono,
+        )
+        self.params = make_split_params(config)
+        self.train = self._score_set(train_set, "training", self.dev)
+
+    # ------------------------------------------------------------------
+    def _score_set(self, ds: BinnedDataset, name: str, dev) -> _ScoreSet:
+        npad = ds.num_rows_padded()
+        score = np.zeros((self.num_class, npad), dtype=np.float32)
+        init = ds.metadata.init_score
+        if init is not None:
+            init = np.asarray(init, dtype=np.float32)
+            if init.size == ds.num_data * self.num_class:
+                score[:, : ds.num_data] = init.reshape(self.num_class,
+                                                       ds.num_data)
+            else:
+                score[:, : ds.num_data] = init[None, :]
+        ss = _ScoreSet(ds, torch.from_numpy(score).to(self.device), name,
+                       create_metrics(self.config), dev)
+        meta = ds.metadata
+        for m in ss.metrics:
+            m.init(meta.label, meta.weight, meta.group)
+        return ss
+
+    def add_valid(self, valid_set: BinnedDataset, name: str) -> None:
+        self.valids.append(self._score_set(
+            valid_set, name, valid_set.device_arrays(self.device)))
+
+    @property
+    def has_init_score(self) -> bool:
+        return self.train_set.metadata.init_score is not None
+
+    @property
+    def models(self) -> List[Tree]:
+        self._materialize()
+        return self._models
+
+    @models.setter
+    def models(self, value: List[Tree]) -> None:
+        self._pending = []
+        self._pending_meta = []
+        self._models = value
+
+    # ------------------------------------------------------------------
+    def _quantize(self, gk, hk, it: int, k: int):
+        """Integer levels + scales for one tree (boosting._quantize)."""
+        from .learner.quantize import discretize_gradients_int
+
+        c = self.config
+        key = rng.fold_in(rng.key(c.data_random_seed, gk.device),
+                          it * self.num_class + k)
+        return discretize_gradients_int(gk, hk, key, self._hist_levels,
+                                        c.stochastic_rounding)
+
+    def _grow_int_packed(self, gk, hk, mask, feat_mask, valid, it, k):
+        """Grow on integer levels, then renew the leaf outputs from the
+        true gradients (boosting._grow_int_packed)."""
+        gq, hq, scale = self._quantize(gk, hk, it, k)
+        d = self.dev
+        arrays, row_leaf = grow_tree(
+            d["bins"], d["nan_bin"], d["num_bins"], d["mono"], d["is_cat"],
+            gq, hq, mask, feat_mask, self.params, self.spec, valid=valid,
+            bundle=d["bundle"], gh_scale=scale,
+        )
+        if self._true_renew_ok:
+            from .learner.quantize import renew_leaf_with_true_gradients
+
+            arrays = arrays._replace(
+                leaf_value=renew_leaf_with_true_gradients(
+                    arrays.leaf_value, row_leaf, gk, hk, mask, self.params,
+                    self.spec.num_leaves,
+                )
+            )
+        return arrays, row_leaf
+
+    def _traverse(self, arrays: TreeArrays, dev) -> torch.Tensor:
+        return traverse_tree_bins(arrays, dev["bins"], dev["nan_bin"],
+                                  dev["bundle"])
+
+    # ------------------------------------------------------------------
+    def _materialize(self) -> None:
+        """Copy pending device trees to the host in one batch and convert
+        them to host Trees; detect the reference's stop condition (an
+        iteration where no class tree could split, gbdt.cpp:429-452)
+        after the fact and drop that iteration and everything behind it."""
+        if not self._pending:
+            return
+        host = [tree_arrays_to_host(a) for a in self._pending]
+        meta = self._pending_meta
+        self._pending = []
+        self._pending_meta = []
+        K = self.num_class
+        base = len(self._models)
+        for i0 in range(0, len(host), K):
+            group = host[i0: i0 + K]
+            if all(int(a.num_nodes) == 0 for a in group):
+                if base + i0 == 0:
+                    for a, (k, bias, shrink) in zip(group, meta[i0: i0 + K]):
+                        if (abs(bias) < 1e-15 and self.objective is not None
+                                and not self.config.boost_from_average
+                                and not self.has_init_score):
+                            bias = self.objective.boost_from_score(k)
+                            if abs(bias) > 1e-15:
+                                self.train.score[k] += bias
+                                for vs in self.valids:
+                                    vs.score[k] += bias
+                        t = Tree(num_leaves=1, shrinkage=1.0)
+                        t.leaf_value = np.array([bias], np.float64)
+                        self._models.append(t)
+                    i0 += K
+                # roll back the scores of later iterations that did split
+                for j in range(i0, len(host)):
+                    if int(host[j].num_nodes) == 0:
+                        continue
+                    arrays = self.device_trees[base + j]
+                    k = meta[j][0]
+                    for ss in [self.train] + self.valids:
+                        leaf = self._traverse(arrays, ss.dev)
+                        ss.score[k] -= arrays.leaf_value[leaf.long()]
+                log.warning("Stopped training because there are no more "
+                            "leaves that meet the split requirements")
+                del self.device_trees[len(self._models):]
+                self.iter_ = len(self._models) // K
+                self._stopped = True
+                return
+            for a, (k, bias, shrink) in zip(group, meta[i0: i0 + K]):
+                if int(a.num_nodes) > 0:
+                    # stored leaf values already carry shrinkage + bias
+                    tree = Tree.from_arrays(a, self.train_set, 1.0)
+                    tree.shrinkage = shrink
+                else:
+                    tree = Tree(num_leaves=1, shrinkage=1.0)
+                    tree.leaf_value = np.array([bias], np.float64)
+                self._models.append(tree)
+
+    def train_one_iter(self) -> bool:
+        """One boosting iteration; True when training should stop (no
+        splittable leaf), as GBDT::TrainOneIter (gbdt.cpp:352)."""
+        if self._stopped:
+            return True
+        if self.objective is None:
+            raise NotImplementedError("custom objectives (fobj) are not "
+                                      "ported yet (ROADMAP queue A)")
+        K = self.num_class
+        init_scores = [0.0] * K
+        if (not self._models and not self._pending
+                and self.config.boost_from_average
+                and not self.has_init_score):
+            for k in range(K):
+                init = self.objective.boost_from_score(k)
+                if abs(init) > 1e-15:
+                    init_scores[k] = init
+                    self.train.score[k] += init
+                    for vs in self.valids:
+                        vs.score[k] += init
+                    log.info(f"Start training from score {init:f}")
+        score = self.train.score if K > 1 else self.train.score[0]
+        g, h = self.objective.get_gradients(score)
+        grad = g.reshape(K, -1).to(torch.float32)
+        hess = h.reshape(K, -1).to(torch.float32)
+        valid = self.dev["valid"]
+        feat_mask = torch.ones(self.train_set.num_used_features,
+                               dtype=torch.bool, device=self.device)
+        for k in range(K):
+            arrays, row_leaf = self._grow_int_packed(
+                grad[k], hess[k], valid, feat_mask, valid, self.iter_, k)
+            ok = (arrays.num_nodes > 0).to(torch.float32)
+            lv = arrays.leaf_value * (self.shrinkage_rate * ok)
+            self.train.score[k] = add_score(self.train.score[k], row_leaf,
+                                            lv, 1.0)
+            for vs in self.valids:
+                leaf = self._traverse(arrays, vs.dev)
+                vs.score[k] = add_score(vs.score[k], leaf, lv, 1.0)
+            if abs(init_scores[k]) > 1e-15:
+                # AddBias (gbdt.cpp:424-426): only the stored tree
+                # carries the boost-from-average bias
+                lv = lv + init_scores[k] * ok
+            arrays = arrays._replace(leaf_value=lv)
+            self.device_trees.append(arrays)
+            self._pending.append(arrays)
+            self._pending_meta.append((k, init_scores[k],
+                                       self.shrinkage_rate))
+        self.iter_ += 1
+        if self.iter_ % self._check_every == 0:
+            self._materialize()
+            return self._stopped
+        return False
+
+    # ------------------------------------------------------------------
+    def eval_set(self, ss: _ScoreSet) -> List[Tuple[str, str, float, bool]]:
+        n = ss.dataset.num_data
+        score = ss.score[:, :n].cpu().numpy().astype(np.float64)
+        s = score if self.num_class > 1 else score[0]
+        out = []
+        for m in ss.metrics:
+            for name, val, hb in m.eval(s):
+                out.append((ss.name, name, val, hb))
+        return out
+
+    def eval_train(self):
+        return self.eval_set(self.train)
+
+    def eval_valid(self):
+        out = []
+        for vs in self.valids:
+            out.extend(self.eval_set(vs))
+        return out
+
+    def num_trees(self) -> int:
+        return len(self.models)
+
+    def predict_raw(self, X: np.ndarray, start_iteration: int = 0,
+                    num_iteration: int = -1) -> np.ndarray:
+        """Raw margins over host trees (gbdt_prediction.cpp), numpy walk."""
+        X = np.asarray(X, dtype=np.float64)
+        K = self.num_class
+        n_iters = len(self.models) // K
+        end = n_iters if num_iteration <= 0 else min(
+            n_iters, start_iteration + num_iteration)
+        out = np.zeros((K, X.shape[0]))
+        for it in range(start_iteration, end):
+            for k in range(K):
+                out[k] += self.models[it * K + k].predict(X)
+        if self.average_output and end > start_iteration:
+            out /= end - start_iteration
+        return out
+
+    def predict(self, X, start_iteration=0, num_iteration=-1,
+                raw_score=False):
+        raw = self.predict_raw(X, start_iteration, num_iteration)
+        if not raw_score:
+            if self.objective is None:
+                self.objective = create_objective(self.config)
+            if self.objective is not None:
+                raw = self.objective.convert_output(raw)
+        if self.num_class == 1:
+            return raw[0]
+        return raw.T  # (N, K)

@@ -1,0 +1,364 @@
+"""Binned dataset: host construction + device residency.
+
+Equivalent of the reference Dataset/FeatureGroup/Metadata stack
+(include/LightGBM/dataset.h:487, src/io/dataset.cpp, src/io/metadata.cpp),
+as lightgbm_tpu/dataset.py lays it out, with torch tensors on a chosen
+device:
+
+- all features are stored as ONE dense feature-major bin matrix
+  (num_used_features, num_rows_padded) in the narrowest integer dtype,
+  padded on the row axis to a 2048-row block multiple (the JAX
+  package's layout, kept at the public functions so both packages see
+  the same matrix);
+- trivial (constant) features are dropped up front (feature_pre_filter);
+- metadata (label/weight/group/init_score/position, reference
+  dataset.h:48-399) is validated host-side and shipped as device arrays.
+
+There is no FixHistogram equivalent: the reference omits each feature's
+most-frequent bin from sparse storage and reconstructs it from parent
+sums (dataset.h:768); our dense device matrix stores every bin, so
+histograms are complete by construction.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Any, Dict, List, Optional, Sequence
+
+import numpy as np
+
+from . import log
+from .binning import BinMapper, BinType
+from .config import Config
+
+from .learner.histogram import HIST_BLK
+
+DEFAULT_ROW_BLOCK = HIST_BLK  # device row padding block
+
+
+def _choose_bin_dtype(max_num_bin: int) -> Any:
+    if max_num_bin <= 256:
+        return np.uint8
+    if max_num_bin <= 65536:
+        return np.uint16
+    return np.int32
+
+
+@dataclass
+class Metadata:
+    """Labels/weights/query groups/init scores (reference dataset.h:48)."""
+
+    label: Optional[np.ndarray] = None
+    weight: Optional[np.ndarray] = None
+    group: Optional[np.ndarray] = None  # per-query sizes (reference convention)
+    init_score: Optional[np.ndarray] = None
+    position: Optional[np.ndarray] = None
+
+    def query_boundaries(self) -> Optional[np.ndarray]:
+        if self.group is None:
+            return None
+        return np.concatenate([[0], np.cumsum(self.group)]).astype(np.int64)
+
+    def check(self, num_data: int) -> None:
+        if self.label is not None and len(self.label) != num_data:
+            log.fatal(f"label length {len(self.label)} != num_data {num_data}")
+        if self.weight is not None and len(self.weight) != num_data:
+            log.fatal(f"weight length {len(self.weight)} != num_data {num_data}")
+        if self.group is not None and int(np.sum(self.group)) != num_data:
+            log.fatal("sum of query group sizes != num_data")
+
+
+@dataclass
+class BinnedDataset:
+    """Host-side binned dataset + on-demand device arrays."""
+
+    bins: np.ndarray  # (num_used_features, num_rows) int
+    mappers: List[BinMapper]  # one per ORIGINAL feature
+    used_features: np.ndarray  # original indices of non-trivial features
+    num_data: int
+    metadata: Metadata
+    feature_names: List[str]
+    max_num_bin: int  # uniform bin-axis size on device
+    row_block: int
+    monotone_constraints: Optional[np.ndarray] = None  # per used feature, in {-1,0,1}
+    raw_data: Optional[np.ndarray] = None  # kept for linear trees / refit
+    # EFB (bundling.py): when set, `bins` holds BUNDLE columns (G, N)
+    # and these describe the feature -> column mapping
+    bundle_layout: Optional[Any] = None
+    bundle_expand: Optional[np.ndarray] = None  # (F, max_num_bin) int32
+    _device: Optional[Dict[str, Any]] = field(default=None, repr=False)
+
+    # ---------------- construction ----------------
+    @staticmethod
+    def from_numpy(
+        data: np.ndarray,
+        config: Config,
+        label: Optional[np.ndarray] = None,
+        weight: Optional[np.ndarray] = None,
+        group: Optional[np.ndarray] = None,
+        init_score: Optional[np.ndarray] = None,
+        position: Optional[np.ndarray] = None,
+        categorical_feature: Optional[Sequence[int]] = None,
+        feature_names: Optional[Sequence[str]] = None,
+        reference: Optional["BinnedDataset"] = None,
+        keep_raw: bool = False,
+    ) -> "BinnedDataset":
+        """Build bin mappers from a sample and bin the full matrix.
+
+        Mirrors DatasetLoader::ConstructFromSampleData semantics
+        (src/io/dataset_loader.cpp:1079): sample up to
+        bin_construct_sample_cnt rows, FindBin per feature, then bin all
+        rows. With `reference`, reuse its mappers (python-package aligned
+        valid-set behavior, basic.py Dataset reference semantics).
+        """
+        data = np.asarray(data)
+        if data.ndim != 2:
+            log.fatal("data must be 2-dimensional")
+        if data.dtype not in (np.float32, np.float64):
+            data = data.astype(np.float64)
+        num_data, num_features = data.shape
+        cat_set = set(int(c) for c in (categorical_feature or ()))
+
+        if feature_names is None:
+            feature_names = [f"Column_{i}" for i in range(num_features)]
+        feature_names = list(feature_names)
+
+        if reference is not None:
+            mappers = reference.mappers
+            if len(mappers) != num_features:
+                log.fatal("reference dataset has different number of features")
+            used = reference.used_features.copy()
+            max_num_bin = reference.max_num_bin
+            mono = reference.monotone_constraints
+        else:
+            rng = np.random.RandomState(config.data_random_seed)
+            sample_cnt = min(num_data, config.bin_construct_sample_cnt)
+            if sample_cnt < num_data:
+                sample_idx = np.sort(rng.choice(num_data, sample_cnt, replace=False))
+                sample = data[sample_idx]
+            else:
+                sample = data
+            max_bin_by_feature = list(config.max_bin_by_feature)
+            from .binning import load_forced_bins
+
+            forced_map = load_forced_bins(
+                config.forcedbins_filename, num_features
+            )
+            mappers = []
+            for f in range(num_features):
+                mb = (
+                    max_bin_by_feature[f]
+                    if f < len(max_bin_by_feature)
+                    else config.max_bin
+                )
+                col = sample[:, f]
+                mappers.append(
+                    BinMapper.from_sample(
+                        col,
+                        total_sample_cnt=len(sample),
+                        # the reference passes config max_bin straight to
+                        # FindBin (dataset_loader.cpp:652) — num_bin ends
+                        # <= max_bin, NOT max_bin+1
+                        max_bin=mb,
+                        min_data_in_bin=config.min_data_in_bin,
+                        use_missing=config.use_missing,
+                        zero_as_missing=config.zero_as_missing,
+                        bin_type=BinType.CATEGORICAL if f in cat_set else BinType.NUMERICAL,
+                        max_cat_threshold=config.max_cat_threshold,
+                        forced_bounds=forced_map.get(f),
+                    )
+                )
+            used = np.array(
+                [f for f in range(num_features) if not mappers[f].is_trivial],
+                dtype=np.int64,
+            )
+            if len(used) == 0:
+                log.fatal("cannot construct Dataset: all features are constant")
+            max_num_bin = max(mappers[f].num_bin for f in used)
+            mono = None
+            mc = list(config.monotone_constraints)
+            if mc:
+                if len(mc) != num_features:
+                    log.fatal("monotone_constraints length must equal num features")
+                mono = np.array([mc[f] for f in used], dtype=np.int8)
+
+        # bin the full matrix, feature-major
+        dtype = _choose_bin_dtype(max_num_bin)
+        bins = np.empty((len(used), num_data), dtype=dtype)
+        for i, f in enumerate(used):
+            bins[i] = mappers[f].values_to_bins(data[:, f]).astype(dtype)
+
+        # EFB bundling (dataset.cpp:111 FindGroups / :250
+        # FastFeatureBundling): merge near-exclusive sparse features into
+        # shared columns. A reference dataset's layout is reused verbatim
+        # (valid sets must bin + bundle identically).
+        bundle_layout = None
+        bundle_expand = None
+        if reference is not None:
+            bundle_layout = reference.bundle_layout
+            bundle_expand = reference.bundle_expand
+            if bundle_layout is not None:
+                from .bundling import encode
+
+                um = [mappers[f] for f in used]
+                merged, _ = encode(
+                    bins, bundle_layout,
+                    [m.num_bin for m in um],
+                    [m.most_freq_bin for m in um],
+                    _choose_bin_dtype(bundle_layout.col_bins),
+                )
+                bins = merged
+        elif config.enable_bundle and len(used) > 1:
+            from .bundling import bundle_features
+
+            um = [mappers[f] for f in used]
+            res = bundle_features(bins, um, config.max_bin)
+            if res is not None:
+                bins, bundle_layout, bundle_expand = res
+                log.info(
+                    f"EFB: bundled {len(used)} features into "
+                    f"{bundle_layout.num_columns} columns "
+                    f"(col bins={bundle_layout.col_bins})"
+                )
+
+        meta = Metadata(
+            label=None if label is None else np.asarray(label, dtype=np.float32).ravel(),
+            weight=None if weight is None else np.asarray(weight, dtype=np.float32).ravel(),
+            group=None if group is None else np.asarray(group, dtype=np.int64).ravel(),
+            init_score=None if init_score is None else np.asarray(init_score, dtype=np.float64).ravel(),
+            position=None if position is None else np.asarray(position, dtype=np.int32).ravel(),
+        )
+        meta.check(num_data)
+
+        row_block = config.tpu_row_block or DEFAULT_ROW_BLOCK
+        if row_block % HIST_BLK != 0:
+            # the JAX package rounds up the same way, so both packages
+            # pad to the same row count
+            rounded = ((row_block + HIST_BLK - 1) // HIST_BLK) * HIST_BLK
+            log.warning(
+                f"tpu_row_block={row_block} is not a multiple of the "
+                f"device row block ({HIST_BLK}); rounding up to {rounded}"
+            )
+            row_block = rounded
+        return BinnedDataset(
+            bins=bins,
+            mappers=mappers,
+            used_features=used,
+            num_data=num_data,
+            metadata=meta,
+            feature_names=feature_names,
+            max_num_bin=max_num_bin,
+            row_block=row_block,
+            monotone_constraints=mono,
+            raw_data=data if keep_raw else None,
+            bundle_layout=bundle_layout,
+            bundle_expand=bundle_expand,
+        )
+
+    # ---------------- derived host info ----------------
+    @property
+    def num_used_features(self) -> int:
+        return len(self.used_features)
+
+    @property
+    def num_total_features(self) -> int:
+        return len(self.mappers)
+
+    def used_mappers(self) -> List[BinMapper]:
+        return [self.mappers[f] for f in self.used_features]
+
+    def num_rows_padded(self) -> int:
+        b = self.row_block
+        n = ((self.num_data + b - 1) // b) * b
+        return n
+
+    # ---------------- device arrays ----------------
+    def device_arrays(self, device="cpu") -> Dict[str, Any]:
+        """Push the bin matrix + per-feature info to `device` (cached per
+        device).
+
+        Returns dict with:
+          bins      (F, Np) int32 — feature-major bin matrix, rows padded
+                    with bin 0 to a row_block multiple
+          valid     (Np,)  float32  — 1.0 for real rows, 0.0 for padding
+          nan_bin   (F,)   int32    — NaN bin index per feature, -1 if none
+          num_bins  (F,)   int32    — per-feature bin count
+          mono      (F,)   int32    — monotone constraint per feature
+          is_cat    (F,)   bool     — categorical flag
+          bundle    BundleInfo or None (EFB)
+        """
+        import torch
+
+        device = torch.device(device)
+        if self._device is not None and self._device["bins"].device == device:
+            return self._device
+        npad = self.num_rows_padded()
+        f = self.num_used_features
+        ncols = self.bins.shape[0]  # bundle columns (== f without EFB)
+        bins_fm = np.zeros((ncols, npad), dtype=np.int32)
+        bins_fm[:, : self.num_data] = self.bins
+        um = self.used_mappers()
+        nan_bin = np.array([m.nan_bin for m in um], dtype=np.int32)
+        num_bins = np.array([m.num_bin for m in um], dtype=np.int32)
+        is_cat = np.array([m.bin_type == BinType.CATEGORICAL for m in um],
+                          dtype=bool)
+        mono = (
+            self.monotone_constraints.astype(np.int32)
+            if self.monotone_constraints is not None
+            else np.zeros(f, dtype=np.int32)
+        )
+        valid = np.zeros(npad, dtype=np.float32)
+        valid[: self.num_data] = 1.0
+        t = lambda a: torch.from_numpy(a).to(device)
+        self._device = {
+            "bins": t(bins_fm),
+            "valid": t(valid),
+            "nan_bin": t(nan_bin),
+            "num_bins": t(num_bins),
+            "mono": t(mono),
+            "is_cat": t(is_cat),
+            "bundle": self._bundle_info(device),
+        }
+        return self._device
+
+    def _bundle_info(self, device):
+        """Device BundleInfo for the grower, or None without EFB."""
+        if self.bundle_layout is None:
+            return None
+        import torch
+
+        from .learner.bundle import BundleInfo
+
+        lay = self.bundle_layout
+        um = self.used_mappers()
+        width = np.array(
+            [m.num_bin - (1 if lay.mfb[i] >= 0 else 0) for i, m in enumerate(um)],
+            dtype=np.int32,
+        )
+        t = lambda a: torch.from_numpy(
+            np.ascontiguousarray(a, dtype=np.int32)).to(device)
+        return BundleInfo(
+            bundle_of=t(lay.bundle_of),
+            off_lo=t(lay.off_lo),
+            mfb=t(lay.mfb),
+            expand_idx=t(self.bundle_expand),
+            width=t(width),
+        )
+
+    @property
+    def col_bins(self) -> int:
+        """Uniform device bin-axis size of the stored columns."""
+        if self.bundle_layout is not None:
+            return max(self.bundle_layout.col_bins, self.max_num_bin)
+        return self.max_num_bin
+
+    def padded(self, arr: Optional[np.ndarray], fill: float = 0.0, dtype=np.float32) -> np.ndarray:
+        """Pad a per-row array to num_rows_padded."""
+        npad = self.num_rows_padded()
+        out = np.full(npad, fill, dtype=dtype)
+        if arr is not None:
+            out[: self.num_data] = arr
+        return out
+
+    def feature_infos(self) -> List[str]:
+        return [m.feature_info_str() for m in self.mappers]

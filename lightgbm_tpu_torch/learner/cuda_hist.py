@@ -1,0 +1,315 @@
+"""Hand-written Hopper kernels of the training path, and their wrappers.
+
+Four kernels, one per TPU kernel that the default rounds path launches
+(lightgbm_tpu/learner/pallas_hist.py):
+
+| wrapper      | source                 | replaces                        |
+|--------------|------------------------|---------------------------------|
+| `hist_nat`   | csrc/hist_nat.cu       | hist_nat_tpu / _nat_kernel      |
+| `hist_round` | csrc/hist_round.cu     | hist_round_tpu / _round_kernel  |
+| `take_small` | csrc/take_small.cu     | take_small_tpu / _take_kernel   |
+| `seg_sum`    | csrc/seg_sum.cu        | seg_sum_tpu / _segsum_kernel    |
+
+The sources compile with nvcc for sm_90a into one shared library with
+a plain C interface, loaded with ctypes. The library is built at first
+use into `build/lgbm_torch_kernels/<source hash>/` at the repository
+root (one nvcc per source, all started together, then one link) and
+rebuilt when the sources change. Nothing here runs at import time: the
+CPU tests import this module on machines without nvcc.
+
+Each wrapper checks device, dtype, shape and contiguity, allocates the
+outputs, launches on torch's current stream, raises if the C function
+reports a CUDA error, and adds one to its launch count. The plain
+PyTorch versions live in learner/histogram.py; nothing here falls back
+to them.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Dict, Optional, Tuple
+
+import torch
+
+_CSRC = Path(__file__).resolve().parents[1] / "csrc"
+_BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "lgbm_torch_kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-Xcompiler", "-fPIC")
+
+# launches on the card, per kernel; read and reset by chip_smoke.py
+LAUNCHES: Dict[str, int] = {
+    "hist_nat": 0, "hist_round": 0, "take_small": 0, "seg_sum": 0,
+}
+
+# shared memory a block may use on sm_90 (mirrors hist_common.cuh)
+_MAX_SMEM = 232448
+
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+BUILD_SECONDS: Optional[float] = None
+
+
+def reset_launch_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _sources():
+    return sorted(_CSRC.glob("*.cu")) + sorted(_CSRC.glob("*.cuh"))
+
+
+def source_hash() -> str:
+    h = hashlib.sha256()
+    for p in _sources():
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    cand = Path(cuda_home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                           "toolkit to build")
+    return found
+
+
+def library_path() -> Path:
+    return _BUILD_ROOT / source_hash() / "liblgbm_torch_kernels.so"
+
+
+def build() -> Path:
+    """Compile the kernels if the library for these sources is missing.
+    Returns the library path; raises with nvcc's output on failure."""
+    global BUILD_SECONDS
+    out = library_path()
+    if out.exists():
+        if BUILD_SECONDS is None:  # built by an earlier process
+            BUILD_SECONDS = 0.0
+        return out
+    t0 = time.perf_counter()
+    work = out.parent / f"tmp-{os.getpid()}-{threading.get_ident()}"
+    work.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    procs = []
+    objs = []
+    for src in sorted(_CSRC.glob("*.cu")):
+        obj = work / (src.stem + ".o")
+        objs.append(obj)
+        procs.append((src, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        )))
+    errors = []
+    for src, p in procs:
+        log, _ = p.communicate()
+        if p.returncode != 0:
+            errors.append(f"{src.name}:\n{log.decode(errors='replace')}")
+    if errors:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
+    tmp_lib = work / out.name
+    link = subprocess.run(
+        [nvcc, *NVCC_FLAGS, "-shared", *map(str, objs), "-o", str(tmp_lib)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+    )
+    if link.returncode != 0:
+        raise RuntimeError("nvcc link failed:\n"
+                           + link.stdout.decode(errors="replace"))
+    os.replace(tmp_lib, out)
+    shutil.rmtree(work, ignore_errors=True)
+    BUILD_SECONDS = time.perf_counter() - t0
+    return out
+
+
+def load() -> ctypes.CDLL:
+    global _lib
+    with _lock:
+        if _lib is not None:
+            return _lib
+        lib = ctypes.CDLL(str(build()))
+        P, I = ctypes.c_void_p, ctypes.c_int
+        lib.lgbm_hist_nat.argtypes = [P, P, P, P] + [I] * 7 + [P]
+        lib.lgbm_hist_round.argtypes = [P] * 6 + [I] * 8 + [P]
+        lib.lgbm_take_small.argtypes = [P, P, P] + [I] * 4 + [P]
+        lib.lgbm_seg_sum.argtypes = [P] * 4 + [I] * 4 + [P]
+        for fn in (lib.lgbm_hist_nat, lib.lgbm_hist_round,
+                   lib.lgbm_take_small, lib.lgbm_seg_sum):
+            fn.restype = ctypes.c_int
+        _lib = lib
+        return lib
+
+
+def _check(rc: int, name: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA error {rc} "
+                           f"({torch.cuda.get_device_name()})")
+
+
+def _need(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int) -> None:
+    if not t.is_cuda:
+        raise ValueError(f"{name} must be a CUDA tensor")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if t.dim() != ndim:
+        raise ValueError(f"{name} must have {ndim} dims, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _stream() -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+
+
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def check_int_range(n_rows: int, levels: int) -> None:
+    """Worst-case int32 cell sum of the integer histograms: n_rows rows
+    at `levels` (the hessian channel's maximum level). At 256 levels the
+    bound is ~8.4M rows — the same bound histogram.int8_oh_shift guards
+    in the JAX package."""
+    if n_rows * max(int(levels), 1) >= 2 ** 31:
+        raise ValueError(
+            f"{n_rows} rows x {levels} levels can overflow the int32 "
+            "histogram cells (limit 2^31)"
+        )
+
+
+def _hist_tiling(G: int, N: int, S: int, Bc: int, extra_ints: int,
+                 device) -> Tuple[int, int, int]:
+    """(slots per block Sc, columns per block Gc, rows per block) for the
+    shared-memory histogram tile of hist_nat / hist_round."""
+    budget = _MAX_SMEM // 4 - extra_ints
+    per_slot = 3 * Bc
+    if budget < per_slot:
+        raise ValueError(
+            f"num_bins={Bc} needs {per_slot * 4} B of shared memory per "
+            f"slot; a block has {budget * 4} B (kernel limit)"
+        )
+    Sc = min(S, budget // per_slot)
+    Gc = max(1, min(G, budget // (Sc * per_slot)))
+    n_tiles = -(-G // Gc) * -(-S // Sc)
+    target_blocks = 4 * _sm_count(device)
+    chunks = max(1, min(-(-N // 2048), -(-target_blocks // n_tiles)))
+    rows = -(-N // chunks)
+    return Sc, Gc, rows
+
+
+def _check_hist_inputs(bins, gh, n_rows_vec, name):
+    _need(bins, "bins", torch.int32, 2)
+    _need(gh, "gh", torch.int32, 2)
+    G, N = bins.shape
+    if gh.shape != (3, N):
+        raise ValueError(f"gh must be (3, {N}), got {tuple(gh.shape)}")
+    _need(n_rows_vec, name, torch.int32, 1)
+    if n_rows_vec.shape[0] != N:
+        raise ValueError(f"{name} must have {N} rows")
+    return G, N
+
+
+def hist_nat(bins: torch.Tensor, gh: torch.Tensor, slot: torch.Tensor,
+             num_slots: int, num_bins: int, levels: int) -> torch.Tensor:
+    """(G, N) bins, (3, N) int32 levels, (N,) slot in [0, S] (S = trash)
+    -> (S, 3, G, Bc) f32 exact integer sums."""
+    G, N = _check_hist_inputs(bins, gh, slot, "slot")
+    check_int_range(N, levels)
+    S, Bc = int(num_slots), int(num_bins)
+    Sc, Gc, rows = _hist_tiling(G, N, S, Bc, 0, bins.device)
+    out = torch.zeros((S, 3, G, Bc), dtype=torch.int32, device=bins.device)
+    lib = load()
+    rc = lib.lgbm_hist_nat(bins.data_ptr(), gh.data_ptr(), slot.data_ptr(),
+                           out.data_ptr(), G, N, S, Bc, Sc, Gc, rows,
+                           _stream())
+    _check(rc, "hist_nat")
+    LAUNCHES["hist_nat"] += 1
+    return out.to(torch.float32)
+
+
+def hist_round(bins: torch.Tensor, gh: torch.Tensor, pleaf: torch.Tensor,
+               params: torch.Tensor, num_slots: int, num_bins: int,
+               num_leaves: int, levels: int
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fused partition + smaller-child histograms -> ((S, 3, G, Bc) f32,
+    (N,) int32 new row -> leaf). params (S, 16) int32 as documented in
+    csrc/hist_round.cu; pleaf values lie in [0, num_leaves]."""
+    G, N = _check_hist_inputs(bins, gh, pleaf, "pleaf")
+    _need(params, "params", torch.int32, 2)
+    S, Bc, L = int(num_slots), int(num_bins), int(num_leaves)
+    if params.shape != (S, 16):
+        raise ValueError(f"params must be ({S}, 16)")
+    check_int_range(N, levels)
+    extra = (L + 1) + S * 16
+    Sc, Gc, rows = _hist_tiling(G, N, S, Bc, extra, bins.device)
+    out = torch.zeros((S, 3, G, Bc), dtype=torch.int32, device=bins.device)
+    pleaf_new = torch.empty_like(pleaf)
+    lib = load()
+    rc = lib.lgbm_hist_round(
+        bins.data_ptr(), gh.data_ptr(), pleaf.data_ptr(), params.data_ptr(),
+        out.data_ptr(), pleaf_new.data_ptr(), G, N, S, Bc, L, Sc, Gc, rows,
+        _stream(),
+    )
+    _check(rc, "hist_round")
+    LAUNCHES["hist_round"] += 1
+    return out.to(torch.float32), pleaf_new
+
+
+def take_small(tab: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """(k, L) f32 table, (N,) int32 idx -> (k, N) f32 tab[:, idx], 0 for
+    idx outside [0, L)."""
+    _need(tab, "tab", torch.float32, 2)
+    _need(idx, "idx", torch.int32, 1)
+    k, L = tab.shape
+    N = idx.shape[0]
+    out = torch.empty((k, N), dtype=torch.float32, device=tab.device)
+    blocks = max(1, min(-(-N // 256), 8 * _sm_count(tab.device)))
+    lib = load()
+    rc = lib.lgbm_take_small(tab.data_ptr(), idx.data_ptr(), out.data_ptr(),
+                             k, L, N, blocks, _stream())
+    _check(rc, "take_small")
+    LAUNCHES["take_small"] += 1
+    return out
+
+
+_SEG_ROWS = 2048
+
+
+def seg_sum(vals: torch.Tensor, idx: torch.Tensor,
+            num_out: int) -> torch.Tensor:
+    """(k, N) f32, (N,) int32 -> (k, num_out) f32 per-index sums in a
+    fixed order (bitwise reproducible); idx outside [0, num_out) dropped."""
+    _need(vals, "vals", torch.float32, 2)
+    _need(idx, "idx", torch.int32, 1)
+    k, N = vals.shape
+    L = int(num_out)
+    if idx.shape[0] != N:
+        raise ValueError(f"idx must have {N} rows")
+    rows = _SEG_ROWS
+    while rows > 32 and (k * L + rows * (1 + k)) * 4 > _MAX_SMEM:
+        rows //= 2
+    if (k * L + rows * (1 + k)) * 4 > _MAX_SMEM:
+        raise ValueError(f"seg_sum: k={k} x num_out={L} partial exceeds "
+                         "a block's shared memory (kernel limit)")
+    parts = -(-N // rows)
+    partials = torch.empty((parts, k, L), dtype=torch.float32,
+                           device=vals.device)
+    out = torch.empty((k, L), dtype=torch.float32, device=vals.device)
+    lib = load()
+    rc = lib.lgbm_seg_sum(vals.data_ptr(), idx.data_ptr(),
+                          partials.data_ptr(), out.data_ptr(), k, L, N, rows,
+                          _stream())
+    _check(rc, "seg_sum")
+    LAUNCHES["seg_sum"] += 1
+    return out

@@ -1,0 +1,86 @@
+"""Integer gradient levels for the histograms, and true-gradient renewal.
+
+The port of lightgbm_tpu/learner/quantize.py for the default path: per
+tree, gradients and hessians are discretized to integer levels with
+stochastic rounding (reference gradient_discretizer.cpp:22), the grower
+accumulates exact integer histograms and recovers f32 sums with the
+per-tree scales, and afterwards leaf outputs are renewed from the TRUE
+gradients (RenewIntGradTreeOutput), so quantization touches split
+selection only. The random draws reproduce the JAX package's bit for
+bit (rng.py), so both packages land on the same levels.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from .. import rng
+
+HIST_DTYPE_LEVELS = {"int16": 256}
+
+
+def resolve_hist_dtype(requested: str, use_quantized_grad: bool,
+                       num_grad_quant_bins: int) -> Tuple[str, int]:
+    """tpu_hist_dtype -> (resolved channel layout, internal levels).
+
+    `auto` means int16 on every device, as tpu_growth_mode=auto means the
+    rounds grower on every device: the port has no CPU-only exact path
+    for `auto` to stay bit-exact with. The 5-channel bf16x2 layout and
+    the int8 layout are not ported (ROADMAP queue B) and raise, as does
+    the public use_quantized_grad API (its default 4 levels ride int8)."""
+    if use_quantized_grad:
+        raise NotImplementedError(
+            "use_quantized_grad rides the int8 histogram mode of kernels "
+            "1 and 2, which is not ported (ROADMAP queue B)"
+        )
+    req = "bf16x2" if requested == "float32" else requested
+    if req == "auto":
+        req = "int16"
+    if req == "bf16x2":
+        raise NotImplementedError(
+            "tpu_hist_dtype=bf16x2 needs the 5-channel f32 mode of the "
+            "hist_nat / hist_round kernels, which is not ported (ROADMAP "
+            "queue B)"
+        )
+    if req == "int8":
+        raise NotImplementedError(
+            "tpu_hist_dtype=int8 needs the int8 SWAR mode of the hist_nat "
+            "/ hist_round kernels, which is not ported (ROADMAP queue B)"
+        )
+    return req, HIST_DTYPE_LEVELS[req]
+
+
+def discretize_gradients_int(grad: torch.Tensor, hess: torch.Tensor,
+                             key: torch.Tensor, num_bins: int,
+                             stochastic: bool):
+    """(grad, hess) -> (grad levels, hess levels, (2,) scales): gradient
+    levels in [-bins/2, bins/2], hessian levels in [0, bins]; stochastic
+    rounding truncates toward zero after adding signed uniform noise."""
+    g_scale = torch.clamp_min(grad.abs().max(), 1e-30) / (num_bins // 2)
+    h_scale = torch.clamp_min(hess.abs().max(), 1e-30) / num_bins
+    if stochastic:
+        keys = rng.split(key)
+        ug = rng.uniform(keys[0], grad.shape)
+        uh = rng.uniform(keys[1], hess.shape)
+    else:
+        ug = uh = 0.5
+    gq = torch.trunc(grad / g_scale + torch.sign(grad) * ug)
+    hq = torch.trunc(hess / h_scale + uh)
+    return gq, hq, torch.stack([g_scale, h_scale])
+
+
+def renew_leaf_with_true_gradients(leaf_value, row_leaf, grad, hess, mask,
+                                   params, num_leaves: int):
+    """quant_train_renew_leaf: leaf outputs from the TRUE per-leaf sums
+    (seg_sum kernel on the card)."""
+    from .histogram import seg_sum
+    from .split import leaf_output
+
+    L = num_leaves
+    idx = torch.where((row_leaf >= 0) & (mask > 0), row_leaf,
+                      torch.full_like(row_leaf, L)).to(torch.int32)
+    sums = seg_sum(torch.stack([grad * mask, hess * mask]), idx, L)
+    renewed = leaf_output(sums[0], sums[1], params)
+    return torch.where(sums[1] > 0, renewed, leaf_value)

@@ -1,0 +1,195 @@
+"""Evaluation metrics (reference src/metric/*.hpp + factory metric.cpp:21).
+
+A copy of the host metrics of lightgbm_tpu/metrics.py that the eager
+training loop calls (boosting.eval_set): l2, rmse, binary_logloss,
+binary_error, auc, multi_logloss and multi_error. Host-side numpy over
+(label, raw score) on unpadded arrays; each metric reports (name, value,
+higher_better) with the reference names. The other metrics of the JAX
+package are not ported (ROADMAP queue A) and raise.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+
+from . import log
+from .config import Config
+
+
+class Metric:
+    name = ""
+    higher_better = False
+
+    def __init__(self, config: Config):
+        self.config = config
+
+    def init(self, label: np.ndarray, weight: Optional[np.ndarray], group: Optional[np.ndarray]) -> None:
+        self.label = label
+        self.weight = weight
+        self.group = group
+
+    def eval(self, score: np.ndarray) -> List[Tuple[str, float, bool]]:
+        """score is the RAW margin (num_class, N) or (N,); metric applies
+        its own transform as the reference metrics do."""
+        raise NotImplementedError
+
+    def _avg(self, values: np.ndarray) -> float:
+        if self.weight is None:
+            return float(np.mean(values))
+        return float(np.sum(values * self.weight) / np.sum(self.weight))
+
+
+def _sigmoid(x: np.ndarray, s: float = 1.0) -> np.ndarray:
+    return 1.0 / (1.0 + np.exp(-s * x))
+
+
+class _PointwiseMetric(Metric):
+    def point(self, label: np.ndarray, score: np.ndarray) -> np.ndarray:
+        raise NotImplementedError
+
+    def transform(self, score: np.ndarray) -> np.ndarray:
+        return score
+
+    def eval(self, score):
+        return [(self.name, self._avg(self.point(self.label, self.transform(score))), self.higher_better)]
+
+
+class L2Metric(_PointwiseMetric):
+    name = "l2"
+
+    def point(self, y, s):
+        return (y - s) ** 2
+
+
+class RMSEMetric(_PointwiseMetric):
+    name = "rmse"
+
+    def eval(self, score):
+        mse = self._avg((self.label - score) ** 2)
+        return [(self.name, float(np.sqrt(mse)), False)]
+
+
+class BinaryLoglossMetric(_PointwiseMetric):
+    name = "binary_logloss"
+
+    def transform(self, score):
+        return _sigmoid(score, self.config.sigmoid)
+
+    def point(self, y, p):
+        eps = 1e-15
+        p = np.clip(p, eps, 1 - eps)
+        return -(y * np.log(p) + (1 - y) * np.log(1 - p))
+
+
+class BinaryErrorMetric(_PointwiseMetric):
+    name = "binary_error"
+
+    def transform(self, score):
+        return _sigmoid(score, self.config.sigmoid)
+
+    def point(self, y, p):
+        return ((p > 0.5) != (y > 0.5)).astype(np.float64)
+
+
+class AUCMetric(Metric):
+    name = "auc"
+    higher_better = True
+
+    def eval(self, score):
+        y = self.label
+        w = self.weight if self.weight is not None else np.ones_like(y)
+        order = np.argsort(score, kind="mergesort")
+        ys, ws, ss = y[order], w[order], score[order]
+        # sum of positive-weight ranks with tie handling
+        pos_w = np.sum(ws * (ys > 0))
+        neg_w = np.sum(ws * (ys <= 0))
+        if pos_w <= 0 or neg_w <= 0:
+            return [(self.name, 1.0, True)]
+        # accumulate over tie groups
+        boundaries = np.nonzero(np.diff(ss))[0] + 1
+        groups = np.split(np.arange(len(ss)), boundaries)
+        auc_sum = 0.0
+        cum_neg = 0.0
+        for gidx in groups:
+            gp = np.sum(ws[gidx] * (ys[gidx] > 0))
+            gn = np.sum(ws[gidx] * (ys[gidx] <= 0))
+            auc_sum += gp * (cum_neg + gn * 0.5)
+            cum_neg += gn
+        return [(self.name, float(auc_sum / (pos_w * neg_w)), True)]
+
+
+class MultiLoglossMetric(Metric):
+    name = "multi_logloss"
+
+    def eval(self, score):
+        # score (K, N) raw -> softmax
+        e = np.exp(score - np.max(score, axis=0, keepdims=True))
+        p = e / np.sum(e, axis=0, keepdims=True)
+        idx = self.label.astype(int)
+        eps = 1e-15
+        ll = -np.log(np.clip(p[idx, np.arange(p.shape[1])], eps, 1.0))
+        return [(self.name, self._avg(ll), False)]
+
+
+class MultiErrorMetric(Metric):
+    name = "multi_error"
+
+    def eval(self, score):
+        k = self.config.multi_error_top_k
+        idx = self.label.astype(int)
+        true_score = score[idx, np.arange(score.shape[1])]
+        rank = np.sum(score > true_score[None, :], axis=0)
+        err = (rank >= k).astype(np.float64)
+        return [(self.name + (f"@{k}" if k > 1 else ""), self._avg(err), False)]
+
+
+_METRICS: Dict[str, type] = {
+    "l2": L2Metric, "mean_squared_error": L2Metric, "mse": L2Metric,
+    "regression": L2Metric, "regression_l2": L2Metric,
+    "rmse": RMSEMetric, "root_mean_squared_error": RMSEMetric, "l2_root": RMSEMetric,
+    "binary_logloss": BinaryLoglossMetric, "binary": BinaryLoglossMetric,
+    "binary_error": BinaryErrorMetric,
+    "auc": AUCMetric,
+    "multi_logloss": MultiLoglossMetric, "multiclass": MultiLoglossMetric,
+    "softmax": MultiLoglossMetric, "multiclassova": MultiLoglossMetric,
+    "multi_error": MultiErrorMetric,
+}
+
+# metric implied by each objective when metric param is empty (metric.cpp)
+_DEFAULT_METRIC = {
+    "regression": "l2", "binary": "binary_logloss",
+    "multiclass": "multi_logloss",
+}
+
+# metrics of the JAX package that are not ported yet
+_NOT_PORTED = frozenset({
+    "r2", "r_squared", "l1", "mean_absolute_error", "mae", "regression_l1",
+    "quantile", "huber", "fair", "poisson", "mape",
+    "mean_absolute_percentage_error", "gamma", "gamma_deviance", "tweedie",
+    "average_precision", "auc_mu", "cross_entropy", "xentropy",
+    "cross_entropy_lambda", "xentlambda", "kullback_leibler", "kldiv",
+    "ndcg", "lambdarank", "rank_xendcg", "map", "mean_average_precision",
+})
+
+
+def create_metrics(config: Config) -> List[Metric]:
+    names = [m for m in config.metric if m not in ("", "none", "null", "na", "custom")]
+    if not names:
+        default = _DEFAULT_METRIC.get(config.objective)
+        names = [default] if default else []
+    out = []
+    for n in names:
+        key = n.strip().lower()
+        if key in ("none", "null", "na", "custom", ""):
+            continue
+        if key in _NOT_PORTED:
+            raise NotImplementedError(
+                f"metric {n} is not ported yet (ROADMAP queue A)"
+            )
+        if key not in _METRICS:
+            log.warning(f"Unknown metric {n}, ignored")
+            continue
+        out.append(_METRICS[key](config))
+    return out

@@ -1,0 +1,288 @@
+"""LightGBM text model format: writer and parser.
+
+A copy of the text save and load of lightgbm_tpu/model_io.py
+(save_model_string, load_model_string), byte-compatible with the
+reference format (src/boosting/gbdt_model_text.cpp SaveModelToString
+:314 / LoadModelFromString :424, per-tree blocks src/io/tree.cpp
+Tree::ToString :343). Models written by either package load in the
+other. The JSON dump and the C++ code generator are not ported.
+"""
+
+from __future__ import annotations
+
+import io
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+
+from .config import Config
+from .tree import Tree
+
+MODEL_VERSION = "v4"
+
+
+def _fmt_d(values) -> str:
+    return " ".join(str(int(v)) for v in values)
+
+
+def _fmt_f(values, precision: int = 6) -> str:
+    return " ".join(f"{float(v):g}" for v in values)
+
+
+def _fmt_hp(values) -> str:
+    """High-precision doubles (ArrayToString<true>)."""
+    return " ".join(repr(float(v)) for v in values)
+
+
+def _objective_to_string(cfg: Config) -> str:
+    o = cfg.objective
+    if o == "binary":
+        return f"binary sigmoid:{cfg.sigmoid:g}"
+    if o == "multiclass":
+        return f"multiclass num_class:{cfg.num_class}"
+    if o == "multiclassova":
+        return f"multiclassova num_class:{cfg.num_class} sigmoid:{cfg.sigmoid:g}"
+    if o == "lambdarank":
+        return "lambdarank"
+    if o == "quantile":
+        return f"quantile alpha:{cfg.alpha:g}"
+    if o == "huber":
+        return f"huber alpha:{cfg.alpha:g}"
+    if o == "fair":
+        return f"fair c:{cfg.fair_c:g}"
+    if o == "tweedie":
+        return f"tweedie tweedie_variance_power:{cfg.tweedie_variance_power:g}"
+    return o
+
+
+def tree_to_string(t: Tree) -> str:
+    n = t.num_leaves
+    buf = io.StringIO()
+    buf.write(f"num_leaves={n}\n")
+    buf.write(f"num_cat={t.num_cat}\n")
+    buf.write("split_feature=" + _fmt_d(t.split_feature) + "\n")
+    buf.write("split_gain=" + _fmt_f(t.split_gain) + "\n")
+    buf.write("threshold=" + _fmt_hp(t.threshold) + "\n")
+    buf.write("decision_type=" + _fmt_d(t.decision_type) + "\n")
+    buf.write("left_child=" + _fmt_d(t.left_child) + "\n")
+    buf.write("right_child=" + _fmt_d(t.right_child) + "\n")
+    buf.write("leaf_value=" + _fmt_hp(t.leaf_value) + "\n")
+    buf.write("leaf_weight=" + _fmt_hp(t.leaf_weight) + "\n")
+    buf.write("leaf_count=" + _fmt_d(t.leaf_count) + "\n")
+    buf.write("internal_value=" + _fmt_f(t.internal_value) + "\n")
+    buf.write("internal_weight=" + _fmt_f(t.internal_weight) + "\n")
+    buf.write("internal_count=" + _fmt_d(t.internal_count) + "\n")
+    if t.num_cat > 0:
+        buf.write("cat_boundaries=" + _fmt_d(t.cat_boundaries) + "\n")
+        buf.write("cat_threshold=" + _fmt_d(t.cat_threshold) + "\n")
+    buf.write(f"is_linear={1 if t.is_linear else 0}\n")
+    if t.is_linear:
+        # linear-leaf blocks (tree.cpp:381-405 Tree::ToString is_linear)
+        buf.write("leaf_const=" + _fmt_hp(t.leaf_const) + "\n")
+        nfeat = [len(f) for f in t.leaf_features]
+        buf.write("num_features=" + " ".join(str(x) for x in nfeat) + "\n")
+        buf.write(
+            "leaf_features="
+            + " ".join(
+                " ".join(str(f) for f in feats) for feats in t.leaf_features if feats
+            )
+            + "\n"
+        )
+        buf.write(
+            "leaf_coeff="
+            + " ".join(
+                " ".join(repr(float(c)) for c in cs) for cs in t.leaf_coeff if cs
+            )
+            + "\n"
+        )
+    buf.write(f"shrinkage={t.shrinkage:g}\n")
+    buf.write("\n")
+    return buf.getvalue()
+
+
+def save_model_string(
+    gbdt, cfg: Config, num_iteration: int = -1, start_iteration: int = 0
+) -> str:
+    ds = gbdt.train_set
+    feature_names = ds.feature_names if ds is not None else getattr(gbdt, "feature_names", [])
+    feature_infos = ds.feature_infos() if ds is not None else getattr(gbdt, "feature_infos_", ["none"] * len(feature_names))
+    K = gbdt.num_class
+
+    buf = io.StringIO()
+    buf.write("tree\n")
+    buf.write(f"version={MODEL_VERSION}\n")
+    buf.write(f"num_class={cfg.num_class}\n")
+    buf.write(f"num_tree_per_iteration={K}\n")
+    buf.write("label_index=0\n")
+    buf.write(f"max_feature_idx={len(feature_names) - 1}\n")
+    buf.write(f"objective={_objective_to_string(cfg)}\n")
+    buf.write("feature_names=" + " ".join(feature_names) + "\n")
+    mc = list(cfg.monotone_constraints)
+    if mc:
+        buf.write("monotone_constraints=" + " ".join(str(int(v)) for v in mc) + "\n")
+    buf.write("feature_infos=" + " ".join(feature_infos) + "\n")
+    if gbdt.average_output:
+        buf.write("average_output\n")
+
+    total_iteration = len(gbdt.models) // K
+    start_iteration = max(0, min(start_iteration, total_iteration))
+    num_used = len(gbdt.models)
+    if num_iteration > 0:
+        num_used = min((start_iteration + num_iteration) * K, num_used)
+    start_model = start_iteration * K
+
+    tree_strs = []
+    for i in range(start_model, num_used):
+        tree_strs.append(f"Tree={i - start_model}\n" + tree_to_string(gbdt.models[i]) + "\n")
+    buf.write("tree_sizes=" + " ".join(str(len(s)) for s in tree_strs) + "\n")
+    buf.write("\n")
+    for s in tree_strs:
+        buf.write(s)
+    buf.write("end of trees\n")
+
+    # feature importances (split counts) over exactly the dumped tree
+    # range, sorted desc (gbdt_model_text.cpp:380 FeatureImportance
+    # takes num_iteration). Summing over ALL models would let a sliced
+    # save (snapshot / training checkpoint) leak later trees into the
+    # footer — a checkpointed model must bit-match a run that stopped
+    # at that round (docs/RESILIENCE.md).
+    imp = np.zeros(len(feature_names))
+    for t in gbdt.models[start_model:num_used]:
+        imp += t.feature_importance_split(len(feature_names))
+    pairs = [(int(imp[i]), feature_names[i]) for i in range(len(feature_names)) if imp[i] > 0]
+    pairs.sort(key=lambda p: -p[0])
+    buf.write("\nfeature_importances:\n")
+    for v, name in pairs:
+        buf.write(f"{name}={v}\n")
+
+    buf.write("\nparameters:\n")
+    for k, v in cfg.explicit_params().items():
+        buf.write(f"[{k}: {v}]\n")
+    buf.write("end of parameters\n")
+    buf.write("\npandas_categorical:null\n")
+    return buf.getvalue()
+
+
+def _parse_array(s: str, typ) -> np.ndarray:
+    s = s.strip()
+    if not s:
+        return np.asarray([], dtype=typ)
+    return np.asarray([typ(x) for x in s.split(" ")], dtype=typ)
+
+
+def parse_tree_block(lines: Dict[str, str]) -> Tree:
+    n = int(lines["num_leaves"])
+    t = Tree(num_leaves=n)
+    t.num_cat = int(lines.get("num_cat", "0"))
+    t.split_feature = _parse_array(lines.get("split_feature", ""), np.int32)
+    t.split_gain = _parse_array(lines.get("split_gain", ""), np.float64)
+    t.threshold = _parse_array(lines.get("threshold", ""), np.float64)
+    t.decision_type = _parse_array(lines.get("decision_type", ""), np.int32)
+    t.left_child = _parse_array(lines.get("left_child", ""), np.int32)
+    t.right_child = _parse_array(lines.get("right_child", ""), np.int32)
+    t.leaf_value = _parse_array(lines.get("leaf_value", "0"), np.float64)
+    if len(t.leaf_value) == 0:
+        t.leaf_value = np.zeros(n, np.float64)
+    t.leaf_weight = _parse_array(lines.get("leaf_weight", ""), np.float64)
+    t.leaf_count = _parse_array(lines.get("leaf_count", ""), np.int64)
+    t.internal_value = _parse_array(lines.get("internal_value", ""), np.float64)
+    t.internal_weight = _parse_array(lines.get("internal_weight", ""), np.float64)
+    t.internal_count = _parse_array(lines.get("internal_count", ""), np.int64)
+    if t.num_cat > 0:
+        t.cat_boundaries = _parse_array(lines["cat_boundaries"], np.int64)
+        t.cat_threshold = _parse_array(lines["cat_threshold"], np.uint32).astype(np.uint32)
+    t.is_linear = lines.get("is_linear", "0").strip() == "1"
+    if t.is_linear:
+        t.leaf_const = _parse_array(lines.get("leaf_const", ""), np.float64)
+        if len(t.leaf_const) < n:
+            t.leaf_const = np.concatenate(
+                [t.leaf_const, np.zeros(n - len(t.leaf_const))]
+            )
+        nfeat = _parse_array(lines.get("num_features", ""), np.int64)
+        flat_f = _parse_array(lines.get("leaf_features", ""), np.int64)
+        flat_c = _parse_array(lines.get("leaf_coeff", ""), np.float64)
+        t.leaf_features, t.leaf_coeff = [], []
+        pos = 0
+        for li in range(n):
+            k = int(nfeat[li]) if li < len(nfeat) else 0
+            t.leaf_features.append([int(x) for x in flat_f[pos : pos + k]])
+            t.leaf_coeff.append([float(x) for x in flat_c[pos : pos + k]])
+            pos += k
+    t.shrinkage = float(lines.get("shrinkage", "1"))
+    return t
+
+
+def _parse_objective(s: str) -> Dict[str, Any]:
+    parts = s.strip().split(" ")
+    out: Dict[str, Any] = {"objective": parts[0]}
+    for p in parts[1:]:
+        if ":" in p:
+            k, v = p.split(":", 1)
+            out[k] = v
+    return out
+
+
+def load_model_string(model_str: str):
+    """Parse a text model (reference LoadModelFromString) into a
+    prediction-capable GBDT."""
+    lines = model_str.split("\n")
+    header: Dict[str, str] = {}
+    i = 0
+    while i < len(lines):
+        line = lines[i].strip()
+        if line.startswith("Tree="):
+            break
+        if line == "average_output":
+            header["average_output"] = "1"
+        elif "=" in line:
+            k, v = line.split("=", 1)
+            header[k.strip()] = v
+        i += 1
+
+    params: Dict[str, Any] = {}
+    if "objective" in header:
+        obj = _parse_objective(header["objective"])
+        params["objective"] = obj["objective"]
+        if "num_class" in obj:
+            params["num_class"] = int(obj["num_class"])
+        if "sigmoid" in obj:
+            params["sigmoid"] = float(obj["sigmoid"])
+        if "alpha" in obj:
+            params["alpha"] = float(obj["alpha"])
+        if "c" in obj:
+            params["fair_c"] = float(obj["c"])
+        if "tweedie_variance_power" in obj:
+            params["tweedie_variance_power"] = float(obj["tweedie_variance_power"])
+    from .boosting import GBDT
+
+    cfg = Config(params)
+    gbdt = GBDT(cfg, None)
+    gbdt.num_class = int(header.get("num_tree_per_iteration", "1"))
+    gbdt.average_output = header.get("average_output") == "1"
+    gbdt.feature_names = header.get("feature_names", "").split(" ") if header.get("feature_names") else []
+    gbdt.feature_infos_ = header.get("feature_infos", "").split(" ") if header.get("feature_infos") else []
+
+    # tree blocks
+    trees: List[Tree] = []
+    cur: Optional[Dict[str, str]] = None
+    while i < len(lines):
+        line = lines[i].strip()
+        if line.startswith("Tree="):
+            if cur is not None:
+                trees.append(parse_tree_block(cur))
+            cur = {}
+        elif line == "end of trees":
+            if cur is not None:
+                trees.append(parse_tree_block(cur))
+                cur = None
+            break
+        elif "=" in line and cur is not None:
+            k, v = line.split("=", 1)
+            cur[k] = v
+        i += 1
+    if cur is not None:
+        trees.append(parse_tree_block(cur))
+    gbdt.models = trees
+    return cfg, gbdt
+
+

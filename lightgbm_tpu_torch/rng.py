@@ -1,0 +1,98 @@
+"""Counter-based random draws that reproduce jax.random bit for bit.
+
+The JAX package keys every stochastic draw on the main path off
+`jax.random` with the threefry2x32 generator (its default) under
+`jax_threefry_partitionable=True` (its default since jax 0.5): the
+stochastic rounding of the gradient levels (boosting._quantize:
+`fold_in(key(data_random_seed), it * K + k)`, then quantize's
+`split` + two `uniform` draws). Stochastic rounding must land on the
+same integer levels or the trees diverge, so this module re-implements
+those four functions on torch tensors:
+
+- `key(seed)`: the raw (2,) uint32 pair (seed >> 32, seed & 0xffffffff);
+- `fold_in(key, data)`: threefry2x32(key, (0, data));
+- `split(key, num)`: threefry2x32(key, (hi(i), lo(i))) for i < num;
+- `uniform(key, shape)`: 23 random mantissa bits of
+  threefry2x32(key, (hi(i), lo(i))) xor-folded, as a float in [1, 2),
+  minus 1.
+
+A key is a (2,) int64 tensor holding the two uint32 words. torch has
+no full set of uint32 operations, so words live in int64 and are
+masked back to 32 bits after every add and shift.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence, Tuple, Union
+
+import torch
+
+_MASK = 0xFFFFFFFF
+_ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
+_PARITY = 0x1BD11BDA
+
+
+def _rotl(x: torch.Tensor, d: int) -> torch.Tensor:
+    return ((x << d) | (x >> (32 - d))) & _MASK
+
+
+def threefry2x32(k1: torch.Tensor, k2: torch.Tensor, x1: torch.Tensor,
+                 x2: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The Threefry-2x32 block cipher (20 rounds) on int64 tensors that
+    hold uint32 words — jax's `_threefry2x32_lowering`, round for round."""
+    ks = (k1, k2, k1 ^ k2 ^ _PARITY)
+    x1 = (x1 + ks[0]) & _MASK
+    x2 = (x2 + ks[1]) & _MASK
+    for i in range(5):
+        for r in _ROT[i % 2]:
+            x1 = (x1 + x2) & _MASK
+            x2 = _rotl(x2, r) ^ x1
+        x1 = (x1 + ks[(i + 1) % 3]) & _MASK
+        x2 = (x2 + ks[(i + 2) % 3] + (i + 1)) & _MASK
+    return x1, x2
+
+
+def key(seed: int, device: Union[str, torch.device] = "cpu") -> torch.Tensor:
+    """jax.random.key(seed) -> its (2,) key data."""
+    s = int(seed)
+    return torch.tensor([(s >> 32) & _MASK if s >= 0 else 0, s & _MASK],
+                        dtype=torch.int64, device=device)
+
+
+def fold_in(k: torch.Tensor, data: int) -> torch.Tensor:
+    """jax.random.fold_in: hash the (2,) counter (0, data) under k."""
+    d = torch.tensor([0, int(data) & _MASK], dtype=torch.int64,
+                     device=k.device)
+    h1, h2 = threefry2x32(k[0], k[1], d[:1], d[1:])
+    return torch.cat([h1, h2])
+
+
+def _counters(n: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo) words of the uint64 iota 0..n-1 (jax iota_2x32_shape)."""
+    i = torch.arange(n, dtype=torch.int64, device=device)
+    return (i >> 32) & _MASK, i & _MASK
+
+
+def split(k: torch.Tensor, num: int = 2) -> torch.Tensor:
+    """jax.random.split (partitionable) -> (num, 2) keys."""
+    hi, lo = _counters(num, k.device)
+    b1, b2 = threefry2x32(k[0], k[1], hi, lo)
+    return torch.stack([b1, b2], dim=1)
+
+
+def random_bits(k: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
+    """32 random bits per element (partitionable), int64 in [0, 2^32)."""
+    shape = tuple(int(s) for s in shape)
+    n = 1
+    for s in shape:
+        n *= s
+    hi, lo = _counters(n, k.device)
+    b1, b2 = threefry2x32(k[0], k[1], hi, lo)
+    return (b1 ^ b2).reshape(shape)
+
+
+def uniform(k: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
+    """jax.random.uniform(k, shape) for float32 on [0, 1)."""
+    bits = random_bits(k, shape)
+    fbits = ((bits >> 9) | 0x3F800000).to(torch.int32)
+    return torch.clamp_min(fbits.view(torch.float32) - 1.0, 0.0)

@@ -1,0 +1,113 @@
+"""The CUDA kernels against their plain PyTorch versions on a card, and a
+small training run on the card against the same run on the CPU.
+
+These tests need a CUDA device; without one they skip (decided inside
+the fixture when a test runs, never at import). The file imports neither
+jax nor lightgbm_tpu, so it runs on a machine that has only torch:
+
+    python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import lightgbm_tpu_torch as lgb
+from lightgbm_tpu_torch.learner import cuda_hist
+from lightgbm_tpu_torch.learner import histogram as ht
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _inputs(n=8192, g=7, b=64, seed=0):
+    rs = np.random.RandomState(seed)
+    bins = torch.from_numpy(rs.randint(0, b, (g, n)).astype(np.int32))
+    cnt = (rs.rand(n) < 0.9).astype(np.int64)
+    gh = torch.from_numpy(np.stack([rs.randint(-128, 129, n) * cnt,
+                                    rs.randint(0, 257, n) * cnt,
+                                    cnt]).astype(np.int32))
+    return rs, bins, gh
+
+
+@pytest.mark.parametrize("num_slots", [1, 4, 400])
+def test_hist_nat_exact(dev, num_slots):
+    """400 slots at 64 bins exceed one block's shared memory: the slot
+    axis is split across blocks."""
+    rs, bins, gh = _inputs()
+    slot = torch.from_numpy(rs.randint(0, num_slots + 1, 8192)
+                            .astype(np.int32))
+    bt, gt, st = bins.to(dev), gh.to(dev), slot.to(dev)
+    out = ht.hist_nat_slots(bt, gt, st, num_slots, 64)
+    assert torch.equal(out.cpu(), ht.hist_nat_slots_plain(bins, gh, slot,
+                                                          num_slots, 64))
+
+
+@pytest.mark.parametrize("efb", [False, True])
+def test_hist_round_exact(dev, efb):
+    rs, bins, gh = _inputs()
+    L = 16
+    pleaf = torch.from_numpy(rs.randint(0, L + 1, 8192).astype(np.int32))
+    params = torch.zeros((4, 16), dtype=torch.int32)
+    params[:, 0] = torch.tensor([1, 5, 9, -1])
+    params[:, 1] = torch.tensor([0, 3, 6, 0])
+    params[:, 2] = torch.tensor([10, 30, 50, 0])
+    params[:, 3] = torch.tensor([1, 0, 1, 0])
+    params[:, 4] = torch.tensor([63, -1, 63, -1])
+    params[:, 5] = torch.tensor([1, 0, 1, 0])
+    params[:, 6] = torch.tensor([17, 18, 19, 20])
+    params[:, 8] = -1
+    if efb:
+        params[1, 7:10] = torch.tensor([8, 2, 20])
+    hk, pk = ht.hist_round(bins.to(dev), gh.to(dev), pleaf.to(dev),
+                           params.to(dev), 4, 64, L)
+    hp, pp = ht.hist_round_plain(bins, gh, pleaf, params, 4, 64)
+    assert torch.equal(hk.cpu(), hp) and torch.equal(pk.cpu(), pp)
+
+
+@pytest.mark.parametrize("k,L", [(1, 255), (8, 255), (2, 20000)])
+def test_take_small_exact(dev, k, L):
+    """A table over 48 KB is read from device memory instead of staged."""
+    rs = np.random.RandomState(k)
+    tab = torch.from_numpy(rs.randn(k, L).astype(np.float32))
+    idx = torch.from_numpy(rs.randint(-2, L + 2, 10000).astype(np.int32))
+    out = ht.take_cols(tab.to(dev), idx.to(dev))
+    assert torch.equal(out.cpu(), ht.take_cols_plain(tab, idx))
+
+
+def test_seg_sum_reproducible_and_close(dev):
+    rs = np.random.RandomState(1)
+    vals = torch.from_numpy(rs.randn(2, 100000).astype(np.float32))
+    idx = torch.from_numpy(rs.randint(-1, 257, 100000).astype(np.int32))
+    v, i = vals.to(dev), idx.to(dev)
+    s1, s2 = ht.seg_sum(v, i, 255), ht.seg_sum(v, i, 255)
+    assert torch.equal(s1, s2)
+    torch.testing.assert_close(s1.cpu(), ht.seg_sum_plain(vals, idx, 255),
+                               rtol=1e-5, atol=1e-4)
+
+
+def test_launch_counts(dev):
+    rs, bins, gh = _inputs()
+    cuda_hist.reset_launch_counts()
+    ht.hist_nat_slots(bins.to(dev), gh.to(dev),
+                      torch.zeros(8192, dtype=torch.int32, device=dev), 1, 64)
+    assert cuda_hist.LAUNCHES["hist_nat"] == 1
+
+
+def test_train_card_matches_cpu(dev):
+    rs = np.random.RandomState(3)
+    X = rs.randn(3000, 6)
+    y = (X[:, 0] + 0.5 * X[:, 1] + 0.3 * rs.randn(3000) > 0).astype(float)
+    preds = {}
+    for d in ("cuda", "cpu"):
+        p = {"objective": "binary", "num_leaves": 15, "verbosity": -1,
+             "device_type": d}
+        bst = lgb.train(p, lgb.Dataset(X, label=y, params=p), 4)
+        preds[d] = bst.predict(X, raw_score=True)
+    np.testing.assert_allclose(preds["cuda"], preds["cpu"], atol=1e-4)

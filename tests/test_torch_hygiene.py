@@ -1,0 +1,112 @@
+"""Rules that keep later slices of the port honest: lightgbm_tpu_torch and
+chip_smoke.py import neither jax nor lightgbm_tpu; without a card the
+entry points refuse to run unless device_type=cpu is asked for; options
+whose code is not ported raise NotImplementedError instead of being
+ignored."""
+
+import ast
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import lightgbm_tpu_torch as lgb
+from lightgbm_tpu_torch.learner.quantize import resolve_hist_dtype
+
+ROOT = Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "jaxlib", "lightgbm_tpu")
+
+
+def _port_files():
+    files = sorted((ROOT / "lightgbm_tpu_torch").rglob("*.py"))
+    return files + [ROOT / "chip_smoke.py"]
+
+
+def _imports(path):
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_reference_imports(path):
+    bad = [m for m in _imports(path) if m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{path.name} imports {bad}"
+
+
+def _tiny():
+    rs = np.random.RandomState(0)
+    X = rs.randn(200, 3)
+    return X, (X[:, 0] > 0).astype(float)
+
+
+@pytest.fixture
+def no_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+@pytest.mark.parametrize("device", [None, "cuda", "gpu", "tpu"])
+def test_train_without_card_raises(no_card, device):
+    X, y = _tiny()
+    params = {"objective": "binary", "verbosity": -1}
+    if device is not None:
+        params["device_type"] = device
+    with pytest.raises(RuntimeError, match="device_type=cpu"):
+        lgb.train(params, lgb.Dataset(X, label=y), 2)
+
+
+def test_dataset_construct_without_card_raises(no_card):
+    X, y = _tiny()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        lgb.Dataset(X, label=y).construct()
+
+
+def test_cpu_must_be_asked_for(no_card):
+    X, y = _tiny()
+    p = {"objective": "binary", "verbosity": -1, "device_type": "cpu"}
+    bst = lgb.train(p, lgb.Dataset(X, label=y, params=p), 2)
+    assert bst.num_trees() == 2
+
+
+def test_growth_mode_exact_raises():
+    X, y = _tiny()
+    p = {"objective": "binary", "verbosity": -1, "device_type": "cpu",
+         "tpu_growth_mode": "exact"}
+    with pytest.raises(NotImplementedError, match="queue A"):
+        lgb.train(p, lgb.Dataset(X, label=y, params=p), 1)
+
+
+@pytest.mark.parametrize("dtype,msg", [("bf16x2", "5-channel"),
+                                       ("float32", "5-channel"),
+                                       ("int8", "int8")])
+def test_unported_hist_dtypes_raise(dtype, msg):
+    with pytest.raises(NotImplementedError, match=msg):
+        resolve_hist_dtype(dtype, False, 4)
+
+
+def test_auto_means_int16_everywhere():
+    assert resolve_hist_dtype("auto", False, 4) == ("int16", 256)
+    with pytest.raises(NotImplementedError):
+        resolve_hist_dtype("auto", True, 4)  # use_quantized_grad
+
+
+@pytest.mark.parametrize("extra", [
+    {"bagging_fraction": 0.5, "bagging_freq": 1},
+    {"feature_fraction": 0.5},
+    {"boosting": "dart"},
+    {"objective": "huber"},
+    {"extra_trees": True},
+    {"early_stopping_round": 2},
+    {"metric": "ndcg"},
+])
+def test_unported_options_raise(extra):
+    X, y = _tiny()
+    p = {"objective": "binary", "verbosity": -1, "device_type": "cpu",
+         **extra}
+    with pytest.raises(NotImplementedError):
+        lgb.train(p, lgb.Dataset(X, label=y, params=p), 1)
