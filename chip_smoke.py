@@ -7,22 +7,29 @@ Run from the repository root with no arguments:
 Phases, each printed as one JSON line:
   device  - nvidia-smi's name and power limit, torch and CUDA versions;
   build   - seconds to build the kernel library from csrc/ (0 on a hit);
-  kernel  - one line per kernel at the main path's shapes: its result
-            against the plain PyTorch version on the same inputs (exact
-            for the integer histograms and take; seg_sum within rtol
-            1e-5 and bitwise equal across two runs), and its median time
-            over CUDA events beside the plain version's, one PyTorch
+  kernel  - one line per kernel (or kernel mode) at its path's shapes: its
+            result against the plain PyTorch version on the same inputs
+            (exact for the integer histograms, take and the fixed-point
+            f32 histograms; seg_sum within rtol 1e-5), bitwise equality
+            across two launches for the f32 reductions, and its median
+            time over CUDA events beside the plain version's, one PyTorch
             library call's, and the least time the card could take;
-  small   - a small training run on the card against the same run on the
-            CPU (plain versions): predictions within 1e-4;
-  train   - the 1M x 28, 255-leaf binary workload (bench.py:386-406),
-            2 warmup trees then 10 timed trees: trees/s, validation AUC
-            after tree 1 and after the last tree, launches per kernel;
+  small   - 20k-row runs on the card against the same runs on the CPU
+            (plain versions), default and exact paths: predictions within
+            1e-4;
+  train   - the 1M x 28, 255-leaf binary workload (bench.py:386-406) on
+            the default int16 rounds path, 2 warmup trees then 10 timed
+            trees: trees/s, validation AUC after tree 1 and after the last
+            tree, launches per kernel;
   profile - torch.profiler over 2 more trees: device busy share and the
             kernels taking the most device time per tree;
   model   - save_model -> Booster(model_file=...) -> identical predictions
             on 1000 validation rows; host predictions match the scores
             the card accumulated;
+  train_exact, train_exact_rounds, train_f32 - the same workload on the
+            f32 paths (tpu_growth_mode=exact; exact + tpu_growth_rounds;
+            rounds + tpu_hist_dtype=bf16x2), 1 warmup tree then 3 timed
+            trees each, with the same checks and a 1-tree profile;
 then the `kernels` summary line and, last, {"ok": true, "device": ...}.
 Any failure raises: no `ok` line, non-zero exit. Without a CUDA device,
 or without the package beside it, the script exits non-zero at once.
@@ -41,18 +48,40 @@ OPS_PER_S = 67e12  # f32 / int32 outside the tensor cores
 
 N_ROWS = 1_001_472  # 1M rows padded to the 2048-row block
 G, BC, S_ROUND, L = 28, 256, 48, 255
+S_ROUND_F32, S_SLOTS = 25, L // 2 + 1
 REPLACES = {
     "hist_nat": "lightgbm_tpu/learner/pallas_hist.py:202",
     "hist_round": "lightgbm_tpu/learner/pallas_hist.py:505",
     "take_small": "lightgbm_tpu/learner/pallas_hist.py:569",
     "seg_sum": "lightgbm_tpu/learner/pallas_hist.py:617",
+    "hist": "lightgbm_tpu/learner/pallas_hist.py:766",
+    "hist_slots": "lightgbm_tpu/learner/pallas_hist.py:742",
+    "hist_round_f32": "lightgbm_tpu/learner/pallas_hist.py:505",
 }
 SOURCES = {
     "hist_nat": "lightgbm_tpu_torch/csrc/hist_nat.cu",
     "hist_round": "lightgbm_tpu_torch/csrc/hist_round.cu",
     "take_small": "lightgbm_tpu_torch/csrc/take_small.cu",
     "seg_sum": "lightgbm_tpu_torch/csrc/seg_sum.cu",
+    "hist": "lightgbm_tpu_torch/csrc/hist.cu",
+    "hist_slots": "lightgbm_tpu_torch/csrc/hist_slots.cu",
+    "hist_round_f32": "lightgbm_tpu_torch/csrc/hist_round.cu",
 }
+# the training path whose run counts each kernel's launches
+PATH_OF = {"hist_nat": "train", "hist_round": "train", "take_small": "train",
+           "seg_sum": "train", "hist": "train_exact",
+           "hist_slots": "train_exact_rounds",
+           "hist_round_f32": "train_f32"}
+F32_PATHS = {
+    "train_exact": {"tpu_growth_mode": "exact"},
+    "train_exact_rounds": {"tpu_growth_mode": "exact",
+                           "tpu_growth_rounds": True},
+    "train_f32": {"tpu_growth_mode": "rounds", "tpu_hist_dtype": "bf16x2"},
+}
+# kernels each f32 path must launch
+F32_NEEDS = {"train_exact": ("hist",),
+             "train_exact_rounds": ("hist", "hist_slots"),
+             "train_f32": ("hist", "hist_round_f32")}
 
 
 def emit(obj) -> None:
@@ -220,10 +249,145 @@ def kernel_phase(torch, hist, ch):
         plain_ms=cuda_ms(lambda: hist.seg_sum_plain(vals, idx_s, L)),
         library_ms=cuda_ms(lambda: lib_out.index_add_(1, safe, vals)),
         bound_ms=b, bound_by=bb)
+    lines.update(f32_kernel_lines(torch, hist, bins, gen, pleaf, params))
     for name, d in lines.items():
-        emit({"phase": "kernel", "name": name, "kernel_ms": d["ms"],
-              **{k: v for k, v in d.items() if k != "ms"}})
+        emit_kernel(name, d)
     return lines
+
+
+def emit_kernel(name, d) -> None:
+    emit({"phase": "kernel", "name": name, "kernel_ms": d["ms"],
+          **{k: v for k, v in d.items() if k != "ms"}})
+
+
+def bincount_ms(torch, bins, gh, slot, num_slots, num_bins=BC) -> float:
+    """One torch.bincount over the flat (slot, channel, column, bin) key,
+    weighted by the channel values: the library call that computes the
+    same histograms (key construction not timed)."""
+    dev = bins.device
+    Gk, n = bins.shape
+    s = slot.to(torch.int64)[None, None, :]
+    c = torch.arange(3, device=dev)[:, None, None]
+    g = torch.arange(Gk, device=dev)[None, :, None]
+    size = num_slots * 3 * Gk * num_bins
+    key = torch.where((s >= 0) & (s < num_slots),
+                      ((s * 3 + c) * Gk + g) * num_bins
+                      + bins.to(torch.int64)[None], size).reshape(-1)
+    w = gh.to(torch.float64)[:, None, :].expand(3, Gk, n).reshape(-1)
+    ms = cuda_ms(lambda: torch.bincount(key, weights=w, minlength=size + 1),
+                 reps=5)
+    del key, w
+    return ms
+
+
+def f32_compare(torch, run, plain, name):
+    """Kernel against plain on the same tensors, and two kernel launches
+    against each other: both bitwise for the fixed-point f32 sums."""
+    a, b, p = run(), run(), plain()
+    torch.cuda.synchronize()
+    if not torch.equal(a, b):
+        raise AssertionError(f"{name} is not bitwise equal across launches")
+    err = (a.double() - p.double()).abs()
+    rel = float((err / p.double().abs().clamp_min(1e-30)).max())
+    if not torch.equal(a, p):
+        raise AssertionError(f"{name} disagrees with its plain version: "
+                             f"max abs {float(err.max())}")
+    return dict(tolerance="exact (int64 fixed point on both sides)",
+                max_abs_err=float(err.max()), max_rel_err=rel,
+                bitwise_repeat=True)
+
+
+def f32_kernel_lines(torch, hist, bins, gen, pleaf, params):
+    """hist (the root and one N/2 segment) and hist_round's f32 mode at
+    the f32 paths' shapes, on f32 channels like a first tree's."""
+    dev = bins.device
+    g = torch.randn(N_ROWS, generator=gen)
+    h = torch.rand(N_ROWS, generator=gen) * 0.25
+    cnt = torch.ones(N_ROWS)
+    for v in (g, h, cnt):
+        v[-1472:] = 0.0
+    gh = torch.stack([g, h, cnt]).to(dev)
+    lines = {}
+    # ---- hist: the root (all rows) and an N/2 segment whose bounds live
+    # on the device, as the sequential grower's smaller child
+    b0, c0 = N_ROWS // 4, N_ROWS // 2
+    bd = torch.tensor(b0, device=dev)
+    cd = torch.tensor(c0, device=dev)
+    root = f32_compare(torch, lambda: hist.histogram(bins, gh, BC),
+                       lambda: hist.histogram_plain(bins, gh, BC), "hist")
+    seg = f32_compare(
+        torch, lambda: hist.histogram(bins, gh, BC, bd, cd, cap=c0),
+        lambda: hist.histogram_plain(bins, gh, BC, b0, c0, c0), "hist(seg)")
+    zero = torch.zeros(N_ROWS, dtype=torch.int32, device=dev)
+    rows = int((gh[2] != 0).sum())
+    b, bb = bound(N_ROWS * 4 * (G + 3) + 3 * G * BC * 4, rows * G * 3)
+    sb, sbb = bound(c0 * 4 * (G + 3) + 3 * G * BC * 4, c0 * G * 3)
+    lines["hist"] = dict(
+        shape=f"bins ({G},{N_ROWS}) all rows, Bc={BC}; seg: {c0} rows",
+        **root,
+        ms=cuda_ms(lambda: hist.histogram(bins, gh, BC)),
+        plain_ms=cuda_ms(lambda: hist.histogram_plain(bins, gh, BC), reps=5),
+        library_ms=bincount_ms(torch, bins, gh, zero, 1),
+        bound_ms=b, bound_by=bb,
+        seg=dict(**seg,
+                 ms=cuda_ms(lambda: hist.histogram(bins, gh, BC, bd, cd,
+                                                   cap=c0)),
+                 plain_ms=cuda_ms(lambda: hist.histogram_plain(
+                     bins, gh, BC, b0, c0, c0), reps=5),
+                 library_ms=bincount_ms(torch, bins[:, b0:b0 + c0],
+                                        gh[:, b0:b0 + c0], zero[:c0], 1),
+                 bound_ms=sb, bound_by=sbb))
+    # ---- hist_round, f32 mode: one full-width f32 round (S = 25)
+    S = S_ROUND_F32
+    prm = params[:S].clone()
+    prm[-1, 0] = -1  # one unused slot
+    res = f32_compare(
+        torch,
+        lambda: hist.hist_round(bins, gh, pleaf, prm, S, BC, L,
+                                quant=False)[0],
+        lambda: hist.hist_round_plain(bins, gh, pleaf, prm, S, BC,
+                                      quant=False)[0], "hist_round_f32")
+    pk = hist.hist_round(bins, gh, pleaf, prm, S, BC, L, quant=False)[1]
+    pl_p, hslot = hist.round_partition_plain(bins, pleaf, prm, S)
+    if not torch.equal(pk, pl_p):
+        raise AssertionError("hist_round_f32's row -> leaf disagrees")
+    n_split = int(torch.isin(pleaf, prm[:, 0]).sum())
+    n_small = int((hslot < S).sum())
+    b, bb = bound(N_ROWS * 8 + n_split * 4 + n_small * (G * 4 + 12)
+                  + S * 16 * 4 + S * 3 * G * BC * 4,
+                  n_small * G * 3 + n_split * 8)
+    lines["hist_round_f32"] = dict(
+        shape=f"bins ({G},{N_ROWS}) S={S} Bc={BC}", **res,
+        ms=cuda_ms(lambda: hist.hist_round(bins, gh, pleaf, prm, S, BC, L,
+                                           quant=False)),
+        plain_ms=cuda_ms(lambda: hist.hist_round_plain(
+            bins, gh, pleaf, prm, S, BC, quant=False), reps=5),
+        library_ms=bincount_ms(torch, bins, gh, hslot, S),
+        library_note="bincount of the histogram half only",
+        bound_ms=b, bound_by=bb)
+    return lines
+
+
+def hist_slots_line(torch, hist, captured):
+    """hist_slots on the arguments of the fullest round of a real
+    train_exact_rounds tree (the leaf-grouped matrix and its segments)."""
+    bins, gh, begins, counts, Bc, S = captured["args"]
+    res = f32_compare(
+        torch, lambda: hist.hist_slots(bins, gh, begins, counts, Bc, S),
+        lambda: hist.hist_slots_plain(bins, gh, begins, counts, Bc, S),
+        "hist_slots")
+    slot = hist.segment_slots(begins, counts, bins.shape[1])
+    rows = int((slot < S).sum())
+    b, bb = bound(rows * 4 * (bins.shape[0] + 3) + S * 8
+                  + S * 3 * bins.shape[0] * Bc * 4, rows * bins.shape[0] * 3)
+    return dict(
+        shape=(f"bins ({bins.shape[0]},{bins.shape[1]}) S={S} Bc={Bc}, "
+               f"{captured['n']} segments, {rows} rows"), **res,
+        ms=cuda_ms(lambda: hist.hist_slots(bins, gh, begins, counts, Bc, S)),
+        plain_ms=cuda_ms(lambda: hist.hist_slots_plain(
+            bins, gh, begins, counts, Bc, S), reps=5),
+        library_ms=bincount_ms(torch, bins, gh, slot, S, Bc),
+        bound_ms=b, bound_by=bb)
 
 
 def higgs_like(rows: int, feats: int = 28):
@@ -243,23 +407,27 @@ def higgs_like(rows: int, feats: int = 28):
 
 
 def small_phase(lgb, np):
-    """A small run on the card against the same run on the CPU."""
+    """Small runs on the card against the same runs on the CPU: the
+    default path and the exact path."""
     X, y, Xv, _ = higgs_like(20_000, 8)
     params = {"objective": "binary", "num_leaves": 31, "verbosity": -1,
               "min_data_in_leaf": 20}
-    preds = {}
-    for device in ("cuda", "cpu"):
-        p = dict(params, device_type=device)
-        bst = lgb.train(p, lgb.Dataset(X, label=y, params=p), 5)
-        preds[device] = bst.predict(Xv, raw_score=True)
-    err = float(np.abs(preds["cuda"] - preds["cpu"]).max())
+    errs = {}
+    for path, extra in (("default", {}),
+                        ("exact", {"tpu_growth_mode": "exact"})):
+        preds = {}
+        for device in ("cuda", "cpu"):
+            p = dict(params, device_type=device, **extra)
+            bst = lgb.train(p, lgb.Dataset(X, label=y, params=p), 5)
+            preds[device] = bst.predict(Xv, raw_score=True)
+        errs[path] = float(np.abs(preds["cuda"] - preds["cpu"]).max())
     emit({"phase": "small", "rows": 20000, "trees": 5,
-          "max_abs_pred_diff_card_vs_cpu": err, "tolerance": 1e-4})
-    if not err < 1e-4:
-        raise AssertionError(f"card and CPU runs disagree by {err}")
+          "max_abs_pred_diff_card_vs_cpu": errs, "tolerance": 1e-4})
+    if not all(e < 1e-4 for e in errs.values()):
+        raise AssertionError(f"card and CPU runs disagree: {errs}")
 
 
-def profile_phase(torch, bst, n_trees: int = 2) -> None:
+def profile_phase(torch, bst, n_trees: int = 2, name: str = "profile"):
     """Where a tree's time goes: torch.profiler over n_trees more trees
     (CUPTI kernel times), the device's busy share of the wall time, and
     the kernels that take the most device time."""
@@ -284,13 +452,78 @@ def profile_phase(torch, bst, n_trees: int = 2) -> None:
             rows.append((e.key[:80], us / 1e3, e.count))
     rows.sort(key=lambda r: -r[1])
     device_ms = sum(r[1] for r in rows)
-    emit({"phase": "profile", "trees": n_trees,
+    out = {"phase": name, "trees": n_trees,
           "wall_ms_per_tree": wall_ms / n_trees,
           "device_ms_per_tree": device_ms / n_trees,
           "device_busy_share": device_ms / wall_ms,
           "kernel_launches_per_tree": sum(r[2] for r in rows) / n_trees,
-          "top_ms_per_tree": [[k, ms / n_trees, c / n_trees]
-                              for k, ms, c in rows[:12]]})
+           "top_ms_per_tree": [[k, ms / n_trees, c / n_trees]
+                               for k, ms, c in rows[:12]]}
+    emit(out)
+    return out
+
+
+def train_f32_path(torch, lgb, ch, perm, ds, vs, name, n_timed=3,
+                   capture=None):
+    """One f32 path on the headline workload: 1 warmup tree, n_timed
+    timed trees, AUC after the first and the last tree, launches, a
+    1-tree profile. With `capture`, the warmup tree also records the
+    fullest hist_slots call's arguments (for its kernel line)."""
+    params = {"objective": "binary", "num_leaves": L, "max_bin": 255,
+              "learning_rate": 0.1, "min_data_in_leaf": 20, "metric": "auc",
+              "verbosity": -1, **F32_PATHS[name]}
+    bst = lgb.Booster(params, ds)
+    bst.add_valid(vs, "valid")
+    orig = perm.hist_slots
+    if capture is not None:
+        def recording(bins, gh, begins, counts, Bc, S):
+            out = orig(bins, gh, begins, counts, Bc, S)
+            n = int((counts > 0).sum())
+            if n > capture.get("n", -1):
+                capture.update(n=n, args=(bins, gh, begins.clone(),
+                                          counts.clone(), Bc, S))
+            return out
+        perm.hist_slots = recording
+    ch.reset_launch_counts()
+    torch.cuda.synchronize()
+    try:
+        t0 = time.perf_counter()
+        bst.update()
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+    finally:
+        perm.hist_slots = orig
+    auc1 = bst.eval_valid()[0][2]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_timed):
+        bst.update()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(ch.LAUNCHES)
+    auc_last = bst.eval_valid()[0][2]
+    gb = bst._gbdt
+    splits = [int(a.num_nodes) for a in gb.device_trees[-n_timed:]]
+    # the trees' arrays are on the card: read them after the timing
+    line = {"phase": name, **F32_PATHS[name], "rows": gb.train_set.num_data,
+            "num_leaves": L, "hist_dtype": gb.hist_dtype,
+            "rounds_slots": gb.spec.rounds_slots, "warmup_trees": 1,
+            "warmup_s": warm_s, "timed_trees": n_timed,
+            "trees_per_s": n_timed / dt, "ms_per_split":
+            dt * 1e3 / max(sum(splits), 1), "splits_per_tree": splits,
+            "auc_tree1": auc1, "auc_last": auc_last,
+            "launches": launches,
+            "launches_per_tree": {k: v / (1 + n_timed)
+                                  for k, v in launches.items() if v}}
+    emit(line)
+    missing = [k for k in F32_NEEDS[name] if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"{name}: {missing} not launched: {launches}")
+    if not (auc_last > auc1 and auc_last > 0.85):
+        raise AssertionError(f"{name}: AUC did not improve: {auc1} -> "
+                             f"{auc_last}")
+    prof = profile_phase(torch, bst, 1, name + "_profile")
+    return launches, prof
 
 
 def main() -> int:
@@ -357,7 +590,8 @@ def main() -> int:
           "auc_tree1": auc1, "auc_last": auc_last,
           "trees": 2 + n_timed, "launches": launches,
           "peak_device_mb": torch.cuda.max_memory_allocated() / 2 ** 20})
-    if not all(v > 0 for v in launches.values()):
+    int_path = [k for k, p in PATH_OF.items() if p == "train"]
+    if not all(launches[k] > 0 for k in int_path):
         raise AssertionError(f"a kernel was not launched: {launches}")
     if not (auc_last > auc1 and auc_last > 0.85):
         raise AssertionError(f"AUC did not improve: {auc1} -> {auc_last}")
@@ -382,11 +616,27 @@ def main() -> int:
     if not (np.isfinite(p_trained).all() and host_vs_card < 1e-4):
         raise AssertionError("host predictions disagree with card scores")
 
+    # ---- the f32 paths on the same binned data
+    from lightgbm_tpu_torch.learner import permuted
+
+    path_launches = {"train": launches}
+    captured = {}
+    for name in F32_PATHS:
+        path_launches[name], _ = train_f32_path(
+            torch, lgb, ch, permuted, ds, vs, name,
+            capture=captured if name == "train_exact_rounds" else None)
+    if not captured:
+        raise AssertionError("no hist_slots call was captured")
+    lines["hist_slots"] = hist_slots_line(torch, hist, captured)
+    emit_kernel("hist_slots", lines["hist_slots"])
+
     kernels = []
     for name, d in lines.items():
+        path = PATH_OF[name]
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
-            "replaces": REPLACES[name], "launches": launches[name],
+            "replaces": REPLACES[name], "path": path,
+            "launches": path_launches[path][name],
             "max_abs_err": d["max_abs_err"], "ms": d["ms"],
             "plain_ms": d["plain_ms"], "bound_ms": d["bound_ms"],
             "bound_by": d["bound_by"], "library_ms": d["library_ms"],

@@ -3,12 +3,15 @@
 The port of the JAX package's GBDT eager loop (lightgbm_tpu/boosting.py
 _train_one_iter_fast :1212-1278) for the default path. Each iteration:
 
-  gradients (device, objective) -> per class: integer levels with
-  stochastic rounding (_quantize, keyed on fold_in(data_random_seed,
-  it * K + k) like the JAX package) -> rounds grower -> leaf renewal from
-  the true gradients -> score updates: train through the row -> leaf
-  vector (take_small kernel), validation sets through the binned tree
-  traversal -> host Tree, materialized lazily in batches.
+  gradients (device, objective) -> per class, on the default int16
+  path: integer levels with stochastic rounding (_quantize, keyed on
+  fold_in(data_random_seed, it * K + k) like the JAX package) -> rounds
+  grower -> leaf renewal from the true gradients; on the f32 paths
+  (tpu_hist_dtype=bf16x2, tpu_growth_mode=exact): the f32 gradients
+  straight to the rounds or the permuted grower -> score updates: train
+  through the row -> leaf vector (take_small kernel), validation sets
+  through the binned tree traversal -> host Tree, materialized lazily in
+  batches.
 
 Boost-from-average follows gbdt.cpp:327-445: the initial score is added
 to every score set before the first iteration and folded into the first
@@ -59,11 +62,6 @@ def _not_ported(what: str) -> None:
 def check_supported(config: Config, train_set: BinnedDataset) -> None:
     """Refuse every option the port does not implement yet, loudly."""
     c = config
-    if c.tpu_growth_mode == "exact":
-        raise NotImplementedError(
-            "tpu_growth_mode=exact needs the sequential permuted grower "
-            "(learner/permuted.py), which is not ported (ROADMAP queue A)"
-        )
     if c.boosting != "gbdt":
         _not_ported(f"boosting={c.boosting}")
     if c.data_sample_strategy == "goss":
@@ -134,10 +132,15 @@ class GBDT:
         check_supported(config, train_set)
         self.device = torch.device(resolve_device(config))
         self.objective = create_objective(config)
+        # growth strategy (boosting.py:604-689 of the JAX package): `auto`
+        # is the rounds grower on every device here; `exact` the
+        # sequential permuted grower, with its round phase on request
+        use_rounds = config.tpu_growth_mode != "exact"
         self.hist_dtype, self._hist_levels = resolve_hist_dtype(
             config.tpu_hist_dtype, config.use_quantized_grad,
-            config.num_grad_quant_bins,
+            config.num_grad_quant_bins, use_rounds,
         )
+        self._int_packed = self._hist_levels > 0
         # leaf renewal bypasses the grower's monotone clamp and path
         # smoothing, so those configurations keep the grower's outputs
         mono = train_set.monotone_constraints
@@ -150,11 +153,18 @@ class GBDT:
             num_leaves=config.num_leaves,
             num_bins=train_set.max_num_bin,
             max_depth=config.max_depth,
-            rounds_slots=min(config.tpu_round_slots or 48, config.num_leaves),
+            # slot defaults as the JAX package's: 48 on the integer
+            # path, 25 on the f32 path; they decide which leaves a round
+            # takes when the leaf budget binds
+            rounds_slots=(min(config.tpu_round_slots
+                              or (48 if self._int_packed else 25),
+                              config.num_leaves) if use_rounds else 0),
             efb=train_set.bundle_layout is not None,
             col_bins=train_set.col_bins,
             quant_levels=self._hist_levels,
             has_mono=has_mono,
+            quant=use_rounds and self._int_packed,
+            rounds=config.tpu_growth_rounds and not use_rounds,
         )
         self.params = make_split_params(config)
         self.train = self._score_set(train_set, "training", self.dev)
@@ -228,6 +238,16 @@ class GBDT:
                 )
             )
         return arrays, row_leaf
+
+    def _grow(self, gk, hk, mask, feat_mask, valid):
+        """Grow on the f32 gradients: no quantization, no renewal
+        (boosting._grow)."""
+        d = self.dev
+        return grow_tree(
+            d["bins"], d["nan_bin"], d["num_bins"], d["mono"], d["is_cat"],
+            gk, hk, mask, feat_mask, self.params, self.spec, valid=valid,
+            bundle=d["bundle"],
+        )
 
     def _traverse(self, arrays: TreeArrays, dev) -> torch.Tensor:
         return traverse_tree_bins(arrays, dev["bins"], dev["nan_bin"],
@@ -318,8 +338,12 @@ class GBDT:
         feat_mask = torch.ones(self.train_set.num_used_features,
                                dtype=torch.bool, device=self.device)
         for k in range(K):
-            arrays, row_leaf = self._grow_int_packed(
-                grad[k], hess[k], valid, feat_mask, valid, self.iter_, k)
+            if self._int_packed:
+                arrays, row_leaf = self._grow_int_packed(
+                    grad[k], hess[k], valid, feat_mask, valid, self.iter_, k)
+            else:
+                arrays, row_leaf = self._grow(grad[k], hess[k], valid,
+                                              feat_mask, valid)
             ok = (arrays.num_nodes > 0).to(torch.float32)
             lv = arrays.leaf_value * (self.shrinkage_rate * ok)
             self.train.score[k] = add_score(self.train.score[k], row_leaf,

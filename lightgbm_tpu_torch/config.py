@@ -218,15 +218,19 @@ _PARAMS: Dict[str, _P] = {
     "tpu_row_block": (0, int, (), _nonneg),  # 0 = auto; device row padding block
     "tpu_growth_rounds": (False, bool, (), None),
     # growth strategy: "auto" and "rounds" both mean the round-batched
-    # grower (learner/rounds.py) on every device; "exact" (the
-    # sequential oracle) is not ported and raises
+    # grower (learner/rounds.py) on every device; "exact" the sequential
+    # permuted grower (learner/permuted.py, with its batched round phase
+    # first when tpu_growth_rounds)
     "tpu_growth_mode": ("auto", str, (),
                         lambda v: v in ("auto", "rounds", "exact")),
-    # max leaves split per round in rounds mode; 0 = auto (48)
+    # max leaves split per round in rounds mode; 0 = auto (48 on the
+    # integer path, 25 on the f32 path)
     "tpu_round_slots": (0, int, (), _nonneg),
     # histogram-channel policy (learner/quantize.resolve_hist_dtype):
     # "auto" and "int16" discretize g/h per tree to 256 integer levels
-    # and accumulate 3 integer channels; "bf16x2"/"float32"/"int8" raise
+    # and accumulate 3 integer channels on the rounds path;
+    # "bf16x2"/"float32" accumulate the f32 gradients (always so on the
+    # exact path); "int8" raises
     "tpu_hist_dtype": ("auto", str, ("hist_dtype",),
                        lambda v: v in ("auto", "float32", "bf16x2",
                                        "int16", "int8")),

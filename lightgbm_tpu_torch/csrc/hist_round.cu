@@ -2,8 +2,12 @@
 // rows and builds the smaller children's histograms.
 //
 // Replaces the TPU kernel lightgbm_tpu/learner/pallas_hist.py
-// hist_round_tpu (_round_kernel), int16 mode (3 integer channels,
-// numerical splits). Per row it
+// hist_round_tpu (_round_kernel) for numerical splits, in two modes:
+// int16 (3 integer-level channels, int32 cells) and f32 (the TPU's
+// 5-channel bf16x2 mode; here 3 f32 channels summed as int64 fixed point,
+// hist_common.cuh, with the scale taken over all N rows by one absmax
+// launch before and one fx_to_f32 launch after — both in hist.cu). Per
+// row it
 //   - finds the row's split slot s from its leaf id through a leaf -> slot
 //     table built in shared memory from the (S, 16) params (the TPU kernel
 //     compares against every slot and contracts a column one-hot on the
@@ -32,15 +36,21 @@ namespace lgbm_torch {
 
 constexpr int kParamCols = 16;
 
+// Val: int32_t levels with Acc = int, or float values with Acc = fx_t
+// (absmax_bits and log2_rows give the fixed-point exponents; unused for
+// the integer mode).
+template <typename Val, typename Acc>
 __global__ void hist_round_kernel(
-    const int32_t* __restrict__ bins, const int32_t* __restrict__ gh,
+    const int32_t* __restrict__ bins, const Val* __restrict__ gh,
     const int32_t* __restrict__ pleaf, const int32_t* __restrict__ params,
-    int32_t* __restrict__ out, int32_t* __restrict__ pleaf_new, int G,
-    int N, int S, int Bc, int L, int Sc, int Gc, int rows_per_blk) {
-  extern __shared__ int sh[];
+    const unsigned* __restrict__ absmax_bits, int log2_rows,
+    Acc* __restrict__ out, int32_t* __restrict__ pleaf_new, int G, int N,
+    int S, int Bc, int L, int Sc, int Gc, int rows_per_blk) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  Acc* sh = reinterpret_cast<Acc*>(smem);
   const HistTile t = make_tile(G, N, S, Bc, Sc, Gc, rows_per_blk);
   const int hist_n = Sc * 3 * Gc * Bc;
-  int* table = sh + hist_n;          // (L + 1,) leaf -> slot
+  int* table = reinterpret_cast<int*>(sh + hist_n);  // (L + 1,) leaf -> slot
   int* prm = table + (L + 1);        // (S, 16) params
   zero_smem(sh, hist_n);
   for (int i = threadIdx.x; i <= L; i += blockDim.x) table[i] = -1;
@@ -52,6 +62,10 @@ __global__ void hist_round_kernel(
     if (leaf >= 0 && leaf <= L) table[leaf] = s;
   }
   __syncthreads();
+  int k[3] = {0, 0, 0};
+  if (absmax_bits != nullptr)
+    for (int c = 0; c < 3; ++c)
+      k[c] = fx_exponent(absmax_bits[c], log2_rows);
   const bool writer = blockIdx.y == 0 && blockIdx.z == 0;
   for (int r = t.r0 + threadIdx.x; r < t.r1; r += blockDim.x) {
     const int p = pleaf[r];
@@ -70,32 +84,69 @@ __global__ void hist_round_kernel(
     const bool go_left = fb <= q[2] || (q[3] != 0 && fb == q[4]);
     if (writer) pleaf_new[r] = go_left ? p : q[6];
     if (go_left == (q[5] != 0)) {
-      add_row(sh, t, bins, s, r, gh[r], gh[(int64_t)N + r],
-              gh[2 * (int64_t)N + r]);
+      Acc v0, v1, v2;
+      load_vals(gh, N, r, k, v0, v1, v2);
+      add_row(sh, t, bins, s, r, v0, v1, v2);
     }
   }
   __syncthreads();
   flush_tile(sh, t, out);
 }
 
+template <typename Val, typename Acc>
+int launch_hist_round(const void* bins, const void* gh, const void* pleaf,
+                      const void* params, const unsigned* absmax_bits,
+                      int log2_rows, void* out, void* pleaf_new, int G,
+                      int N, int S, int Bc, int L, int Sc, int Gc,
+                      int rows_per_blk, cudaStream_t stream) {
+  const int smem = Sc * 3 * Gc * Bc * (int)sizeof(Acc)
+                   + ((L + 1) + S * kParamCols) * (int)sizeof(int);
+  cudaError_t err = cudaFuncSetAttribute(
+      hist_round_kernel<Val, Acc>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((N + rows_per_blk - 1) / rows_per_blk, (G + Gc - 1) / Gc,
+            (S + Sc - 1) / Sc);
+  hist_round_kernel<Val, Acc><<<grid, kThreads, smem, stream>>>(
+      (const int32_t*)bins, (const Val*)gh, (const int32_t*)pleaf,
+      (const int32_t*)params, absmax_bits, log2_rows, (Acc*)out,
+      (int32_t*)pleaf_new, G, N, S, Bc, L, Sc, Gc, rows_per_blk);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace lgbm_torch
 
+// int16 mode: gh (3, N) int32 levels, out (S, 3, G, Bc) int32 zeroed.
 extern "C" int lgbm_hist_round(const void* bins, const void* gh,
                                const void* pleaf, const void* params,
                                void* out, void* pleaf_new, int G, int N,
                                int S, int Bc, int L, int Sc, int Gc,
                                int rows_per_blk, void* stream) {
   using namespace lgbm_torch;
-  const int smem =
-      (Sc * 3 * Gc * Bc + (L + 1) + S * kParamCols) * (int)sizeof(int);
-  cudaError_t err = cudaFuncSetAttribute(
-      hist_round_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((N + rows_per_blk - 1) / rows_per_blk, (G + Gc - 1) / Gc,
-            (S + Sc - 1) / Sc);
-  hist_round_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      (const int32_t*)bins, (const int32_t*)gh, (const int32_t*)pleaf,
-      (const int32_t*)params, (int32_t*)out, (int32_t*)pleaf_new, G, N, S,
-      Bc, L, Sc, Gc, rows_per_blk);
-  return (int)cudaGetLastError();
+  return launch_hist_round<int32_t, int>(
+      bins, gh, pleaf, params, nullptr, 0, out, pleaf_new, G, N, S, Bc, L,
+      Sc, Gc, rows_per_blk, (cudaStream_t)stream);
+}
+
+// f32 mode: gh (3, N) f32; absmax_bits (3,) and acc (S, 3, G, Bc) int64
+// zeroed by the caller; out (S, 3, G, Bc) f32.
+extern "C" int lgbm_hist_round_f32(const void* bins, const void* gh,
+                                   const void* pleaf, const void* params,
+                                   void* absmax_bits, void* acc, void* out,
+                                   void* pleaf_new, int G, int N, int S,
+                                   int Bc, int L, int Sc, int Gc,
+                                   int rows_per_blk, int log2_rows,
+                                   void* stream) {
+  using namespace lgbm_torch;
+  cudaStream_t st = (cudaStream_t)stream;
+  int err = launch_absmax((const float*)gh, N, nullptr, N,
+                          (unsigned*)absmax_bits, st);
+  if (err) return err;
+  err = launch_hist_round<float, fx_t>(
+      bins, gh, pleaf, params, (const unsigned*)absmax_bits, log2_rows, acc,
+      pleaf_new, G, N, S, Bc, L, Sc, Gc, rows_per_blk, st);
+  if (err) return err;
+  return launch_fx_to_f32((const fx_t*)acc, (const unsigned*)absmax_bits,
+                          log2_rows, (float*)out, (long long)S * 3 * G * Bc,
+                          G * Bc, st);
 }

@@ -1,14 +1,17 @@
 """Hand-written Hopper kernels of the training path, and their wrappers.
 
-Four kernels, one per TPU kernel that the default rounds path launches
-(lightgbm_tpu/learner/pallas_hist.py):
+One kernel, or kernel mode, per TPU kernel that the ported training
+paths launch (lightgbm_tpu/learner/pallas_hist.py):
 
-| wrapper      | source                 | replaces                        |
-|--------------|------------------------|---------------------------------|
-| `hist_nat`   | csrc/hist_nat.cu       | hist_nat_tpu / _nat_kernel      |
-| `hist_round` | csrc/hist_round.cu     | hist_round_tpu / _round_kernel  |
-| `take_small` | csrc/take_small.cu     | take_small_tpu / _take_kernel   |
-| `seg_sum`    | csrc/seg_sum.cu        | seg_sum_tpu / _segsum_kernel    |
+| wrapper          | source             | replaces                          |
+|------------------|--------------------|-----------------------------------|
+| `hist_nat`       | csrc/hist_nat.cu   | hist_nat_tpu / _nat_kernel        |
+| `hist_round`     | csrc/hist_round.cu | hist_round_tpu, int16 mode        |
+| `hist_round_f32` | csrc/hist_round.cu | hist_round_tpu, f32 (bf16x2) mode |
+| `take_small`     | csrc/take_small.cu | take_small_tpu / _take_kernel     |
+| `seg_sum`        | csrc/seg_sum.cu    | seg_sum_tpu / _segsum_kernel      |
+| `hist`           | csrc/hist.cu       | hist_tpu / _hist_kernel           |
+| `hist_slots`     | csrc/hist_slots.cu | hist_slots_tpu / _hist_slots_kernel |
 
 The sources compile with nvcc for sm_90a into one shared library with
 a plain C interface, loaded with ctypes. The library is built at first
@@ -46,6 +49,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # launches on the card, per kernel; read and reset by chip_smoke.py
 LAUNCHES: Dict[str, int] = {
     "hist_nat": 0, "hist_round": 0, "take_small": 0, "seg_sum": 0,
+    "hist": 0, "hist_slots": 0, "hist_round_f32": 0,
 }
 
 # shared memory a block may use on sm_90 (mirrors hist_common.cuh)
@@ -144,8 +148,13 @@ def load() -> ctypes.CDLL:
         lib.lgbm_hist_round.argtypes = [P] * 6 + [I] * 8 + [P]
         lib.lgbm_take_small.argtypes = [P, P, P] + [I] * 4 + [P]
         lib.lgbm_seg_sum.argtypes = [P] * 4 + [I] * 4 + [P]
+        lib.lgbm_hist.argtypes = ([P, P, ctypes.c_longlong] + [P] * 4
+                                  + [I] * 6 + [P])
+        lib.lgbm_hist_slots.argtypes = [P] * 8 + [I] * 8 + [P]
+        lib.lgbm_hist_round_f32.argtypes = [P] * 8 + [I] * 9 + [P]
         for fn in (lib.lgbm_hist_nat, lib.lgbm_hist_round,
-                   lib.lgbm_take_small, lib.lgbm_seg_sum):
+                   lib.lgbm_take_small, lib.lgbm_seg_sum, lib.lgbm_hist,
+                   lib.lgbm_hist_slots, lib.lgbm_hist_round_f32):
             fn.restype = ctypes.c_int
         _lib = lib
         return lib
@@ -189,11 +198,12 @@ def check_int_range(n_rows: int, levels: int) -> None:
 
 
 def _hist_tiling(G: int, N: int, S: int, Bc: int, extra_ints: int,
-                 device) -> Tuple[int, int, int]:
+                 device, cell_words: int = 1) -> Tuple[int, int, int]:
     """(slots per block Sc, columns per block Gc, rows per block) for the
-    shared-memory histogram tile of hist_nat / hist_round."""
+    shared-memory histogram tile of hist_nat / hist_round; cell_words = 2
+    for the int64 fixed-point cells of the f32 mode."""
     budget = _MAX_SMEM // 4 - extra_ints
-    per_slot = 3 * Bc
+    per_slot = 3 * Bc * cell_words
     if budget < per_slot:
         raise ValueError(
             f"num_bins={Bc} needs {per_slot * 4} B of shared memory per "
@@ -264,6 +274,157 @@ def hist_round(bins: torch.Tensor, gh: torch.Tensor, pleaf: torch.Tensor,
     _check(rc, "hist_round")
     LAUNCHES["hist_round"] += 1
     return out.to(torch.float32), pleaf_new
+
+
+def hist_round_f32(bins: torch.Tensor, gh: torch.Tensor,
+                   pleaf: torch.Tensor, params: torch.Tensor,
+                   num_slots: int, num_bins: int, num_leaves: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The f32 mode of hist_round: (3, N) f32 channels -> ((S, 3, G, Bc)
+    f32 fixed-point sums, (N,) int32 new row -> leaf)."""
+    from .histogram import fx_log2_rows
+
+    _need(bins, "bins", torch.int32, 2)
+    _need(gh, "gh", torch.float32, 2)
+    _need(pleaf, "pleaf", torch.int32, 1)
+    _need(params, "params", torch.int32, 2)
+    G, N = bins.shape
+    S, Bc, L = int(num_slots), int(num_bins), int(num_leaves)
+    if gh.shape != (3, N) or pleaf.shape[0] != N:
+        raise ValueError(f"gh must be (3, {N}) and pleaf ({N},)")
+    if params.shape != (S, 16):
+        raise ValueError(f"params must be ({S}, 16)")
+    extra = (L + 1) + S * 16
+    Sc, Gc, rows = _hist_tiling(G, N, S, Bc, extra, bins.device,
+                                cell_words=2)
+    dev = bins.device
+    absmax = torch.zeros(3, dtype=torch.int32, device=dev)
+    acc = torch.zeros((S, 3, G, Bc), dtype=torch.int64, device=dev)
+    out = torch.empty((S, 3, G, Bc), dtype=torch.float32, device=dev)
+    pleaf_new = torch.empty_like(pleaf)
+    lib = load()
+    rc = lib.lgbm_hist_round_f32(
+        bins.data_ptr(), gh.data_ptr(), pleaf.data_ptr(), params.data_ptr(),
+        absmax.data_ptr(), acc.data_ptr(), out.data_ptr(),
+        pleaf_new.data_ptr(), G, N, S, Bc, L, Sc, Gc, rows,
+        fx_log2_rows(N), _stream(),
+    )
+    _check(rc, "hist_round_f32")
+    LAUNCHES["hist_round_f32"] += 1
+    return out, pleaf_new
+
+
+def _f32_cols(G: int, Bc: int) -> int:
+    """Columns per block of the f32 tiles (hist, hist_slots): the column
+    groups split G evenly, each a quarter of a block's shared memory at
+    most, so that several blocks share an SM."""
+    per_col = 3 * Bc * 8
+    g_max = (_MAX_SMEM // 4) // per_col
+    if g_max < 1:
+        raise ValueError(
+            f"num_bins={Bc} needs {per_col} B of shared memory per column; "
+            f"the f32 tiles allow {_MAX_SMEM // 4} B (kernel limit)"
+        )
+    groups = -(-G // g_max)
+    return -(-G // groups)
+
+
+def _range_tensor(begin, count, N: int, dev) -> Tuple[torch.Tensor, int]:
+    """Device int32 (begin, count) and the host bound on count."""
+    if isinstance(begin, torch.Tensor) or isinstance(count, torch.Tensor):
+        if count is None:
+            raise ValueError("a device begin needs a device count and a cap")
+        rng = torch.stack([torch.as_tensor(begin, device=dev),
+                           torch.as_tensor(count, device=dev)]
+                          ).to(torch.int32)
+        return rng, -1
+    b = int(begin)
+    c = N - b if count is None else int(count)
+    if b < 0 or c < 0 or b + c > N:
+        raise ValueError(f"rows [{b}, {b + c}) outside [0, {N})")
+    return torch.tensor([b, c], dtype=torch.int32, device=dev), c
+
+
+def hist(bins: torch.Tensor, gh: torch.Tensor, num_bins: int, begin=0,
+         count=None, cap: Optional[int] = None) -> torch.Tensor:
+    """(G, N) bins, (3, N) f32 channels -> (3, G, Bc) f32 fixed-point sums
+    over rows [begin, begin + count); begin/count host ints or device
+    0-dim tensors, cap a host bound on count (required for tensors)."""
+    from .histogram import fx_log2_rows
+
+    _need(bins, "bins", torch.int32, 2)
+    _need(gh, "gh", torch.float32, 2)
+    G, N = bins.shape
+    Bc = int(num_bins)
+    if gh.shape != (3, N):
+        raise ValueError(f"gh must be (3, {N}), got {tuple(gh.shape)}")
+    dev = bins.device
+    rng, c = _range_tensor(begin, count, N, dev)
+    if cap is None:
+        if c < 0:
+            raise ValueError("a device count needs a host cap")
+        cap = c
+    cap = min(int(cap), N)
+    if cap <= 0:
+        return torch.zeros((3, G, Bc), dtype=torch.float32, device=dev)
+    Gc = _f32_cols(G, Bc)
+    n_groups = -(-G // Gc)
+    target = 4 * _sm_count(dev)
+    chunks = max(1, min(-(-cap // 2048), -(-target // n_groups)))
+    rows = -(-cap // chunks)
+    absmax = torch.zeros(3, dtype=torch.int32, device=dev)
+    acc = torch.zeros((3, G, Bc), dtype=torch.int64, device=dev)
+    out = torch.empty((3, G, Bc), dtype=torch.float32, device=dev)
+    lib = load()
+    rc = lib.lgbm_hist(bins.data_ptr(), gh.data_ptr(), N, rng.data_ptr(),
+                       absmax.data_ptr(), acc.data_ptr(), out.data_ptr(),
+                       G, Bc, Gc, rows, cap, fx_log2_rows(cap), _stream())
+    _check(rc, "hist")
+    LAUNCHES["hist"] += 1
+    return out
+
+
+def hist_slots(bins: torch.Tensor, gh: torch.Tensor, begins: torch.Tensor,
+               counts: torch.Tensor, num_bins: int,
+               num_slots: int) -> torch.Tensor:
+    """(G, N) leaf-grouped bins, (3, N) f32 channels, (S,) int32 disjoint
+    segments -> (S, 3, G, Bc) f32 fixed-point sums; empty slots zero."""
+    from .histogram import fx_log2_rows
+
+    _need(bins, "bins", torch.int32, 2)
+    _need(gh, "gh", torch.float32, 2)
+    G, N = bins.shape
+    S, Bc = int(num_slots), int(num_bins)
+    if gh.shape != (3, N):
+        raise ValueError(f"gh must be (3, {N}), got {tuple(gh.shape)}")
+    begins = begins.to(torch.int32).contiguous()
+    counts = counts.to(torch.int32).contiguous()
+    _need(begins, "begins", torch.int32, 1)
+    _need(counts, "counts", torch.int32, 1)
+    if begins.shape[0] != S or counts.shape[0] != S:
+        raise ValueError(f"begins and counts must have {S} slots")
+    dev = bins.device
+    out = torch.zeros((S, 3, G, Bc), dtype=torch.float32, device=dev)
+    if N == 0 or S == 0:
+        return out
+    Gc = _f32_cols(G, Bc)
+    # rows per visit: about one visit per SM over all N rows, so the
+    # grid is a few waves once the column groups multiply it
+    per_sm = -(-N // _sm_count(dev))
+    rows = max(2048, -(-per_sm // 512) * 512)
+    max_visits = -(-N // rows) + S
+    vstart = torch.empty(S + 1, dtype=torch.int32, device=dev)
+    absmax = torch.zeros(3, dtype=torch.int32, device=dev)
+    acc = torch.zeros((S, 3, G, Bc), dtype=torch.int64, device=dev)
+    lib = load()
+    rc = lib.lgbm_hist_slots(
+        bins.data_ptr(), gh.data_ptr(), begins.data_ptr(), counts.data_ptr(),
+        vstart.data_ptr(), absmax.data_ptr(), acc.data_ptr(), out.data_ptr(),
+        G, N, S, Bc, Gc, rows, max_visits, fx_log2_rows(N), _stream(),
+    )
+    _check(rc, "hist_slots")
+    LAUNCHES["hist_slots"] += 1
+    return out
 
 
 def take_small(tab: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

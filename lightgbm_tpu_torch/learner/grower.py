@@ -1,12 +1,12 @@
 """Tree arrays, growth spec and the per-tree helpers shared by the grower.
 
-The port of lightgbm_tpu/learner/grower.py for the rounds path: the
-fixed-size tree layout of the reference (include/LightGBM/tree.h; child
-pointers >= 0 are internal nodes, < 0 leaves as ~leaf), the leaf output
-math of a chosen split, the basic monotone intervals, the score update
-through the row -> leaf vector, and grow_tree's dispatch. The JAX
-package's flat and permuted growers are not ported: tpu_growth_mode
-resolves to the rounds grower on every device here.
+The port of lightgbm_tpu/learner/grower.py: the fixed-size tree layout
+of the reference (include/LightGBM/tree.h; child pointers >= 0 are
+internal nodes, < 0 leaves as ~leaf), the leaf output math of a chosen
+split, the basic monotone intervals, the score update through the
+row -> leaf vector, and grow_tree's dispatch between the rounds grower
+(rounds.py) and the sequential permuted grower (permuted.py). The JAX
+package's flat grower is not ported.
 """
 
 from __future__ import annotations
@@ -19,16 +19,22 @@ from .split import SplitParams, SplitRecord, leaf_output
 
 
 class GrowerSpec(NamedTuple):
-    """Static growth configuration of the rounds grower."""
+    """Static growth configuration of a tree."""
 
     num_leaves: int
     num_bins: int  # uniform per-feature bin-axis size B
     max_depth: int  # <= 0 means unlimited
-    rounds_slots: int  # leaves split per round at most (kernel width)
+    # > 0: the rounds grower, splitting this many leaves per round at most
+    # (kernel width); 0: the sequential permuted grower
+    rounds_slots: int
     efb: bool = False  # bin matrix columns are EFB bundles
     col_bins: int = 0  # bundle-column bin axis (0 = num_bins)
     quant_levels: int = 256  # integer levels of the gradient channels
     has_mono: bool = False  # any monotone constraint (basic method)
+    # rounds grower: integer-level channels (True) or f32 channels
+    quant: bool = True
+    # permuted grower: the batched round phase first (tpu_growth_rounds)
+    rounds: bool = False
 
 
 class TreeArrays(NamedTuple):
@@ -116,12 +122,23 @@ def grow_tree(bins_fm, nan_bin, num_bins, mono, is_cat, grad, hess, mask,
               valid=None, bundle=None, gh_scale=None
               ) -> Tuple[TreeArrays, torch.Tensor]:
     """Grow one tree -> (tree arrays, per-row leaf, -1 on padding rows).
-    Dispatches to the rounds grower, the only grower of the port."""
-    from .rounds import grow_tree_rounds
+    Dispatches as the JAX package's grow_tree does: the rounds grower
+    when spec.rounds_slots > 0, else the sequential permuted grower
+    (f32 gradients only; gh_scale must then be None)."""
+    if spec.rounds_slots > 0:
+        from .rounds import grow_tree_rounds
 
-    return grow_tree_rounds(bins_fm, nan_bin, num_bins, mono, is_cat, grad,
-                            hess, mask, feat_mask, params, spec, valid,
-                            bundle, gh_scale)
+        return grow_tree_rounds(bins_fm, nan_bin, num_bins, mono, is_cat,
+                                grad, hess, mask, feat_mask, params, spec,
+                                valid, bundle, gh_scale)
+    if gh_scale is not None:
+        raise ValueError("the permuted grower takes f32 gradients, not "
+                         "integer levels with scales")
+    from .permuted import grow_tree_permuted
+
+    return grow_tree_permuted(bins_fm, nan_bin, num_bins, mono, is_cat, grad,
+                              hess, mask, feat_mask, params, spec, valid,
+                              bundle)
 
 
 def add_score(score: torch.Tensor, row_leaf: torch.Tensor,

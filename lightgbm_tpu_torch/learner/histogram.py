@@ -11,11 +11,28 @@ There is nothing else — no size gates, no fallback when a build or
 launch fails. The plain versions are the CPU path of the tests and the
 yardstick chip_smoke.py holds each kernel against on the card.
 
-Only the integer (int16-level) mode exists: gradients arrive as
-integer levels (quantize.discretize_gradients_int) in a (3, N) int32
-tensor of (gradient level, hessian level, in-bag count). The
-5-channel f32 mode and the int8 mode of the JAX package are not ported
-(ROADMAP queue B) and raise.
+Two channel layouts, both (3, N) with rows (gradient, hessian, count):
+- integer levels (int32; quantize.discretize_gradients_int), summed
+  exactly in integers: hist_nat_slots and hist_round with quant=True;
+- f32 values (build_gh3), summed as int64 fixed point: histogram,
+  hist_slots and hist_round with quant=False. The JAX package splits
+  each f32 value into bf16 hi/lo halves only to feed the TPU's bf16
+  matrix unit and re-adds them in every consumer; since hi + lo == x
+  exactly, the port carries the f32 value itself (ROADMAP C).
+
+Fixed point (fx_*): each channel of a call is scaled by 2^k, rounded
+to int64 and summed, then scaled back to f32. k = 62 - ceil(log2 n) -
+e, where max |value| < 2^e over the call's rows and n bounds the rows
+summed, so no cell sum reaches 2^62 and integer adds never overflow.
+The sum is exact and independent of order — the kernels add with
+integer atomics and still give the same bits on every run and the
+same bits as these plain versions. Each value is rounded to
+2^(e - 62 + ceil(log2 n)): 2^-42 of the channel's max at n = 2^20 rows,
+far below f32's 2^-24, so the f32 result is the true sum to within f32
+rounding unless n nears 2^38.
+
+The 5-channel f32 mode of hist_nat and the int8 mode of the JAX package
+are not ported (ROADMAP queue A.10, B) and raise.
 """
 
 from __future__ import annotations
@@ -43,12 +60,20 @@ def root_sums_quant(gh: torch.Tensor) -> torch.Tensor:
     return gh.to(torch.int64).sum(dim=1).to(torch.float32)
 
 
-def _require_quant(quant: bool, int8: bool) -> None:
-    if not quant:
-        raise NotImplementedError(
-            "the 5-channel f32 histogram mode (tpu_hist_dtype=bf16x2) of "
-            "hist_nat/hist_round is not ported (ROADMAP queue B)"
-        )
+def build_gh3(grad: torch.Tensor, hess: torch.Tensor,
+              count: torch.Tensor) -> torch.Tensor:
+    """f32 channels (gradient, hessian, count), already masked -> (3, N)
+    f32: the JAX package's build_gh8 with each hi/lo pair re-added."""
+    return torch.stack([grad, hess, count]).to(torch.float32)
+
+
+def root_sums(gh: torch.Tensor) -> torch.Tensor:
+    """(3,) f32 (sum_grad, sum_hess, count) over all rows of (3, N) f32
+    channels: summed in f64 and rounded once."""
+    return gh.to(torch.float64).sum(dim=1).to(torch.float32)
+
+
+def _require_int16(int8: bool) -> None:
     if int8:
         raise NotImplementedError(
             "the int8 SWAR histogram mode (tpu_hist_dtype=int8) is not "
@@ -56,13 +81,53 @@ def _require_quant(quant: bool, int8: bool) -> None:
         )
 
 
+# ------------------------------------------------------------ fixed point
+FX_BITS = 62
+
+
+def fx_log2_rows(n_rows: int) -> int:
+    """ceil(log2 n_rows): the headroom bits a sum of n_rows values needs."""
+    return max(int(n_rows) - 1, 0).bit_length()
+
+
+def fx_exponents(absmax: torch.Tensor, n_rows: int) -> torch.Tensor:
+    """(3,) f32 per-channel max |value| -> (3,) int32 scale exponents k
+    (module docstring; csrc/hist_common.cuh fx_exponent)."""
+    _, e = torch.frexp(absmax.to(torch.float32))
+    return (FX_BITS - fx_log2_rows(n_rows) - e).to(torch.int32)
+
+
+def _pow2(k: torch.Tensor) -> torch.Tensor:
+    """Exact f64 2^k from its bit pattern. Here |k| <= 210 (f32 maxima
+    have 2^-148 <= 2^e <= 2^128), far inside f64's normal range."""
+    return ((k.to(torch.int64) + 1023) << 52).view(torch.float64)
+
+
+def fx_quantize(gh: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """(3, n) f32 -> (3, n) int64 round-half-even(value * 2^k)."""
+    return torch.round(gh.to(torch.float64) * _pow2(k)[:, None]
+                       ).to(torch.int64)
+
+
+def fx_to_f32(acc: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """(..., 3, G, B) int64 fixed-point sums -> f32 (value * 2^-k)."""
+    return (acc.to(torch.float64) * _pow2(-k)[:, None, None]
+            ).to(torch.float32)
+
+
+def _absmax(gh: torch.Tensor) -> torch.Tensor:
+    if gh.shape[1] == 0:
+        return torch.zeros(3, dtype=torch.float32, device=gh.device)
+    return gh.abs().amax(dim=1)
+
+
 # ---------------------------------------------------------------- hist_nat
-def hist_nat_slots_plain(bins_fm: torch.Tensor, gh: torch.Tensor,
-                         slot: torch.Tensor, num_slots: int,
-                         num_bins: int) -> torch.Tensor:
-    """Plain version of hist_nat: one int64 index_add_ over the flat key
-    (slot, channel, column, bin). Rows with slot outside [0, S) or a bin
-    outside [0, Bc) land in a trash cell."""
+def _slot_hist_int64(bins_fm: torch.Tensor, vals: torch.Tensor,
+                     slot: torch.Tensor, num_slots: int,
+                     num_bins: int) -> torch.Tensor:
+    """(S, 3, G, Bc) int64 sums of (3, N) integer values: one int64
+    index_add_ over the flat key (slot, channel, column, bin). Rows with
+    slot outside [0, S) or a bin outside [0, Bc) land in a trash cell."""
     G, N = bins_fm.shape
     S, B = int(num_slots), int(num_bins)
     dev = bins_fm.device
@@ -74,9 +139,17 @@ def hist_nat_slots_plain(bins_fm: torch.Tensor, gh: torch.Tensor,
     out = torch.zeros(size + 1, dtype=torch.int64, device=dev)
     for c in range(3):
         key = torch.where(ok, ((s * 3 + c) * G + g) * B + b, size)
-        vals = gh[c].to(torch.int64)[None, :].expand(G, N)
-        out.index_add_(0, key.reshape(-1), vals.reshape(-1))
-    return out[:size].reshape(S, 3, G, B).to(torch.float32)
+        v = vals[c].to(torch.int64)[None, :].expand(G, N)
+        out.index_add_(0, key.reshape(-1), v.reshape(-1))
+    return out[:size].reshape(S, 3, G, B)
+
+
+def hist_nat_slots_plain(bins_fm: torch.Tensor, gh: torch.Tensor,
+                         slot: torch.Tensor, num_slots: int,
+                         num_bins: int) -> torch.Tensor:
+    """Plain version of hist_nat: exact integer sums."""
+    return _slot_hist_int64(bins_fm, gh, slot, num_slots,
+                            num_bins).to(torch.float32)
 
 
 def hist_nat_slots(
@@ -91,12 +164,111 @@ def hist_nat_slots(
 ) -> torch.Tensor:
     """Per-slot histograms keyed by a row -> slot vector -> (S, 3, G, Bc)
     f32 exact integer sums (hist_nat kernel on the card)."""
-    _require_quant(quant, int8)
+    if not quant:
+        raise NotImplementedError(
+            "the 5-channel f32 mode of hist_nat (the percentile leaf "
+            "refit's histograms) is not ported (ROADMAP queue A.10)"
+        )
+    _require_int16(int8)
     if bins_fm.is_cuda:
         from .cuda_hist import hist_nat
 
         return hist_nat(bins_fm, gh, slot, num_slots, num_bins, levels)
     return hist_nat_slots_plain(bins_fm, gh, slot, num_slots, num_bins)
+
+
+# ---------------------------------------------------------- f32 histogram
+def _segment(begin, count, n_total: int) -> Tuple[int, int]:
+    b = int(begin)
+    c = n_total - b if count is None else int(count)
+    return b, c
+
+
+def histogram_plain(bins_fm: torch.Tensor, gh: torch.Tensor, num_bins: int,
+                    begin=0, count=None, cap: Optional[int] = None
+                    ) -> torch.Tensor:
+    """Plain version of hist: fixed-point sums over rows [begin,
+    begin + count)."""
+    G, N = bins_fm.shape
+    b, c = _segment(begin, count, N)
+    cap = c if cap is None else int(cap)
+    rows = slice(b, b + c)
+    k = fx_exponents(_absmax(gh[:, rows]), cap)
+    q = fx_quantize(gh[:, rows], k)
+    zero = torch.zeros(c, dtype=torch.int64, device=bins_fm.device)
+    acc = _slot_hist_int64(bins_fm[:, rows], q, zero, 1, num_bins)[0]
+    return fx_to_f32(acc, k)
+
+
+def histogram(
+    bins_fm: torch.Tensor,  # (G, N) int32
+    gh: torch.Tensor,  # (3, N) f32 (build_gh3)
+    num_bins: int,
+    begin=0,
+    count=None,
+    cap: Optional[int] = None,
+) -> torch.Tensor:
+    """One f32 histogram -> (3, G, Bc) over rows [begin, begin + count)
+    (all rows by default) — the hist kernel on the card. begin and count
+    may be 0-dim tensors on the bins' device, so a caller learns a
+    segment's bounds without reading them back; `cap` (a host int) then
+    bounds count and sizes the launch. The fixed-point scale takes n =
+    cap (module docstring)."""
+    if bins_fm.is_cuda:
+        from .cuda_hist import hist
+
+        return hist(bins_fm, gh, num_bins, begin, count, cap)
+    return histogram_plain(bins_fm, gh, num_bins, begin, count, cap)
+
+
+def segment_slots(begins: torch.Tensor, counts: torch.Tensor,
+                  n_rows: int) -> torch.Tensor:
+    """(S,) disjoint row segments -> (N,) int64 slot per row, S for rows
+    in no segment."""
+    S = begins.shape[0]
+    dev = begins.device
+    pos = torch.arange(n_rows, device=dev)
+    nz = counts > 0
+    b = torch.where(nz, begins.to(torch.int64), n_rows)
+    order = torch.argsort(b, stable=True)
+    j = torch.searchsorted(b[order].contiguous(), pos, right=True) - 1
+    cand = order[j.clamp_min(0)]
+    inside = ((j >= 0) & nz[cand]
+              & (pos < begins.to(torch.int64)[cand]
+                 + counts.to(torch.int64)[cand]))
+    return torch.where(inside, cand, S)
+
+
+def hist_slots_plain(bins_fm: torch.Tensor, gh: torch.Tensor,
+                     begins: torch.Tensor, counts: torch.Tensor,
+                     num_bins: int, num_slots: int) -> torch.Tensor:
+    """Plain version of hist_slots: fixed-point sums, the scale taken
+    over all N rows."""
+    G, N = bins_fm.shape
+    k = fx_exponents(_absmax(gh), N)
+    slot = segment_slots(begins, counts, N)
+    acc = _slot_hist_int64(bins_fm, fx_quantize(gh, k), slot, num_slots,
+                           num_bins)
+    return fx_to_f32(acc, k)
+
+
+def hist_slots(
+    bins_fm: torch.Tensor,  # (G, N) int32, rows grouped by leaf
+    gh: torch.Tensor,  # (3, N) f32, same row order
+    begins: torch.Tensor,  # (S,) int32 segment starts
+    counts: torch.Tensor,  # (S,) int32 segment lengths (0 = empty slot)
+    num_bins: int,
+    num_slots: int,
+) -> torch.Tensor:
+    """Per-slot f32 histograms over disjoint contiguous row segments ->
+    (S, 3, G, Bc); empty slots are zero (hist_slots kernel on the card,
+    one launch for all slots)."""
+    if bins_fm.is_cuda:
+        from .cuda_hist import hist_slots as _kernel
+
+        return _kernel(bins_fm, gh, begins, counts, num_bins, num_slots)
+    return hist_slots_plain(bins_fm, gh, begins, counts, num_bins,
+                            num_slots)
 
 
 # -------------------------------------------------------------- hist_round
@@ -133,16 +305,24 @@ def round_partition_plain(bins_fm: torch.Tensor, pleaf: torch.Tensor,
     return pleaf_new.to(torch.int32), hslot.to(torch.int32)
 
 
-def hist_round_plain(bins_fm, gh, pleaf, params, num_slots, num_bins):
+def hist_round_plain(bins_fm, gh, pleaf, params, num_slots, num_bins,
+                     quant: bool = True):
+    """Plain version of hist_round: exact integer sums (quant) or
+    fixed-point sums of f32 channels, the scale taken over all N rows."""
     pleaf_new, hslot = round_partition_plain(bins_fm, pleaf, params,
                                              num_slots)
-    return (hist_nat_slots_plain(bins_fm, gh, hslot, num_slots, num_bins),
-            pleaf_new)
+    if quant:
+        return (hist_nat_slots_plain(bins_fm, gh, hslot, num_slots,
+                                     num_bins), pleaf_new)
+    k = fx_exponents(_absmax(gh), bins_fm.shape[1])
+    acc = _slot_hist_int64(bins_fm, fx_quantize(gh, k), hslot, num_slots,
+                           num_bins)
+    return fx_to_f32(acc, k), pleaf_new
 
 
 def hist_round(
     bins_fm: torch.Tensor,  # (G, N) int32
-    gh: torch.Tensor,  # (3, N) int32 integer levels
+    gh: torch.Tensor,  # (3, N) int32 levels (quant) or f32 (build_gh3)
     pleaf: torch.Tensor,  # (N,) int32 row -> leaf, in [0, num_leaves]
     params: torch.Tensor,  # (S, 16) int32 per-slot split params
     num_slots: int,
@@ -157,8 +337,9 @@ def hist_round(
     (N,) int32 new row -> leaf). params columns as csrc/hist_round.cu
     documents them; an unused slot has leaf id -1. Unlike the JAX
     package's version this takes no column one-hot: the kernel reads
-    the split column directly."""
-    _require_quant(quant, int8)
+    the split column directly. quant=False is the f32 mode: fixed-point
+    sums of f32 channels (module docstring)."""
+    _require_int16(int8)
     if cat_mask is not None:
         raise NotImplementedError(
             "categorical splits in the fused round (the in-kernel category "
@@ -166,10 +347,15 @@ def hist_round(
         )
     if bins_fm.is_cuda:
         from .cuda_hist import hist_round as _kernel
+        from .cuda_hist import hist_round_f32
 
+        if not quant:
+            return hist_round_f32(bins_fm, gh, pleaf, params, num_slots,
+                                  num_bins, num_leaves)
         return _kernel(bins_fm, gh, pleaf, params, num_slots, num_bins,
                        num_leaves, levels)
-    return hist_round_plain(bins_fm, gh, pleaf, params, num_slots, num_bins)
+    return hist_round_plain(bins_fm, gh, pleaf, params, num_slots, num_bins,
+                            quant)
 
 
 # ------------------------------------------------------------ take / segsum

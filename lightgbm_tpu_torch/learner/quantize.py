@@ -1,7 +1,8 @@
 """Integer gradient levels for the histograms, and true-gradient renewal.
 
-The port of lightgbm_tpu/learner/quantize.py for the default path: per
-tree, gradients and hessians are discretized to integer levels with
+The port of lightgbm_tpu/learner/quantize.py: the histogram channel
+policy of every path (resolve_hist_dtype), and the integer levels of
+the default path. There, per tree, gradients and hessians are discretized to integer levels with
 stochastic rounding (reference gradient_discretizer.cpp:22), the grower
 accumulates exact integer histograms and recovers f32 sums with the
 per-tree scales, and afterwards leaf outputs are renewed from the TRUE
@@ -22,14 +23,19 @@ HIST_DTYPE_LEVELS = {"int16": 256}
 
 
 def resolve_hist_dtype(requested: str, use_quantized_grad: bool,
-                       num_grad_quant_bins: int) -> Tuple[str, int]:
-    """tpu_hist_dtype -> (resolved channel layout, internal levels).
+                       num_grad_quant_bins: int,
+                       use_rounds: bool = True) -> Tuple[str, int]:
+    """tpu_hist_dtype -> (resolved channel layout, internal levels; 0 for
+    the f32 layout), as the JAX package's resolve_hist_dtype.
 
-    `auto` means int16 on every device, as tpu_growth_mode=auto means the
-    rounds grower on every device: the port has no CPU-only exact path
-    for `auto` to stay bit-exact with. The 5-channel bf16x2 layout and
-    the int8 layout are not ported (ROADMAP queue B) and raise, as does
-    the public use_quantized_grad API (its default 4 levels ride int8)."""
+    On the rounds path `auto` means int16 on every device, as
+    tpu_growth_mode=auto means the rounds grower on every device: the
+    port has no CPU-only exact path for `auto` to stay bit-exact with.
+    Explicit bf16x2 (alias float32) is the f32 layout. Off the rounds
+    path (tpu_growth_mode=exact) the channels are always f32: an
+    explicit int request falls back with a warning. The int8 layout and
+    the public use_quantized_grad API (its default 4 levels ride int8)
+    are not ported (ROADMAP queue B) and raise."""
     if use_quantized_grad:
         raise NotImplementedError(
             "use_quantized_grad rides the int8 histogram mode of kernels "
@@ -37,13 +43,17 @@ def resolve_hist_dtype(requested: str, use_quantized_grad: bool,
         )
     req = "bf16x2" if requested == "float32" else requested
     if req == "auto":
-        req = "int16"
+        req = "int16" if use_rounds else "bf16x2"
     if req == "bf16x2":
-        raise NotImplementedError(
-            "tpu_hist_dtype=bf16x2 needs the 5-channel f32 mode of the "
-            "hist_nat / hist_round kernels, which is not ported (ROADMAP "
-            "queue B)"
+        return req, 0
+    if not use_rounds:
+        from .. import log
+
+        log.warning(
+            f"tpu_hist_dtype={requested} needs the rounds growth path "
+            "(tpu_growth_mode=rounds); falling back to bf16x2 channels"
         )
+        return "bf16x2", 0
     if req == "int8":
         raise NotImplementedError(
             "tpu_hist_dtype=int8 needs the int8 SWAR mode of the hist_nat "

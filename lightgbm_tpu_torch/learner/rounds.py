@@ -1,9 +1,10 @@
 """Natural-order round-batched leaf-wise growth on one device.
 
 The port of lightgbm_tpu/learner/rounds.py (grow_tree_rounds, the
-single production grower of the JAX package) for axis_name=None and
-integer gradient channels. Rows never move: the partition is a per-row
-leaf-id vector. Each round
+single production grower of the JAX package) for axis_name=None, with
+integer gradient levels (spec.quant: the default int16 path) or f32
+gradients (tpu_hist_dtype=bf16x2). Rows never move: the partition is a
+per-row leaf-id vector. Each round
 - picks the top-k positive-gain leaves (k bounded by the remaining leaf
   budget, the kernel width of the S-ladder, and, on small data, half the
   remaining budget — rounds.py:415-459);
@@ -41,8 +42,8 @@ from .grower import (
     monotone_child_intervals,
     split_leaf_outputs,
 )
-from .histogram import build_gh8_quant, hist_nat_slots, hist_round, \
-    root_sums_quant
+from .histogram import build_gh3, build_gh8_quant, hist_nat_slots, \
+    hist_round, histogram, root_sums, root_sums_quant
 from .split import BIG, NEG_INF, SplitParams, SplitRecord, best_split, \
     leaf_output
 
@@ -61,8 +62,8 @@ def grow_tree_rounds(
     num_bins: torch.Tensor,  # (F,) int32
     mono: torch.Tensor,  # (F,) int32
     is_cat: torch.Tensor,  # (F,) bool
-    grad: torch.Tensor,  # (N,) f32 INTEGER levels
-    hess: torch.Tensor,  # (N,) f32 INTEGER levels
+    grad: torch.Tensor,  # (N,) f32 INTEGER levels (spec.quant) or values
+    hess: torch.Tensor,  # (N,) f32 INTEGER levels (spec.quant) or values
     mask: torch.Tensor,  # (N,) f32 validity * bagging
     feat_mask: torch.Tensor,  # (F,) bool
     params: SplitParams,
@@ -72,14 +73,16 @@ def grow_tree_rounds(
     gh_scale: Optional[torch.Tensor] = None,  # (2,) [g_scale, h_scale]
 ) -> Tuple[TreeArrays, torch.Tensor]:
     """Grow one tree -> (tree arrays, natural-order row -> leaf, -1 on
-    rows with valid == 0)."""
+    rows with valid == 0). gh_scale carries the level scales when
+    spec.quant and must be None otherwise."""
     if bool(is_cat.any()):
         raise NotImplementedError(
             "categorical features are not ported to the rounds grower "
             "(ROADMAP queue A: categorical splits)"
         )
-    if gh_scale is None:
-        raise ValueError("the integer-level grower requires gh_scale")
+    if spec.quant != (gh_scale is not None):
+        raise ValueError("gh_scale is required with spec.quant (integer "
+                         "levels) and refused without it")
     L = spec.num_leaves
     B = spec.num_bins
     G, N = bins_fm.shape
@@ -94,14 +97,20 @@ def grow_tree_rounds(
     def exp_hist(h, g_, h_, c_):
         return expand_hist(h, g_, h_, c_, bundle) if spec.efb else h
 
-    gh = build_gh8_quant(grad * mask, hess * mask, mask)  # (3, N) int32
-    scale3 = torch.stack([gh_scale[0], gh_scale[1],
-                          torch.ones((), dtype=torch.float32, device=dev)])
-    root = root_sums_quant(gh) * scale3  # (3,)
-    hist0 = hist_nat_slots(bins_fm, gh, torch.zeros(N, dtype=torch.int32,
-                                                    device=dev),
-                           1, Bc, levels=levels)[0]
-    hist0 = hist0 * scale3[:, None, None]
+    if spec.quant:
+        gh = build_gh8_quant(grad * mask, hess * mask, mask)  # (3, N) int32
+        scale3 = torch.stack([gh_scale[0], gh_scale[1],
+                              torch.ones((), dtype=torch.float32,
+                                         device=dev)])
+        root = root_sums_quant(gh) * scale3  # (3,)
+        hist0 = hist_nat_slots(bins_fm, gh,
+                               torch.zeros(N, dtype=torch.int32, device=dev),
+                               1, Bc, levels=levels)[0]
+        hist0 = hist0 * scale3[:, None, None]
+    else:
+        gh = build_gh3(grad * mask, hess * mask, mask)  # (3, N) f32
+        root = root_sums(gh)
+        hist0 = histogram(bins_fm, gh, Bc)
     root_out = leaf_output(root[0], root[1], params)
     big = torch.full((1,), BIG, dtype=torch.float32, device=dev)
     rec0 = best_split(
@@ -228,17 +237,20 @@ def grow_tree_rounds(
         else:
             params16[:, 8] = -1
         slot_hists, pleaf = hist_round(bins_fm, gh, pleaf, params16, Sk, Bc,
-                                       L, levels=levels)
-        sums = slot_hists[:n_split]  # exact integer sums
-        small = sums * scale3[:, None, None]
-
-        # ---- larger child by parent subtraction; both into the pool.
-        # parent - sums * scale with ONE rounding: XLA contracts the JAX
-        # package's multiply-subtract into a fused multiply-add, and the
-        # integer sums times an f32 scale are exact in f64
+                                       L, quant=spec.quant, levels=levels)
         parent_s = hist[tl]
-        large = (parent_s.double() - sums.double()
-                 * scale3.double()[:, None, None]).float()
+        if spec.quant:
+            sums = slot_hists[:n_split]  # exact integer sums
+            small = sums * scale3[:, None, None]
+            # ---- larger child by parent subtraction. parent - sums *
+            # scale with ONE rounding: XLA contracts the JAX package's
+            # multiply-subtract into a fused multiply-add, and the
+            # integer sums times an f32 scale are exact in f64
+            large = (parent_s.double() - sums.double()
+                     * scale3.double()[:, None, None]).float()
+        else:
+            small = slot_hists[:n_split]
+            large = parent_s - small
         ls = left_smaller[:, None, None, None]
         left_s = torch.where(ls, small, large)
         right_s = torch.where(ls, large, small)

@@ -100,6 +100,111 @@ def test_launch_counts(dev):
     assert cuda_hist.LAUNCHES["hist_nat"] == 1
 
 
+def _f32_inputs(n=8192, g=7, b=64, seed=0):
+    rs = np.random.RandomState(seed)
+    bins = torch.from_numpy(rs.randint(0, b, (g, n)).astype(np.int32))
+    cnt = (rs.rand(n) < 0.9).astype(np.float32)
+    gh = ht.build_gh3(torch.from_numpy(rs.randn(n).astype(np.float32) * cnt),
+                      torch.from_numpy(rs.rand(n).astype(np.float32) * cnt),
+                      torch.from_numpy(cnt))
+    return rs, bins, gh
+
+
+@pytest.mark.parametrize("begin,count", [(0, None), (0, 4096), (1000, 3001),
+                                         (8191, 1), (5, 0)])
+def test_hist_bitwise_equals_plain(dev, begin, count):
+    """Fixed-point sums: the kernel gives the plain version's bits, on
+    every launch; device bounds with a host cap cover the same rows."""
+    _, bins, gh = _f32_inputs()
+    bt, gt = bins.to(dev), gh.to(dev)
+    ref = ht.histogram_plain(bins, gh, 64, begin, count)
+    out = ht.histogram(bt, gt, 64, begin, count)
+    assert torch.equal(out.cpu(), ref)
+    assert torch.equal(ht.histogram(bt, gt, 64, begin, count), out)
+    if count is not None:
+        cap = max(count, 1) + 17
+        dv = ht.histogram(bt, gt, 64, torch.tensor(begin, device=dev),
+                          torch.tensor(count, device=dev), cap=cap)
+        assert torch.equal(dv.cpu(), ht.histogram_plain(bins, gh, 64, begin,
+                                                        count, cap))
+
+
+@pytest.mark.parametrize("num_slots", [6, 130])
+def test_hist_slots_bitwise_equals_plain(dev, num_slots):
+    """Disjoint segments in random order with empty slots; 130 slots at
+    64 bins spread over many blocks."""
+    rs, bins, gh = _f32_inputs()
+    cuts = np.sort(rs.choice(np.arange(1, 8192), num_slots, replace=False))
+    starts = np.concatenate([[0], cuts[:-1]])
+    lens = cuts - starts
+    lens[rs.rand(num_slots) < 0.2] = 0
+    perm = rs.permutation(num_slots)
+    begins = torch.from_numpy(starts[perm].astype(np.int32))
+    counts = torch.from_numpy(lens[perm].astype(np.int32))
+    ref = ht.hist_slots_plain(bins, gh, begins, counts, 64, num_slots)
+    a = ht.hist_slots(bins.to(dev), gh.to(dev), begins.to(dev),
+                      counts.to(dev), 64, num_slots)
+    b = ht.hist_slots(bins.to(dev), gh.to(dev), begins.to(dev),
+                      counts.to(dev), 64, num_slots)
+    assert torch.equal(a, b) and torch.equal(a.cpu(), ref)
+
+
+@pytest.mark.parametrize("efb", [False, True])
+def test_hist_round_f32_bitwise_equals_plain(dev, efb):
+    rs, bins, gh = _f32_inputs()
+    L = 16
+    pleaf = torch.from_numpy(rs.randint(0, L + 1, 8192).astype(np.int32))
+    params = torch.zeros((4, 16), dtype=torch.int32)
+    params[:, 0] = torch.tensor([1, 5, 9, -1])
+    params[:, 1] = torch.tensor([0, 3, 6, 0])
+    params[:, 2] = torch.tensor([10, 30, 50, 0])
+    params[:, 3] = torch.tensor([1, 0, 1, 0])
+    params[:, 4] = torch.tensor([63, -1, 63, -1])
+    params[:, 5] = torch.tensor([1, 0, 1, 0])
+    params[:, 6] = torch.tensor([17, 18, 19, 20])
+    params[:, 8] = -1
+    if efb:
+        params[1, 7:10] = torch.tensor([8, 2, 20])
+    cuda_hist.reset_launch_counts()
+    args = (bins.to(dev), gh.to(dev), pleaf.to(dev), params.to(dev), 4, 64,
+            L)
+    hk, pk = ht.hist_round(*args, quant=False)
+    hk2, _ = ht.hist_round(*args, quant=False)
+    hp, pp = ht.hist_round_plain(bins, gh, pleaf, params, 4, 64, quant=False)
+    assert torch.equal(hk.cpu(), hp) and torch.equal(pk.cpu(), pp)
+    assert torch.equal(hk, hk2)
+    assert cuda_hist.LAUNCHES["hist_round_f32"] == 2
+    assert cuda_hist.LAUNCHES["hist_round"] == 0
+
+
+@pytest.mark.parametrize("pins", [
+    {"tpu_growth_mode": "exact"},
+    {"tpu_growth_mode": "exact", "tpu_growth_rounds": True},
+    {"tpu_growth_mode": "rounds", "tpu_hist_dtype": "bf16x2"},
+], ids=["exact", "exact_rounds", "rounds_f32"])
+def test_train_f32_paths_card_matches_cpu(dev, pins):
+    rs = np.random.RandomState(3)
+    X = rs.randn(3000, 6)
+    X[rs.rand(3000, 6) < 0.05] = np.nan
+    y = (np.nan_to_num(X[:, 0]) + 0.5 * X[:, 1] + 0.3 * rs.randn(3000)
+         > 0).astype(float)
+    preds = {}
+    for d in ("cuda", "cpu"):
+        p = {"objective": "binary", "num_leaves": 31, "verbosity": -1,
+             "device_type": d, **pins}
+        cuda_hist.reset_launch_counts()
+        bst = lgb.train(p, lgb.Dataset(X, label=y, params=p), 4)
+        preds[d] = bst.predict(X, raw_score=True)
+        if d == "cuda":
+            used = {k for k, v in cuda_hist.LAUNCHES.items() if v}
+            want = {"hist"} | ({"hist_slots"} if "tpu_growth_rounds" in pins
+                               else set()) | (
+                {"hist_round_f32"} if pins["tpu_growth_mode"] == "rounds"
+                else set())
+            assert want <= used, used
+    np.testing.assert_allclose(preds["cuda"], preds["cpu"], atol=1e-5)
+
+
 def test_train_card_matches_cpu(dev):
     rs = np.random.RandomState(3)
     X = rs.randn(3000, 6)

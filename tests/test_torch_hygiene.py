@@ -12,6 +12,7 @@ import pytest
 import torch
 
 import lightgbm_tpu_torch as lgb
+from lightgbm_tpu_torch.learner.histogram import hist_nat_slots
 from lightgbm_tpu_torch.learner.quantize import resolve_hist_dtype
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -60,6 +61,18 @@ def test_train_without_card_raises(no_card, device):
         lgb.train(params, lgb.Dataset(X, label=y), 2)
 
 
+@pytest.mark.parametrize("pins", [
+    {"tpu_growth_mode": "exact"},
+    {"tpu_growth_mode": "exact", "tpu_growth_rounds": True},
+    {"tpu_growth_mode": "rounds", "tpu_hist_dtype": "bf16x2"},
+], ids=["exact", "exact_rounds", "rounds_f32"])
+def test_f32_paths_without_card_raise(no_card, pins):
+    X, y = _tiny()
+    params = {"objective": "binary", "verbosity": -1, **pins}
+    with pytest.raises(RuntimeError, match="device_type=cpu"):
+        lgb.train(params, lgb.Dataset(X, label=y), 2)
+
+
 def test_dataset_construct_without_card_raises(no_card):
     X, y = _tiny()
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -74,9 +87,14 @@ def test_cpu_must_be_asked_for(no_card):
 
 
 def test_growth_mode_exact_raises():
+    """The exact path trains; what its JAX counterpart adds beyond the
+    port (here monotone intermediate) still raises."""
     X, y = _tiny()
     p = {"objective": "binary", "verbosity": -1, "device_type": "cpu",
          "tpu_growth_mode": "exact"}
+    assert lgb.train(p, lgb.Dataset(X, label=y, params=p), 1).num_trees() == 1
+    p = dict(p, monotone_constraints=[1, 0, 0],
+             monotone_constraints_method="intermediate")
     with pytest.raises(NotImplementedError, match="queue A"):
         lgb.train(p, lgb.Dataset(X, label=y, params=p), 1)
 
@@ -85,12 +103,26 @@ def test_growth_mode_exact_raises():
                                        ("float32", "5-channel"),
                                        ("int8", "int8")])
 def test_unported_hist_dtypes_raise(dtype, msg):
+    """int8 is not ported. bf16x2 (alias float32) is, on the rounds
+    grower; only hist_nat's 5-channel f32 mode (the percentile refit's)
+    still raises."""
+    if dtype == "int8":
+        with pytest.raises(NotImplementedError, match=msg):
+            resolve_hist_dtype(dtype, False, 4)
+        return
+    assert resolve_hist_dtype(dtype, False, 4) == ("bf16x2", 0)
     with pytest.raises(NotImplementedError, match=msg):
-        resolve_hist_dtype(dtype, False, 4)
+        hist_nat_slots(torch.zeros((1, 8), dtype=torch.int32),
+                       torch.zeros((3, 8)), torch.zeros(8, dtype=torch.int32),
+                       1, 4, quant=False)
 
 
 def test_auto_means_int16_everywhere():
+    """`auto` is int16 on the rounds path on every device; the exact
+    path's channels are always f32."""
     assert resolve_hist_dtype("auto", False, 4) == ("int16", 256)
+    assert resolve_hist_dtype("auto", False, 4, use_rounds=False) == \
+        ("bf16x2", 0)
     with pytest.raises(NotImplementedError):
         resolve_hist_dtype("auto", True, 4)  # use_quantized_grad
 
