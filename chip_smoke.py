@@ -9,14 +9,15 @@ Phases, each printed as one JSON line:
   build   - seconds to build the kernel library from csrc/ (0 on a hit);
   kernel  - one line per kernel (or kernel mode) at its path's shapes: its
             result against the plain PyTorch version on the same inputs
-            (exact for the integer histograms, take and the fixed-point
-            f32 histograms; seg_sum within rtol 1e-5), bitwise equality
-            across two launches for the f32 reductions, and its median
-            time over CUDA events beside the plain version's, one PyTorch
-            library call's, and the least time the card could take;
+            (exact for the integer histograms, int16 and int8 modes, take
+            and the fixed-point f32 histograms; seg_sum within rtol 1e-5),
+            bitwise equality across two launches for the f32 reductions
+            and the int8 modes, and its median time over CUDA events
+            beside the plain version's, one PyTorch library call's, and
+            the least time the card could take;
   small   - 20k-row runs on the card against the same runs on the CPU
-            (plain versions), default and exact paths: predictions within
-            1e-4;
+            (plain versions), default, exact, use_quantized_grad and
+            regression_l1 runs: predictions within 1e-4;
   train   - the 1M x 28, 255-leaf binary workload (bench.py:386-406) on
             the default int16 rounds path, 2 warmup trees then 10 timed
             trees: trees/s, validation AUC after tree 1 and after the last
@@ -30,6 +31,18 @@ Phases, each printed as one JSON line:
             f32 paths (tpu_growth_mode=exact; exact + tpu_growth_rounds;
             rounds + tpu_hist_dtype=bf16x2), 1 warmup tree then 3 timed
             trees each, with the same checks and a 1-tree profile;
+  train_quant - the workload with bench.py's quantized parameters
+            (use_quantized_grad, 4 levels, quant_train_renew_leaf): the
+            int8 modes of hist_nat and hist_round; 2 warmup then 10 timed
+            trees, AUC beside the int16 `train` phase's at the same tree
+            count, and a 1-tree profile;
+  train_l1 - the same features with the continuous label (the logits
+            plus noise before bench.py thresholds them), regression_l1 on
+            the default int16 path: the percentile leaf refit through
+            hist_nat's f32 mode, 4 launches per tree; 1 warmup then 3
+            timed trees, validation L1 after the first and the last tree,
+            and a 1-tree profile; the hist_nat_f32 kernel line runs on
+            the arguments of its first refit pass;
 then the `kernels` summary line and, last, {"ok": true, "device": ...}.
 Any failure raises: no `ok` line, non-zero exit. Without a CUDA device,
 or without the package beside it, the script exits non-zero at once.
@@ -57,6 +70,9 @@ REPLACES = {
     "hist": "lightgbm_tpu/learner/pallas_hist.py:766",
     "hist_slots": "lightgbm_tpu/learner/pallas_hist.py:742",
     "hist_round_f32": "lightgbm_tpu/learner/pallas_hist.py:505",
+    "hist_nat_int8": "lightgbm_tpu/learner/pallas_hist.py:202",
+    "hist_round_int8": "lightgbm_tpu/learner/pallas_hist.py:505",
+    "hist_nat_f32": "lightgbm_tpu/learner/pallas_hist.py:202",
 }
 SOURCES = {
     "hist_nat": "lightgbm_tpu_torch/csrc/hist_nat.cu",
@@ -66,12 +82,16 @@ SOURCES = {
     "hist": "lightgbm_tpu_torch/csrc/hist.cu",
     "hist_slots": "lightgbm_tpu_torch/csrc/hist_slots.cu",
     "hist_round_f32": "lightgbm_tpu_torch/csrc/hist_round.cu",
+    "hist_nat_int8": "lightgbm_tpu_torch/csrc/hist_nat.cu",
+    "hist_round_int8": "lightgbm_tpu_torch/csrc/hist_round.cu",
+    "hist_nat_f32": "lightgbm_tpu_torch/csrc/hist_nat.cu",
 }
 # the training path whose run counts each kernel's launches
 PATH_OF = {"hist_nat": "train", "hist_round": "train", "take_small": "train",
            "seg_sum": "train", "hist": "train_exact",
            "hist_slots": "train_exact_rounds",
-           "hist_round_f32": "train_f32"}
+           "hist_round_f32": "train_f32", "hist_nat_int8": "train_quant",
+           "hist_round_int8": "train_quant", "hist_nat_f32": "train_l1"}
 F32_PATHS = {
     "train_exact": {"tpu_growth_mode": "exact"},
     "train_exact_rounds": {"tpu_growth_mode": "exact",
@@ -82,6 +102,9 @@ F32_PATHS = {
 F32_NEEDS = {"train_exact": ("hist",),
              "train_exact_rounds": ("hist", "hist_slots"),
              "train_f32": ("hist", "hist_round_f32")}
+# bench.py:409-415's quantized-gradient parameters
+QUANT_PARAMS = {"use_quantized_grad": True, "num_grad_quant_bins": 4,
+                "quant_train_renew_leaf": True}
 
 
 def emit(obj) -> None:
@@ -250,6 +273,7 @@ def kernel_phase(torch, hist, ch):
         library_ms=cuda_ms(lambda: lib_out.index_add_(1, safe, vals)),
         bound_ms=b, bound_by=bb)
     lines.update(f32_kernel_lines(torch, hist, bins, gen, pleaf, params))
+    lines.update(int8_kernel_lines(torch, hist, bins, gen, pleaf, params))
     for name, d in lines.items():
         emit_kernel(name, d)
     return lines
@@ -280,9 +304,11 @@ def bincount_ms(torch, bins, gh, slot, num_slots, num_bins=BC) -> float:
     return ms
 
 
-def f32_compare(torch, run, plain, name):
+def f32_compare(torch, run, plain, name,
+                tolerance="exact (int64 fixed point on both sides)"):
     """Kernel against plain on the same tensors, and two kernel launches
-    against each other: both bitwise for the fixed-point f32 sums."""
+    against each other: both bitwise (the fixed-point f32 sums, the
+    integer sums)."""
     a, b, p = run(), run(), plain()
     torch.cuda.synchronize()
     if not torch.equal(a, b):
@@ -292,9 +318,8 @@ def f32_compare(torch, run, plain, name):
     if not torch.equal(a, p):
         raise AssertionError(f"{name} disagrees with its plain version: "
                              f"max abs {float(err.max())}")
-    return dict(tolerance="exact (int64 fixed point on both sides)",
-                max_abs_err=float(err.max()), max_rel_err=rel,
-                bitwise_repeat=True)
+    return dict(tolerance=tolerance, max_abs_err=float(err.max()),
+                max_rel_err=rel, bitwise_repeat=True)
 
 
 def f32_kernel_lines(torch, hist, bins, gen, pleaf, params):
@@ -368,6 +393,83 @@ def f32_kernel_lines(torch, hist, bins, gen, pleaf, params):
     return lines
 
 
+def int8_kernel_lines(torch, hist, bins, gen, pleaf, params):
+    """hist_nat (the root, S = 1) and hist_round (S = 48) in their int8
+    mode, on the levels of a use_quantized_grad tree at 4 levels
+    (gradient in [-2, 2], hessian in [0, 4])."""
+    dev = bins.device
+    gq = torch.randint(-2, 3, (N_ROWS,), generator=gen)
+    hq = torch.randint(0, 5, (N_ROWS,), generator=gen)
+    cnt = torch.ones(N_ROWS, dtype=torch.int64)
+    for v in (gq, hq, cnt):
+        v[-1472:] = 0
+    gh = hist.build_gh8_quant(gq, hq, cnt, int8_levels=4).to(dev)
+    if gh.dtype != torch.int8:
+        raise AssertionError(f"4-level channels built as {gh.dtype}")
+    exact = "exact (integer sums on both sides)"
+    lines = {}
+    slot0 = torch.zeros(N_ROWS, dtype=torch.int32, device=dev)
+    res = f32_compare(
+        torch, lambda: hist.hist_nat_slots(bins, gh, slot0, 1, BC, levels=4),
+        lambda: hist.hist_nat_slots_plain(bins, gh, slot0, 1, BC),
+        "hist_nat_int8", exact)
+    rows = int((gh[2] != 0).sum())
+    b, bb = bound(N_ROWS * (4 * G + 4 + 3) + 3 * G * BC * 4, rows * G * 3)
+    lines["hist_nat_int8"] = dict(
+        shape=f"bins ({G},{N_ROWS}) S=1 Bc={BC}, int8 levels", **res,
+        ms=cuda_ms(lambda: hist.hist_nat_slots(bins, gh, slot0, 1, BC,
+                                               levels=4)),
+        plain_ms=cuda_ms(lambda: hist.hist_nat_slots_plain(
+            bins, gh, slot0, 1, BC), reps=5),
+        library_ms=bincount_ms(torch, bins, gh, slot0, 1),
+        bound_ms=b, bound_by=bb)
+    S = S_ROUND
+    res = f32_compare(
+        torch, lambda: hist.hist_round(bins, gh, pleaf, params, S, BC, L,
+                                       levels=4)[0],
+        lambda: hist.hist_round_plain(bins, gh, pleaf, params, S, BC)[0],
+        "hist_round_int8", exact)
+    pk = hist.hist_round(bins, gh, pleaf, params, S, BC, L, levels=4)[1]
+    pl_p, hslot = hist.round_partition_plain(bins, pleaf, params, S)
+    if not torch.equal(pk, pl_p):
+        raise AssertionError("hist_round_int8's row -> leaf disagrees")
+    n_split = int(torch.isin(pleaf, params[:, 0]).sum())
+    n_small = int((hslot < S).sum())
+    b, bb = bound(N_ROWS * 8 + n_split * 4 + n_small * (G * 4 + 3)
+                  + S * 16 * 4 + S * 3 * G * BC * 4,
+                  n_small * G * 3 + n_split * 8)
+    lines["hist_round_int8"] = dict(
+        shape=f"bins ({G},{N_ROWS}) S={S} Bc={BC}, int8 levels", **res,
+        ms=cuda_ms(lambda: hist.hist_round(bins, gh, pleaf, params, S, BC,
+                                           L, levels=4)),
+        plain_ms=cuda_ms(lambda: hist.hist_round_plain(
+            bins, gh, pleaf, params, S, BC), reps=5),
+        library_ms=bincount_ms(torch, bins, gh, hslot, S),
+        library_note="bincount of the histogram half only",
+        bound_ms=b, bound_by=bb)
+    return lines
+
+
+def hist_nat_f32_line(torch, hist, captured):
+    """hist_nat's f32 mode on the arguments of the first refit pass of a
+    real train_l1 tree: one column of residual bins, one slot per leaf,
+    the rows outside every bracket in the trash slot."""
+    bins, gh, slot, S, Bc = captured["args"]
+    run = lambda: hist.hist_nat_slots(bins, gh, slot, S, Bc, quant=False)
+    plain = lambda: hist.hist_nat_slots_plain(bins, gh, slot, S, Bc,
+                                              quant=False)
+    res = f32_compare(torch, run, plain, "hist_nat_f32")
+    Gk, n = bins.shape
+    rows = captured["rows"]
+    b, bb = bound(n * 4 + rows * (4 * Gk + 12) + S * 3 * Gk * Bc * 4,
+                  rows * Gk * 3)
+    return dict(
+        shape=f"bins ({Gk},{n}) S={S} Bc={Bc}, {rows} rows in a slot",
+        **res, ms=cuda_ms(run), plain_ms=cuda_ms(plain, reps=5),
+        library_ms=bincount_ms(torch, bins, gh, slot, S, Bc),
+        bound_ms=b, bound_by=bb)
+
+
 def hist_slots_line(torch, hist, captured):
     """hist_slots on the arguments of the fullest round of a real
     train_exact_rounds tree (the leaf-grouped matrix and its segments)."""
@@ -390,35 +492,50 @@ def hist_slots_line(torch, hist, captured):
         bound_ms=b, bound_by=bb)
 
 
-def higgs_like(rows: int, feats: int = 28):
-    """bench.py:386-395: RandomState(17), held-out validation rows."""
+def higgs_stream(rows: int, feats: int = 28):
+    """bench.py:386-395: RandomState(17) features and the label before
+    bench.py:390 thresholds it (logits plus noise, float32), with the
+    held-out validation rows drawn the same way."""
     import numpy as np
 
     rs = np.random.RandomState(17)
     X = rs.randn(rows, feats).astype(np.float32)
     w = rs.randn(feats)
     logits = X[:, : feats // 2] @ w[: feats // 2] + np.sin(X[:, feats // 2]) * 2.0
-    y = (logits + rs.randn(rows) > 0).astype(np.float32)
+    z = (logits + rs.randn(rows)).astype(np.float32)
     nv = min(rows // 10, 100_000)
     Xv = rs.randn(nv, feats).astype(np.float32)
     lv = Xv[:, : feats // 2] @ w[: feats // 2] + np.sin(Xv[:, feats // 2]) * 2.0
-    yv = (lv + rs.randn(nv) > 0).astype(np.float32)
-    return X, y, Xv, yv
+    zv = (lv + rs.randn(nv)).astype(np.float32)
+    return X, z, Xv, zv
+
+
+def higgs_like(rows: int, feats: int = 28):
+    """bench.py:386-395: the binary label y = (logits + noise > 0)."""
+    import numpy as np
+
+    X, z, Xv, zv = higgs_stream(rows, feats)
+    return X, (z > 0).astype(np.float32), Xv, (zv > 0).astype(np.float32)
 
 
 def small_phase(lgb, np):
     """Small runs on the card against the same runs on the CPU: the
-    default path and the exact path."""
-    X, y, Xv, _ = higgs_like(20_000, 8)
+    default path, the exact path, use_quantized_grad (int8 modes) and
+    regression_l1 (the percentile refit)."""
+    X, z, Xv, _ = higgs_stream(20_000, 8)
+    y = (z > 0).astype(np.float32)
     params = {"objective": "binary", "num_leaves": 31, "verbosity": -1,
               "min_data_in_leaf": 20}
     errs = {}
-    for path, extra in (("default", {}),
-                        ("exact", {"tpu_growth_mode": "exact"})):
+    for path, extra, label in (
+            ("default", {}, y),
+            ("exact", {"tpu_growth_mode": "exact"}, y),
+            ("quant", QUANT_PARAMS, y),
+            ("l1", {"objective": "regression_l1"}, z)):
         preds = {}
         for device in ("cuda", "cpu"):
             p = dict(params, device_type=device, **extra)
-            bst = lgb.train(p, lgb.Dataset(X, label=y, params=p), 5)
+            bst = lgb.train(p, lgb.Dataset(X, label=label, params=p), 5)
             preds[device] = bst.predict(Xv, raw_score=True)
         errs[path] = float(np.abs(preds["cuda"] - preds["cpu"]).max())
     emit({"phase": "small", "rows": 20000, "trees": 5,
@@ -526,6 +643,67 @@ def train_f32_path(torch, lgb, ch, perm, ds, vs, name, n_timed=3,
     return launches, prof
 
 
+def train_int_path(torch, lgb, ch, ds, vs, name, extra, n_warm, n_timed,
+                   needs, capture=None):
+    """An integer-level rounds path on the headline workload: n_warm
+    warmup trees, n_timed timed trees, the validation metric after the
+    first and the last tree, launches, peak device memory and a 1-tree
+    profile. With `capture`, the first tree also records the arguments
+    of the refit's fullest hist_nat_slots call (for its kernel line)."""
+    from lightgbm_tpu_torch.learner import renewal
+
+    params = {"objective": "binary", "num_leaves": L, "max_bin": 255,
+              "learning_rate": 0.1, "min_data_in_leaf": 20, "metric": "auc",
+              "verbosity": -1, **extra}
+    bst = lgb.Booster(params, ds)
+    bst.add_valid(vs, "valid")
+    orig = renewal.hist_nat_slots
+    if capture is not None:
+        def recording(bins, gh, slot, S, Bc, quant=True):
+            out = orig(bins, gh, slot, S, Bc, quant=quant)
+            rows = int((slot < S).sum())
+            if rows > capture.get("rows", -1):
+                capture.update(rows=rows, args=(bins, gh, slot.clone(), S,
+                                                Bc))
+            return out
+        renewal.hist_nat_slots = recording
+    ch.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    try:
+        bst.update()
+    finally:
+        renewal.hist_nat_slots = orig
+    metric, m1 = bst.eval_valid()[0][1:3]
+    for _ in range(n_warm - 1):
+        bst.update()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_timed):
+        bst.update()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(ch.LAUNCHES)
+    m_last = bst.eval_valid()[0][2]
+    gb = bst._gbdt
+    trees = n_warm + n_timed
+    line = {"phase": name, **extra, "rows": gb.train_set.num_data,
+            "num_leaves": L, "hist_dtype": gb.hist_dtype,
+            "rounds_slots": gb.spec.rounds_slots, "warmup_trees": n_warm,
+            "timed_trees": n_timed, "trees_per_s": n_timed / dt,
+            "metric": metric, "metric_tree1": m1, "metric_last": m_last,
+            "trees": trees, "launches": launches,
+            "launches_per_tree": {k: v / trees
+                                  for k, v in launches.items() if v},
+            "peak_device_mb": torch.cuda.max_memory_allocated() / 2 ** 20}
+    emit(line)
+    missing = [k for k in needs if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"{name}: {missing} not launched: {launches}")
+    prof = profile_phase(torch, bst, 1, name + "_profile")
+    return line, prof
+
+
 def main() -> int:
     import torch
 
@@ -568,6 +746,8 @@ def main() -> int:
     vs = lgb.Dataset(Xv, label=yv, reference=ds, free_raw_data=False)
     t_data = time.perf_counter() - t0
     ch.reset_launch_counts()
+    # the peak of this path, not of the kernel phase's plain versions
+    torch.cuda.reset_peak_memory_stats()
     bst = lgb.Booster(params, ds)
     bst.add_valid(vs, "valid")
     bst.update()
@@ -616,10 +796,44 @@ def main() -> int:
     if not (np.isfinite(p_trained).all() and host_vs_card < 1e-4):
         raise AssertionError("host predictions disagree with card scores")
 
+    # ---- use_quantized_grad on the same binned data: the int8 modes,
+    # compared with the int16 path at the same tree count
+    quant, _ = train_int_path(
+        torch, lgb, ch, ds, vs, "train_quant", QUANT_PARAMS, 2, n_timed,
+        ("hist_nat_int8", "hist_round_int8", "take_small", "seg_sum"))
+    emit({"phase": "train_quant_vs_int16", "trees": quant["trees"],
+          "auc_int16": auc_last, "auc_quant": quant["metric_last"],
+          "auc_gap": quant["metric_last"] - auc_last})
+    if quant["hist_dtype"] != "int8":
+        raise AssertionError(f"train_quant ran {quant['hist_dtype']}")
+    if not (quant["metric_last"] > quant["metric_tree1"]
+            and quant["metric_last"] > 0.85):
+        raise AssertionError(f"train_quant: AUC did not improve: {quant}")
+
+    # ---- regression_l1: the percentile refit through hist_nat's f32 mode
+    _, z, _, zv = higgs_stream(1_000_000)
+    ds_l1 = lgb.Dataset(X, label=z, reference=ds, free_raw_data=False)
+    vs_l1 = lgb.Dataset(Xv, label=zv, reference=ds, free_raw_data=False)
+    refit = {}
+    l1, _ = train_int_path(
+        torch, lgb, ch, ds_l1, vs_l1, "train_l1",
+        {"objective": "regression_l1", "metric": "l1"}, 1, 3,
+        ("hist_nat", "hist_round", "hist_nat_f32", "take_small", "seg_sum"),
+        capture=refit)
+    if l1["launches"]["hist_nat_f32"] != 4 * l1["trees"]:
+        raise AssertionError(f"train_l1: hist_nat_f32 launched "
+                             f"{l1['launches']['hist_nat_f32']} times in "
+                             f"{l1['trees']} trees, not 4 per tree")
+    if not l1["metric_last"] < l1["metric_tree1"]:
+        raise AssertionError(f"train_l1: L1 did not fall: {l1}")
+    lines["hist_nat_f32"] = hist_nat_f32_line(torch, hist, refit)
+    emit_kernel("hist_nat_f32", lines["hist_nat_f32"])
+    path_launches = {"train": launches, "train_quant": quant["launches"],
+                     "train_l1": l1["launches"]}
+
     # ---- the f32 paths on the same binned data
     from lightgbm_tpu_torch.learner import permuted
 
-    path_launches = {"train": launches}
     captured = {}
     for name in F32_PATHS:
         path_launches[name], _ = train_f32_path(

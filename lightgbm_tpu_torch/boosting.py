@@ -1,17 +1,21 @@
 """GBDT boosting, the eager training loop (reference src/boosting/gbdt.cpp).
 
 The port of the JAX package's GBDT eager loop (lightgbm_tpu/boosting.py
-_train_one_iter_fast :1212-1278) for the default path. Each iteration:
+_train_one_iter_fast :1212-1278). Each iteration:
 
-  gradients (device, objective) -> per class, on the default int16
-  path: integer levels with stochastic rounding (_quantize, keyed on
-  fold_in(data_random_seed, it * K + k) like the JAX package) -> rounds
-  grower -> leaf renewal from the true gradients; on the f32 paths
-  (tpu_hist_dtype=bf16x2, tpu_growth_mode=exact): the f32 gradients
-  straight to the rounds or the permuted grower -> score updates: train
-  through the row -> leaf vector (take_small kernel), validation sets
-  through the binned tree traversal -> host Tree, materialized lazily in
-  batches.
+  gradients (device, objective) -> per class, _grow_maybe_quantized: on
+  the default int16 path and under use_quantized_grad, integer levels
+  with stochastic rounding (_quantize, keyed on fold_in(data_random_seed,
+  it * K + k) like the JAX package) -> rounds grower (int16 or int8
+  channels; above 256 public levels and on the exact path the dequantized
+  levels as f32 gradients) -> leaf renewal from the true gradients
+  (always on the int16 default, with quant_train_renew_leaf under
+  use_quantized_grad); on the f32 paths (tpu_hist_dtype=bf16x2,
+  tpu_growth_mode=exact): the f32 gradients straight to the rounds or the
+  permuted grower -> the renewing objectives' percentile leaf refit
+  (learner/renewal.py) -> score updates: train through the row -> leaf
+  vector (take_small kernel), validation sets through the binned tree
+  traversal -> host Tree, materialized lazily in batches.
 
 Boost-from-average follows gbdt.cpp:327-445: the initial score is added
 to every score set before the first iteration and folded into the first
@@ -146,24 +150,46 @@ class GBDT:
         mono = train_set.monotone_constraints
         has_mono = bool(mono is not None and np.any(mono != 0))
         self._true_renew_ok = not (config.path_smooth > 0 or has_mono)
+        self._quant_renew_ok = True
+        if (config.use_quantized_grad and config.quant_train_renew_leaf
+                and not self._true_renew_ok):
+            self._quant_renew_ok = False
+            log.warning(
+                "quant_train_renew_leaf is disabled: true-gradient leaf "
+                "renewal would bypass monotone constraints / path_smooth"
+            )
+        # public quantized levels (use_quantized_grad) or the internal
+        # int-packed policy's; levels <= 256 ride integer channels on
+        # the rounds grower, <= 127 its int8 mode
+        qgrad = config.use_quantized_grad
+        levels = config.num_grad_quant_bins if qgrad else self._hist_levels
         if self.objective is not None:
             self.objective.init(train_set, self.device)
+        # the raw labels the percentile refit takes residuals against
+        self._label_dev = None
+        if self.objective is not None and self.objective.is_renew_tree_output:
+            self._label_dev = torch.from_numpy(
+                train_set.padded(train_set.metadata.label)).to(self.device)
         self.dev = train_set.device_arrays(self.device)
         self.spec = GrowerSpec(
             num_leaves=config.num_leaves,
             num_bins=train_set.max_num_bin,
             max_depth=config.max_depth,
             # slot defaults as the JAX package's: 48 on the integer
-            # path, 25 on the f32 path; they decide which leaves a round
-            # takes when the leaf budget binds
+            # path and under use_quantized_grad, 25 on the f32 path; they
+            # decide which leaves a round takes when the leaf budget binds
             rounds_slots=(min(config.tpu_round_slots
-                              or (48 if self._int_packed else 25),
+                              or (48 if (qgrad or self._int_packed)
+                                  else 25),
                               config.num_leaves) if use_rounds else 0),
             efb=train_set.bundle_layout is not None,
             col_bins=train_set.col_bins,
-            quant_levels=self._hist_levels,
+            quant_levels=levels,
             has_mono=has_mono,
-            quant=use_rounds and self._int_packed,
+            quant=use_rounds and ((qgrad and levels <= 256)
+                                  or self._int_packed),
+            quant_int8=use_rounds and levels <= 127 and (
+                qgrad or self._int_packed),
             rounds=config.tpu_growth_rounds and not use_rounds,
         )
         self.params = make_split_params(config)
@@ -209,44 +235,97 @@ class GBDT:
 
     # ------------------------------------------------------------------
     def _quantize(self, gk, hk, it: int, k: int):
-        """Integer levels + scales for one tree (boosting._quantize)."""
+        """Integer levels + scales for one tree (boosting._quantize): the
+        public num_grad_quant_bins under use_quantized_grad, else the
+        internal int-packed policy's levels."""
         from .learner.quantize import discretize_gradients_int
 
         c = self.config
         key = rng.fold_in(rng.key(c.data_random_seed, gk.device),
                           it * self.num_class + k)
-        return discretize_gradients_int(gk, hk, key, self._hist_levels,
+        return discretize_gradients_int(gk, hk, key,
+                                        self._hist_levels
+                                        or c.num_grad_quant_bins,
                                         c.stochastic_rounding)
 
-    def _grow_int_packed(self, gk, hk, mask, feat_mask, valid, it, k):
-        """Grow on integer levels, then renew the leaf outputs from the
-        true gradients (boosting._grow_int_packed)."""
-        gq, hq, scale = self._quantize(gk, hk, it, k)
-        d = self.dev
-        arrays, row_leaf = grow_tree(
-            d["bins"], d["nan_bin"], d["num_bins"], d["mono"], d["is_cat"],
-            gq, hq, mask, feat_mask, self.params, self.spec, valid=valid,
-            bundle=d["bundle"], gh_scale=scale,
-        )
-        if self._true_renew_ok:
-            from .learner.quantize import renew_leaf_with_true_gradients
+    def _renew_true(self, arrays, row_leaf, gk, hk, mask):
+        """Leaf outputs from the TRUE per-leaf gradient sums."""
+        from .learner.quantize import renew_leaf_with_true_gradients
 
-            arrays = arrays._replace(
-                leaf_value=renew_leaf_with_true_gradients(
-                    arrays.leaf_value, row_leaf, gk, hk, mask, self.params,
-                    self.spec.num_leaves,
-                )
+        return arrays._replace(
+            leaf_value=renew_leaf_with_true_gradients(
+                arrays.leaf_value, row_leaf, gk, hk, mask, self.params,
+                self.spec.num_leaves,
             )
+        )
+
+    def _grow_maybe_quantized(self, gk, hk, mask, feat_mask, valid, it, k):
+        """One tree (boosting._grow_maybe_quantized /
+        _grow_int_packed). The internal int-packed policy grows on integer
+        levels and always renews from the true gradients (unless monotone
+        constraints or path smoothing forbid it). use_quantized_grad grows
+        on the integer levels when the rounds grower takes them (<= 256
+        levels), else on the dequantized levels as f32 gradients, and
+        renews only with quant_train_renew_leaf. Otherwise the f32
+        gradients go to the grower as they are."""
+        c = self.config
+        if not c.use_quantized_grad:
+            if self._int_packed:
+                gq, hq, scale = self._quantize(gk, hk, it, k)
+                arrays, row_leaf = self._grow(gq, hq, mask, feat_mask,
+                                              valid, gh_scale=scale)
+                if self._true_renew_ok:
+                    arrays = self._renew_true(arrays, row_leaf, gk, hk, mask)
+                return arrays, row_leaf
+            return self._grow(gk, hk, mask, feat_mask, valid)
+        gq, hq, scale = self._quantize(gk, hk, it, k)
+        if self.spec.quant:
+            arrays, row_leaf = self._grow(gq, hq, mask, feat_mask, valid,
+                                          gh_scale=scale)
+        else:
+            arrays, row_leaf = self._grow(gq * scale[0], hq * scale[1], mask,
+                                          feat_mask, valid)
+        if c.quant_train_renew_leaf and self._quant_renew_ok:
+            arrays = self._renew_true(arrays, row_leaf, gk, hk, mask)
         return arrays, row_leaf
 
-    def _grow(self, gk, hk, mask, feat_mask, valid):
-        """Grow on the f32 gradients: no quantization, no renewal
-        (boosting._grow)."""
+    def _grow(self, gk, hk, mask, feat_mask, valid, gh_scale=None):
+        """Grow one tree on f32 gradients, or on integer levels with
+        their scales (boosting._grow)."""
         d = self.dev
         return grow_tree(
             d["bins"], d["nan_bin"], d["num_bins"], d["mono"], d["is_cat"],
             gk, hk, mask, feat_mask, self.params, self.spec, valid=valid,
-            bundle=d["bundle"],
+            bundle=d["bundle"], gh_scale=gh_scale,
+        )
+
+    def _renewal_setup(self):
+        """(alpha, weights) for the percentile leaf refit, or (None, None)
+        when the objective does not renew (boosting._renewal_setup). MAPE
+        renews with its label-derived weights
+        (regression_objective.hpp:641)."""
+        o = self.objective
+        if o is None or not o.is_renew_tree_output:
+            return None, None
+        w = getattr(o, "_label_weight", None)
+        if w is None:
+            w = o.weight
+        if w is None:
+            w = torch.ones(self.train_set.num_rows_padded(),
+                           dtype=torch.float32, device=self.device)
+        return float(o.renew_percentile()), w
+
+    def _apply_renewal(self, arrays, row_leaf, score_k, mask, alpha, w):
+        """The percentile leaf refit on the residuals label - score, the
+        score taken before this tree's update (boosting._apply_renewal)."""
+        from .learner.renewal import renew_leaf_values
+
+        resid = self._label_dev - score_k
+        return arrays._replace(
+            leaf_value=renew_leaf_values(
+                arrays.leaf_value, row_leaf, resid, w * mask, alpha,
+                self.spec.num_leaves,
+            )
         )
 
     def _traverse(self, arrays: TreeArrays, dev) -> torch.Tensor:
@@ -337,14 +416,15 @@ class GBDT:
         valid = self.dev["valid"]
         feat_mask = torch.ones(self.train_set.num_used_features,
                                dtype=torch.bool, device=self.device)
+        renew_alpha, renew_w = self._renewal_setup()
         for k in range(K):
-            if self._int_packed:
-                arrays, row_leaf = self._grow_int_packed(
-                    grad[k], hess[k], valid, feat_mask, valid, self.iter_, k)
-            else:
-                arrays, row_leaf = self._grow(grad[k], hess[k], valid,
-                                              feat_mask, valid)
+            arrays, row_leaf = self._grow_maybe_quantized(
+                grad[k], hess[k], valid, feat_mask, valid, self.iter_, k)
             ok = (arrays.num_nodes > 0).to(torch.float32)
+            if renew_alpha is not None:
+                arrays = self._apply_renewal(arrays, row_leaf,
+                                             self.train.score[k], valid,
+                                             renew_alpha, renew_w)
             lv = arrays.leaf_value * (self.shrinkage_rate * ok)
             self.train.score[k] = add_score(self.train.score[k], row_leaf,
                                             lv, 1.0)

@@ -228,9 +228,10 @@ _PARAMS: Dict[str, _P] = {
     "tpu_round_slots": (0, int, (), _nonneg),
     # histogram-channel policy (learner/quantize.resolve_hist_dtype):
     # "auto" and "int16" discretize g/h per tree to 256 integer levels
-    # and accumulate 3 integer channels on the rounds path;
-    # "bf16x2"/"float32" accumulate the f32 gradients (always so on the
-    # exact path); "int8" raises
+    # and accumulate 3 integer channels on the rounds path, "int8" to 127
+    # levels on int8 channels; "bf16x2"/"float32" accumulate the f32
+    # gradients (always so on the exact path). use_quantized_grad's own
+    # levels override it
     "tpu_hist_dtype": ("auto", str, ("hist_dtype",),
                        lambda v: v in ("auto", "float32", "bf16x2",
                                        "int16", "int8")),

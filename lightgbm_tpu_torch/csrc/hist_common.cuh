@@ -3,9 +3,10 @@
 //
 // Layout contract (the JAX package's, kept at the port's public functions):
 //   bins  (G, N) int32, feature-major, row r of column g at bins[g * N + r]
-//   gh    (3, N) channels: gradient, hessian, in-bag count — int32 integer
-//         levels (hist_nat, hist_round int16 mode) or f32 values (hist,
-//         hist_slots, hist_round f32 mode)
+//   gh    (3, N) channels: gradient, hessian, in-bag count — integer
+//         levels, int32 (hist_nat, hist_round int16 mode) or int8 (their
+//         int8 mode), or f32 values (hist, hist_slots, the f32 modes of
+//         hist_nat and hist_round)
 //   out   (S, 3, G, Bc) sums, out[((s * 3 + c) * G + g) * Bc + b]
 //
 // A block owns one tile of (slot chunk) x (column group) x (row chunk).
@@ -113,9 +114,17 @@ __device__ __forceinline__ fx_t fx_quant(float v, int k) {
   return (fx_t)__double2ll_rn(ldexp((double)v, k));
 }
 
-// Row r's three channels: integer levels as they are, f32 values as
-// fixed point with the per-channel exponents k.
+// Row r's three channels: integer levels (int32 or int8) as they are,
+// f32 values as fixed point with the per-channel exponents k.
 __device__ __forceinline__ void load_vals(const int32_t* __restrict__ gh,
+                                          int64_t ld, int r, const int*,
+                                          int& v0, int& v1, int& v2) {
+  v0 = gh[r];
+  v1 = gh[ld + r];
+  v2 = gh[2 * ld + r];
+}
+
+__device__ __forceinline__ void load_vals(const int8_t* __restrict__ gh,
                                           int64_t ld, int r, const int*,
                                           int& v0, int& v1, int& v2) {
   v0 = gh[r];

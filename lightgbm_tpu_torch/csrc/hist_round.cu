@@ -2,8 +2,11 @@
 // rows and builds the smaller children's histograms.
 //
 // Replaces the TPU kernel lightgbm_tpu/learner/pallas_hist.py
-// hist_round_tpu (_round_kernel) for numerical splits, in two modes:
-// int16 (3 integer-level channels, int32 cells) and f32 (the TPU's
+// hist_round_tpu (_round_kernel) for numerical splits, in three modes:
+// int16 (3 int32 integer-level channels, int32 cells), int8 (the same
+// levels within +-127 read as int8 — use_quantized_grad's 4 levels,
+// tpu_hist_dtype=int8 — int32 cells; the TPU's s8 matrix-unit encoding
+// and SWAR one-hot scale are not carried over) and f32 (the TPU's
 // 5-channel bf16x2 mode; here 3 f32 channels summed as int64 fixed point,
 // hist_common.cuh, with the scale taken over all N rows by one absmax
 // launch before and one fx_to_f32 launch after — both in hist.cu). Per
@@ -36,7 +39,8 @@ namespace lgbm_torch {
 
 constexpr int kParamCols = 16;
 
-// Val: int32_t levels with Acc = int, or float values with Acc = fx_t
+// Val: int32_t or int8_t levels with Acc = int, or float values with
+// Acc = fx_t
 // (absmax_bits and log2_rows give the fixed-point exponents; unused for
 // the integer mode).
 template <typename Val, typename Acc>
@@ -124,6 +128,18 @@ extern "C" int lgbm_hist_round(const void* bins, const void* gh,
                                int rows_per_blk, void* stream) {
   using namespace lgbm_torch;
   return launch_hist_round<int32_t, int>(
+      bins, gh, pleaf, params, nullptr, 0, out, pleaf_new, G, N, S, Bc, L,
+      Sc, Gc, rows_per_blk, (cudaStream_t)stream);
+}
+
+// int8 mode: gh (3, N) int8 levels, out (S, 3, G, Bc) int32 zeroed.
+extern "C" int lgbm_hist_round_int8(const void* bins, const void* gh,
+                                    const void* pleaf, const void* params,
+                                    void* out, void* pleaf_new, int G, int N,
+                                    int S, int Bc, int L, int Sc, int Gc,
+                                    int rows_per_blk, void* stream) {
+  using namespace lgbm_torch;
+  return launch_hist_round<int8_t, int>(
       bins, gh, pleaf, params, nullptr, 0, out, pleaf_new, G, N, S, Bc, L,
       Sc, Gc, rows_per_blk, (cudaStream_t)stream);
 }

@@ -1,2 +1,3 @@
 """Tree learner of the port: histograms and their kernels, split search,
-the rounds grower, and the integer-level gradient quantization."""
+the rounds and permuted growers, the integer-level gradient quantization
+and the percentile leaf refit."""

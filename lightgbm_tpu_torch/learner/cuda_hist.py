@@ -5,8 +5,9 @@ paths launch (lightgbm_tpu/learner/pallas_hist.py):
 
 | wrapper          | source             | replaces                          |
 |------------------|--------------------|-----------------------------------|
-| `hist_nat`       | csrc/hist_nat.cu   | hist_nat_tpu / _nat_kernel        |
-| `hist_round`     | csrc/hist_round.cu | hist_round_tpu, int16 mode        |
+| `hist_nat`       | csrc/hist_nat.cu   | hist_nat_tpu, int16 and int8 modes |
+| `hist_nat_f32`   | csrc/hist_nat.cu   | hist_nat_tpu, f32 (nat_ch=5) mode |
+| `hist_round`     | csrc/hist_round.cu | hist_round_tpu, int16 and int8 modes |
 | `hist_round_f32` | csrc/hist_round.cu | hist_round_tpu, f32 (bf16x2) mode |
 | `take_small`     | csrc/take_small.cu | take_small_tpu / _take_kernel     |
 | `seg_sum`        | csrc/seg_sum.cu    | seg_sum_tpu / _segsum_kernel      |
@@ -22,9 +23,10 @@ CPU tests import this module on machines without nvcc.
 
 Each wrapper checks device, dtype, shape and contiguity, allocates the
 outputs, launches on torch's current stream, raises if the C function
-reports a CUDA error, and adds one to its launch count. The plain
-PyTorch versions live in learner/histogram.py; nothing here falls back
-to them.
+reports a CUDA error, and adds one to its launch count (one count per
+kernel mode: the int8 modes count as hist_nat_int8 / hist_round_int8).
+The plain PyTorch versions live in learner/histogram.py; nothing here
+falls back to them.
 """
 
 from __future__ import annotations
@@ -50,6 +52,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 LAUNCHES: Dict[str, int] = {
     "hist_nat": 0, "hist_round": 0, "take_small": 0, "seg_sum": 0,
     "hist": 0, "hist_slots": 0, "hist_round_f32": 0,
+    "hist_nat_int8": 0, "hist_round_int8": 0, "hist_nat_f32": 0,
 }
 
 # shared memory a block may use on sm_90 (mirrors hist_common.cuh)
@@ -145,16 +148,21 @@ def load() -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build()))
         P, I = ctypes.c_void_p, ctypes.c_int
         lib.lgbm_hist_nat.argtypes = [P, P, P, P] + [I] * 7 + [P]
+        lib.lgbm_hist_nat_int8.argtypes = [P, P, P, P] + [I] * 7 + [P]
+        lib.lgbm_hist_nat_f32.argtypes = [P] * 6 + [I] * 8 + [P]
         lib.lgbm_hist_round.argtypes = [P] * 6 + [I] * 8 + [P]
+        lib.lgbm_hist_round_int8.argtypes = [P] * 6 + [I] * 8 + [P]
         lib.lgbm_take_small.argtypes = [P, P, P] + [I] * 4 + [P]
         lib.lgbm_seg_sum.argtypes = [P] * 4 + [I] * 4 + [P]
         lib.lgbm_hist.argtypes = ([P, P, ctypes.c_longlong] + [P] * 4
                                   + [I] * 6 + [P])
         lib.lgbm_hist_slots.argtypes = [P] * 8 + [I] * 8 + [P]
         lib.lgbm_hist_round_f32.argtypes = [P] * 8 + [I] * 9 + [P]
-        for fn in (lib.lgbm_hist_nat, lib.lgbm_hist_round,
-                   lib.lgbm_take_small, lib.lgbm_seg_sum, lib.lgbm_hist,
-                   lib.lgbm_hist_slots, lib.lgbm_hist_round_f32):
+        for fn in (lib.lgbm_hist_nat, lib.lgbm_hist_nat_int8,
+                   lib.lgbm_hist_nat_f32, lib.lgbm_hist_round,
+                   lib.lgbm_hist_round_int8, lib.lgbm_take_small,
+                   lib.lgbm_seg_sum, lib.lgbm_hist, lib.lgbm_hist_slots,
+                   lib.lgbm_hist_round_f32):
             fn.restype = ctypes.c_int
         _lib = lib
         return lib
@@ -220,7 +228,7 @@ def _hist_tiling(G: int, N: int, S: int, Bc: int, extra_ints: int,
 
 def _check_hist_inputs(bins, gh, n_rows_vec, name):
     _need(bins, "bins", torch.int32, 2)
-    _need(gh, "gh", torch.int32, 2)
+    _need(gh, "gh", torch.int8 if gh.dtype == torch.int8 else torch.int32, 2)
     G, N = bins.shape
     if gh.shape != (3, N):
         raise ValueError(f"gh must be (3, {N}), got {tuple(gh.shape)}")
@@ -232,20 +240,53 @@ def _check_hist_inputs(bins, gh, n_rows_vec, name):
 
 def hist_nat(bins: torch.Tensor, gh: torch.Tensor, slot: torch.Tensor,
              num_slots: int, num_bins: int, levels: int) -> torch.Tensor:
-    """(G, N) bins, (3, N) int32 levels, (N,) slot in [0, S] (S = trash)
-    -> (S, 3, G, Bc) f32 exact integer sums."""
+    """(G, N) bins, (3, N) int32 or int8 levels, (N,) slot in [0, S]
+    (S = trash) -> (S, 3, G, Bc) f32 exact integer sums. int8 channels
+    run the int8 mode (counted as hist_nat_int8)."""
     G, N = _check_hist_inputs(bins, gh, slot, "slot")
     check_int_range(N, levels)
     S, Bc = int(num_slots), int(num_bins)
     Sc, Gc, rows = _hist_tiling(G, N, S, Bc, 0, bins.device)
     out = torch.zeros((S, 3, G, Bc), dtype=torch.int32, device=bins.device)
     lib = load()
-    rc = lib.lgbm_hist_nat(bins.data_ptr(), gh.data_ptr(), slot.data_ptr(),
-                           out.data_ptr(), G, N, S, Bc, Sc, Gc, rows,
-                           _stream())
-    _check(rc, "hist_nat")
-    LAUNCHES["hist_nat"] += 1
+    int8 = gh.dtype == torch.int8
+    fn = lib.lgbm_hist_nat_int8 if int8 else lib.lgbm_hist_nat
+    name = "hist_nat_int8" if int8 else "hist_nat"
+    rc = fn(bins.data_ptr(), gh.data_ptr(), slot.data_ptr(), out.data_ptr(),
+            G, N, S, Bc, Sc, Gc, rows, _stream())
+    _check(rc, name)
+    LAUNCHES[name] += 1
     return out.to(torch.float32)
+
+
+def hist_nat_f32(bins: torch.Tensor, gh: torch.Tensor, slot: torch.Tensor,
+                 num_slots: int, num_bins: int) -> torch.Tensor:
+    """The f32 mode of hist_nat: (G, N) bins, (3, N) f32 channels, (N,)
+    slot in [0, S] (S = trash) -> (S, 3, G, Bc) f32 fixed-point sums, the
+    scale taken over all N rows."""
+    from .histogram import fx_log2_rows
+
+    _need(bins, "bins", torch.int32, 2)
+    _need(gh, "gh", torch.float32, 2)
+    _need(slot, "slot", torch.int32, 1)
+    G, N = bins.shape
+    S, Bc = int(num_slots), int(num_bins)
+    if gh.shape != (3, N) or slot.shape[0] != N:
+        raise ValueError(f"gh must be (3, {N}) and slot ({N},)")
+    Sc, Gc, rows = _hist_tiling(G, N, S, Bc, 0, bins.device, cell_words=2)
+    dev = bins.device
+    absmax = torch.zeros(3, dtype=torch.int32, device=dev)
+    acc = torch.zeros((S, 3, G, Bc), dtype=torch.int64, device=dev)
+    out = torch.empty((S, 3, G, Bc), dtype=torch.float32, device=dev)
+    lib = load()
+    rc = lib.lgbm_hist_nat_f32(
+        bins.data_ptr(), gh.data_ptr(), slot.data_ptr(), absmax.data_ptr(),
+        acc.data_ptr(), out.data_ptr(), G, N, S, Bc, Sc, Gc, rows,
+        fx_log2_rows(N), _stream(),
+    )
+    _check(rc, "hist_nat_f32")
+    LAUNCHES["hist_nat_f32"] += 1
+    return out
 
 
 def hist_round(bins: torch.Tensor, gh: torch.Tensor, pleaf: torch.Tensor,
@@ -253,8 +294,9 @@ def hist_round(bins: torch.Tensor, gh: torch.Tensor, pleaf: torch.Tensor,
                num_leaves: int, levels: int
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fused partition + smaller-child histograms -> ((S, 3, G, Bc) f32,
-    (N,) int32 new row -> leaf). params (S, 16) int32 as documented in
-    csrc/hist_round.cu; pleaf values lie in [0, num_leaves]."""
+    (N,) int32 new row -> leaf) over int32 or int8 levels (int8: the int8
+    mode, counted as hist_round_int8). params (S, 16) int32 as documented
+    in csrc/hist_round.cu; pleaf values lie in [0, num_leaves]."""
     G, N = _check_hist_inputs(bins, gh, pleaf, "pleaf")
     _need(params, "params", torch.int32, 2)
     S, Bc, L = int(num_slots), int(num_bins), int(num_leaves)
@@ -266,13 +308,14 @@ def hist_round(bins: torch.Tensor, gh: torch.Tensor, pleaf: torch.Tensor,
     out = torch.zeros((S, 3, G, Bc), dtype=torch.int32, device=bins.device)
     pleaf_new = torch.empty_like(pleaf)
     lib = load()
-    rc = lib.lgbm_hist_round(
-        bins.data_ptr(), gh.data_ptr(), pleaf.data_ptr(), params.data_ptr(),
-        out.data_ptr(), pleaf_new.data_ptr(), G, N, S, Bc, L, Sc, Gc, rows,
-        _stream(),
-    )
-    _check(rc, "hist_round")
-    LAUNCHES["hist_round"] += 1
+    int8 = gh.dtype == torch.int8
+    fn = lib.lgbm_hist_round_int8 if int8 else lib.lgbm_hist_round
+    name = "hist_round_int8" if int8 else "hist_round"
+    rc = fn(bins.data_ptr(), gh.data_ptr(), pleaf.data_ptr(),
+            params.data_ptr(), out.data_ptr(), pleaf_new.data_ptr(), G, N, S,
+            Bc, L, Sc, Gc, rows, _stream())
+    _check(rc, name)
+    LAUNCHES[name] += 1
     return out.to(torch.float32), pleaf_new
 
 

@@ -33,6 +33,9 @@ class GrowerSpec(NamedTuple):
     has_mono: bool = False  # any monotone constraint (basic method)
     # rounds grower: integer-level channels (True) or f32 channels
     quant: bool = True
+    # integer levels within +-127 ride the kernels' int8 mode
+    # (use_quantized_grad <= 127 levels, tpu_hist_dtype=int8)
+    quant_int8: bool = False
     # permuted grower: the batched round phase first (tpu_growth_rounds)
     rounds: bool = False
 

@@ -12,13 +12,17 @@ launch fails. The plain versions are the CPU path of the tests and the
 yardstick chip_smoke.py holds each kernel against on the card.
 
 Two channel layouts, both (3, N) with rows (gradient, hessian, count):
-- integer levels (int32; quantize.discretize_gradients_int), summed
-  exactly in integers: hist_nat_slots and hist_round with quant=True;
+- integer levels (quantize.discretize_gradients_int), summed exactly in
+  integers: hist_nat_slots and hist_round with quant=True. The channels
+  are int8 when every level fits +-127 (use_quantized_grad's default 4
+  levels, tpu_hist_dtype=int8), int32 otherwise (int16's 256 levels);
+  the dtype picks the kernel mode and the sums are the same;
 - f32 values (build_gh3), summed as int64 fixed point: histogram,
-  hist_slots and hist_round with quant=False. The JAX package splits
-  each f32 value into bf16 hi/lo halves only to feed the TPU's bf16
-  matrix unit and re-adds them in every consumer; since hi + lo == x
-  exactly, the port carries the f32 value itself (ROADMAP C).
+  hist_slots, and hist_nat_slots and hist_round with quant=False. The
+  JAX package splits each f32 value into bf16 hi/lo halves only to feed
+  the TPU's bf16 matrix unit and re-adds them in every consumer; since
+  hi + lo == x exactly, the port carries the f32 value itself
+  (ROADMAP C).
 
 Fixed point (fx_*): each channel of a call is scaled by 2^k, rounded
 to int64 and summed, then scaled back to f32. k = 62 - ceil(log2 n) -
@@ -30,9 +34,6 @@ same bits as these plain versions. Each value is rounded to
 2^(e - 62 + ceil(log2 n)): 2^-42 of the channel's max at n = 2^20 rows,
 far below f32's 2^-24, so the f32 result is the true sum to within f32
 rounding unless n nears 2^38.
-
-The 5-channel f32 mode of hist_nat and the int8 mode of the JAX package
-are not ported (ROADMAP queue A.10, B) and raise.
 """
 
 from __future__ import annotations
@@ -47,12 +48,24 @@ HIST_BLK = 2048  # device row padding is a multiple of this
 INT16_LEVELS = HIST_DTYPE_LEVELS["int16"]
 
 
+INT8_MAX = 127
+
+
 def build_gh8_quant(gq: torch.Tensor, hq: torch.Tensor,
-                    count: torch.Tensor) -> torch.Tensor:
-    """Integer-level channels (g_int, h_int, count) -> (3, N) int32 —
-    the layout of the JAX package's build_gh8_quant without its five
-    zero rows (the kernels here have no matrix-unit tile to fill)."""
-    return torch.stack([gq, hq, count]).to(torch.int32)
+                    count: torch.Tensor, int8_levels: int = 0
+                    ) -> torch.Tensor:
+    """Integer-level channels (g_int, h_int, count) -> (3, N) — the
+    layout of the JAX package's build_gh8_quant without its five zero
+    rows (the kernels here have no matrix-unit tile to fill). int8_levels
+    is the level count of a tree in the int8 mode (0: int32 channels).
+    Stochastic rounding keeps every level within +-(levels + 1), so up
+    to 126 levels the channels are int8 with no check; at 127 a hessian
+    level can reach 128, and one host read decides (int32 if it does)."""
+    gh = torch.stack([gq, hq, count])
+    if int8_levels and (int8_levels < INT8_MAX
+                        or bool(gh.abs().max() <= INT8_MAX)):
+        return gh.to(torch.int8)
+    return gh.to(torch.int32)
 
 
 def root_sums_quant(gh: torch.Tensor) -> torch.Tensor:
@@ -71,14 +84,6 @@ def root_sums(gh: torch.Tensor) -> torch.Tensor:
     """(3,) f32 (sum_grad, sum_hess, count) over all rows of (3, N) f32
     channels: summed in f64 and rounded once."""
     return gh.to(torch.float64).sum(dim=1).to(torch.float32)
-
-
-def _require_int16(int8: bool) -> None:
-    if int8:
-        raise NotImplementedError(
-            "the int8 SWAR histogram mode (tpu_hist_dtype=int8) is not "
-            "ported (ROADMAP queue B)"
-        )
 
 
 # ------------------------------------------------------------ fixed point
@@ -146,35 +151,43 @@ def _slot_hist_int64(bins_fm: torch.Tensor, vals: torch.Tensor,
 
 def hist_nat_slots_plain(bins_fm: torch.Tensor, gh: torch.Tensor,
                          slot: torch.Tensor, num_slots: int,
-                         num_bins: int) -> torch.Tensor:
-    """Plain version of hist_nat: exact integer sums."""
-    return _slot_hist_int64(bins_fm, gh, slot, num_slots,
-                            num_bins).to(torch.float32)
+                         num_bins: int, quant: bool = True) -> torch.Tensor:
+    """Plain version of hist_nat: exact integer sums of int8 / int32
+    levels (quant), or fixed-point sums of f32 channels, the scale taken
+    over all N rows."""
+    if quant:
+        return _slot_hist_int64(bins_fm, gh, slot, num_slots,
+                                num_bins).to(torch.float32)
+    k = fx_exponents(_absmax(gh), bins_fm.shape[1])
+    acc = _slot_hist_int64(bins_fm, fx_quantize(gh, k), slot, num_slots,
+                           num_bins)
+    return fx_to_f32(acc, k)
 
 
 def hist_nat_slots(
     bins_fm: torch.Tensor,  # (G, N) int32, natural row order
-    gh: torch.Tensor,  # (3, N) int32 integer levels (build_gh8_quant)
+    gh: torch.Tensor,  # (3, N) int8 / int32 levels (quant) or f32 values
     slot: torch.Tensor,  # (N,) int32 in [0, num_slots]; num_slots = trash
     num_slots: int,
     num_bins: int,
     quant: bool = True,
-    int8: bool = False,
     levels: int = INT16_LEVELS,
 ) -> torch.Tensor:
     """Per-slot histograms keyed by a row -> slot vector -> (S, 3, G, Bc)
-    f32 exact integer sums (hist_nat kernel on the card)."""
-    if not quant:
-        raise NotImplementedError(
-            "the 5-channel f32 mode of hist_nat (the percentile leaf "
-            "refit's histograms) is not ported (ROADMAP queue A.10)"
-        )
-    _require_int16(int8)
+    f32: exact integer sums of build_gh8_quant's levels (quant, `levels`
+    bounds them), or fixed-point sums of build_gh3's f32 channels
+    (quant=False: the percentile leaf refit's histograms). The hist_nat
+    kernel on the card, in the mode of gh's dtype."""
     if bins_fm.is_cuda:
-        from .cuda_hist import hist_nat
+        from . import cuda_hist
 
-        return hist_nat(bins_fm, gh, slot, num_slots, num_bins, levels)
-    return hist_nat_slots_plain(bins_fm, gh, slot, num_slots, num_bins)
+        if not quant:
+            return cuda_hist.hist_nat_f32(bins_fm, gh, slot, num_slots,
+                                          num_bins)
+        return cuda_hist.hist_nat(bins_fm, gh, slot, num_slots, num_bins,
+                                  levels)
+    return hist_nat_slots_plain(bins_fm, gh, slot, num_slots, num_bins,
+                                quant)
 
 
 # ---------------------------------------------------------- f32 histogram
@@ -311,25 +324,19 @@ def hist_round_plain(bins_fm, gh, pleaf, params, num_slots, num_bins,
     fixed-point sums of f32 channels, the scale taken over all N rows."""
     pleaf_new, hslot = round_partition_plain(bins_fm, pleaf, params,
                                              num_slots)
-    if quant:
-        return (hist_nat_slots_plain(bins_fm, gh, hslot, num_slots,
-                                     num_bins), pleaf_new)
-    k = fx_exponents(_absmax(gh), bins_fm.shape[1])
-    acc = _slot_hist_int64(bins_fm, fx_quantize(gh, k), hslot, num_slots,
-                           num_bins)
-    return fx_to_f32(acc, k), pleaf_new
+    return (hist_nat_slots_plain(bins_fm, gh, hslot, num_slots, num_bins,
+                                 quant), pleaf_new)
 
 
 def hist_round(
     bins_fm: torch.Tensor,  # (G, N) int32
-    gh: torch.Tensor,  # (3, N) int32 levels (quant) or f32 (build_gh3)
+    gh: torch.Tensor,  # (3, N) int8 / int32 levels (quant) or f32 values
     pleaf: torch.Tensor,  # (N,) int32 row -> leaf, in [0, num_leaves]
     params: torch.Tensor,  # (S, 16) int32 per-slot split params
     num_slots: int,
     num_bins: int,
     num_leaves: int,
     quant: bool = True,
-    int8: bool = False,
     cat_mask: Optional[torch.Tensor] = None,
     levels: int = INT16_LEVELS,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -337,9 +344,9 @@ def hist_round(
     (N,) int32 new row -> leaf). params columns as csrc/hist_round.cu
     documents them; an unused slot has leaf id -1. Unlike the JAX
     package's version this takes no column one-hot: the kernel reads
-    the split column directly. quant=False is the f32 mode: fixed-point
-    sums of f32 channels (module docstring)."""
-    _require_int16(int8)
+    the split column directly. The kernel mode follows gh's dtype: int8
+    or int32 levels (quant), or f32 channels summed as fixed point
+    (quant=False, module docstring)."""
     if cat_mask is not None:
         raise NotImplementedError(
             "categorical splits in the fused round (the in-kernel category "

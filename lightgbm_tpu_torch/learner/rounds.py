@@ -2,9 +2,10 @@
 
 The port of lightgbm_tpu/learner/rounds.py (grow_tree_rounds, the
 single production grower of the JAX package) for axis_name=None, with
-integer gradient levels (spec.quant: the default int16 path) or f32
-gradients (tpu_hist_dtype=bf16x2). Rows never move: the partition is a
-per-row leaf-id vector. Each round
+integer gradient levels (spec.quant: the default int16 path, and
+use_quantized_grad, whose levels within +-127 ride the kernels' int8
+mode, spec.quant_int8) or f32 gradients (tpu_hist_dtype=bf16x2). Rows
+never move: the partition is a per-row leaf-id vector. Each round
 - picks the top-k positive-gain leaves (k bounded by the remaining leaf
   budget, the kernel width of the S-ladder, and, on small data, half the
   remaining budget — rounds.py:415-459);
@@ -98,7 +99,9 @@ def grow_tree_rounds(
         return expand_hist(h, g_, h_, c_, bundle) if spec.efb else h
 
     if spec.quant:
-        gh = build_gh8_quant(grad * mask, hess * mask, mask)  # (3, N) int32
+        # (3, N) int8 in the int8 mode (spec.quant_int8), else int32
+        gh = build_gh8_quant(grad * mask, hess * mask, mask,
+                             int8_levels=levels if spec.quant_int8 else 0)
         scale3 = torch.stack([gh_scale[0], gh_scale[1],
                               torch.ones((), dtype=torch.float32,
                                          device=dev)])

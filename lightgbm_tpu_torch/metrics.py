@@ -1,11 +1,13 @@
 """Evaluation metrics (reference src/metric/*.hpp + factory metric.cpp:21).
 
 A copy of the host metrics of lightgbm_tpu/metrics.py that the eager
-training loop calls (boosting.eval_set): l2, rmse, binary_logloss,
-binary_error, auc, multi_logloss and multi_error. Host-side numpy over
-(label, raw score) on unpadded arrays; each metric reports (name, value,
-higher_better) with the reference names. The other metrics of the JAX
-package are not ported (ROADMAP queue A) and raise.
+training loop calls (boosting.eval_set): the regression family (l2,
+rmse, r2, l1, quantile, huber, fair, poisson, mape, gamma,
+gamma_deviance, tweedie), binary_logloss, binary_error, auc,
+multi_logloss and multi_error. Host-side numpy over (label, raw score)
+on unpadded arrays; each metric reports (name, value, higher_better)
+with the reference names. The other metrics of the JAX package are not
+ported (ROADMAP queue A) and raise.
 """
 
 from __future__ import annotations
@@ -69,6 +71,117 @@ class RMSEMetric(_PointwiseMetric):
     def eval(self, score):
         mse = self._avg((self.label - score) ** 2)
         return [(self.name, float(np.sqrt(mse)), False)]
+
+
+class R2Metric(Metric):
+    """Coefficient of determination (the one member of the reference
+    metric.cpp:21 regression family previously missing here):
+    R^2 = 1 - sum(w * (y - s)^2) / sum(w * (y - ybar_w)^2) with the
+    weighted label mean ybar_w; constant labels yield 0 like the
+    degenerate-denominator convention in sklearn."""
+
+    name = "r2"
+    higher_better = True
+
+    def eval(self, score):
+        y = self.label.astype(np.float64)
+        w = (
+            self.weight.astype(np.float64)
+            if self.weight is not None
+            else np.ones_like(y)
+        )
+        ybar = np.sum(w * y) / np.sum(w)
+        ss_res = np.sum(w * (y - score) ** 2)
+        ss_tot = np.sum(w * (y - ybar) ** 2)
+        val = 1.0 - ss_res / ss_tot if ss_tot > 0 else 0.0
+        return [(self.name, float(val), True)]
+
+
+class L1Metric(_PointwiseMetric):
+    name = "l1"
+
+    def point(self, y, s):
+        return np.abs(y - s)
+
+
+class QuantileMetric(_PointwiseMetric):
+    name = "quantile"
+
+    def point(self, y, s):
+        a = self.config.alpha
+        d = y - s
+        return np.where(d >= 0, a * d, (a - 1.0) * d)
+
+
+class HuberMetric(_PointwiseMetric):
+    name = "huber"
+
+    def point(self, y, s):
+        a = self.config.alpha
+        d = np.abs(s - y)
+        return np.where(d <= a, 0.5 * d * d, a * (d - 0.5 * a))
+
+
+class FairMetric(_PointwiseMetric):
+    name = "fair"
+
+    def point(self, y, s):
+        c = self.config.fair_c
+        x = np.abs(s - y)
+        return c * x - c * c * np.log1p(x / c)
+
+
+class PoissonMetric(_PointwiseMetric):
+    name = "poisson"
+
+    def transform(self, score):
+        return np.exp(score)
+
+    def point(self, y, s):
+        eps = 1e-10
+        return s - y * np.log(np.maximum(s, eps))
+
+
+class MAPEMetric(_PointwiseMetric):
+    name = "mape"
+
+    def point(self, y, s):
+        return np.abs((y - s) / np.maximum(1.0, np.abs(y)))
+
+
+class GammaMetric(_PointwiseMetric):
+    name = "gamma"
+
+    def transform(self, score):
+        return np.exp(score)
+
+    def point(self, y, s):
+        psi = y / s - np.log(np.maximum(y / np.maximum(s, 1e-10), 1e-10)) - 1.0
+        return psi
+
+
+class GammaDevianceMetric(_PointwiseMetric):
+    name = "gamma_deviance"
+
+    def transform(self, score):
+        return np.exp(score)
+
+    def point(self, y, s):
+        eps = 1e-10
+        return 2.0 * (np.log(np.maximum(s, eps) / np.maximum(y, eps)) + y / np.maximum(s, eps) - 1.0)
+
+
+class TweedieMetric(_PointwiseMetric):
+    name = "tweedie"
+
+    def transform(self, score):
+        return np.exp(score)
+
+    def point(self, y, s):
+        rho = self.config.tweedie_variance_power
+        eps = 1e-10
+        s = np.maximum(s, eps)
+        return -y * np.power(s, 1.0 - rho) / (1.0 - rho) + np.power(s, 2.0 - rho) / (2.0 - rho)
 
 
 class BinaryLoglossMetric(_PointwiseMetric):
@@ -149,6 +262,17 @@ _METRICS: Dict[str, type] = {
     "l2": L2Metric, "mean_squared_error": L2Metric, "mse": L2Metric,
     "regression": L2Metric, "regression_l2": L2Metric,
     "rmse": RMSEMetric, "root_mean_squared_error": RMSEMetric, "l2_root": RMSEMetric,
+    "r2": R2Metric, "r_squared": R2Metric,
+    "l1": L1Metric, "mean_absolute_error": L1Metric, "mae": L1Metric,
+    "regression_l1": L1Metric,
+    "quantile": QuantileMetric,
+    "huber": HuberMetric,
+    "fair": FairMetric,
+    "poisson": PoissonMetric,
+    "mape": MAPEMetric, "mean_absolute_percentage_error": MAPEMetric,
+    "gamma": GammaMetric,
+    "gamma_deviance": GammaDevianceMetric,
+    "tweedie": TweedieMetric,
     "binary_logloss": BinaryLoglossMetric, "binary": BinaryLoglossMetric,
     "binary_error": BinaryErrorMetric,
     "auc": AUCMetric,
@@ -159,15 +283,14 @@ _METRICS: Dict[str, type] = {
 
 # metric implied by each objective when metric param is empty (metric.cpp)
 _DEFAULT_METRIC = {
-    "regression": "l2", "binary": "binary_logloss",
+    "regression": "l2", "regression_l1": "l1", "huber": "huber", "fair": "fair",
+    "poisson": "poisson", "quantile": "quantile", "mape": "mape",
+    "gamma": "gamma", "tweedie": "tweedie", "binary": "binary_logloss",
     "multiclass": "multi_logloss",
 }
 
 # metrics of the JAX package that are not ported yet
 _NOT_PORTED = frozenset({
-    "r2", "r_squared", "l1", "mean_absolute_error", "mae", "regression_l1",
-    "quantile", "huber", "fair", "poisson", "mape",
-    "mean_absolute_percentage_error", "gamma", "gamma_deviance", "tweedie",
     "average_precision", "auc_mu", "cross_entropy", "xentropy",
     "cross_entropy_lambda", "xentlambda", "kullback_leibler", "kldiv",
     "ndcg", "lambdarank", "rank_xendcg", "map", "mean_average_precision",

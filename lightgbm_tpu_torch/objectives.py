@@ -1,13 +1,17 @@
 """Objective functions: per-row gradients and hessians on the device.
 
-The port of lightgbm_tpu/objectives.py for the main path's objectives
-(RegressionL2 :127, Binary :282, MulticlassSoftmax :334) with the same
-math and factory names. Scores and labels are padded row vectors on the
-training device; padding rows produce gradients the grower masks out
-through the validity channel. Host statistics (boost_from_score) run in
-numpy on the same float32 label array as the JAX package, so the
-initial scores agree bit for bit. The other objectives are not ported
-(ROADMAP queue A) and raise.
+The port of lightgbm_tpu/objectives.py for the regression family
+(RegressionL2 :127 and RegressionL1, Huber, Fair, Poisson, Quantile,
+MAPE, Gamma, Tweedie :152-280), Binary :282 and MulticlassSoftmax :334,
+with the same math and factory names. Scores and labels are padded row
+vectors on the training device; padding rows produce gradients the
+grower masks out through the validity channel. Host statistics
+(boost_from_score) run in numpy on the same float32 label array as the
+JAX package, so the initial scores agree bit for bit. L1, Huber,
+Quantile and MAPE renew their leaves by weighted percentile
+(is_renew_tree_output; learner/renewal.py). The other objectives
+(MulticlassOVA, cross-entropy, ranking) are not ported (ROADMAP queue A)
+and raise.
 """
 
 from __future__ import annotations
@@ -27,6 +31,8 @@ class ObjectiveFunction:
 
     name = "custom"
     num_class = 1
+    # objectives that refit leaf outputs with residual percentiles
+    # (objective_function.h:55 IsRenewTreeOutput)
     is_renew_tree_output = False
 
     def __init__(self, config: Config):
@@ -59,7 +65,7 @@ class ObjectiveFunction:
         return 0.0
 
     def convert_output(self, score: np.ndarray) -> np.ndarray:
-        """Raw score -> prediction space (sigmoid / softmax)."""
+        """Raw score -> prediction space (sigmoid / exp / softmax)."""
         return score
 
     def _w(self, g, h):
@@ -78,6 +84,9 @@ class RegressionL2(ObjectiveFunction):
         if self.config.reg_sqrt:
             lab = self.label
             self.label = torch.sign(lab) * torch.sqrt(torch.abs(lab))
+            # host statistics read the transformed labels too
+            h = self._host_label
+            self._host_label = np.sign(h) * np.sqrt(np.abs(h))
 
     def get_gradients(self, score):
         return self._w(score - self.label, torch.ones_like(score))
@@ -89,6 +98,154 @@ class RegressionL2(ObjectiveFunction):
         if self.config.reg_sqrt:
             return np.sign(score) * score * score
         return score
+
+
+def _f32(v: float) -> float:
+    """A config value rounded to f32, as the JAX package's traced
+    jnp.float32 constants."""
+    return float(np.float32(v))
+
+
+class RegressionL1(RegressionL2):
+    name = "regression_l1"
+    is_renew_tree_output = True
+
+    def get_gradients(self, score):
+        return self._w(torch.sign(score - self.label), torch.ones_like(score))
+
+    def boost_from_score(self, class_id: int) -> float:
+        w = self._host_weight
+        if w is None:
+            return float(np.percentile(self._host_label, 50))
+        return _weighted_percentile(self._host_label, w, 0.5)
+
+    def renew_percentile(self) -> float:
+        return 0.5
+
+
+class Huber(RegressionL2):
+    name = "huber"
+    is_renew_tree_output = True
+
+    def get_gradients(self, score):
+        d = score - self.label
+        a = _f32(self.config.alpha)
+        g = torch.where(torch.abs(d) <= a, d, torch.sign(d) * a)
+        return self._w(g, torch.ones_like(score))
+
+    def renew_percentile(self) -> float:
+        return 0.5
+
+
+class Fair(RegressionL2):
+    name = "fair"
+
+    def get_gradients(self, score):
+        d = score - self.label
+        c = _f32(self.config.fair_c)
+        t = torch.abs(d) + c
+        return self._w(c * d / t, _f32(c * c) / (t * t))
+
+    def boost_from_score(self, class_id: int) -> float:
+        return 0.0
+
+
+class Poisson(RegressionL2):
+    name = "poisson"
+
+    def check_label(self, label):
+        if np.any(label < 0):
+            log.fatal(f"[{self.name}]: at least one target label is "
+                      "negative")
+
+    def get_gradients(self, score):
+        mds = _f32(self.config.poisson_max_delta_step)
+        return self._w(torch.exp(score) - self.label, torch.exp(score + mds))
+
+    def boost_from_score(self, class_id: int) -> float:
+        avg = np.average(self._host_label, weights=self._host_weight)
+        return float(np.log(max(avg, 1e-20)))
+
+    def convert_output(self, score):
+        return np.exp(score)
+
+
+class Quantile(RegressionL2):
+    name = "quantile"
+    is_renew_tree_output = True
+
+    def get_gradients(self, score):
+        a = np.float32(self.config.alpha)
+        g = torch.where(score > self.label, float(np.float32(1.0) - a),
+                        float(-a)).to(score.dtype)
+        return self._w(g, torch.ones_like(score))
+
+    def boost_from_score(self, class_id: int) -> float:
+        w = self._host_weight
+        if w is None:
+            return float(np.percentile(self._host_label,
+                                       self.config.alpha * 100))
+        return _weighted_percentile(self._host_label, w, self.config.alpha)
+
+    def renew_percentile(self) -> float:
+        return float(self.config.alpha)
+
+
+class MAPE(RegressionL2):
+    name = "mape"
+    is_renew_tree_output = True
+
+    def init(self, dataset, device):
+        super().init(dataset, device)
+        lab = self.label.cpu().numpy()
+        lw = 1.0 / np.maximum(np.float32(1.0), np.abs(lab))
+        if self.weight is not None:
+            lw = lw * self.weight.cpu().numpy()
+        lw = lw.astype(np.float32)
+        self._host_label_weight = lw[: dataset.num_data]
+        self._label_weight = torch.from_numpy(lw).to(device)
+
+    def get_gradients(self, score):
+        g = torch.sign(score - self.label) * self._label_weight
+        return g, self._label_weight
+
+    def boost_from_score(self, class_id: int) -> float:
+        return _weighted_percentile(self._host_label,
+                                    self._host_label_weight, 0.5)
+
+    def renew_percentile(self) -> float:
+        return 0.5
+
+
+class Gamma(Poisson):
+    name = "gamma"
+
+    def get_gradients(self, score):
+        e = self.label * torch.exp(-score)
+        return self._w(1.0 - e, e)
+
+
+class Tweedie(Poisson):
+    name = "tweedie"
+
+    def get_gradients(self, score):
+        rho = _f32(self.config.tweedie_variance_power)
+        e1 = torch.exp(_f32(1.0 - rho) * score)
+        e2 = torch.exp(_f32(2.0 - rho) * score)
+        g = -self.label * e1 + e2
+        h = -self.label * _f32(1.0 - rho) * e1 + _f32(2.0 - rho) * e2
+        return self._w(g, h)
+
+
+def _weighted_percentile(values: np.ndarray, weights: np.ndarray,
+                         alpha: float) -> float:
+    """The first value whose cumulative weight reaches alpha * total
+    (objectives._weighted_percentile)."""
+    order = np.argsort(values)
+    v, w = values[order], weights[order]
+    cw = np.cumsum(w)
+    idx = int(np.searchsorted(cw, alpha * cw[-1]))
+    return float(v[min(idx, len(v) - 1)])
 
 
 class Binary(ObjectiveFunction):
@@ -171,6 +328,14 @@ class MulticlassSoftmax(ObjectiveFunction):
 
 _OBJECTIVES = {
     "regression": RegressionL2,
+    "regression_l1": RegressionL1,
+    "huber": Huber,
+    "fair": Fair,
+    "poisson": Poisson,
+    "quantile": Quantile,
+    "mape": MAPE,
+    "gamma": Gamma,
+    "tweedie": Tweedie,
     "binary": Binary,
     "multiclass": MulticlassSoftmax,
 }
@@ -184,6 +349,6 @@ def create_objective(config: Config) -> Optional[ObjectiveFunction]:
     if name not in _OBJECTIVES:
         raise NotImplementedError(
             f"objective {name} is not ported yet (ROADMAP queue A); the "
-            "port has regression, binary and multiclass"
+            f"port has {', '.join(_OBJECTIVES)}"
         )
     return _OBJECTIVES[name](config)

@@ -5,10 +5,18 @@
 For each slot width of the rounds grower's ladder (1 = the root
 hist_nat, 8, 32, 48) it times hist_round and hist_nat at the main
 path's shapes (1,001,472 rows, 28 columns, 256 bins, random valid split
-params) with the row axis cut into a given number of chunks per tile,
-and prints one JSON line per (width, chunks) with the median
-milliseconds over CUDA events. `chunks: null` is the tiling that
-learner/cuda_hist._hist_tiling picks. Needs a CUDA device.
+params), on int32 (int16 mode) and int8 levels (int8 mode), with the
+row axis cut into a given number of chunks per tile, and prints one
+JSON line per (width, chunks) with the median milliseconds over CUDA
+events. Then the same for hist_nat's f32 mode at the percentile refit's
+shape (one column, 255 slots + trash, 256 bins), once with every row in
+a slot (a first refit pass) and once with 1 row in 64 (a later pass),
+over chunk counts that include one block wave. Per slot width it also
+times the int8 modes against the int32 channels of the same 4-level
+values (`same_4_levels`: int8, int32, int32, int8), which isolates the
+channel width from the values.
+`chunks: null` is the tiling that learner/cuda_hist._hist_tiling picks.
+Needs a CUDA device.
 """
 
 import json
@@ -53,13 +61,18 @@ def main() -> int:
                       torch.randint(0, 257, (N,), generator=gen),
                       torch.ones(N, dtype=torch.int64)]).to(torch.int32)
     gh = gh.to(dev)
+    gh8 = torch.stack([torch.randint(-2, 3, (N,), generator=gen),
+                       torch.randint(0, 5, (N,), generator=gen),
+                       torch.ones(N, dtype=torch.int64)]).to(torch.int8)
+    gh8 = gh8.to(dev)
     pleaf = torch.randint(0, L + 1, (N,), generator=gen,
                           dtype=torch.int32).to(dev)
     default_tiling = ch._hist_tiling
 
     def tiling(chunks):
-        def f(G_, N_, S_, Bc_, extra, device):
-            Sc, Gc, rows = default_tiling(G_, N_, S_, Bc_, extra, device)
+        def f(G_, N_, S_, Bc_, extra, device, cell_words=1):
+            Sc, Gc, rows = default_tiling(G_, N_, S_, Bc_, extra, device,
+                                          cell_words)
             return Sc, Gc, (rows if chunks is None else -(-N_ // chunks))
         return f
 
@@ -83,10 +96,57 @@ def main() -> int:
                     bins, gh, pleaf, params, S, BC, L))
                 t_nat = cuda_ms(torch, lambda: h.hist_nat_slots(
                     bins, gh, slot, S, BC))
+                t_round8 = cuda_ms(torch, lambda: h.hist_round(
+                    bins, gh8, pleaf, params, S, BC, L, levels=4))
+                t_nat8 = cuda_ms(torch, lambda: h.hist_nat_slots(
+                    bins, gh8, slot, S, BC, levels=4))
                 print(json.dumps({"device": smi, "slots": S,
                                   "chunks": chunks,
                                   "hist_round_ms": t_round,
-                                  "hist_nat_ms": t_nat}), flush=True)
+                                  "hist_nat_ms": t_nat,
+                                  "hist_round_int8_ms": t_round8,
+                                  "hist_nat_int8_ms": t_nat8}), flush=True)
+            # the channel width alone: the same 4-level values as int8
+            # and as int32 channels, timed int8, int32, int32, int8
+            ch._hist_tiling = default_tiling
+            gh8w = gh8.to(torch.int32)
+            same = {"int8": [], "int32": []}
+            for name in ("int8", "int32", "int32", "int8"):
+                g_ = gh8 if name == "int8" else gh8w
+                same[name].append((
+                    cuda_ms(torch, lambda: h.hist_round(
+                        bins, g_, pleaf, params, S, BC, L, levels=4)),
+                    cuda_ms(torch, lambda: h.hist_nat_slots(
+                        bins, g_, slot, S, BC, levels=4))))
+            print(json.dumps({
+                "device": smi, "slots": S, "chunks": None,
+                "same_4_levels": {
+                    f"hist_{k}_{w}_ms": [t[i] for t in same[w]]
+                    for i, k in enumerate(("round", "nat"))
+                    for w in ("int8", "int32")}}), flush=True)
+        # hist_nat's f32 mode at the percentile refit's shape
+        rbins = torch.randint(0, BC, (1, N), generator=gen,
+                              dtype=torch.int32).to(dev)
+        w = torch.rand(N, generator=gen).to(dev)
+        for share in (1, 64):
+            inb = (torch.arange(N, device=dev) % share) == 0
+            rgh = torch.stack([torch.where(inb, w, 0.0), torch.zeros_like(w),
+                               inb.to(torch.float32)])
+            rslot = torch.where(
+                inb, torch.randint(0, L, (N,), generator=gen,
+                                   dtype=torch.int32).to(dev), L)
+            # one block wave: the default tile's slot chunks x row chunks
+            # = the SM count
+            Sc = default_tiling(1, N, L, BC, 0, dev, 2)[0]
+            one_wave = -(-ch._sm_count(dev) // -(-L // Sc))
+            for chunks in (None, 1, 2, 4, 8, 16, one_wave, 32, 76, 160):
+                ch._hist_tiling = tiling(chunks)
+                t = cuda_ms(torch, lambda: h.hist_nat_slots(
+                    rbins, rgh, rslot, L, BC, quant=False))
+                print(json.dumps({"device": smi, "refit_rows_share":
+                                  f"1/{share}", "slots": L,
+                                  "chunks": chunks, "hist_nat_f32_ms": t}),
+                      flush=True)
     finally:
         ch._hist_tiling = default_tiling
     return 0

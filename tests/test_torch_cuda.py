@@ -177,6 +177,107 @@ def test_hist_round_f32_bitwise_equals_plain(dev, efb):
     assert cuda_hist.LAUNCHES["hist_round"] == 0
 
 
+def _int8_inputs(n=8192, g=7, b=64, seed=0):
+    """Levels within +-127, as build_gh8_quant's int8 channels."""
+    rs = np.random.RandomState(seed)
+    bins = torch.from_numpy(rs.randint(0, b, (g, n)).astype(np.int32))
+    cnt = (rs.rand(n) < 0.9).astype(np.float32)
+    gh = ht.build_gh8_quant(
+        torch.from_numpy(rs.randint(-63, 64, n).astype(np.float32) * cnt),
+        torch.from_numpy(rs.randint(0, 128, n).astype(np.float32) * cnt),
+        torch.from_numpy(cnt), int8_levels=127)
+    assert gh.dtype == torch.int8
+    return rs, bins, gh
+
+
+@pytest.mark.parametrize("num_slots", [1, 4, 400])
+def test_hist_nat_int8_exact(dev, num_slots):
+    """The int8 mode: the same integer sums as the plain version (and as
+    the int32 mode on the same levels), counted as hist_nat_int8."""
+    rs, bins, gh = _int8_inputs()
+    slot = torch.from_numpy(rs.randint(0, num_slots + 1, 8192)
+                            .astype(np.int32))
+    bt, st = bins.to(dev), slot.to(dev)
+    cuda_hist.reset_launch_counts()
+    out = ht.hist_nat_slots(bt, gh.to(dev), st, num_slots, 64, levels=127)
+    ref = ht.hist_nat_slots_plain(bins, gh, slot, num_slots, 64)
+    assert torch.equal(out.cpu(), ref)
+    assert torch.equal(ht.hist_nat_slots(bt, gh.to(torch.int32).to(dev), st,
+                                         num_slots, 64), out)
+    assert cuda_hist.LAUNCHES["hist_nat_int8"] == 1
+    assert cuda_hist.LAUNCHES["hist_nat"] == 1
+
+
+@pytest.mark.parametrize("efb", [False, True])
+def test_hist_round_int8_exact(dev, efb):
+    rs, bins, gh = _int8_inputs()
+    L = 16
+    pleaf = torch.from_numpy(rs.randint(0, L + 1, 8192).astype(np.int32))
+    params = torch.zeros((4, 16), dtype=torch.int32)
+    params[:, 0] = torch.tensor([1, 5, 9, -1])
+    params[:, 1] = torch.tensor([0, 3, 6, 0])
+    params[:, 2] = torch.tensor([10, 30, 50, 0])
+    params[:, 3] = torch.tensor([1, 0, 1, 0])
+    params[:, 4] = torch.tensor([63, -1, 63, -1])
+    params[:, 5] = torch.tensor([1, 0, 1, 0])
+    params[:, 6] = torch.tensor([17, 18, 19, 20])
+    params[:, 8] = -1
+    if efb:
+        params[1, 7:10] = torch.tensor([8, 2, 20])
+    cuda_hist.reset_launch_counts()
+    hk, pk = ht.hist_round(bins.to(dev), gh.to(dev), pleaf.to(dev),
+                           params.to(dev), 4, 64, L, levels=127)
+    hp, pp = ht.hist_round_plain(bins, gh, pleaf, params, 4, 64)
+    assert torch.equal(hk.cpu(), hp) and torch.equal(pk.cpu(), pp)
+    assert cuda_hist.LAUNCHES["hist_round_int8"] == 1
+    assert cuda_hist.LAUNCHES["hist_round"] == 0
+
+
+@pytest.mark.parametrize("num_slots,G", [(255, 1), (6, 7)])
+def test_hist_nat_f32_bitwise_equals_plain(dev, num_slots, G):
+    """The f32 mode at the percentile refit's shape (one column, a slot
+    per leaf, most rows in the trash slot) and a wider one: the plain
+    version's bits on every launch."""
+    rs, bins, gh = _f32_inputs(g=G, b=256)
+    slot = torch.from_numpy(np.where(rs.rand(8192) < 0.5,
+                                     rs.randint(0, num_slots, 8192),
+                                     num_slots).astype(np.int32))
+    args = (bins.to(dev), gh.to(dev), slot.to(dev), num_slots, 256)
+    cuda_hist.reset_launch_counts()
+    a = ht.hist_nat_slots(*args, quant=False)
+    b = ht.hist_nat_slots(*args, quant=False)
+    ref = ht.hist_nat_slots_plain(bins, gh, slot, num_slots, 256,
+                                  quant=False)
+    assert torch.equal(a, b) and torch.equal(a.cpu(), ref)
+    assert cuda_hist.LAUNCHES["hist_nat_f32"] == 2
+
+
+@pytest.mark.parametrize("params,want", [
+    ({"objective": "binary", "use_quantized_grad": True,
+      "quant_train_renew_leaf": True},
+     {"hist_nat_int8", "hist_round_int8", "seg_sum"}),
+    ({"objective": "binary", "tpu_hist_dtype": "int8"},
+     {"hist_nat_int8", "hist_round_int8", "seg_sum"}),
+    ({"objective": "regression_l1"}, {"hist_nat_f32", "hist_round"}),
+    ({"objective": "quantile", "alpha": 0.3}, {"hist_nat_f32"}),
+], ids=["quantized", "int8", "l1", "quantile"])
+def test_train_quant_and_renewal_card_matches_cpu(dev, params, want):
+    rs = np.random.RandomState(3)
+    X = rs.randn(3000, 6)
+    z = X[:, 0] + 0.5 * X[:, 1] + 0.3 * rs.randn(3000)
+    y = (z > 0).astype(float) if params["objective"] == "binary" else z
+    preds = {}
+    for d in ("cuda", "cpu"):
+        p = {"num_leaves": 31, "verbosity": -1, "device_type": d, **params}
+        cuda_hist.reset_launch_counts()
+        bst = lgb.train(p, lgb.Dataset(X, label=y, params=p), 4)
+        preds[d] = bst.predict(X, raw_score=True)
+        if d == "cuda":
+            used = {k for k, v in cuda_hist.LAUNCHES.items() if v}
+            assert want <= used, used
+    np.testing.assert_allclose(preds["cuda"], preds["cpu"], atol=1e-4)
+
+
 @pytest.mark.parametrize("pins", [
     {"tpu_growth_mode": "exact"},
     {"tpu_growth_mode": "exact", "tpu_growth_rounds": True},

@@ -70,10 +70,18 @@ def test_root_sums_match_jax():
 
 
 def test_hist_nat_f32_mode_not_ported():
-    with pytest.raises(NotImplementedError, match="A.10"):
-        ht.hist_nat_slots(torch.zeros((1, 8), dtype=torch.int32),
-                          torch.zeros((3, 8)), torch.zeros(8, dtype=torch.int32),
-                          1, 4, quant=False)
+    """hist_nat's f32 mode is ported now (the percentile refit's
+    histograms, tests/test_torch_renewal.py): fixed-point sums, the same
+    bits as hist_round's f32 mode on the same rows and slots."""
+    G, N, B, S = 4, 1000, 32, 3
+    rs = np.random.RandomState(6)
+    bins = torch.from_numpy(rs.randint(0, B, (G, N)).astype(np.int32))
+    slot = torch.from_numpy(rs.randint(0, S + 1, N).astype(np.int32))
+    _, gh3 = _gh_both(*_channels(N, 7))
+    out = ht.hist_nat_slots(bins, gh3, slot, S, B, quant=False)
+    k = ht.fx_exponents(gh3.abs().amax(dim=1), N)
+    acc = ht._slot_hist_int64(bins, ht.fx_quantize(gh3, k), slot, S, B)
+    assert torch.equal(out, ht.fx_to_f32(acc, k))
 
 
 ROUNDS = {

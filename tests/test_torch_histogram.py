@@ -164,13 +164,22 @@ def test_seg_sum_close(k, L):
 
 
 def test_unported_modes_raise():
+    """The f32 and int8 modes of hist_nat are ported now: on integer
+    levels the f32 mode sums the same values, and int8 channels of the
+    same levels give the int32 mode's sums."""
     _, bins, gq, hq, cnt = _inputs(0)
-    args = (torch.from_numpy(bins), _gh_t(gq, hq, cnt),
-            torch.zeros(N, dtype=torch.int32), 1, B)
-    with pytest.raises(NotImplementedError, match="5-channel"):
-        ht.hist_nat_slots(*args, quant=False)
-    with pytest.raises(NotImplementedError, match="int8"):
-        ht.hist_nat_slots(*args, int8=True)
+    gh = _gh_t(gq, hq, cnt)
+    args = (torch.from_numpy(bins), gh, torch.zeros(N, dtype=torch.int32),
+            1, B)
+    ref = ht.hist_nat_slots(*args)
+    assert torch.equal(ht.hist_nat_slots(*args, quant=False), ref)
+    small = ht.build_gh8_quant(torch.from_numpy(gq) // 4,
+                               torch.from_numpy(hq) // 4,
+                               torch.from_numpy(cnt), int8_levels=64)
+    assert small.dtype == torch.int8
+    assert torch.equal(ht.hist_nat_slots(args[0], small, *args[2:]),
+                       ht.hist_nat_slots(args[0], small.to(torch.int32),
+                                         *args[2:]))
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -180,6 +189,13 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         cuda_hist.hist_nat(torch.from_numpy(bins), _gh_t(gq, hq, cnt),
                            torch.zeros(N, dtype=torch.int32), 1, B, 256)
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_hist.hist_nat(torch.from_numpy(bins),
+                           _gh_t(gq, hq, cnt).to(torch.int8),
+                           torch.zeros(N, dtype=torch.int32), 1, B, 127)
+    with pytest.raises(ValueError, match="CUDA"):
+        cuda_hist.hist_nat_f32(torch.from_numpy(bins), torch.zeros(3, N),
+                               torch.zeros(N, dtype=torch.int32), 1, B)
     with pytest.raises(ValueError, match="CUDA"):
         cuda_hist.take_small(torch.zeros(1, 4), torch.zeros(8,
                                                             dtype=torch.int32))

@@ -103,35 +103,35 @@ def test_growth_mode_exact_raises():
                                        ("float32", "5-channel"),
                                        ("int8", "int8")])
 def test_unported_hist_dtypes_raise(dtype, msg):
-    """int8 is not ported. bf16x2 (alias float32) is, on the rounds
-    grower; only hist_nat's 5-channel f32 mode (the percentile refit's)
-    still raises."""
+    """Every histogram channel layout is ported now: int8 takes the
+    internal int-packed path at 127 levels, bf16x2 (alias float32) the
+    f32 layout, and hist_nat's f32 mode (the percentile refit's, once
+    the 5-channel mode) sums f32 channels instead of raising."""
     if dtype == "int8":
-        with pytest.raises(NotImplementedError, match=msg):
-            resolve_hist_dtype(dtype, False, 4)
+        assert resolve_hist_dtype(dtype, False, 4) == ("int8", 127), msg
         return
     assert resolve_hist_dtype(dtype, False, 4) == ("bf16x2", 0)
-    with pytest.raises(NotImplementedError, match=msg):
-        hist_nat_slots(torch.zeros((1, 8), dtype=torch.int32),
-                       torch.zeros((3, 8)), torch.zeros(8, dtype=torch.int32),
-                       1, 4, quant=False)
+    out = hist_nat_slots(torch.zeros((1, 8), dtype=torch.int32),
+                         torch.ones((3, 8)), torch.zeros(8, dtype=torch.int32),
+                         1, 4, quant=False)
+    assert out[0, :, 0, 0].tolist() == [8.0, 8.0, 8.0], msg
 
 
 def test_auto_means_int16_everywhere():
     """`auto` is int16 on the rounds path on every device; the exact
-    path's channels are always f32."""
+    path's channels are always f32. Under use_quantized_grad the public
+    levels govern: its default 4 levels ride int8."""
     assert resolve_hist_dtype("auto", False, 4) == ("int16", 256)
     assert resolve_hist_dtype("auto", False, 4, use_rounds=False) == \
         ("bf16x2", 0)
-    with pytest.raises(NotImplementedError):
-        resolve_hist_dtype("auto", True, 4)  # use_quantized_grad
+    assert resolve_hist_dtype("auto", True, 4) == ("int8", 0)
 
 
 @pytest.mark.parametrize("extra", [
     {"bagging_fraction": 0.5, "bagging_freq": 1},
     {"feature_fraction": 0.5},
     {"boosting": "dart"},
-    {"objective": "huber"},
+    {"objective": "lambdarank"},
     {"extra_trees": True},
     {"early_stopping_round": 2},
     {"metric": "ndcg"},
