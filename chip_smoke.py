@@ -17,7 +17,14 @@ Phases, each printed as one JSON line:
             the least time the card could take;
   small   - 20k-row runs on the card against the same runs on the CPU
             (plain versions), default, exact, use_quantized_grad and
-            regression_l1 runs: predictions within 1e-4;
+            regression_l1 runs, and categorical runs (the train_cat schema
+            plus a 3-category column, so one-vs-rest runs too) on the
+            int16, use_quantized_grad (bench.py's parameters, and
+            cat_quant_det without stochastic rounding and leaf renewal)
+            and bf16x2 paths: predictions within 1e-4, except cat_quant
+            (bench.py's parameters), whose difference is printed and
+            whose every fused round and split search is replayed on the
+            CPU from the card call's inputs and must match bit for bit;
   train   - the 1M x 28, 255-leaf binary workload (bench.py:386-406) on
             the default int16 rounds path, 2 warmup trees then 10 timed
             trees: trees/s, validation AUC after tree 1 and after the last
@@ -43,6 +50,18 @@ Phases, each printed as one JSON line:
             timed trees, validation L1 after the first and the last tree,
             and a 1-tree profile; the hist_nat_f32 kernel line runs on
             the arguments of its first refit pass;
+  train_cat - categorical splits: a 1M-row synthetic dataset with the
+            schema of the airline departure-delay benchmark
+            (szilard/benchm-ml, dep_delayed_15min: six code columns marked
+            categorical, DepTime and Distance numerical), the default int16
+            rounds path with the sorted-subset search and hist_round's
+            categorical variant; 2 warmup then 10 timed trees, AUC after
+            the first and the last tree, categorical splits in the trees,
+            hist_round_cat launches per tree, and a 1-tree profile; the
+            hist_round_cat kernel line runs on the arguments of the first
+            tree's round with the most categorical slots, with its time
+            on the int16 line's inputs (G = 28, every other slot
+            categorical) beside it;
 then the `kernels` summary line and, last, {"ok": true, "device": ...}.
 Any failure raises: no `ok` line, non-zero exit. Without a CUDA device,
 or without the package beside it, the script exits non-zero at once.
@@ -73,6 +92,8 @@ REPLACES = {
     "hist_nat_int8": "lightgbm_tpu/learner/pallas_hist.py:202",
     "hist_round_int8": "lightgbm_tpu/learner/pallas_hist.py:505",
     "hist_nat_f32": "lightgbm_tpu/learner/pallas_hist.py:202",
+    "hist_round_cat": "lightgbm_tpu/learner/pallas_hist.py:505 "
+                      "(has_cat :416-432)",
 }
 SOURCES = {
     "hist_nat": "lightgbm_tpu_torch/csrc/hist_nat.cu",
@@ -85,13 +106,15 @@ SOURCES = {
     "hist_nat_int8": "lightgbm_tpu_torch/csrc/hist_nat.cu",
     "hist_round_int8": "lightgbm_tpu_torch/csrc/hist_round.cu",
     "hist_nat_f32": "lightgbm_tpu_torch/csrc/hist_nat.cu",
+    "hist_round_cat": "lightgbm_tpu_torch/csrc/hist_round.cu",
 }
 # the training path whose run counts each kernel's launches
 PATH_OF = {"hist_nat": "train", "hist_round": "train", "take_small": "train",
            "seg_sum": "train", "hist": "train_exact",
            "hist_slots": "train_exact_rounds",
            "hist_round_f32": "train_f32", "hist_nat_int8": "train_quant",
-           "hist_round_int8": "train_quant", "hist_nat_f32": "train_l1"}
+           "hist_round_int8": "train_quant", "hist_nat_f32": "train_l1",
+           "hist_round_cat": "train_cat"}
 F32_PATHS = {
     "train_exact": {"tpu_growth_mode": "exact"},
     "train_exact_rounds": {"tpu_growth_mode": "exact",
@@ -217,6 +240,7 @@ def kernel_phase(torch, hist, ch):
                   n_small * G * 3 + n_split * 8)
     lines["hist_round"] = dict(
         shape=f"bins ({G},{N_ROWS}) S={S_ROUND} Bc={BC}", tolerance="exact",
+        n_small=n_small,
         max_abs_err=float((hk - hp).abs().max()),
         ms=cuda_ms(lambda: hist.hist_round(bins, gh, pleaf, params,
                                            S_ROUND, BC, L)),
@@ -226,6 +250,9 @@ def kernel_phase(torch, hist, ch):
             key, weights=w, minlength=size + 1), reps=10),
         library_note="bincount of the histogram half only",
         bound_ms=b, bound_by=bb)
+
+    cat_synth = hist_round_cat_synth(torch, hist, bins, gh, pleaf, params,
+                                     gen)
 
     # ---- take_small: score update (k = 1) and traversal (k = 8)
     idx = torch.randint(-1, L + 1, (N_ROWS,), generator=gen,
@@ -276,7 +303,76 @@ def kernel_phase(torch, hist, ch):
     lines.update(int8_kernel_lines(torch, hist, bins, gen, pleaf, params))
     for name, d in lines.items():
         emit_kernel(name, d)
-    return lines
+    return lines, cat_synth
+
+
+def hist_round_cat_synth(torch, hist, bins, gh, pleaf, params, gen):
+    """hist_round's categorical variant on the int16 line's inputs (G =
+    28), every other slot flagged categorical with a random category
+    set: bitwise against the plain version and across two launches. A
+    secondary field of the hist_round_cat line, whose own numbers come
+    from a train_cat round (hist_round_cat_line)."""
+    dev = bins.device
+    prm = params.clone()
+    prm[0::2, 10] = 1
+    cat_mask = (torch.rand((S_ROUND, BC), generator=gen) < 0.5).to(dev)
+    d = cat_round_numbers(torch, hist, bins, gh, pleaf, prm, cat_mask,
+                          S_ROUND, BC, L)
+    # the categorical variant on the int16 line's own (numerical) slots:
+    # what the variant costs apart from the categorical decisions
+    d["numeric_slots_ms"] = cuda_ms(lambda: hist.hist_round(
+        bins, gh, pleaf, params, S_ROUND, BC, L, cat_mask=cat_mask))
+    d["shape"] = (f"bins ({G},{N_ROWS}) S={S_ROUND} Bc={BC}, "
+                  f"{S_ROUND // 2} categorical slots")
+    return d
+
+
+def cat_round_numbers(torch, hist, bins, gh, pleaf, prm, cat_mask, S, Bc,
+                      num_leaves, **kw):
+    """One hist_round call with category sets: the histograms bitwise
+    against the plain version and across two launches, the row -> leaf
+    likewise, then its time, the plain version's, bincount's and the
+    bound."""
+    run = lambda: hist.hist_round(bins, gh, pleaf, prm, S, Bc, num_leaves,
+                                  cat_mask=cat_mask, **kw)
+    plain = lambda: hist.hist_round_plain(bins, gh, pleaf, prm, S, Bc,
+                                          cat_mask=cat_mask)
+    res = f32_compare(torch, lambda: run()[0], lambda: plain()[0],
+                      "hist_round_cat", "exact (integer sums on both sides)")
+    pk, pk2 = run()[1], run()[1]
+    pl_p, hslot = hist.round_partition_plain(bins, pleaf, prm, S, cat_mask)
+    if not (torch.equal(pk, pl_p) and torch.equal(pk, pk2)):
+        raise AssertionError("hist_round_cat's row -> leaf disagrees")
+    Gk, n = bins.shape
+    n_split = int(torch.isin(pleaf, prm[:, 0]).sum())
+    n_small = int((hslot < S).sum())
+    words = S * -(-Bc // 32)
+    b, bb = bound(n * 8 + n_split * 4
+                  + n_small * (Gk * 4 + 3 * gh.element_size())
+                  + S * 16 * 4 + words * 4 + S * 3 * Gk * Bc * 4,
+                  n_small * Gk * 3 + n_split * 8)
+    return dict(**res, n_split=n_split, n_small=n_small,
+                categorical_slots=int((prm[:, 10] != 0).sum()),
+                ms=cuda_ms(run), plain_ms=cuda_ms(plain, reps=5),
+                library_ms=bincount_ms(torch, bins, gh, hslot, S, Bc),
+                library_note="bincount of the histogram half only",
+                bound_ms=b, bound_by=bb)
+
+
+def hist_round_cat_line(torch, hist, captured, synth):
+    """hist_round's categorical variant on the arguments of the fullest
+    round of a real train_cat tree (the round with the most categorical
+    slots at the widest slot count), with the int16 line's synthetic
+    inputs beside it (synth)."""
+    bins, gh, pleaf, prm, S, Bc, num_leaves, cat_mask = captured["args"]
+    d = cat_round_numbers(torch, hist, bins, gh, pleaf, prm, cat_mask, S,
+                          Bc, num_leaves, levels=captured["levels"])
+    d["shape"] = (f"bins ({bins.shape[0]},{bins.shape[1]}) S={S} Bc={Bc}, "
+                  f"{d['categorical_slots']} categorical slots, from "
+                  f"train_cat round {captured['round']} of its first tree")
+    d["int16_line_inputs"] = {k: v for k, v in synth.items()
+                              if k not in ("tolerance", "library_note")}
+    return d
 
 
 def emit_kernel(name, d) -> None:
@@ -518,10 +614,63 @@ def higgs_like(rows: int, feats: int = 28):
     return X, (z > 0).astype(np.float32), Xv, (zv > 0).astype(np.float32)
 
 
+# the airline departure-delay schema (szilard/benchm-ml, dep_delayed_15min):
+# code columns (name, categories, Zipf-like frequencies) and the numerical
+# DepTime (hhmm) and Distance; Origin and Dest cut to their 250 busiest
+# airports, so every category keeps its own bin at max_bin=255
+AIRLINE_CODES = (("Month", 12, False), ("DayofMonth", 31, False),
+                 ("DayOfWeek", 7, False), ("UniqueCarrier", 22, True),
+                 ("Origin", 250, True), ("Dest", 250, True))
+AIRLINE_COLUMNS = ("Month", "DayofMonth", "DayOfWeek", "DepTime", "Distance",
+                   "UniqueCarrier", "Origin", "Dest")
+AIRLINE_CATEGORICAL = [0, 1, 2, 5, 6, 7]
+
+
+def airline_like(rows: int, valid_rows: int, seed: int = 23,
+                 extra_3cat: bool = False):
+    """Synthetic rows with the airline schema, from one RandomState: the
+    calendar codes uniform, carriers and airports with p ~ 1/rank; the
+    label is 1 when a logit (per-category N(0, 0.5) effects of carrier,
+    origin, dest, month and day of week, a smooth DepTime effect,
+    logistic noise) exceeds its 81st percentile (~19% delayed). With
+    extra_3cat a 3-category column (its own effect) is appended, so the
+    one-vs-rest search runs beside the sorted-subset one."""
+    import numpy as np
+
+    rs = np.random.RandomState(seed)
+    n = rows + valid_rows
+    codes, effects = {}, {}
+    for name, k, zipf in AIRLINE_CODES:
+        p = 1.0 / np.arange(1, k + 1) if zipf else np.ones(k)
+        codes[name] = rs.choice(k, n, p=p / p.sum())
+        effects[name] = rs.normal(0.0, 0.5, k)
+    minutes = np.clip(rs.normal(13.5 * 60, 4.5 * 60, n), 0, 1439).astype(int)
+    dep = (minutes // 60) * 100 + minutes % 60
+    dist = np.clip(rs.lognormal(6.4, 0.6, n), 30, 4980).round()
+    logit = sum(effects[c][codes[c]] for c in
+                ("UniqueCarrier", "Origin", "Dest", "Month", "DayOfWeek"))
+    logit = logit + 0.9 * np.tanh((minutes - 13 * 60) / 240.0)
+    cols = [codes["Month"] + 1, codes["DayofMonth"] + 1,
+            codes["DayOfWeek"] + 1, dep, dist, codes["UniqueCarrier"],
+            codes["Origin"], codes["Dest"]]
+    if extra_3cat:
+        c3 = rs.randint(0, 3, n)
+        logit = logit + np.array([-0.6, 0.1, 0.5])[c3]
+        cols.append(c3)
+    z = logit + rs.logistic(size=n)
+    y = (z > np.quantile(z, 0.81)).astype(np.float32)
+    X = np.column_stack(cols).astype(np.float32)
+    return X[:rows], y[:rows], X[rows:], y[rows:]
+
+
 def small_phase(lgb, np):
     """Small runs on the card against the same runs on the CPU: the
-    default path, the exact path, use_quantized_grad (int8 modes) and
-    regression_l1 (the percentile refit)."""
+    default path, the exact path, use_quantized_grad (int8 modes),
+    regression_l1 (the percentile refit), and categorical runs on the
+    int16, use_quantized_grad (as bench.py sets it, and without
+    stochastic rounding and leaf renewal) and bf16x2 paths; the first
+    categorical use_quantized_grad run is held by replay_check
+    instead."""
     X, z, Xv, _ = higgs_stream(20_000, 8)
     y = (z > 0).astype(np.float32)
     params = {"objective": "binary", "num_leaves": 31, "verbosity": -1,
@@ -538,10 +687,97 @@ def small_phase(lgb, np):
             bst = lgb.train(p, lgb.Dataset(X, label=label, params=p), 5)
             preds[device] = bst.predict(Xv, raw_score=True)
         errs[path] = float(np.abs(preds["cuda"] - preds["cpu"]).max())
+    # categorical: the airline schema plus a 3-category column
+    Xc, yc, Xcv, _ = airline_like(20_000, 2_000, seed=29, extra_3cat=True)
+    cat_cols = AIRLINE_CATEGORICAL + [Xc.shape[1] - 1]
+    for path, extra in (("cat_int16", {}), ("cat_quant", QUANT_PARAMS),
+                        ("cat_quant_det", dict(
+                            QUANT_PARAMS, stochastic_rounding=False,
+                            quant_train_renew_leaf=False)),
+                        ("cat_bf16x2", {"tpu_hist_dtype": "bf16x2"})):
+        preds = {}
+        for device in ("cuda", "cpu"):
+            p = dict(params, device_type=device, **extra)
+            ds = lgb.Dataset(Xc, label=yc, categorical_feature=cat_cols,
+                             params=p)
+            bst = lgb.train(p, ds, 5)
+            preds[device] = bst.predict(Xcv, raw_score=True)
+            if not any(int(t.num_cat) > 0 for t in bst._gbdt.models):
+                raise AssertionError(f"small {path}: no categorical split")
+        errs[path] = float(np.abs(preds["cuda"] - preds["cpu"]).max())
+    # cat_quant is held by replay instead (ROADMAP C): its 4 levels make
+    # exact ties between different splits common, and last-ulp
+    # differences decide them: the card's sigmoid moves the level scale,
+    # the leaf renewal's seg_sum sums in another order than the CPU.
+    # cat_quant_det (deterministic rounding, no renewal) runs the same
+    # categorical int8 path and is held at the tolerance
+    replay = replay_check(lgb, dict(params, **QUANT_PARAMS), Xc, yc,
+                          cat_cols)
+    held = {k: v for k, v in errs.items() if k != "cat_quant"}
     emit({"phase": "small", "rows": 20000, "trees": 5,
-          "max_abs_pred_diff_card_vs_cpu": errs, "tolerance": 1e-4})
-    if not all(e < 1e-4 for e in errs.values()):
+          "max_abs_pred_diff_card_vs_cpu": errs, "tolerance": 1e-4,
+          "held": sorted(held), "cat_quant_replay": replay})
+    if not all(e < 1e-4 for e in held.values()):
         raise AssertionError(f"card and CPU runs disagree: {errs}")
+
+
+def _to_cpu(x):
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu()
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*[_to_cpu(v) for v in x])
+    if isinstance(x, (tuple, list)):
+        return type(x)(_to_cpu(v) for v in x)
+    if isinstance(x, dict):
+        return {k: _to_cpu(v) for k, v in x.items()}
+    return x
+
+
+def _bitwise(a, b) -> bool:
+    import torch
+
+    if isinstance(a, torch.Tensor):
+        return torch.equal(a.cpu(), b.cpu())
+    return len(a) == len(b) and all(_bitwise(x, y) for x, y in zip(a, b))
+
+
+def replay_check(lgb, params, X, y, cat_cols, n_trees: int = 2):
+    """Train n_trees on the card; replay every fused round (hist_round)
+    and every batched split search (best_split) of the rounds grower on
+    the CPU from the call's own inputs, and require the card's outputs
+    bit for bit."""
+    from lightgbm_tpu_torch.learner import rounds
+
+    orig = {"hist_round": rounds.hist_round, "best_split": rounds.best_split}
+    calls = {k: 0 for k in orig}
+
+    def replaying(name):
+        fn = orig[name]
+
+        def call(*a, **k):
+            out = fn(*a, **k)
+            ref = fn(*_to_cpu(a), **_to_cpu(k))
+            if not _bitwise(tuple(out), tuple(ref)):
+                raise AssertionError(f"{name} call {calls[name]}: the card "
+                                     "and its CPU replay disagree")
+            calls[name] += 1
+            return out
+        return call
+
+    for name in orig:
+        setattr(rounds, name, replaying(name))
+    try:
+        p = dict(params, device_type="cuda")
+        lgb.train(p, lgb.Dataset(X, label=y, categorical_feature=cat_cols,
+                                 params=p), n_trees)
+    finally:
+        for name, fn in orig.items():
+            setattr(rounds, name, fn)
+    if not all(calls.values()):
+        raise AssertionError(f"replay saw no calls: {calls}")
+    return {"trees": n_trees, "calls_bitwise": calls}
 
 
 def profile_phase(torch, bst, n_trees: int = 2, name: str = "profile"):
@@ -704,6 +940,106 @@ def train_int_path(torch, lgb, ch, ds, vs, name, extra, n_warm, n_timed,
     return line, prof
 
 
+def train_cat_path(torch, lgb, ch, np, n_warm: int = 2, n_timed: int = 10,
+                   capture=None):
+    """Categorical splits at full width: the airline-schema dataset (1M
+    training rows, 100k validation rows), six code columns categorical,
+    the default int16 rounds path (sorted-subset search, hist_round's
+    categorical variant). Fails unless AUC rises, every tree launches
+    hist_round_cat and the trees hold categorical splits. With
+    `capture`, the first tree also records the arguments of its round
+    with the most categorical slots at the widest slot count (for the
+    hist_round_cat kernel line)."""
+    from lightgbm_tpu_torch.learner import rounds
+
+    X, y, Xv, yv = airline_like(1_000_000, 100_000)
+    t0 = time.perf_counter()
+    ds = lgb.Dataset(X, label=y, categorical_feature=AIRLINE_CATEGORICAL,
+                     feature_name=list(AIRLINE_COLUMNS),
+                     free_raw_data=False)
+    ds.construct()
+    vs = lgb.Dataset(Xv, label=yv, reference=ds, free_raw_data=False)
+    t_data = time.perf_counter() - t0
+    params = {"objective": "binary", "num_leaves": L, "max_bin": 255,
+              "learning_rate": 0.1, "min_data_in_leaf": 20, "metric": "auc",
+              "verbosity": -1}
+    ch.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    bst = lgb.Booster(params, ds)
+    bst.add_valid(vs, "valid")
+    per_tree = []
+
+    def tree():
+        before = ch.LAUNCHES["hist_round_cat"]
+        bst.update()
+        per_tree.append(ch.LAUNCHES["hist_round_cat"] - before)
+
+    orig = rounds.hist_round
+    if capture is not None:
+        n_round = [0]
+
+        def recording(bins, gh, pleaf, params, S, Bc, num_leaves, quant=True,
+                      cat_mask=None, levels=None):
+            out = orig(bins, gh, pleaf, params, S, Bc, num_leaves,
+                       quant=quant, cat_mask=cat_mask, levels=levels)
+            n_round[0] += 1
+            key = (S, int((params[:, 10] != 0).sum()))
+            if cat_mask is not None and key > capture.get("key", (0, 0)):
+                capture.update(key=key, round=n_round[0], levels=levels,
+                               args=(bins, gh, pleaf.clone(), params.clone(),
+                                     S, Bc, num_leaves, cat_mask.clone()))
+            return out
+        rounds.hist_round = recording
+    try:
+        tree()
+    finally:
+        rounds.hist_round = orig
+    auc1 = bst.eval_valid()[0][2]
+    for _ in range(n_warm - 1):
+        tree()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_timed):
+        tree()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(ch.LAUNCHES)
+    auc_last = bst.eval_valid()[0][2]
+    gb = bst._gbdt
+    trees = n_warm + n_timed
+    cat_splits = [int(a.node_cat[:int(a.num_nodes)].sum())
+                  for a in gb.device_trees]
+    line = {"phase": "train_cat", "rows": gb.train_set.num_data,
+            "features": len(AIRLINE_COLUMNS),
+            "categorical": [AIRLINE_COLUMNS[i] for i in AIRLINE_CATEGORICAL],
+            "num_bin": [int(m.num_bin) for m in gb.train_set.mappers],
+            "num_leaves": L, "hist_dtype": gb.hist_dtype,
+            "cat_subset": gb.spec.cat_subset, "has_cat": gb.spec.has_cat,
+            "rounds_slots": gb.spec.rounds_slots,
+            "dataset_seconds": t_data, "warmup_trees": n_warm,
+            "timed_trees": n_timed, "trees_per_s": n_timed / dt,
+            "auc_tree1": auc1, "auc_last": auc_last, "trees": trees,
+            "categorical_splits_per_tree": cat_splits,
+            "splits_per_tree": [int(a.num_nodes) for a in gb.device_trees],
+            "hist_round_cat_per_tree": per_tree, "launches": launches,
+            "launches_per_tree": {k: v / trees
+                                  for k, v in launches.items() if v},
+            "peak_device_mb": torch.cuda.max_memory_allocated() / 2 ** 20}
+    emit(line)
+    if not (gb.spec.has_cat and gb.spec.cat_subset):
+        raise AssertionError(f"train_cat: spec {gb.spec}")
+    if min(per_tree) < 1:
+        raise AssertionError(f"train_cat: a tree did not launch "
+                             f"hist_round_cat: {per_tree}")
+    if sum(cat_splits) == 0:
+        raise AssertionError("train_cat: no categorical split in the trees")
+    if not auc_last > auc1:
+        raise AssertionError(f"train_cat: AUC did not rise: {auc1} -> "
+                             f"{auc_last}")
+    prof = profile_phase(torch, bst, 1, "train_cat_profile")
+    return line, prof
+
+
 def main() -> int:
     import torch
 
@@ -732,7 +1068,7 @@ def main() -> int:
           "nvcc_seconds": ch.BUILD_SECONDS,
           "library": str(ch.library_path())})
 
-    lines = kernel_phase(torch, hist, ch)
+    lines, cat_synth = kernel_phase(torch, hist, ch)
     small_phase(lgb, np)
 
     # ---- train: the repo's headline workload at full width
@@ -843,6 +1179,16 @@ def main() -> int:
         raise AssertionError("no hist_slots call was captured")
     lines["hist_slots"] = hist_slots_line(torch, hist, captured)
     emit_kernel("hist_slots", lines["hist_slots"])
+
+    # ---- categorical splits on the airline schema
+    cat_round = {}
+    cat, _ = train_cat_path(torch, lgb, ch, np, capture=cat_round)
+    path_launches["train_cat"] = cat["launches"]
+    if not cat_round:
+        raise AssertionError("no categorical hist_round call was captured")
+    lines["hist_round_cat"] = hist_round_cat_line(torch, hist, cat_round,
+                                                  cat_synth)
+    emit_kernel("hist_round_cat", lines["hist_round_cat"])
 
     kernels = []
     for name, d in lines.items():

@@ -1,8 +1,9 @@
 """Dataset and Booster, the LightGBM Python API surface of the port.
 
 The port of lightgbm_tpu/basic.py for the main path: a Dataset over a
-dense numeric matrix (with `reference=` for validation sets binned with
-the training set's mappers), and a Booster that trains (update), predicts
+dense matrix (with `reference=` for validation sets binned with the
+training set's mappers, and the constructor's `categorical_feature`,
+indices or names, as the JAX package takes it), and a Booster that trains (update), predicts
 on the host, and saves / loads the text model. Text files, sparse
 matrices, Sequences, pandas and Arrow inputs, subsets, refit, SHAP and
 device prediction are not ported yet (ROADMAP queue A) and raise.
@@ -16,6 +17,7 @@ from typing import Any, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 
+from . import log
 from .config import Config, resolve_device
 from .dataset import BinnedDataset
 from .log import LightGBMError
@@ -64,6 +66,38 @@ class Dataset:
         self.free_raw_data = free_raw_data
         self._binned: Optional[BinnedDataset] = None
 
+    def _resolve_categorical(self, feature_names: List[str]) -> List[int]:
+        """The constructor's categorical_feature as column indices: ints
+        as they are, names looked up in feature_names (unknown names
+        warned about and dropped). Like the JAX package, a
+        `categorical_feature` key in params is not read here."""
+        cf = self.categorical_feature
+        if cf == "auto" or cf is None:
+            return []
+        out = []
+        for c in cf:
+            if isinstance(c, str):
+                if c in feature_names:
+                    out.append(feature_names.index(c))
+                else:
+                    log.warning(f"Unknown categorical feature {c}")
+            else:
+                out.append(int(c))
+        return out
+
+    def set_categorical_feature(self, categorical_feature) -> "Dataset":
+        """Set categorical features; they bind at construct (reference
+        basic.py Dataset.set_categorical_feature)."""
+        if self.categorical_feature == categorical_feature:
+            return self
+        if self._binned is not None:
+            raise LightGBMError(
+                "Cannot set categorical feature after the Dataset was "
+                "constructed; set it at creation"
+            )
+        self.categorical_feature = categorical_feature
+        return self
+
     def construct(self) -> "Dataset":
         """Bin the matrix (host numpy). Like train, this refuses to run
         when the card is asked for (device_type default) and torch sees
@@ -77,12 +111,11 @@ class Dataset:
         resolve_device(cfg)
         if self.data is None:
             raise LightGBMError("Cannot construct Dataset: raw data was freed")
-        if self.categorical_feature not in ("auto", None, []):
-            raise NotImplementedError(
-                "categorical features are not ported yet (ROADMAP queue A)")
         arr = _to_2d_numpy(self.data)
         names = ([str(n) for n in self.feature_name]
                  if isinstance(self.feature_name, list) else None)
+        cat = self._resolve_categorical(
+            names or [f"Column_{i}" for i in range(arr.shape[1])])
         ref_binned = None
         if self.reference is not None:
             self.reference.construct()
@@ -90,7 +123,7 @@ class Dataset:
         self._binned = BinnedDataset.from_numpy(
             arr, cfg, label=self.label, weight=self.weight,
             init_score=self.init_score, feature_names=names,
-            reference=ref_binned,
+            categorical_feature=cat, reference=ref_binned,
         )
         if self.free_raw_data:
             self.data = None

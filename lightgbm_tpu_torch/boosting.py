@@ -97,11 +97,6 @@ def check_supported(config: Config, train_set: BinnedDataset) -> None:
                                                   "advanced")):
         _not_ported(f"monotone_constraints_method="
                     f"{c.monotone_constraints_method}")
-    from .binning import BinType
-
-    if any(m.bin_type == BinType.CATEGORICAL
-           for m in train_set.used_mappers()):
-        _not_ported("categorical features")
 
 
 def tree_arrays_to_host(a: TreeArrays) -> TreeArrays:
@@ -171,6 +166,10 @@ class GBDT:
             self._label_dev = torch.from_numpy(
                 train_set.padded(train_set.metadata.label)).to(self.device)
         self.dev = train_set.device_arrays(self.device)
+        from .binning import BinType
+
+        cats = [m for m in train_set.used_mappers()
+                if m.bin_type == BinType.CATEGORICAL]
         self.spec = GrowerSpec(
             num_leaves=config.num_leaves,
             num_bins=train_set.max_num_bin,
@@ -191,6 +190,11 @@ class GBDT:
             quant_int8=use_rounds and levels <= 127 and (
                 qgrad or self._int_packed),
             rounds=config.tpu_growth_rounds and not use_rounds,
+            # sorted-subset search when a categorical is wider than
+            # max_cat_to_onehot (boosting.py:448-452 of the JAX package)
+            cat_subset=any(m.num_bin > config.max_cat_to_onehot
+                           for m in cats),
+            has_cat=bool(cats),
         )
         self.params = make_split_params(config)
         self.train = self._score_set(train_set, "training", self.dev)
@@ -330,7 +334,7 @@ class GBDT:
 
     def _traverse(self, arrays: TreeArrays, dev) -> torch.Tensor:
         return traverse_tree_bins(arrays, dev["bins"], dev["nan_bin"],
-                                  dev["bundle"])
+                                  dev["bundle"], has_cat=self.spec.has_cat)
 
     # ------------------------------------------------------------------
     def _materialize(self) -> None:

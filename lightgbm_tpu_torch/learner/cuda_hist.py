@@ -9,6 +9,10 @@ paths launch (lightgbm_tpu/learner/pallas_hist.py):
 | `hist_nat_f32`   | csrc/hist_nat.cu   | hist_nat_tpu, f32 (nat_ch=5) mode |
 | `hist_round`     | csrc/hist_round.cu | hist_round_tpu, int16 and int8 modes |
 | `hist_round_f32` | csrc/hist_round.cu | hist_round_tpu, f32 (bf16x2) mode |
+
+hist_round and hist_round_f32 take the round's category sets (cat_mask)
+on datasets with categorical features: every channel mode then runs its
+categorical variant (hist_round_tpu's has_cat).
 | `take_small`     | csrc/take_small.cu | take_small_tpu / _take_kernel     |
 | `seg_sum`        | csrc/seg_sum.cu    | seg_sum_tpu / _segsum_kernel      |
 | `hist`           | csrc/hist.cu       | hist_tpu / _hist_kernel           |
@@ -24,7 +28,9 @@ CPU tests import this module on machines without nvcc.
 Each wrapper checks device, dtype, shape and contiguity, allocates the
 outputs, launches on torch's current stream, raises if the C function
 reports a CUDA error, and adds one to its launch count (one count per
-kernel mode: the int8 modes count as hist_nat_int8 / hist_round_int8).
+kernel mode: the int8 modes count as hist_nat_int8 / hist_round_int8; a
+hist_round launch in its categorical variant adds one to
+hist_round_cat as well).
 The plain PyTorch versions live in learner/histogram.py; nothing here
 falls back to them.
 """
@@ -53,6 +59,7 @@ LAUNCHES: Dict[str, int] = {
     "hist_nat": 0, "hist_round": 0, "take_small": 0, "seg_sum": 0,
     "hist": 0, "hist_slots": 0, "hist_round_f32": 0,
     "hist_nat_int8": 0, "hist_round_int8": 0, "hist_nat_f32": 0,
+    "hist_round_cat": 0,
 }
 
 # shared memory a block may use on sm_90 (mirrors hist_common.cuh)
@@ -150,14 +157,14 @@ def load() -> ctypes.CDLL:
         lib.lgbm_hist_nat.argtypes = [P, P, P, P] + [I] * 7 + [P]
         lib.lgbm_hist_nat_int8.argtypes = [P, P, P, P] + [I] * 7 + [P]
         lib.lgbm_hist_nat_f32.argtypes = [P] * 6 + [I] * 8 + [P]
-        lib.lgbm_hist_round.argtypes = [P] * 6 + [I] * 8 + [P]
-        lib.lgbm_hist_round_int8.argtypes = [P] * 6 + [I] * 8 + [P]
+        lib.lgbm_hist_round.argtypes = [P] * 7 + [I] * 8 + [P]
+        lib.lgbm_hist_round_int8.argtypes = [P] * 7 + [I] * 8 + [P]
         lib.lgbm_take_small.argtypes = [P, P, P] + [I] * 4 + [P]
         lib.lgbm_seg_sum.argtypes = [P] * 4 + [I] * 4 + [P]
         lib.lgbm_hist.argtypes = ([P, P, ctypes.c_longlong] + [P] * 4
                                   + [I] * 6 + [P])
         lib.lgbm_hist_slots.argtypes = [P] * 8 + [I] * 8 + [P]
-        lib.lgbm_hist_round_f32.argtypes = [P] * 8 + [I] * 9 + [P]
+        lib.lgbm_hist_round_f32.argtypes = [P] * 9 + [I] * 9 + [P]
         for fn in (lib.lgbm_hist_nat, lib.lgbm_hist_nat_int8,
                    lib.lgbm_hist_nat_f32, lib.lgbm_hist_round,
                    lib.lgbm_hist_round_int8, lib.lgbm_take_small,
@@ -289,21 +296,39 @@ def hist_nat_f32(bins: torch.Tensor, gh: torch.Tensor, slot: torch.Tensor,
     return out
 
 
+def _cat_arg(cat_mask: Optional[torch.Tensor], S: int, Bc: int):
+    """(the checked (S, Bc) bool mask or None, the int words its bitsets
+    take in shared memory) of a hist_round call; the kernel builds the
+    bitsets itself."""
+    if cat_mask is None:
+        return None, 0
+    _need(cat_mask, "cat_mask", torch.bool, 2)
+    if cat_mask.shape != (S, Bc):
+        raise ValueError(f"cat_mask must be ({S}, {Bc}), got "
+                         f"{tuple(cat_mask.shape)}")
+    return cat_mask, S * -(-Bc // 32)
+
+
 def hist_round(bins: torch.Tensor, gh: torch.Tensor, pleaf: torch.Tensor,
                params: torch.Tensor, num_slots: int, num_bins: int,
-               num_leaves: int, levels: int
+               num_leaves: int, levels: int,
+               cat_mask: Optional[torch.Tensor] = None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fused partition + smaller-child histograms -> ((S, 3, G, Bc) f32,
     (N,) int32 new row -> leaf) over int32 or int8 levels (int8: the int8
     mode, counted as hist_round_int8). params (S, 16) int32 as documented
-    in csrc/hist_round.cu; pleaf values lie in [0, num_leaves]."""
+    in csrc/hist_round.cu; pleaf values lie in [0, num_leaves]. cat_mask
+    (S, Bc) bool: the category sets of the slots params column 10 flags,
+    tested in the kernel's categorical variant (counted as
+    hist_round_cat too)."""
     G, N = _check_hist_inputs(bins, gh, pleaf, "pleaf")
     _need(params, "params", torch.int32, 2)
     S, Bc, L = int(num_slots), int(num_bins), int(num_leaves)
     if params.shape != (S, 16):
         raise ValueError(f"params must be ({S}, 16)")
     check_int_range(N, levels)
-    extra = (L + 1) + S * 16
+    cat, words = _cat_arg(cat_mask, S, Bc)
+    extra = (L + 1) + S * 16 + words
     Sc, Gc, rows = _hist_tiling(G, N, S, Bc, extra, bins.device)
     out = torch.zeros((S, 3, G, Bc), dtype=torch.int32, device=bins.device)
     pleaf_new = torch.empty_like(pleaf)
@@ -312,19 +337,24 @@ def hist_round(bins: torch.Tensor, gh: torch.Tensor, pleaf: torch.Tensor,
     fn = lib.lgbm_hist_round_int8 if int8 else lib.lgbm_hist_round
     name = "hist_round_int8" if int8 else "hist_round"
     rc = fn(bins.data_ptr(), gh.data_ptr(), pleaf.data_ptr(),
-            params.data_ptr(), out.data_ptr(), pleaf_new.data_ptr(), G, N, S,
-            Bc, L, Sc, Gc, rows, _stream())
+            params.data_ptr(), None if cat is None else cat.data_ptr(),
+            out.data_ptr(), pleaf_new.data_ptr(), G, N, S, Bc, L, Sc, Gc,
+            rows, _stream())
     _check(rc, name)
     LAUNCHES[name] += 1
+    if cat is not None:
+        LAUNCHES["hist_round_cat"] += 1
     return out.to(torch.float32), pleaf_new
 
 
 def hist_round_f32(bins: torch.Tensor, gh: torch.Tensor,
                    pleaf: torch.Tensor, params: torch.Tensor,
-                   num_slots: int, num_bins: int, num_leaves: int
+                   num_slots: int, num_bins: int, num_leaves: int,
+                   cat_mask: Optional[torch.Tensor] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The f32 mode of hist_round: (3, N) f32 channels -> ((S, 3, G, Bc)
-    f32 fixed-point sums, (N,) int32 new row -> leaf)."""
+    f32 fixed-point sums, (N,) int32 new row -> leaf); cat_mask as for
+    hist_round."""
     from .histogram import fx_log2_rows
 
     _need(bins, "bins", torch.int32, 2)
@@ -337,7 +367,8 @@ def hist_round_f32(bins: torch.Tensor, gh: torch.Tensor,
         raise ValueError(f"gh must be (3, {N}) and pleaf ({N},)")
     if params.shape != (S, 16):
         raise ValueError(f"params must be ({S}, 16)")
-    extra = (L + 1) + S * 16
+    cat, words = _cat_arg(cat_mask, S, Bc)
+    extra = (L + 1) + S * 16 + words
     Sc, Gc, rows = _hist_tiling(G, N, S, Bc, extra, bins.device,
                                 cell_words=2)
     dev = bins.device
@@ -348,12 +379,14 @@ def hist_round_f32(bins: torch.Tensor, gh: torch.Tensor,
     lib = load()
     rc = lib.lgbm_hist_round_f32(
         bins.data_ptr(), gh.data_ptr(), pleaf.data_ptr(), params.data_ptr(),
-        absmax.data_ptr(), acc.data_ptr(), out.data_ptr(),
-        pleaf_new.data_ptr(), G, N, S, Bc, L, Sc, Gc, rows,
-        fx_log2_rows(N), _stream(),
+        None if cat is None else cat.data_ptr(), absmax.data_ptr(),
+        acc.data_ptr(), out.data_ptr(), pleaf_new.data_ptr(), G, N, S, Bc,
+        L, Sc, Gc, rows, fx_log2_rows(N), _stream(),
     )
     _check(rc, "hist_round_f32")
     LAUNCHES["hist_round_f32"] += 1
+    if cat is not None:
+        LAUNCHES["hist_round_cat"] += 1
     return out, pleaf_new
 
 

@@ -38,6 +38,14 @@ class GrowerSpec(NamedTuple):
     quant_int8: bool = False
     # permuted grower: the batched round phase first (tpu_growth_rounds)
     rounds: bool = False
+    # sorted-subset categorical splits (feature_histogram.hpp:449): set
+    # when the dataset has categorical features wider than
+    # max_cat_to_onehot; False keeps every categorical one-vs-rest
+    cat_subset: bool = False
+    # the dataset has a categorical feature: the split search tries the
+    # categorical directions and the rounds grower's fused pass takes the
+    # per-slot category sets (hist_round's categorical mode)
+    has_cat: bool = False
 
 
 class TreeArrays(NamedTuple):
@@ -76,25 +84,44 @@ def make_split_params(cfg) -> SplitParams:
         min_gain_to_split=f(cfg.min_gain_to_split),
         max_delta_step=f(cfg.max_delta_step),
         path_smooth=f(cfg.path_smooth),
+        cat_smooth=f(cfg.cat_smooth),
+        cat_l2=f(cfg.cat_l2),
+        max_cat_threshold=int(cfg.max_cat_threshold),
+        max_cat_to_onehot=int(cfg.max_cat_to_onehot),
+        min_data_per_group=f(cfg.min_data_per_group),
     )
 
 
 def split_leaf_outputs(rec: SplitRecord, params: SplitParams, parent_output,
-                       cmin=None, cmax=None):
+                       cmin=None, cmax=None, num_bins=None,
+                       cat_subset: bool = False):
     """Left/right child outputs of chosen splits: path smoothing toward
-    the parent output, clamped to the parent's monotone interval."""
-    lo = leaf_output(rec.left_g, rec.left_h, params, rec.left_c,
+    the parent output, clamped to the parent's monotone interval.
+    Under cat_subset, sorted-subset splits (categorical on a feature of
+    more than max_cat_to_onehot bins) regularize with l2 + cat_l2
+    (feature_histogram.cpp:251,346)."""
+    p = params
+    if cat_subset:
+        is_sub = rec.is_cat & (num_bins[rec.feature.long()]
+                               > params.max_cat_to_onehot)
+        p = params._replace(lambda_l2=params.lambda_l2 + torch.where(
+            is_sub, params.cat_l2, 0.0).to(torch.float32))
+    lo = leaf_output(rec.left_g, rec.left_h, p, rec.left_c,
                      parent_output, cmin, cmax)
-    ro = leaf_output(rec.right_g, rec.right_h, params, rec.right_c,
+    ro = leaf_output(rec.right_g, rec.right_h, p, rec.right_c,
                      parent_output, cmin, cmax)
     return lo, ro
 
 
-def monotone_child_intervals(feature, mono, lo, ro, cur_min, cur_max):
-    """BasicLeafConstraints::Update (monotone_constraints.hpp:489): a split
-    on a monotone feature bounds the children at mid = (lo + ro) / 2."""
+def monotone_child_intervals(feature, is_cat, mono, lo, ro, cur_min,
+                             cur_max):
+    """BasicLeafConstraints::Update (monotone_constraints.hpp:489): a
+    numerical split on a monotone feature bounds the children at
+    mid = (lo + ro) / 2; a categorical split never does."""
     m = mono[feature.long()]
     upd = m != 0
+    if is_cat is not None:
+        upd = upd & ~is_cat
     mid = (lo + ro) / 2.0
     lmin = torch.where(upd & (m < 0), torch.maximum(cur_min, mid), cur_min)
     lmax = torch.where(upd & (m > 0), torch.minimum(cur_max, mid), cur_max)

@@ -286,13 +286,17 @@ def hist_slots(
 
 # -------------------------------------------------------------- hist_round
 def round_partition_plain(bins_fm: torch.Tensor, pleaf: torch.Tensor,
-                          params: torch.Tensor, num_slots: int
+                          params: torch.Tensor, num_slots: int,
+                          cat_mask: Optional[torch.Tensor] = None
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The partition half of hist_round: (new row -> leaf, histogram slot
     per row in [0, S]). Same math as the JAX package's non-fused round
     (rounds.py:758-831) with per-row gathers in place of the packed
     matmul; the EFB decode reads the params' columns 7..9 as the fused
-    TPU kernel does (pallas_hist.py:407-414)."""
+    TPU kernel does (pallas_hist.py:407-414). A row of a categorical slot
+    (params column 10) goes left iff its decoded bin is in the slot's
+    category set, cat_mask (S, Bc) bool; the threshold and default-left
+    tests do not apply to it (rounds.py:795-816)."""
     G, N = bins_fm.shape
     S = int(num_slots)
     dev = bins_fm.device
@@ -311,6 +315,11 @@ def round_partition_plain(bins_fm: torch.Tensor, pleaf: torch.Tensor,
     fb = torch.where(mfb >= 0, dec, fb)
     go_left = (fb <= p[:, 2]) | ((p[:, 3] != 0) & (fb == p[:, 4])
                                  & (p[:, 4] >= 0))
+    if cat_mask is not None:
+        Bm = cat_mask.shape[1]
+        in_b = (fb >= 0) & (fb < Bm)
+        hit = cat_mask[slot_row, fb.clamp(0, Bm - 1).long()] & in_b
+        go_left = torch.where(p[:, 10] != 0, hit, go_left)
     pleaf_new = torch.where(in_split & ~go_left, p[:, 6], pleaf)
     go_small = go_left == (p[:, 5] != 0)
     hslot = torch.where(in_split & go_small, slot_row.to(torch.int32),
@@ -319,11 +328,11 @@ def round_partition_plain(bins_fm: torch.Tensor, pleaf: torch.Tensor,
 
 
 def hist_round_plain(bins_fm, gh, pleaf, params, num_slots, num_bins,
-                     quant: bool = True):
+                     quant: bool = True, cat_mask=None):
     """Plain version of hist_round: exact integer sums (quant) or
     fixed-point sums of f32 channels, the scale taken over all N rows."""
     pleaf_new, hslot = round_partition_plain(bins_fm, pleaf, params,
-                                             num_slots)
+                                             num_slots, cat_mask)
     return (hist_nat_slots_plain(bins_fm, gh, hslot, num_slots, num_bins,
                                  quant), pleaf_new)
 
@@ -346,23 +355,20 @@ def hist_round(
     package's version this takes no column one-hot: the kernel reads
     the split column directly. The kernel mode follows gh's dtype: int8
     or int32 levels (quant), or f32 channels summed as fixed point
-    (quant=False, module docstring)."""
-    if cat_mask is not None:
-        raise NotImplementedError(
-            "categorical splits in the fused round (the in-kernel category "
-            "set test) are not ported (ROADMAP queue B)"
-        )
+    (quant=False, module docstring). cat_mask, (S, Bc) bool, holds the
+    category sets of the slots that params column 10 flags categorical
+    (the kernel's categorical mode); None when the dataset has none."""
     if bins_fm.is_cuda:
         from .cuda_hist import hist_round as _kernel
         from .cuda_hist import hist_round_f32
 
         if not quant:
             return hist_round_f32(bins_fm, gh, pleaf, params, num_slots,
-                                  num_bins, num_leaves)
+                                  num_bins, num_leaves, cat_mask)
         return _kernel(bins_fm, gh, pleaf, params, num_slots, num_bins,
-                       num_leaves, levels)
+                       num_leaves, levels, cat_mask)
     return hist_round_plain(bins_fm, gh, pleaf, params, num_slots, num_bins,
-                            quant)
+                            quant, cat_mask)
 
 
 # ------------------------------------------------------------ take / segsum

@@ -29,11 +29,15 @@ prefix sums, and one hist_slots call for all smaller children
 (S = num_leaves // 2 + 1 slots). One host read per round: the
 positive-gain mask. The sequential splits then finish the tree.
 
-Not ported, each refused: per-node extras (extra_trees,
+A row of a categorical split goes left iff its bin is in the split's
+category set (cat_mask), in both phases (permuted.py _go_left, :367-372);
+the histogram kernels do not depend on the split type.
+
+Not ported, each refused upstream: per-node extras (extra_trees,
 feature_fraction_bynode, CEGB, interaction constraints), forced splits,
-voting and any mesh axis, monotone intermediate/advanced, and
-categorical splits (ROADMAP queue A). Monotone basic, NaN default-left,
-max_depth and EFB bundles are kept.
+voting and any mesh axis, and monotone intermediate/advanced (ROADMAP
+queue A). Monotone basic, NaN default-left, max_depth, EFB bundles and
+categorical splits are kept.
 """
 
 from __future__ import annotations
@@ -53,7 +57,7 @@ from .grower import (
 )
 from .histogram import build_gh3, hist_slots, histogram, root_sums
 from .split import BIG, NEG_INF, SplitParams, SplitRecord, best_split, \
-    first_argmax, leaf_output
+    first_argmax, leaf_output, map_record
 
 
 def _excl_prefix(x: torch.Tensor) -> torch.Tensor:
@@ -66,9 +70,9 @@ class _Grower:
     """State of one tree: device tensors for everything the split search
     reads, host lists for the tree's links."""
 
-    def __init__(self, bins_fm, nan_bin, num_bins, mono, grad, hess, mask,
-                 feat_mask, params: SplitParams, spec: GrowerSpec, valid,
-                 bundle: Optional[BundleInfo]):
+    def __init__(self, bins_fm, nan_bin, num_bins, mono, is_cat, grad, hess,
+                 mask, feat_mask, params: SplitParams, spec: GrowerSpec,
+                 valid, bundle: Optional[BundleInfo]):
         L, B = spec.num_leaves, spec.num_bins
         G, N = bins_fm.shape
         dev = bins_fm.device
@@ -76,6 +80,8 @@ class _Grower:
         self.Bc = spec.col_bins if (spec.efb and spec.col_bins) else B
         self.spec, self.params = spec, params
         self.nan_bin, self.num_bins, self.mono = nan_bin, num_bins, mono
+        # a dataset without categorical features skips their search
+        self.is_cat = is_cat if spec.has_cat else None
         self.feat_mask, self.bundle = feat_mask, bundle
         self.has_mono = spec.has_mono
 
@@ -90,6 +96,7 @@ class _Grower:
             feat_mask, parent_output=root_out[None],
             cmin=-big if self.has_mono else None,
             cmax=big if self.has_mono else None, has_mono=self.has_mono,
+            is_cat=self.is_cat, cat_subset=spec.cat_subset,
         )
 
         self.pbins = bins_fm.clone()  # leaf-grouped along the row axis
@@ -110,11 +117,16 @@ class _Grower:
             gain=torch.full((L,), NEG_INF, dtype=torch.float32, device=dev),
             feature=zi(), bin=zi(),
             default_left=torch.zeros(L, dtype=torch.bool, device=dev),
+            is_cat=(torch.zeros(L, dtype=torch.bool, device=dev)
+                    if spec.has_cat else None),
+            cat_mask=(torch.zeros((L, B), dtype=torch.bool, device=dev)
+                      if spec.has_cat else None),
             left_g=zf(), left_h=zf(), left_c=zf(),
             right_g=zf(), right_h=zf(), right_c=zf(),
         )
         for f, r in zip(self.best, rec0):
-            f[0] = r[0]
+            if f is not None:
+                f[0] = r[0]
         self.leaf_g, self.leaf_h, self.leaf_c = zf(), zf(), zf()
         self.leaf_g[0], self.leaf_h[0], self.leaf_c[0] = root
         self.leaf_min = torch.full((L,), -BIG, dtype=torch.float32,
@@ -160,7 +172,8 @@ class _Grower:
             self.exp_hist(torch.cat([left_h, right_h]), ch_g, ch_h, ch_c),
             ch_g, ch_h, ch_c, self.num_bins, self.nan_bin, self.mono,
             self.params, self.feat_mask, parent_output=torch.cat([lo, ro]),
-            cmin=cmn, cmax=cmx, has_mono=self.has_mono,
+            cmin=cmn, cmax=cmx, has_mono=self.has_mono, is_cat=self.is_cat,
+            cat_subset=self.spec.cat_subset,
         )
         md = self.spec.max_depth
         ok = [md <= 0 or d < md for d in depths]
@@ -177,10 +190,11 @@ class _Grower:
         pmin, pmax = self.leaf_min[leaves], self.leaf_max[leaves]
         lo, ro = split_leaf_outputs(
             rec, self.params, self.t.leaf_value[leaves],
-            pmin if self.has_mono else None, pmax if self.has_mono else None)
+            pmin if self.has_mono else None, pmax if self.has_mono else None,
+            self.num_bins, self.spec.cat_subset)
         if self.has_mono:
             lmin, lmax, rmin, rmax = monotone_child_intervals(
-                rec.feature, self.mono, lo, ro, pmin, pmax)
+                rec.feature, rec.is_cat, self.mono, lo, ro, pmin, pmax)
             return lo, ro, (lmin, lmax, rmin, rmax)
         return lo, ro, None
 
@@ -194,6 +208,9 @@ class _Grower:
         t.node_bin[node_ids] = rec.bin
         t.node_gain[node_ids] = rec.gain
         t.node_default_left[node_ids] = rec.default_left
+        if self.is_cat is not None:
+            t.node_cat[node_ids] = rec.is_cat
+            t.node_cat_mask[node_ids] = rec.cat_mask
         t.node_value[node_ids] = t.leaf_value[leaves]
         t.node_weight[node_ids] = self.leaf_h[leaves]
         t.node_count[node_ids] = self.leaf_c[leaves]
@@ -209,7 +226,8 @@ class _Grower:
             self.leaf_max[leaves], self.leaf_max[news] = lmax, rmax
         n = rec.gain.shape[0]
         for f, v in zip(self.best, ch):
-            f[leaves], f[news] = v[:n], v[n:]
+            if f is not None:
+                f[leaves], f[news] = v[:n], v[n:]
 
     # ------------------------------------------------------------ round
     def round_phase(self, pleaf: torch.Tensor) -> None:
@@ -227,7 +245,7 @@ class _Grower:
             i = self.i
             tl = torch.tensor(taken, dtype=torch.int64, device=dev)
             news = slice(i + 1, i + 1 + n)
-            rec = SplitRecord(*[f[tl] for f in best])
+            rec = map_record(lambda f: f[tl], best)
             lo, ro, iv = self.outputs(rec, tl)
             for r, l in enumerate(taken):
                 self.link(l, i + r, i + 1 + r)
@@ -244,6 +262,11 @@ class _Grower:
             fnan = self.nan_bin[f_row]
             go_left = (fb <= best.bin[pl_c]) | (
                 best.default_left[pl_c] & (fb == fnan) & (fnan >= 0))
+            if self.is_cat is not None:
+                B = best.cat_mask.shape[1]
+                cat_hit = best.cat_mask.reshape(-1)[
+                    pl_c * B + fb.clamp(0, B - 1).long()]
+                go_left = torch.where(best.is_cat[pl_c], cat_hit, go_left)
             in_split = mask[pl_c] & (pleaf < L)
             new_of = torch.zeros(L, dtype=torch.int32, device=dev)
             new_of[tl] = torch.arange(i + 1, i + 1 + n, dtype=torch.int32,
@@ -318,7 +341,7 @@ class _Grower:
         """Split leaf l, whose rows are [b, b + c) (permuted.py body)."""
         i, new = self.i, self.i + 1
         dev = self.dev
-        rec = SplitRecord(*[f[l:l + 1].clone() for f in self.best])
+        rec = map_record(lambda f: f[l:l + 1].clone(), self.best)
         lo, ro, iv = self.outputs(rec, slice(l, l + 1))
         self.link(l, i, new)
         depth = self.leaf_depth[l] + 1
@@ -332,6 +355,10 @@ class _Grower:
             fb = decode_feature_bins(fb, feat, self.bundle)
         fnan = self.nan_bin[feat]
         gl = (fb <= rec.bin) | (rec.default_left & (fb == fnan) & (fnan >= 0))
+        if self.is_cat is not None:
+            B = rec.cat_mask.shape[1]
+            gl = torch.where(rec.is_cat,
+                             rec.cat_mask[0, fb.clamp(0, B - 1).long()], gl)
         gli = gl.to(torch.int64)
         lrank = torch.cumsum(gli, dim=0) - gli
         n_l = gli.sum()
@@ -415,12 +442,7 @@ def grow_tree_permuted(
 ) -> Tuple[TreeArrays, torch.Tensor]:
     """Grow one tree -> (tree arrays, natural-order row -> leaf, -1 on
     rows with valid == 0)."""
-    if bool(is_cat.any()):
-        raise NotImplementedError(
-            "categorical features are not ported to the permuted grower "
-            "(ROADMAP queue A: categorical splits)"
-        )
-    g = _Grower(bins_fm, nan_bin, num_bins, mono, grad, hess, mask,
+    g = _Grower(bins_fm, nan_bin, num_bins, mono, is_cat, grad, hess, mask,
                 feat_mask, params, spec, valid, bundle)
     L = spec.num_leaves
     if spec.rounds and L > 2:

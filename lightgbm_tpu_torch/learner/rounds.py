@@ -22,11 +22,16 @@ stable descending sort. `.at[...].set(mode="drop")` scatters become
 writes at the taken prefix of the gain-sorted slots, which the JAX
 formulation guarantees: taken slots are exactly slots 0..n_split-1.
 
-Not ported, each refused: voting / reduce-scatter / any mesh axis,
-per-node extras (extra_trees, feature_fraction_bynode, CEGB,
-interaction constraints), monotone intermediate and advanced, forced
-splits, and categorical splits (ROADMAP queue A). Monotone basic is
-kept: it costs nothing beyond the interval tensors.
+Categorical splits ride the same loop: the split records and node
+tables carry is_cat and the (B,) left category set, and with
+spec.has_cat the fused pass takes the round's per-slot sets (params
+column 10 flags a categorical slot; hist_round's categorical mode).
+
+Not ported, each refused upstream: voting / reduce-scatter / any mesh
+axis, per-node extras (extra_trees, feature_fraction_bynode, CEGB,
+interaction constraints), monotone intermediate and advanced, and
+forced splits (ROADMAP queue A). Monotone basic is kept: it costs
+nothing beyond the interval tensors.
 """
 
 from __future__ import annotations
@@ -46,7 +51,7 @@ from .grower import (
 from .histogram import build_gh3, build_gh8_quant, hist_nat_slots, \
     hist_round, histogram, root_sums, root_sums_quant
 from .split import BIG, NEG_INF, SplitParams, SplitRecord, best_split, \
-    leaf_output
+    leaf_output, map_record
 
 _TAIL_EXACT_ROWS = 32 * 8192  # rounds.py:436
 
@@ -76,11 +81,6 @@ def grow_tree_rounds(
     """Grow one tree -> (tree arrays, natural-order row -> leaf, -1 on
     rows with valid == 0). gh_scale carries the level scales when
     spec.quant and must be None otherwise."""
-    if bool(is_cat.any()):
-        raise NotImplementedError(
-            "categorical features are not ported to the rounds grower "
-            "(ROADMAP queue A: categorical splits)"
-        )
     if spec.quant != (gh_scale is not None):
         raise ValueError("gh_scale is required with spec.quant (integer "
                          "levels) and refused without it")
@@ -94,6 +94,8 @@ def grow_tree_rounds(
     tail_exact = N <= _TAIL_EXACT_ROWS
     levels = spec.quant_levels
     has_mono = spec.has_mono
+    # a dataset without categorical features skips their search
+    cat_arg = is_cat if spec.has_cat else None
 
     def exp_hist(h, g_, h_, c_):
         return expand_hist(h, g_, h_, c_, bundle) if spec.efb else h
@@ -121,7 +123,7 @@ def grow_tree_rounds(
         root[0:1], root[1:2], root[2:3], num_bins, nan_bin, mono, params,
         feat_mask, parent_output=root_out[None],
         cmin=-big if has_mono else None, cmax=big if has_mono else None,
-        has_mono=has_mono,
+        has_mono=has_mono, is_cat=cat_arg, cat_subset=spec.cat_subset,
     )
 
     hist = torch.zeros((L, 3, G, Bc), dtype=torch.float32, device=dev)
@@ -132,10 +134,14 @@ def grow_tree_rounds(
         gain=torch.full((L,), NEG_INF, dtype=torch.float32, device=dev),
         feature=zi(), bin=zi(),
         default_left=torch.zeros(L, dtype=torch.bool, device=dev),
+        is_cat=(torch.zeros(L, dtype=torch.bool, device=dev)
+                if spec.has_cat else None),
+        cat_mask=(torch.zeros((L, B), dtype=torch.bool, device=dev)
+                  if spec.has_cat else None),
         left_g=zf(), left_h=zf(), left_c=zf(),
         right_g=zf(), right_h=zf(), right_c=zf(),
     )
-    best = SplitRecord(*[_scatter(b, 0, r[0]) for b, r in zip(best, rec0)])
+    best = map_record(lambda b, r: _scatter(b, 0, r[0]), best, rec0)
     t = empty_tree(L, B, dev)
     t = t._replace(
         leaf_value=_scatter(t.leaf_value, 0, root_out),
@@ -171,16 +177,17 @@ def grow_tree_rounds(
         tl = order[:n_split]  # taken leaves, gain-sorted
         node_ids = i + torch.arange(n_split, device=dev)
         new_ids = node_ids + 1
-        rec = SplitRecord(*[f[tl] for f in best])
+        rec = map_record(lambda f: f[tl], best)
 
         # ---- outputs / monotone intervals of the taken splits
         pmin, pmax = leaf_min[tl], leaf_max[tl]
         lo, ro = split_leaf_outputs(
             rec, params, t.leaf_value[tl],
-            pmin if has_mono else None, pmax if has_mono else None)
+            pmin if has_mono else None, pmax if has_mono else None,
+            num_bins, spec.cat_subset)
         if has_mono:
             lmin, lmax, rmin, rmax = monotone_child_intervals(
-                rec.feature, mono, lo, ro, pmin, pmax)
+                rec.feature, rec.is_cat, mono, lo, ro, pmin, pmax)
         depth_new = t.leaf_depth[tl] + 1
 
         # ---- tree bookkeeping (Tree::Split, batched)
@@ -204,8 +211,10 @@ def grow_tree_rounds(
             node_gain=_scatter(t.node_gain, node_ids, rec.gain),
             node_default_left=_scatter(t.node_default_left, node_ids,
                                        rec.default_left),
-            node_cat=t.node_cat,
-            node_cat_mask=t.node_cat_mask,
+            node_cat=(_scatter(t.node_cat, node_ids, rec.is_cat)
+                      if spec.has_cat else t.node_cat),
+            node_cat_mask=(_scatter(t.node_cat_mask, node_ids, rec.cat_mask)
+                           if spec.has_cat else t.node_cat_mask),
             node_left=node_left,
             node_right=node_right,
             node_value=_scatter(t.node_value, node_ids, t.leaf_value[tl]),
@@ -239,8 +248,15 @@ def grow_tree_rounds(
             params16[:n_split, 9] = bundle.width[feat]
         else:
             params16[:, 8] = -1
+        cat_mask = None
+        if spec.has_cat:
+            params16[:n_split, 10] = rec.is_cat.to(torch.int32)
+            # (Sk, Bc): the kernel's bin space is the bundle width
+            cat_mask = torch.zeros((Sk, Bc), dtype=torch.bool, device=dev)
+            cat_mask[:n_split, :B] = rec.cat_mask
         slot_hists, pleaf = hist_round(bins_fm, gh, pleaf, params16, Sk, Bc,
-                                       L, quant=spec.quant, levels=levels)
+                                       L, quant=spec.quant,
+                                       cat_mask=cat_mask, levels=levels)
         parent_s = hist[tl]
         if spec.quant:
             sums = slot_hists[:n_split]  # exact integer sums
@@ -280,16 +296,15 @@ def grow_tree_rounds(
             exp_hist(torch.cat([left_s, right_s]), ch_g, ch_h, ch_c),
             ch_g, ch_h, ch_c, num_bins, nan_bin, mono, params, feat_mask,
             parent_output=ch_po, cmin=ch_mn, cmax=ch_mx, has_mono=has_mono,
+            is_cat=cat_arg, cat_subset=spec.cat_subset,
         )
         depth_ok = (torch.ones_like(depth_new, dtype=torch.bool)
                     if spec.max_depth <= 0 else depth_new < spec.max_depth)
         ch_gain = torch.where(torch.cat([depth_ok, depth_ok]), ch_rec.gain,
                               torch.full_like(ch_rec.gain, NEG_INF))
         ch_leaf = torch.cat([tl, new_ids])
-        best = SplitRecord(*[
-            _scatter(b, ch_leaf, v)
-            for b, v in zip(best, ch_rec._replace(gain=ch_gain))
-        ])
+        best = map_record(lambda b, v: _scatter(b, ch_leaf, v), best,
+                          ch_rec._replace(gain=ch_gain))
         if has_mono:
             leaf_min = _scatter(_scatter(leaf_min, tl, lmin), new_ids, rmin)
             leaf_max = _scatter(_scatter(leaf_max, tl, lmax), new_ids, rmax)

@@ -149,8 +149,9 @@ class Tree:
         ci = int(self.threshold[node])
         lo, hi = self.cat_boundaries[ci], self.cat_boundaries[ci + 1]
         words = self.cat_threshold[lo:hi]
-        iv = values.astype(np.int64)
-        ok = (iv >= 0) & (iv < 32 * len(words)) & ~np.isnan(values)
+        finite = np.isfinite(values)
+        iv = np.where(finite, values, -1.0).astype(np.int64)
+        ok = (iv >= 0) & (iv < 32 * len(words)) & finite
         ivc = np.clip(iv, 0, max(0, 32 * len(words) - 1))
         bits = (words[ivc // 32] >> (ivc % 32).astype(np.uint32)) & 1
         return ok & (bits == 1)
@@ -229,14 +230,17 @@ class Tree:
         return imp
 
 def traverse_tree_bins(arrays: "TreeArrays", bins_fm: torch.Tensor,
-                       nan_bin: torch.Tensor, bundle=None) -> torch.Tensor:
+                       nan_bin: torch.Tensor, bundle=None,
+                       has_cat: bool = False) -> torch.Tensor:
     """Device traversal of a grown tree over a BINNED matrix -> per-row
     leaf (int32). Depth-stepped: every row advances one level per pass,
     so the loop runs tree-depth times. Per pass, the rows' current-node
     parameters come from one take over a packed (8, nodes) table — the
     take_small kernel on the card (the JAX package's traverse_tree_bins,
     tree.py:414-493) — and each row's split-feature bin from a gather.
-    Numerical splits only (the port's grower makes no others)."""
+    A row at a categorical node goes left iff its bin is in the node's
+    category set; has_cat=False (an all-numerical dataset) skips that
+    test."""
     from .learner.bundle import decode_feature_bins
     from .learner.histogram import take_cols
 
@@ -272,6 +276,11 @@ def traverse_tree_bins(arrays: "TreeArrays", bins_fm: torch.Tensor,
         fnan = v[7].to(torch.int32)
         go_left = (fbins <= v[2].to(torch.int32)) | (
             (v[3] > 0.5) & (fbins == fnan) & (fnan >= 0))
+        if has_cat:
+            B = arrays.node_cat_mask.shape[1]
+            cat_hit = arrays.node_cat_mask.reshape(-1)[
+                k.long() * B + fbins.clamp(0, B - 1).long()]
+            go_left = torch.where(v[4] > 0.5, cat_hit, go_left)
         child = torch.where(go_left, v[5], v[6]).to(torch.int32)
         at_internal = (row_node >= 0) & (row_node < n_nodes)
         row_node = torch.where(at_internal, child, row_node)

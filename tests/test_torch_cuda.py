@@ -317,3 +317,87 @@ def test_train_card_matches_cpu(dev):
         bst = lgb.train(p, lgb.Dataset(X, label=y, params=p), 4)
         preds[d] = bst.predict(X, raw_score=True)
     np.testing.assert_allclose(preds["cuda"], preds["cpu"], atol=1e-4)
+
+
+def _cat_round_inputs(mode, efb, seed=0):
+    """A round of 6 slots over 64 bins, slots 0, 2 and 4 categorical
+    with random category sets (slot 4 decodes an EFB column when efb);
+    slot 5 unused."""
+    if mode == "f32":
+        rs, bins, gh = _f32_inputs(seed=seed)
+    elif mode == "int8":
+        rs, bins, gh = _int8_inputs(seed=seed)
+    else:
+        rs, bins, gh = _inputs(seed=seed)
+    L, S = 16, 6
+    pleaf = torch.from_numpy(rs.randint(0, L + 1, 8192).astype(np.int32))
+    params = torch.zeros((S, 16), dtype=torch.int32)
+    params[:, 0] = torch.tensor([1, 5, 9, 12, 3, -1])
+    params[:, 1] = torch.tensor([0, 3, 6, 2, 4, 0])
+    params[:, 2] = torch.tensor([10, 30, 50, 20, 40, 0])
+    params[:, 3] = torch.tensor([1, 0, 1, 0, 1, 0])
+    params[:, 4] = torch.tensor([63, -1, 63, -1, 63, -1])
+    params[:, 5] = torch.tensor([1, 0, 1, 0, 0, 0])
+    params[:, 6] = torch.tensor([17, 18, 19, 20, 21, 22])
+    params[:, 8] = -1
+    params[[0, 2, 4], 10] = 1
+    if efb:
+        params[4, 7:10] = torch.tensor([8, 2, 20])
+    cat_mask = torch.from_numpy(rs.rand(S, 64) < 0.5)
+    return bins, gh, pleaf, params, cat_mask, L, S
+
+
+@pytest.mark.parametrize("efb", [False, True])
+@pytest.mark.parametrize("mode", ["int16", "int8", "f32"])
+def test_hist_round_categorical_exact(dev, mode, efb):
+    """The categorical variant of every channel mode: the plain
+    version's histograms and row -> leaf bit for bit, on two launches,
+    counted as hist_round_cat beside the mode's own count."""
+    bins, gh, pleaf, params, cat_mask, L, S = _cat_round_inputs(mode, efb)
+    quant = mode != "f32"
+    kw = {"quant": quant, "levels": 127 if mode == "int8" else 256}
+    args = (bins.to(dev), gh.to(dev), pleaf.to(dev), params.to(dev), S, 64,
+            L)
+    cuda_hist.reset_launch_counts()
+    hk, pk = ht.hist_round(*args, cat_mask=cat_mask.to(dev), **kw)
+    hk2, pk2 = ht.hist_round(*args, cat_mask=cat_mask.to(dev), **kw)
+    hp, pp = ht.hist_round_plain(bins, gh, pleaf, params, S, 64,
+                                 quant=quant, cat_mask=cat_mask)
+    assert torch.equal(hk.cpu(), hp) and torch.equal(pk.cpu(), pp)
+    assert torch.equal(hk, hk2) and torch.equal(pk, pk2)
+    name = {"int16": "hist_round", "int8": "hist_round_int8",
+            "f32": "hist_round_f32"}[mode]
+    assert cuda_hist.LAUNCHES[name] == 2
+    assert cuda_hist.LAUNCHES["hist_round_cat"] == 2
+    # the sets matter: the numerical decision moves some rows
+    _, pn = ht.hist_round_plain(bins, gh, pleaf, params, S, 64, quant=quant)
+    assert not torch.equal(pn, pp)
+
+
+@pytest.mark.parametrize("pins", [
+    {}, {"use_quantized_grad": True},
+    {"tpu_growth_mode": "rounds", "tpu_hist_dtype": "bf16x2"},
+    {"tpu_growth_mode": "exact"},
+], ids=["int16", "quantized", "rounds_f32", "exact"])
+def test_train_categorical_card_matches_cpu(dev, pins):
+    rs = np.random.RandomState(5)
+    n = 4000
+    c0 = rs.randint(0, 30, n)
+    c1 = rs.randint(0, 3, n)
+    X = np.column_stack([c0, c1, rs.randn(n, 3)]).astype(float)
+    X[rs.rand(n) < 0.05, 0] = np.nan
+    z = rs.randn(30)[c0] + rs.randn(3)[c1] + 0.5 * X[:, 2]
+    y = (z + rs.logistic(size=n) > 0).astype(float)
+    preds = {}
+    for d in ("cuda", "cpu"):
+        p = {"objective": "binary", "num_leaves": 31, "verbosity": -1,
+             "min_data_per_group": 20, "device_type": d, **pins}
+        cuda_hist.reset_launch_counts()
+        bst = lgb.train(p, lgb.Dataset(X, label=y, categorical_feature=[0, 1],
+                                       params=p), 4)
+        preds[d] = bst.predict(X, raw_score=True)
+        if d == "cuda" and pins.get("tpu_growth_mode") != "exact":
+            assert cuda_hist.LAUNCHES["hist_round_cat"] > 0
+        assert any(line.startswith("num_cat=") and line != "num_cat=0"
+                   for line in bst.model_to_string().splitlines())
+    np.testing.assert_allclose(preds["cuda"], preds["cpu"], atol=1e-4)

@@ -114,6 +114,9 @@ def test_batch_equals_one_at_a_time():
         one = best_t(hists[i:i + 1], sums[i:i + 1, 0], sums[i:i + 1, 1],
                      sums[i:i + 1, 2], *args)
         for a, b in zip(batch, one):
+            if a is None:  # the categorical fields of a numerical search
+                assert b is None
+                continue
             assert torch.equal(a[i:i + 1], b)
 
 
