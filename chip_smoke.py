@@ -14,7 +14,13 @@ Phases, each printed as one JSON line:
             bitwise equality across two launches for the f32 reductions
             and the int8 modes, and its median time over CUDA events
             beside the plain version's, one PyTorch library call's, and
-            the least time the card could take;
+            the least time the card could take; the take_small and
+            hist_nat_f32 lines come later, on arguments captured from the
+            training paths, and also give the kernel's device time per
+            call (device_ms: CUDA events around 50 calls enqueued while
+            the card spins; the profiler for a library call that reads
+            back from the card), the host's enqueue per call (host_us)
+            and the library call's, kernel and library timed in turns;
   small   - 20k-row runs on the card against the same runs on the CPU
             (plain versions), default, exact, use_quantized_grad and
             regression_l1 runs, and categorical runs (the train_cat schema
@@ -48,8 +54,14 @@ Phases, each printed as one JSON line:
             the default int16 path: the percentile leaf refit through
             hist_nat's f32 mode, 4 launches per tree; 1 warmup then 3
             timed trees, validation L1 after the first and the last tree,
-            and a 1-tree profile; the hist_nat_f32 kernel line runs on
-            the arguments of its first refit pass;
+            and a 1-tree profile;
+  train_l1_31 - the same at LightGBM's default 31 leaves, 1 warmup then
+            2 timed trees; the hist_nat_f32 kernel line runs on the
+            arguments of the first tree's first and fourth refit passes
+            of train_l1 and of train_l1_31, and the take_small line on
+            train's validation traversal (k = 8), train's score update
+            (k = 1) and train_l1's refit (k = 2), with the 1M-row
+            synthetic numbers of earlier runs beside them;
   train_cat - categorical splits: a 1M-row synthetic dataset with the
             schema of the airline departure-delay benchmark
             (szilard/benchm-ml, dep_delayed_15min: six code columns marked
@@ -67,6 +79,7 @@ Any failure raises: no `ok` line, non-zero exit. Without a CUDA device,
 or without the package beside it, the script exits non-zero at once.
 """
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -151,6 +164,102 @@ def cuda_ms(fn, reps: int = 15, warm: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def host_us(fn, reps: int = 50) -> float:
+    """Median microseconds the host spends in one call of fn: its
+    enqueue, time.perf_counter around the call with no synchronization."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e6)
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+EVENTS_TIME = ("CUDA events around 50 back-to-back calls, / 50; the calls "
+               "are enqueued while the card spins (torch.cuda._sleep), so "
+               "the card runs them back to back: the kernels and the gaps "
+               "between them, not the host's enqueue")
+PROFILER_TIME = ("torch.profiler over 50 calls: per kernel name its mean "
+                 "CUPTI event time times its launches per call; for a call "
+                 "that reads back from the card (bincount sizes its output "
+                 "from the key's maximum), which the host cannot enqueue "
+                 "ahead of the card")
+
+
+def device_ms(fn, calls: int = 50):
+    """(device milliseconds per call of fn, how it was measured): CUDA
+    events (EVENTS_TIME) when the host can enqueue the calls while the
+    card still spins, else the profiler (PROFILER_TIME); (None, ...)
+    when the profiler returns no event of fn. The profiler's sessions
+    can come back short, so it is not the first choice."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    for spin in (1 << 24, 1 << 27):  # ~10 ms, ~80 ms at the H100's clock
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(spin)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        ahead = not start.query()  # the card still spun when all were in
+        end.synchronize()
+        if ahead:
+            return start.elapsed_time(end) / calls, EVENTS_TIME
+    return profiled_ms(fn, calls), PROFILER_TIME
+
+
+def profiled_ms(fn, calls: int):
+    """PROFILER_TIME of fn, or None when the session holds no event."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    ms = 0.0
+    for e in prof.key_averages():
+        if "cuda" not in str(getattr(e, "device_type", "")).lower():
+            continue
+        t = getattr(e, "device_time_total", None)
+        if t is None:
+            t = getattr(e, "cuda_time_total", 0)
+        if t > 0 and e.count:
+            ms += t / e.count * max(1, round(e.count / calls)) / 1e3
+    return ms or None
+
+
+def in_turns(kernel, library) -> dict:
+    """A kernel and the library call computing the same function, timed
+    in turns in this run (kernel, library, library, kernel): single-call
+    CUDA-event medians (ms), device time per call (device_ms, with how
+    it was measured) and the host's enqueue per call (host_us)."""
+    ms = [cuda_ms(f) for f in (kernel, library, library, kernel)]
+    dev = [device_ms(f) for f in (kernel, library, library, kernel)]
+    lib = [d[0] for d in dev[1:3] if d[0] is not None]
+    if dev[0][1] != EVENTS_TIME or dev[3][1] != EVENTS_TIME:
+        raise AssertionError("the host could not enqueue the kernel's calls "
+                             "ahead of the card")
+    return dict(
+        ms=(ms[0] + ms[3]) / 2, ms_turns=[ms[0], ms[3]],
+        library_ms=(ms[1] + ms[2]) / 2, library_ms_turns=[ms[1], ms[2]],
+        device_ms=(dev[0][0] + dev[3][0]) / 2,
+        device_ms_turns=[dev[0][0], dev[3][0]], device_time=dev[0][1],
+        library_device_ms=sum(lib) / len(lib) if lib else None,
+        library_device_ms_turns=[d[0] for d in dev[1:3]],
+        library_device_time=dev[1][1],
+        host_us=host_us(kernel), library_host_us=host_us(library))
 
 
 def bound(bytes_moved: float, ops: float):
@@ -271,9 +380,10 @@ def kernel_phase(torch, hist, ch):
             plain_ms=cuda_ms(lambda: hist.take_cols_plain(tab, idx)),
             library_ms=cuda_ms(lambda: torch.index_select(tab, 1, safe)),
             bound_ms=b, bound_by=bb)
-    lines["take_small"] = dict(
-        shape=f"tab (8,{L}) idx ({N_ROWS},); k=1 ms in k1",
-        tolerance="exact", max_abs_err=0.0, k1=takes[1], **takes[8])
+    # the shapes this line timed before it took the training paths'
+    # arguments (take_small_line), kept beside them for comparison
+    take_synth = dict(shape=f"tab (8,{L}) idx ({N_ROWS},); k=1 in k1",
+                      k1=takes[1], **takes[8])
 
     # ---- seg_sum: true-gradient renewal (k = 2)
     vals = torch.randn((2, N_ROWS), generator=gen).to(dev)
@@ -303,7 +413,7 @@ def kernel_phase(torch, hist, ch):
     lines.update(int8_kernel_lines(torch, hist, bins, gen, pleaf, params))
     for name, d in lines.items():
         emit_kernel(name, d)
-    return lines, cat_synth
+    return lines, cat_synth, take_synth
 
 
 def hist_round_cat_synth(torch, hist, bins, gh, pleaf, params, gen):
@@ -380,10 +490,11 @@ def emit_kernel(name, d) -> None:
           **{k: v for k, v in d.items() if k != "ms"}})
 
 
-def bincount_ms(torch, bins, gh, slot, num_slots, num_bins=BC) -> float:
-    """One torch.bincount over the flat (slot, channel, column, bin) key,
-    weighted by the channel values: the library call that computes the
-    same histograms (key construction not timed)."""
+def flat_key(torch, bins, gh, slot, num_slots, num_bins):
+    """The flat (slot, channel, column, bin) key of every (row, channel,
+    column) and its f64 weight: the inputs of the one torch.bincount
+    that computes the same histograms (rows outside the slots go to the
+    last key)."""
     dev = bins.device
     Gk, n = bins.shape
     s = slot.to(torch.int64)[None, None, :]
@@ -394,6 +505,14 @@ def bincount_ms(torch, bins, gh, slot, num_slots, num_bins=BC) -> float:
                       ((s * 3 + c) * Gk + g) * num_bins
                       + bins.to(torch.int64)[None], size).reshape(-1)
     w = gh.to(torch.float64)[:, None, :].expand(3, Gk, n).reshape(-1)
+    return key, w, size
+
+
+def bincount_ms(torch, bins, gh, slot, num_slots, num_bins=BC) -> float:
+    """One torch.bincount over the flat (slot, channel, column, bin) key,
+    weighted by the channel values: the library call that computes the
+    same histograms (key construction not timed)."""
+    key, w, size = flat_key(torch, bins, gh, slot, num_slots, num_bins)
     ms = cuda_ms(lambda: torch.bincount(key, weights=w, minlength=size + 1),
                  reps=5)
     del key, w
@@ -546,24 +665,104 @@ def int8_kernel_lines(torch, hist, bins, gen, pleaf, params):
     return lines
 
 
-def hist_nat_f32_line(torch, hist, captured):
-    """hist_nat's f32 mode on the arguments of the first refit pass of a
-    real train_l1 tree: one column of residual bins, one slot per leaf,
-    the rows outside every bracket in the trash slot."""
-    bins, gh, slot, S, Bc = captured["args"]
-    run = lambda: hist.hist_nat_slots(bins, gh, slot, S, Bc, quant=False)
-    plain = lambda: hist.hist_nat_slots_plain(bins, gh, slot, S, Bc,
+def hist_nat_f32_line(torch, hist, ch, captured):
+    """hist_nat's f32 mode on the arguments of the first and the fourth
+    (last) refit pass of a real tree of each refit path (captured[path]:
+    train_l1 at 255 leaves, train_l1_31 at 31): one column of residual
+    bins, one slot per leaf, the rows outside every bracket in the
+    trash slot; in the late pass few rows remain, in few bins. Per pass:
+    bitwise against the plain version and across launches, the kernel
+    and bincount in turns."""
+    passes = {}
+    for path, cap in captured.items():
+        for i, p in ((0, 1), (1, 4)):
+            bins, gh, slot, S, Bc = cap["passes"][i]["args"]
+            rows = cap["passes"][i]["rows"]
+            run = lambda: hist.hist_nat_slots(bins, gh, slot, S, Bc,
                                               quant=False)
-    res = f32_compare(torch, run, plain, "hist_nat_f32")
-    Gk, n = bins.shape
-    rows = captured["rows"]
-    b, bb = bound(n * 4 + rows * (4 * Gk + 12) + S * 3 * Gk * Bc * 4,
-                  rows * Gk * 3)
-    return dict(
-        shape=f"bins ({Gk},{n}) S={S} Bc={Bc}, {rows} rows in a slot",
-        **res, ms=cuda_ms(run), plain_ms=cuda_ms(plain, reps=5),
-        library_ms=bincount_ms(torch, bins, gh, slot, S, Bc),
-        bound_ms=b, bound_by=bb)
+            plain = lambda: hist.hist_nat_slots_plain(bins, gh, slot, S, Bc,
+                                                      quant=False)
+            name = f"{path} pass{p}"
+            res = f32_compare(torch, run, plain, f"hist_nat_f32 {name}")
+            Gk, n = bins.shape
+            # the scale reads every row's channels, the histogram the
+            # slots and the in-slot rows' bins
+            b, bb = bound(n * 16 + rows * 4 * Gk + S * 3 * Gk * Bc * 4,
+                          rows * Gk * 3)
+            key, w, size = flat_key(torch, bins, gh, slot, S, Bc)
+            passes[name] = dict(
+                shape=f"bins ({Gk},{n}) S={S} Bc={Bc}, {rows} rows in a "
+                f"slot", **res,
+                **in_turns(run, lambda: torch.bincount(
+                    key, weights=w, minlength=size + 1)),
+                plain_ms=cuda_ms(plain, reps=5), bound_ms=b, bound_by=bb)
+            del key, w
+    p1 = passes["train_l1 pass1"]
+    return dict(shape=p1["shape"] + " (train_l1 pass 1; the others in "
+                "passes)",
+                **{k: p1[k] for k in (
+                    "tolerance", "max_abs_err", "max_rel_err",
+                    "bitwise_repeat", "ms", "device_ms", "host_us",
+                    "plain_ms", "library_ms", "library_device_ms",
+                    "bound_ms", "bound_by")},
+                passes=passes)
+
+
+@contextlib.contextmanager
+def recording_takes(ch, store, heights):
+    """While active, keep the arguments of the take_small call with the
+    most rows per table height k in `heights` (store[k] = (tab, idx))."""
+    orig = ch.take_small
+
+    def recording(tab, idx):
+        k = tab.shape[0]
+        if k in heights and (k not in store
+                             or idx.shape[0] > store[k][1].shape[0]):
+            store[k] = (tab.clone(), idx.clone())
+        return orig(tab, idx)
+    ch.take_small = recording
+    try:
+        yield
+    finally:
+        ch.take_small = orig
+
+
+def take_small_line(torch, hist, captured, synth):
+    """take_small on arguments captured from the training paths: train's
+    validation traversal (k = 8, a depth level of its first tree),
+    train's score update of the training rows (k = 1) and train_l1's
+    refit (k = 2). Each bitwise against the plain version and across two
+    launches, in turns with index_select; the traversal is the line's
+    headline (10 launches a tree). synth: the 1M-row k = 8 and k = 1
+    numbers of earlier runs, for comparison."""
+    shapes = {}
+    for name, k in (("traversal_k8", 8), ("score_k1", 1), ("refit_k2", 2)):
+        tab, idx = captured[k]
+        run = lambda: hist.take_cols(tab, idx)
+        a, b, p = run(), run(), hist.take_cols_plain(tab, idx)
+        torch.cuda.synchronize()
+        if not (torch.equal(a, b) and torch.equal(a, p)):
+            raise AssertionError(f"take_small {name} disagrees with its "
+                                 "plain version or across launches")
+        kk, L = tab.shape
+        n = idx.shape[0]
+        safe = idx.clamp(0, L - 1).long()
+        bb, by = bound(n * 4 + kk * L * 4 + kk * n * 4, 0)
+        shapes[name] = dict(
+            shape=f"tab ({kk},{L}) idx ({n},)",
+            max_abs_err=float((a - p).abs().max()),
+            **in_turns(run, lambda: torch.index_select(tab, 1, safe)),
+            plain_ms=cuda_ms(lambda: hist.take_cols_plain(tab, idx)),
+            bound_ms=bb, bound_by=by)
+    head = shapes["traversal_k8"]
+    return dict(shape="traversal k=8 " + head["shape"]
+                + " (score_k1 and refit_k2 in shapes)",
+                tolerance="exact", bitwise_repeat=True,
+                max_abs_err=max(d["max_abs_err"] for d in shapes.values()),
+                **{k: head[k] for k in (
+                    "ms", "device_ms", "host_us", "plain_ms", "library_ms",
+                    "library_device_ms", "bound_ms", "bound_by")},
+                shapes=shapes, synthetic_1M=synth)
 
 
 def hist_slots_line(torch, hist, captured):
@@ -880,12 +1079,14 @@ def train_f32_path(torch, lgb, ch, perm, ds, vs, name, n_timed=3,
 
 
 def train_int_path(torch, lgb, ch, ds, vs, name, extra, n_warm, n_timed,
-                   needs, capture=None):
+                   needs, capture=None, takes=None):
     """An integer-level rounds path on the headline workload: n_warm
     warmup trees, n_timed timed trees, the validation metric after the
     first and the last tree, launches, peak device memory and a 1-tree
     profile. With `capture`, the first tree also records the arguments
-    of the refit's fullest hist_nat_slots call (for its kernel line)."""
+    of the refit's first and last hist_nat_slots calls (for the
+    hist_nat_f32 line); with `takes`, those of its widest k = 2
+    take_small call (the refit's, for the take_small line)."""
     from lightgbm_tpu_torch.learner import renewal
 
     params = {"objective": "binary", "num_leaves": L, "max_bin": 255,
@@ -897,17 +1098,22 @@ def train_int_path(torch, lgb, ch, ds, vs, name, extra, n_warm, n_timed,
     if capture is not None:
         def recording(bins, gh, slot, S, Bc, quant=True):
             out = orig(bins, gh, slot, S, Bc, quant=quant)
-            rows = int((slot < S).sum())
-            if rows > capture.get("rows", -1):
-                capture.update(rows=rows, args=(bins, gh, slot.clone(), S,
-                                                Bc))
+            # the first pass and the latest (the fourth once the tree is
+            # done); bins and gh are new tensors every pass
+            passes = capture.setdefault("passes", [])
+            del passes[1:]
+            passes.append(dict(rows=int((slot < S).sum()),
+                               args=(bins, gh, slot.clone(), S, Bc)))
+            capture["n"] = capture.get("n", 0) + 1
             return out
         renewal.hist_nat_slots = recording
     ch.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     try:
-        bst.update()
+        with (recording_takes(ch, takes, (2,)) if takes is not None
+              else contextlib.nullcontext()):
+            bst.update()
     finally:
         renewal.hist_nat_slots = orig
     metric, m1 = bst.eval_valid()[0][1:3]
@@ -924,7 +1130,7 @@ def train_int_path(torch, lgb, ch, ds, vs, name, extra, n_warm, n_timed,
     gb = bst._gbdt
     trees = n_warm + n_timed
     line = {"phase": name, **extra, "rows": gb.train_set.num_data,
-            "num_leaves": L, "hist_dtype": gb.hist_dtype,
+            "num_leaves": params["num_leaves"], "hist_dtype": gb.hist_dtype,
             "rounds_slots": gb.spec.rounds_slots, "warmup_trees": n_warm,
             "timed_trees": n_timed, "trees_per_s": n_timed / dt,
             "metric": metric, "metric_tree1": m1, "metric_last": m_last,
@@ -1068,7 +1274,7 @@ def main() -> int:
           "nvcc_seconds": ch.BUILD_SECONDS,
           "library": str(ch.library_path())})
 
-    lines, cat_synth = kernel_phase(torch, hist, ch)
+    lines, cat_synth, take_synth = kernel_phase(torch, hist, ch)
     small_phase(lgb, np)
 
     # ---- train: the repo's headline workload at full width
@@ -1086,7 +1292,9 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     bst = lgb.Booster(params, ds)
     bst.add_valid(vs, "valid")
-    bst.update()
+    takes = {}  # the take_small line's arguments, k -> (tab, idx)
+    with recording_takes(ch, takes, (1, 8)):
+        bst.update()
     auc1 = bst.eval_valid()[0][2]
     bst.update()
     torch.cuda.synchronize()
@@ -1150,20 +1358,35 @@ def main() -> int:
     _, z, _, zv = higgs_stream(1_000_000)
     ds_l1 = lgb.Dataset(X, label=z, reference=ds, free_raw_data=False)
     vs_l1 = lgb.Dataset(Xv, label=zv, reference=ds, free_raw_data=False)
-    refit = {}
+    refit = {"train_l1": {}, "train_l1_31": {}}
     l1, _ = train_int_path(
         torch, lgb, ch, ds_l1, vs_l1, "train_l1",
         {"objective": "regression_l1", "metric": "l1"}, 1, 3,
         ("hist_nat", "hist_round", "hist_nat_f32", "take_small", "seg_sum"),
-        capture=refit)
+        capture=refit["train_l1"], takes=takes)
     if l1["launches"]["hist_nat_f32"] != 4 * l1["trees"]:
         raise AssertionError(f"train_l1: hist_nat_f32 launched "
                              f"{l1['launches']['hist_nat_f32']} times in "
                              f"{l1['trees']} trees, not 4 per tree")
     if not l1["metric_last"] < l1["metric_tree1"]:
         raise AssertionError(f"train_l1: L1 did not fall: {l1}")
-    lines["hist_nat_f32"] = hist_nat_f32_line(torch, hist, refit)
+    # LightGBM's default 31 leaves: the refit's other slot count
+    l1_31, _ = train_int_path(
+        torch, lgb, ch, ds_l1, vs_l1, "train_l1_31",
+        {"objective": "regression_l1", "metric": "l1", "num_leaves": 31},
+        1, 2, ("hist_nat_f32",), capture=refit["train_l1_31"])
+    if not l1_31["metric_last"] < l1_31["metric_tree1"]:
+        raise AssertionError(f"train_l1_31: L1 did not fall: {l1_31}")
+    if ([c.get("n") for c in refit.values()] != [4, 4]
+            or sorted(takes) != [1, 2, 8]):
+        raise AssertionError(f"captured {[c.get('n') for c in refit.values()]}"
+                             f" refit passes and take_small heights "
+                             f"{sorted(takes)}")
+    lines["hist_nat_f32"] = hist_nat_f32_line(torch, hist, ch, refit)
     emit_kernel("hist_nat_f32", lines["hist_nat_f32"])
+    lines["take_small"] = take_small_line(torch, hist, takes, take_synth)
+    emit_kernel("take_small", lines["take_small"])
+    del refit, takes
     path_launches = {"train": launches, "train_quant": quant["launches"],
                      "train_l1": l1["launches"]}
 
@@ -1200,6 +1423,7 @@ def main() -> int:
             "max_abs_err": d["max_abs_err"], "ms": d["ms"],
             "plain_ms": d["plain_ms"], "bound_ms": d["bound_ms"],
             "bound_by": d["bound_by"], "library_ms": d["library_ms"],
+            **{k: d[k] for k in ("device_ms", "host_us") if k in d},
         })
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

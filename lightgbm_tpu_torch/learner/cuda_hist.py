@@ -68,6 +68,7 @@ _MAX_SMEM = 232448
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 BUILD_SECONDS: Optional[float] = None
+_SMS: Dict[int, int] = {}  # device index -> SM count
 
 
 def reset_launch_counts() -> None:
@@ -149,6 +150,8 @@ def build() -> Path:
 
 def load() -> ctypes.CDLL:
     global _lib
+    if _lib is not None:  # the per-call path: no lock
+        return _lib
     with _lock:
         if _lib is not None:
             return _lib
@@ -159,7 +162,7 @@ def load() -> ctypes.CDLL:
         lib.lgbm_hist_nat_f32.argtypes = [P] * 6 + [I] * 8 + [P]
         lib.lgbm_hist_round.argtypes = [P] * 7 + [I] * 8 + [P]
         lib.lgbm_hist_round_int8.argtypes = [P] * 7 + [I] * 8 + [P]
-        lib.lgbm_take_small.argtypes = [P, P, P] + [I] * 4 + [P]
+        lib.lgbm_take_small.argtypes = [P, P, P] + [I] * 5 + [P]
         lib.lgbm_seg_sum.argtypes = [P] * 4 + [I] * 4 + [P]
         lib.lgbm_hist.argtypes = ([P, P, ctypes.c_longlong] + [P] * 4
                                   + [I] * 6 + [P])
@@ -192,12 +195,25 @@ def _need(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
-def _stream() -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+def _stream(device: Optional[torch.device] = None) -> int:
+    """The raw handle of torch's current stream on `device` (the current
+    device by default), without building a torch.cuda.Stream."""
+    index = device.index if device is not None else None
+    if index is None:
+        index = torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 def _sm_count(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
+    """SM count of `device`, queried once per device."""
+    index = device.index
+    if index is None:
+        index = torch.cuda.current_device()
+    n = _SMS.get(index)
+    if n is None:
+        n = _SMS[index] = torch.cuda.get_device_properties(
+            index).multi_processor_count
+    return n
 
 
 def check_int_range(n_rows: int, levels: int) -> None:
@@ -266,6 +282,29 @@ def hist_nat(bins: torch.Tensor, gh: torch.Tensor, slot: torch.Tensor,
     return out.to(torch.float32)
 
 
+# hist_nat's f32 mode (csrc/hist_nat.cu "f32 mode")
+_PARTS_MAX = 256  # prepass blocks (kPartsMax)
+_PREPASS_ROWS = 4096  # rows per prepass block at least
+
+
+def hist_nat_f32_plan(N: int, sms: int, aligned: bool = True) -> dict:
+    """The launch of hist_nat's f32 mode (one pass of 64-bit atomics
+    into an int64 accumulator in device memory, at every slot count),
+    from the shapes alone: the histogram's blocks (_row_blocks), the
+    prepass's (one row of maxima each, <= _PARTS_MAX), and 16-byte
+    loads (vec) when N % 4 == 0 and the inputs are 16-byte aligned."""
+    return dict(blocks=_row_blocks(N, sms),
+                nparts=max(1, min(_PARTS_MAX, -(-N // _PREPASS_ROWS))),
+                vec=aligned and N % 4 == 0)
+
+
+def _row_blocks(N: int, sms: int) -> int:
+    """Blocks of the row-parallel kernels (take_small, hist_nat's f32
+    mode): 256 threads x 4 rows each, one 1024-row step per block, at
+    most one wave (8 such blocks per SM)."""
+    return max(1, min(-(-N // 1024), 8 * sms))
+
+
 def hist_nat_f32(bins: torch.Tensor, gh: torch.Tensor, slot: torch.Tensor,
                  num_slots: int, num_bins: int) -> torch.Tensor:
     """The f32 mode of hist_nat: (G, N) bins, (3, N) f32 channels, (N,)
@@ -280,17 +319,20 @@ def hist_nat_f32(bins: torch.Tensor, gh: torch.Tensor, slot: torch.Tensor,
     S, Bc = int(num_slots), int(num_bins)
     if gh.shape != (3, N) or slot.shape[0] != N:
         raise ValueError(f"gh must be (3, {N}) and slot ({N},)")
-    Sc, Gc, rows = _hist_tiling(G, N, S, Bc, 0, bins.device, cell_words=2)
     dev = bins.device
-    absmax = torch.zeros(3, dtype=torch.int32, device=dev)
-    acc = torch.zeros((S, 3, G, Bc), dtype=torch.int64, device=dev)
+    if N == 0 or S * G * Bc == 0:
+        return torch.zeros((S, 3, G, Bc), dtype=torch.float32, device=dev)
+    pb, pg, ps = bins.data_ptr(), gh.data_ptr(), slot.data_ptr()
+    plan = hist_nat_f32_plan(N, _sm_count(dev),
+                             pb % 16 == 0 and pg % 16 == 0 and ps % 16 == 0)
+    parts = torch.empty((plan["nparts"] + 1) * 3, dtype=torch.int32,
+                        device=dev)
+    acc = torch.empty(S * 3 * G * Bc, dtype=torch.int64, device=dev)
     out = torch.empty((S, 3, G, Bc), dtype=torch.float32, device=dev)
-    lib = load()
-    rc = lib.lgbm_hist_nat_f32(
-        bins.data_ptr(), gh.data_ptr(), slot.data_ptr(), absmax.data_ptr(),
-        acc.data_ptr(), out.data_ptr(), G, N, S, Bc, Sc, Gc, rows,
-        fx_log2_rows(N), _stream(),
-    )
+    rc = load().lgbm_hist_nat_f32(
+        pb, pg, ps, parts.data_ptr(), acc.data_ptr(), out.data_ptr(), G, N,
+        S, Bc, plan["blocks"], plan["nparts"], fx_log2_rows(N),
+        int(plan["vec"]), _stream(dev))
     _check(rc, "hist_nat_f32")
     LAUNCHES["hist_nat_f32"] += 1
     return out
@@ -503,6 +545,13 @@ def hist_slots(bins: torch.Tensor, gh: torch.Tensor, begins: torch.Tensor,
     return out
 
 
+def take_small_plan(N: int, sms: int, idx_ptr: int) -> Tuple[int, int]:
+    """(blocks, vec_idx) of a take_small launch: the rows' blocks
+    (_row_blocks), and 16-byte loads of idx when its data pointer is
+    16-byte aligned (an offset view is not)."""
+    return _row_blocks(N, sms), int(idx_ptr % 16 == 0)
+
+
 def take_small(tab: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """(k, L) f32 table, (N,) int32 idx -> (k, N) f32 tab[:, idx], 0 for
     idx outside [0, L)."""
@@ -510,11 +559,16 @@ def take_small(tab: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     _need(idx, "idx", torch.int32, 1)
     k, L = tab.shape
     N = idx.shape[0]
-    out = torch.empty((k, N), dtype=torch.float32, device=tab.device)
-    blocks = max(1, min(-(-N // 256), 8 * _sm_count(tab.device)))
-    lib = load()
-    rc = lib.lgbm_take_small(tab.data_ptr(), idx.data_ptr(), out.data_ptr(),
-                             k, L, N, blocks, _stream())
+    dev = tab.device
+    out = torch.empty((k, N), dtype=torch.float32, device=dev)
+    if k == 0 or N == 0:
+        return out
+    if out.data_ptr() % 16:
+        raise ValueError("take_small: the output is not 16-byte aligned")
+    idx_ptr = idx.data_ptr()
+    blocks, vec_idx = take_small_plan(N, _sm_count(dev), idx_ptr)
+    rc = load().lgbm_take_small(tab.data_ptr(), idx_ptr, out.data_ptr(), k,
+                                L, N, blocks, vec_idx, _stream(dev))
     _check(rc, "take_small")
     LAUNCHES["take_small"] += 1
     return out

@@ -42,6 +42,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from . import cuda_hist
 from .quantize import HIST_DTYPE_LEVELS
 
 HIST_BLK = 2048  # device row padding is a multiple of this
@@ -179,8 +180,6 @@ def hist_nat_slots(
     (quant=False: the percentile leaf refit's histograms). The hist_nat
     kernel on the card, in the mode of gh's dtype."""
     if bins_fm.is_cuda:
-        from . import cuda_hist
-
         if not quant:
             return cuda_hist.hist_nat_f32(bins_fm, gh, slot, num_slots,
                                           num_bins)
@@ -228,9 +227,7 @@ def histogram(
     bounds count and sizes the launch. The fixed-point scale takes n =
     cap (module docstring)."""
     if bins_fm.is_cuda:
-        from .cuda_hist import hist
-
-        return hist(bins_fm, gh, num_bins, begin, count, cap)
+        return cuda_hist.hist(bins_fm, gh, num_bins, begin, count, cap)
     return histogram_plain(bins_fm, gh, num_bins, begin, count, cap)
 
 
@@ -277,9 +274,8 @@ def hist_slots(
     (S, 3, G, Bc); empty slots are zero (hist_slots kernel on the card,
     one launch for all slots)."""
     if bins_fm.is_cuda:
-        from .cuda_hist import hist_slots as _kernel
-
-        return _kernel(bins_fm, gh, begins, counts, num_bins, num_slots)
+        return cuda_hist.hist_slots(bins_fm, gh, begins, counts, num_bins,
+                                    num_slots)
     return hist_slots_plain(bins_fm, gh, begins, counts, num_bins,
                             num_slots)
 
@@ -359,14 +355,12 @@ def hist_round(
     category sets of the slots that params column 10 flags categorical
     (the kernel's categorical mode); None when the dataset has none."""
     if bins_fm.is_cuda:
-        from .cuda_hist import hist_round as _kernel
-        from .cuda_hist import hist_round_f32
-
         if not quant:
-            return hist_round_f32(bins_fm, gh, pleaf, params, num_slots,
-                                  num_bins, num_leaves, cat_mask)
-        return _kernel(bins_fm, gh, pleaf, params, num_slots, num_bins,
-                       num_leaves, levels, cat_mask)
+            return cuda_hist.hist_round_f32(bins_fm, gh, pleaf, params,
+                                            num_slots, num_bins, num_leaves,
+                                            cat_mask)
+        return cuda_hist.hist_round(bins_fm, gh, pleaf, params, num_slots,
+                                    num_bins, num_leaves, levels, cat_mask)
     return hist_round_plain(bins_fm, gh, pleaf, params, num_slots, num_bins,
                             quant, cat_mask)
 
@@ -384,9 +378,9 @@ def take_cols(tab: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """(k, L) f32 table, (N,) int32 indices -> (k, N) tab[:, idx]; indices
     outside [0, L) give 0 (take_small kernel on the card)."""
     if tab.is_cuda:
-        from .cuda_hist import take_small
-
-        return take_small(tab.contiguous(), idx.contiguous())
+        return cuda_hist.take_small(
+            tab if tab.is_contiguous() else tab.contiguous(),
+            idx if idx.is_contiguous() else idx.contiguous())
     return take_cols_plain(tab, idx)
 
 
@@ -406,7 +400,6 @@ def seg_sum(vals: torch.Tensor, idx: torch.Tensor, num_out: int
     out-of-range indices are dropped (seg_sum kernel on the card, whose
     fixed-order reduction gives the same bits on every run)."""
     if vals.is_cuda:
-        from .cuda_hist import seg_sum as _kernel
-
-        return _kernel(vals.contiguous(), idx.contiguous(), num_out)
+        return cuda_hist.seg_sum(vals.contiguous(), idx.contiguous(),
+                                 num_out)
     return seg_sum_plain(vals, idx, num_out)

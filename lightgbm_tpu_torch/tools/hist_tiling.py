@@ -8,13 +8,12 @@ path's shapes (1,001,472 rows, 28 columns, 256 bins, random valid split
 params), on int32 (int16 mode) and int8 levels (int8 mode), with the
 row axis cut into a given number of chunks per tile, and prints one
 JSON line per (width, chunks) with the median milliseconds over CUDA
-events. Then the same for hist_nat's f32 mode at the percentile refit's
-shape (one column, 255 slots + trash, 256 bins), once with every row in
-a slot (a first refit pass) and once with 1 row in 64 (a later pass),
-over chunk counts that include one block wave. Per slot width it also
-times the int8 modes against the int32 channels of the same 4-level
-values (`same_4_levels`: int8, int32, int32, int8), which isolates the
-channel width from the values.
+events. Then hist_nat's f32 mode at the percentile refit's shape (one
+column, 255 or 31 leaf slots + trash, 256 bins), once with every row
+in a slot (a first refit pass) and once with 1 row in 64 (a later
+pass). Per slot width it also times the int8 modes against the int32
+channels of the same 4-level values (`same_4_levels`: int8, int32,
+int32, int8), which isolates the channel width from the values.
 `chunks: null` is the tiling that learner/cuda_hist._hist_tiling picks.
 Needs a CUDA device.
 """
@@ -128,25 +127,18 @@ def main() -> int:
         rbins = torch.randint(0, BC, (1, N), generator=gen,
                               dtype=torch.int32).to(dev)
         w = torch.rand(N, generator=gen).to(dev)
-        for share in (1, 64):
+        for S, share in ((L, 1), (L, 64), (31, 1), (31, 64)):
             inb = (torch.arange(N, device=dev) % share) == 0
             rgh = torch.stack([torch.where(inb, w, 0.0), torch.zeros_like(w),
                                inb.to(torch.float32)])
             rslot = torch.where(
-                inb, torch.randint(0, L, (N,), generator=gen,
-                                   dtype=torch.int32).to(dev), L)
-            # one block wave: the default tile's slot chunks x row chunks
-            # = the SM count
-            Sc = default_tiling(1, N, L, BC, 0, dev, 2)[0]
-            one_wave = -(-ch._sm_count(dev) // -(-L // Sc))
-            for chunks in (None, 1, 2, 4, 8, 16, one_wave, 32, 76, 160):
-                ch._hist_tiling = tiling(chunks)
-                t = cuda_ms(torch, lambda: h.hist_nat_slots(
-                    rbins, rgh, rslot, L, BC, quant=False))
-                print(json.dumps({"device": smi, "refit_rows_share":
-                                  f"1/{share}", "slots": L,
-                                  "chunks": chunks, "hist_nat_f32_ms": t}),
-                      flush=True)
+                inb, torch.randint(0, S, (N,), generator=gen,
+                                   dtype=torch.int32).to(dev), S)
+            t = cuda_ms(torch, lambda: ch.hist_nat_f32(
+                rbins, rgh, rslot, S, BC))
+            print(json.dumps({"device": smi, "refit_rows_share":
+                              f"1/{share}", "slots": S,
+                              "hist_nat_f32_ms": t}), flush=True)
     finally:
         ch._hist_tiling = default_tiling
     return 0

@@ -252,6 +252,82 @@ def test_hist_nat_f32_bitwise_equals_plain(dev, num_slots, G):
     assert cuda_hist.LAUNCHES["hist_nat_f32"] == 2
 
 
+@pytest.mark.parametrize("k", [1, 2, 8])
+@pytest.mark.parametrize("n", [100_352, 1_001_472, 1_001_473, 5])
+def test_take_small_main_path_shapes(dev, k, n):
+    """The main path's shapes (the validation traversal at k = 8, the
+    score update at k = 1, the refit at k = 2, over 100k and 1M rows), a
+    ragged last group of rows, an idx view one element off (not 16-byte
+    aligned) and indices outside [0, L): the plain version's bits, one
+    launch a call."""
+    rs = np.random.RandomState(k * 131 + n % 997)
+    L = 255
+    tab = torch.from_numpy(rs.randn(k, L).astype(np.float32))
+    idx = torch.from_numpy(rs.randint(-3, L + 3, n + 1).astype(np.int32))
+    t, i = tab.to(dev), idx.to(dev)
+    for cut in (i[:n], i[1:]):
+        cuda_hist.reset_launch_counts()
+        out = ht.take_cols(t, cut)
+        assert cuda_hist.LAUNCHES["take_small"] == 1
+        assert torch.equal(out.cpu(), ht.take_cols_plain(tab, cut.cpu()))
+
+
+@pytest.mark.parametrize("k,L", [(8, 4096), (3, 255), (5, 9000)])
+def test_take_small_wide_tables(dev, k, L):
+    """A table past the 48 KB staged in shared memory (8 x 4096, 5 x
+    9000) is read through the read-only cache; k = 3 takes the kernel's
+    any-k path. Ragged rows, out-of-range indices."""
+    rs = np.random.RandomState(L)
+    tab = torch.from_numpy(rs.randn(k, L).astype(np.float32))
+    idx = torch.from_numpy(rs.randint(-2, L + 2, 30_001).astype(np.int32))
+    out = ht.take_cols(tab.to(dev), idx.to(dev))
+    assert torch.equal(out.cpu(), ht.take_cols_plain(tab, idx))
+
+
+def _refit_inputs(n, num_slots, G, hot, seed=0):
+    """A refit pass's arguments: f32 weights in the gradient channel, a
+    zero hessian channel, the in-bracket flag as the count; rows outside
+    every bracket in the trash slot. hot: the in-bracket rows of a few
+    leaves fall in 3 bins (a late pass)."""
+    rs = np.random.RandomState(seed)
+    inb = rs.rand(n) < (0.05 if hot else 0.5)
+    if hot:
+        s = rs.randint(0, 4, n)
+        b = rs.randint(17, 20, (G, n))
+    else:
+        s = rs.randint(0, num_slots, n)
+        b = rs.randint(0, 256, (G, n))
+    w = rs.rand(n).astype(np.float32) * inb
+    gh = torch.from_numpy(np.stack([w, np.zeros(n, np.float32),
+                                    inb.astype(np.float32)]))
+    slot = torch.from_numpy(np.where(inb, s, num_slots).astype(np.int32))
+    return torch.from_numpy(b.astype(np.int32)), gh, slot
+
+
+@pytest.mark.parametrize("case,n,num_slots,G", [
+    ("refit", 100_352, 255, 1),
+    ("hot", 100_352, 256, 1),
+    ("ragged", 100_353, 255, 2),
+    ("root", 100_352, 1, 7),
+    ("narrow", 20_001, 20, 3),
+    ("default_leaves", 100_352, 31, 1)])
+def test_hist_nat_f32_routes_bitwise(dev, case, n, num_slots, G):
+    """hist_nat's f32 mode at the refit's slot counts (255, 256 and
+    LightGBM's default 31) and off them: the plain version's bits, the
+    same bits on a second launch, one launch a call. "hot" puts the
+    in-bracket rows of 4 leaves in 3 bins; "ragged" has N % 4 != 0
+    (scalar loads)."""
+    bins, gh, slot = _refit_inputs(n, num_slots, G, case == "hot")
+    args = (bins.to(dev), gh.to(dev), slot.to(dev), num_slots, 256)
+    cuda_hist.reset_launch_counts()
+    a = cuda_hist.hist_nat_f32(*args)
+    b = cuda_hist.hist_nat_f32(*args)
+    assert cuda_hist.LAUNCHES["hist_nat_f32"] == 2
+    ref = ht.hist_nat_slots_plain(bins, gh, slot, num_slots, 256,
+                                  quant=False)
+    assert torch.equal(a, b) and torch.equal(a.cpu(), ref)
+
+
 @pytest.mark.parametrize("params,want", [
     ({"objective": "binary", "use_quantized_grad": True,
       "quant_train_renew_leaf": True},
