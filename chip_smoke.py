@@ -14,13 +14,20 @@ Phases, each printed as one JSON line:
             bitwise equality across two launches for the f32 reductions
             and the int8 modes, and its median time over CUDA events
             beside the plain version's, one PyTorch library call's, and
-            the least time the card could take; the take_small and
-            hist_nat_f32 lines come later, on arguments captured from the
-            training paths, and also give the kernel's device time per
-            call (device_ms: CUDA events around 50 calls enqueued while
-            the card spins; the profiler for a library call that reads
-            back from the card), the host's enqueue per call (host_us)
-            and the library call's, kernel and library timed in turns;
+            the least time the card could take; every line also gives the
+            kernel's device time per call (device_ms: CUDA events around
+            50 calls enqueued while the card spins; the profiler for a
+            library call that reads back from the card) and the host's
+            enqueue per call (host_us). The seg_sum line (the renewal's
+            k = 2 and the refit totals' k = 1 at 255 and 31 leaves, the
+            kernel and index_add_ timed in turns) and the hist_round
+            lines also give the kernel's device operations per call
+            (torch.profiler); the hist_round lines (int16, int8, f32)
+            come after the f32 paths and also run on the arguments of the
+            first and the fullest round of the first tree of train,
+            train_quant and train_f32; the take_small and hist_nat_f32
+            lines come later too, on arguments captured from the training
+            paths, kernel and library timed in turns;
   small   - 20k-row runs on the card against the same runs on the CPU
             (plain versions), default, exact, use_quantized_grad and
             regression_l1 runs, and categorical runs (the train_cat schema
@@ -262,6 +269,45 @@ def in_turns(kernel, library) -> dict:
         host_us=host_us(kernel), library_host_us=host_us(library))
 
 
+def kernel_times(fn) -> dict:
+    """A kernel's device time per call (device_ms, with how it was
+    measured: the profiler when a call waits for the card, as hist's
+    copy of a host row range does) and the host's enqueue per call
+    (host_us)."""
+    dev, how = device_ms(fn)
+    return dict(device_ms=dev, device_time=how, host_us=host_us(fn))
+
+
+def kernel_numbers(fn) -> dict:
+    """A kernel's single-call CUDA-event median (ms), its device time and
+    host enqueue per call (kernel_times, CUDA events), and its device
+    operations per call (launches_per_call)."""
+    d = kernel_times(fn)
+    if d["device_time"] != EVENTS_TIME:
+        raise AssertionError("the host could not enqueue the kernel's calls "
+                             "ahead of the card")
+    return dict(ms=cuda_ms(fn), **d, launches_per_call=launches_per_call(fn))
+
+
+def launches_per_call(fn, calls: int = 10):
+    """Device operations (kernels and fills) per call of fn, counted by
+    torch.profiler over `calls` calls; None when the session holds no
+    event."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    n = sum(e.count for e in prof.key_averages()
+            if "cuda" in str(getattr(e, "device_type", "")).lower())
+    return n / calls if n else None
+
+
 def bound(bytes_moved: float, ops: float):
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = ops / OPS_PER_S * 1e3
@@ -283,17 +329,6 @@ def kernel_phase(torch, hist, ch):
     gh = torch.stack([gq, hq, cnt]).to(torch.int32).to(dev)
     lines = {}
 
-    def hist_key(slot, num_slots):
-        s = slot.to(torch.int64)[None, None, :]
-        c = torch.arange(3, device=dev)[:, None, None]
-        g = torch.arange(G, device=dev)[None, :, None]
-        ok = (s >= 0) & (s < num_slots)
-        size = num_slots * 3 * G * BC
-        key = torch.where(ok, ((s * 3 + c) * G + g) * BC
-                          + bins.to(torch.int64)[None], size)
-        w = gh.to(torch.float64)[:, None, :].expand(3, G, N_ROWS)
-        return key.reshape(-1), w.reshape(-1), size
-
     # ---- hist_nat: the root histogram (S = 1)
     slot0 = torch.zeros(N_ROWS, dtype=torch.int32, device=dev)
     out_k = hist.hist_nat_slots(bins, gh, slot0, 1, BC)
@@ -301,7 +336,7 @@ def kernel_phase(torch, hist, ch):
     torch.cuda.synchronize()
     if not torch.equal(out_k, out_p):
         raise AssertionError("hist_nat disagrees with its plain version")
-    key, w, size = hist_key(slot0, 1)
+    key, w, size = flat_key(torch, bins, gh, slot0, 1, BC)
     rows = int((gh[2] != 0).sum())
     b, bb = bound(N_ROWS * 4 * (G + 4) + 1 * 3 * G * BC * 4, rows * G * 3)
     lines["hist_nat"] = dict(
@@ -312,7 +347,8 @@ def kernel_phase(torch, hist, ch):
             bins, gh, slot0, 1, BC), reps=10),
         library_ms=cuda_ms(lambda: torch.bincount(
             key, weights=w, minlength=size + 1), reps=10),
-        bound_ms=b, bound_by=bb)
+        bound_ms=b, bound_by=bb,
+        **kernel_times(lambda: hist.hist_nat_slots(bins, gh, slot0, 1, BC)))
 
     # ---- hist_round: one full-width round (S = 48) with random valid
     # splits; a few slots decode EFB bundle columns, two are unused
@@ -335,33 +371,12 @@ def kernel_phase(torch, hist, ch):
     params[efb, 9] = 64
     params[-2:, 0] = -1
     params = params.to(dev)
-    (hk, pk) = hist.hist_round(bins, gh, pleaf, params, S_ROUND, BC, L)
-    (hp, pp) = hist.hist_round_plain(bins, gh, pleaf, params, S_ROUND, BC)
-    torch.cuda.synchronize()
-    if not (torch.equal(hk, hp) and torch.equal(pk, pp)):
-        raise AssertionError("hist_round disagrees with its plain version")
-    _, hslot = hist.round_partition_plain(bins, pleaf, params, S_ROUND)
-    n_split = int(torch.isin(pleaf, params[:, 0]).sum())
-    n_small = int((hslot < S_ROUND).sum())
-    key, w, size = hist_key(hslot, S_ROUND)
-    b, bb = bound(N_ROWS * 8 + n_split * 4 + n_small * (G * 4 + 12)
-                  + S_ROUND * 16 * 4 + S_ROUND * 3 * G * BC * 4,
-                  n_small * G * 3 + n_split * 8)
-    lines["hist_round"] = dict(
-        shape=f"bins ({G},{N_ROWS}) S={S_ROUND} Bc={BC}", tolerance="exact",
-        n_small=n_small,
-        max_abs_err=float((hk - hp).abs().max()),
-        ms=cuda_ms(lambda: hist.hist_round(bins, gh, pleaf, params,
-                                           S_ROUND, BC, L)),
-        plain_ms=cuda_ms(lambda: hist.hist_round_plain(
-            bins, gh, pleaf, params, S_ROUND, BC), reps=10),
-        library_ms=cuda_ms(lambda: torch.bincount(
-            key, weights=w, minlength=size + 1), reps=10),
-        library_note="bincount of the histogram half only",
-        bound_ms=b, bound_by=bb)
+    lines["hist_round"] = round_shape(
+        torch, hist, ch, (bins, gh, pleaf, params, S_ROUND, BC, L, None,
+                          256), "hist_round")
 
-    cat_synth = hist_round_cat_synth(torch, hist, bins, gh, pleaf, params,
-                                     gen)
+    cat_synth = hist_round_cat_synth(torch, hist, ch, bins, gh, pleaf,
+                                     params, gen)
 
     # ---- take_small: score update (k = 1) and traversal (k = 8)
     idx = torch.randint(-1, L + 1, (N_ROWS,), generator=gen,
@@ -385,104 +400,188 @@ def kernel_phase(torch, hist, ch):
     take_synth = dict(shape=f"tab (8,{L}) idx ({N_ROWS},); k=1 in k1",
                       k1=takes[1], **takes[8])
 
-    # ---- seg_sum: true-gradient renewal (k = 2)
+    # ---- seg_sum: true-gradient renewal (k = 2, L = 255) and the refit's
+    # per-leaf totals (k = 1, L = 255 and 31)
     vals = torch.randn((2, N_ROWS), generator=gen).to(dev)
     idx_s = torch.where(torch.rand(N_ROWS, generator=gen).to(dev) < 0.9,
                         idx, torch.full_like(idx, L))
-    s1 = hist.seg_sum(vals, idx_s, L)
-    s2 = hist.seg_sum(vals, idx_s, L)
-    sp = hist.seg_sum_plain(vals, idx_s, L)
-    torch.cuda.synchronize()
-    if not torch.equal(s1, s2):
-        raise AssertionError("seg_sum is not bitwise reproducible")
-    if not torch.allclose(s1, sp, rtol=1e-5, atol=1e-3):
-        raise AssertionError("seg_sum disagrees with its plain version")
-    b, bb = bound(N_ROWS * 12 + 2 * L * 4, 2 * N_ROWS)
-    ok_i = (idx_s >= 0) & (idx_s < L)
-    safe = torch.where(ok_i, idx_s, L).long()
-    lib_out = torch.zeros((2, L + 1), device=dev)
-    lines["seg_sum"] = dict(
-        shape=f"vals (2,{N_ROWS}) L={L}",
-        tolerance="rtol 1e-5 (atol 1e-3) vs plain; bitwise across runs",
-        max_abs_err=float((s1 - sp).abs().max()), bitwise_repeat=True,
-        ms=cuda_ms(lambda: hist.seg_sum(vals, idx_s, L)),
-        plain_ms=cuda_ms(lambda: hist.seg_sum_plain(vals, idx_s, L)),
-        library_ms=cuda_ms(lambda: lib_out.index_add_(1, safe, vals)),
-        bound_ms=b, bound_by=bb)
-    lines.update(f32_kernel_lines(torch, hist, bins, gen, pleaf, params))
-    lines.update(int8_kernel_lines(torch, hist, bins, gen, pleaf, params))
+    seg = {}
+    for name, k, nl in (("renewal_k2", 2, L), ("refit_k1", 1, L),
+                        ("refit_k1_31", 1, 31)):
+        seg[name] = seg_sum_numbers(torch, hist, ch, vals[:k].contiguous(),
+                                    idx_s.remainder(nl + 1) if nl != L
+                                    else idx_s, nl)
+    lines["seg_sum"] = dict(seg["renewal_k2"], shapes=seg)
+    lines["seg_sum"]["shape"] += " (renewal; the refit totals in shapes)"
+    lines.update(f32_kernel_lines(torch, hist, ch, bins, gen, pleaf,
+                                  params))
+    lines.update(int8_kernel_lines(torch, hist, ch, bins, gen, pleaf,
+                                   params))
     for name, d in lines.items():
-        emit_kernel(name, d)
+        if not name.startswith("hist_round"):  # after the captured rounds
+            emit_kernel(name, d)
     return lines, cat_synth, take_synth
 
 
-def hist_round_cat_synth(torch, hist, bins, gh, pleaf, params, gen):
+def hist_round_cat_synth(torch, hist, ch, bins, gh, pleaf, params, gen):
     """hist_round's categorical variant on the int16 line's inputs (G =
     28), every other slot flagged categorical with a random category
-    set: bitwise against the plain version and across two launches. A
-    secondary field of the hist_round_cat line, whose own numbers come
-    from a train_cat round (hist_round_cat_line)."""
+    set: a secondary field of the hist_round_cat line, whose own numbers
+    come from a train_cat round (hist_round_cat_line)."""
     dev = bins.device
     prm = params.clone()
     prm[0::2, 10] = 1
     cat_mask = (torch.rand((S_ROUND, BC), generator=gen) < 0.5).to(dev)
-    d = cat_round_numbers(torch, hist, bins, gh, pleaf, prm, cat_mask,
-                          S_ROUND, BC, L)
+    d = round_shape(torch, hist, ch, (bins, gh, pleaf, prm, S_ROUND, BC, L,
+                                      cat_mask, 256), "hist_round_cat")
     # the categorical variant on the int16 line's own (numerical) slots:
     # what the variant costs apart from the categorical decisions
-    d["numeric_slots_ms"] = cuda_ms(lambda: hist.hist_round(
+    d["numeric_slots"] = kernel_times(lambda: hist.hist_round(
         bins, gh, pleaf, params, S_ROUND, BC, L, cat_mask=cat_mask))
     d["shape"] = (f"bins ({G},{N_ROWS}) S={S_ROUND} Bc={BC}, "
                   f"{S_ROUND // 2} categorical slots")
     return d
 
 
-def cat_round_numbers(torch, hist, bins, gh, pleaf, prm, cat_mask, S, Bc,
-                      num_leaves, **kw):
-    """One hist_round call with category sets: the histograms bitwise
-    against the plain version and across two launches, the row -> leaf
-    likewise, then its time, the plain version's, bincount's and the
+def round_bound(torch, bins, gh, n_split, n_kept, S, Bc, words=0):
+    """The least bytes and operations of one hist_round call: pleaf read
+    and the new ids written (8 B a row; the f32 mode reads every row's
+    channels for the scale), one split-column bin and one count per row of
+    a split leaf, the G bins and channels of each kept row, the params and
+    category sets, the (S, 3, G, Bc) f32 output written once."""
+    Gk, n = bins.shape
+    es = gh.element_size()
+    scale = n * 3 * es if gh.dtype == torch.float32 else 0
+    return bound(n * 8 + scale + n_split * (4 + es)
+                 + n_kept * (Gk * 4 + 3 * es) + S * 16 * 4 + words * 4
+                 + S * 3 * Gk * Bc * 4,
+                 n_kept * Gk * 3 + n_split * 8)
+
+
+def round_shape(torch, hist, ch, args, name, library=True):
+    """hist_round on one round's arguments (bins, gh, pleaf, params, S,
+    Bc, num_leaves, cat_mask, levels): the histograms and the row -> leaf
+    bitwise against the plain version and across two launches, the
+    kernel's times and device operations per call (kernel_numbers), the
+    plain version's time, bincount's (the histogram half only) and the
     bound."""
+    bins, gh, pleaf, prm, S, Bc, num_leaves, cat_mask, levels = args
+    quant = gh.dtype != torch.float32
     run = lambda: hist.hist_round(bins, gh, pleaf, prm, S, Bc, num_leaves,
-                                  cat_mask=cat_mask, **kw)
+                                  quant=quant, cat_mask=cat_mask,
+                                  levels=levels)
     plain = lambda: hist.hist_round_plain(bins, gh, pleaf, prm, S, Bc,
-                                          cat_mask=cat_mask)
-    res = f32_compare(torch, lambda: run()[0], lambda: plain()[0],
-                      "hist_round_cat", "exact (integer sums on both sides)")
+                                          quant=quant, cat_mask=cat_mask)
+    res = f32_compare(torch, lambda: run()[0], lambda: plain()[0], name,
+                      "exact (integer sums on both sides)" if quant else
+                      "exact (int64 fixed point on both sides)")
     pk, pk2 = run()[1], run()[1]
     pl_p, hslot = hist.round_partition_plain(bins, pleaf, prm, S, cat_mask)
     if not (torch.equal(pk, pl_p) and torch.equal(pk, pk2)):
-        raise AssertionError("hist_round_cat's row -> leaf disagrees")
+        raise AssertionError(f"{name}'s row -> leaf disagrees")
     Gk, n = bins.shape
-    n_split = int(torch.isin(pleaf, prm[:, 0]).sum())
-    n_small = int((hslot < S).sum())
-    words = S * -(-Bc // 32)
-    b, bb = bound(n * 8 + n_split * 4
-                  + n_small * (Gk * 4 + 3 * gh.element_size())
-                  + S * 16 * 4 + words * 4 + S * 3 * Gk * Bc * 4,
-                  n_small * Gk * 3 + n_split * 8)
-    return dict(**res, n_split=n_split, n_small=n_small,
-                categorical_slots=int((prm[:, 10] != 0).sum()),
-                ms=cuda_ms(run), plain_ms=cuda_ms(plain, reps=5),
-                library_ms=bincount_ms(torch, bins, gh, hslot, S, Bc),
-                library_note="bincount of the histogram half only",
-                bound_ms=b, bound_by=bb)
+    n_split = int(torch.isin(pleaf, prm[:, 0][prm[:, 0] >= 0]).sum())
+    small = hslot < S
+    n_kept = int((small & (gh[2] != 0)).sum())
+    words = 0 if cat_mask is None else S * -(-Bc // 32)
+    b, bb = round_bound(torch, bins, gh, n_split, n_kept, S, Bc, words)
+    return dict(
+        shape=f"bins ({Gk},{n}) S={S} Bc={Bc}", **res,
+        used_slots=int((prm[:, 0] >= 0).sum()), n_split=n_split,
+        n_small=int(small.sum()), n_kept=n_kept,
+        categorical_slots=int((prm[:, 10] != 0).sum()),
+        **kernel_numbers(run), plain_ms=cuda_ms(plain, reps=5),
+        library_ms=(bincount_ms(torch, bins, gh, hslot, S, Bc) if library
+                    else None),
+        library_note="bincount of the histogram half only",
+        bound_ms=b, bound_by=bb)
 
 
-def hist_round_cat_line(torch, hist, captured, synth):
+def seg_sum_numbers(torch, hist, ch, vals, idx, num_out):
+    """seg_sum on (k, N) values: bitwise across two launches, within rtol
+    1e-5 of the plain version (f32 index_add_), the kernel and index_add_
+    timed in turns (in_turns), its device operations per call, and the
+    bound."""
+    run = lambda: hist.seg_sum(vals, idx, num_out)
+    s1, s2, sp = run(), run(), hist.seg_sum_plain(vals, idx, num_out)
+    torch.cuda.synchronize()
+    if not torch.equal(s1, s2):
+        raise AssertionError("seg_sum is not bitwise reproducible")
+    if not torch.allclose(s1, sp, rtol=1e-5, atol=1e-3):
+        raise AssertionError("seg_sum disagrees with its plain version")
+    k, n = vals.shape
+    ok_i = (idx >= 0) & (idx < num_out)
+    safe = torch.where(ok_i, idx, num_out).long()
+    lib_out = torch.zeros((k, num_out + 1), device=vals.device)
+    turns = in_turns(run, lambda: lib_out.index_add_(1, safe, vals))
+    b, bb = bound(n * 4 * (k + 1) + k * num_out * 4, k * n)
+    return dict(
+        shape=f"vals ({k},{n}) L={num_out}",
+        tolerance="rtol 1e-5 (atol 1e-3) vs plain; bitwise across runs",
+        max_abs_err=float((s1 - sp).abs().max()), bitwise_repeat=True,
+        **turns, launches_per_call=launches_per_call(run),
+        library_call="index_add_ into a (k, L + 1) buffer",
+        plain_ms=cuda_ms(lambda: hist.seg_sum_plain(vals, idx, num_out)),
+        bound_ms=b, bound_by=bb)
+
+
+def hist_round_cat_line(torch, hist, ch, captured, synth):
     """hist_round's categorical variant on the arguments of the fullest
     round of a real train_cat tree (the round with the most categorical
     slots at the widest slot count), with the int16 line's synthetic
     inputs beside it (synth)."""
-    bins, gh, pleaf, prm, S, Bc, num_leaves, cat_mask = captured["args"]
-    d = cat_round_numbers(torch, hist, bins, gh, pleaf, prm, cat_mask, S,
-                          Bc, num_leaves, levels=captured["levels"])
-    d["shape"] = (f"bins ({bins.shape[0]},{bins.shape[1]}) S={S} Bc={Bc}, "
-                  f"{d['categorical_slots']} categorical slots, from "
-                  f"train_cat round {captured['round']} of its first tree")
+    d = round_shape(torch, hist, ch, captured["args"], "hist_round_cat")
+    d["shape"] += (f", {d['categorical_slots']} categorical slots, from "
+                   f"train_cat round {captured['round']} of its first tree")
     d["int16_line_inputs"] = {k: v for k, v in synth.items()
                               if k not in ("tolerance", "library_note")}
     return d
+
+
+@contextlib.contextmanager
+def recording_rounds(store, key=None):
+    """While active, keep the arguments of rounds.hist_round's calls:
+    store["first"], the first call's; store["fullest"], the call with the
+    largest key(params, S, cat_mask) (default: the most used slots, then
+    the widest slot count); key None skips a call. The arguments are
+    (bins, gh, pleaf, params, S, Bc, num_leaves, cat_mask, levels)."""
+    from lightgbm_tpu_torch.learner import rounds
+
+    orig = rounds.hist_round
+    n_round = [0]
+    if key is None:
+        key = lambda prm, S, cm: (int((prm[:, 0] >= 0).sum()), S)
+
+    def recording(bins, gh, pleaf, params, S, Bc, num_leaves, quant=True,
+                  cat_mask=None, levels=None):
+        args = (bins, gh, pleaf.clone(), params.clone(), S, Bc, num_leaves,
+                None if cat_mask is None else cat_mask.clone(), levels)
+        out = orig(bins, gh, pleaf, params, S, Bc, num_leaves, quant=quant,
+                   cat_mask=cat_mask, levels=levels)
+        n_round[0] += 1
+        if "first" not in store:
+            store["first"] = dict(args=args, round=n_round[0])
+        k = key(params, S, cat_mask)
+        if k is not None and k > store.get("key", ()):
+            store.update(key=k, fullest=dict(args=args, round=n_round[0]))
+        return out
+    rounds.hist_round = recording
+    try:
+        yield
+    finally:
+        rounds.hist_round = orig
+
+
+def captured_round_shapes(torch, hist, ch, store, path):
+    """round_shape on a training path's first and fullest captured rounds
+    (recording_rounds), keyed '<path>_first' / '<path>_fullest'."""
+    out = {}
+    for which in ("first", "fullest"):
+        cap = store[which]
+        d = round_shape(torch, hist, ch, cap["args"], f"{path} {which}")
+        d["shape"] += f", round {cap['round']} of {path}'s first tree"
+        out[f"{path}_{which}"] = d
+    return out
 
 
 def emit_kernel(name, d) -> None:
@@ -537,7 +636,7 @@ def f32_compare(torch, run, plain, name,
                 max_rel_err=rel, bitwise_repeat=True)
 
 
-def f32_kernel_lines(torch, hist, bins, gen, pleaf, params):
+def f32_kernel_lines(torch, hist, ch, bins, gen, pleaf, params):
     """hist (the root and one N/2 segment) and hist_round's f32 mode at
     the f32 paths' shapes, on f32 channels like a first tree's."""
     dev = bins.device
@@ -569,6 +668,7 @@ def f32_kernel_lines(torch, hist, bins, gen, pleaf, params):
         plain_ms=cuda_ms(lambda: hist.histogram_plain(bins, gh, BC), reps=5),
         library_ms=bincount_ms(torch, bins, gh, zero, 1),
         bound_ms=b, bound_by=bb,
+        **kernel_times(lambda: hist.histogram(bins, gh, BC)),
         seg=dict(**seg,
                  ms=cuda_ms(lambda: hist.histogram(bins, gh, BC, bd, cd,
                                                    cap=c0)),
@@ -576,39 +676,19 @@ def f32_kernel_lines(torch, hist, bins, gen, pleaf, params):
                      bins, gh, BC, b0, c0, c0), reps=5),
                  library_ms=bincount_ms(torch, bins[:, b0:b0 + c0],
                                         gh[:, b0:b0 + c0], zero[:c0], 1),
-                 bound_ms=sb, bound_by=sbb))
+                 bound_ms=sb, bound_by=sbb,
+                 **kernel_times(lambda: hist.histogram(bins, gh, BC, bd, cd,
+                                                       cap=c0))))
     # ---- hist_round, f32 mode: one full-width f32 round (S = 25)
-    S = S_ROUND_F32
-    prm = params[:S].clone()
+    prm = params[:S_ROUND_F32].clone()
     prm[-1, 0] = -1  # one unused slot
-    res = f32_compare(
-        torch,
-        lambda: hist.hist_round(bins, gh, pleaf, prm, S, BC, L,
-                                quant=False)[0],
-        lambda: hist.hist_round_plain(bins, gh, pleaf, prm, S, BC,
-                                      quant=False)[0], "hist_round_f32")
-    pk = hist.hist_round(bins, gh, pleaf, prm, S, BC, L, quant=False)[1]
-    pl_p, hslot = hist.round_partition_plain(bins, pleaf, prm, S)
-    if not torch.equal(pk, pl_p):
-        raise AssertionError("hist_round_f32's row -> leaf disagrees")
-    n_split = int(torch.isin(pleaf, prm[:, 0]).sum())
-    n_small = int((hslot < S).sum())
-    b, bb = bound(N_ROWS * 8 + n_split * 4 + n_small * (G * 4 + 12)
-                  + S * 16 * 4 + S * 3 * G * BC * 4,
-                  n_small * G * 3 + n_split * 8)
-    lines["hist_round_f32"] = dict(
-        shape=f"bins ({G},{N_ROWS}) S={S} Bc={BC}", **res,
-        ms=cuda_ms(lambda: hist.hist_round(bins, gh, pleaf, prm, S, BC, L,
-                                           quant=False)),
-        plain_ms=cuda_ms(lambda: hist.hist_round_plain(
-            bins, gh, pleaf, prm, S, BC, quant=False), reps=5),
-        library_ms=bincount_ms(torch, bins, gh, hslot, S),
-        library_note="bincount of the histogram half only",
-        bound_ms=b, bound_by=bb)
+    lines["hist_round_f32"] = round_shape(
+        torch, hist, ch, (bins, gh, pleaf, prm, S_ROUND_F32, BC, L, None,
+                          None), "hist_round_f32")
     return lines
 
 
-def int8_kernel_lines(torch, hist, bins, gen, pleaf, params):
+def int8_kernel_lines(torch, hist, ch, bins, gen, pleaf, params):
     """hist_nat (the root, S = 1) and hist_round (S = 48) in their int8
     mode, on the levels of a use_quantized_grad tree at 4 levels
     (gradient in [-2, 2], hessian in [0, 4])."""
@@ -637,31 +717,13 @@ def int8_kernel_lines(torch, hist, bins, gen, pleaf, params):
         plain_ms=cuda_ms(lambda: hist.hist_nat_slots_plain(
             bins, gh, slot0, 1, BC), reps=5),
         library_ms=bincount_ms(torch, bins, gh, slot0, 1),
-        bound_ms=b, bound_by=bb)
-    S = S_ROUND
-    res = f32_compare(
-        torch, lambda: hist.hist_round(bins, gh, pleaf, params, S, BC, L,
-                                       levels=4)[0],
-        lambda: hist.hist_round_plain(bins, gh, pleaf, params, S, BC)[0],
-        "hist_round_int8", exact)
-    pk = hist.hist_round(bins, gh, pleaf, params, S, BC, L, levels=4)[1]
-    pl_p, hslot = hist.round_partition_plain(bins, pleaf, params, S)
-    if not torch.equal(pk, pl_p):
-        raise AssertionError("hist_round_int8's row -> leaf disagrees")
-    n_split = int(torch.isin(pleaf, params[:, 0]).sum())
-    n_small = int((hslot < S).sum())
-    b, bb = bound(N_ROWS * 8 + n_split * 4 + n_small * (G * 4 + 3)
-                  + S * 16 * 4 + S * 3 * G * BC * 4,
-                  n_small * G * 3 + n_split * 8)
-    lines["hist_round_int8"] = dict(
-        shape=f"bins ({G},{N_ROWS}) S={S} Bc={BC}, int8 levels", **res,
-        ms=cuda_ms(lambda: hist.hist_round(bins, gh, pleaf, params, S, BC,
-                                           L, levels=4)),
-        plain_ms=cuda_ms(lambda: hist.hist_round_plain(
-            bins, gh, pleaf, params, S, BC), reps=5),
-        library_ms=bincount_ms(torch, bins, gh, hslot, S),
-        library_note="bincount of the histogram half only",
-        bound_ms=b, bound_by=bb)
+        bound_ms=b, bound_by=bb,
+        **kernel_times(lambda: hist.hist_nat_slots(bins, gh, slot0, 1, BC,
+                                                   levels=4)))
+    lines["hist_round_int8"] = round_shape(
+        torch, hist, ch, (bins, gh, pleaf, params, S_ROUND, BC, L, None, 4),
+        "hist_round_int8")
+    lines["hist_round_int8"]["shape"] += ", int8 levels"
     return lines
 
 
@@ -784,7 +846,9 @@ def hist_slots_line(torch, hist, captured):
         plain_ms=cuda_ms(lambda: hist.hist_slots_plain(
             bins, gh, begins, counts, Bc, S), reps=5),
         library_ms=bincount_ms(torch, bins, gh, slot, S, Bc),
-        bound_ms=b, bound_by=bb)
+        bound_ms=b, bound_by=bb,
+        **kernel_times(lambda: hist.hist_slots(bins, gh, begins, counts, Bc,
+                                               S)))
 
 
 def higgs_stream(rows: int, feats: int = 28):
@@ -907,7 +971,8 @@ def small_phase(lgb, np):
     # cat_quant is held by replay instead (ROADMAP C): its 4 levels make
     # exact ties between different splits common, and last-ulp
     # differences decide them: the card's sigmoid moves the level scale,
-    # the leaf renewal's seg_sum sums in another order than the CPU.
+    # the leaf renewal's seg_sum sums in fixed point where the CPU sums
+    # in f32.
     # cat_quant_det (deterministic rounding, no renewal) runs the same
     # categorical int8 path and is held at the tolerance
     replay = replay_check(lgb, dict(params, **QUANT_PARAMS), Xc, yc,
@@ -1016,11 +1081,13 @@ def profile_phase(torch, bst, n_trees: int = 2, name: str = "profile"):
 
 
 def train_f32_path(torch, lgb, ch, perm, ds, vs, name, n_timed=3,
-                   capture=None):
+                   capture=None, rounds_cap=None):
     """One f32 path on the headline workload: 1 warmup tree, n_timed
     timed trees, AUC after the first and the last tree, launches, a
     1-tree profile. With `capture`, the warmup tree also records the
-    fullest hist_slots call's arguments (for its kernel line)."""
+    fullest hist_slots call's arguments (for its kernel line); with
+    `rounds_cap`, its first and fullest hist_round calls'
+    (recording_rounds)."""
     params = {"objective": "binary", "num_leaves": L, "max_bin": 255,
               "learning_rate": 0.1, "min_data_in_leaf": 20, "metric": "auc",
               "verbosity": -1, **F32_PATHS[name]}
@@ -1039,10 +1106,12 @@ def train_f32_path(torch, lgb, ch, perm, ds, vs, name, n_timed=3,
     ch.reset_launch_counts()
     torch.cuda.synchronize()
     try:
-        t0 = time.perf_counter()
-        bst.update()
-        torch.cuda.synchronize()
-        warm_s = time.perf_counter() - t0
+        with (recording_rounds(rounds_cap) if rounds_cap is not None
+              else contextlib.nullcontext()):
+            t0 = time.perf_counter()
+            bst.update()
+            torch.cuda.synchronize()
+            warm_s = time.perf_counter() - t0
     finally:
         perm.hist_slots = orig
     auc1 = bst.eval_valid()[0][2]
@@ -1079,14 +1148,16 @@ def train_f32_path(torch, lgb, ch, perm, ds, vs, name, n_timed=3,
 
 
 def train_int_path(torch, lgb, ch, ds, vs, name, extra, n_warm, n_timed,
-                   needs, capture=None, takes=None):
+                   needs, capture=None, takes=None, rounds_cap=None):
     """An integer-level rounds path on the headline workload: n_warm
     warmup trees, n_timed timed trees, the validation metric after the
     first and the last tree, launches, peak device memory and a 1-tree
     profile. With `capture`, the first tree also records the arguments
     of the refit's first and last hist_nat_slots calls (for the
     hist_nat_f32 line); with `takes`, those of its widest k = 2
-    take_small call (the refit's, for the take_small line)."""
+    take_small call (the refit's, for the take_small line); with
+    `rounds_cap`, those of its first and fullest hist_round calls
+    (recording_rounds)."""
     from lightgbm_tpu_torch.learner import renewal
 
     params = {"objective": "binary", "num_leaves": L, "max_bin": 255,
@@ -1112,7 +1183,9 @@ def train_int_path(torch, lgb, ch, ds, vs, name, extra, n_warm, n_timed,
     torch.cuda.synchronize()
     try:
         with (recording_takes(ch, takes, (2,)) if takes is not None
-              else contextlib.nullcontext()):
+              else contextlib.nullcontext()), \
+                (recording_rounds(rounds_cap) if rounds_cap is not None
+                 else contextlib.nullcontext()):
             bst.update()
     finally:
         renewal.hist_nat_slots = orig
@@ -1156,8 +1229,6 @@ def train_cat_path(torch, lgb, ch, np, n_warm: int = 2, n_timed: int = 10,
     `capture`, the first tree also records the arguments of its round
     with the most categorical slots at the widest slot count (for the
     hist_round_cat kernel line)."""
-    from lightgbm_tpu_torch.learner import rounds
-
     X, y, Xv, yv = airline_like(1_000_000, 100_000)
     t0 = time.perf_counter()
     ds = lgb.Dataset(X, label=y, categorical_feature=AIRLINE_CATEGORICAL,
@@ -1180,26 +1251,12 @@ def train_cat_path(torch, lgb, ch, np, n_warm: int = 2, n_timed: int = 10,
         bst.update()
         per_tree.append(ch.LAUNCHES["hist_round_cat"] - before)
 
-    orig = rounds.hist_round
-    if capture is not None:
-        n_round = [0]
-
-        def recording(bins, gh, pleaf, params, S, Bc, num_leaves, quant=True,
-                      cat_mask=None, levels=None):
-            out = orig(bins, gh, pleaf, params, S, Bc, num_leaves,
-                       quant=quant, cat_mask=cat_mask, levels=levels)
-            n_round[0] += 1
-            key = (S, int((params[:, 10] != 0).sum()))
-            if cat_mask is not None and key > capture.get("key", (0, 0)):
-                capture.update(key=key, round=n_round[0], levels=levels,
-                               args=(bins, gh, pleaf.clone(), params.clone(),
-                                     S, Bc, num_leaves, cat_mask.clone()))
-            return out
-        rounds.hist_round = recording
-    try:
+    # the round with the most categorical slots at the widest slot count
+    cat_key = (lambda prm, S, cm: None if cm is None
+               else (S, int((prm[:, 10] != 0).sum())))
+    with (recording_rounds(capture, cat_key) if capture is not None
+          else contextlib.nullcontext()):
         tree()
-    finally:
-        rounds.hist_round = orig
     auc1 = bst.eval_valid()[0][2]
     for _ in range(n_warm - 1):
         tree()
@@ -1293,7 +1350,9 @@ def main() -> int:
     bst = lgb.Booster(params, ds)
     bst.add_valid(vs, "valid")
     takes = {}  # the take_small line's arguments, k -> (tab, idx)
-    with recording_takes(ch, takes, (1, 8)):
+    round_caps = {"train": {}, "train_quant": {}, "train_f32": {}}
+    with recording_takes(ch, takes, (1, 8)), \
+            recording_rounds(round_caps["train"]):
         bst.update()
     auc1 = bst.eval_valid()[0][2]
     bst.update()
@@ -1344,7 +1403,8 @@ def main() -> int:
     # compared with the int16 path at the same tree count
     quant, _ = train_int_path(
         torch, lgb, ch, ds, vs, "train_quant", QUANT_PARAMS, 2, n_timed,
-        ("hist_nat_int8", "hist_round_int8", "take_small", "seg_sum"))
+        ("hist_nat_int8", "hist_round_int8", "take_small", "seg_sum"),
+        rounds_cap=round_caps["train_quant"])
     emit({"phase": "train_quant_vs_int16", "trees": quant["trees"],
           "auc_int16": auc_last, "auc_quant": quant["metric_last"],
           "auc_gap": quant["metric_last"] - auc_last})
@@ -1397,19 +1457,30 @@ def main() -> int:
     for name in F32_PATHS:
         path_launches[name], _ = train_f32_path(
             torch, lgb, ch, permuted, ds, vs, name,
-            capture=captured if name == "train_exact_rounds" else None)
+            capture=captured if name == "train_exact_rounds" else None,
+            rounds_cap=round_caps.get(name))
     if not captured:
         raise AssertionError("no hist_slots call was captured")
     lines["hist_slots"] = hist_slots_line(torch, hist, captured)
     emit_kernel("hist_slots", lines["hist_slots"])
 
+    # ---- hist_round in each mode on its path's first and fullest rounds
+    for name, path in (("hist_round", "train"), ("hist_round_int8",
+                                                 "train_quant"),
+                       ("hist_round_f32", "train_f32")):
+        lines[name]["shapes"] = captured_round_shapes(
+            torch, hist, ch, round_caps[path], path)
+        emit_kernel(name, lines[name])
+    del round_caps
+
     # ---- categorical splits on the airline schema
     cat_round = {}
     cat, _ = train_cat_path(torch, lgb, ch, np, capture=cat_round)
     path_launches["train_cat"] = cat["launches"]
-    if not cat_round:
+    if "fullest" not in cat_round:
         raise AssertionError("no categorical hist_round call was captured")
-    lines["hist_round_cat"] = hist_round_cat_line(torch, hist, cat_round,
+    lines["hist_round_cat"] = hist_round_cat_line(torch, hist, ch,
+                                                  cat_round["fullest"],
                                                   cat_synth)
     emit_kernel("hist_round_cat", lines["hist_round_cat"])
 

@@ -1,5 +1,7 @@
 // Shared pieces of the histogram kernels (hist_nat.cu, hist_round.cu,
-// hist.cu, hist_slots.cu).
+// hist.cu, hist_slots.cu) and of seg_sum.cu: the layout, the tile of
+// hist_nat, hist and hist_slots (HistTile, add_row, flush_tile), and the
+// fixed point and channel loads that every one of them uses.
 //
 // Layout contract (the JAX package's, kept at the port's public functions):
 //   bins  (G, N) int32, feature-major, row r of column g at bins[g * N + r]
@@ -9,7 +11,8 @@
 //         hist_nat and hist_round)
 //   out   (S, 3, G, Bc) sums, out[((s * 3 + c) * G + g) * Bc + b]
 //
-// A block owns one tile of (slot chunk) x (column group) x (row chunk).
+// In hist_nat, hist and hist_slots a block owns one tile of (slot chunk)
+// x (column group) x (row chunk).
 // It keeps the tile's Sc x 3 x Gc x Bc histogram in shared memory, adds
 // its rows with shared-memory atomicAdd, and flushes the non-zero cells
 // to device memory with atomicAdd. The cells are integers — int32 for

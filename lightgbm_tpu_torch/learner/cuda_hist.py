@@ -7,16 +7,15 @@ paths launch (lightgbm_tpu/learner/pallas_hist.py):
 |------------------|--------------------|-----------------------------------|
 | `hist_nat`       | csrc/hist_nat.cu   | hist_nat_tpu, int16 and int8 modes |
 | `hist_nat_f32`   | csrc/hist_nat.cu   | hist_nat_tpu, f32 (nat_ch=5) mode |
-| `hist_round`     | csrc/hist_round.cu | hist_round_tpu, int16 and int8 modes |
-| `hist_round_f32` | csrc/hist_round.cu | hist_round_tpu, f32 (bf16x2) mode |
-
-hist_round and hist_round_f32 take the round's category sets (cat_mask)
-on datasets with categorical features: every channel mode then runs its
-categorical variant (hist_round_tpu's has_cat).
+| `hist_round`     | csrc/hist_round.cu | hist_round_tpu, int16, int8 and f32 (bf16x2) modes |
 | `take_small`     | csrc/take_small.cu | take_small_tpu / _take_kernel     |
 | `seg_sum`        | csrc/seg_sum.cu    | seg_sum_tpu / _segsum_kernel      |
 | `hist`           | csrc/hist.cu       | hist_tpu / _hist_kernel           |
 | `hist_slots`     | csrc/hist_slots.cu | hist_slots_tpu / _hist_slots_kernel |
+
+hist_round takes the round's category sets (cat_mask) on datasets with
+categorical features: every channel mode then runs its categorical
+variant (hist_round_tpu's has_cat).
 
 The sources compile with nvcc for sm_90a into one shared library with
 a plain C interface, loaded with ctypes. The library is built at first
@@ -26,11 +25,13 @@ rebuilt when the sources change. Nothing here runs at import time: the
 CPU tests import this module on machines without nvcc.
 
 Each wrapper checks device, dtype, shape and contiguity, allocates the
-outputs, launches on torch's current stream, raises if the C function
-reports a CUDA error, and adds one to its launch count (one count per
-kernel mode: the int8 modes count as hist_nat_int8 / hist_round_int8; a
-hist_round launch in its categorical variant adds one to
-hist_round_cat as well).
+outputs (hist_round also keeps scratch per device and stream that it
+allocates once per size, the parts that must be zero on entry left zero
+by every call), launches on torch's current stream, raises if the C
+function reports a CUDA error, and adds one to its launch count per
+call (one count per kernel mode: the int8 modes count as hist_nat_int8
+/ hist_round_int8; a hist_round call in its categorical variant adds
+one to hist_round_cat as well).
 The plain PyTorch versions live in learner/histogram.py; nothing here
 falls back to them.
 """
@@ -160,19 +161,16 @@ def load() -> ctypes.CDLL:
         lib.lgbm_hist_nat.argtypes = [P, P, P, P] + [I] * 7 + [P]
         lib.lgbm_hist_nat_int8.argtypes = [P, P, P, P] + [I] * 7 + [P]
         lib.lgbm_hist_nat_f32.argtypes = [P] * 6 + [I] * 8 + [P]
-        lib.lgbm_hist_round.argtypes = [P] * 7 + [I] * 8 + [P]
-        lib.lgbm_hist_round_int8.argtypes = [P] * 7 + [I] * 8 + [P]
+        lib.lgbm_hist_round.argtypes = [I] + [P] * 11 + [I] * 12 + [P]
         lib.lgbm_take_small.argtypes = [P, P, P] + [I] * 5 + [P]
-        lib.lgbm_seg_sum.argtypes = [P] * 4 + [I] * 4 + [P]
+        lib.lgbm_seg_sum.argtypes = [P] * 4 + [I] * 7 + [P]
         lib.lgbm_hist.argtypes = ([P, P, ctypes.c_longlong] + [P] * 4
                                   + [I] * 6 + [P])
         lib.lgbm_hist_slots.argtypes = [P] * 8 + [I] * 8 + [P]
-        lib.lgbm_hist_round_f32.argtypes = [P] * 9 + [I] * 9 + [P]
         for fn in (lib.lgbm_hist_nat, lib.lgbm_hist_nat_int8,
                    lib.lgbm_hist_nat_f32, lib.lgbm_hist_round,
-                   lib.lgbm_hist_round_int8, lib.lgbm_take_small,
-                   lib.lgbm_seg_sum, lib.lgbm_hist, lib.lgbm_hist_slots,
-                   lib.lgbm_hist_round_f32):
+                   lib.lgbm_take_small, lib.lgbm_seg_sum, lib.lgbm_hist,
+                   lib.lgbm_hist_slots):
             fn.restype = ctypes.c_int
         _lib = lib
         return lib
@@ -228,13 +226,12 @@ def check_int_range(n_rows: int, levels: int) -> None:
         )
 
 
-def _hist_tiling(G: int, N: int, S: int, Bc: int, extra_ints: int,
-                 device, cell_words: int = 1) -> Tuple[int, int, int]:
+def _hist_tiling(G: int, N: int, S: int, Bc: int,
+                 device) -> Tuple[int, int, int]:
     """(slots per block Sc, columns per block Gc, rows per block) for the
-    shared-memory histogram tile of hist_nat / hist_round; cell_words = 2
-    for the int64 fixed-point cells of the f32 mode."""
-    budget = _MAX_SMEM // 4 - extra_ints
-    per_slot = 3 * Bc * cell_words
+    shared-memory int32 histogram tile of hist_nat's integer modes."""
+    budget = _MAX_SMEM // 4
+    per_slot = 3 * Bc
     if budget < per_slot:
         raise ValueError(
             f"num_bins={Bc} needs {per_slot * 4} B of shared memory per "
@@ -269,7 +266,7 @@ def hist_nat(bins: torch.Tensor, gh: torch.Tensor, slot: torch.Tensor,
     G, N = _check_hist_inputs(bins, gh, slot, "slot")
     check_int_range(N, levels)
     S, Bc = int(num_slots), int(num_bins)
-    Sc, Gc, rows = _hist_tiling(G, N, S, Bc, 0, bins.device)
+    Sc, Gc, rows = _hist_tiling(G, N, S, Bc, bins.device)
     out = torch.zeros((S, 3, G, Bc), dtype=torch.int32, device=bins.device)
     lib = load()
     int8 = gh.dtype == torch.int8
@@ -339,16 +336,106 @@ def hist_nat_f32(bins: torch.Tensor, gh: torch.Tensor, slot: torch.Tensor,
 
 
 def _cat_arg(cat_mask: Optional[torch.Tensor], S: int, Bc: int):
-    """(the checked (S, Bc) bool mask or None, the int words its bitsets
-    take in shared memory) of a hist_round call; the kernel builds the
-    bitsets itself."""
+    """The checked (S, Bc) bool category sets of a hist_round call, or
+    None; the kernel builds its bitsets itself."""
     if cat_mask is None:
-        return None, 0
+        return None
     _need(cat_mask, "cat_mask", torch.bool, 2)
     if cat_mask.shape != (S, Bc):
         raise ValueError(f"cat_mask must be ({S}, {Bc}), got "
                          f"{tuple(cat_mask.shape)}")
-    return cat_mask, S * -(-Bc // 32)
+    return cat_mask
+
+
+# hist_round (csrc/hist_round.cu): a partition launch of 2048-row blocks
+# (kPartRows), then a histogram launch over (slot, chunk of kept rows)
+# items, a slot of T kept rows cut into min(ROUND_SLOT_ITEMS, ceil(T /
+# ROUND_CHUNK)) of them (at least one), and column groups of at most
+# ROUND_COLS columns
+ROUND_PART_ROWS = 2048  # kPartRows
+ROUND_CHUNK = 1024
+ROUND_SLOT_ITEMS = 64
+ROUND_COLS = 4  # at most 8 (kRoundMaxCols)
+ROUND_MAX_PART_BLOCKS = 8192  # the histogram blocks stage 2 ints a block
+_SMEM_STATIC = 1024  # a block's static shared memory, at most
+
+
+def hist_round_plan(G: int, N: int, S: int, Bc: int, L: int,
+                    f32: bool = False, has_cat: bool = False) -> dict:
+    """The launches and scratch of one hist_round call, from the shapes
+    alone; raises ValueError where a block's shared memory cannot hold
+    them. Partition: nb blocks of 2048 rows, each holding the leaf ->
+    slot table (L + 1 ints), the (S, 16) params, per-slot counts and
+    offsets and (has_cat) the category bitsets. Histogram: a grid of
+    (max_items, n_cg) blocks, max_items bounding the (slot, chunk) items
+    of any round: a slot of T kept rows takes max(1, min(slot_items,
+    ceil(T / chunk))) of them, and the slots share at most N rows, so
+    there are at most min(ceil(N / chunk) + S, S x slot_items); each
+    block holds a (3, gc, Bc) tile (int32 cells, int64 in the f32 mode)
+    and its slot's nb counts and starts. Scratch words: state
+    (zeroed once, left zeroed by every call), work, the row list (N)
+    and the accumulator (S x 3 x G x Bc cells, int64 words)."""
+    G, N, S, Bc, L = int(G), int(N), int(S), int(Bc), int(L)
+    nb = -(-N // ROUND_PART_ROWS)
+    if nb > ROUND_MAX_PART_BLOCKS:
+        raise ValueError(f"hist_round: {N} rows exceed the "
+                         f"{ROUND_MAX_PART_BLOCKS * ROUND_PART_ROWS} a call "
+                         "takes (kernel limit)")
+    cat_ints = S * -(-Bc // 32) if has_cat else 0
+    smem_part = 4 * ((L + 1) + 16 * S + S + (S + 1) + cat_ints)
+    if smem_part > _MAX_SMEM - _SMEM_STATIC:
+        raise ValueError(
+            f"hist_round: {L} leaves and {S} slots need {smem_part} B of "
+            f"shared memory in the partition; a block has "
+            f"{_MAX_SMEM - _SMEM_STATIC} B (kernel limit)")
+    cell = 8 if f32 else 4
+    staged = 4 * (2 * nb + 1)
+    room = _MAX_SMEM - _SMEM_STATIC - staged
+    if room < 3 * Bc * cell:
+        raise ValueError(
+            f"hist_round: num_bins={Bc} needs {3 * Bc * cell} B of shared "
+            f"memory per column beside {staged} B of row counts; a block "
+            f"has {_MAX_SMEM - _SMEM_STATIC} B (kernel limit)")
+    n_cg = -(-G // min(ROUND_COLS, 8, room // (3 * Bc * cell)))
+    gc = -(-G // n_cg)
+    chunk, slot_items = ROUND_CHUNK, ROUND_SLOT_ITEMS
+    max_items = min(-(-N // chunk) + S, S * slot_items)
+    return dict(
+        nb=nb, chunk=chunk, slot_items=slot_items, gc=gc, n_cg=n_cg,
+        max_items=max_items, smem_part=smem_part,
+        smem_hist=3 * gc * Bc * cell + staged,
+        state_words=1 + S + S * n_cg,
+        work_words=4 + 3 * S + 2 * max_items + 2 * S * nb + 3 * nb,
+        list_words=N, acc_words=S * 3 * G * Bc)
+
+
+# the scratch of hist_round per (device, stream): tensors that only grow
+_ROUND_SCRATCH: Dict[Tuple[int, int], Dict[str, torch.Tensor]] = {}
+
+
+def _round_scratch(dev: torch.device, stream: int,
+                   plan: dict) -> Tuple[torch.Tensor, ...]:
+    """(state, work, list, acc) for a call of this plan, allocated once
+    per size and reused: state and acc zeroed when allocated (every call
+    leaves them zero), work and list uninitialised."""
+    bufs = _ROUND_SCRATCH.setdefault((dev.index, stream), {})
+    out = []
+    for name, dtype, zero in (("state", torch.int32, True),
+                              ("work", torch.int32, False),
+                              ("list", torch.int32, False),
+                              ("acc", torch.int64, True)):
+        n = max(1, plan[name + "_words"])
+        t = bufs.get(name)
+        if t is None or t.numel() < n:
+            t = bufs[name] = (torch.zeros if zero else torch.empty)(
+                n, dtype=dtype, device=dev)
+        out.append(t)
+    return tuple(out)
+
+
+_ROUND_MODES = {torch.int32: (0, "hist_round"),
+                torch.int8: (1, "hist_round_int8"),
+                torch.float32: (2, "hist_round_f32")}
 
 
 def hist_round(bins: torch.Tensor, gh: torch.Tensor, pleaf: torch.Tensor,
@@ -357,50 +444,22 @@ def hist_round(bins: torch.Tensor, gh: torch.Tensor, pleaf: torch.Tensor,
                cat_mask: Optional[torch.Tensor] = None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fused partition + smaller-child histograms -> ((S, 3, G, Bc) f32,
-    (N,) int32 new row -> leaf) over int32 or int8 levels (int8: the int8
-    mode, counted as hist_round_int8). params (S, 16) int32 as documented
-    in csrc/hist_round.cu; pleaf values lie in [0, num_leaves]. cat_mask
+    (N,) int32 new row -> leaf), in the mode of gh's dtype: int32 levels
+    (the int16 mode), int8 levels (the int8 mode, counted as
+    hist_round_int8) — `levels` bounds either — or f32 channels summed as
+    int64 fixed point with the scale over all N rows (the f32 mode,
+    counted as hist_round_f32). params (S, 16) int32 as documented in
+    csrc/hist_round.cu; pleaf values lie in [0, num_leaves]. cat_mask
     (S, Bc) bool: the category sets of the slots params column 10 flags,
-    tested in the kernel's categorical variant (counted as
-    hist_round_cat too)."""
-    G, N = _check_hist_inputs(bins, gh, pleaf, "pleaf")
-    _need(params, "params", torch.int32, 2)
-    S, Bc, L = int(num_slots), int(num_bins), int(num_leaves)
-    if params.shape != (S, 16):
-        raise ValueError(f"params must be ({S}, 16)")
-    check_int_range(N, levels)
-    cat, words = _cat_arg(cat_mask, S, Bc)
-    extra = (L + 1) + S * 16 + words
-    Sc, Gc, rows = _hist_tiling(G, N, S, Bc, extra, bins.device)
-    out = torch.zeros((S, 3, G, Bc), dtype=torch.int32, device=bins.device)
-    pleaf_new = torch.empty_like(pleaf)
-    lib = load()
-    int8 = gh.dtype == torch.int8
-    fn = lib.lgbm_hist_round_int8 if int8 else lib.lgbm_hist_round
-    name = "hist_round_int8" if int8 else "hist_round"
-    rc = fn(bins.data_ptr(), gh.data_ptr(), pleaf.data_ptr(),
-            params.data_ptr(), None if cat is None else cat.data_ptr(),
-            out.data_ptr(), pleaf_new.data_ptr(), G, N, S, Bc, L, Sc, Gc,
-            rows, _stream())
-    _check(rc, name)
-    LAUNCHES[name] += 1
-    if cat is not None:
-        LAUNCHES["hist_round_cat"] += 1
-    return out.to(torch.float32), pleaf_new
-
-
-def hist_round_f32(bins: torch.Tensor, gh: torch.Tensor,
-                   pleaf: torch.Tensor, params: torch.Tensor,
-                   num_slots: int, num_bins: int, num_leaves: int,
-                   cat_mask: Optional[torch.Tensor] = None
-                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The f32 mode of hist_round: (3, N) f32 channels -> ((S, 3, G, Bc)
-    f32 fixed-point sums, (N,) int32 new row -> leaf); cat_mask as for
-    hist_round."""
+    tested in the kernel's categorical variant (counted as hist_round_cat
+    too). Rows of zero count must have zero gradient and hessian (the
+    kernel leaves them out)."""
     from .histogram import fx_log2_rows
 
     _need(bins, "bins", torch.int32, 2)
-    _need(gh, "gh", torch.float32, 2)
+    if gh.dtype not in _ROUND_MODES:
+        raise TypeError(f"gh must be int32, int8 or float32, got {gh.dtype}")
+    _need(gh, "gh", gh.dtype, 2)
     _need(pleaf, "pleaf", torch.int32, 1)
     _need(params, "params", torch.int32, 2)
     G, N = bins.shape
@@ -409,24 +468,27 @@ def hist_round_f32(bins: torch.Tensor, gh: torch.Tensor,
         raise ValueError(f"gh must be (3, {N}) and pleaf ({N},)")
     if params.shape != (S, 16):
         raise ValueError(f"params must be ({S}, 16)")
-    cat, words = _cat_arg(cat_mask, S, Bc)
-    extra = (L + 1) + S * 16 + words
-    Sc, Gc, rows = _hist_tiling(G, N, S, Bc, extra, bins.device,
-                                cell_words=2)
+    mode, name = _ROUND_MODES[gh.dtype]
+    if mode != 2:
+        check_int_range(N, levels)
+    cat = _cat_arg(cat_mask, S, Bc)
     dev = bins.device
-    absmax = torch.zeros(3, dtype=torch.int32, device=dev)
-    acc = torch.zeros((S, 3, G, Bc), dtype=torch.int64, device=dev)
     out = torch.empty((S, 3, G, Bc), dtype=torch.float32, device=dev)
     pleaf_new = torch.empty_like(pleaf)
-    lib = load()
-    rc = lib.lgbm_hist_round_f32(
-        bins.data_ptr(), gh.data_ptr(), pleaf.data_ptr(), params.data_ptr(),
-        None if cat is None else cat.data_ptr(), absmax.data_ptr(),
-        acc.data_ptr(), out.data_ptr(), pleaf_new.data_ptr(), G, N, S, Bc,
-        L, Sc, Gc, rows, fx_log2_rows(N), _stream(),
-    )
-    _check(rc, "hist_round_f32")
-    LAUNCHES["hist_round_f32"] += 1
+    if N == 0 or S == 0:
+        return out.zero_(), pleaf_new.copy_(pleaf)
+    plan = hist_round_plan(G, N, S, Bc, L, mode == 2, cat is not None)
+    stream = _stream(dev)
+    state, work, rows, acc = _round_scratch(dev, stream, plan)
+    rc = load().lgbm_hist_round(
+        mode, bins.data_ptr(), gh.data_ptr(), pleaf.data_ptr(),
+        params.data_ptr(), None if cat is None else cat.data_ptr(),
+        state.data_ptr(), work.data_ptr(), rows.data_ptr(), acc.data_ptr(),
+        out.data_ptr(), pleaf_new.data_ptr(), G, N, S, Bc, L, plan["nb"],
+        plan["chunk"], plan["slot_items"], plan["gc"], plan["n_cg"],
+        plan["max_items"], fx_log2_rows(N), stream)
+    _check(rc, name)
+    LAUNCHES[name] += 1
     if cat is not None:
         LAUNCHES["hist_round_cat"] += 1
     return out, pleaf_new
@@ -574,33 +636,61 @@ def take_small(tab: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return out
 
 
-_SEG_ROWS = 2048
+# seg_sum (csrc/seg_sum.cu)
+_SEG_MAX_K = 3  # kSegMaxK
+_SEG_PARTS_MAX = 256  # kSegPartsMax
+
+
+def seg_sum_plan(k: int, L: int, N: int, sms: int,
+                 aligned: bool = True) -> dict:
+    """The launches of one seg_sum call from the shapes alone: the
+    prepass's blocks (one row of k maxima each, <= 256, ~4096 rows a
+    block), the sums' blocks (about two per SM, fewer when the rows would
+    give a block under 1024), 16-byte loads (vec) when N % 4 == 0 and the
+    inputs are 16-byte aligned, the (k, L) int64 tile's shared memory,
+    and the scratch's int64 words (accumulator, done counter, maxima).
+    Raises ValueError past k = 3 or a tile larger than a block's shared
+    memory."""
+    k, L, N = int(k), int(L), int(N)
+    if not 1 <= k <= _SEG_MAX_K:
+        raise ValueError(f"seg_sum: k={k} channels; the kernel takes 1 to "
+                         f"{_SEG_MAX_K}")
+    smem = 8 * k * L
+    if smem > _MAX_SMEM - _SMEM_STATIC:
+        raise ValueError(f"seg_sum: k={k} x num_out={L} int64 tile exceeds "
+                         "a block's shared memory (kernel limit)")
+    nparts = max(1, min(_SEG_PARTS_MAX, -(-N // 4096)))
+    return dict(blocks=max(1, min(-(-N // 1024), 2 * sms)), nparts=nparts,
+                vec=aligned and N % 4 == 0, smem=smem,
+                scratch_words=k * L + 1 + -(-nparts * k // 2))
 
 
 def seg_sum(vals: torch.Tensor, idx: torch.Tensor,
             num_out: int) -> torch.Tensor:
-    """(k, N) f32, (N,) int32 -> (k, num_out) f32 per-index sums in a
-    fixed order (bitwise reproducible); idx outside [0, num_out) dropped."""
+    """(k, N) f32, k <= 3, (N,) int32 -> (k, num_out) f32 per-index sums
+    as int64 fixed point (the same bits on every run); idx outside [0,
+    num_out) dropped."""
+    from .histogram import fx_log2_rows
+
     _need(vals, "vals", torch.float32, 2)
     _need(idx, "idx", torch.int32, 1)
     k, N = vals.shape
     L = int(num_out)
     if idx.shape[0] != N:
         raise ValueError(f"idx must have {N} rows")
-    rows = _SEG_ROWS
-    while rows > 32 and (k * L + rows * (1 + k)) * 4 > _MAX_SMEM:
-        rows //= 2
-    if (k * L + rows * (1 + k)) * 4 > _MAX_SMEM:
-        raise ValueError(f"seg_sum: k={k} x num_out={L} partial exceeds "
-                         "a block's shared memory (kernel limit)")
-    parts = -(-N // rows)
-    partials = torch.empty((parts, k, L), dtype=torch.float32,
-                           device=vals.device)
-    out = torch.empty((k, L), dtype=torch.float32, device=vals.device)
-    lib = load()
-    rc = lib.lgbm_seg_sum(vals.data_ptr(), idx.data_ptr(),
-                          partials.data_ptr(), out.data_ptr(), k, L, N, rows,
-                          _stream())
+    dev = vals.device
+    pv, pi = vals.data_ptr(), idx.data_ptr()
+    plan = seg_sum_plan(k, L, N, _sm_count(dev),
+                        pv % 16 == 0 and pi % 16 == 0)
+    out = torch.empty((k, L), dtype=torch.float32, device=dev)
+    if N == 0 or L == 0:
+        return out.zero_()
+    scratch = torch.empty(plan["scratch_words"], dtype=torch.int64,
+                          device=dev)
+    rc = load().lgbm_seg_sum(pv, pi, scratch.data_ptr(), out.data_ptr(), k,
+                             L, N, plan["blocks"], plan["nparts"],
+                             fx_log2_rows(N), int(plan["vec"]), _stream(dev))
     _check(rc, "seg_sum")
     LAUNCHES["seg_sum"] += 1
     return out
+

@@ -355,10 +355,6 @@ def hist_round(
     category sets of the slots that params column 10 flags categorical
     (the kernel's categorical mode); None when the dataset has none."""
     if bins_fm.is_cuda:
-        if not quant:
-            return cuda_hist.hist_round_f32(bins_fm, gh, pleaf, params,
-                                            num_slots, num_bins, num_leaves,
-                                            cat_mask)
         return cuda_hist.hist_round(bins_fm, gh, pleaf, params, num_slots,
                                     num_bins, num_leaves, levels, cat_mask)
     return hist_round_plain(bins_fm, gh, pleaf, params, num_slots, num_bins,
@@ -398,7 +394,7 @@ def seg_sum(vals: torch.Tensor, idx: torch.Tensor, num_out: int
             ) -> torch.Tensor:
     """(k, N) values + (N,) int32 indices -> (k, num_out) per-index sums;
     out-of-range indices are dropped (seg_sum kernel on the card, whose
-    fixed-order reduction gives the same bits on every run)."""
+    int64 fixed-point sums give the same bits on every run)."""
     if vals.is_cuda:
         return cuda_hist.seg_sum(vals.contiguous(), idx.contiguous(),
                                  num_out)

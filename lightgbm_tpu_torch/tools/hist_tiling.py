@@ -1,21 +1,31 @@
-"""Time the port's histogram kernels over row-chunk counts on one card.
+"""Time the port's histogram kernels over their tiling choices on one card.
 
     python3 -m lightgbm_tpu_torch.tools.hist_tiling   (repository root)
 
-For each slot width of the rounds grower's ladder (1 = the root
-hist_nat, 8, 32, 48) it times hist_round and hist_nat at the main
-path's shapes (1,001,472 rows, 28 columns, 256 bins, random valid split
-params), on int32 (int16 mode) and int8 levels (int8 mode), with the
-row axis cut into a given number of chunks per tile, and prints one
-JSON line per (width, chunks) with the median milliseconds over CUDA
-events. Then hist_nat's f32 mode at the percentile refit's shape (one
-column, 255 or 31 leaf slots + trash, 256 bins), once with every row
-in a slot (a first refit pass) and once with 1 row in 64 (a later
-pass). Per slot width it also times the int8 modes against the int32
-channels of the same 4-level values (`same_4_levels`: int8, int32,
-int32, int8), which isolates the channel width from the values.
-`chunks: null` is the tiling that learner/cuda_hist._hist_tiling picks.
-Needs a CUDA device.
+hist_round (the partition + compacted-row histogram design): for rounds
+of the rounds grower's ladder at the main path's shapes (1,001,472 rows,
+28 columns, 256 bins, random valid split params) — a first round (8
+slots, one used: the root, split at its median bin, so about half the
+rows are kept), and 8, 32 and 48 used slots over random leaves — its
+device time per call in the int16, int8 and f32 modes for each triple
+(kept rows per work item at least, work items per slot at most, columns
+per histogram block) of the sweep (learner/cuda_hist ROUND_CHUNK,
+ROUND_SLOT_ITEMS, ROUND_COLS), one JSON line per round and triple.
+`chunk: null` is the triple cuda_hist.hist_round_plan picks.
+
+hist_nat: at the same shapes (slot widths 1, 8, 32, 48), on int32 (int16
+mode) and int8 levels, with the row axis cut into a given number of
+chunks per tile (learner/cuda_hist._hist_tiling picks `chunks: null`),
+and per slot width the int8 mode against int32 channels of the same
+4-level values (`same_4_levels`: int8, int32, int32, int8), which
+isolates the channel width from the values. Then its f32 mode at the
+percentile refit's shape (one column, 255 or 31 leaf slots + trash, 256
+bins), once with every row in a slot (a first refit pass) and once with
+1 row in 64 (a later pass).
+
+Device time: CUDA events around 30 calls enqueued while the card spins
+(torch.cuda._sleep), so the card runs them back to back. Needs a CUDA
+device.
 """
 
 import json
@@ -23,6 +33,9 @@ import statistics
 import sys
 
 N_ROWS, G, BC, L = 1_001_472, 28, 256, 255
+# (kept rows per item at least, items per slot at most, columns per block)
+ROUND_SWEEP = tuple((c, n, g) for c in (512, 1024, 2048)
+                    for n in (32, 64, 128) for g in (2, 4, 8))
 
 
 def cuda_ms(torch, fn, reps: int = 10, warm: int = 3) -> float:
@@ -40,6 +53,37 @@ def cuda_ms(torch, fn, reps: int = 10, warm: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_ms(torch, fn, calls: int = 30) -> float:
+    """Device milliseconds per call: events around `calls` calls enqueued
+    behind a spin of the card; raises if the host fell behind it."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(1 << 26)
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    ahead = not start.query()
+    end.synchronize()
+    if not ahead:
+        raise RuntimeError("the host did not enqueue the calls ahead")
+    return start.elapsed_time(end) / calls
+
+
+def round_params(torch, gen, S, used, dev):
+    params = torch.zeros((S, 16), dtype=torch.int32)
+    params[:, 0] = -1
+    params[:used, 0] = torch.randperm(L, generator=gen)[:used].to(torch.int32)
+    params[:, 1] = torch.randint(0, G, (S,), generator=gen)
+    params[:, 2] = torch.randint(0, BC - 6, (S,), generator=gen)
+    params[:, 5] = torch.randint(0, 2, (S,), generator=gen)
+    params[:, 6] = 300 + torch.arange(S)
+    params[:, 8] = -1
+    return params.to(dev)
 
 
 def main() -> int:
@@ -64,56 +108,70 @@ def main() -> int:
                        torch.randint(0, 5, (N,), generator=gen),
                        torch.ones(N, dtype=torch.int64)]).to(torch.int8)
     gh8 = gh8.to(dev)
+    ghf = torch.stack([torch.randn(N, generator=gen),
+                       torch.rand(N, generator=gen) * 0.25,
+                       torch.ones(N)]).to(dev)
     pleaf = torch.randint(0, L + 1, (N,), generator=gen,
                           dtype=torch.int32).to(dev)
+    smi = torch.cuda.get_device_name(0)
     default_tiling = ch._hist_tiling
+    default_round = (ch.ROUND_CHUNK, ch.ROUND_SLOT_ITEMS, ch.ROUND_COLS)
 
     def tiling(chunks):
-        def f(G_, N_, S_, Bc_, extra, device, cell_words=1):
-            Sc, Gc, rows = default_tiling(G_, N_, S_, Bc_, extra, device,
-                                          cell_words)
+        def f(G_, N_, S_, Bc_, device):
+            Sc, Gc, rows = default_tiling(G_, N_, S_, Bc_, device)
             return Sc, Gc, (rows if chunks is None else -(-N_ // chunks))
         return f
 
-    smi = torch.cuda.get_device_name(0)
     try:
+        # ---- hist_round over (chunk, columns)
+        for name, S, used in (("first", 8, 1), ("s8", 8, 8),
+                              ("s32", 32, 32), ("s48", 48, 48)):
+            params = round_params(torch, gen, S, used, dev)
+            pl = pleaf
+            if name == "first":  # the root, split at its median bin
+                pl = torch.full_like(pleaf, int(params[0, 0]))
+                params[0, 2] = BC // 2 - 1
+            _, hslot = h.round_partition_plain(bins, pl, params, S)
+            kept = int((hslot < S).sum())
+            for trio in (None,) + ROUND_SWEEP:
+                (ch.ROUND_CHUNK, ch.ROUND_SLOT_ITEMS,
+                 ch.ROUND_COLS) = trio or default_round
+                t = {f"hist_round_{m}_ms": device_ms(torch, lambda: h.hist_round(
+                        bins, g, pl, params, S, BC, L, quant=m != "f32",
+                        levels=4 if m == "int8" else 256))
+                     for m, g in (("int16", gh), ("int8", gh8), ("f32", ghf))}
+                print(json.dumps({"device": smi, "round": name, "slots": S,
+                                  "used": used, "kept_rows": kept,
+                                  "chunk": trio and trio[0],
+                                  "slot_items": trio and trio[1],
+                                  "cols": trio and trio[2], **t}),
+                      flush=True)
+        ch.ROUND_CHUNK, ch.ROUND_SLOT_ITEMS, ch.ROUND_COLS = default_round
+        # ---- hist_nat over row chunks
         for S in (1, 8, 32, 48):
-            params = torch.zeros((S, 16), dtype=torch.int32)
-            params[:, 0] = torch.randperm(L, generator=gen)[:S].to(torch.int32)
-            params[:, 1] = torch.randint(0, G, (S,), generator=gen)
-            params[:, 2] = torch.randint(0, BC - 6, (S,), generator=gen)
-            params[:, 5] = torch.randint(0, 2, (S,), generator=gen)
-            params[:, 6] = 300 + torch.arange(S)
-            params[:, 8] = -1
-            params = params.to(dev)
             slot = (torch.zeros(N, dtype=torch.int32, device=dev) if S == 1
                     else torch.randint(0, S + 1, (N,), generator=gen,
                                        dtype=torch.int32).to(dev))
             for chunks in (None, 2, 4, 8, 16, 32, 64, 128, 489):
                 ch._hist_tiling = tiling(chunks)
-                t_round = cuda_ms(torch, lambda: h.hist_round(
-                    bins, gh, pleaf, params, S, BC, L))
                 t_nat = cuda_ms(torch, lambda: h.hist_nat_slots(
                     bins, gh, slot, S, BC))
-                t_round8 = cuda_ms(torch, lambda: h.hist_round(
-                    bins, gh8, pleaf, params, S, BC, L, levels=4))
                 t_nat8 = cuda_ms(torch, lambda: h.hist_nat_slots(
                     bins, gh8, slot, S, BC, levels=4))
                 print(json.dumps({"device": smi, "slots": S,
-                                  "chunks": chunks,
-                                  "hist_round_ms": t_round,
-                                  "hist_nat_ms": t_nat,
-                                  "hist_round_int8_ms": t_round8,
+                                  "chunks": chunks, "hist_nat_ms": t_nat,
                                   "hist_nat_int8_ms": t_nat8}), flush=True)
             # the channel width alone: the same 4-level values as int8
             # and as int32 channels, timed int8, int32, int32, int8
             ch._hist_tiling = default_tiling
+            params = round_params(torch, gen, S, S, dev)
             gh8w = gh8.to(torch.int32)
             same = {"int8": [], "int32": []}
             for name in ("int8", "int32", "int32", "int8"):
                 g_ = gh8 if name == "int8" else gh8w
                 same[name].append((
-                    cuda_ms(torch, lambda: h.hist_round(
+                    device_ms(torch, lambda: h.hist_round(
                         bins, g_, pleaf, params, S, BC, L, levels=4)),
                     cuda_ms(torch, lambda: h.hist_nat_slots(
                         bins, g_, slot, S, BC, levels=4))))
@@ -121,7 +179,7 @@ def main() -> int:
                 "device": smi, "slots": S, "chunks": None,
                 "same_4_levels": {
                     f"hist_{k}_{w}_ms": [t[i] for t in same[w]]
-                    for i, k in enumerate(("round", "nat"))
+                    for i, k in enumerate(("round_device", "nat"))
                     for w in ("int8", "int32")}}), flush=True)
         # hist_nat's f32 mode at the percentile refit's shape
         rbins = torch.randint(0, BC, (1, N), generator=gen,
@@ -141,6 +199,7 @@ def main() -> int:
                               "hist_nat_f32_ms": t}), flush=True)
     finally:
         ch._hist_tiling = default_tiling
+        ch.ROUND_CHUNK, ch.ROUND_SLOT_ITEMS, ch.ROUND_COLS = default_round
     return 0
 
 

@@ -477,3 +477,177 @@ def test_train_categorical_card_matches_cpu(dev, pins):
         assert any(line.startswith("num_cat=") and line != "num_cat=0"
                    for line in bst.model_to_string().splitlines())
     np.testing.assert_allclose(preds["cuda"], preds["cpu"], atol=1e-4)
+
+
+# ---- seg_sum: one order-free fixed-point pass
+
+
+def _seg_inputs(k, L, n, seed=0):
+    """(k, n) f32 values and leaf ids, 10% of them out of range (-1 and
+    L, both dropped)."""
+    rs = np.random.RandomState(seed)
+    vals = rs.randn(k, n).astype(np.float32)
+    idx = rs.randint(0, L, n)
+    out = rs.rand(n) < 0.1
+    idx[out] = np.where(rs.rand(int(out.sum())) < 0.5, -1, L)
+    return torch.from_numpy(vals), torch.from_numpy(idx.astype(np.int32))
+
+
+def _check_seg_sum(dev, vals, idx, L):
+    """Bitwise across two launches (2 launch counts); within 2^-23 of
+    the float64 sum plus n x 2^-38 (the fixed point's quantum at these
+    maxima); within rtol 1e-5 of the plain version's f32 index_add_ plus
+    an atol of 2^-20 x the leaf's sum of |v| (the f32 sequential sum's
+    own rounding)."""
+    v, i = vals.to(dev), idx.to(dev)
+    cuda_hist.reset_launch_counts()
+    a, b = ht.seg_sum(v, i, L), ht.seg_sum(v, i, L)
+    assert cuda_hist.LAUNCHES["seg_sum"] == 2
+    assert torch.equal(a, b)
+    ok = (idx >= 0) & (idx < L)
+    key = torch.where(ok, idx, L).long()
+    ref = torch.zeros((vals.shape[0], L + 1), dtype=torch.float64)
+    ref.index_add_(1, key, vals.double())
+    mag = torch.zeros_like(ref).index_add_(1, key, vals.double().abs())
+    ref, mag = ref[:, :L], mag[:, :L]
+    a64 = a.cpu().double()
+    n = vals.shape[1]
+    assert bool(((a64 - ref).abs() <= ref.abs() * 2.0 ** -23
+                 + n * 2.0 ** -38).all())
+    plain = ht.seg_sum_plain(vals, idx, L).double()
+    assert bool(((a64 - plain).abs() <= 1e-5 * plain.abs()
+                 + mag * 2.0 ** -20).all())
+    return a64, ref, mag
+
+
+@pytest.mark.parametrize("n", [2048, 1_001_472])
+@pytest.mark.parametrize("L", [31, 255])
+@pytest.mark.parametrize("k", [1, 2])
+def test_seg_sum_main_path_shapes(dev, k, L, n):
+    """The renewal (k = 2) and the refit's totals (k = 1) at 255 and 31
+    leaves, over 2048 rows and over the 1M rows of the main path."""
+    vals, idx = _seg_inputs(k, L, n, seed=k * L)
+    _check_seg_sum(dev, vals, idx, L)
+
+
+def test_seg_sum_every_row_in_one_leaf(dev):
+    """The hot spot: 1M rows add into one leaf's cells."""
+    vals, _ = _seg_inputs(2, 255, 1_001_472)
+    idx = torch.full((1_001_472,), 7, dtype=torch.int32)
+    a64, ref, _ = _check_seg_sum(dev, vals, idx, 255)
+    assert bool((a64[:, :7] == 0).all() and (a64[:, 8:] == 0).all())
+
+
+def test_seg_sum_values_across_24_binades(dev):
+    """Values of either sign from 2^-20 to 2^4: the sums stay within
+    2^-20 of the leaf's sum of |v| of the float64 sum."""
+    rs = np.random.RandomState(3)
+    n, L = 200_001, 31
+    vals = (np.sign(rs.randn(2, n)) * 2.0 ** rs.uniform(-20, 4, (2, n))
+            ).astype(np.float32)
+    idx = rs.randint(-1, L + 1, n).astype(np.int32)
+    a64, ref, mag = _check_seg_sum(dev, torch.from_numpy(vals),
+                                   torch.from_numpy(idx), L)
+    assert bool(((a64 - ref).abs() <= mag * 2.0 ** -20).all())
+
+
+# ---- hist_round: partition, then a histogram over the kept rows
+
+
+def _round_case(mode, case, seed=0):
+    """One round's arguments. "first": 8 slots, one used, the root (every
+    row) split near its median bin, so about half the rows are kept (the
+    slot spans many work items and flushes with atomics). "s48": 48
+    slots over 255 leaves, 2 unused, one whose leaf holds no row, one
+    whose leaf holds a single row, the rest many; every eighth slot
+    decodes an EFB bundle column. "ragged": 3 slots over 5001 rows (a
+    partial partition block). 20% of the rows have zero count (and zero
+    gradient and hessian, as every caller masks them). mode "cat" is the
+    int16 mode with every other slot categorical."""
+    rs = np.random.RandomState(seed)
+    n, S, L, G, B = {"first": (200_000, 8, 16, 7, 64),
+                     "s48": (200_000, 48, 255, 7, 64),
+                     "ragged": (5001, 3, 16, 3, 64)}[case]
+    bins = rs.randint(0, B, (G, n)).astype(np.int32)
+    cnt = (rs.rand(n) < 0.8).astype(np.float32)
+    if mode == "f32":
+        gh = ht.build_gh3(torch.from_numpy(rs.randn(n).astype(np.float32)
+                                           * cnt),
+                          torch.from_numpy(rs.rand(n).astype(np.float32)
+                                           * cnt), torch.from_numpy(cnt))
+    else:
+        levels = 127 if mode == "int8" else 256
+        gh = ht.build_gh8_quant(
+            torch.from_numpy(rs.randint(-levels // 2, levels // 2, n)
+                             .astype(np.float32) * cnt),
+            torch.from_numpy(rs.randint(0, levels, n).astype(np.float32)
+                             * cnt), torch.from_numpy(cnt),
+            int8_levels=127 if mode == "int8" else 0)
+    params = np.zeros((S, 16), np.int32)
+    params[:, 1] = rs.randint(0, G, S)
+    params[:, 2] = rs.randint(0, B, S)
+    params[:, 3] = rs.randint(0, 2, S)
+    params[:, 4] = np.where(rs.rand(S) < 0.5, B - 1, -1)
+    params[:, 5] = rs.randint(0, 2, S)
+    params[:, 6] = L + 1 + np.arange(S)
+    params[:, 8] = -1
+    if case == "first":
+        pleaf = np.zeros(n, np.int32)
+        params[:, 0] = -1
+        params[0, 0], params[0, 2] = 0, B // 2 - 1
+    else:
+        pleaf = rs.randint(0, min(L, 200), n).astype(np.int32)
+        params[:, 0] = rs.permutation(min(L, 200))[:S]
+        if case == "s48":
+            params[-2:, 0] = -1  # unused slots
+            params[0, 0] = 230  # a leaf with no row
+            params[1, 0] = 231  # a leaf with one row
+            pleaf[17] = 231
+            efb = np.arange(S) % 8 == 3
+            params[efb, 7], params[efb, 8], params[efb, 9] = 8, 2, 40
+            params[:, 6] = 240 + np.arange(S) % 15
+    cat_mask = None
+    if mode == "cat":
+        params[0::2, 10] = 1
+        cat_mask = torch.from_numpy(rs.rand(S, B) < 0.5)
+    return (torch.from_numpy(bins), gh, torch.from_numpy(pleaf),
+            torch.from_numpy(params), cat_mask, S, B, L)
+
+
+@pytest.mark.parametrize("case", ["first", "s48", "ragged"])
+@pytest.mark.parametrize("mode", ["int16", "int8", "f32", "cat"])
+def test_hist_round_kept_rows_bitwise(dev, mode, case):
+    """Every mode on a first round (one slot across many work items, the
+    atomic flush), a 48-slot round (slots of 0, 1 and many kept rows,
+    unused slots, EFB columns) and a ragged one: the histograms and the
+    row -> leaf are the plain version's bits on two launches, one
+    launch count a call, and the rows each slot's histogram read are
+    exactly its smaller child's rows of non-zero count."""
+    bins, gh, pleaf, params, cat_mask, S, B, L = _round_case(mode, case)
+    quant = mode != "f32"
+    kw = dict(quant=quant, levels=127 if mode == "int8" else 256,
+              cat_mask=None if cat_mask is None else cat_mask.to(dev))
+    args = (bins.to(dev), gh.to(dev), pleaf.to(dev), params.to(dev), S, B,
+            L)
+    cuda_hist.reset_launch_counts()
+    hk, pk = ht.hist_round(*args, **kw)
+    kept = cuda_hist._ROUND_SCRATCH[(0, cuda_hist._stream(args[0].device))]
+    rows_of = kept["work"][4:4 + S].cpu()  # the layout in hist_round.cu
+    hk2, pk2 = ht.hist_round(*args, **kw)
+    hp, pp = ht.hist_round_plain(bins, gh, pleaf, params, S, B, quant=quant,
+                                 cat_mask=cat_mask)
+    assert torch.equal(hk.cpu(), hp) and torch.equal(pk.cpu(), pp)
+    assert torch.equal(hk, hk2) and torch.equal(pk, pk2)
+    name = {"int16": "hist_round", "cat": "hist_round",
+            "int8": "hist_round_int8", "f32": "hist_round_f32"}[mode]
+    assert cuda_hist.LAUNCHES[name] == 2
+    assert cuda_hist.LAUNCHES["hist_round_cat"] == (2 if mode == "cat"
+                                                    else 0)
+    _, hslot = ht.round_partition_plain(bins, pleaf, params, S, cat_mask)
+    keep = (hslot < S) & (gh[2] != 0)
+    want = torch.bincount(hslot[keep].long(), minlength=S)[:S]
+    assert torch.equal(rows_of.long(), want)
+    if case == "s48":
+        assert want[0] == 0 and want[1] <= 1 and want[-2:].sum() == 0
+    if case == "first":
+        assert int(want[0]) > cuda_hist.ROUND_CHUNK * 8

@@ -1,10 +1,13 @@
-"""The launch decisions of the take_small and hist_nat f32 wrappers
-(learner/cuda_hist.py), which are plain Python and run without a card:
-hist_nat's f32 grid (one pass over the rows at every slot count), its
-prepass and its 16-byte loads, and take_small's grid and idx
-alignment. The kernels themselves are held against their plain
-versions in tests/test_torch_cuda.py."""
+"""The launch decisions of the kernel wrappers (learner/cuda_hist.py),
+which are plain Python and run without a card: hist_nat's f32 grid (one
+pass over the rows at every slot count), its prepass and its 16-byte
+loads; take_small's grid and idx alignment; seg_sum's grid, prepass,
+loads, tile and scratch; hist_round's partition blocks, work-list bound,
+column groups, scratch sizes and shared-memory fit, and the refusals
+beyond it. The kernels themselves are held against their plain versions
+in tests/test_torch_cuda.py."""
 
+import numpy as np
 import pytest
 
 from lightgbm_tpu_torch.learner import cuda_hist as ch
@@ -68,3 +71,133 @@ def test_take_small_idx_alignment(ptr, vec):
     """idx is read 16 bytes at a time only from a 16-byte-aligned
     pointer; an offset view takes the scalar loads."""
     assert ch.take_small_plan(N_REFIT, SMS, ptr)[1] == vec
+
+
+# ---- seg_sum (csrc/seg_sum.cu): a prepass and one pass of the sums
+
+
+def test_seg_sum_plan_at_the_renewal_shape():
+    """k = 2 channels over the 255 leaves of 1M rows: about two blocks
+    per SM walk the rows, the prepass writes one row of maxima per 4096
+    rows, the (2, 255) int64 tile is 4 KB, and the scratch holds the
+    accumulator, the done counter and the maxima."""
+    p = ch.seg_sum_plan(2, 255, N_REFIT, SMS)
+    assert p["blocks"] == 2 * SMS
+    assert p["nparts"] == -(-N_REFIT // 4096) == 245
+    assert p["vec"] and p["smem"] == 2 * 255 * 8
+    assert p["scratch_words"] == 510 + 1 + 245
+
+
+@pytest.mark.parametrize("n,blocks", [(5, 1), (2048, 2), (100_352, 98),
+                                      (N_REFIT, 2 * SMS), (10 ** 8, 2 * SMS)])
+def test_seg_sum_grid_is_sized_to_the_card(n, blocks):
+    """At most two blocks per SM, each walking many rows (not one block
+    per 2048 rows), and no block with under 1024 rows to walk."""
+    assert ch.seg_sum_plan(1, 31, n, SMS)["blocks"] == blocks
+
+
+@pytest.mark.parametrize("n,aligned,vec", [
+    (N_REFIT, True, True), (N_REFIT + 1, True, False),
+    (N_REFIT, False, False)])
+def test_seg_sum_vector_loads_need_whole_groups_and_alignment(n, aligned,
+                                                              vec):
+    assert ch.seg_sum_plan(2, 255, n, SMS, aligned)["vec"] == vec
+
+
+@pytest.mark.parametrize("k,L", [(0, 255), (4, 255), (3, 10_000),
+                                 (1, 29_000)])
+def test_seg_sum_refuses_beyond_the_kernel(k, L):
+    """1 to 3 channels, and a (k, L) int64 tile that one block's shared
+    memory holds."""
+    with pytest.raises(ValueError):
+        ch.seg_sum_plan(k, L, N_REFIT, SMS)
+
+
+def test_seg_sum_prepass_blocks_stay_within_the_maxima():
+    assert ch.seg_sum_plan(1, 31, 5, SMS)["nparts"] == 1
+    assert ch.seg_sum_plan(1, 31, 10 ** 9, SMS)["nparts"] == 256
+
+
+# ---- hist_round (csrc/hist_round.cu): a partition, then a histogram
+# over the kept rows' work items
+
+G_MAIN, BC, L_MAIN = 28, 256, 255
+
+
+def test_hist_round_plan_at_the_main_path_shape():
+    """1M rows, 28 columns, 48 slots: 489 partition blocks; the kept rows
+    cut into items of at least ROUND_CHUNK rows, at most ROUND_SLOT_ITEMS
+    a slot; 7 column groups of 4; every scratch size from the shapes."""
+    p = ch.hist_round_plan(G_MAIN, N_REFIT, 48, BC, L_MAIN)
+    assert p["nb"] == -(-N_REFIT // 2048) == 489
+    assert (p["chunk"], p["slot_items"]) == (ch.ROUND_CHUNK,
+                                             ch.ROUND_SLOT_ITEMS)
+    assert (p["gc"], p["n_cg"]) == (4, 7)
+    assert p["max_items"] == min(-(-N_REFIT // p["chunk"]) + 48,
+                                 48 * p["slot_items"])
+    assert p["state_words"] == 1 + 48 + 48 * 7
+    assert p["work_words"] == (4 + 3 * 48 + 2 * p["max_items"]
+                               + 2 * 48 * 489 + 3 * 489)
+    assert p["list_words"] == N_REFIT
+    assert p["acc_words"] == 48 * 3 * G_MAIN * BC
+
+
+@pytest.mark.parametrize("f32", [False, True])
+@pytest.mark.parametrize("has_cat", [False, True])
+@pytest.mark.parametrize("S", [1, 8, 32, 48])
+def test_hist_round_tiles_fit_two_blocks_per_sm(S, has_cat, f32):
+    """At the rounds grower's slot widths, 256 bins and 255 leaves, in
+    every mode: the partition's table, params and category sets, and the
+    histogram's tile (int32 cells, int64 in the f32 mode) beside the
+    staged row counts, leave room for at least two blocks per SM."""
+    p = ch.hist_round_plan(G_MAIN, N_REFIT, S, BC, L_MAIN, f32, has_cat)
+    assert 2 * (p["smem_hist"] + ch._SMEM_STATIC) <= 233472
+    assert 2 * (p["smem_part"] + ch._SMEM_STATIC) <= 233472
+    assert p["smem_hist"] >= 3 * p["gc"] * BC * (8 if f32 else 4)
+    assert p["gc"] * p["n_cg"] >= G_MAIN and p["gc"] <= 8
+
+
+def _items(T, chunk, slot_items):
+    return sum(max(1, min(slot_items, -(-t // chunk))) for t in T)
+
+
+@pytest.mark.parametrize("case", ["one_slot_all", "one_slot_half",
+                                  "even", "ragged", "empty", "tiny"])
+@pytest.mark.parametrize("S", [1, 8, 48])
+def test_hist_round_work_list_fits_its_bound(case, S):
+    """However the kept rows (at most N) fall over the slots, the work
+    items the partition's last block writes fit the histogram grid's
+    bound (max_items)."""
+    n = 100_000
+    rs = np.random.RandomState(S)
+    T = {"one_slot_all": [n] + [0] * (S - 1),
+         "one_slot_half": [n // 2] + [0] * (S - 1),
+         "even": [n // S] * S,
+         "ragged": list(rs.multinomial(n, np.ones(S) / S)),
+         "empty": [0] * S,
+         "tiny": [1] * S}[case]
+    p = ch.hist_round_plan(G_MAIN, n, S, BC, L_MAIN)
+    assert _items(T, p["chunk"], p["slot_items"]) <= p["max_items"]
+
+
+def test_hist_round_caps_a_large_slots_items():
+    """A first round (one slot holding half of 1M rows) takes at most
+    ROUND_SLOT_ITEMS items, so its atomic flush stays bounded."""
+    p = ch.hist_round_plan(G_MAIN, N_REFIT, 8, BC, L_MAIN)
+    assert _items([N_REFIT // 2] + [0] * 7, p["chunk"],
+                  p["slot_items"]) == p["slot_items"] + 7
+
+
+@pytest.mark.parametrize("kw", [
+    dict(N=8192 * 2048 + 1),  # more partition blocks than a block stages
+    dict(L=60_000),  # a leaf table past shared memory
+    dict(S=3000, has_cat=True),  # params and category sets past it
+    dict(Bc=20_000, f32=True),  # one column's int64 tile past it
+])
+def test_hist_round_refuses_beyond_the_fit(kw):
+    """hist_round's wrapper plans before it launches and raises
+    ValueError where the kernel's shared memory cannot hold the call."""
+    args = dict(G=G_MAIN, N=N_REFIT, S=48, Bc=BC, L=L_MAIN)
+    args.update(kw)
+    with pytest.raises(ValueError, match="kernel limit"):
+        ch.hist_round_plan(**args)
