@@ -20,9 +20,9 @@ Phases, each printed as one JSON line:
             library call that reads back from the card) and the host's
             enqueue per call (host_us). The seg_sum line (the renewal's
             k = 2 and the refit totals' k = 1 at 255 and 31 leaves, the
-            kernel and index_add_ timed in turns) and the hist_round
-            lines also give the kernel's device operations per call
-            (torch.profiler); the hist_round lines (int16, int8, f32)
+            kernel and index_add_ timed in turns), the hist, hist_slots
+            and hist_round lines also give the kernel's device operations
+            per call (torch.profiler); the hist_round lines (int16, int8, f32)
             come after the f32 paths and also run on the arguments of the
             first and the fullest round of the first tree of train,
             train_quant and train_f32; the take_small and hist_nat_f32
@@ -50,7 +50,16 @@ Phases, each printed as one JSON line:
   train_exact, train_exact_rounds, train_f32 - the same workload on the
             f32 paths (tpu_growth_mode=exact; exact + tpu_growth_rounds;
             rounds + tpu_hist_dtype=bf16x2), 1 warmup tree then 3 timed
-            trees each, with the same checks and a 1-tree profile;
+            trees each, with the same checks and a 1-tree profile; then
+            the hist_slots line (the warmup tree's fullest round of
+            train_exact_rounds) and two replay lines: hist_tree, every
+            hist call of train_exact's warmup tree (its segment bounds
+            recorded at call time), and hist_slots_tree, every round of
+            train_exact_rounds' warmup tree, each replayed on its tree's
+            final leaf-grouped matrix: every call bitwise against its
+            plain version and across two replays, the replay's device
+            time (CUDA events around it, enqueued behind a spin) beside
+            the sum of the calls' bounds, the calls and their sizes;
   train_quant - the workload with bench.py's quantized parameters
             (use_quantized_grad, 4 levels, quant_train_renew_leaf): the
             int8 modes of hist_nat and hist_round; 2 warmup then 10 timed
@@ -121,7 +130,7 @@ SOURCES = {
     "take_small": "lightgbm_tpu_torch/csrc/take_small.cu",
     "seg_sum": "lightgbm_tpu_torch/csrc/seg_sum.cu",
     "hist": "lightgbm_tpu_torch/csrc/hist.cu",
-    "hist_slots": "lightgbm_tpu_torch/csrc/hist_slots.cu",
+    "hist_slots": "lightgbm_tpu_torch/csrc/hist.cu",
     "hist_round_f32": "lightgbm_tpu_torch/csrc/hist_round.cu",
     "hist_nat_int8": "lightgbm_tpu_torch/csrc/hist_nat.cu",
     "hist_round_int8": "lightgbm_tpu_torch/csrc/hist_round.cu",
@@ -652,10 +661,12 @@ def f32_kernel_lines(torch, hist, ch, bins, gen, pleaf, params):
     b0, c0 = N_ROWS // 4, N_ROWS // 2
     bd = torch.tensor(b0, device=dev)
     cd = torch.tensor(c0, device=dev)
-    root = f32_compare(torch, lambda: hist.histogram(bins, gh, BC),
+    root_run = lambda: hist.histogram(bins, gh, BC)
+    seg_run = lambda: hist.histogram(bins, gh, BC, bd, cd, cap=c0)
+    root = f32_compare(torch, root_run,
                        lambda: hist.histogram_plain(bins, gh, BC), "hist")
     seg = f32_compare(
-        torch, lambda: hist.histogram(bins, gh, BC, bd, cd, cap=c0),
+        torch, seg_run,
         lambda: hist.histogram_plain(bins, gh, BC, b0, c0, c0), "hist(seg)")
     zero = torch.zeros(N_ROWS, dtype=torch.int32, device=dev)
     rows = int((gh[2] != 0).sum())
@@ -664,21 +675,15 @@ def f32_kernel_lines(torch, hist, ch, bins, gen, pleaf, params):
     lines["hist"] = dict(
         shape=f"bins ({G},{N_ROWS}) all rows, Bc={BC}; seg: {c0} rows",
         **root,
-        ms=cuda_ms(lambda: hist.histogram(bins, gh, BC)),
         plain_ms=cuda_ms(lambda: hist.histogram_plain(bins, gh, BC), reps=5),
         library_ms=bincount_ms(torch, bins, gh, zero, 1),
-        bound_ms=b, bound_by=bb,
-        **kernel_times(lambda: hist.histogram(bins, gh, BC)),
+        bound_ms=b, bound_by=bb, **kernel_numbers(root_run),
         seg=dict(**seg,
-                 ms=cuda_ms(lambda: hist.histogram(bins, gh, BC, bd, cd,
-                                                   cap=c0)),
                  plain_ms=cuda_ms(lambda: hist.histogram_plain(
                      bins, gh, BC, b0, c0, c0), reps=5),
                  library_ms=bincount_ms(torch, bins[:, b0:b0 + c0],
                                         gh[:, b0:b0 + c0], zero[:c0], 1),
-                 bound_ms=sb, bound_by=sbb,
-                 **kernel_times(lambda: hist.histogram(bins, gh, BC, bd, cd,
-                                                       cap=c0))))
+                 bound_ms=sb, bound_by=sbb, **kernel_numbers(seg_run)))
     # ---- hist_round, f32 mode: one full-width f32 round (S = 25)
     prm = params[:S_ROUND_F32].clone()
     prm[-1, 0] = -1  # one unused slot
@@ -839,16 +844,91 @@ def hist_slots_line(torch, hist, captured):
     rows = int((slot < S).sum())
     b, bb = bound(rows * 4 * (bins.shape[0] + 3) + S * 8
                   + S * 3 * bins.shape[0] * Bc * 4, rows * bins.shape[0] * 3)
+    run = lambda: hist.hist_slots(bins, gh, begins, counts, Bc, S)
     return dict(
         shape=(f"bins ({bins.shape[0]},{bins.shape[1]}) S={S} Bc={Bc}, "
                f"{captured['n']} segments, {rows} rows"), **res,
-        ms=cuda_ms(lambda: hist.hist_slots(bins, gh, begins, counts, Bc, S)),
         plain_ms=cuda_ms(lambda: hist.hist_slots_plain(
             bins, gh, begins, counts, Bc, S), reps=5),
         library_ms=bincount_ms(torch, bins, gh, slot, S, Bc),
-        bound_ms=b, bound_by=bb,
-        **kernel_times(lambda: hist.hist_slots(bins, gh, begins, counts, Bc,
-                                               S)))
+        bound_ms=b, bound_by=bb, **kernel_numbers(run))
+
+
+def seg_bound(rows, G_, Bc, S=1, scale_rows=0):
+    """The least time of one hist / hist_slots call (bound): each row of
+    the segments read once (G bins and 3 channels), the scale's other
+    rows' channels, the (S, 3, G, Bc) f32 output written once; 3 adds a
+    row and column."""
+    return bound(rows * 4 * (G_ + 3) + scale_rows * 12 + S * 3 * G_ * Bc * 4,
+                 rows * G_ * 3)
+
+
+def replay_numbers(torch, run, plain, name):
+    """A replay of a tree's calls (run, plain: lists of outputs): every
+    call bitwise against the plain version and across two replays, and
+    the replay's device time (CUDA events around the whole replay,
+    enqueued behind a spin of the card) and host time."""
+    a, b, p = run(), run(), plain()
+    torch.cuda.synchronize()
+    bad = [i for i, (x, y, z) in enumerate(zip(a, b, p))
+           if not (torch.equal(x, y) and torch.equal(x, z))]
+    if bad or len(a) != len(p):
+        raise AssertionError(f"{name}: calls {bad[:10]} disagree with the "
+                             "plain version or across replays")
+    dev, how = device_ms(run, calls=1)
+    if how != EVENTS_TIME:
+        raise AssertionError(f"{name}: the host could not enqueue the "
+                             "replay ahead of the card")
+    return dict(tolerance="exact (int64 fixed point on both sides)",
+                max_abs_err=0.0, bitwise_repeat=True, calls_bitwise=len(a),
+                device_ms=dev, device_time=EVENTS_TIME,
+                host_ms=host_us(run, reps=5) / 1e3)
+
+
+def hist_tree_line(torch, hist, store):
+    """Every hist call of one train_exact tree (recorded with its device
+    bounds at call time), replayed on the tree's final leaf-grouped
+    matrix: each call bitwise against histogram_plain, the replay's
+    summed device time beside the summed bound, the calls and their
+    segment sizes."""
+    from lightgbm_tpu_torch.tools.hist_tiling import (
+        replay_hist, segment_rows, size_histogram)
+
+    rows = segment_rows(store)
+    Gk, n = store["bins"].shape
+    run = lambda: replay_hist(store)
+    d = replay_numbers(torch, run,
+                       lambda: replay_hist(store, hist.histogram_plain),
+                       "hist_tree")
+    return dict(
+        shape=(f"{len(rows)} hist calls of one train_exact tree on its "
+               f"final leaf-grouped matrix ({Gk},{n}), Bc={store['Bc']}"),
+        calls=len(rows), rows=sum(rows), sizes=size_histogram(rows), **d,
+        bound_ms=sum(seg_bound(r, Gk, store["Bc"])[0] for r in rows),
+        bound_by="sum over the calls of each call's bound")
+
+
+def hist_slots_tree_line(torch, hist, store):
+    """Every hist_slots call (round) of one train_exact_rounds tree,
+    replayed on the tree's final leaf-grouped matrix, as hist_tree_line."""
+    from lightgbm_tpu_torch.tools.hist_tiling import replay_slots
+
+    Gk, n = store["bins"].shape
+    Bc = store["Bc"]
+    rows = [int(co.clamp_min(0).sum()) for _, co, _ in store["slots"]]
+    used = [int((co > 0).sum()) for _, co, _ in store["slots"]]
+    run = lambda: replay_slots(store)
+    d = replay_numbers(torch, run,
+                       lambda: replay_slots(store, hist.hist_slots_plain),
+                       "hist_slots_tree")
+    return dict(
+        shape=(f"{len(rows)} hist_slots calls of one train_exact_rounds "
+               f"tree on its final leaf-grouped matrix ({Gk},{n}), "
+               f"Bc={Bc}, S={store['slots'][0][2]}"),
+        calls=len(rows), rows_per_call=rows, used_slots_per_call=used, **d,
+        bound_ms=sum(seg_bound(r, Gk, Bc, S, n - r)[0]
+                     for r, (_, _, S) in zip(rows, store["slots"])),
+        bound_by="sum over the calls of each call's bound")
 
 
 def higgs_stream(rows: int, feats: int = 28):
@@ -1081,13 +1161,17 @@ def profile_phase(torch, bst, n_trees: int = 2, name: str = "profile"):
 
 
 def train_f32_path(torch, lgb, ch, perm, ds, vs, name, n_timed=3,
-                   capture=None, rounds_cap=None):
+                   capture=None, rounds_cap=None, seg_calls=None):
     """One f32 path on the headline workload: 1 warmup tree, n_timed
     timed trees, AUC after the first and the last tree, launches, a
     1-tree profile. With `capture`, the warmup tree also records the
     fullest hist_slots call's arguments (for its kernel line); with
     `rounds_cap`, its first and fullest hist_round calls'
-    (recording_rounds)."""
+    (recording_rounds); with `seg_calls`, every hist and hist_slots call
+    (hist_tiling.recording_seg_calls, for the hist_tree and
+    hist_slots_tree lines)."""
+    from lightgbm_tpu_torch.tools.hist_tiling import recording_seg_calls
+
     params = {"objective": "binary", "num_leaves": L, "max_bin": 255,
               "learning_rate": 0.1, "min_data_in_leaf": 20, "metric": "auc",
               "verbosity": -1, **F32_PATHS[name]}
@@ -1107,7 +1191,9 @@ def train_f32_path(torch, lgb, ch, perm, ds, vs, name, n_timed=3,
     torch.cuda.synchronize()
     try:
         with (recording_rounds(rounds_cap) if rounds_cap is not None
-              else contextlib.nullcontext()):
+              else contextlib.nullcontext()), \
+                (recording_seg_calls(seg_calls) if seg_calls is not None
+                 else contextlib.nullcontext()):
             t0 = time.perf_counter()
             bst.update()
             torch.cuda.synchronize()
@@ -1454,15 +1540,23 @@ def main() -> int:
     from lightgbm_tpu_torch.learner import permuted
 
     captured = {}
+    seg_calls = {"train_exact": {}, "train_exact_rounds": {}}
     for name in F32_PATHS:
         path_launches[name], _ = train_f32_path(
             torch, lgb, ch, permuted, ds, vs, name,
             capture=captured if name == "train_exact_rounds" else None,
-            rounds_cap=round_caps.get(name))
+            rounds_cap=round_caps.get(name), seg_calls=seg_calls.get(name))
     if not captured:
         raise AssertionError("no hist_slots call was captured")
     lines["hist_slots"] = hist_slots_line(torch, hist, captured)
     emit_kernel("hist_slots", lines["hist_slots"])
+    # ---- a whole tree's hist and hist_slots calls, replayed
+    emit({"phase": "kernel", "name": "hist_tree",
+          **hist_tree_line(torch, hist, seg_calls["train_exact"])})
+    emit({"phase": "kernel", "name": "hist_slots_tree",
+          **hist_slots_tree_line(torch, hist,
+                                 seg_calls["train_exact_rounds"])})
+    del seg_calls
 
     # ---- hist_round in each mode on its path's first and fullest rounds
     for name, path in (("hist_round", "train"), ("hist_round_int8",

@@ -1,7 +1,7 @@
 // Shared pieces of the histogram kernels (hist_nat.cu, hist_round.cu,
-// hist.cu, hist_slots.cu) and of seg_sum.cu: the layout, the tile of
-// hist_nat, hist and hist_slots (HistTile, add_row, flush_tile), and the
-// fixed point and channel loads that every one of them uses.
+// hist.cu) and of seg_sum.cu: the layout, the fixed point and channel loads
+// that every one of them uses, and the tile of hist_nat's integer modes
+// (HistTile, add_row, flush_tile).
 //
 // Layout contract (the JAX package's, kept at the port's public functions):
 //   bins  (G, N) int32, feature-major, row r of column g at bins[g * N + r]
@@ -11,14 +11,14 @@
 //         hist_nat and hist_round)
 //   out   (S, 3, G, Bc) sums, out[((s * 3 + c) * G + g) * Bc + b]
 //
-// In hist_nat, hist and hist_slots a block owns one tile of (slot chunk)
-// x (column group) x (row chunk).
-// It keeps the tile's Sc x 3 x Gc x Bc histogram in shared memory, adds
-// its rows with shared-memory atomicAdd, and flushes the non-zero cells
-// to device memory with atomicAdd. The cells are integers — int32 for
-// the integer levels, int64 fixed point for f32 values (below) — so the
-// sums are exact and the result is the same on every run whatever order
-// the atomics land in. There are no float atomics.
+// In hist_nat's integer modes a block owns one tile of (slot chunk) x
+// (column group) x (row chunk). It keeps the tile's Sc x 3 x Gc x Bc int32
+// histogram in shared memory, adds its rows with shared-memory atomicAdd,
+// and flushes the non-zero cells to device memory with atomicAdd. The
+// cells are integers, so the sums are exact and the result is the same on
+// every run whatever order the atomics land in. There are no float
+// atomics in any of the kernels: f32 values are summed as int64 fixed
+// point (below).
 //
 // Fixed point for f32 channels. Per call and channel c, with n a bound on
 // the rows any cell sums and max |value| < 2^e over the call's rows:
@@ -142,18 +142,5 @@ __device__ __forceinline__ void load_vals(const float* __restrict__ gh,
   v1 = fx_quant(gh[ld + r], k[1]);
   v2 = fx_quant(gh[2 * ld + r], k[2]);
 }
-
-// Host-side launchers, defined in hist.cu and shared by the f32 kernels:
-//   absmax: per-channel max |gh[c, r]| over rows [begin, begin + count)
-//           (range = device int32 (begin, count); nullptr = [0, n)) into
-//           absmax_bits[3] (zeroed by the caller), as f32 bit patterns
-//           (order-free atomicMax: non-negative floats order as their bits);
-//   fx_to_f32: out[i] = fixed-point cell i scaled back to f32, channel
-//           (i / (G * Bc)) % 3, over n_cells cells.
-int launch_absmax(const float* gh, int64_t ld, const int32_t* range, int n,
-                  unsigned* absmax_bits, cudaStream_t stream);
-int launch_fx_to_f32(const fx_t* acc, const unsigned* absmax_bits,
-                     int log2_rows, float* out, int64_t n_cells,
-                     int cells_per_channel, cudaStream_t stream);
 
 }  // namespace lgbm_torch

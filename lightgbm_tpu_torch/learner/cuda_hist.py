@@ -11,7 +11,7 @@ paths launch (lightgbm_tpu/learner/pallas_hist.py):
 | `take_small`     | csrc/take_small.cu | take_small_tpu / _take_kernel     |
 | `seg_sum`        | csrc/seg_sum.cu    | seg_sum_tpu / _segsum_kernel      |
 | `hist`           | csrc/hist.cu       | hist_tpu / _hist_kernel           |
-| `hist_slots`     | csrc/hist_slots.cu | hist_slots_tpu / _hist_slots_kernel |
+| `hist_slots`     | csrc/hist.cu       | hist_slots_tpu / _hist_slots_kernel |
 
 hist_round takes the round's category sets (cat_mask) on datasets with
 categorical features: every channel mode then runs its categorical
@@ -25,13 +25,13 @@ rebuilt when the sources change. Nothing here runs at import time: the
 CPU tests import this module on machines without nvcc.
 
 Each wrapper checks device, dtype, shape and contiguity, allocates the
-outputs (hist_round also keeps scratch per device and stream that it
-allocates once per size, the parts that must be zero on entry left zero
-by every call), launches on torch's current stream, raises if the C
-function reports a CUDA error, and adds one to its launch count per
-call (one count per kernel mode: the int8 modes count as hist_nat_int8
-/ hist_round_int8; a hist_round call in its categorical variant adds
-one to hist_round_cat as well).
+outputs (hist_round, hist and hist_slots also keep scratch per device
+and stream that they allocate once per size, the parts that must be
+zero on entry left zero by every call), launches on torch's current
+stream, raises if the C function reports a CUDA error, and adds one to
+its launch count per call (one count per kernel mode: the int8 modes
+count as hist_nat_int8 / hist_round_int8; a hist_round call in its
+categorical variant adds one to hist_round_cat as well).
 The plain PyTorch versions live in learner/histogram.py; nothing here
 falls back to them.
 """
@@ -164,9 +164,11 @@ def load() -> ctypes.CDLL:
         lib.lgbm_hist_round.argtypes = [I] + [P] * 11 + [I] * 12 + [P]
         lib.lgbm_take_small.argtypes = [P, P, P] + [I] * 5 + [P]
         lib.lgbm_seg_sum.argtypes = [P] * 4 + [I] * 7 + [P]
-        lib.lgbm_hist.argtypes = ([P, P, ctypes.c_longlong] + [P] * 4
-                                  + [I] * 6 + [P])
-        lib.lgbm_hist_slots.argtypes = [P] * 8 + [I] * 8 + [P]
+        L = ctypes.c_longlong
+        lib.lgbm_hist.argtypes = ([P, P, I, P, P, L, L] + [I] * 3 + [P] * 4
+                                  + [I] * 10 + [P])
+        lib.lgbm_hist_slots.argtypes = ([P, P, I, P, P, I] + [P] * 4
+                                        + [I] * 10 + [P])
         for fn in (lib.lgbm_hist_nat, lib.lgbm_hist_nat_int8,
                    lib.lgbm_hist_nat_f32, lib.lgbm_hist_round,
                    lib.lgbm_take_small, lib.lgbm_seg_sum, lib.lgbm_hist,
@@ -409,21 +411,26 @@ def hist_round_plan(G: int, N: int, S: int, Bc: int, L: int,
         list_words=N, acc_words=S * 3 * G * Bc)
 
 
-# the scratch of hist_round per (device, stream): tensors that only grow
+# the scratch of hist_round, and of hist and hist_slots, per (device,
+# stream): tensors that only grow
 _ROUND_SCRATCH: Dict[Tuple[int, int], Dict[str, torch.Tensor]] = {}
+_SEG_SCRATCH: Dict[Tuple[int, int], Dict[str, torch.Tensor]] = {}
+_ROUND_BUFS = (("state", torch.int32, True), ("work", torch.int32, False),
+               ("list", torch.int32, False), ("acc", torch.int64, True))
+_SEG_BUFS = (("state", torch.int32, True), ("work", torch.int32, False),
+             ("acc", torch.int64, True))
 
 
-def _round_scratch(dev: torch.device, stream: int,
-                   plan: dict) -> Tuple[torch.Tensor, ...]:
-    """(state, work, list, acc) for a call of this plan, allocated once
-    per size and reused: state and acc zeroed when allocated (every call
-    leaves them zero), work and list uninitialised."""
-    bufs = _ROUND_SCRATCH.setdefault((dev.index, stream), {})
+def _scratch(table: dict, dev: torch.device, stream: int, plan: dict,
+             layout) -> Tuple[torch.Tensor, ...]:
+    """The buffers of `layout` ((name, dtype, zeroed) each, sized by
+    plan[name + "_words"]) for a call of this plan, kept in table per
+    (device, stream), allocated once per size and reused: the zeroed
+    ones zeroed when allocated (every call leaves them zero), the others
+    uninitialised."""
+    bufs = table.setdefault((dev.index, stream), {})
     out = []
-    for name, dtype, zero in (("state", torch.int32, True),
-                              ("work", torch.int32, False),
-                              ("list", torch.int32, False),
-                              ("acc", torch.int64, True)):
+    for name, dtype, zero in layout:
         n = max(1, plan[name + "_words"])
         t = bufs.get(name)
         if t is None or t.numel() < n:
@@ -479,7 +486,8 @@ def hist_round(bins: torch.Tensor, gh: torch.Tensor, pleaf: torch.Tensor,
         return out.zero_(), pleaf_new.copy_(pleaf)
     plan = hist_round_plan(G, N, S, Bc, L, mode == 2, cat is not None)
     stream = _stream(dev)
-    state, work, rows, acc = _round_scratch(dev, stream, plan)
+    state, work, rows, acc = _scratch(_ROUND_SCRATCH, dev, stream, plan,
+                                      _ROUND_BUFS)
     rc = load().lgbm_hist_round(
         mode, bins.data_ptr(), gh.data_ptr(), pleaf.data_ptr(),
         params.data_ptr(), None if cat is None else cat.data_ptr(),
@@ -494,42 +502,116 @@ def hist_round(bins: torch.Tensor, gh: torch.Tensor, pleaf: torch.Tensor,
     return out, pleaf_new
 
 
-def _f32_cols(G: int, Bc: int) -> int:
-    """Columns per block of the f32 tiles (hist, hist_slots): the column
-    groups split G evenly, each a quarter of a block's shared memory at
-    most, so that several blocks share an SM."""
-    per_col = 3 * Bc * 8
-    g_max = (_MAX_SMEM // 4) // per_col
-    if g_max < 1:
+# hist and hist_slots (csrc/hist.cu): a plan launch of at least
+# SEG_PLAN_ROWS scale rows a block and at most SEG_PLAN_BLOCKS blocks,
+# then a histogram launch over (slot, chunk) items, a slot of T rows cut
+# into min(SEG_SLOT_ITEMS, ceil(T / SEG_CHUNK)) of them (at least one;
+# more items a slot where N / SEG_SLOT_ITEMS rows would pass
+# SEG_ITEM_ROWS, the most rows an item's 32-bit limbs sum exactly), and
+# column groups of at most SEG_COLS columns
+SEG_CHUNK = 2048
+SEG_SLOT_ITEMS = 32
+SEG_COLS = 1
+SEG_ITEM_ROWS = 65536
+SEG_PLAN_ROWS = 8192
+SEG_PLAN_BLOCKS = 256
+SEG_MAX_ROWS = 1 << 30  # rows of a call, at most (int32 row arithmetic)
+
+
+def _seg_plan(name: str, G: int, N: int, S: int, Bc: int,
+              scale_rows: int) -> dict:
+    G, N, S, Bc = int(G), int(N), int(S), int(Bc)
+    if N > SEG_MAX_ROWS:
+        raise ValueError(f"{name}: {N} rows exceed the {SEG_MAX_ROWS} a "
+                         "call takes (kernel limit)")
+    per_col = 9 * Bc * 4  # three uint32 limbs of three channels
+    room = _MAX_SMEM - _SMEM_STATIC
+    if per_col > room:
         raise ValueError(
-            f"num_bins={Bc} needs {per_col} B of shared memory per column; "
-            f"the f32 tiles allow {_MAX_SMEM // 4} B (kernel limit)"
-        )
-    groups = -(-G // g_max)
-    return -(-G // groups)
+            f"{name}: num_bins={Bc} needs {per_col} B of shared memory per "
+            f"column; a block has {room} B (kernel limit)")
+    n_cg = -(-G // min(SEG_COLS, room // per_col))
+    if n_cg > 65535:
+        raise ValueError(f"{name}: {G} columns need {n_cg} column groups; "
+                         "a grid takes 65535 (kernel limit)")
+    gc = -(-G // n_cg)
+    rows = min(N, scale_rows) if S == 1 else N
+    chunk = min(SEG_CHUNK, SEG_ITEM_ROWS)
+    slot_items = max(SEG_SLOT_ITEMS, -(-rows // SEG_ITEM_ROWS))
+    max_items = min(-(-rows // chunk) + S, S * slot_items)
+    if max_items > 2 ** 31 - 1:
+        raise ValueError(f"{name}: {S} slots of up to {slot_items} items "
+                         "exceed the work-list bound of 2^31 - 1 items "
+                         "(kernel limit)")
+    return dict(
+        chunk=chunk, slot_items=slot_items, gc=gc, n_cg=n_cg,
+        max_items=max_items, smem=gc * per_col,
+        plan_blocks=max(1, min(SEG_PLAN_BLOCKS,
+                               -(-min(N, scale_rows) // SEG_PLAN_ROWS))),
+        state_words=4 + S * n_cg, work_words=4 + 4 * max_items,
+        acc_words=S * 3 * G * Bc)
 
 
-def _range_tensor(begin, count, N: int, dev) -> Tuple[torch.Tensor, int]:
-    """Device int32 (begin, count) and the host bound on count."""
-    if isinstance(begin, torch.Tensor) or isinstance(count, torch.Tensor):
-        if count is None:
-            raise ValueError("a device begin needs a device count and a cap")
-        rng = torch.stack([torch.as_tensor(begin, device=dev),
-                           torch.as_tensor(count, device=dev)]
-                          ).to(torch.int32)
-        return rng, -1
-    b = int(begin)
-    c = N - b if count is None else int(count)
-    if b < 0 or c < 0 or b + c > N:
-        raise ValueError(f"rows [{b}, {b + c}) outside [0, {N})")
-    return torch.tensor([b, c], dtype=torch.int32, device=dev), c
+def hist_plan(G: int, N: int, cap: int, Bc: int) -> dict:
+    """The launches and scratch of one hist call over at most `cap` of
+    N rows, from the shapes alone; raises ValueError where the kernel
+    cannot take them. Plan: plan_blocks blocks over the segment (the
+    fixed-point scale's rows). Histogram: a grid of (max_items, n_cg)
+    blocks, each a (3, gc, Bc) tile of int64 sums kept as three uint32
+    limbs (smem bytes); a segment of T rows takes seg_items(T, plan)
+    items of at most SEG_ITEM_ROWS rows, so max_items = min(ceil(cap /
+    chunk) + 1, slot_items) bounds them. Scratch words: state (zeroed
+    once, left zeroed by every call), work and acc (int64 words)."""
+    return _seg_plan("hist", G, N, 1, Bc, cap)
+
+
+def hist_slots_plan(G: int, N: int, S: int, Bc: int) -> dict:
+    """hist_plan for one hist_slots call of S disjoint segments of N
+    rows: the scale over all N rows; the segments share at most N rows,
+    so max_items = min(ceil(N / chunk) + S, S x slot_items) bounds the
+    items."""
+    return _seg_plan("hist_slots", G, N, S, Bc, N)
+
+
+def seg_items(T: int, plan: dict) -> Tuple[int, int]:
+    """(items, rows per item) that the plan launch gives a slot of T
+    rows: max(1, min(slot_items, ceil(T / chunk))) items of ceil(T /
+    items) rows (at least 1; the last item takes the rest)."""
+    n = max(1, min(plan["slot_items"], -(-int(T) // plan["chunk"])))
+    return n, max(1, -(-int(T) // n))
+
+
+def _seg_vec(bins: torch.Tensor, gh: torch.Tensor) -> int:
+    """16-byte loads of bins and gh: N % 4 == 0 and both aligned."""
+    return int(bins.shape[1] % 4 == 0 and bins.data_ptr() % 16 == 0
+               and gh.data_ptr() % 16 == 0)
+
+
+def _scalar_arg(x, dev, name: str):
+    """(pointer, host value, width) of a row bound: a 0-dim (or
+    one-element) int32 / int64 tensor on the bins' card is read by the
+    kernel (pointer and width); a host int, or a tensor on the CPU, is
+    passed by value (pointer None)."""
+    if isinstance(x, torch.Tensor):
+        if x.numel() != 1:
+            raise ValueError(f"{name} must have one element")
+        if not x.is_cuda:
+            return None, int(x), 0
+        if x.device != dev:
+            raise ValueError(f"{name} must be on {dev}, not {x.device}")
+        if x.dtype not in (torch.int32, torch.int64):
+            raise TypeError(f"{name} must be int32 or int64, got {x.dtype}")
+        return x.data_ptr(), 0, x.element_size()
+    return None, int(x), 0
 
 
 def hist(bins: torch.Tensor, gh: torch.Tensor, num_bins: int, begin=0,
          count=None, cap: Optional[int] = None) -> torch.Tensor:
     """(G, N) bins, (3, N) f32 channels -> (3, G, Bc) f32 fixed-point sums
     over rows [begin, begin + count); begin/count host ints or device
-    0-dim tensors, cap a host bound on count (required for tensors)."""
+    0-dim int32 / int64 tensors (read by the kernel), cap a host bound on
+    count (required for a device count), which also gives the scale's
+    n."""
     from .histogram import fx_log2_rows
 
     _need(bins, "bins", torch.int32, 2)
@@ -539,26 +621,32 @@ def hist(bins: torch.Tensor, gh: torch.Tensor, num_bins: int, begin=0,
     if gh.shape != (3, N):
         raise ValueError(f"gh must be (3, {N}), got {tuple(gh.shape)}")
     dev = bins.device
-    rng, c = _range_tensor(begin, count, N, dev)
+    bp, bv, bw = _scalar_arg(begin, dev, "begin")
+    if count is None:
+        if bp is not None:
+            raise ValueError("a device begin needs a device count and a cap")
+        count = N - bv
+    cp, cv, cw = _scalar_arg(count, dev, "count")
+    if cp is None and bp is None and (bv < 0 or cv < 0 or bv + cv > N):
+        raise ValueError(f"rows [{bv}, {bv + cv}) outside [0, {N})")
     if cap is None:
-        if c < 0:
+        if cp is not None:
             raise ValueError("a device count needs a host cap")
-        cap = c
+        cap = cv
     cap = min(int(cap), N)
-    if cap <= 0:
+    if cap <= 0 or G == 0:
         return torch.zeros((3, G, Bc), dtype=torch.float32, device=dev)
-    Gc = _f32_cols(G, Bc)
-    n_groups = -(-G // Gc)
-    target = 4 * _sm_count(dev)
-    chunks = max(1, min(-(-cap // 2048), -(-target // n_groups)))
-    rows = -(-cap // chunks)
-    absmax = torch.zeros(3, dtype=torch.int32, device=dev)
-    acc = torch.zeros((3, G, Bc), dtype=torch.int64, device=dev)
+    plan = hist_plan(G, N, cap, Bc)
+    stream = _stream(dev)
+    state, work, acc = _scratch(_SEG_SCRATCH, dev, stream, plan,
+                                 _SEG_BUFS)
     out = torch.empty((3, G, Bc), dtype=torch.float32, device=dev)
-    lib = load()
-    rc = lib.lgbm_hist(bins.data_ptr(), gh.data_ptr(), N, rng.data_ptr(),
-                       absmax.data_ptr(), acc.data_ptr(), out.data_ptr(),
-                       G, Bc, Gc, rows, cap, fx_log2_rows(cap), _stream())
+    rc = load().lgbm_hist(
+        bins.data_ptr(), gh.data_ptr(), N, bp, cp, bv, cv, bw, cw, cap,
+        state.data_ptr(), work.data_ptr(), acc.data_ptr(), out.data_ptr(),
+        G, Bc, plan["chunk"], plan["slot_items"], plan["gc"], plan["n_cg"],
+        plan["max_items"], plan["plan_blocks"], fx_log2_rows(cap),
+        _seg_vec(bins, gh), stream)
     _check(rc, "hist")
     LAUNCHES["hist"] += 1
     return out
@@ -568,7 +656,8 @@ def hist_slots(bins: torch.Tensor, gh: torch.Tensor, begins: torch.Tensor,
                counts: torch.Tensor, num_bins: int,
                num_slots: int) -> torch.Tensor:
     """(G, N) leaf-grouped bins, (3, N) f32 channels, (S,) int32 disjoint
-    segments -> (S, 3, G, Bc) f32 fixed-point sums; empty slots zero."""
+    segments -> (S, 3, G, Bc) f32 fixed-point sums, the scale over all N
+    rows; empty slots zero."""
     from .histogram import fx_log2_rows
 
     _need(bins, "bins", torch.int32, 2)
@@ -584,24 +673,19 @@ def hist_slots(bins: torch.Tensor, gh: torch.Tensor, begins: torch.Tensor,
     if begins.shape[0] != S or counts.shape[0] != S:
         raise ValueError(f"begins and counts must have {S} slots")
     dev = bins.device
-    out = torch.zeros((S, 3, G, Bc), dtype=torch.float32, device=dev)
-    if N == 0 or S == 0:
-        return out
-    Gc = _f32_cols(G, Bc)
-    # rows per visit: about one visit per SM over all N rows, so the
-    # grid is a few waves once the column groups multiply it
-    per_sm = -(-N // _sm_count(dev))
-    rows = max(2048, -(-per_sm // 512) * 512)
-    max_visits = -(-N // rows) + S
-    vstart = torch.empty(S + 1, dtype=torch.int32, device=dev)
-    absmax = torch.zeros(3, dtype=torch.int32, device=dev)
-    acc = torch.zeros((S, 3, G, Bc), dtype=torch.int64, device=dev)
-    lib = load()
-    rc = lib.lgbm_hist_slots(
-        bins.data_ptr(), gh.data_ptr(), begins.data_ptr(), counts.data_ptr(),
-        vstart.data_ptr(), absmax.data_ptr(), acc.data_ptr(), out.data_ptr(),
-        G, N, S, Bc, Gc, rows, max_visits, fx_log2_rows(N), _stream(),
-    )
+    out = torch.empty((S, 3, G, Bc), dtype=torch.float32, device=dev)
+    if N == 0 or S == 0 or G == 0:
+        return out.zero_()
+    plan = hist_slots_plan(G, N, S, Bc)
+    stream = _stream(dev)
+    state, work, acc = _scratch(_SEG_SCRATCH, dev, stream, plan,
+                                 _SEG_BUFS)
+    rc = load().lgbm_hist_slots(
+        bins.data_ptr(), gh.data_ptr(), N, begins.data_ptr(),
+        counts.data_ptr(), S, state.data_ptr(), work.data_ptr(),
+        acc.data_ptr(), out.data_ptr(), G, Bc, plan["chunk"],
+        plan["slot_items"], plan["gc"], plan["n_cg"], plan["max_items"],
+        plan["plan_blocks"], fx_log2_rows(N), _seg_vec(bins, gh), stream)
     _check(rc, "hist_slots")
     LAUNCHES["hist_slots"] += 1
     return out

@@ -1,6 +1,22 @@
 """Time the port's histogram kernels over their tiling choices on one card.
 
-    python3 -m lightgbm_tpu_torch.tools.hist_tiling   (repository root)
+    python3 -m lightgbm_tpu_torch.tools.hist_tiling [seg | seg1]
+    (repository root; `seg` runs the first part alone, `seg1` only its
+    planner's pick)
+
+hist and hist_slots (the first part, `seg`): one tree of the exact
+grower at the main path's shapes (1M rows of bench.py's Higgs-like
+features, 28 columns, 255 leaves; train_exact, then train_exact_rounds)
+records every hist call (begin, count, cap) and every hist_slots call (begins,
+counts), and each sweep point replays them all on the tree's final
+leaf-grouped matrix: the summed device time of a tree's calls, so the
+sizes weigh as often as a tree asks for them. Sweep points: (rows per
+item at least, items per slot at most, columns per block) of
+learner/cuda_hist SEG_CHUNK, SEG_SLOT_ITEMS, SEG_COLS, one JSON line
+each, with single hist calls at 1,001,472, 500,736, 65,536, 8192 and
+1024 rows and an empty one (device bounds, count 0, cap 1024: the fixed
+cost of the two launches) beside the replay; `chunk: null` is the
+planner's pick. A summary line ranks the points by the replays' sum.
 
 hist_round (the partition + compacted-row histogram design): for rounds
 of the rounds grower's ladder at the main path's shapes (1,001,472 rows,
@@ -28,6 +44,7 @@ Device time: CUDA events around 30 calls enqueued while the card spins
 device.
 """
 
+import contextlib
 import json
 import statistics
 import sys
@@ -36,6 +53,10 @@ N_ROWS, G, BC, L = 1_001_472, 28, 256, 255
 # (kept rows per item at least, items per slot at most, columns per block)
 ROUND_SWEEP = tuple((c, n, g) for c in (512, 1024, 2048)
                     for n in (32, 64, 128) for g in (2, 4, 8))
+# hist / hist_slots: (rows per item, items per slot, columns per block)
+SEG_SWEEP = tuple((c, n, g) for c in (512, 1024, 2048, 4096, 8192)
+                  for n in (32, 64, 128, 256) for g in (1, 2, 4, 7, 14))
+SEG_SIZES = (1_001_472, 500_736, 65_536, 8192, 1024)
 
 
 def cuda_ms(torch, fn, reps: int = 10, warm: int = 3) -> float:
@@ -55,14 +76,14 @@ def cuda_ms(torch, fn, reps: int = 10, warm: int = 3) -> float:
     return statistics.median(times)
 
 
-def device_ms(torch, fn, calls: int = 30) -> float:
+def device_ms(torch, fn, calls: int = 30, spin: int = 1 << 26) -> float:
     """Device milliseconds per call: events around `calls` calls enqueued
     behind a spin of the card; raises if the host fell behind it."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(1 << 26)
+    torch.cuda._sleep(spin)
     start.record()
     for _ in range(calls):
         fn()
@@ -84,6 +105,165 @@ def round_params(torch, gen, S, used, dev):
     params[:, 6] = 300 + torch.arange(S)
     params[:, 8] = -1
     return params.to(dev)
+
+
+# the Higgs-like workload's parameters (bench.py:396-406) on the exact
+# grower
+EXACT_PARAMS = {"objective": "binary", "num_leaves": L, "max_bin": 255,
+                "learning_rate": 0.1, "min_data_in_leaf": 20,
+                "verbosity": -1, "tpu_growth_mode": "exact"}
+
+
+def higgs_like(rows: int, feats: int = 28):
+    """bench.py:386-395: RandomState(17) features and the binary label."""
+    import numpy as np
+
+    rs = np.random.RandomState(17)
+    X = rs.randn(rows, feats).astype(np.float32)
+    w = rs.randn(feats)
+    logits = (X[:, : feats // 2] @ w[: feats // 2]
+              + np.sin(X[:, feats // 2]) * 2.0)
+    return X, (logits + rs.randn(rows) > 0).astype(np.float32)
+
+
+@contextlib.contextmanager
+def recording_seg_calls(store):
+    """While active, keep every hist call of the exact grower
+    (store["hist"]: (begin, count, cap), device bounds cloned at call
+    time) and every hist_slots call (store["slots"]: (begins, counts, S),
+    cloned), and the matrix, channels and bins of the latest call
+    (store["bins"], ["gh"], ["Bc"]): once a tree is grown, its final
+    leaf-grouped matrix. The grower moves rows only within their leaf's
+    segment, so each recorded segment holds the same rows there."""
+    import torch
+
+    from ..learner import permuted
+
+    orig_h, orig_s = permuted.histogram, permuted.hist_slots
+
+    def clone(x):
+        return x.clone() if isinstance(x, torch.Tensor) else x
+
+    def hist(bins, gh, Bc, begin=0, count=None, cap=None):
+        store.setdefault("hist", []).append((clone(begin), clone(count), cap))
+        store.update(bins=bins, gh=gh, Bc=Bc)
+        return orig_h(bins, gh, Bc, begin, count, cap)
+
+    def slots(bins, gh, begins, counts, Bc, S):
+        store.setdefault("slots", []).append((begins.clone(), counts.clone(),
+                                              S))
+        store.update(bins=bins, gh=gh, Bc=Bc)
+        return orig_s(bins, gh, begins, counts, Bc, S)
+
+    permuted.histogram, permuted.hist_slots = hist, slots
+    try:
+        yield
+    finally:
+        permuted.histogram, permuted.hist_slots = orig_h, orig_s
+
+
+def replay_hist(store, fn=None):
+    """Every recorded hist call on the final matrix, in order, through
+    histogram.histogram (or fn with its arguments); the outputs."""
+    from ..learner import histogram as h
+
+    fn = fn or h.histogram
+    bins, gh, Bc = store["bins"], store["gh"], store["Bc"]
+    return [fn(bins, gh, Bc, b, c, cap) for b, c, cap in store["hist"]]
+
+
+def replay_slots(store, fn=None):
+    """Every recorded hist_slots call on the final matrix, in order."""
+    from ..learner import histogram as h
+
+    fn = fn or h.hist_slots
+    bins, gh, Bc = store["bins"], store["gh"], store["Bc"]
+    return [fn(bins, gh, be, co, Bc, S) for be, co, S in store["slots"]]
+
+
+def segment_rows(store):
+    """The rows of each recorded hist call (count, capped at cap), read
+    back to the host."""
+    n = store["bins"].shape[1]
+    out = []
+    for b, c, cap in store["hist"]:
+        c = n - int(b) if c is None else int(c)
+        out.append(c if cap is None else min(c, int(cap)))
+    return out
+
+
+SIZE_BINS = (0, 1024, 8192, 65_536, 524_288)
+
+
+def size_histogram(rows):
+    """Calls per segment size class, [lo, next lo) rows."""
+    hist = {}
+    for lo, hi in zip(SIZE_BINS, SIZE_BINS[1:] + (None,)):
+        key = f"{lo}+" if hi is None else f"{lo}-{hi - 1}"
+        hist[key] = sum(1 for r in rows if r >= lo and (hi is None or r < hi))
+    return hist
+
+
+def exact_trees(torch, lgb):
+    """One tree of train_exact and one of train_exact_rounds on the
+    Higgs-like workload, each with its hist and hist_slots calls recorded
+    (recording_seg_calls)."""
+    X, y = higgs_like(1_000_000)
+    ds = lgb.Dataset(X, label=y, free_raw_data=False)
+    ds.construct()
+    trees = {}
+    for name, extra in (("train_exact", {}),
+                        ("train_exact_rounds", {"tpu_growth_rounds": True})):
+        bst = lgb.Booster(dict(EXACT_PARAMS, **extra), ds)
+        store = {}
+        with recording_seg_calls(store):
+            bst.update()
+        torch.cuda.synchronize()
+        trees[name] = store
+    return trees
+
+
+def seg_part(torch, ch, h, smi, sweep=True) -> None:
+    import lightgbm_tpu_torch as lgb
+
+    trees = exact_trees(torch, lgb)
+    ex, rd = trees["train_exact"], trees["train_exact_rounds"]
+    rows = segment_rows(ex)
+    print(json.dumps({
+        "device": smi, "tree": "train_exact", "hist_calls": len(rows),
+        "rows": sum(rows), "sizes": size_histogram(rows),
+        "slots_tree": "train_exact_rounds",
+        "hist_slots_calls": len(rd["slots"]),
+        "hist_calls_rounds_tree": len(rd["hist"])}), flush=True)
+    bins, gh, Bc = ex["bins"], ex["gh"], ex["Bc"]
+    default = (ch.SEG_CHUNK, ch.SEG_SLOT_ITEMS, ch.SEG_COLS)
+    zero = torch.zeros((), dtype=torch.int64, device=bins.device)
+    results = []
+    try:
+        for trio in (None,) + (SEG_SWEEP if sweep else ()):
+            ch.SEG_CHUNK, ch.SEG_SLOT_ITEMS, ch.SEG_COLS = trio or default
+            t = dict(
+                empty_ms=device_ms(torch, lambda: h.histogram(
+                    bins, gh, Bc, zero, zero, 1024)),
+                hist_tree_ms=device_ms(torch, lambda: replay_hist(ex),
+                                       calls=1, spin=1 << 29),
+                hist_slots_tree_ms=device_ms(
+                    torch, lambda: replay_slots(rd), calls=3, spin=1 << 27),
+                sizes_ms={n: device_ms(torch, lambda: h.histogram(
+                    bins, gh, Bc, 0, n)) for n in SEG_SIZES})
+            row = {"device": smi, "chunk": trio and trio[0],
+                   "slot_items": trio and trio[1], "cols": trio and trio[2],
+                   **t}
+            results.append(row)
+            print(json.dumps(row), flush=True)
+    finally:
+        ch.SEG_CHUNK, ch.SEG_SLOT_ITEMS, ch.SEG_COLS = default
+    key = lambda r: r["hist_tree_ms"] + r["hist_slots_tree_ms"]
+    ranked = sorted(results, key=key)
+    print(json.dumps({
+        "device": smi, "summary": "hist_tree_ms + hist_slots_tree_ms",
+        "default": results[0], "default_rank": ranked.index(results[0]) + 1,
+        "points": len(results), "best": ranked[:5]}), flush=True)
 
 
 def main() -> int:
@@ -114,6 +294,9 @@ def main() -> int:
     pleaf = torch.randint(0, L + 1, (N,), generator=gen,
                           dtype=torch.int32).to(dev)
     smi = torch.cuda.get_device_name(0)
+    seg_part(torch, ch, h, smi, sweep=sys.argv[1:] != ["seg1"])
+    if sys.argv[1:] in (["seg"], ["seg1"]):
+        return 0
     default_tiling = ch._hist_tiling
     default_round = (ch.ROUND_CHUNK, ch.ROUND_SLOT_ITEMS, ch.ROUND_COLS)
 

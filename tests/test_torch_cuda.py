@@ -651,3 +651,215 @@ def test_hist_round_kept_rows_bitwise(dev, mode, case):
         assert want[0] == 0 and want[1] <= 1 and want[-2:].sum() == 0
     if case == "first":
         assert int(want[0]) > cuda_hist.ROUND_CHUNK * 8
+
+
+def _seg_state(dev):
+    """The (state, acc) scratch of hist / hist_slots on the current
+    stream: zero between calls."""
+    bufs = cuda_hist._SEG_SCRATCH[(dev.index or 0, cuda_hist._stream(dev))]
+    return bufs["state"], bufs["acc"]
+
+
+def _seg_items(dev):
+    """The work list of the last call: per slot, its items' (first row,
+    end row) in order (the layout in csrc/hist.cu seg_bufs); every item
+    record names its slot's item count."""
+    w = cuda_hist._SEG_SCRATCH[(dev.index or 0, cuda_hist._stream(dev))][
+        "work"].cpu()
+    n = int(w[0])
+    recs = w[4:4 + 4 * n].reshape(n, 4).tolist()
+    items = {}
+    for r0, r1, s, _ in recs:
+        items.setdefault(s, []).append((r0, r1))
+    assert all(len(items[s]) == nit for _, _, s, nit in recs)
+    return items
+
+
+def _check_items(items, s, begin, count, plan):
+    """Slot s of `count` rows from `begin` has seg_items(count) items of
+    at most its rows per item, tiling [begin, begin + count) in order."""
+    n, per = cuda_hist.seg_items(count, plan)
+    got = items[s]
+    assert len(got) == n
+    assert got[0][0] == begin and got[-1][1] == begin + count
+    assert all(a[1] == b[0] for a, b in zip(got, got[1:]))
+    assert all(0 <= r1 - r0 <= per for r0, r1 in got)
+
+
+def _hist_inputs(n, g=7, b=64, seed=0, counts="mask"):
+    """f32 channels as build_gh3 makes them: gradient and hessian
+    masked by the in-bag count (counts "mask": 0 / 1; "weights": other
+    values, whose fixed point fills all three limbs of a cell)."""
+    rs = np.random.RandomState(seed)
+    bins = torch.from_numpy(rs.randint(0, b, (g, n)).astype(np.int32))
+    cnt = (rs.rand(n) < 0.9).astype(np.float32)
+    if counts == "weights":
+        cnt = cnt * rs.choice([0.5, 1.0, 2.0], n).astype(np.float32)
+    gh = ht.build_gh3(torch.from_numpy(rs.randn(n).astype(np.float32) * cnt),
+                      torch.from_numpy(rs.rand(n).astype(np.float32) * cnt),
+                      torch.from_numpy(cnt))
+    return bins, gh
+
+
+@pytest.mark.parametrize("n", [200_000, 200_003])
+@pytest.mark.parametrize("seg", ["empty", "one", "2047", "2048", "2049",
+                                 "half", "root"])
+def test_hist_segments_bitwise(dev, seg, n):
+    """Segments of 0 (device bounds, cap 5), 1, 2047, 2048 and 2049 rows,
+    N/2 rows and the root, on N % 4 == 0 (16-byte loads) and N % 4 != 0:
+    the plain version's bits on two launches, 2 launches counted for 2
+    calls, the scratch left zeroed, and the work list the planner's
+    (seg_items)."""
+    bins, gh = _hist_inputs(n, seed=n % 7)
+    begin, count = {"empty": (1001, 0), "one": (77, 1),
+                    "2047": (4093, 2047), "2048": (12, 2048),
+                    "2049": (n - 2049, 2049), "half": (n // 4, n // 2),
+                    "root": (0, n)}[seg]
+    bt, gt = bins.to(dev), gh.to(dev)
+    cap = 5 if seg == "empty" else count
+    args = ((torch.tensor(begin, device=dev), torch.tensor(0, device=dev))
+            if seg == "empty" else (begin, count))
+    cuda_hist.reset_launch_counts()
+    a = ht.histogram(bt, gt, 64, *args, cap=cap)
+    b = ht.histogram(bt, gt, 64, *args, cap=cap)
+    ref = ht.histogram_plain(bins, gh, 64, begin, count, cap)
+    assert torch.equal(a, b) and torch.equal(a.cpu(), ref)
+    assert cuda_hist.LAUNCHES["hist"] == 2
+    _check_items(_seg_items(dev), 0, 0 if seg == "empty" else begin,
+                 count, cuda_hist.hist_plan(7, n, cap, 64))
+    state, acc = _seg_state(dev)
+    assert not state.any() and not acc.any()
+
+
+@pytest.mark.parametrize("kind", ["host", "int32", "int64", "cap"])
+def test_hist_bound_kinds(dev, kind):
+    """begin and count as host ints, as 0-dim int32 and int64 tensors on
+    the card (the grower's), and a cap above the count (the scale's n is
+    the cap): the plain version's bits with the same cap."""
+    n = 100_000
+    bins, gh = _hist_inputs(n, seed=3)
+    begin, count = 31_337, 20_001
+    cap = count + 5000 if kind == "cap" else count
+    bt, gt = bins.to(dev), gh.to(dev)
+    if kind == "host":
+        args = (begin, count)
+    else:
+        dt = torch.int32 if kind == "int32" else torch.int64
+        args = (torch.tensor(begin, dtype=dt, device=dev),
+                torch.tensor(count, dtype=dt, device=dev))
+    a = ht.histogram(bt, gt, 64, *args, cap=cap)
+    b = ht.histogram(bt, gt, 64, *args, cap=cap)
+    ref = ht.histogram_plain(bins, gh, 64, begin, count, cap)
+    assert torch.equal(a, b) and torch.equal(a.cpu(), ref)
+
+
+def _slot_segments(n, S, case, rs):
+    """(begins, counts) of S disjoint segments of [0, n) in random slot
+    order: "mixed" with empty and one-row slots and one slot spanning
+    several items; "grouped" 128 slots tiling half the rows, as a round
+    of the exact grower's round phase."""
+    if case == "grouped":
+        cuts = np.sort(rs.choice(np.arange(1, n // 2), S - 1, replace=False))
+        starts = np.concatenate([[0], cuts]) + n // 4
+        lens = np.diff(np.concatenate([starts, [n // 4 + n // 2]]))
+    else:
+        lens = np.zeros(S, np.int64)
+        lens[0] = 5 * cuda_hist.SEG_CHUNK + 17  # several items
+        lens[1] = lens[2] = 1  # one-row slots
+        lens[3:S // 2] = rs.randint(2, 3000, S // 2 - 3)
+        # the rest empty
+        gaps = rs.randint(0, 50, S)
+        starts = np.cumsum(np.concatenate([[0], (lens + gaps)[:-1]]))
+        assert starts[-1] + lens[-1] <= n
+    perm = rs.permutation(S)
+    return (torch.from_numpy(starts[perm].astype(np.int32)),
+            torch.from_numpy(lens[perm].astype(np.int32)))
+
+
+@pytest.mark.parametrize("case,S", [("mixed", 40), ("grouped", 128)])
+def test_hist_slots_segments_bitwise(dev, case, S):
+    """Empty slots, one-row slots, a slot of several work items (the
+    accumulator and its last item's conversion), and 128 slots tiling
+    half of a leaf-grouped matrix: the plain version's bits on two
+    launches, the work list the planner's, the scratch left zeroed."""
+    n = 200_000
+    rs = np.random.RandomState(S)
+    bins, gh = _hist_inputs(n, seed=S)
+    begins, counts = _slot_segments(n, S, case, rs)
+    args = (bins.to(dev), gh.to(dev), begins.to(dev), counts.to(dev), 64, S)
+    cuda_hist.reset_launch_counts()
+    a = ht.hist_slots(*args)
+    items = _seg_items(dev)
+    b = ht.hist_slots(*args)
+    assert cuda_hist.LAUNCHES["hist_slots"] == 2
+    ref = ht.hist_slots_plain(bins, gh, begins, counts, 64, S)
+    assert torch.equal(a, b) and torch.equal(a.cpu(), ref)
+    plan = cuda_hist.hist_slots_plan(7, n, S, 64)
+    for s in range(S):
+        _check_items(items, s, int(begins[s]) if counts[s] else 0,
+                     int(counts[s]), plan)
+    if case == "mixed":
+        assert max(len(v) for v in items.values()) > 1
+    state, acc = _seg_state(dev)
+    assert not state.any() and not acc.any()
+
+
+def test_seg_calls_in_a_row_keep_the_scratch_zeroed(dev):
+    """Calls of different shapes one after another on one stream, hist
+    and hist_slots mixed, with no reset between them: each the plain
+    version's bits, and the scratch zero after all of them."""
+    rs = np.random.RandomState(11)
+    for i, (n, g, b) in enumerate([(150_000, 7, 64), (9000, 3, 256),
+                                   (150_001, 28, 16), (4096, 1, 2),
+                                   (150_000, 7, 64)]):
+        bins, gh = _hist_inputs(n, g, b, seed=i)
+        bt, gt = bins.to(dev), gh.to(dev)
+        begin = int(rs.randint(0, n // 2))
+        count = int(rs.randint(0, n - begin))
+        out = ht.histogram(bt, gt, b, torch.tensor(begin, device=dev),
+                           torch.tensor(count, device=dev), cap=count + 3)
+        assert torch.equal(out.cpu(), ht.histogram_plain(
+            bins, gh, b, begin, count, count + 3))
+        S = 1 + i * 31
+        begins, counts = _slot_segments(n, S, "grouped", rs) if S > 1 \
+            else (torch.tensor([0], dtype=torch.int32),
+                  torch.tensor([n], dtype=torch.int32))
+        out = ht.hist_slots(bt, gt, begins.to(dev), counts.to(dev), b, S)
+        assert torch.equal(out.cpu(), ht.hist_slots_plain(
+            bins, gh, begins, counts, b, S))
+    state, acc = _seg_state(dev)
+    assert not state.any() and not acc.any()
+
+
+@pytest.mark.parametrize("counts", ["mask", "weights"])
+def test_hist_count_values(dev, counts):
+    """Counts of 0 and 1 (build_gh3's in-bag mask) and other count values
+    (weights): the plain version's bits for hist and hist_slots."""
+    n = 100_000
+    bins, gh = _hist_inputs(n, seed=5, counts=counts)
+    bt, gt = bins.to(dev), gh.to(dev)
+    out = ht.histogram(bt, gt, 64, 1000, 60_000)
+    assert torch.equal(out.cpu(), ht.histogram_plain(bins, gh, 64, 1000,
+                                                     60_000))
+    begins = torch.tensor([0, 30_000, 90_000], dtype=torch.int32)
+    cnts = torch.tensor([20_000, 50_000, 7], dtype=torch.int32)
+    out = ht.hist_slots(bt, gt, begins.to(dev), cnts.to(dev), 64, 3)
+    assert torch.equal(out.cpu(), ht.hist_slots_plain(bins, gh, begins,
+                                                      cnts, 64, 3))
+
+
+@pytest.mark.parametrize("n", [65_536 * 64 + 4, 65_536 * 80])
+def test_hist_items_of_at_most_65536_rows(dev, n):
+    """Past SEG_SLOT_ITEMS x 65536 rows a slot takes more items, so no
+    item's 32-bit limbs sum more than 65536 rows: the root of 4.2M and
+    5.2M rows of one bin (every row in one cell) against the plain
+    version."""
+    bins = torch.zeros((1, n), dtype=torch.int32)
+    cnt = torch.ones(n)
+    gh = ht.build_gh3(torch.full((n,), -0.75), torch.full((n,), 0.25), cnt)
+    plan = cuda_hist.hist_plan(1, n, n, 4)
+    items, per = cuda_hist.seg_items(n, plan)
+    assert per <= cuda_hist.SEG_ITEM_ROWS < -(-n // cuda_hist.SEG_SLOT_ITEMS)
+    out = ht.histogram(bins.to(dev), gh.to(dev), 4)
+    assert len(_seg_items(dev)[0]) == items
+    assert torch.equal(out.cpu(), ht.histogram_plain(bins, gh, 4))

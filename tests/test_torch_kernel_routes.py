@@ -4,8 +4,9 @@ pass over the rows at every slot count), its prepass and its 16-byte
 loads; take_small's grid and idx alignment; seg_sum's grid, prepass,
 loads, tile and scratch; hist_round's partition blocks, work-list bound,
 column groups, scratch sizes and shared-memory fit, and the refusals
-beyond it. The kernels themselves are held against their plain versions
-in tests/test_torch_cuda.py."""
+beyond it; hist's and hist_slots' work list (hist_plan, hist_slots_plan,
+seg_items), tiles, plan blocks and refusals. The kernels themselves are
+held against their plain versions in tests/test_torch_cuda.py."""
 
 import numpy as np
 import pytest
@@ -201,3 +202,137 @@ def test_hist_round_refuses_beyond_the_fit(kw):
     args.update(kw)
     with pytest.raises(ValueError, match="kernel limit"):
         ch.hist_round_plan(**args)
+
+
+def test_hist_plan_at_the_main_path_shape():
+    """The root of the main path (1M rows, 28 columns, 256 bins): column
+    groups of at most SEG_COLS columns, split evenly; at most
+    SEG_SLOT_ITEMS items; the plan's blocks over the rows; every scratch
+    size from the shapes."""
+    p = ch.hist_plan(G_MAIN, N_REFIT, N_REFIT, BC)
+    assert p["gc"] <= ch.SEG_COLS and p["gc"] * p["n_cg"] >= G_MAIN
+    assert (p["n_cg"] - 1) * p["gc"] < G_MAIN  # no empty column group
+    assert p["max_items"] == min(-(-N_REFIT // p["chunk"]) + 1,
+                                 p["slot_items"])
+    assert p["plan_blocks"] == min(ch.SEG_PLAN_BLOCKS,
+                                   -(-N_REFIT // ch.SEG_PLAN_ROWS))
+    assert p["smem"] == 9 * p["gc"] * BC * 4
+    assert p["state_words"] == 4 + p["n_cg"]
+    assert p["work_words"] == 4 + 4 * p["max_items"]
+    assert p["acc_words"] == 3 * G_MAIN * BC
+
+
+def test_hist_slots_plan_at_the_round_shape():
+    """A round of the exact grower's round phase at 255 leaves: S = 128
+    slots over 1M rows."""
+    p = ch.hist_slots_plan(G_MAIN, N_REFIT, 128, BC)
+    assert p["max_items"] == min(-(-N_REFIT // p["chunk"]) + 128,
+                                 128 * p["slot_items"])
+    assert p["state_words"] == 4 + 128 * p["n_cg"]
+    assert p["work_words"] == 4 + 4 * p["max_items"]
+    assert p["acc_words"] == 128 * 3 * G_MAIN * BC
+
+
+def _seg_rows(case, n, S, rs):
+    """Row counts of S disjoint segments of n rows."""
+    return {"one_slot_all": [n] + [0] * (S - 1),
+            "one_slot_half": [n // 2] + [0] * (S - 1),
+            "even": [n // S] * S,
+            "ragged": list(rs.multinomial(n, np.ones(S) / S)),
+            "tiny": [min(1, n // S)] * S}[case]
+
+
+@pytest.mark.parametrize("case", ["one_slot_all", "one_slot_half", "even",
+                                  "ragged", "tiny"])
+@pytest.mark.parametrize("S", [1, 128, 129])
+@pytest.mark.parametrize("n", [1, 2047, 2048, N_REFIT])
+def test_seg_work_list_fits_its_bound(n, S, case):
+    """However the rows fall over the slots (at most n in all), the work
+    items the plan launch writes fit the histogram grid's bound
+    (max_items); for S = 1 that is hist's plan at cap = n."""
+    rs = np.random.RandomState(S + n % 1000)
+    T = _seg_rows(case, n, S, rs)
+    assert sum(T) <= n
+    p = (ch.hist_plan(G_MAIN, n, n, BC) if S == 1
+         else ch.hist_slots_plan(G_MAIN, n, S, BC))
+    assert sum(ch.seg_items(t, p)[0] for t in T) <= p["max_items"]
+
+
+@pytest.mark.parametrize("T", [0, 1, 2, 4095, 4096, 4097, 100_000,
+                               500_736, N_REFIT])
+def test_seg_items_of_a_slot(T):
+    """A slot of T rows gets max(1, min(slot_items, ceil(T / chunk)))
+    items of ceil(T / items) rows; the items cover the T rows, each holds
+    at most SEG_ITEM_ROWS (the tile's 32-bit limbs stay exact) and, with
+    chunk >= slot_items, none of them is empty."""
+    p = ch.hist_plan(G_MAIN, N_REFIT, N_REFIT, BC)
+    n, per = ch.seg_items(T, p)
+    assert n == max(1, min(p["slot_items"], -(-T // p["chunk"])))
+    assert per == max(1, -(-T // n)) and n * per >= T
+    assert per <= ch.SEG_ITEM_ROWS
+    assert p["chunk"] >= p["slot_items"]
+    assert T == 0 or (n - 1) * per < T
+
+
+@pytest.mark.parametrize("n", [64 * 65_536, 64 * 65_536 + 1, 10_000_000,
+                               1 << 30])
+def test_seg_items_stay_within_the_limbs(n):
+    """Past SEG_SLOT_ITEMS x SEG_ITEM_ROWS rows the plan gives a slot more
+    items, so that even a slot of all n rows has items of at most
+    SEG_ITEM_ROWS rows, in hist and hist_slots."""
+    for p in (ch.hist_plan(G_MAIN, n, n, BC),
+              ch.hist_slots_plan(G_MAIN, n, 128, BC)):
+        assert p["slot_items"] == max(ch.SEG_SLOT_ITEMS,
+                                      -(-n // ch.SEG_ITEM_ROWS))
+        assert ch.seg_items(n, p)[1] <= ch.SEG_ITEM_ROWS
+
+
+@pytest.mark.parametrize("G", [1, 7, 28, 29, 64])
+@pytest.mark.parametrize("Bc", [2, 3, 64, 255, 256])
+def test_seg_tiles_fit_shared_memory(Bc, G):
+    """At 2 to 256 bins and 1 to 64 columns the (3, gc, Bc) tile (three
+    uint32 limbs a cell) fits a block's shared memory beside its static
+    part, the column groups cover G with none empty, and hist and
+    hist_slots plan the same tiles."""
+    for p in (ch.hist_plan(G, N_REFIT, 5000, Bc),
+              ch.hist_slots_plan(G, N_REFIT, 128, Bc)):
+        assert p["smem"] == 9 * p["gc"] * Bc * 4
+        assert p["smem"] + ch._SMEM_STATIC <= ch._MAX_SMEM
+        assert 1 <= p["gc"] <= ch.SEG_COLS
+        assert p["gc"] * p["n_cg"] >= G > (p["n_cg"] - 1) * p["gc"]
+
+
+@pytest.mark.parametrize("cap", [1, 8191, 8192, 8193, 500_736, N_REFIT])
+def test_hist_plan_blocks_follow_the_cap(cap):
+    """hist's plan takes the scale over the segment: about SEG_PLAN_ROWS
+    rows a block, at most SEG_PLAN_BLOCKS blocks; its item bound follows
+    the cap, not N."""
+    p = ch.hist_plan(G_MAIN, N_REFIT, cap, BC)
+    assert p["plan_blocks"] == max(1, min(ch.SEG_PLAN_BLOCKS,
+                                          -(-cap // ch.SEG_PLAN_ROWS)))
+    assert p["max_items"] == min(-(-cap // p["chunk"]) + 1,
+                                 p["slot_items"])
+
+
+@pytest.mark.parametrize("fn,kw,limit", [
+    ("hist_plan", dict(Bc=7000), "shared memory"),
+    ("hist_slots_plan", dict(Bc=6500), "shared memory"),
+    ("hist_plan", dict(N=(1 << 30) + 1), "rows"),
+    ("hist_slots_plan", dict(G=65536 * 7 + 1, Bc=256), "column groups"),
+    ("hist_slots_plan", dict(S=1 << 31), "work-list bound"),
+])
+def test_seg_plans_refuse_beyond_the_kernel(fn, kw, limit):
+    """hist's and hist_slots' wrappers plan before they launch and raise
+    ValueError, naming the limit, where the kernel cannot take the call:
+    a column's tile past shared memory, more rows than the kernel's
+    int32 row arithmetic takes, more column groups than a grid holds, a
+    work list past 2^31 - 1 items."""
+    args = dict(G=G_MAIN, N=N_REFIT, Bc=BC)
+    args.update(kw)
+    if fn == "hist_plan":
+        args["cap"] = args["N"]
+    else:
+        args["S"] = kw.get("S", 128)
+    with pytest.raises(ValueError, match="kernel limit") as e:
+        getattr(ch, fn)(**args)
+    assert limit in str(e.value)
