@@ -20,9 +20,10 @@ Phases, each printed as one JSON line:
             library call that reads back from the card) and the host's
             enqueue per call (host_us). The seg_sum line (the renewal's
             k = 2 and the refit totals' k = 1 at 255 and 31 leaves, the
-            kernel and index_add_ timed in turns), the hist, hist_slots
-            and hist_round lines also give the kernel's device operations
-            per call (torch.profiler); the hist_round lines (int16, int8, f32)
+            kernel and index_add_ timed in turns), the hist_nat,
+            hist_nat_int8, hist, hist_slots and hist_round lines also give
+            the kernel's device operations per call (torch.profiler); the
+            hist_round lines (int16, int8, f32)
             come after the f32 paths and also run on the arguments of the
             first and the fullest round of the first tree of train,
             train_quant and train_f32; the take_small and hist_nat_f32
@@ -74,7 +75,9 @@ Phases, each printed as one JSON line:
   train_l1_31 - the same at LightGBM's default 31 leaves, 1 warmup then
             2 timed trees; the hist_nat_f32 kernel line runs on the
             arguments of the first tree's first and fourth refit passes
-            of train_l1 and of train_l1_31, and the take_small line on
+            of train_l1 and of train_l1_31 (train_l1_31's first pass
+            timed twice: at the start of the line and in its place),
+            and the take_small line on
             train's validation traversal (k = 8), train's score update
             (k = 1) and train_l1's refit (k = 2), with the 1M-row
             synthetic numbers of earlier runs beside them;
@@ -340,24 +343,20 @@ def kernel_phase(torch, hist, ch):
 
     # ---- hist_nat: the root histogram (S = 1)
     slot0 = torch.zeros(N_ROWS, dtype=torch.int32, device=dev)
-    out_k = hist.hist_nat_slots(bins, gh, slot0, 1, BC)
-    out_p = hist.hist_nat_slots_plain(bins, gh, slot0, 1, BC)
-    torch.cuda.synchronize()
-    if not torch.equal(out_k, out_p):
-        raise AssertionError("hist_nat disagrees with its plain version")
+    run = lambda: hist.hist_nat_slots(bins, gh, slot0, 1, BC)
+    plain = lambda: hist.hist_nat_slots_plain(bins, gh, slot0, 1, BC)
+    res = f32_compare(torch, run, plain, "hist_nat",
+                      "exact (integer sums on both sides)")
     key, w, size = flat_key(torch, bins, gh, slot0, 1, BC)
     rows = int((gh[2] != 0).sum())
     b, bb = bound(N_ROWS * 4 * (G + 4) + 1 * 3 * G * BC * 4, rows * G * 3)
     lines["hist_nat"] = dict(
-        shape=f"bins ({G},{N_ROWS}) S=1 Bc={BC}", tolerance="exact",
-        max_abs_err=float((out_k - out_p).abs().max()),
-        ms=cuda_ms(lambda: hist.hist_nat_slots(bins, gh, slot0, 1, BC)),
-        plain_ms=cuda_ms(lambda: hist.hist_nat_slots_plain(
-            bins, gh, slot0, 1, BC), reps=10),
+        shape=f"bins ({G},{N_ROWS}) S=1 Bc={BC}", **res,
+        plain_ms=cuda_ms(plain, reps=10),
         library_ms=cuda_ms(lambda: torch.bincount(
             key, weights=w, minlength=size + 1), reps=10),
-        bound_ms=b, bound_by=bb,
-        **kernel_times(lambda: hist.hist_nat_slots(bins, gh, slot0, 1, BC)))
+        bound_ms=b, bound_by=bb, **kernel_numbers(run))
+    del key, w
 
     # ---- hist_round: one full-width round (S = 48) with random valid
     # splits; a few slots decode EFB bundle columns, two are unused
@@ -709,22 +708,16 @@ def int8_kernel_lines(torch, hist, ch, bins, gen, pleaf, params):
     exact = "exact (integer sums on both sides)"
     lines = {}
     slot0 = torch.zeros(N_ROWS, dtype=torch.int32, device=dev)
-    res = f32_compare(
-        torch, lambda: hist.hist_nat_slots(bins, gh, slot0, 1, BC, levels=4),
-        lambda: hist.hist_nat_slots_plain(bins, gh, slot0, 1, BC),
-        "hist_nat_int8", exact)
+    run = lambda: hist.hist_nat_slots(bins, gh, slot0, 1, BC, levels=4)
+    plain = lambda: hist.hist_nat_slots_plain(bins, gh, slot0, 1, BC)
+    res = f32_compare(torch, run, plain, "hist_nat_int8", exact)
     rows = int((gh[2] != 0).sum())
     b, bb = bound(N_ROWS * (4 * G + 4 + 3) + 3 * G * BC * 4, rows * G * 3)
     lines["hist_nat_int8"] = dict(
         shape=f"bins ({G},{N_ROWS}) S=1 Bc={BC}, int8 levels", **res,
-        ms=cuda_ms(lambda: hist.hist_nat_slots(bins, gh, slot0, 1, BC,
-                                               levels=4)),
-        plain_ms=cuda_ms(lambda: hist.hist_nat_slots_plain(
-            bins, gh, slot0, 1, BC), reps=5),
+        plain_ms=cuda_ms(plain, reps=5),
         library_ms=bincount_ms(torch, bins, gh, slot0, 1),
-        bound_ms=b, bound_by=bb,
-        **kernel_times(lambda: hist.hist_nat_slots(bins, gh, slot0, 1, BC,
-                                                   levels=4)))
+        bound_ms=b, bound_by=bb, **kernel_numbers(run))
     lines["hist_round_int8"] = round_shape(
         torch, hist, ch, (bins, gh, pleaf, params, S_ROUND, BC, L, None, 4),
         "hist_round_int8")
@@ -739,7 +732,13 @@ def hist_nat_f32_line(torch, hist, ch, captured):
     bins, one slot per leaf, the rows outside every bracket in the
     trash slot; in the late pass few rows remain, in few bins. Per pass:
     bitwise against the plain version and across launches, the kernel
-    and bincount in turns."""
+    and bincount in turns. train_l1_31's pass 1 is also timed at the
+    start of the line, before the other passes (`timed_first`: two
+    device-ms readings), beside its reading in place; both follow the
+    same phases of the script, a few milliseconds apart."""
+    bins, gh, slot, S, Bc = captured["train_l1_31"]["passes"][0]["args"]
+    first = [device_ms(lambda: hist.hist_nat_slots(
+        bins, gh, slot, S, Bc, quant=False))[0] for _ in range(2)]
     passes = {}
     for path, cap in captured.items():
         for i, p in ((0, 1), (1, 4)):
@@ -764,6 +763,7 @@ def hist_nat_f32_line(torch, hist, ch, captured):
                     key, weights=w, minlength=size + 1)),
                 plain_ms=cuda_ms(plain, reps=5), bound_ms=b, bound_by=bb)
             del key, w
+    passes["train_l1_31 pass1"]["timed_first"] = first
     p1 = passes["train_l1 pass1"]
     return dict(shape=p1["shape"] + " (train_l1 pass 1; the others in "
                 "passes)",

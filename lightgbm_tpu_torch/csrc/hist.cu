@@ -373,24 +373,6 @@ SegBufs seg_bufs(void* state, void* work) {
   return w;
 }
 
-// cudaFuncSetAttribute once per kernel, device and larger tile: the
-// dynamic shared memory the kernel may take, raised to `bytes` when a call
-// needs more than any call before it on this device.
-template <bool kVec>
-int allow_smem(int bytes) {
-  static int allowed[64] = {};
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return (int)e;
-  if (dev < 64 && bytes <= allowed[dev]) return 0;
-  e = cudaFuncSetAttribute(seg_hist_kernel<kVec>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           bytes);
-  if (e != cudaSuccess) return (int)e;
-  if (dev < 64) allowed[dev] = bytes;
-  return 0;
-}
-
 int launch_seg(const void* bins, const void* gh, const SegSrc& src,
                void* state, void* work, void* acc, void* out, int G, int N,
                int S, int Bc, int chunk, int slot_items, int Gc, int n_cg,
@@ -405,7 +387,9 @@ int launch_seg(const void* bins, const void* gh, const SegSrc& src,
   int err = (int)cudaGetLastError();
   if (err) return err;
   const int smem = 9 * Gc * Bc * (int)sizeof(unsigned);
-  err = vec ? allow_smem<true>(smem) : allow_smem<false>(smem);
+  err = allow_smem(vec ? (const void*)seg_hist_kernel<true>
+                       : (const void*)seg_hist_kernel<false>,
+                   smem);
   if (err) return err;
   // the histogram blocks may start (and zero their tiles) while the plan
   // runs (programmatic dependent launch)

@@ -1,7 +1,6 @@
 // Shared pieces of the histogram kernels (hist_nat.cu, hist_round.cu,
-// hist.cu) and of seg_sum.cu: the layout, the fixed point and channel loads
-// that every one of them uses, and the tile of hist_nat's integer modes
-// (HistTile, add_row, flush_tile).
+// hist.cu) and of seg_sum.cu: the layout, the fixed point and the channel
+// loads that every one of them uses.
 //
 // Layout contract (the JAX package's, kept at the port's public functions):
 //   bins  (G, N) int32, feature-major, row r of column g at bins[g * N + r]
@@ -11,14 +10,11 @@
 //         hist_nat and hist_round)
 //   out   (S, 3, G, Bc) sums, out[((s * 3 + c) * G + g) * Bc + b]
 //
-// In hist_nat's integer modes a block owns one tile of (slot chunk) x
-// (column group) x (row chunk). It keeps the tile's Sc x 3 x Gc x Bc int32
-// histogram in shared memory, adds its rows with shared-memory atomicAdd,
-// and flushes the non-zero cells to device memory with atomicAdd. The
-// cells are integers, so the sums are exact and the result is the same on
-// every run whatever order the atomics land in. There are no float
-// atomics in any of the kernels: f32 values are summed as int64 fixed
-// point (below).
+// Integer levels are summed in int32 cells (shared-memory atomics, then
+// partial tiles or an L2 accumulator): integer sums, exact and the same on
+// every run whatever order the atomics land in. There are no float atomics
+// in any of the kernels: f32 values are summed as int64 fixed point
+// (below).
 //
 // Fixed point for f32 channels. Per call and channel c, with n a bound on
 // the rows any cell sums and max |value| < 2^e over the call's rows:
@@ -38,68 +34,28 @@ namespace lgbm_torch {
 
 // Largest dynamic shared memory a block may ask for on sm_90 (227 KB).
 constexpr int kMaxSmemBytes = 232448;
-constexpr int kThreads = 512;
 
-struct HistTile {
-  int G, N, S, Bc;          // full problem
-  int Sc, Gc, rows_per_blk;  // tile extents
-  int s0, g0, r0, r1;       // this block's tile origin / row range
-};
-
-__device__ __forceinline__ HistTile make_tile(int G, int N, int S, int Bc,
-                                              int Sc, int Gc,
-                                              int rows_per_blk) {
-  HistTile t;
-  t.G = G; t.N = N; t.S = S; t.Bc = Bc;
-  t.Sc = Sc; t.Gc = Gc; t.rows_per_blk = rows_per_blk;
-  t.r0 = blockIdx.x * rows_per_blk;
-  t.r1 = min(N, t.r0 + rows_per_blk);
-  t.g0 = blockIdx.y * Gc;
-  t.s0 = blockIdx.z * Sc;
-  return t;
-}
-
-template <typename Acc>
-__device__ __forceinline__ void zero_smem(Acc* sh, int n) {
-  for (int i = threadIdx.x; i < n; i += blockDim.x) sh[i] = 0;
-}
-
-// Add row r (already known to feed histogram slot s) into the tile. Acc
-// is int (integer levels) or unsigned long long (fixed point, added in
-// two's complement).
-template <typename Acc>
-__device__ __forceinline__ void add_row(Acc* sh, const HistTile& t,
-                                        const int32_t* __restrict__ bins,
-                                        int s, int r, Acc gq, Acc hq,
-                                        Acc cq) {
-  const int sl = s - t.s0;
-  if (sl < 0 || sl >= t.Sc) return;
-  const int gn = min(t.Gc, t.G - t.g0);
-  for (int gl = 0; gl < gn; ++gl) {
-    const int b = bins[(int64_t)(t.g0 + gl) * t.N + r];
-    if (b < 0 || b >= t.Bc) continue;  // matches no bin, as a one-hot would
-    Acc* cell = sh + ((sl * 3) * t.Gc + gl) * t.Bc + b;
-    if (gq) atomicAdd(cell, gq);
-    if (hq) atomicAdd(cell + t.Gc * t.Bc, hq);
-    if (cq) atomicAdd(cell + 2 * t.Gc * t.Bc, cq);
-  }
-}
-
-template <typename Acc>
-__device__ __forceinline__ void flush_tile(const Acc* sh, const HistTile& t,
-                                           Acc* __restrict__ out) {
-  const int n = t.Sc * 3 * t.Gc * t.Bc;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const Acc v = sh[i];
-    if (v == 0) continue;
-    const int b = i % t.Bc;
-    const int gl = (i / t.Bc) % t.Gc;
-    const int c = (i / (t.Bc * t.Gc)) % 3;
-    const int sl = i / (t.Bc * t.Gc * 3);
-    const int s = t.s0 + sl, g = t.g0 + gl;
-    if (s >= t.S || g >= t.G) continue;
-    atomicAdd(out + (((int64_t)s * 3 + c) * t.G + g) * t.Bc + b, v);
-  }
+// Let kernel fn take `bytes` of dynamic shared memory on the current
+// device: cudaFuncSetAttribute once per kernel, device and larger size.
+inline int allow_smem(const void* fn, int bytes) {
+  struct Seen {
+    const void* fn;
+    int dev, bytes;
+  };
+  static Seen seen[64];
+  static int n_seen = 0;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  int i = 0;
+  while (i < n_seen && !(seen[i].fn == fn && seen[i].dev == dev)) ++i;
+  if (i < n_seen && bytes <= seen[i].bytes) return 0;
+  e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           bytes);
+  if (e != cudaSuccess) return (int)e;
+  if (i < n_seen) seen[i].bytes = bytes;
+  else if (n_seen < 64) seen[n_seen++] = Seen{fn, dev, bytes};
+  return 0;
 }
 
 // ---- fixed point (see the top of this file)

@@ -25,13 +25,15 @@ rebuilt when the sources change. Nothing here runs at import time: the
 CPU tests import this module on machines without nvcc.
 
 Each wrapper checks device, dtype, shape and contiguity, allocates the
-outputs (hist_round, hist and hist_slots also keep scratch per device
-and stream that they allocate once per size, the parts that must be
-zero on entry left zero by every call), launches on torch's current
-stream, raises if the C function reports a CUDA error, and adds one to
-its launch count per call (one count per kernel mode: the int8 modes
-count as hist_nat_int8 / hist_round_int8; a hist_round call in its
-categorical variant adds one to hist_round_cat as well).
+outputs (hist_nat's integer modes, hist_round, hist and hist_slots also
+keep scratch per device and stream that they allocate once per size,
+the parts that must be zero on entry left zero by every call; hist_nat
+runs one block a SM),
+launches on torch's current stream, raises if the C function reports a
+CUDA error, and adds one to its launch count per call (one count per
+kernel mode: the int8 modes count as hist_nat_int8 / hist_round_int8; a
+hist_round call in its categorical variant adds one to hist_round_cat
+as well).
 The plain PyTorch versions live in learner/histogram.py; nothing here
 falls back to them.
 """
@@ -158,8 +160,7 @@ def load() -> ctypes.CDLL:
             return _lib
         lib = ctypes.CDLL(str(build()))
         P, I = ctypes.c_void_p, ctypes.c_int
-        lib.lgbm_hist_nat.argtypes = [P, P, P, P] + [I] * 7 + [P]
-        lib.lgbm_hist_nat_int8.argtypes = [P, P, P, P] + [I] * 7 + [P]
+        lib.lgbm_hist_nat.argtypes = [I] + [P] * 5 + [I] * 17 + [P]
         lib.lgbm_hist_nat_f32.argtypes = [P] * 6 + [I] * 8 + [P]
         lib.lgbm_hist_round.argtypes = [I] + [P] * 11 + [I] * 12 + [P]
         lib.lgbm_take_small.argtypes = [P, P, P] + [I] * 5 + [P]
@@ -169,10 +170,9 @@ def load() -> ctypes.CDLL:
                                   + [I] * 10 + [P])
         lib.lgbm_hist_slots.argtypes = ([P, P, I, P, P, I] + [P] * 4
                                         + [I] * 10 + [P])
-        for fn in (lib.lgbm_hist_nat, lib.lgbm_hist_nat_int8,
-                   lib.lgbm_hist_nat_f32, lib.lgbm_hist_round,
-                   lib.lgbm_take_small, lib.lgbm_seg_sum, lib.lgbm_hist,
-                   lib.lgbm_hist_slots):
+        for fn in (lib.lgbm_hist_nat, lib.lgbm_hist_nat_f32,
+                   lib.lgbm_hist_round, lib.lgbm_take_small,
+                   lib.lgbm_seg_sum, lib.lgbm_hist, lib.lgbm_hist_slots):
             fn.restype = ctypes.c_int
         _lib = lib
         return lib
@@ -228,26 +228,6 @@ def check_int_range(n_rows: int, levels: int) -> None:
         )
 
 
-def _hist_tiling(G: int, N: int, S: int, Bc: int,
-                 device) -> Tuple[int, int, int]:
-    """(slots per block Sc, columns per block Gc, rows per block) for the
-    shared-memory int32 histogram tile of hist_nat's integer modes."""
-    budget = _MAX_SMEM // 4
-    per_slot = 3 * Bc
-    if budget < per_slot:
-        raise ValueError(
-            f"num_bins={Bc} needs {per_slot * 4} B of shared memory per "
-            f"slot; a block has {budget * 4} B (kernel limit)"
-        )
-    Sc = min(S, budget // per_slot)
-    Gc = max(1, min(G, budget // (Sc * per_slot)))
-    n_tiles = -(-G // Gc) * -(-S // Sc)
-    target_blocks = 4 * _sm_count(device)
-    chunks = max(1, min(-(-N // 2048), -(-target_blocks // n_tiles)))
-    rows = -(-N // chunks)
-    return Sc, Gc, rows
-
-
 def _check_hist_inputs(bins, gh, n_rows_vec, name):
     _need(bins, "bins", torch.int32, 2)
     _need(gh, "gh", torch.int8 if gh.dtype == torch.int8 else torch.int32, 2)
@@ -260,6 +240,102 @@ def _check_hist_inputs(bins, gh, n_rows_vec, name):
     return G, N
 
 
+# hist_nat's integer modes (csrc/hist_nat.cu "integer modes"): blocks of
+# NAT_THREADS threads, one a SM, walk (slot chunk, column group, row
+# split) items; a block's (Sc, 3, Bc, P) int32 tile holds as many slots
+# as NAT_TILE_BYTES of shared memory allow; with 16-byte alignment the
+# rows come through NAT_STAGES shared-memory stages of NAT_CHUNK rows
+NAT_THREADS = 1024
+NAT_TILE_BYTES = 48 * 1024
+NAT_CHUNK = 1152
+NAT_STAGES = 2
+NAT_ITEM_ROWS = (1 << 23) - 32  # rows of an item: x 256 levels < 2^31
+NAT_MIN_ITEM_ROWS = 4096  # rows that warrant a row split of their own
+
+
+def _nat_stage_bytes(chunk: int, gc: int, int8: bool) -> int:
+    """One stage of `chunk` rows (csrc/hist_nat.cu nat_stage_ints): gc
+    padded columns of bins, the slots, three channels."""
+    return 4 * (gc * (chunk + 4) + chunk + 3 * (chunk // 4 if int8
+                                                else chunk))
+
+
+def hist_nat_plan(G: int, N: int, S: int, Bc: int, sms: int,
+                  aligned: bool = True, int8: bool = False) -> dict:
+    """The launch of one call of hist_nat's integer modes, from the
+    shapes alone; raises ValueError beyond what the kernel takes. A cell
+    (slot, channel, bin) of the tile has P positions, one per lane: P =
+    32, halved until a slot's 12 x Bc x P bytes fit the block's shared
+    memory and, on the staged path (vec: 16-byte aligned inputs, N % 16
+    == 0, and all S slots in one tile, since the stages copy every row),
+    until the tile fits NAT_TILE_BYTES beside the stages; a lane takes
+    one of W (the power of two >= G, at most P) columns, so a tile holds
+    Gc <= W of them (n_cg column groups) and Sc slots (n_sc slot
+    chunks). The grid holds at most one block a SM (the cooperative
+    launch refuses a grid the card cannot hold); each tile is cut into
+    R = sms / tiles row splits (at least 1, at most one per
+    NAT_MIN_ITEM_ROWS rows, and enough that none passes NAT_ITEM_ROWS)
+    of `rows` rows, a multiple of 32. A tile of several items combines
+    through partial tiles in scratch (part: items x tcp words)."""
+    G, N, S, Bc = int(G), int(N), int(S), int(Bc)
+    if min(G, N, S, Bc) < 1:
+        raise ValueError(f"hist_nat: empty call G={G} N={N} S={S} Bc={Bc}")
+    room = _MAX_SMEM - _SMEM_STATIC
+    vec = bool(aligned and N % 16 == 0)
+
+    def layout(P, staged):
+        W = min(P, 1 << (G - 1).bit_length())
+        n_cg = -(-G // W)
+        Gc = -(-G // n_cg)
+        stages = (NAT_STAGES * _nat_stage_bytes(NAT_CHUNK, Gc, int8)
+                  if staged else 0)
+        return W, n_cg, Gc, stages
+
+    for staged in ((True, False) if vec else (False,)):
+        # the staged path's tile leaves room for its stages
+        budget = min(NAT_TILE_BYTES, room) if staged else room
+        P = 32
+        while True:
+            W, n_cg, Gc, stages = layout(P, staged)
+            tile = 12 * Bc * P
+            if tile <= budget and tile + stages <= room:
+                break
+            if P == 1:
+                break
+            P //= 2
+        # the stages copy every row: only where one tile holds every slot
+        if 12 * Bc * P + stages <= room and not (
+                staged and S * 12 * Bc * P > min(budget, room - stages)):
+            break
+    else:
+        raise ValueError(
+            f"hist_nat: num_bins={Bc} needs {12 * Bc} B of shared memory "
+            f"per slot; a block has {room} B (kernel limit)")
+    vec = staged
+    per_slot = 12 * Bc * P
+    Sc = max(1, min(S, min(budget, room - stages) // per_slot))
+    n_sc = -(-S // Sc)
+    Sc = -(-S // n_sc)
+    tiles = n_sc * n_cg
+    threads = NAT_THREADS
+    # the tile's ints rounded up to 16 bytes, then the stages
+    smem = max(16 * -(-(Sc * 3 * Bc * P) // 4) + stages, threads // 32 * 512)
+    R = max(1, min(int(sms) // tiles, -(-N // NAT_MIN_ITEM_ROWS)),
+            -(-N // NAT_ITEM_ROWS))
+    rows = -(-(-(-N // R)) // 32) * 32
+    R = -(-N // rows)
+    items = tiles * R
+    if items > 2 ** 31 - 1:
+        raise ValueError(f"hist_nat: {items} work items exceed 2^31 - 1 "
+                         "(kernel limit)")
+    tcp = -(-(Sc * 3 * Bc * Gc) // 4) * 4
+    return dict(P=P, W=W, Gc=Gc, n_cg=n_cg, Sc=Sc, n_sc=n_sc, tiles=tiles,
+                R=R, rows=rows, items=items, grid=min(items, int(sms)),
+                threads=threads, smem=smem, vec=vec,
+                chunk=NAT_CHUNK, stages=NAT_STAGES, stage_bytes=stages,
+                tcp=tcp, part_words=items * tcp if R > 1 else 0)
+
+
 def hist_nat(bins: torch.Tensor, gh: torch.Tensor, slot: torch.Tensor,
              num_slots: int, num_bins: int, levels: int) -> torch.Tensor:
     """(G, N) bins, (3, N) int32 or int8 levels, (N,) slot in [0, S]
@@ -268,17 +344,27 @@ def hist_nat(bins: torch.Tensor, gh: torch.Tensor, slot: torch.Tensor,
     G, N = _check_hist_inputs(bins, gh, slot, "slot")
     check_int_range(N, levels)
     S, Bc = int(num_slots), int(num_bins)
-    Sc, Gc, rows = _hist_tiling(G, N, S, Bc, bins.device)
-    out = torch.zeros((S, 3, G, Bc), dtype=torch.int32, device=bins.device)
-    lib = load()
+    dev = bins.device
+    out = torch.empty((S, 3, G, Bc), dtype=torch.float32, device=dev)
+    if N == 0 or out.numel() == 0:
+        return out.zero_()
     int8 = gh.dtype == torch.int8
-    fn = lib.lgbm_hist_nat_int8 if int8 else lib.lgbm_hist_nat
     name = "hist_nat_int8" if int8 else "hist_nat"
-    rc = fn(bins.data_ptr(), gh.data_ptr(), slot.data_ptr(), out.data_ptr(),
-            G, N, S, Bc, Sc, Gc, rows, _stream())
+    ptrs = (bins.data_ptr(), gh.data_ptr(), slot.data_ptr())
+    plan = hist_nat_plan(
+        G, N, S, Bc, _sm_count(dev), all(p % 16 == 0 for p in ptrs), int8)
+    part = None
+    if plan["R"] > 1:
+        part, = _scratch(_NAT_SCRATCH, dev, _stream(dev), plan, _NAT_BUFS)
+    rc = load().lgbm_hist_nat(
+        int(int8), *ptrs, out.data_ptr(),
+        None if part is None else part.data_ptr(), G, N, S, Bc, plan["P"],
+        plan["W"], plan["Gc"], plan["Sc"], plan["n_cg"], plan["R"],
+        plan["rows"], plan["grid"], plan["threads"], plan["smem"],
+        plan["chunk"], plan["stages"], int(plan["vec"]), _stream(dev))
     _check(rc, name)
     LAUNCHES[name] += 1
-    return out.to(torch.float32)
+    return out
 
 
 # hist_nat's f32 mode (csrc/hist_nat.cu "f32 mode")
@@ -415,10 +501,12 @@ def hist_round_plan(G: int, N: int, S: int, Bc: int, L: int,
 # stream): tensors that only grow
 _ROUND_SCRATCH: Dict[Tuple[int, int], Dict[str, torch.Tensor]] = {}
 _SEG_SCRATCH: Dict[Tuple[int, int], Dict[str, torch.Tensor]] = {}
+_NAT_SCRATCH: Dict[Tuple[int, int], Dict[str, torch.Tensor]] = {}
 _ROUND_BUFS = (("state", torch.int32, True), ("work", torch.int32, False),
                ("list", torch.int32, False), ("acc", torch.int64, True))
 _SEG_BUFS = (("state", torch.int32, True), ("work", torch.int32, False),
              ("acc", torch.int64, True))
+_NAT_BUFS = (("part", torch.int32, False),)
 
 
 def _scratch(table: dict, dev: torch.device, stream: int, plan: dict,

@@ -1,8 +1,8 @@
 """Time the port's histogram kernels over their tiling choices on one card.
 
-    python3 -m lightgbm_tpu_torch.tools.hist_tiling [seg | seg1]
+    python3 -m lightgbm_tpu_torch.tools.hist_tiling [seg | seg1 | nat | nat1]
     (repository root; `seg` runs the first part alone, `seg1` only its
-    planner's pick)
+    planner's pick; `nat` the hist_nat part alone, `nat1` only its pick)
 
 hist and hist_slots (the first part, `seg`): one tree of the exact
 grower at the main path's shapes (1M rows of bench.py's Higgs-like
@@ -29,15 +29,25 @@ per histogram block) of the sweep (learner/cuda_hist ROUND_CHUNK,
 ROUND_SLOT_ITEMS, ROUND_COLS), one JSON line per round and triple.
 `chunk: null` is the triple cuda_hist.hist_round_plan picks.
 
-hist_nat: at the same shapes (slot widths 1, 8, 32, 48), on int32 (int16
-mode) and int8 levels, with the row axis cut into a given number of
-chunks per tile (learner/cuda_hist._hist_tiling picks `chunks: null`),
-and per slot width the int8 mode against int32 channels of the same
-4-level values (`same_4_levels`: int8, int32, int32, int8), which
-isolates the channel width from the values. Then its f32 mode at the
-percentile refit's shape (one column, 255 or 31 leaf slots + trash, 256
-bins), once with every row in a slot (a first refit pass) and once with
-1 row in 64 (a later pass).
+hist_nat's integer modes (`nat`; `nat1` times the planner's pick
+alone): at the root's shape (1,001,472 rows, 28 columns, 256 bins, S =
+1, every row in the slot), on int32 levels (the int16 mode) and on int8
+levels of use_quantized_grad's 4 levels, the device time per call of
+each point (threads a block, tile bytes, rows a stage, stages:
+learner/cuda_hist NAT_THREADS, NAT_TILE_BYTES, NAT_CHUNK, NAT_STAGES;
+one block a SM), each output bitwise against the
+plain version; `point: null` is the planner's pick. A summary line
+ranks the points by the sum of the two modes' times at S = 1; beside it
+the pick on inputs 4 bytes off alignment (`direct`: each lane loads its
+own rows, no stages) and the pick's fixed cost (`fixed`: its root
+items of 512 rows each). Then, as checks, the pick at S = 8, 32 and
+48 (random slots, the trash slot among them), and per slot width the
+int8 mode against int32 channels of the same 4-level values
+(`same_4_levels`: int8, int32, int32, int8, for hist_round and
+hist_nat), which isolates the channel width from the values. Then its
+f32 mode at the percentile refit's shape (one column, 255 or 31 leaf
+slots + trash, 256 bins), once with every row in a slot (a first refit
+pass) and once with 1 row in 64 (a later pass).
 
 Device time: CUDA events around 30 calls enqueued while the card spins
 (torch.cuda._sleep), so the card runs them back to back. Needs a CUDA
@@ -57,6 +67,11 @@ ROUND_SWEEP = tuple((c, n, g) for c in (512, 1024, 2048)
 SEG_SWEEP = tuple((c, n, g) for c in (512, 1024, 2048, 4096, 8192)
                   for n in (32, 64, 128, 256) for g in (1, 2, 4, 7, 14))
 SEG_SIZES = (1_001_472, 500_736, 65_536, 8192, 1024)
+# hist_nat's integer modes: (threads a block, tile bytes, rows a stage,
+# stages)
+NAT_SWEEP = (tuple((t, 48 * 1024, c, 2) for t in (1024, 768, 512)
+                   for c in (896, 1024, 1152))
+             + ((1024, 200 * 1024, 512, 2), (768, 200 * 1024, 256, 4)))
 
 
 def cuda_ms(torch, fn, reps: int = 10, warm: int = 3) -> float:
@@ -266,6 +281,87 @@ def seg_part(torch, ch, h, smi, sweep=True) -> None:
         "points": len(results), "best": ranked[:5]}), flush=True)
 
 
+NAT_KNOBS = ("NAT_THREADS", "NAT_TILE_BYTES", "NAT_CHUNK", "NAT_STAGES")
+
+
+def nat_part(torch, ch, h, smi, bins, gh, gh8, sweep=True) -> None:
+    """hist_nat's integer modes over NAT_SWEEP at the root's shape, each
+    output bitwise against the plain version, ranked by the two modes'
+    summed device time; then the pick at S = 8, 32, 48."""
+    dev = bins.device
+    N = bins.shape[1]
+    slot0 = torch.zeros(N, dtype=torch.int32, device=dev)
+    default = tuple(getattr(ch, k) for k in NAT_KNOBS)
+    refs = {m: h.hist_nat_slots_plain(bins, g, slot0, 1, BC)
+            for m, g in (("int16", gh), ("int8", gh8))}
+    results = []
+    try:
+        for point in (None,) + (NAT_SWEEP if sweep else ()):
+            for k, v in zip(NAT_KNOBS, point or default):
+                setattr(ch, k, v)
+            t = {}
+            for m, g, lv in (("int16", gh, 256), ("int8", gh8, 4)):
+                run = lambda: h.hist_nat_slots(bins, g, slot0, 1, BC,
+                                               levels=lv)
+                if not torch.equal(run(), refs[m]):
+                    raise AssertionError(f"hist_nat {m} at {point} "
+                                         "disagrees with its plain version")
+                t[f"hist_nat_{m}_ms"] = device_ms(torch, run)
+            plan = ch.hist_nat_plan(G, N, 1, BC, ch._sm_count(dev))
+            row = {"device": smi, "slots": 1, "point": point,
+                   **{k: plan[k] for k in ("grid", "R", "P", "n_cg", "smem")},
+                   **t}
+            results.append(row)
+            print(json.dumps(row), flush=True)
+    finally:
+        for k, v in zip(NAT_KNOBS, default):
+            setattr(ch, k, v)
+    def offset(x):  # a copy 4 bytes (int8: 1 byte) off alignment
+        flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=dev)
+        flat[1:] = x.reshape(-1)
+        return flat[1:].view(x.shape)
+
+    ob, o16, o8, os_ = offset(bins), offset(gh), offset(gh8), offset(slot0)
+    direct = {f"hist_nat_{m}_ms": device_ms(torch, lambda: h.hist_nat_slots(
+        ob, g, os_, 1, BC, levels=lv))
+        for m, g, lv in (("int16", o16, 256), ("int8", o8, 4))}
+    del ob, o16, o8, os_
+    # the fixed cost of a call: the pick's items at the root (every block
+    # one item) over 512 rows each
+    n_small = 512 * ch.hist_nat_plan(G, N, 1, BC, ch._sm_count(dev))["R"]
+    min_rows = ch.NAT_MIN_ITEM_ROWS
+    ch.NAT_MIN_ITEM_ROWS = 512
+    sb, ss = bins[:, :n_small].contiguous(), slot0[:n_small]
+    try:
+        fixed = {f"hist_nat_{m}_ms": device_ms(
+            torch, lambda: h.hist_nat_slots(sb, g, ss, 1, BC, levels=lv))
+            for m, g, lv in (("int16", gh[:, :n_small].contiguous(), 256),
+                             ("int8", gh8[:, :n_small].contiguous(), 4))}
+    finally:
+        ch.NAT_MIN_ITEM_ROWS = min_rows
+    print(json.dumps({"device": smi, "slots": 1, "direct": direct,
+                      "fixed": dict(fixed, rows=n_small)}), flush=True)
+    key = lambda r: r["hist_nat_int16_ms"] + r["hist_nat_int8_ms"]
+    ranked = sorted(results, key=key)
+    print(json.dumps({
+        "device": smi, "summary": "hist_nat_int16_ms + hist_nat_int8_ms, S=1",
+        "default": results[0], "default_rank": ranked.index(results[0]) + 1,
+        "points": len(results), "best": ranked[:5]}), flush=True)
+    gen = torch.Generator().manual_seed(3)
+    for S in (8, 32, 48):
+        slot = torch.randint(0, S + 1, (N,), generator=gen,
+                             dtype=torch.int32).to(dev)
+        t = {}
+        for m, g, lv in (("int16", gh, 256), ("int8", gh8, 4)):
+            run = lambda: h.hist_nat_slots(bins, g, slot, S, BC, levels=lv)
+            if not torch.equal(run(), h.hist_nat_slots_plain(bins, g, slot,
+                                                             S, BC)):
+                raise AssertionError(f"hist_nat {m} S={S} disagrees")
+            t[f"hist_nat_{m}_ms"] = device_ms(torch, run)
+        print(json.dumps({"device": smi, "slots": S, "point": None, **t}),
+              flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -294,10 +390,12 @@ def main() -> int:
     pleaf = torch.randint(0, L + 1, (N,), generator=gen,
                           dtype=torch.int32).to(dev)
     smi = torch.cuda.get_device_name(0)
+    if sys.argv[1:] in (["nat"], ["nat1"]):
+        nat_part(torch, ch, h, smi, bins, gh, gh8, sys.argv[1:] == ["nat"])
+        return 0
     seg_part(torch, ch, h, smi, sweep=sys.argv[1:] != ["seg1"])
     if sys.argv[1:] in (["seg"], ["seg1"]):
         return 0
-    default_tiling = ch._hist_tiling
     default_round = (ch.ROUND_CHUNK, ch.ROUND_SLOT_ITEMS, ch.ROUND_COLS)
 
     def tiling(chunks):
@@ -331,23 +429,14 @@ def main() -> int:
                                   "cols": trio and trio[2], **t}),
                       flush=True)
         ch.ROUND_CHUNK, ch.ROUND_SLOT_ITEMS, ch.ROUND_COLS = default_round
-        # ---- hist_nat over row chunks
+        # ---- hist_nat's integer modes over their sizes
+        nat_part(torch, ch, h, smi, bins, gh, gh8)
         for S in (1, 8, 32, 48):
             slot = (torch.zeros(N, dtype=torch.int32, device=dev) if S == 1
                     else torch.randint(0, S + 1, (N,), generator=gen,
                                        dtype=torch.int32).to(dev))
-            for chunks in (None, 2, 4, 8, 16, 32, 64, 128, 489):
-                ch._hist_tiling = tiling(chunks)
-                t_nat = cuda_ms(torch, lambda: h.hist_nat_slots(
-                    bins, gh, slot, S, BC))
-                t_nat8 = cuda_ms(torch, lambda: h.hist_nat_slots(
-                    bins, gh8, slot, S, BC, levels=4))
-                print(json.dumps({"device": smi, "slots": S,
-                                  "chunks": chunks, "hist_nat_ms": t_nat,
-                                  "hist_nat_int8_ms": t_nat8}), flush=True)
             # the channel width alone: the same 4-level values as int8
             # and as int32 channels, timed int8, int32, int32, int8
-            ch._hist_tiling = default_tiling
             params = round_params(torch, gen, S, S, dev)
             gh8w = gh8.to(torch.int32)
             same = {"int8": [], "int32": []}
@@ -356,13 +445,13 @@ def main() -> int:
                 same[name].append((
                     device_ms(torch, lambda: h.hist_round(
                         bins, g_, pleaf, params, S, BC, L, levels=4)),
-                    cuda_ms(torch, lambda: h.hist_nat_slots(
+                    device_ms(torch, lambda: h.hist_nat_slots(
                         bins, g_, slot, S, BC, levels=4))))
             print(json.dumps({
-                "device": smi, "slots": S, "chunks": None,
+                "device": smi, "slots": S,
                 "same_4_levels": {
                     f"hist_{k}_{w}_ms": [t[i] for t in same[w]]
-                    for i, k in enumerate(("round_device", "nat"))
+                    for i, k in enumerate(("round_device", "nat_device"))
                     for w in ("int8", "int32")}}), flush=True)
         # hist_nat's f32 mode at the percentile refit's shape
         rbins = torch.randint(0, BC, (1, N), generator=gen,
@@ -381,7 +470,6 @@ def main() -> int:
                               f"1/{share}", "slots": S,
                               "hist_nat_f32_ms": t}), flush=True)
     finally:
-        ch._hist_tiling = default_tiling
         ch.ROUND_CHUNK, ch.ROUND_SLOT_ITEMS, ch.ROUND_COLS = default_round
     return 0
 

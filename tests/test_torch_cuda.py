@@ -863,3 +863,130 @@ def test_hist_items_of_at_most_65536_rows(dev, n):
     out = ht.histogram(bins.to(dev), gh.to(dev), 4)
     assert len(_seg_items(dev)[0]) == items
     assert torch.equal(out.cpu(), ht.histogram_plain(bins, gh, 4))
+
+
+# ---- hist_nat's integer modes (csrc/hist_nat.cu "integer modes")
+
+
+def _nat_inputs(n, g, b, S, mode, seed=0):
+    """Bins in [-2, b + 2) (some outside [0, b), which match no cell),
+    slots in [0, S] (S the trash slot), and int32 levels (gradient
+    +-128, hessian 0..256, in-bag count) or int8 levels within +-127."""
+    rs = np.random.RandomState(seed)
+    bins = torch.from_numpy(rs.randint(-2, b + 2, (g, n)).astype(np.int32))
+    slot = torch.from_numpy(rs.randint(0, S + 1, n).astype(np.int32))
+    cnt = (rs.rand(n) < 0.9).astype(np.int64)
+    if mode == "int8":
+        gh = ht.build_gh8_quant(
+            torch.from_numpy((rs.randint(-63, 64, n) * cnt).astype(np.float32)),
+            torch.from_numpy((rs.randint(0, 128, n) * cnt).astype(np.float32)),
+            torch.from_numpy(cnt.astype(np.float32)), int8_levels=127)
+        assert gh.dtype == torch.int8
+    else:
+        gh = torch.from_numpy(np.stack([rs.randint(-128, 129, n) * cnt,
+                                        rs.randint(0, 257, n) * cnt,
+                                        cnt]).astype(np.int32))
+    return bins, gh, slot
+
+
+def _offset(t):
+    """A contiguous copy of t on its device whose data starts 4 bytes (or
+    1 byte) past a 16-byte boundary: the scalar loads' path."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    flat[1:] = t.reshape(-1)
+    return flat[1:].view(t.shape)
+
+
+@pytest.mark.parametrize("layout", ["aligned", "ragged", "offset"])
+@pytest.mark.parametrize("S", [1, 4, 48, 400])
+@pytest.mark.parametrize("mode", ["int32", "int8"])
+def test_hist_nat_int_modes_bitwise(dev, mode, S, layout):
+    """int32 (the int16 mode) and int8 levels at 1, 4, 48 and 400 slots
+    (at 64 bins 400 slots are many slot chunks), with bins outside [0,
+    Bc) and rows in the trash slot: the staged path (aligned, N % 16 ==
+    0, one slot chunk), N not a multiple of 4 and a view 4 bytes off
+    alignment (each lane loads its own rows); two calls give the plain
+    version's bits,
+    counted as two launches of the mode's kernel."""
+    n = 100_003 if layout == "ragged" else 100_000
+    bins, gh, slot = _nat_inputs(n, 7, 64, S, mode, seed=S)
+    args = [bins.to(dev), gh.to(dev), slot.to(dev)]
+    if layout == "offset":
+        args = [_offset(x) for x in args]
+    plan = cuda_hist.hist_nat_plan(7, n, S, 64, cuda_hist._sm_count(dev),
+                                   all(x.data_ptr() % 16 == 0 for x in args),
+                                   mode == "int8")
+    # the staged path where the rows are aligned and the staged tile holds
+    # every slot (at 64 bins up to 2); otherwise each lane loads its own
+    assert plan["vec"] == (layout == "aligned" and S <= 2)
+    cuda_hist.reset_launch_counts()
+    lv = 127 if mode == "int8" else 256
+    a = ht.hist_nat_slots(*args, S, 64, levels=lv)
+    b = ht.hist_nat_slots(*args, S, 64, levels=lv)
+    ref = ht.hist_nat_slots_plain(bins, gh, slot, S, 64)
+    assert torch.equal(a.cpu(), ref) and torch.equal(a, b)
+    name = "hist_nat_int8" if mode == "int8" else "hist_nat"
+    assert cuda_hist.LAUNCHES[name] == 2
+    assert sum(cuda_hist.LAUNCHES.values()) == 2
+
+
+@pytest.mark.parametrize("mode", ["int32", "int8"])
+def test_hist_nat_root_shape_bitwise(dev, mode):
+    """The training path's root: 1,001,472 rows, 28 columns, 256 bins,
+    every row in the one slot but the padding's zero rows; the rows cut
+    into one split per block, combined across blocks."""
+    n = 1_001_472
+    bins, gh, _ = _nat_inputs(n, 28, 255, 1, mode, seed=7)
+    bins = bins.clamp(0, 254)
+    gh[:, -1472:] = 0
+    slot = torch.zeros(n, dtype=torch.int32)
+    plan = cuda_hist.hist_nat_plan(28, n, 1, 256, cuda_hist._sm_count(dev),
+                                   int8=mode == "int8")
+    assert plan["R"] > 1 and plan["vec"]
+    bt, gt, st = bins.to(dev), gh.to(dev), slot.to(dev)
+    lv = 127 if mode == "int8" else 256
+    a = ht.hist_nat_slots(bt, gt, st, 1, 256, levels=lv)
+    b = ht.hist_nat_slots(bt, gt, st, 1, 256, levels=lv)
+    assert torch.equal(a, b)
+    assert torch.equal(a.cpu(), ht.hist_nat_slots_plain(bins, gh, slot, 1,
+                                                        256))
+
+
+@pytest.mark.parametrize("g,b,S", [(40, 64, 3), (7, 1000, 3), (7, 5000, 2),
+                                   (1, 256, 255), (3, 2, 1), (64, 256, 1)])
+def test_hist_nat_tile_shapes_bitwise(dev, g, b, S):
+    """Tiles of other shapes: more columns than a warp (two column
+    groups), 1000 and 5000 bins (fewer positions a cell, columns sharing
+    them through the atomics; at 5000 the direct path, the stages not
+    fitting beside the tile), one column (32 replicas a warp, the
+    refit's shape), 2 bins; both modes, the plain version's bits."""
+    for mode in ("int32", "int8"):
+        bins, gh, slot = _nat_inputs(50_000, g, b, S, mode, seed=g + b)
+        out = ht.hist_nat_slots(bins.to(dev), gh.to(dev), slot.to(dev), S,
+                                b, levels=127 if mode == "int8" else 256)
+        assert torch.equal(out.cpu(), ht.hist_nat_slots_plain(bins, gh,
+                                                              slot, S, b))
+
+
+def test_hist_nat_calls_in_a_row(dev):
+    """Calls of different shapes and modes one after another on one
+    stream, sharing the partial tiles' scratch: each the plain version's
+    bits."""
+    for i, (n, g, b, S, mode) in enumerate([
+            (150_000, 7, 64, 1, "int32"), (9000, 28, 256, 4, "int8"),
+            (150_001, 40, 16, 48, "int32"), (4096, 1, 2, 1, "int8"),
+            (1_001_472, 28, 256, 1, "int8"), (150_000, 7, 64, 1, "int32")]):
+        bins, gh, slot = _nat_inputs(n, g, b, S, mode, seed=i)
+        out = ht.hist_nat_slots(bins.to(dev), gh.to(dev), slot.to(dev), S,
+                                b, levels=127 if mode == "int8" else 256)
+        assert torch.equal(out.cpu(), ht.hist_nat_slots_plain(bins, gh,
+                                                              slot, S, b))
+
+
+def test_hist_nat_no_rows(dev):
+    """A call without rows gives zeros of the output's shape."""
+    bins = torch.zeros((7, 0), dtype=torch.int32, device=dev)
+    gh = torch.zeros((3, 0), dtype=torch.int32, device=dev)
+    slot = torch.zeros(0, dtype=torch.int32, device=dev)
+    out = ht.hist_nat_slots(bins, gh, slot, 4, 64)
+    assert out.shape == (4, 3, 7, 64) and not out.any()

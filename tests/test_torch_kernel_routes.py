@@ -336,3 +336,163 @@ def test_seg_plans_refuse_beyond_the_kernel(fn, kw, limit):
     with pytest.raises(ValueError, match="kernel limit") as e:
         getattr(ch, fn)(**args)
     assert limit in str(e.value)
+
+
+# ---- hist_nat's integer modes (csrc/hist_nat.cu "integer modes"): a grid
+# sized to the card over (slot chunk, column group, row split) items
+
+
+def _nat_tile_bytes(p, Bc):
+    return p["Sc"] * 12 * Bc * p["P"]
+
+
+def test_hist_nat_plan_at_the_root_shape():
+    """The root of the int16 and int8 paths (1,001,472 rows, 28 columns,
+    256 bins, one slot): the staged path, its 48 KB tile of 16 positions
+    a cell beside two stages of 1152 rows; a lane one of 16 columns, so
+    two column groups of 14 (slot and levels read twice); one block of
+    1024 threads a SM, each taking one (column group, row split) item:
+    66 row splits a group, each cell combined from 66 partials."""
+    for int8 in (False, True):
+        p = ch.hist_nat_plan(G_MAIN, N_REFIT, 1, BC, SMS, int8=int8)
+        assert (p["P"], p["W"], p["Gc"], p["n_cg"]) == (16, 16, 14, 2)
+        assert (p["Sc"], p["n_sc"], p["tiles"]) == (1, 1, 2)
+        assert p["vec"] and (p["chunk"], p["stages"]) == (1152, 2)
+        assert p["stage_bytes"] == 2 * 4 * (
+            14 * (1152 + 4) + 1152 + 3 * (1152 // 4 if int8 else 1152))
+        assert p["smem"] == 12 * BC * 16 + p["stage_bytes"]
+        assert p["grid"] == SMS == p["items"]
+        assert p["R"] == 66 and p["rows"] == 15_200
+        assert (p["R"] - 1) * p["rows"] < N_REFIT <= p["R"] * p["rows"]
+        assert p["tcp"] == 3 * BC * 14
+        assert p["part_words"] == 132 * 3 * BC * 14
+
+
+@pytest.mark.parametrize("G", [1, 2, 7, 28, 32, 33, 64])
+@pytest.mark.parametrize("Bc", [2, 16, 64, 255, 256, 605, 1000, 5000,
+                                19_285])
+def test_hist_nat_tiles_fit_shared_memory(Bc, G):
+    """From 2 to 19,285 bins and 1 to 64 columns: the tile (Sc slots x 3
+    channels x Bc bins x P positions, int32), the row stages where the
+    staged path runs, and the reduction's staging fit the block's shared
+    memory beside its static part; P is a power of two that halves only
+    where 32 positions do not fit the budget (the staged path's
+    NAT_TILE_BYTES beside its stages, else the block; one position may
+    take the whole block); a lane's column set W is a power of two
+    within P, and the column groups (at most W columns each) cover G
+    with none empty; a block takes at most half a SM's 2048 threads."""
+    p = ch.hist_nat_plan(G, N_REFIT, 4, Bc, SMS)
+    room = ch._MAX_SMEM - ch._SMEM_STATIC
+    assert _nat_tile_bytes(p, Bc) + p["stage_bytes"] <= p["smem"] <= room
+    assert p["vec"] == (p["stage_bytes"] > 0)
+    assert p["smem"] >= ch.NAT_THREADS // 32 * 512
+    assert p["P"] in (1, 2, 4, 8, 16, 32)
+    budget = min(ch.NAT_TILE_BYTES, room) if p["vec"] else room
+    assert p["P"] == 1 or 12 * Bc * p["P"] <= budget
+    if p["P"] < 32:  # twice the positions would not fit
+        w2 = min(2 * p["P"], 1 << (G - 1).bit_length())
+        gc2 = -(-G // -(-G // w2))
+        st2 = ch.NAT_STAGES * ch._nat_stage_bytes(ch.NAT_CHUNK, gc2, False)
+        assert (12 * Bc * 2 * p["P"] > budget
+                or 12 * Bc * 2 * p["P"] + (st2 if p["vec"] else 0) > room)
+    assert p["W"] <= p["P"] and p["W"] & (p["W"] - 1) == 0
+    assert p["W"] == min(p["P"], 1 << (G - 1).bit_length())
+    assert 1 <= p["Gc"] <= p["W"]
+    assert p["Gc"] * p["n_cg"] >= G > (p["n_cg"] - 1) * p["Gc"]
+    assert p["threads"] == ch.NAT_THREADS <= 1024
+
+
+@pytest.mark.parametrize("S", [1, 4, 48, 400])
+@pytest.mark.parametrize("n", [1, 31, 4096, 100_003, N_REFIT, (1 << 24) + 5])
+def test_hist_nat_items_cover_the_rows(n, S):
+    """At every row and slot count the row splits are multiples of 32
+    rows (16-byte aligned starts), cover the N rows with none empty, and
+    give a split at most one per NAT_MIN_ITEM_ROWS rows; the slot chunks
+    cover S; the grid holds at most the card's blocks and at most one
+    block an item, so a cooperative launch fits the card."""
+    p = ch.hist_nat_plan(7, n, S, 64, SMS)
+    assert p["rows"] % 32 == 0 and p["rows"] >= 32
+    assert (p["R"] - 1) * p["rows"] < n <= p["R"] * p["rows"]
+    assert p["R"] == 1 or p["R"] <= max(-(-n // ch.NAT_MIN_ITEM_ROWS),
+                                        -(-n // ch.NAT_ITEM_ROWS))
+    assert p["Sc"] * p["n_sc"] >= S > (p["n_sc"] - 1) * p["Sc"]
+    assert p["tiles"] == p["n_sc"] * p["n_cg"]
+    assert p["items"] == p["tiles"] * p["R"]
+    assert p["grid"] == min(p["items"], SMS)
+    # the staged path where the rows allow it and the staged tile holds
+    # every slot: a slot of 64 bins at 32 positions takes 24 KB, two fit
+    # NAT_TILE_BYTES
+    assert p["vec"] == (n % 16 == 0 and S <= 2)
+    assert p["tcp"] % 4 == 0 and p["tcp"] >= p["Sc"] * 3 * 64 * p["Gc"]
+
+
+@pytest.mark.parametrize("n", [1 << 23, (1 << 23) + 1, 1 << 26, 2 ** 31 - 1])
+def test_hist_nat_items_keep_int32_cells(n):
+    """An item holds at most NAT_ITEM_ROWS = 2^23 - 32 rows, so its int32 tile
+    cells stay below 2^31 at 256 levels, at any row count the kernel's
+    int32 row arithmetic takes (the final sums are guarded by
+    check_int_range)."""
+    p = ch.hist_nat_plan(G_MAIN, n, 1, BC, SMS)
+    assert p["rows"] <= ch.NAT_ITEM_ROWS == (1 << 23) - 32
+    assert p["rows"] * 256 < 2 ** 31
+    assert p["R"] * p["rows"] >= n
+
+
+@pytest.mark.parametrize("n,levels,ok", [
+    (N_REFIT, 256, True), (N_REFIT, 127, True), (8_388_607, 256, True),
+    (8_388_608, 256, False), (16_909_320, 127, True),
+    (16_909_321, 127, False)])
+def test_hist_nat_final_sums_are_guarded(n, levels, ok):
+    """check_int_range, which the wrapper calls before it plans, refuses
+    a call whose worst-case cell sum (rows x levels) reaches 2^31."""
+    if ok:
+        ch.check_int_range(n, levels)
+    else:
+        with pytest.raises(ValueError, match="2\\^31"):
+            ch.check_int_range(n, levels)
+
+
+@pytest.mark.parametrize("n,aligned,vec", [
+    (N_REFIT, True, True), (N_REFIT + 1, True, False),
+    (N_REFIT + 4, True, False), (N_REFIT + 16, True, True),
+    (N_REFIT, False, False), (16, True, True), (8, True, False)])
+def test_hist_nat_stages_need_whole_groups_and_alignment(n, aligned, vec):
+    """The staged path copies 16 bytes at a time (16 int8 levels), so it
+    needs N % 16 == 0 (each column, slot and channel row then starts
+    aligned) and aligned inputs; otherwise each lane loads its own rows,
+    and no stage takes shared memory."""
+    for int8 in (False, True):
+        p = ch.hist_nat_plan(G_MAIN, n, 1, BC, SMS, aligned, int8)
+        assert p["vec"] == vec and (p["stage_bytes"] > 0) == vec
+
+
+@pytest.mark.parametrize("kw,limit", [
+    (dict(Bc=19_286), "shared memory"),
+    (dict(Bc=100_000), "shared memory"),
+    (dict(N=0), "empty"),
+    (dict(S=0), "empty"),
+    (dict(G=0), "empty"),
+])
+def test_hist_nat_refuses_beyond_the_kernel(kw, limit):
+    """The wrapper plans before it launches and raises ValueError where
+    the kernel cannot take the call: one slot's tile at one position a
+    cell past a block's shared memory; an empty call (the wrapper
+    answers those itself, with zeros)."""
+    args = dict(G=G_MAIN, N=N_REFIT, S=1, Bc=BC, sms=SMS)
+    args.update(kw)
+    with pytest.raises(ValueError) as e:
+        ch.hist_nat_plan(**args)
+    assert limit in str(e.value)
+    if limit == "shared memory":
+        assert "kernel limit" in str(e.value)
+
+
+def test_hist_nat_scratch_only_where_items_combine():
+    """A tile of several items combines through partial tiles (items x
+    tcp words, written whole, never zeroed); a call whose tiles are each
+    one item (many slots) writes its output directly and needs none."""
+    p = ch.hist_nat_plan(G_MAIN, N_REFIT, 1, BC, SMS)
+    assert p["R"] > 1 and p["part_words"] == p["items"] * p["tcp"]
+    q = ch.hist_nat_plan(7, 8192, 4000, 256, SMS)
+    assert q["R"] == 1 and q["tiles"] >= SMS
+    assert q["part_words"] == 0
