@@ -39,6 +39,12 @@ Phases, each printed as one JSON line:
             (bench.py's parameters), whose difference is printed and
             whose every fused round and split search is replayed on the
             CPU from the card call's inputs and must match bit for bit;
+            and the sampled runs: bagging (int16, pos / neg,
+            use_quantized_grad, regression_l1, exact), GOSS on regression
+            (int16; exact + tpu_growth_rounds), feature_fraction, early
+            stopping that fires (the same best_iteration and trees),
+            multiclassova and cross_entropy, held at 1e-4, and binary GOSS,
+            held by its AUC rising and by replay_check;
   train   - the 1M x 28, 255-leaf binary workload (bench.py:386-406) on
             the default int16 rounds path, 2 warmup trees then 10 timed
             trees: trees/s, validation AUC after tree 1 and after the last
@@ -48,6 +54,18 @@ Phases, each printed as one JSON line:
   model   - save_model -> Booster(model_file=...) -> identical predictions
             on 1000 validation rows; host predictions match the scores
             the card accumulated;
+  train_bag, train_goss - the workload with bagging (0.8 every tree) and
+            feature_fraction 0.8, and with GOSS (top_rate 0.2, other_rate
+            0.1: 11 trees before it samples): 2 warmup then 10 timed
+            sampled trees, trees/s, AUC after the first sampled and the
+            last tree, the rows in each tree's sample (bagging's counted
+            against k = round(0.8 * rows) and the ties at its threshold,
+            exactly; one bag drawn again on the CPU must be the same
+            bits), features per tree, launches per tree, a 1-tree profile;
+  train_continue - init_model = the model phase's file: the seeded
+            validation scores against Booster(model_file=...)'s raw
+            predictions (1e-5), then 3 trees with bagging, early stopping
+            on validation AUC, record_evaluation and reset_parameter;
   train_exact, train_exact_rounds, train_f32 - the same workload on the
             f32 paths (tpu_growth_mode=exact; exact + tpu_growth_rounds;
             rounds + tpu_hist_dtype=bf16x2), 1 warmup tree then 3 timed
@@ -426,7 +444,8 @@ def kernel_phase(torch, hist, ch):
     lines.update(int8_kernel_lines(torch, hist, ch, bins, gen, pleaf,
                                    params))
     for name, d in lines.items():
-        if not name.startswith("hist_round"):  # after the captured rounds
+        # hist_round and hist_nat come after the captured calls
+        if not name.startswith("hist_round") and name != "hist_nat":
             emit_kernel(name, d)
     return lines, cat_synth, take_synth
 
@@ -490,13 +509,16 @@ def round_shape(torch, hist, ch, args, name, library=True):
     Gk, n = bins.shape
     n_split = int(torch.isin(pleaf, prm[:, 0][prm[:, 0] >= 0]).sum())
     small = hslot < S
-    n_kept = int((small & (gh[2] != 0)).sum())
+    kept = small & (gh[2] != 0)
+    n_kept = int(kept.sum())
+    kept_per_slot = torch.bincount(hslot[kept].long(), minlength=S)[:S]
     words = 0 if cat_mask is None else S * -(-Bc // 32)
     b, bb = round_bound(torch, bins, gh, n_split, n_kept, S, Bc, words)
     return dict(
         shape=f"bins ({Gk},{n}) S={S} Bc={Bc}", **res,
         used_slots=int((prm[:, 0] >= 0).sum()), n_split=n_split,
         n_small=int(small.sum()), n_kept=n_kept,
+        kept_per_slot=kept_per_slot.tolist(),
         categorical_slots=int((prm[:, 10] != 0).sum()),
         **kernel_numbers(run), plain_ms=cuda_ms(plain, reps=5),
         library_ms=(bincount_ms(torch, bins, gh, hslot, S, Bc) if library
@@ -590,6 +612,46 @@ def captured_round_shapes(torch, hist, ch, store, path):
         d["shape"] += f", round {cap['round']} of {path}'s first tree"
         out[f"{path}_{which}"] = d
     return out
+
+
+@contextlib.contextmanager
+def recording_root(store):
+    """While active, keep the arguments of the rounds grower's first root
+    histogram (rounds.hist_nat_slots): store["args"] = (bins, gh, slot,
+    S, Bc, levels)."""
+    from lightgbm_tpu_torch.learner import rounds
+
+    orig = rounds.hist_nat_slots
+
+    def recording(bins, gh, slot, S, Bc, quant=True, levels=256):
+        if "args" not in store:
+            store["args"] = (bins, gh, slot.clone(), S, Bc, levels)
+        return orig(bins, gh, slot, S, Bc, quant=quant, levels=levels)
+    rounds.hist_nat_slots = recording
+    try:
+        yield
+    finally:
+        rounds.hist_nat_slots = orig
+
+
+def nat_shape(torch, hist, args, name):
+    """hist_nat's integer mode on one root call's arguments: bitwise
+    against the plain version and across two launches, its times, the
+    plain version's and bincount's, the bound, and the in-bag rows."""
+    bins, gh, slot, S, Bc, levels = args
+    run = lambda: hist.hist_nat_slots(bins, gh, slot, S, Bc, levels=levels)
+    plain = lambda: hist.hist_nat_slots_plain(bins, gh, slot, S, Bc)
+    res = f32_compare(torch, run, plain, name,
+                      "exact (integer sums on both sides)")
+    Gk, n = bins.shape
+    rows = int((gh[2] != 0).sum())
+    b, bb = bound(n * (4 * Gk + 3 * gh.element_size() + 4)
+                  + S * 3 * Gk * Bc * 4, rows * Gk * 3)
+    return dict(shape=f"bins ({Gk},{n}) S={S} Bc={Bc}, {rows} rows in the "
+                f"bag", in_bag_rows=rows, **res,
+                plain_ms=cuda_ms(plain, reps=5),
+                library_ms=bincount_ms(torch, bins, gh, slot, S, Bc),
+                bound_ms=b, bound_by=bb, **kernel_numbers(run))
 
 
 def emit_kernel(name, d) -> None:
@@ -1009,12 +1071,12 @@ def airline_like(rows: int, valid_rows: int, seed: int = 23,
 def small_phase(lgb, np):
     """Small runs on the card against the same runs on the CPU: the
     default path, the exact path, use_quantized_grad (int8 modes),
-    regression_l1 (the percentile refit), and categorical runs on the
-    int16, use_quantized_grad (as bench.py sets it, and without
-    stochastic rounding and leaf renewal) and bf16x2 paths; the first
-    categorical use_quantized_grad run is held by replay_check
-    instead."""
-    X, z, Xv, _ = higgs_stream(20_000, 8)
+    regression_l1 (the percentile refit), categorical runs on the int16,
+    use_quantized_grad (as bench.py sets it, and without stochastic
+    rounding and leaf renewal) and bf16x2 paths, and the sampled runs
+    (sampled_runs); the first categorical use_quantized_grad run and the
+    binary GOSS run are held by replay_check instead."""
+    X, z, Xv, zv = higgs_stream(20_000, 8)
     y = (z > 0).astype(np.float32)
     params = {"objective": "binary", "num_leaves": 31, "verbosity": -1,
               "min_data_in_leaf": 20}
@@ -1057,12 +1119,81 @@ def small_phase(lgb, np):
     # categorical int8 path and is held at the tolerance
     replay = replay_check(lgb, dict(params, **QUANT_PARAMS), Xc, yc,
                           cat_cols)
+    sampled, goss_binary = sampled_runs(lgb, np, params, X, z, Xv, zv)
+    errs.update(sampled)
     held = {k: v for k, v in errs.items() if k != "cat_quant"}
     emit({"phase": "small", "rows": 20000, "trees": 5,
           "max_abs_pred_diff_card_vs_cpu": errs, "tolerance": 1e-4,
-          "held": sorted(held), "cat_quant_replay": replay})
+          "held": sorted(held), "cat_quant_replay": replay,
+          "goss_binary": goss_binary})
     if not all(e < 1e-4 for e in held.values()):
         raise AssertionError(f"card and CPU runs disagree: {errs}")
+
+
+def sampled_runs(lgb, np, params, X, z, Xv, zv):
+    """The sampled options at 20k rows, each on the card and on the CPU
+    (predictions compared by the caller at 1e-4): bagging on the int16
+    rounds path, pos / neg bagging, use_quantized_grad with bagging,
+    regression_l1 with bagging (the refit's hist_nat f32 mode on w *
+    mask), exact with bagging (hist), exact + tpu_growth_rounds with GOSS
+    on regression (hist_slots), GOSS on regression (lr 0.5: sampling from
+    tree 3), feature_fraction 0.5, early stopping that fires (the same
+    best_iteration and tree count on both), multiclassova and
+    cross_entropy. Binary GOSS is held on the card alone: its AUC rises
+    and every fused round and split search replays on the CPU bit for bit
+    (replay_check); card against CPU its sigmoid's last ulp moves rows
+    across GOSS's threshold (ROADMAP C)."""
+    y, yv = (z > 0).astype(np.float32), (zv > 0).astype(np.float32)
+    cls = np.digitize(z, np.quantile(z, [1 / 3, 2 / 3])).astype(np.float32)
+    prob = (1.0 / (1.0 + np.exp(-z / 2.0))).astype(np.float32)
+    bag = {"bagging_fraction": 0.8, "bagging_freq": 1}
+    goss = dict(GOSS_PARAMS, learning_rate=0.5)
+    l2 = {"objective": "regression"}
+    runs = (("bag_int16", bag, y), ("bag_pos_neg", {
+                "pos_bagging_fraction": 0.5, "neg_bagging_fraction": 0.8,
+                "bagging_freq": 1}, y),
+            ("bag_quant", dict(QUANT_PARAMS, **bag), y),
+            ("bag_l1", dict(bag, objective="regression_l1"), z),
+            ("bag_exact", dict(bag, tpu_growth_mode="exact"), y),
+            ("goss_exact_rounds", dict(goss, tpu_growth_mode="exact",
+                                       tpu_growth_rounds=True, **l2), z),
+            ("goss_l2", dict(goss, **l2), z),
+            ("feature_fraction", {"feature_fraction": 0.5}, y),
+            ("multiclassova", {"objective": "multiclassova",
+                               "num_class": 3}, cls),
+            ("cross_entropy", {"objective": "cross_entropy"}, prob))
+    errs = {}
+    for name, extra, label in runs:
+        preds = {}
+        for device in ("cuda", "cpu"):
+            p = dict(params, device_type=device, **extra)
+            bst = lgb.train(p, lgb.Dataset(X, label=label, params=p), 5)
+            preds[device] = bst.predict(Xv, raw_score=True)
+        errs[name] = float(np.abs(preds["cuda"] - preds["cpu"]).max())
+    # early stopping that fires: at 63 leaves and lr 1 the validation
+    # logloss is best after tree 3, and 6e-3 worse after trees 4 and 5
+    es = {}
+    for device in ("cuda", "cpu"):
+        p = dict(params, device_type=device, learning_rate=1.0,
+                 num_leaves=63, metric="binary_logloss",
+                 early_stopping_round=2)
+        ds = lgb.Dataset(X, label=y, params=p)
+        bst = lgb.train(p, ds, 30, valid_sets=[lgb.Dataset(
+            Xv, label=yv, reference=ds)])
+        es[device] = (bst.best_iteration, bst.num_trees(),
+                      bst.predict(Xv, raw_score=True))
+    if es["cuda"][:2] != es["cpu"][:2] or es["cuda"][1] >= 30:
+        raise AssertionError(f"early stopping: card (best_iteration, "
+                             f"trees) {es['cuda'][:2]}, CPU {es['cpu'][:2]}")
+    errs["early_stopping"] = float(np.abs(es["cuda"][2] - es["cpu"][2]).max())
+    goss_binary = replay_check(lgb, dict(params, **goss), X, y, None,
+                               n_trees=5, valid=(Xv, yv))
+    goss_binary["early_stopping_best_iteration"] = es["cuda"][0]
+    auc = goss_binary["auc"]
+    if not auc[-1] > auc[2]:
+        raise AssertionError(f"binary GOSS: AUC did not rise over the "
+                             f"sampled trees: {auc}")
+    return errs, goss_binary
 
 
 def _to_cpu(x):
@@ -1082,16 +1213,20 @@ def _to_cpu(x):
 def _bitwise(a, b) -> bool:
     import torch
 
+    if a is None or b is None:
+        return a is b
     if isinstance(a, torch.Tensor):
         return torch.equal(a.cpu(), b.cpu())
     return len(a) == len(b) and all(_bitwise(x, y) for x, y in zip(a, b))
 
 
-def replay_check(lgb, params, X, y, cat_cols, n_trees: int = 2):
+def replay_check(lgb, params, X, y, cat_cols, n_trees: int = 2,
+                 valid=None):
     """Train n_trees on the card; replay every fused round (hist_round)
     and every batched split search (best_split) of the rounds grower on
     the CPU from the call's own inputs, and require the card's outputs
-    bit for bit."""
+    bit for bit. With valid = (X, y), also the validation AUC after each
+    tree."""
     from lightgbm_tpu_torch.learner import rounds
 
     orig = {"hist_round": rounds.hist_round, "best_split": rounds.best_split}
@@ -1112,16 +1247,27 @@ def replay_check(lgb, params, X, y, cat_cols, n_trees: int = 2):
 
     for name in orig:
         setattr(rounds, name, replaying(name))
+    ev = {}
     try:
         p = dict(params, device_type="cuda")
-        lgb.train(p, lgb.Dataset(X, label=y, categorical_feature=cat_cols,
-                                 params=p), n_trees)
+        ds = lgb.Dataset(X, label=y, categorical_feature=cat_cols or "auto",
+                         params=p)
+        if valid is None:
+            lgb.train(p, ds, n_trees)
+        else:
+            p["metric"] = "auc"
+            lgb.train(p, ds, n_trees, valid_sets=[lgb.Dataset(
+                valid[0], label=valid[1], reference=ds)],
+                valid_names=["v"], evals_result=ev)
     finally:
         for name, fn in orig.items():
             setattr(rounds, name, fn)
     if not all(calls.values()):
         raise AssertionError(f"replay saw no calls: {calls}")
-    return {"trees": n_trees, "calls_bitwise": calls}
+    out = {"trees": n_trees, "calls_bitwise": calls}
+    if ev:
+        out["auc"] = ev["v"]["auc"]
+    return out
 
 
 def profile_phase(torch, bst, n_trees: int = 2, name: str = "profile"):
@@ -1389,6 +1535,212 @@ def train_cat_path(torch, lgb, ch, np, n_warm: int = 2, n_timed: int = 10,
     return line, prof
 
 
+# the sampled paths' parameters: bagging and feature sub-sampling as
+# LightGBM's tuning guide sets them, and GOSS at its defaults
+BAG_PARAMS = {"bagging_fraction": 0.8, "bagging_freq": 1,
+              "feature_fraction": 0.8}
+GOSS_PARAMS = {"data_sample_strategy": "goss", "top_rate": 0.2,
+               "other_rate": 0.1}
+
+
+def bag_ties(torch, gb, it: int, mask) -> dict:
+    """One bagging window's draw counted exactly: k = round(f32(eligible)
+    * f32(fraction)), the threshold (the k-th smallest eligible uniform),
+    the eligible rows whose uniform equals it, and the rows in the bag,
+    which must be k plus the ties beyond the k-th row."""
+    import numpy as np
+
+    from lightgbm_tpu_torch import rng
+
+    c = gb.config
+    valid = gb.dev["valid"]
+    window = (it // c.bagging_freq) * c.bagging_freq
+    u = rng.uniform(rng.fold_in(rng.key(c.bagging_seed, valid.device),
+                                window), valid.shape)
+    elig = valid > 0
+    n_elig = int(elig.sum())
+    k = int(np.round(np.float32(n_elig) * np.float32(c.bagging_fraction)))
+    thr = torch.sort(u[elig]).values[k - 1]
+    at_thr = int(((u == thr) & elig).sum())
+    below = int(((u < thr) & elig).sum())
+    in_bag = int((mask > 0).sum())
+    if in_bag != below + at_thr or not below < k <= below + at_thr:
+        raise AssertionError(f"bag of window {window}: {in_bag} rows, k "
+                             f"{k}, {below} below and {at_thr} at the "
+                             "threshold")
+    return dict(window=window, k=k, in_bag=in_bag, at_threshold=at_thr,
+                beyond_k=in_bag - k)
+
+
+def train_sampled_path(torch, lgb, ch, ds, vs, name, extra, n_skip, n_warm,
+                       n_timed, round_cap, root_cap):
+    """A sampled path on the headline workload (bench.py:386-406, the
+    default int16 rounds path): n_skip trees that do not sample (GOSS's
+    warm-up), then n_warm warmup and n_timed timed sampled trees, the
+    first sampled tree recording its first and fullest hist_round calls
+    (round_cap) and its root hist_nat call (root_cap). Prints trees/s,
+    AUC after the first tree, the first sampled tree and the last, the
+    rows in each tree's sample, the features each tree may split on,
+    launches per tree, and a 1-tree profile. Fails unless AUC rises over
+    the sampled trees, every sample holds rows (GOSS's within 1% of
+    top_rate * rows + other_rate * the rest) and each tree may split on
+    ceil(feature_fraction * 28) features."""
+    import numpy as np
+
+    params = {"objective": "binary", "num_leaves": L, "max_bin": 255,
+              "learning_rate": 0.1, "min_data_in_leaf": 20, "metric": "auc",
+              "verbosity": -1, **extra}
+    bst = lgb.Booster(params, ds)
+    bst.add_valid(vs, "valid")
+    gb = bst._gbdt
+    masks, feats = [], []
+    sample, features = gb.strategy.sample, gb._sample_features
+
+    def keep_mask(*a):
+        out = sample(*a)
+        masks.append(out[0])
+        return out
+
+    def keep_features(it, k):
+        m = features(it, k)
+        feats.append(m)
+        return m
+
+    gb.strategy.sample, gb._sample_features = keep_mask, keep_features
+    ch.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    auc0 = None
+    for _ in range(n_skip):
+        bst.update()
+        auc0 = auc0 if auc0 is not None else bst.eval_valid()[0][2]
+    with recording_rounds(round_cap), recording_root(root_cap):
+        bst.update()
+    auc1 = bst.eval_valid()[0][2]
+    auc0 = auc1 if auc0 is None else auc0
+    for _ in range(n_warm - 1):
+        bst.update()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_timed):
+        bst.update()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(ch.LAUNCHES)
+    auc_last = bst.eval_valid()[0][2]
+    trees = n_skip + n_warm + n_timed
+    in_sample = [int((m > 0).sum()) for m in masks]
+    line = {"phase": name, **extra, "rows": gb.train_set.num_data,
+            "num_leaves": L, "hist_dtype": gb.hist_dtype,
+            "unsampled_trees": n_skip, "warmup_trees": n_warm,
+            "timed_trees": n_timed, "trees_per_s": n_timed / dt,
+            "auc_tree1": auc0, "auc_first_sampled": auc1,
+            "auc_last": auc_last, "trees": trees,
+            "rows_in_sample_per_tree": in_sample,
+            "features_per_tree": [int(f.sum()) for f in feats],
+            "splits_per_tree": [int(a.num_nodes) for a in gb.device_trees],
+            "launches": launches,
+            "launches_per_tree": {k: v / trees
+                                  for k, v in launches.items() if v},
+            "peak_device_mb": torch.cuda.max_memory_allocated() / 2 ** 20}
+    if gb.strategy.__class__.__name__ == "BaggingStrategy":
+        line["bag_draws"] = [bag_ties(torch, gb, it, m)
+                             for it, m in enumerate(masks)]
+        # the first window's bag drawn again on the CPU: the same bits
+        cpu = gb.strategy.window_mask(0, gb.dev["valid"].cpu(),
+                                      gb._label_dev.cpu())
+        line["bag_equals_cpu_draw"] = bool(torch.equal(
+            cpu, (masks[0] > 0).cpu()))
+        if not line["bag_equals_cpu_draw"]:
+            raise AssertionError(f"{name}: the card's bag differs from the "
+                                 "CPU's draw")
+    else:
+        n = gb.train_set.num_data
+        line["rows_in_sample_expected"] = (
+            int(n * GOSS_PARAMS["top_rate"])
+            + (1 - GOSS_PARAMS["top_rate"]) * n * GOSS_PARAMS["other_rate"]
+            / (1 - GOSS_PARAMS["top_rate"]))
+    emit(line)
+    gb.strategy.sample, gb._sample_features = sample, features
+    missing = [k for k in ("hist_nat", "hist_round", "take_small", "seg_sum")
+               if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"{name}: {missing} not launched: {launches}")
+    sampled = in_sample[n_skip:]
+    if not (0 < min(sampled) and max(sampled) < gb.train_set.num_data):
+        raise AssertionError(f"{name}: samples of {sampled} rows")
+    want = int(np.ceil(extra.get("feature_fraction", 1.0) * G))
+    if any(int(f.sum()) != want for f in feats):
+        raise AssertionError(f"{name}: features per tree "
+                             f"{line['features_per_tree']}, not {want}")
+    expected = line.get("rows_in_sample_expected")
+    if expected and not all(abs(r - expected) < 0.01 * expected
+                            for r in sampled):
+        raise AssertionError(f"{name}: samples of {sampled} rows, "
+                             f"expected ~{expected}")
+    del masks, feats
+    if not (auc_last > auc1 and auc_last > 0.85):
+        raise AssertionError(f"{name}: AUC did not rise: {auc1} -> "
+                             f"{auc_last}")
+    prof = profile_phase(torch, bst, 1, name + "_profile")
+    return line, prof
+
+
+def train_continue_phase(torch, lgb, np, ds, vs, Xv, model_path):
+    """Continued training from the `model` phase's saved model: the
+    validation scores seeded by the loaded trees' binned traversal equal
+    Booster(model_file=...)'s raw predictions within 1e-5; then 3 more
+    trees with bagging, early_stopping_round 2 on validation AUC, a
+    learning-rate schedule (reset_parameter) and record_evaluation.
+    best_iteration must be the first argmax of the recorded AUCs, and a
+    stop must come exactly 2 rounds after it."""
+    loaded = lgb.Booster(model_file=model_path)
+    n_loaded = loaded.num_trees()
+    raw = loaded.predict(Xv, raw_score=True)
+    params = {"objective": "binary", "num_leaves": L, "max_bin": 255,
+              "learning_rate": 0.1, "min_data_in_leaf": 20, "metric": "auc",
+              "verbosity": -1, "bagging_fraction": 0.8, "bagging_freq": 1,
+              "early_stopping_round": 2}
+    b = lgb.Booster(params, ds)
+    b.add_valid(vs, "valid")
+    b._continue_from(loaded)
+    seeded = b._gbdt.valids[0].score[0, :len(Xv)].cpu().numpy()
+    seed_err = float(np.abs(seeded.astype(np.float64) - raw).max())
+    del b
+    ev = {}
+    lrs = [0.1, 0.08, 0.05]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bst = lgb.train(params, ds, 3, valid_sets=[vs], valid_names=["valid"],
+                    init_model=model_path,
+                    callbacks=[lgb.record_evaluation(ev),
+                               lgb.reset_parameter(learning_rate=lrs)])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    hist = ev["valid"]["auc"]
+    best = bst.best_iteration
+    first_argmax = int(np.argmax(hist)) + 1
+    stopped = len(hist) < 3
+    line = {"phase": "train_continue", "loaded_trees": n_loaded,
+            "seeded_max_abs_vs_loaded_predict": seed_err, "tolerance": 1e-5,
+            "new_trees": bst.num_trees() - n_loaded, "auc_history": hist,
+            "best_iteration": best, "first_argmax": first_argmax,
+            "stopped_early": stopped, "seconds": dt,
+            "shrinkage": [t.shrinkage for t in bst._gbdt.models[n_loaded:]]}
+    emit(line)
+    if not seed_err < 1e-5:
+        raise AssertionError(f"train_continue: seeded scores {seed_err} "
+                             "from the loaded model's predictions")
+    if best != first_argmax or bst.num_trees() != n_loaded + len(hist):
+        raise AssertionError(f"train_continue: best_iteration {best}, "
+                             f"history {hist}, {bst.num_trees()} trees")
+    if stopped and len(hist) != best + 2:
+        raise AssertionError(f"train_continue: stopped {len(hist) - best} "
+                             "rounds after the best")
+    if line["shrinkage"] != lrs[:len(hist)]:
+        raise AssertionError(f"train_continue: shrinkage {line['shrinkage']}")
+    return line
+
+
 def main() -> int:
     import torch
 
@@ -1436,9 +1788,12 @@ def main() -> int:
     bst = lgb.Booster(params, ds)
     bst.add_valid(vs, "valid")
     takes = {}  # the take_small line's arguments, k -> (tab, idx)
-    round_caps = {"train": {}, "train_quant": {}, "train_f32": {}}
+    round_caps = {"train": {}, "train_quant": {}, "train_f32": {},
+                  "train_bag": {}, "train_goss": {}}
+    root_caps = {"train": {}, "train_bag": {}, "train_goss": {}}
     with recording_takes(ch, takes, (1, 8)), \
-            recording_rounds(round_caps["train"]):
+            recording_rounds(round_caps["train"]), \
+            recording_root(root_caps["train"]):
         bst.update()
     auc1 = bst.eval_valid()[0][2]
     bst.update()
@@ -1484,6 +1839,17 @@ def main() -> int:
         raise AssertionError("reloaded model predicts differently")
     if not (np.isfinite(p_trained).all() and host_vs_card < 1e-4):
         raise AssertionError("host predictions disagree with card scores")
+
+    # ---- the sampled paths: bagging with feature_fraction, then GOSS
+    # (int(1 / 0.1) + 1 = 11 trees before it samples), and continued
+    # training from the saved model
+    bag, _ = train_sampled_path(
+        torch, lgb, ch, ds, vs, "train_bag", BAG_PARAMS, 0, 2, n_timed,
+        round_caps["train_bag"], root_caps["train_bag"])
+    goss, _ = train_sampled_path(
+        torch, lgb, ch, ds, vs, "train_goss", GOSS_PARAMS, 11, 2, n_timed,
+        round_caps["train_goss"], root_caps["train_goss"])
+    train_continue_phase(torch, lgb, np, ds, vs, Xv, path)
 
     # ---- use_quantized_grad on the same binned data: the int8 modes,
     # compared with the int16 path at the same tree count
@@ -1559,13 +1925,22 @@ def main() -> int:
     del seg_calls
 
     # ---- hist_round in each mode on its path's first and fullest rounds
-    for name, path in (("hist_round", "train"), ("hist_round_int8",
-                                                 "train_quant"),
-                       ("hist_round_f32", "train_f32")):
-        lines[name]["shapes"] = captured_round_shapes(
-            torch, hist, ch, round_caps[path], path)
+    # (the int16 mode also on the sampled paths' first sampled trees), and
+    # hist_nat on the roots of the unsampled and the sampled paths
+    for name, paths in (("hist_round", ("train", "train_bag", "train_goss")),
+                        ("hist_round_int8", ("train_quant",)),
+                        ("hist_round_f32", ("train_f32",))):
+        lines[name]["shapes"] = {}
+        for path_ in paths:
+            lines[name]["shapes"].update(captured_round_shapes(
+                torch, hist, ch, round_caps[path_], path_))
         emit_kernel(name, lines[name])
-    del round_caps
+    lines["hist_nat"]["shapes"] = {
+        f"{p_}_root": nat_shape(torch, hist, root_caps[p_]["args"],
+                                f"hist_nat {p_} root")
+        for p_ in root_caps}
+    emit_kernel("hist_nat", lines["hist_nat"])
+    del round_caps, root_caps
 
     # ---- categorical splits on the airline schema
     cat_round = {}

@@ -1,15 +1,25 @@
 """lightgbm_tpu_torch: the PyTorch / CUDA port of lightgbm_tpu.
 
-LightGBM's training API (Dataset, Booster, train) on torch tensors; the
-histogram, partition, take and segment-sum passes of training run as
-hand-written CUDA kernels for the NVIDIA H100 (learner/cuda_hist.py,
-csrc/). Entry points run on the card unless device_type=cpu is passed,
-which selects the kernels' plain PyTorch versions. The package imports
-neither jax nor lightgbm_tpu.
+LightGBM's training API (Dataset, Booster, train and its callbacks) on
+torch tensors; the histogram, partition, take and segment-sum passes of
+training run as hand-written CUDA kernels for the NVIDIA H100
+(learner/cuda_hist.py, csrc/). Entry points run on the card unless
+device_type=cpu is passed, which selects the kernels' plain PyTorch
+versions. The package imports neither jax nor lightgbm_tpu.
 """
 
 from .basic import Booster, Dataset
+from .callback import (
+    CallbackEnv,
+    EarlyStopException,
+    early_stopping,
+    log_evaluation,
+    record_evaluation,
+    reset_parameter,
+)
 from .engine import train
 from .log import LightGBMError
 
-__all__ = ["Booster", "Dataset", "LightGBMError", "train"]
+__all__ = ["Booster", "CallbackEnv", "Dataset", "EarlyStopException",
+           "LightGBMError", "early_stopping", "log_evaluation",
+           "record_evaluation", "reset_parameter", "train"]

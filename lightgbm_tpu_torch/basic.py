@@ -3,8 +3,11 @@
 The port of lightgbm_tpu/basic.py for the main path: a Dataset over a
 dense matrix (with `reference=` for validation sets binned with the
 training set's mappers, and the constructor's `categorical_feature`,
-indices or names, as the JAX package takes it), and a Booster that trains (update), predicts
-on the host, and saves / loads the text model. Text files, sparse
+indices or names, as the JAX package takes it), and a Booster that trains
+(update, with a custom objective's gradients too), continues from a
+loaded model (_continue_from), takes new parameters between iterations
+(reset_parameter), evaluates with custom metrics (feval), predicts on the
+host, and saves / loads the text model. Text files, sparse
 matrices, Sequences, pandas and Arrow inputs, subsets, refit, SHAP and
 device prediction are not ported yet (ROADMAP queue A) and raise.
 """
@@ -185,24 +188,95 @@ class Booster:
         self._name_valid_sets.append(name)
         return self
 
+    def _continue_from(self, init_booster: "Booster") -> None:
+        """Continued training (reference input_model / python init_model,
+        boosting.h:311; the JAX package's Booster._continue_from): adopt
+        the loaded model's trees, count their iterations in iter_ (every
+        draw keys on the global iteration), and seed every score set with
+        their binned-traversal predictions. Call after add_valid."""
+        from .tree import tree_to_arrays
+
+        gb = self._gbdt
+        src = init_booster._gbdt
+        K = gb.num_class
+        if src.num_class != K:
+            log.fatal(f"init_model has {src.num_class} models per "
+                      f"iteration, training config has {K}")
+        models = list(src.models)
+        gb.models = list(models)
+        gb.iter_ = gb._init_iters = len(models) // K
+        for mi, t in enumerate(models):
+            arrays = tree_to_arrays(t, gb.train_set, gb.device)
+            gb.device_trees.append(arrays)
+            k = mi % K
+            for ss in [gb.train] + gb.valids:
+                if t.num_leaves > 1:
+                    leaf = gb._traverse(arrays, ss.dev)
+                    ss.score[k] += arrays.leaf_value[leaf.long()]
+                else:
+                    ss.score[k] += float(t.leaf_value[0])
+
     def update(self, train_set: Optional[Dataset] = None, fobj=None) -> bool:
-        """One boosting iteration; True if training stopped."""
+        """One boosting iteration; True if training stopped. fobj(preds,
+        train_set) -> (grad, hess) over the raw training scores."""
         if train_set is not None and train_set is not self.train_set:
             raise LightGBMError("Resetting train_set is not supported")
-        if fobj is not None:
-            raise NotImplementedError("custom objectives (fobj) are not "
-                                      "ported yet (ROADMAP queue A)")
-        return self._gbdt.train_one_iter()
+        if fobj is None:
+            return self._gbdt.train_one_iter()
+        grad, hess = fobj(self._inner_predict_raw(0), self.train_set)
+        return self._gbdt.train_one_iter(np.asarray(grad), np.asarray(hess))
 
     def num_trees(self) -> int:
         return self._gbdt.num_trees()
 
-    def eval_train(self) -> List[Tuple[str, str, float, bool]]:
-        return [(self._train_data_name, n, v, hb)
-                for (_dn, n, v, hb) in self._gbdt.eval_train()]
+    def reset_parameter(self, params: Dict[str, Any]) -> "Booster":
+        """New parameters between iterations: the learning rate and the
+        split parameters are derived anew; the sampling strategy and the
+        feature sampler read the live config."""
+        from .learner.grower import make_split_params
 
-    def eval_valid(self) -> List[Tuple[str, str, float, bool]]:
-        return self._gbdt.eval_valid()
+        self.params.update(params)
+        self.config.update(params)
+        self._gbdt.shrinkage_rate = self.config.learning_rate
+        self._gbdt.params = make_split_params(self.config)
+        return self
+
+    def _inner_predict_raw(self, data_idx: int) -> np.ndarray:
+        """The raw scores of the training set (0) or a validation set."""
+        g = self._gbdt
+        ss = g.train if data_idx == 0 else g.valids[data_idx - 1]
+        score = g.get_score(ss)
+        return score if g.num_class > 1 else score[0]
+
+    def eval_train(self, feval=None) -> List[Tuple[str, str, float, bool]]:
+        out = [(self._train_data_name, n, v, hb)
+               for (_dn, n, v, hb) in self._gbdt.eval_train()]
+        if feval is not None:
+            out.extend(self._run_feval(feval, 0, self._train_data_name))
+        return out
+
+    def eval_valid(self, feval=None) -> List[Tuple[str, str, float, bool]]:
+        out = self._gbdt.eval_valid()
+        if feval is not None:
+            for i, name in enumerate(self._name_valid_sets):
+                out.extend(self._run_feval(feval, i + 1, name))
+        return out
+
+    def _run_feval(self, feval, data_idx: int, name: str):
+        """feval(preds, dataset) -> (name, value, higher_better) or a list
+        of them; one callable or a list. preds are the converted scores
+        (GetPredictAt -> ConvertOutput, gbdt.cpp:709); objective none
+        converts nothing."""
+        ds = self.train_set if data_idx == 0 else \
+            self._valid_sets[data_idx - 1]
+        preds = self._inner_predict_raw(data_idx)
+        if self._gbdt.objective is not None:
+            preds = self._gbdt.objective.convert_output(preds)
+        results = []
+        for f in feval if isinstance(feval, (list, tuple)) else [feval]:
+            res = f(preds, ds)
+            results.extend(res if isinstance(res, list) else [res])
+        return [(name, rn, rv, rhb) for rn, rv, rhb in results]
 
     def predict(self, data: Any, start_iteration: int = 0,
                 num_iteration: Optional[int] = None, raw_score: bool = False,

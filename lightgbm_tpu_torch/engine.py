@@ -1,23 +1,30 @@
-"""train(): the eager training loop with eval recording.
+"""train(): the per-iteration training loop with callbacks.
 
-The port of lightgbm_tpu/engine.py train (reference engine.py:109
-lgb.train) for the main path: it builds the Booster, adds the
-validation sets, runs num_boost_round iterations of the eager loop,
-evaluates every iteration, and records the evaluations in
-`evals_result` (the record_evaluation callback's layout:
-{dataset: {metric: [values]}}) and the last ones in best_score.
-Callbacks, early stopping, init_model, feval, fobj and checkpoint /
-resume are not ported yet (ROADMAP queue A) and raise.
+The port of lightgbm_tpu/engine.py train's per-iteration loop (reference
+engine.py:109 lgb.train): it builds the Booster, adds the validation
+sets, adopts an init_model's trees, then runs num_boost_round iterations,
+each: the before-iteration callbacks (reset_parameter), one update (with
+a custom fobj's gradients when given), the evaluations (with feval's),
+and the after-iteration callbacks in `order` (log_evaluation,
+record_evaluation, early_stopping). early_stopping_round in params adds
+early_stopping, and verbosity >= 1 adds log_evaluation every metric_freq
+rounds unless a callback of that order logs already. `evals_result`
+records every evaluation ({dataset: {metric: [values]}}). The JAX
+package's fused chunk loop, checkpoint / resume and its observability
+hooks are not ported (ROADMAP queue A).
 """
 
 from __future__ import annotations
 
 import collections
-from typing import Any, Dict, List, Optional
+from pathlib import Path
+from typing import Any, Callable, Dict, List, Optional, Union
 
-from . import log
+from . import callback as callback_mod
 from .basic import Booster, Dataset
+from .callback import CallbackEnv, EarlyStopException
 from .config import Config, resolve_alias
+from . import log
 
 
 def train(
@@ -26,56 +33,88 @@ def train(
     num_boost_round: int = 100,
     valid_sets: Optional[List[Dataset]] = None,
     valid_names: Optional[List[str]] = None,
+    feval: Optional[Callable] = None,
+    init_model: Optional[Union[str, Path, Booster]] = None,
+    keep_training_booster: bool = False,
+    callbacks: Optional[List[Callable]] = None,
+    fobj: Optional[Callable] = None,
     evals_result: Optional[Dict[str, Dict[str, List[float]]]] = None,
-    **unsupported: Any,
 ) -> Booster:
-    """Train a model; evaluations land in `evals_result` when given."""
-    live = {k: v for k, v in unsupported.items() if v is not None}
-    if live:
-        raise NotImplementedError(
-            f"train() options {sorted(live)} are not ported yet (ROADMAP "
-            "queue A: callbacks, init_model, feval, fobj)")
+    """Train a model (reference engine.py:109 lgb.train).
+    keep_training_booster is accepted as the JAX package accepts it: the
+    returned Booster keeps its training state either way."""
     params = dict(params)
     for k in list(params):
         if resolve_alias(k) == "num_iterations":
             num_boost_round = int(params.pop(k))
     cfg = Config(params)
+    if cfg.objective == "none" and fobj is None:
+        log.warning("Using custom objective requires fobj; objective=none "
+                    "trains nothing")
+    callbacks = list(callbacks) if callbacks else []
     if cfg.early_stopping_round and cfg.early_stopping_round > 0:
-        raise NotImplementedError(
-            "early stopping is not ported yet (ROADMAP queue A)")
+        callbacks.append(callback_mod.early_stopping(
+            cfg.early_stopping_round, first_metric_only=cfg.first_metric_only,
+            min_delta=cfg.early_stopping_min_delta))
+    if cfg.verbosity >= 1 and not any(
+            getattr(cb, "order", None) == 10
+            and not getattr(cb, "before_iteration", False)
+            for cb in callbacks):
+        callbacks.append(callback_mod.log_evaluation(period=cfg.metric_freq))
+    if evals_result is not None:
+        callbacks.append(callback_mod.record_evaluation(evals_result))
+
     booster = Booster(params=params, train_set=train_set)
     valid_sets = valid_sets or []
     valid_names = valid_names or []
-    eval_train = False
+    valid_contain_train = False
     for i, vs in enumerate(valid_sets):
         name = valid_names[i] if i < len(valid_names) else f"valid_{i}"
         if vs is train_set:
-            eval_train = True
+            valid_contain_train = True
             booster._train_data_name = name
             continue
         booster.add_valid(vs, name)
+    if init_model is not None:
+        booster._continue_from(init_model if isinstance(init_model, Booster)
+                               else Booster(model_file=init_model))
+
+    cb_before = sorted((cb for cb in callbacks
+                        if getattr(cb, "before_iteration", False)),
+                       key=lambda cb: getattr(cb, "order", 0))
+    cb_after = sorted((cb for cb in callbacks
+                       if not getattr(cb, "before_iteration", False)),
+                      key=lambda cb: getattr(cb, "order", 0))
     evals: List = []
     i = -1
     for i in range(num_boost_round):
-        finished = booster.update()
+        for cb in cb_before:
+            cb(CallbackEnv(booster, params, i, 0, num_boost_round, None))
+        finished = booster.update(fobj=fobj)
         evals = []
-        if eval_train:
-            evals.extend(booster.eval_train())
+        if valid_contain_train:
+            evals.extend(booster.eval_train(feval))
         if booster._gbdt.valids:
-            evals.extend(booster.eval_valid())
-        if evals and cfg.verbosity >= 1 and (i + 1) % cfg.metric_freq == 0:
-            log.info(f"[{i + 1}]\t" + "\t".join(
-                f"{d}'s {m}: {v:g}" for d, m, v, _ in evals))
-        if evals_result is not None:
-            for d, m, v, _ in evals:
-                evals_result.setdefault(d, collections.OrderedDict()) \
-                    .setdefault(m, []).append(v)
+            evals.extend(booster.eval_valid(feval))
+        try:
+            for cb in cb_after:
+                cb(CallbackEnv(booster, params, i, 0, num_boost_round,
+                               evals))
+        except EarlyStopException as e:
+            booster.best_iteration = e.best_iteration + 1
+            evals = e.best_score
+            break
         if finished:
             break
-    booster._gbdt._materialize()
-    n_iters = booster._gbdt.num_trees() // booster._gbdt.num_class
-    if n_iters < i + 1:
-        evals = []  # stop detection rolled the last iterations back
-    for d, m, v, _ in evals:
+    gb = booster._gbdt
+    gb._materialize()
+    # the stop condition is found only every _check_every iterations: the
+    # iterations trained past it were rolled back, so clamp to the trees
+    # kept and drop evaluations of scores that no longer stand
+    n_iters = gb.num_trees() // gb.num_class
+    booster.best_iteration = min(booster.best_iteration, n_iters)
+    if n_iters < gb._init_iters + i + 1:
+        evals = []
+    for d, m, v, _ in evals or []:
         booster.best_score.setdefault(d, collections.OrderedDict())[m] = v
     return booster

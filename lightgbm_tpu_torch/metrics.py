@@ -4,10 +4,11 @@ A copy of the host metrics of lightgbm_tpu/metrics.py that the eager
 training loop calls (boosting.eval_set): the regression family (l2,
 rmse, r2, l1, quantile, huber, fair, poisson, mape, gamma,
 gamma_deviance, tweedie), binary_logloss, binary_error, auc,
-multi_logloss and multi_error. Host-side numpy over (label, raw score)
-on unpadded arrays; each metric reports (name, value, higher_better)
-with the reference names. The other metrics of the JAX package are not
-ported (ROADMAP queue A) and raise.
+average_precision, multi_logloss, multi_error, auc_mu, cross_entropy,
+cross_entropy_lambda and kullback_leibler. Host-side numpy over (label,
+raw score) on unpadded arrays; each metric reports (name, value,
+higher_better) with the reference names. The ranking metrics (ndcg,
+map) are not ported (ROADMAP queue A) and raise.
 """
 
 from __future__ import annotations
@@ -233,6 +234,85 @@ class AUCMetric(Metric):
         return [(self.name, float(auc_sum / (pos_w * neg_w)), True)]
 
 
+class AveragePrecisionMetric(Metric):
+    name = "average_precision"
+    higher_better = True
+
+    def eval(self, score):
+        y = (self.label > 0).astype(np.float64)
+        w = self.weight if self.weight is not None else np.ones_like(y)
+        order = np.argsort(-score, kind="mergesort")
+        ys, ws = y[order], w[order]
+        tp = np.cumsum(ys * ws)
+        total = np.cumsum(ws)
+        prec = tp / total
+        pos = np.sum(ys * ws)
+        if pos <= 0:
+            return [(self.name, 1.0, True)]
+        ap = float(np.sum(prec * ys * ws) / pos)
+        return [(self.name, ap, True)]
+
+
+class AucMuMetric(Metric):
+    """Multi-class AUC-mu (src/metric/multiclass_metric.hpp:183,
+    Kleiman & Page 2019): for each class pair (i, j) rank the pair's
+    rows by the separating direction v = w_i - w_j projected onto the
+    prediction vectors, compute the pairwise AUC with the reference's
+    kEpsilon tie handling, and average over pairs."""
+
+    name = "auc_mu"
+    higher_better = True
+
+    def eval(self, score):
+        K = self.config.num_class
+        y = self.label.astype(np.int64)
+        N = len(y)
+        w = self.weight
+        # weights matrix (config.cpp:225 GetAucMuWeights)
+        amw = list(self.config.auc_mu_weights)
+        if amw:
+            W = np.asarray(amw, np.float64).reshape(K, K)
+            np.fill_diagonal(W, 0.0)
+        else:
+            W = np.ones((K, K)) - np.eye(K)
+        S = np.asarray(score, np.float64).reshape(K, N)
+        eps = 1e-15  # reference kEpsilon
+        total = 0.0
+        for i in range(K):
+            for j in range(i + 1, K):
+                sel = (y == i) | (y == j)
+                if not np.any(y[sel] == i) or not np.any(y[sel] == j):
+                    continue
+                v = W[i] - W[j]
+                t1 = v[i] - v[j]
+                d = t1 * (v @ S[:, sel])
+                lab = y[sel]
+                ws = w[sel] if w is not None else np.ones(sel.sum())
+                # ascending distance; exact ties put class j first
+                order = np.lexsort((-lab, d))
+                d, lab, ws = d[order], lab[order], ws[order]
+                s_ij = num_j = num_cur_j = 0.0
+                last_j = 0.0
+                for k in range(len(d)):
+                    tie = abs(d[k] - last_j) < eps
+                    if lab[k] == i:
+                        s_ij += ws[k] * (
+                            num_j - 0.5 * num_cur_j if tie else num_j
+                        )
+                    else:
+                        num_j += ws[k]
+                        if tie:
+                            num_cur_j += ws[k]
+                        else:
+                            last_j = d[k]
+                            num_cur_j = ws[k]
+                wi = np.sum(ws[lab == i])
+                wj = np.sum(ws[lab == j])
+                total += (s_ij / wi) / wj
+        val = 2.0 * total / K / (K - 1)
+        return [(self.name, float(val), True)]
+
+
 class MultiLoglossMetric(Metric):
     name = "multi_logloss"
 
@@ -258,6 +338,64 @@ class MultiErrorMetric(Metric):
         return [(self.name + (f"@{k}" if k > 1 else ""), self._avg(err), False)]
 
 
+class CrossEntropyMetric(_PointwiseMetric):
+    name = "cross_entropy"
+
+    def transform(self, score):
+        return _sigmoid(score)
+
+    def point(self, y, p):
+        eps = 1e-15
+        p = np.clip(p, eps, 1 - eps)
+        return -(y * np.log(p) + (1 - y) * np.log(1 - p))
+
+
+class CrossEntropyLambdaMetric(Metric):
+    """reference xentropy_metric.hpp:165 CrossEntropyLambdaMetric
+    (alias xentlambda): weights enter the loss itself (intensity
+    weighting via hhat), and the average is over num_data, NOT the
+    weight sum."""
+
+    name = "cross_entropy_lambda"
+
+    def eval(self, score):
+        eps = 1e-12
+        hhat = np.log1p(np.exp(score))  # xentlambda ConvertOutput
+        w = self.weight if self.weight is not None else 1.0
+        p = np.clip(1.0 - np.exp(-w * hhat), eps, 1.0 - eps)
+        y = self.label
+        loss = -(y * np.log(p) + (1.0 - y) * np.log(1.0 - p))
+        return [(self.name, float(np.mean(loss)), False)]
+
+
+class KullbackLeiblerMetric(_PointwiseMetric):
+    """reference xentropy_metric.hpp:249 KullbackLeiblerDivergence:
+    cross-entropy plus the (weight-averaged, score-independent) label
+    entropy offset — KL(y || p) = CE(y, p) - H(y)."""
+
+    name = "kullback_leibler"
+
+    def transform(self, score):
+        return _sigmoid(score)
+
+    def point(self, y, p):
+        eps = 1e-15
+        p = np.clip(p, eps, 1 - eps)
+        return -(y * np.log(p) + (1 - y) * np.log(1 - p))
+
+    def eval(self, score):
+        y = self.label.astype(np.float64)
+        yent = np.zeros_like(y)
+        m = y > 0
+        yent[m] += y[m] * np.log(y[m])
+        q = 1.0 - y
+        mq = q > 0
+        yent[mq] += q[mq] * np.log(q[mq])
+        offset = self._avg(yent)
+        ce = self._avg(self.point(y, self.transform(score)))
+        return [(self.name, float(offset + ce), False)]
+
+
 _METRICS: Dict[str, type] = {
     "l2": L2Metric, "mean_squared_error": L2Metric, "mse": L2Metric,
     "regression": L2Metric, "regression_l2": L2Metric,
@@ -276,9 +414,16 @@ _METRICS: Dict[str, type] = {
     "binary_logloss": BinaryLoglossMetric, "binary": BinaryLoglossMetric,
     "binary_error": BinaryErrorMetric,
     "auc": AUCMetric,
+    "average_precision": AveragePrecisionMetric,
     "multi_logloss": MultiLoglossMetric, "multiclass": MultiLoglossMetric,
     "softmax": MultiLoglossMetric, "multiclassova": MultiLoglossMetric,
     "multi_error": MultiErrorMetric,
+    "auc_mu": AucMuMetric,
+    "cross_entropy": CrossEntropyMetric, "xentropy": CrossEntropyMetric,
+    "cross_entropy_lambda": CrossEntropyLambdaMetric,
+    "xentlambda": CrossEntropyLambdaMetric,
+    "kullback_leibler": KullbackLeiblerMetric,
+    "kldiv": KullbackLeiblerMetric,
 }
 
 # metric implied by each objective when metric param is empty (metric.cpp)
@@ -286,13 +431,13 @@ _DEFAULT_METRIC = {
     "regression": "l2", "regression_l1": "l1", "huber": "huber", "fair": "fair",
     "poisson": "poisson", "quantile": "quantile", "mape": "mape",
     "gamma": "gamma", "tweedie": "tweedie", "binary": "binary_logloss",
-    "multiclass": "multi_logloss",
+    "multiclass": "multi_logloss", "multiclassova": "multi_logloss",
+    "cross_entropy": "cross_entropy",
+    "cross_entropy_lambda": "cross_entropy_lambda",
 }
 
-# metrics of the JAX package that are not ported yet
+# the JAX package's ranking metrics, not ported yet
 _NOT_PORTED = frozenset({
-    "average_precision", "auc_mu", "cross_entropy", "xentropy",
-    "cross_entropy_lambda", "xentlambda", "kullback_leibler", "kldiv",
     "ndcg", "lambdarank", "rank_xendcg", "map", "mean_average_precision",
 })
 

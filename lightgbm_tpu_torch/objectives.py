@@ -2,16 +2,16 @@
 
 The port of lightgbm_tpu/objectives.py for the regression family
 (RegressionL2 :127 and RegressionL1, Huber, Fair, Poisson, Quantile,
-MAPE, Gamma, Tweedie :152-280), Binary :282 and MulticlassSoftmax :334,
-with the same math and factory names. Scores and labels are padded row
+MAPE, Gamma, Tweedie :152-280), Binary :282, MulticlassSoftmax :334,
+MulticlassOVA :363, CrossEntropy :394 and CrossEntropyLambda :417, with
+the same math and factory names. Scores and labels are padded row
 vectors on the training device; padding rows produce gradients the
 grower masks out through the validity channel. Host statistics
 (boost_from_score) run in numpy on the same float32 label array as the
 JAX package, so the initial scores agree bit for bit. L1, Huber,
 Quantile and MAPE renew their leaves by weighted percentile
-(is_renew_tree_output; learner/renewal.py). The other objectives
-(MulticlassOVA, cross-entropy, ranking) are not ported (ROADMAP queue A)
-and raise.
+(is_renew_tree_output; learner/renewal.py). The ranking objectives are
+not ported (ROADMAP queue A) and raise.
 """
 
 from __future__ import annotations
@@ -326,6 +326,102 @@ class MulticlassSoftmax(ObjectiveFunction):
         return e / np.sum(e, axis=0, keepdims=True)
 
 
+class MulticlassOVA(ObjectiveFunction):
+    """One-vs-all: K independent sigmoid binaries (multiclass_objective.hpp)."""
+
+    name = "multiclassova"
+
+    def __init__(self, config: Config):
+        super().__init__(config)
+        self.num_class = config.num_class
+
+    def get_gradients(self, score):
+        sig = float(np.float32(self.config.sigmoid))
+        y = torch.nn.functional.one_hot(
+            self.label.to(torch.int64), self.num_class).T.to(score.dtype)
+        p = torch.sigmoid(sig * score)
+        g = (p - y) * sig
+        h = p * (1.0 - p) * sig * sig
+        if self.weight is not None:
+            g = g * self.weight[None, :]
+            h = h * self.weight[None, :]
+        return g, h
+
+    def boost_from_score(self, class_id: int) -> float:
+        p = float(np.mean(self._host_label == class_id))
+        p = min(max(p, 1e-15), 1.0 - 1e-15)
+        return float(np.log(p / (1.0 - p)) / self.config.sigmoid)
+
+    def convert_output(self, score):
+        return 1.0 / (1.0 + np.exp(-self.config.sigmoid * score))
+
+
+class CrossEntropy(ObjectiveFunction):
+    """reference xentropy_objective.hpp: labels in [0, 1]."""
+
+    name = "cross_entropy"
+
+    def check_label(self, label):
+        if np.any(label < 0) or np.any(label > 1):
+            log.fatal("[cross_entropy]: labels must be in [0, 1]")
+
+    def get_gradients(self, score):
+        p = torch.sigmoid(score)
+        return self._w(p - self.label, p * (1.0 - p))
+
+    def boost_from_score(self, class_id: int) -> float:
+        pavg = float(np.average(self._host_label, weights=self._host_weight))
+        pavg = min(max(pavg, 1e-15), 1.0 - 1e-15)
+        return float(np.log(pavg / (1.0 - pavg)))
+
+    def convert_output(self, score):
+        return 1.0 / (1.0 + np.exp(-score))
+
+
+class CrossEntropyLambda(ObjectiveFunction):
+    """reference xentropy_objective.hpp:185 CrossEntropyLambda (alias
+    xentlambda): weighted cross-entropy through the normalized exponential
+    parameterization; with unit weights it is plain cross-entropy. The
+    weighted gradients use the JAX package's stable f32 forms (softplus
+    and sigmoid in place of raw exp, scores clamped to +-30)."""
+
+    name = "cross_entropy_lambda"
+
+    def check_label(self, label):
+        if np.any(label < 0) or np.any(label > 1):
+            log.fatal("[cross_entropy_lambda]: labels must be in [0, 1]")
+
+    def init(self, dataset, device):
+        super().init(dataset, device)
+        if self._host_weight is not None and self._host_weight.min() <= 0:
+            log.fatal("[cross_entropy_lambda]: at least one weight is "
+                      "non-positive")
+
+    def get_gradients(self, score):
+        if self.weight is None:
+            z = torch.sigmoid(score)
+            return z - self.label, z * (1.0 - z)
+        w, y = self.weight, self.label
+        sc = torch.clamp(score, -30.0, 30.0)
+        epf = torch.exp(sc)
+        hhat = torch.logaddexp(sc, torch.zeros_like(sc))  # softplus
+        z = 1.0 - torch.exp(-w * hhat)
+        g = (1.0 - y / torch.clamp_min(z, 1e-15)) * w * torch.sigmoid(sc)
+        c = 1.0 / torch.clamp_min(1.0 - z, 1e-15)
+        a = w * torch.sigmoid(sc) * torch.sigmoid(-sc)
+        d2 = torch.clamp_min(c - 1.0, 1e-15)
+        b = (c / (d2 * d2)) * (1.0 + w * epf - c)
+        return g, a * (1.0 + y * b)
+
+    def boost_from_score(self, class_id: int) -> float:
+        havg = float(np.average(self._host_label, weights=self._host_weight))
+        return float(np.log(max(np.expm1(havg), 1e-15)))
+
+    def convert_output(self, score):
+        # the normalized exponential parameter lambda, not a probability
+        return np.logaddexp(0.0, score)
+
+
 _OBJECTIVES = {
     "regression": RegressionL2,
     "regression_l1": RegressionL1,
@@ -338,6 +434,9 @@ _OBJECTIVES = {
     "tweedie": Tweedie,
     "binary": Binary,
     "multiclass": MulticlassSoftmax,
+    "multiclassova": MulticlassOVA,
+    "cross_entropy": CrossEntropy,
+    "cross_entropy_lambda": CrossEntropyLambda,
 }
 
 

@@ -5,16 +5,20 @@ The JAX package keys every stochastic draw on the main path off
 `jax_threefry_partitionable=True` (its default since jax 0.5): the
 stochastic rounding of the gradient levels (boosting._quantize:
 `fold_in(key(data_random_seed), it * K + k)`, then quantize's
-`split` + two `uniform` draws). Stochastic rounding must land on the
-same integer levels or the trees diverge, so this module re-implements
-those four functions on torch tensors:
+`split` + two `uniform` draws), the bagging and GOSS row draws
+(sample_strategy) and the feature_fraction permutation. Each must land
+on the same values or the trees diverge, so this module re-implements
+those functions on torch tensors:
 
 - `key(seed)`: the raw (2,) uint32 pair (seed >> 32, seed & 0xffffffff);
 - `fold_in(key, data)`: threefry2x32(key, (0, data));
 - `split(key, num)`: threefry2x32(key, (hi(i), lo(i))) for i < num;
 - `uniform(key, shape)`: 23 random mantissa bits of
   threefry2x32(key, (hi(i), lo(i))) xor-folded, as a float in [1, 2),
-  minus 1.
+  minus 1;
+- `permutation(key, n)`: jax's `_shuffle` of arange(n), a few rounds of
+  a stable sort by fresh 32-bit keys (the per-tree feature_fraction
+  mask, boosting._sample_features).
 
 A key is a (2,) int64 tensor holding the two uint32 words. torch has
 no full set of uint32 operations, so words live in int64 and are
@@ -23,6 +27,7 @@ masked back to 32 bits after every add and shift.
 
 from __future__ import annotations
 
+import math
 from typing import Sequence, Tuple, Union
 
 import torch
@@ -96,3 +101,18 @@ def uniform(k: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
     bits = random_bits(k, shape)
     fbits = ((bits >> 9) | 0x3F800000).to(torch.int32)
     return torch.clamp_min(fbits.view(torch.float32) - 1.0, 0.0)
+
+
+def permutation(k: torch.Tensor, n: int) -> torch.Tensor:
+    """jax.random.permutation(k, n) (jax 0.9's _shuffle of arange(n)):
+    ceil(3 ln n / ln(2^32 - 1)) rounds, each splitting the key, drawing
+    32-bit sort keys from the second half and sorting the values by them
+    stably (lax.sort_key_val is stable). int64 values on k's device."""
+    n = int(n)
+    rounds = int(math.ceil(3 * math.log(max(1, n)) / math.log(_MASK)))
+    x = torch.arange(n, dtype=torch.int64, device=k.device)
+    for _ in range(rounds):
+        k, sub = split(k)
+        order = torch.sort(random_bits(sub, (n,)), stable=True).indices
+        x = x[order]
+    return x

@@ -156,6 +156,28 @@ class Tree:
         bits = (words[ivc // 32] >> (ivc % 32).astype(np.uint32)) & 1
         return ok & (bits == 1)
 
+    def go_left(self, node: int, x: np.ndarray) -> bool:
+        """The decision of one row at one node (tree.h Decision /
+        CategoricalDecision), as predict_leaf takes it."""
+        v = x[self.split_feature[node]]
+        dt = int(self.decision_type[node])
+        if dt & _CAT_MASK:
+            if np.isnan(v):
+                return False
+            return bool(self._cat_in_bitset(node, np.asarray([v]))[0])
+        missing_type = (dt >> 2) & 3
+        default_left = bool(dt & _DEFAULT_LEFT_MASK)
+        isna = np.isnan(v)
+        if missing_type == 2:  # NaN as missing
+            if isna:
+                return default_left
+        else:
+            if isna:
+                v = 0.0
+            if missing_type == 1 and abs(v) <= K_ZERO_THRESHOLD:
+                return default_left
+        return bool(v <= self.threshold[node])
+
     def predict_leaf(self, X: np.ndarray) -> np.ndarray:
         """Vectorized decision walk -> leaf index per row (Tree::Predict)."""
         n = X.shape[0]
@@ -228,6 +250,86 @@ class Tree:
             if self.split_gain[i] > 0:
                 imp[self.split_feature[i]] += 1
         return imp
+
+def tree_to_arrays(t: Tree, dataset: "BinnedDataset",
+                   device="cpu") -> "TreeArrays":
+    """Inverse of Tree.from_arrays (the JAX package's tree.tree_to_arrays,
+    tree.py:336): a host model tree -> TreeArrays sized to the tree on
+    `device`, for the binned traversal that seeds continued training's
+    scores. Thresholds map back through the dataset's bin upper bounds:
+    exact for a model trained on this binning, within one bin otherwise.
+    A split on a feature that is trivial in this dataset sends every row
+    the same way, encoded as an always-left / always-right node on
+    feature 0. leaf_depth holds each leaf's depth, so the traversal runs
+    the tree's depth in passes."""
+    from .learner.grower import TreeArrays
+
+    L = t.num_leaves
+    n_nodes = L - 1
+    m_ = max(n_nodes, 1)
+    B = dataset.max_num_bin
+    used_of = {int(f): i for i, f in enumerate(dataset.used_features)}
+    nf = np.zeros(m_, np.int32)
+    nb = np.zeros(m_, np.int32)
+    ndl = np.zeros(m_, bool)
+    ncat = np.zeros(m_, bool)
+    nmask = np.zeros((m_, B), bool)
+    for i in range(n_nodes):
+        f_orig = int(t.split_feature[i])
+        m = dataset.mappers[f_orig]
+        dt = int(t.decision_type[i])
+        if f_orig not in used_of:
+            row = np.zeros(len(dataset.mappers))
+            row[f_orig] = m.min_value
+            nf[i] = 0
+            nb[i] = B + 1 if t.go_left(i, row) else -1
+            continue
+        nf[i] = used_of[f_orig]
+        if dt & _CAT_MASK:
+            ncat[i] = True
+            ci = int(t.threshold[i])
+            lo, hi = int(t.cat_boundaries[ci]), int(t.cat_boundaries[ci + 1])
+            words = t.cat_threshold[lo:hi]
+            for cv, b in (m._cat_to_bin or {}).items():
+                if (cv // 32 < len(words)
+                        and (int(words[cv // 32]) >> (cv % 32)) & 1 and b < B):
+                    nmask[i, b] = True
+        else:
+            ndl[i] = bool(dt & _DEFAULT_LEFT_MASK)
+            nb[i] = int(np.clip(
+                np.searchsorted(m.upper_bounds, t.threshold[i], side="left"),
+                0, max(m.num_bin - 1, 0)))
+    depth = np.zeros(L, np.int32)
+    stack = [(0, 0)] if n_nodes else []
+    while stack:
+        node, d = stack.pop()
+        for child in (int(t.left_child[node]), int(t.right_child[node])):
+            if child >= 0:
+                stack.append((child, d + 1))
+            else:
+                depth[~child] = d + 1
+
+    def nodes(a, dtype):
+        return np.asarray(a, dtype) if n_nodes else np.zeros(1, dtype)
+
+    arr = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    return TreeArrays(
+        num_nodes=torch.tensor(n_nodes, dtype=torch.int32, device=device),
+        node_feature=arr(nf), node_bin=arr(nb),
+        node_gain=arr(nodes(t.split_gain, np.float32)),
+        node_default_left=arr(ndl), node_cat=arr(ncat),
+        node_cat_mask=arr(nmask),
+        node_left=arr(nodes(t.left_child, np.int32)),
+        node_right=arr(nodes(t.right_child, np.int32)),
+        node_value=arr(nodes(t.internal_value, np.float32)),
+        node_weight=arr(nodes(t.internal_weight, np.float32)),
+        node_count=arr(nodes(t.internal_count, np.float32)),
+        leaf_value=arr(np.asarray(t.leaf_value, np.float32)),
+        leaf_weight=arr(np.asarray(t.leaf_weight, np.float32)),
+        leaf_count=arr(np.asarray(t.leaf_count, np.float32)),
+        leaf_depth=arr(depth),
+    )
+
 
 def traverse_tree_bins(arrays: "TreeArrays", bins_fm: torch.Tensor,
                        nan_bin: torch.Tensor, bundle=None,

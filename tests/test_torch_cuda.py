@@ -554,22 +554,23 @@ def test_seg_sum_values_across_24_binades(dev):
 # ---- hist_round: partition, then a histogram over the kept rows
 
 
-def _round_case(mode, case, seed=0):
+def _round_case(mode, case, seed=0, oob=0.2):
     """One round's arguments. "first": 8 slots, one used, the root (every
     row) split near its median bin, so about half the rows are kept (the
     slot spans many work items and flushes with atomics). "s48": 48
     slots over 255 leaves, 2 unused, one whose leaf holds no row, one
     whose leaf holds a single row, the rest many; every eighth slot
     decodes an EFB bundle column. "ragged": 3 slots over 5001 rows (a
-    partial partition block). 20% of the rows have zero count (and zero
-    gradient and hessian, as every caller masks them). mode "cat" is the
-    int16 mode with every other slot categorical."""
+    partial partition block). A share `oob` of the rows (20% unless
+    asked) have zero count (and zero gradient and hessian, as every
+    caller masks them). mode "cat" is the int16 mode with every other
+    slot categorical."""
     rs = np.random.RandomState(seed)
     n, S, L, G, B = {"first": (200_000, 8, 16, 7, 64),
                      "s48": (200_000, 48, 255, 7, 64),
                      "ragged": (5001, 3, 16, 3, 64)}[case]
     bins = rs.randint(0, B, (G, n)).astype(np.int32)
-    cnt = (rs.rand(n) < 0.8).astype(np.float32)
+    cnt = (rs.rand(n) < 1.0 - oob).astype(np.float32)
     if mode == "f32":
         gh = ht.build_gh3(torch.from_numpy(rs.randn(n).astype(np.float32)
                                            * cnt),
@@ -990,3 +991,104 @@ def test_hist_nat_no_rows(dev):
     slot = torch.zeros(0, dtype=torch.int32, device=dev)
     out = ht.hist_nat_slots(bins, gh, slot, 4, 64)
     assert out.shape == (4, 3, 7, 64) and not out.any()
+
+
+OOB = [0.0, 0.2, 0.7, 1.0]
+
+
+def _bagged_round(mode, oob):
+    """The s48 round with a share `oob` of its valid rows out of the bag
+    (zero count, zero gradient and hessian), as bagging and GOSS leave
+    them; slot 2's leaf holds rows, none of them in the bag, so its
+    smaller child keeps no row."""
+    bins, gh, pleaf, params, cat_mask, S, B, L = _round_case(mode, "s48",
+                                                             oob=oob)
+    gh[:, pleaf == params[2, 0]] = 0
+    return bins, gh, pleaf, params, cat_mask, S, B, L
+
+
+def _check_bagged_round(dev, mode, oob):
+    bins, gh, pleaf, params, cat_mask, S, B, L = _bagged_round(mode, oob)
+    quant = mode != "f32"
+    kw = dict(quant=quant, levels=127 if mode == "int8" else 256,
+              cat_mask=None if cat_mask is None else cat_mask.to(dev))
+    args = (bins.to(dev), gh.to(dev), pleaf.to(dev), params.to(dev), S, B,
+            L)
+    hk, pk = ht.hist_round(*args, **kw)
+    rows_of = cuda_hist._ROUND_SCRATCH[
+        (0, cuda_hist._stream(args[0].device))]["work"][4:4 + S].cpu()
+    hk2, pk2 = ht.hist_round(*args, **kw)
+    hp, pp = ht.hist_round_plain(bins, gh, pleaf, params, S, B, quant=quant,
+                                 cat_mask=cat_mask)
+    assert torch.equal(hk.cpu(), hp) and torch.equal(hk, hk2)
+    # every valid row of a split leaf gets its new leaf, in the bag or not
+    assert torch.equal(pk.cpu(), pp) and torch.equal(pk, pk2)
+    _, hslot = ht.round_partition_plain(bins, pleaf, params, S, cat_mask)
+    keep = (hslot < S) & (gh[2] != 0)
+    want = torch.bincount(hslot[keep].long(), minlength=S)[:S]
+    assert torch.equal(rows_of.long(), want)
+    assert want[2] == 0 and (pleaf == params[2, 0]).any()
+    assert not hk[2].any()
+    if oob == 1.0:
+        assert not hk.any()
+    moved = pk.cpu() != pleaf
+    assert (moved & (gh[2] == 0)).any()
+
+
+@pytest.mark.parametrize("oob", OOB)
+@pytest.mark.parametrize("mode", ["int16", "int8", "f32", "cat"])
+def test_hist_round_out_of_bag_rows_bitwise(dev, mode, oob):
+    """A sampled round (bagging, GOSS): valid rows with zero count at 0%,
+    20%, 70% and 100% out of the bag. The histograms are the plain
+    version's bits on two launches, the kept-row lists count only in-bag
+    rows of the smaller children, a slot whose smaller child keeps no row
+    gives zeros, and out-of-bag rows of split leaves still move to their
+    new leaf."""
+    _check_bagged_round(dev, mode, oob)
+
+
+def _check_bagged_nat(dev, mode, oob, S, n=100_000, g=28, b=256):
+    rs = np.random.RandomState(int(oob * 10) + S)
+    bins = torch.from_numpy(rs.randint(0, b, (g, n)).astype(np.int32))
+    slot = torch.from_numpy(rs.randint(0, S + 1, n).astype(np.int32))
+    cnt = (rs.rand(n) < 1.0 - oob).astype(np.float32)
+    if mode == "f32":  # the refit's channels: weights * mask
+        w = rs.rand(n).astype(np.float32) * cnt
+        gh = torch.from_numpy(np.stack([w, w, cnt]))
+    else:
+        lv = 127 if mode == "int8" else 256
+        gh = ht.build_gh8_quant(
+            torch.from_numpy(rs.randint(-lv // 2, lv // 2, n)
+                             .astype(np.float32) * cnt),
+            torch.from_numpy(rs.randint(0, lv, n).astype(np.float32) * cnt),
+            torch.from_numpy(cnt), int8_levels=127 if mode == "int8" else 0)
+    kw = (dict(quant=False) if mode == "f32"
+          else dict(levels=127 if mode == "int8" else 256))
+    args = (bins.to(dev), gh.to(dev), slot.to(dev), S, b)
+    a = ht.hist_nat_slots(*args, **kw)
+    a2 = ht.hist_nat_slots(*args, **kw)
+    ref = ht.hist_nat_slots_plain(bins, gh, slot, S, b,
+                                  quant=mode != "f32")
+    assert torch.equal(a.cpu(), ref) and torch.equal(a, a2)
+    assert (not a.any()) == (oob == 1.0)
+
+
+@pytest.mark.parametrize("S", [1, 48])
+@pytest.mark.parametrize("oob", OOB)
+@pytest.mark.parametrize("mode", ["int32", "int8", "f32"])
+def test_hist_nat_out_of_bag_rows_bitwise(dev, mode, oob, S):
+    """hist_nat on sampled channels: the bagged root (S = 1) and 48 slots
+    in the integer modes, and the refit's f32 mode on w * mask, at 0%,
+    20%, 70% and 100% of the rows out of the bag: the plain version's bits
+    on two launches."""
+    _check_bagged_nat(dev, mode, oob, S)
+
+
+def test_sampled_calls_in_a_row(dev):
+    """hist_round and hist_nat on sampled inputs one after another on one
+    stream, the bag emptying and filling again: each call the plain
+    version's bits (the scratch every hist_round call leaves zeroed)."""
+    for oob in (0.2, 1.0, 0.0, 0.7, 1.0, 0.2):
+        for mode in ("int16", "f32"):
+            _check_bagged_round(dev, mode, oob)
+        _check_bagged_nat(dev, "int32", oob, 1, n=50_000)

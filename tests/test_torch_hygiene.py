@@ -128,12 +128,12 @@ def test_auto_means_int16_everywhere():
 
 
 @pytest.mark.parametrize("extra", [
-    {"bagging_fraction": 0.5, "bagging_freq": 1},
-    {"feature_fraction": 0.5},
+    {"linear_tree": True},
+    {"tree_learner": "voting"},
     {"boosting": "dart"},
     {"objective": "lambdarank"},
     {"extra_trees": True},
-    {"early_stopping_round": 2},
+    {"boosting": "rf", "bagging_freq": 1, "bagging_fraction": 0.5},
     {"metric": "ndcg"},
 ])
 def test_unported_options_raise(extra):
