@@ -111,6 +111,19 @@ Phases, each printed as one JSON line:
             tree's round with the most categorical slots, with its time
             on the int16 line's inputs (G = 28, every other slot
             categorical) beside it;
+  *_fused_vs_eager - the fused loop against the eager loop in turns, on
+            the same data and parameters, for train, train_bag,
+            train_goss, train_quant, train_l1, train_f32 (after the f32
+            paths) and train_cat (after its phase): 1 warm-up and 6 timed
+            trees each (train_goss 11 unsampled trees first); trees/s,
+            host ms a tree, device busy share and device operations a
+            tree for both loops; capture seconds, graph nodes, graph
+            launches a tree, rounds per tree and overflows for the graph;
+            model text and validation scores bitwise equal, eval records
+            within 1e-5, 0 overflows and the path's kernels in the graph
+            (fused_summary gathers the paths). The small phase's
+            early stopping also runs the eager loop on the card (the same
+            stop, the same model text as the fused loop);
 then the `kernels` summary line and, last, {"ok": true, "device": ...}.
 Any failure raises: no `ok` line, non-zero exit. Without a CUDA device,
 or without the package beside it, the script exits non-zero at once.
@@ -1173,18 +1186,24 @@ def sampled_runs(lgb, np, params, X, z, Xv, zv):
     # early stopping that fires: at 63 leaves and lr 1 the validation
     # logloss is best after tree 3, and 6e-3 worse after trees 4 and 5
     es = {}
-    for device in ("cuda", "cpu"):
+    for run, device, cbs in (("cuda", "cuda", []), ("cpu", "cpu", []),
+                             ("cuda_eager", "cuda", [_eager])):
         p = dict(params, device_type=device, learning_rate=1.0,
                  num_leaves=63, metric="binary_logloss",
                  early_stopping_round=2)
         ds = lgb.Dataset(X, label=y, params=p)
         bst = lgb.train(p, ds, 30, valid_sets=[lgb.Dataset(
-            Xv, label=yv, reference=ds)])
-        es[device] = (bst.best_iteration, bst.num_trees(),
-                      bst.predict(Xv, raw_score=True))
-    if es["cuda"][:2] != es["cpu"][:2] or es["cuda"][1] >= 30:
+            Xv, label=yv, reference=ds)], callbacks=cbs)
+        es[run] = (bst.best_iteration, bst.num_trees(),
+                   bst.predict(Xv, raw_score=True), bst.model_to_string())
+    # the fused loop (the default) on both devices, and the eager loop on
+    # the card: the same stop, and fused == eager on the card bit for bit
+    if (es["cuda"][:2] != es["cpu"][:2] or es["cuda"][1] >= 30
+            or es["cuda"][:2] != es["cuda_eager"][:2]
+            or es["cuda"][3] != es["cuda_eager"][3]):
         raise AssertionError(f"early stopping: card (best_iteration, "
-                             f"trees) {es['cuda'][:2]}, CPU {es['cpu'][:2]}")
+                             f"trees) {es['cuda'][:2]}, CPU {es['cpu'][:2]}, "
+                             f"card eager {es['cuda_eager'][:2]}")
     errs["early_stopping"] = float(np.abs(es["cuda"][2] - es["cpu"][2]).max())
     goss_binary = replay_check(lgb, dict(params, **goss), X, y, None,
                                n_trees=5, valid=(Xv, yv))
@@ -1252,13 +1271,15 @@ def replay_check(lgb, params, X, y, cat_cols, n_trees: int = 2,
         p = dict(params, device_type="cuda")
         ds = lgb.Dataset(X, label=y, categorical_feature=cat_cols or "auto",
                          params=p)
+        # the eager loop: a graph capture would record these calls'
+        # inputs before they are computed
         if valid is None:
-            lgb.train(p, ds, n_trees)
+            lgb.train(p, ds, n_trees, callbacks=[_eager])
         else:
             p["metric"] = "auc"
             lgb.train(p, ds, n_trees, valid_sets=[lgb.Dataset(
                 valid[0], label=valid[1], reference=ds)],
-                valid_names=["v"], evals_result=ev)
+                valid_names=["v"], evals_result=ev, callbacks=[_eager])
     finally:
         for name, fn in orig.items():
             setattr(rounds, name, fn)
@@ -1532,7 +1553,181 @@ def train_cat_path(torch, lgb, ch, np, n_warm: int = 2, n_timed: int = 10,
         raise AssertionError(f"train_cat: AUC did not rise: {auc1} -> "
                              f"{auc_last}")
     prof = profile_phase(torch, bst, 1, "train_cat_profile")
-    return line, prof
+    return line, prof, (ds, vs)
+
+
+# the fused loop's kernels, by symbol name in the profile of its replays
+FUSED_KERNELS = {"hist_round": "round_hist_kernel", "hist_nat": "nat_kernel",
+                 "take_small": "take_small_kernel",
+                 "seg_sum": "seg_sum_kernel", "hist": "seg_hist_kernel",
+                 "hist_nat_f32": "f32_atomic_kernel"}
+# the kernels (by their launch counters) each path's graph must hold
+FUSED_NEEDS = {
+    "train": ("hist_round", "hist_nat", "take_small", "seg_sum"),
+    "train_bag": ("hist_round", "hist_nat", "take_small", "seg_sum"),
+    "train_goss": ("hist_round", "hist_nat", "take_small", "seg_sum"),
+    "train_quant": ("hist_round_int8", "hist_nat_int8", "take_small",
+                    "seg_sum"),
+    "train_l1": ("hist_round", "hist_nat", "hist_nat_f32", "take_small",
+                 "seg_sum"),
+    "train_f32": ("hist_round_f32", "hist", "take_small"),
+    "train_cat": ("hist_round", "hist_round_cat", "hist_nat", "take_small",
+                  "seg_sum"),
+}
+
+
+def _eager(env):
+    """A no-op before-iteration callback: keeps lgb.train on the eager
+    loop."""
+
+
+_eager.before_iteration = True
+
+
+def loop_profile(torch, run, n_trees):
+    """torch.profiler around run() (n_trees trees): device busy share,
+    device operations a tree (CUPTI sees the kernels a graph launches),
+    and the kernel names with their counts."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    names, device_ms, ops = {}, 0.0, 0
+    for e in prof.key_averages():
+        if "cuda" not in str(getattr(e, "device_type", "")).lower():
+            continue
+        us = getattr(e, "device_time_total", None)
+        if us is None:
+            us = getattr(e, "cuda_time_total", 0)
+        if us > 0:
+            device_ms += us / 1e3
+            ops += e.count
+            names[e.key] = names.get(e.key, 0) + e.count
+    return {"profiled_wall_ms_per_tree": wall_ms / n_trees,
+            "device_ms_per_tree": device_ms / n_trees,
+            "device_busy_share": device_ms / wall_ms,
+            "device_ops_per_tree": ops / n_trees}, names
+
+
+def fused_vs_eager(torch, lgb, ds, vs, name, extra, n_timed=6, n_skip=0):
+    """The eager loop, then the fused CUDA-graph loop, on the same data
+    and parameters at the headline widths: n_skip untimed trees (GOSS
+    samples from tree 12), 1 warm-up tree, n_timed timed trees. Eager:
+    Booster.update per tree (the host reads each round's predicate),
+    each timed tree between two synchronizations, its evaluation (host
+    metrics) outside the timing. Fused: GBDT.fused_dispatch / collect;
+    the first dispatch runs the warm-up tree and captures the
+    iteration's graph, the timed trees are one dispatch of replays.
+    Per loop: trees/s (card synchronized), host ms a tree (the host
+    clock until the trees are enqueued), and from a 2-tree torch.profiler
+    run the device busy share, device operations a tree and (fused) the
+    kernel symbols its replays ran; for the graph: capture seconds,
+    nodes, graph launches a tree, rounds per tree (min / median / max)
+    and overflows. Holds model text and validation scores bitwise equal,
+    eval records within 1e-5, 0 overflows and FUSED_NEEDS[name] in the
+    graph (their wrappers ran during the capture; the profile's kernel
+    symbols of two replays are printed beside)."""
+    from lightgbm_tpu_torch.learner import cuda_hist as ch
+
+    params = {"objective": "binary", "num_leaves": L, "max_bin": 255,
+              "learning_rate": 0.1, "min_data_in_leaf": 20, "metric": "auc",
+              "verbosity": -1, **extra}
+    res, line = {}, {"phase": name + "_fused_vs_eager",
+                     "trees": n_skip + 1 + n_timed, "timed_trees": n_timed}
+    for loop in ("eager", "fused"):
+        bst = lgb.Booster(params, ds)
+        bst.add_valid(vs, "valid")
+        gb = bst._gbdt
+        records = []
+        ch.reset_launch_counts()
+        torch.cuda.synchronize()
+        if loop == "eager":
+            wall = host = 0.0
+            for t in range(n_skip + 1 + n_timed):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                bst.update()
+                t1 = time.perf_counter()
+                torch.cuda.synchronize()
+                t2 = time.perf_counter()
+                if t > n_skip:
+                    wall, host = wall + t2 - t0, host + t1 - t0
+                records.append(bst.eval_valid())
+
+            def two():
+                bst.update()
+                bst.update()
+        else:
+            gb.fused_start(track_train=False)
+            gb.fused_dispatch(n_skip + 1)
+            records += gb.fused_collect()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            gb.fused_dispatch(n_timed)
+            host = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            records += gb.fused_collect()
+
+            def two():
+                gb.fused_dispatch(2)
+                gb.fused_collect()
+        launches = {k: v for k, v in ch.LAUNCHES.items() if v}
+        res[loop] = (bst.model_to_string(),
+                     gb.valids[0].score.clone(), records)
+        prof, names = loop_profile(torch, two, 2)
+        line[loop] = {"trees_per_s": n_timed / wall,
+                      "host_ms_per_tree": host * 1e3 / n_timed,
+                      "wall_ms_per_tree": wall * 1e3 / n_timed,
+                      "launches_counted": launches, **prof}
+        if loop == "fused":
+            fp = gb._fused
+            r = sorted(fp.rounds)
+            line[loop].update({
+                "graph_launches_per_tree": fp.graph.replays
+                / (n_skip + n_timed + 2),
+                "capture_s": fp.graph.capture_s, "graph_nodes":
+                fp.graph.nodes, "round_cap": fp.round_cap,
+                "rounds_per_tree": [r[0], r[len(r) // 2], r[-1]],
+                "overflows": gb.fused_overflow_count})
+            ran = {k: sum(c for nm, c in names.items() if sym in nm)
+                   for k, sym in FUSED_KERNELS.items()}
+            line[loop].update(
+                captured_launches=fp.captured_launches,
+                kernels_in_replays_profile=ran,
+                replay_kernels_top=sorted(names.items(),
+                                          key=lambda kv: -kv[1])[:12])
+    (me, se, re_), (mf, sf, rf) = res["eager"], res["fused"]
+    gaps = [abs(a[2] - b[2]) for ev_e, ev_f in zip(re_, rf)
+            for a, b in zip(ev_e, ev_f)]
+    line.update(model_text_equal=me == mf,
+                valid_scores_equal=bool(torch.equal(se, sf)),
+                eval_records=[len(re_), len(rf)],
+                max_eval_gap=max(gaps) if gaps else None,
+                metric_last=[re_[-1][0][2], rf[-1][0][2]],
+                speedup=line["fused"]["trees_per_s"]
+                / line["eager"]["trees_per_s"])
+    emit(line)
+    # the graph holds each kernel of the path (its wrapper ran during the
+    # capture), and the replays' models equal the eager loop's
+    missing = [k for k in FUSED_NEEDS[name]
+               if not line["fused"]["captured_launches"].get(k)]
+    if not (line["model_text_equal"] and line["valid_scores_equal"]):
+        raise AssertionError(f"{name}: the fused loop's model differs from "
+                             "the eager loop's")
+    if len(re_) != len(rf) or not gaps or max(gaps) > 1e-5:
+        raise AssertionError(f"{name}: eval records {line['eval_records']} "
+                             f"apart by {line['max_eval_gap']}")
+    if line["fused"]["overflows"] or missing:
+        raise AssertionError(f"{name}: overflows "
+                             f"{line['fused']['overflows']}, kernels not in "
+                             f"the graph {missing}")
+    return line
 
 
 # the sampled paths' parameters: bagging and feature sub-sampling as
@@ -1924,6 +2119,20 @@ def main() -> int:
                                  seg_calls["train_exact_rounds"])})
     del seg_calls
 
+    # ---- the fused loop: the eager loop and the CUDA-graph loop in turns
+    # on each rounds path (train_cat after its own phase)
+    fused_lines = {}
+    for name, sets, extra, skip in (
+            ("train", (ds, vs), {}, 0),
+            ("train_bag", (ds, vs), BAG_PARAMS, 0),
+            ("train_goss", (ds, vs), GOSS_PARAMS, 11),
+            ("train_quant", (ds, vs), QUANT_PARAMS, 0),
+            ("train_l1", (ds_l1, vs_l1),
+             {"objective": "regression_l1", "metric": "l1"}, 0),
+            ("train_f32", (ds, vs), F32_PATHS["train_f32"], 0)):
+        fused_lines[name] = fused_vs_eager(torch, lgb, *sets, name, extra,
+                                           n_skip=skip)
+
     # ---- hist_round in each mode on its path's first and fullest rounds
     # (the int16 mode also on the sampled paths' first sampled trees), and
     # hist_nat on the roots of the unsampled and the sampled paths
@@ -1944,8 +2153,11 @@ def main() -> int:
 
     # ---- categorical splits on the airline schema
     cat_round = {}
-    cat, _ = train_cat_path(torch, lgb, ch, np, capture=cat_round)
+    cat, _, cat_sets = train_cat_path(torch, lgb, ch, np, capture=cat_round)
     path_launches["train_cat"] = cat["launches"]
+    fused_lines["train_cat"] = fused_vs_eager(torch, lgb, *cat_sets,
+                                              "train_cat", {})
+    del cat_sets
     if "fullest" not in cat_round:
         raise AssertionError("no categorical hist_round call was captured")
     lines["hist_round_cat"] = hist_round_cat_line(torch, hist, ch,
@@ -1965,6 +2177,16 @@ def main() -> int:
             "bound_by": d["bound_by"], "library_ms": d["library_ms"],
             **{k: d[k] for k in ("device_ms", "host_us") if k in d},
         })
+    emit({"phase": "fused_summary", "nvidia_smi": smi, "paths": {
+        k: {"eager_trees_per_s": v["eager"]["trees_per_s"],
+            "fused_trees_per_s": v["fused"]["trees_per_s"],
+            "speedup": v["speedup"],
+            "eager_busy": v["eager"]["device_busy_share"],
+            "fused_busy": v["fused"]["device_busy_share"],
+            "capture_s": v["fused"]["capture_s"],
+            "graph_nodes": v["fused"]["graph_nodes"],
+            "rounds_per_tree": v["fused"]["rounds_per_tree"]}
+        for k, v in fused_lines.items()}})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

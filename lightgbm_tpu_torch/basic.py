@@ -7,7 +7,8 @@ indices or names, as the JAX package takes it), and a Booster that trains
 (update, with a custom objective's gradients too), continues from a
 loaded model (_continue_from), takes new parameters between iterations
 (reset_parameter), evaluates with custom metrics (feval), predicts on the
-host, and saves / loads the text model. Text files, sparse
+host (with the per-row prediction early stop of classification), and
+saves / loads the text model. Text files, sparse
 matrices, Sequences, pandas and Arrow inputs, subsets, refit, SHAP and
 device prediction are not ported yet (ROADMAP queue A) and raise.
 """
@@ -24,6 +25,9 @@ from . import log
 from .config import Config, resolve_device
 from .dataset import BinnedDataset
 from .log import LightGBMError
+
+_EARLY_STOP_KEYS = ("pred_early_stop", "pred_early_stop_freq",
+                    "pred_early_stop_margin")
 
 
 def _to_2d_numpy(data: Any) -> np.ndarray:
@@ -282,16 +286,36 @@ class Booster:
                 num_iteration: Optional[int] = None, raw_score: bool = False,
                 pred_leaf: bool = False, pred_contrib: bool = False,
                 **kwargs: Any) -> np.ndarray:
-        if pred_leaf or pred_contrib or kwargs:
+        other = set(kwargs) - set(_EARLY_STOP_KEYS)
+        if pred_leaf or pred_contrib or other:
             raise NotImplementedError(
-                "pred_leaf / pred_contrib / prediction options are not "
-                "ported yet (ROADMAP queue A)")
+                "pred_leaf / pred_contrib / prediction options "
+                f"{sorted(other)} are not ported yet (ROADMAP queue A)")
         arr = _to_2d_numpy(data)
         if num_iteration is None:
             num_iteration = self.best_iteration if self.best_iteration > 0 \
                 else -1
         return self._gbdt.predict(arr, start_iteration, num_iteration,
-                                  raw_score=raw_score)
+                                  raw_score=raw_score,
+                                  early_stop=self._early_stop(kwargs))
+
+    def _early_stop(self, kwargs) -> Optional[Tuple[int, float]]:
+        """The per-row prediction early stop (prediction_early_stop.cpp)
+        as the JAX package's predict reads it: kwargs first, then the
+        Booster's params; (freq, margin) for classification, else None
+        with a warning."""
+        keys = dict(zip(_EARLY_STOP_KEYS, (False, 10, 10.0)))
+        get = lambda k: kwargs.get(k, self.params.get(k, keys[k]))
+        if not get("pred_early_stop"):
+            return None
+        if not (self._gbdt.num_class > 1 or getattr(
+                self.config, "objective", "") in (
+                    "binary", "cross_entropy", "cross_entropy_lambda")):
+            log.warning("pred_early_stop only applies to classification; "
+                        "ignored")
+            return None
+        return (int(get("pred_early_stop_freq")),
+                float(get("pred_early_stop_margin")))
 
     def model_to_string(self, num_iteration: Optional[int] = None,
                         start_iteration: int = 0) -> str:

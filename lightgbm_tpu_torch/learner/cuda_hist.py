@@ -40,6 +40,7 @@ falls back to them.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -170,9 +171,20 @@ def load() -> ctypes.CDLL:
                                   + [I] * 10 + [P])
         lib.lgbm_hist_slots.argtypes = ([P, P, I, P, P, I] + [P] * 4
                                         + [I] * 10 + [P])
+        # csrc/graph.cu: capture, replay and IF nodes (device_loop.py)
+        lib.lgbm_graph_begin.argtypes = [P]
+        lib.lgbm_graph_end.argtypes = [P, ctypes.POINTER(P), ctypes.POINTER(P),
+                                        ctypes.POINTER(L)]
+        lib.lgbm_graph_launch.argtypes = [P, P]
+        lib.lgbm_graph_destroy.argtypes = [P, P]
+        lib.lgbm_if_begin.argtypes = [P, P, P]
+        lib.lgbm_if_end.argtypes = [P, ctypes.POINTER(L)]
         for fn in (lib.lgbm_hist_nat, lib.lgbm_hist_nat_f32,
                    lib.lgbm_hist_round, lib.lgbm_take_small,
-                   lib.lgbm_seg_sum, lib.lgbm_hist, lib.lgbm_hist_slots):
+                   lib.lgbm_seg_sum, lib.lgbm_hist, lib.lgbm_hist_slots,
+                   lib.lgbm_graph_begin, lib.lgbm_graph_end,
+                   lib.lgbm_graph_launch, lib.lgbm_graph_destroy,
+                   lib.lgbm_if_begin, lib.lgbm_if_end):
             fn.restype = ctypes.c_int
         _lib = lib
         return lib
@@ -509,13 +521,34 @@ _SEG_BUFS = (("state", torch.int32, True), ("work", torch.int32, False),
 _NAT_BUFS = (("part", torch.int32, False),)
 
 
+# set while a CUDA graph is captured (device_loop.CudaGraph.capture): the
+# capture stream, which keys the scratch of every launch in the graph,
+# its IF bodies' streams included (a graph runs its launches one after
+# another, so they may share one set of buffers)
+_SCRATCH_STREAM: Optional[int] = None
+
+
+@contextlib.contextmanager
+def scratch_stream(stream: int):
+    """Key the scratch on `stream` whatever the current stream is."""
+    global _SCRATCH_STREAM
+    prev, _SCRATCH_STREAM = _SCRATCH_STREAM, stream
+    try:
+        yield
+    finally:
+        _SCRATCH_STREAM = prev
+
+
 def _scratch(table: dict, dev: torch.device, stream: int, plan: dict,
              layout) -> Tuple[torch.Tensor, ...]:
     """The buffers of `layout` ((name, dtype, zeroed) each, sized by
     plan[name + "_words"]) for a call of this plan, kept in table per
     (device, stream), allocated once per size and reused: the zeroed
     ones zeroed when allocated (every call leaves them zero), the others
-    uninitialised."""
+    uninitialised. During a graph capture the capture stream stands for
+    `stream` (scratch_stream)."""
+    if _SCRATCH_STREAM is not None:
+        stream = _SCRATCH_STREAM
     bufs = table.setdefault((dev.index, stream), {})
     out = []
     for name, dtype, zero in layout:

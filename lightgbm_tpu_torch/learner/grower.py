@@ -149,18 +149,22 @@ def empty_tree(L: int, B: int, device) -> TreeArrays:
 
 def grow_tree(bins_fm, nan_bin, num_bins, mono, is_cat, grad, hess, mask,
               feat_mask, params: SplitParams, spec: GrowerSpec,
-              valid=None, bundle=None, gh_scale=None
+              valid=None, bundle=None, gh_scale=None, loop=None
               ) -> Tuple[TreeArrays, torch.Tensor]:
     """Grow one tree -> (tree arrays, per-row leaf, -1 on padding rows).
     Dispatches as the JAX package's grow_tree does: the rounds grower
-    when spec.rounds_slots > 0, else the sequential permuted grower
-    (f32 gradients only; gh_scale must then be None)."""
+    when spec.rounds_slots > 0 (its round loop as `loop` says,
+    device_loop.py), else the sequential permuted grower (f32 gradients
+    only; gh_scale must then be None; it reads the card once per split
+    and takes no loop)."""
     if spec.rounds_slots > 0:
         from .rounds import grow_tree_rounds
 
         return grow_tree_rounds(bins_fm, nan_bin, num_bins, mono, is_cat,
                                 grad, hess, mask, feat_mask, params, spec,
-                                valid, bundle, gh_scale)
+                                valid, bundle, gh_scale, loop)
+    if loop is not None and loop.bounded:
+        raise ValueError("the permuted grower runs on the eager loop only")
     if gh_scale is not None:
         raise ValueError("the permuted grower takes f32 gradients, not "
                          "integer levels with scales")

@@ -57,7 +57,7 @@ def renew_leaf_values(leaf_value: torch.Tensor, row_leaf: torch.Tensor,
     key = torch.where(incl, row_leaf, L).to(torch.int32)
     wv = torch.where(incl, w, 0.0).to(f32)
     rv = resid.to(f32)
-    inf = torch.tensor(float("inf"), dtype=f32, device=dev)
+    inf = torch.full((), float("inf"), dtype=f32, device=dev)
 
     # the global residual range seeds every leaf's bracket
     rmin = torch.where(incl, rv, inf).min()

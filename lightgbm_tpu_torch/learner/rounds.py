@@ -15,12 +15,18 @@ never move: the partition is a per-row leaf-id vector. Each round
 - gets each larger child by parent subtraction, and searches the best
   split of all new children in one batched call.
 
-The JAX loop is a lax.while_loop; here it is a Python loop with one
-host read per round (the count of splittable leaves, which also picks
-the ladder width). lax.top_k's lower-index-first tie order comes from a
-stable descending sort. `.at[...].set(mode="drop")` scatters become
-writes at the taken prefix of the gain-sorted slots, which the JAX
-formulation guarantees: taken slots are exactly slots 0..n_split-1.
+The JAX loop is a lax.while_loop. Here a round's shapes do not depend
+on the data: it works on W slots, the first n_split of them live (n_split
+a device scalar), and the unused ones write to dump rows past the tree
+(node L - 1, leaf L), as the JAX package's `.at[...].set(mode="drop")`
+drops them; a round whose n_split is 0 changes nothing. The eager loop
+reads n_split on the host each round (its one read a round) and runs a
+round at W = n_split; a bounded loop (learner/device_loop.py: the fused
+loop's CUDA graph, an IF node a round) runs round_cap rounds at W = S
+and reads nothing. Every slot's and child's numbers are the same at
+either width. lax.top_k's lower-index-first tie order comes from a
+stable descending sort; taken slots are exactly slots 0..n_split-1 of
+the gain-sorted leaves.
 
 Categorical splits ride the same loop: the split records and node
 tables carry is_cat and the (B,) left category set, and with
@@ -48,18 +54,35 @@ from .grower import (
     monotone_child_intervals,
     split_leaf_outputs,
 )
-from .histogram import build_gh3, build_gh8_quant, hist_nat_slots, \
-    hist_round, histogram, root_sums, root_sums_quant
+from .device_loop import DeviceLoop
+from .histogram import INT8_MAX, build_gh3, build_gh8_quant, \
+    hist_nat_slots, hist_round, histogram, root_sums, root_sums_quant
 from .split import BIG, NEG_INF, SplitParams, SplitRecord, best_split, \
     leaf_output, map_record
 
 _TAIL_EXACT_ROWS = 32 * 8192  # rounds.py:436
 
 
-def _scatter(dst: torch.Tensor, idx: torch.Tensor, val) -> torch.Tensor:
-    out = dst.clone()
-    out[idx] = val
-    return out
+def _put(dst: torch.Tensor, idx: torch.Tensor, val: torch.Tensor) -> None:
+    """dst[idx] = val in place along the first axis (index_put_, which is
+    several times faster than index_copy_ on the CPU). Unused slots
+    write the dump rows, whose duplicate writes are never read."""
+    dst.index_put_((idx,), val)
+
+
+def round_cap(num_leaves: int, slots: int) -> int:
+    """The rounds a tree may take in a bounded loop (DeviceLoop BOUNDED /
+    CAPTURE; the eager loop runs up to L - 1). Each round splits up to S
+    leaves, and once half the budget is used it splits at most the
+    leaves that the previous round made, so a tree that keeps finding
+    splits needs about ceil((L - 1) / S) + log2(L) rounds; twice that
+    plus 8 leaves room for rounds that split few leaves (the main path's
+    255-leaf trees take ~10 of the cap's 36). A tree still growing at
+    the cap sets the loop's overflow flag and is grown again on the
+    eager loop (boosting.fused_collect)."""
+    L, S = int(num_leaves), max(int(slots), 1)
+    return max(1, min(L - 1, 2 * (-(-(L - 1) // S)
+                                  + (L - 1).bit_length()) + 8))
 
 
 def grow_tree_rounds(
@@ -77,20 +100,24 @@ def grow_tree_rounds(
     valid: Optional[torch.Tensor] = None,
     bundle: Optional[BundleInfo] = None,
     gh_scale: Optional[torch.Tensor] = None,  # (2,) [g_scale, h_scale]
+    loop: Optional[DeviceLoop] = None,
 ) -> Tuple[TreeArrays, torch.Tensor]:
     """Grow one tree -> (tree arrays, natural-order row -> leaf, -1 on
     rows with valid == 0). gh_scale carries the level scales when
-    spec.quant and must be None otherwise."""
+    spec.quant and must be None otherwise. loop: how the round loop runs
+    (device_loop; EAGER when None, up to L - 1 rounds; a bounded loop
+    runs round_cap(L, S)); the tree's (rounds taken, still growing) are
+    appended to loop.trees as device tensors."""
     if spec.quant != (gh_scale is not None):
         raise ValueError("gh_scale is required with spec.quant (integer "
                          "levels) and refused without it")
+    loop = loop or DeviceLoop()
     L = spec.num_leaves
     B = spec.num_bins
     G, N = bins_fm.shape
     dev = bins_fm.device
     S = min(spec.rounds_slots, max(L - 1, 1))
     Bc = spec.col_bins if (spec.efb and spec.col_bins) else B
-    widths = tuple(w for w in (8, 32) if w < S) + (S,)
     tail_exact = N <= _TAIL_EXACT_ROWS
     levels = spec.quant_levels
     has_mono = spec.has_mono
@@ -101,9 +128,14 @@ def grow_tree_rounds(
         return expand_hist(h, g_, h_, c_, bundle) if spec.efb else h
 
     if spec.quant:
-        # (3, N) int8 in the int8 mode (spec.quant_int8), else int32
+        # (3, N) int8 in the int8 mode (spec.quant_int8 below 127 levels),
+        # else int32: at 127 levels a hessian level can reach 128, and
+        # int32 channels give the same integer sums without reading the
+        # levels back to choose
         gh = build_gh8_quant(grad * mask, hess * mask, mask,
-                             int8_levels=levels if spec.quant_int8 else 0)
+                             int8_levels=levels if (
+                                 spec.quant_int8 and levels < INT8_MAX)
+                             else 0)
         scale3 = torch.stack([gh_scale[0], gh_scale[1],
                               torch.ones((), dtype=torch.float32,
                                          device=dev)])
@@ -126,63 +158,85 @@ def grow_tree_rounds(
         has_mono=has_mono, is_cat=cat_arg, cat_subset=spec.cat_subset,
     )
 
-    hist = torch.zeros((L, 3, G, Bc), dtype=torch.float32, device=dev)
+    # The working arrays carry one row past the tree's: node L - 1 and
+    # leaf L take the writes of unused slots (a round splits n_split of
+    # its S slots, known only on the device) and are never read for a
+    # used slot; the tree returned is a view without them.
+    hist = torch.zeros((L + 1, 3, G, Bc), dtype=torch.float32, device=dev)
     hist[0] = hist0
-    zf = lambda: torch.zeros(L, dtype=torch.float32, device=dev)
-    zi = lambda: torch.zeros(L, dtype=torch.int32, device=dev)
+    zf = lambda: torch.zeros(L + 1, dtype=torch.float32, device=dev)
+    zi = lambda: torch.zeros(L + 1, dtype=torch.int32, device=dev)
     best = SplitRecord(
-        gain=torch.full((L,), NEG_INF, dtype=torch.float32, device=dev),
+        gain=torch.full((L + 1,), NEG_INF, dtype=torch.float32, device=dev),
         feature=zi(), bin=zi(),
-        default_left=torch.zeros(L, dtype=torch.bool, device=dev),
-        is_cat=(torch.zeros(L, dtype=torch.bool, device=dev)
+        default_left=torch.zeros(L + 1, dtype=torch.bool, device=dev),
+        is_cat=(torch.zeros(L + 1, dtype=torch.bool, device=dev)
                 if spec.has_cat else None),
-        cat_mask=(torch.zeros((L, B), dtype=torch.bool, device=dev)
+        cat_mask=(torch.zeros((L + 1, B), dtype=torch.bool, device=dev)
                   if spec.has_cat else None),
         left_g=zf(), left_h=zf(), left_c=zf(),
         right_g=zf(), right_h=zf(), right_c=zf(),
     )
-    best = map_record(lambda b, r: _scatter(b, 0, r[0]), best, rec0)
-    t = empty_tree(L, B, dev)
-    t = t._replace(
-        leaf_value=_scatter(t.leaf_value, 0, root_out),
-        leaf_weight=_scatter(t.leaf_weight, 0, root[1]),
-        leaf_count=_scatter(t.leaf_count, 0, root[2]),
-    )
+    map_record(lambda b, r: b[:1].copy_(r[:1]), best, rec0)
+    t = empty_tree(L + 1, B, dev)
+    t.leaf_value[0] = root_out
+    t.leaf_weight[0] = root[1]
+    t.leaf_count[0] = root[2]
     valid_f = (torch.ones(N, dtype=torch.float32, device=dev)
                if valid is None else valid)
     pleaf = torch.where(valid_f > 0, 0, L).to(torch.int32)
-    leaf_g = _scatter(zf(), 0, root[0])
-    leaf_h = _scatter(zf(), 0, root[1])
-    leaf_c = _scatter(zf(), 0, root[2])
-    leaf_parent = torch.full((L,), -1, dtype=torch.int64, device=dev)
-    leaf_min = torch.full((L,), -BIG, dtype=torch.float32, device=dev)
-    leaf_max = torch.full((L,), BIG, dtype=torch.float32, device=dev)
+    leaf_g, leaf_h, leaf_c = zf(), zf(), zf()
+    leaf_g[0], leaf_h[0], leaf_c[0] = root[0], root[1], root[2]
+    leaf_parent = torch.full((L + 1,), -1, dtype=torch.int64, device=dev)
+    leaf_min = torch.full((L + 1,), -BIG, dtype=torch.float32, device=dev)
+    leaf_max = torch.full((L + 1,), BIG, dtype=torch.float32, device=dev)
+    i = torch.zeros((), dtype=torch.int64, device=dev)  # splits so far
+    n_rounds = torch.zeros((), dtype=torch.int32, device=dev)
+    unused_row = torch.zeros(16, dtype=torch.int32, device=dev)
+    unused_row[:1].fill_(-1)
+    if not spec.efb:
+        unused_row[8:9].fill_(-1)
 
-    i = 0
-    while True:
-        n_pos, any_pos = torch.stack([
-            (best.gain > 0.0).sum(), (best.gain.max() > 0.0).to(torch.int64),
-        ]).tolist()
-        if i >= L - 1 or not any_pos:
-            break
+    def growing():
+        return (i < L - 1) & (best.gain[:L].max() > 0.0)
+
+    def split_count():
+        """Leaves this round splits: the JAX package's min(budget, width,
+        n_cand), where its width ladder picks the smallest width >=
+        n_cand, so the number is min(budget, S, n_cand) at any width; 0
+        exactly when the tree has stopped (then a round over S static
+        slots changes nothing: every write goes to the dump rows)."""
+        n_pos = (best.gain[:L] > 0.0).sum()
         budget0 = (L - 1) - i
-        n_cand = min(budget0, n_pos)
+        n_cand = torch.minimum(budget0, n_pos)
         if tail_exact:
-            n_cand = min(n_cand, max((budget0 + 1) // 2, 1))
-        Sk = widths[sum(n_cand > w for w in widths[:-1])]
-        n_split = min(budget0, Sk, n_cand)
+            n_cand = torch.minimum(n_cand,
+                                   torch.clamp_min((budget0 + 1) // 2, 1))
+        return torch.clamp(torch.minimum(n_cand, budget0), 0, S)
+
+    def one_round(W: int):
+        """One round over W slots: S in a bounded loop, the host-read
+        split count on the eager loop (each slot's and child's numbers
+        are the same at any width)."""
+        n_split = split_count()
+        slot = torch.arange(W, device=dev)
+        act = slot < n_split
+        dump_node = torch.full((W,), L - 1, dtype=torch.int64, device=dev)
+        dump_leaf = torch.full((W,), L, dtype=torch.int64, device=dev)
 
         # ---- select: top-k by gain, lower leaf index first on ties
-        order = torch.sort(best.gain, descending=True, stable=True).indices
-        tl = order[:n_split]  # taken leaves, gain-sorted
-        node_ids = i + torch.arange(n_split, device=dev)
-        new_ids = node_ids + 1
+        order = torch.sort(best.gain[:L], descending=True,
+                           stable=True).indices[:W]
+        tl = torch.where(act, order, dump_leaf)  # taken leaves
+        node_ids = torch.where(act, i + slot, dump_node)
+        new_ids = torch.where(act, i + slot + 1, dump_leaf)
         rec = map_record(lambda f: f[tl], best)
 
         # ---- outputs / monotone intervals of the taken splits
         pmin, pmax = leaf_min[tl], leaf_max[tl]
+        parent_out = t.leaf_value[tl]
         lo, ro = split_leaf_outputs(
-            rec, params, t.leaf_value[tl],
+            rec, params, parent_out,
             pmin if has_mono else None, pmax if has_mono else None,
             num_bins, spec.cat_subset)
         if has_mono:
@@ -192,74 +246,66 @@ def grow_tree_rounds(
 
         # ---- tree bookkeeping (Tree::Split, batched)
         p = leaf_parent[tl]
-        has_p = p >= 0
+        has_p = (p >= 0) & act
         pc = p.clamp_min(0)
         p_is_left = t.node_left[pc] == ~tl.to(torch.int32)
-        node_left = t.node_left.clone()
-        node_right = t.node_right.clone()
         nid32 = node_ids.to(torch.int32)
-        fix_l, fix_r = has_p & p_is_left, has_p & ~p_is_left
-        node_left[pc[fix_l]] = nid32[fix_l]
-        node_right[pc[fix_r]] = nid32[fix_r]
-        node_left[node_ids] = ~tl.to(torch.int32)
-        node_right[node_ids] = ~new_ids.to(torch.int32)
-        t = TreeArrays(
-            num_nodes=torch.tensor(i + n_split, dtype=torch.int32,
-                                   device=dev),
-            node_feature=_scatter(t.node_feature, node_ids, rec.feature),
-            node_bin=_scatter(t.node_bin, node_ids, rec.bin),
-            node_gain=_scatter(t.node_gain, node_ids, rec.gain),
-            node_default_left=_scatter(t.node_default_left, node_ids,
-                                       rec.default_left),
-            node_cat=(_scatter(t.node_cat, node_ids, rec.is_cat)
-                      if spec.has_cat else t.node_cat),
-            node_cat_mask=(_scatter(t.node_cat_mask, node_ids, rec.cat_mask)
-                           if spec.has_cat else t.node_cat_mask),
-            node_left=node_left,
-            node_right=node_right,
-            node_value=_scatter(t.node_value, node_ids, t.leaf_value[tl]),
-            node_weight=_scatter(t.node_weight, node_ids, leaf_h[tl]),
-            node_count=_scatter(t.node_count, node_ids, leaf_c[tl]),
-            leaf_value=_scatter(_scatter(t.leaf_value, tl, lo), new_ids, ro),
-            leaf_weight=_scatter(_scatter(t.leaf_weight, tl, rec.left_h),
-                                 new_ids, rec.right_h),
-            leaf_count=_scatter(_scatter(t.leaf_count, tl, rec.left_c),
-                                new_ids, rec.right_c),
-            leaf_depth=_scatter(_scatter(t.leaf_depth, tl, depth_new),
-                                new_ids, depth_new),
-        )
+        _put(t.node_left, torch.where(has_p & p_is_left, pc, dump_node),
+             nid32)
+        _put(t.node_right, torch.where(has_p & ~p_is_left, pc, dump_node),
+             nid32)
+        _put(t.node_left, node_ids, ~tl.to(torch.int32))
+        _put(t.node_right, node_ids, ~new_ids.to(torch.int32))
+        _put(t.node_feature, node_ids, rec.feature)
+        _put(t.node_bin, node_ids, rec.bin)
+        _put(t.node_gain, node_ids, rec.gain)
+        _put(t.node_default_left, node_ids, rec.default_left)
+        if spec.has_cat:
+            _put(t.node_cat, node_ids, rec.is_cat)
+            _put(t.node_cat_mask, node_ids, rec.cat_mask)
+        _put(t.node_value, node_ids, parent_out)
+        _put(t.node_weight, node_ids, leaf_h[tl])
+        _put(t.node_count, node_ids, leaf_c[tl])
+        for arr, left, right in ((t.leaf_value, lo, ro),
+                                 (t.leaf_weight, rec.left_h, rec.right_h),
+                                 (t.leaf_count, rec.left_c, rec.right_c),
+                                 (t.leaf_depth, depth_new, depth_new)):
+            _put(arr, tl, left)
+            _put(arr, new_ids, right)
 
         # ---- the fused pass: partition + smaller-child histograms
-        left_smaller = rec.left_c <= rec.right_c  # (n_split,)
+        left_smaller = rec.left_c <= rec.right_c  # (S,)
         feat = rec.feature.long()
         col = bundle.bundle_of[feat] if spec.efb else rec.feature
-        params16 = torch.zeros((Sk, 16), dtype=torch.int32, device=dev)
-        params16[:, 0] = -1
-        params16[:n_split, 0] = tl.to(torch.int32)
-        params16[:n_split, 1] = col
-        params16[:n_split, 2] = rec.bin
-        params16[:n_split, 3] = rec.default_left.to(torch.int32)
-        params16[:n_split, 4] = nan_bin[feat]
-        params16[:n_split, 5] = left_smaller.to(torch.int32)
-        params16[:n_split, 6] = new_ids.to(torch.int32)
+        cols = [tl, col, rec.bin, rec.default_left, nan_bin[feat],
+                left_smaller, new_ids]
         if spec.efb:
-            params16[:n_split, 7] = bundle.off_lo[feat]
-            params16[:n_split, 8] = bundle.mfb[feat]
-            params16[:n_split, 9] = bundle.width[feat]
+            cols += [bundle.off_lo[feat], bundle.mfb[feat],
+                     bundle.width[feat]]
         else:
-            params16[:, 8] = -1
+            cols += [rec.bin] * 3  # replaced by the unused row's values
+        if spec.has_cat:
+            cols.append(rec.is_cat)
+        params16 = torch.zeros((W, 16), dtype=torch.int32, device=dev)
+        params16[:, :len(cols)] = torch.stack(
+            [c_.to(torch.int32) for c_ in cols], dim=1)
+        # an unused slot: leaf -1, everything else 0 (column 8, the EFB
+        # most-frequent bin, -1 without EFB on every slot)
+        params16.copy_(torch.where(act[:, None], params16, unused_row))
+        if not spec.efb:
+            params16[:, 7:10] = unused_row[7:10]
         cat_mask = None
         if spec.has_cat:
-            params16[:n_split, 10] = rec.is_cat.to(torch.int32)
-            # (Sk, Bc): the kernel's bin space is the bundle width
-            cat_mask = torch.zeros((Sk, Bc), dtype=torch.bool, device=dev)
-            cat_mask[:n_split, :B] = rec.cat_mask
-        slot_hists, pleaf = hist_round(bins_fm, gh, pleaf, params16, Sk, Bc,
-                                       L, quant=spec.quant,
-                                       cat_mask=cat_mask, levels=levels)
+            # (S, Bc): the kernel's bin space is the bundle width
+            cat_mask = torch.zeros((W, Bc), dtype=torch.bool, device=dev)
+            cat_mask[:, :B] = rec.cat_mask & act[:, None]
+        slot_hists, pleaf_new = hist_round(bins_fm, gh, pleaf, params16, W,
+                                           Bc, L, quant=spec.quant,
+                                           cat_mask=cat_mask, levels=levels)
+        pleaf.copy_(pleaf_new)
         parent_s = hist[tl]
         if spec.quant:
-            sums = slot_hists[:n_split]  # exact integer sums
+            sums = slot_hists  # exact integer sums
             small = sums * scale3[:, None, None]
             # ---- larger child by parent subtraction. parent - sums *
             # scale with ONE rounding: XLA contracts the JAX package's
@@ -268,22 +314,20 @@ def grow_tree_rounds(
             large = (parent_s.double() - sums.double()
                      * scale3.double()[:, None, None]).float()
         else:
-            small = slot_hists[:n_split]
+            small = slot_hists
             large = parent_s - small
         ls = left_smaller[:, None, None, None]
         left_s = torch.where(ls, small, large)
         right_s = torch.where(ls, large, small)
-        hist[tl] = left_s
-        hist[new_ids] = right_s
+        _put(hist, tl, left_s)
+        _put(hist, new_ids, right_s)
+        for arr, left, right in ((leaf_g, rec.left_g, rec.right_g),
+                                 (leaf_h, rec.left_h, rec.right_h),
+                                 (leaf_c, rec.left_c, rec.right_c)):
+            _put(arr, tl, left)
+            _put(arr, new_ids, right)
 
-        leaf_g = _scatter(_scatter(leaf_g, tl, rec.left_g), new_ids,
-                          rec.right_g)
-        leaf_h = _scatter(_scatter(leaf_h, tl, rec.left_h), new_ids,
-                          rec.right_h)
-        leaf_c = _scatter(_scatter(leaf_c, tl, rec.left_c), new_ids,
-                          rec.right_c)
-
-        # ---- best splits of the 2 n_split new children, one batch
+        # ---- best splits of the 2 W new children, one batch
         ch_g = torch.cat([rec.left_g, rec.right_g])
         ch_h = torch.cat([rec.left_h, rec.right_h])
         ch_c = torch.cat([rec.left_c, rec.right_c])
@@ -303,15 +347,37 @@ def grow_tree_rounds(
         ch_gain = torch.where(torch.cat([depth_ok, depth_ok]), ch_rec.gain,
                               torch.full_like(ch_rec.gain, NEG_INF))
         ch_leaf = torch.cat([tl, new_ids])
-        best = map_record(lambda b, v: _scatter(b, ch_leaf, v), best,
-                          ch_rec._replace(gain=ch_gain))
+        map_record(lambda b, v: _put(b, ch_leaf, v), best,
+                   ch_rec._replace(gain=ch_gain))
         if has_mono:
-            leaf_min = _scatter(_scatter(leaf_min, tl, lmin), new_ids, rmin)
-            leaf_max = _scatter(_scatter(leaf_max, tl, lmax), new_ids, rmax)
-        leaf_parent = _scatter(_scatter(leaf_parent, tl, node_ids), new_ids,
-                               node_ids)
-        i += n_split
+            for arr, left, right in ((leaf_min, lmin, rmin),
+                                     (leaf_max, lmax, rmax)):
+                _put(arr, tl, left)
+                _put(arr, new_ids, right)
+        _put(leaf_parent, tl, node_ids)
+        _put(leaf_parent, new_ids, node_ids)
+        i.add_(n_split)
+        n_rounds.add_((n_split > 0).to(torch.int32))
 
+    if loop.bounded:
+        loop.run(round_cap(L, S), growing, lambda: one_round(S))
+    else:
+        for _ in range(L - 1):  # one host read a round
+            n = int(split_count())
+            if n == 0:
+                break
+            one_round(n)
+    loop.trees.append((n_rounds, growing()))
+
+    node = slice(0, L - 1)
+    leaf = slice(0, L)
+    t = TreeArrays(
+        num_nodes=i.to(torch.int32),
+        **{f: getattr(t, f)[node] for f in TreeArrays._fields
+           if f.startswith("node_")},
+        **{f: getattr(t, f)[leaf] for f in TreeArrays._fields
+           if f.startswith("leaf_")},
+    )
     row_leaf = pleaf
     if valid is not None:
         row_leaf = torch.where(valid > 0, row_leaf,

@@ -215,7 +215,9 @@ class AUCMetric(Metric):
         y = self.label
         w = self.weight if self.weight is not None else np.ones_like(y)
         order = np.argsort(score, kind="mergesort")
-        ys, ws, ss = y[order], w[order], score[order]
+        # the weights in f64: with f32 labels NumPy 2 keeps the running
+        # sums below in f32, 1.5e-5 off at 100k rows
+        ys, ws, ss = y[order], w[order].astype(np.float64), score[order]
         # sum of positive-weight ranks with tie handling
         pos_w = np.sum(ws * (ys > 0))
         neg_w = np.sum(ws * (ys <= 0))

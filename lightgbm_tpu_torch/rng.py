@@ -58,17 +58,24 @@ def threefry2x32(k1: torch.Tensor, k2: torch.Tensor, x1: torch.Tensor,
 
 
 def key(seed: int, device: Union[str, torch.device] = "cpu") -> torch.Tensor:
-    """jax.random.key(seed) -> its (2,) key data."""
+    """jax.random.key(seed) -> its (2,) key data, filled on `device` (no
+    host-to-device copy, so a CUDA graph can capture it)."""
     s = int(seed)
-    return torch.tensor([(s >> 32) & _MASK if s >= 0 else 0, s & _MASK],
-                        dtype=torch.int64, device=device)
+    k = torch.full((2,), s & _MASK, dtype=torch.int64, device=device)
+    k[:1].fill_((s >> 32) & _MASK if s >= 0 else 0)
+    return k
 
 
-def fold_in(k: torch.Tensor, data: int) -> torch.Tensor:
-    """jax.random.fold_in: hash the (2,) counter (0, data) under k."""
-    d = torch.tensor([0, int(data) & _MASK], dtype=torch.int64,
-                     device=k.device)
-    h1, h2 = threefry2x32(k[0], k[1], d[:1], d[1:])
+def fold_in(k: torch.Tensor, data: Union[int, torch.Tensor]) -> torch.Tensor:
+    """jax.random.fold_in: hash the (2,) counter (0, data) under k. data is
+    a host int or a 0-dim integer tensor on k's device (a device
+    iteration counter); both give the same bits."""
+    if isinstance(data, torch.Tensor):
+        d = (data.to(torch.int64) & _MASK).reshape(1)
+    else:
+        d = torch.full((1,), int(data) & _MASK, dtype=torch.int64,
+                       device=k.device)
+    h1, h2 = threefry2x32(k[0], k[1], torch.zeros_like(d), d)
     return torch.cat([h1, h2])
 
 

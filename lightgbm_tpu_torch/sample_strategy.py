@@ -7,13 +7,16 @@ training device that multiplies the gradient channels: rows outside the
 bag add nothing to the histograms or the counts, while the partition
 still routes them, so their scores stay correct. The draws are the JAX
 package's, bit for bit (rng.py): bagging keys on the bagging window of
-the global iteration, GOSS on the iteration.
+the global iteration, GOSS on the iteration. The iteration is a host int
+(the eager loop) or a 0-dim device tensor (the fused loop, whose CUDA
+graph reads nothing back); both give the same bits.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
+import numpy as np
 import torch
 
 from . import log, rng
@@ -33,6 +36,11 @@ class SampleStrategy:
         return valid, grad, hess
 
 
+def _f32(v: float) -> float:
+    """v rounded to f32, as the JAX package's traced params are."""
+    return float(np.float32(v))
+
+
 def _exact_fraction_mask(u: torch.Tensor, eligible: torch.Tensor,
                          frac: float) -> torch.Tensor:
     """The rows whose uniform draw is at most the k-th smallest among the
@@ -40,8 +48,7 @@ def _exact_fraction_mask(u: torch.Tensor, eligible: torch.Tensor,
     none when k is 0. Rows that tie with the threshold are all taken, so
     the bag can hold more than k rows, as in the JAX package."""
     n_elig = eligible.sum().to(torch.float32)
-    k = torch.round(n_elig * float(torch.tensor(frac, dtype=torch.float32))
-                    ).to(torch.int64)
+    k = torch.round(n_elig * _f32(frac)).to(torch.int64)
     ue = torch.where(eligible, u, torch.full_like(u, float("inf")))
     sorted_u = torch.sort(ue).values
     thr = sorted_u.gather(0, torch.clamp_min(k - 1, 0).reshape(1))
@@ -70,7 +77,8 @@ class BaggingStrategy(SampleStrategy):
             log.warning("bagging_by_query requires query groups; using "
                         "row-level bagging")
 
-    def window_mask(self, window: int, valid: torch.Tensor,
+    def window_mask(self, window: Union[int, torch.Tensor],
+                    valid: torch.Tensor,
                     label: Optional[torch.Tensor]) -> torch.Tensor:
         """The bag of one window as bool rows (a fresh draw)."""
         c = self.config
@@ -89,6 +97,14 @@ class BaggingStrategy(SampleStrategy):
         c = self.config
         if not self.enabled:
             return valid, grad, hess
+        if isinstance(iter_num, torch.Tensor):
+            # the fused loop: the window from the device counter, the bag
+            # drawn anew every iteration (the draw is a function of the
+            # window, so this is the cached bag, bit for bit)
+            window = torch.div(iter_num, c.bagging_freq,
+                               rounding_mode="floor") * c.bagging_freq
+            bag = self.window_mask(window, valid, label)
+            return bag.to(torch.float32) * valid, grad, hess
         window = (int(iter_num) // c.bagging_freq) * c.bagging_freq
         # everything the draw reads, so a reset_parameter redraws
         draw = (window, c.bagging_seed, c.bagging_fraction,
@@ -106,25 +122,32 @@ class GOSSStrategy(SampleStrategy):
 
     def sample(self, iter_num, grad, hess, valid, label):
         c = self.config
-        it = int(iter_num)
-        if it < int(1.0 / c.learning_rate) + 1:
+        warm_up = int(1.0 / c.learning_rate) + 1
+        device_it = isinstance(iter_num, torch.Tensor)
+        if not device_it and int(iter_num) < warm_up:
             return valid, grad, hess
-        f32 = lambda v: float(torch.tensor(v, dtype=torch.float32))
         w = torch.abs(grad * hess) * valid
         n_valid = valid.sum()
-        top_n = torch.clamp_min((n_valid * f32(c.top_rate)).to(torch.int64),
+        top_n = torch.clamp_min((n_valid * _f32(c.top_rate)).to(torch.int64),
                                 1)
         sorted_w = torch.sort(w, descending=True).values
         thr = sorted_w.gather(
             0, torch.clamp_max(top_n, w.shape[0] - 1).reshape(1))
         top = w > thr
         rest = (~top) & (valid > 0)
-        key = rng.fold_in(rng.key(c.bagging_seed * 7919, w.device), it)
+        key = rng.fold_in(rng.key(c.bagging_seed * 7919, w.device), iter_num)
         p_rest = c.other_rate / max(1e-12, 1.0 - c.top_rate)
-        sampled = rest & (rng.uniform(key, w.shape) < f32(p_rest))
+        sampled = rest & (rng.uniform(key, w.shape) < _f32(p_rest))
         amp = (1.0 - c.top_rate) / max(c.other_rate, 1e-12)
-        mult = top.to(torch.float32) + sampled.to(torch.float32) * f32(amp)
+        mult = top.to(torch.float32) + sampled.to(torch.float32) * _f32(amp)
         mask = (top | sampled).to(torch.float32) * valid
+        if device_it:
+            # the warm-up decided on the device: the unsampled rows
+            # before it, as the host branch above returns them
+            warm = iter_num < warm_up
+            return (torch.where(warm, valid, mask),
+                    torch.where(warm, grad, grad * mult),
+                    torch.where(warm, hess, hess * mult))
         return mask, grad * mult, hess * mult
 
 

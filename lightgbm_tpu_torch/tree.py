@@ -333,24 +333,28 @@ def tree_to_arrays(t: Tree, dataset: "BinnedDataset",
 
 def traverse_tree_bins(arrays: "TreeArrays", bins_fm: torch.Tensor,
                        nan_bin: torch.Tensor, bundle=None,
-                       has_cat: bool = False) -> torch.Tensor:
+                       has_cat: bool = False, loop=None,
+                       max_levels: int = 0) -> torch.Tensor:
     """Device traversal of a grown tree over a BINNED matrix -> per-row
-    leaf (int32). Depth-stepped: every row advances one level per pass,
-    so the loop runs tree-depth times. Per pass, the rows' current-node
-    parameters come from one take over a packed (8, nodes) table — the
-    take_small kernel on the card (the JAX package's traverse_tree_bins,
-    tree.py:414-493) — and each row's split-feature bin from a gather.
-    A row at a categorical node goes left iff its bin is in the node's
-    category set; has_cat=False (an all-numerical dataset) skips that
-    test."""
+    leaf (int32). Depth-stepped: every row at an internal node advances
+    one level per pass (the JAX package's while loop, tree.py:414-493,
+    whose condition is "a row is still at an internal node"). Per pass,
+    the rows' current-node parameters come from one take over a packed
+    (8, nodes) table — the take_small kernel on the card — and each row's
+    split-feature bin from a gather. A row at a categorical node goes
+    left iff its bin is in the node's category set; has_cat=False (an
+    all-numerical dataset) skips that test.
+
+    loop: how the passes run (learner/device_loop.py). On the eager loop
+    (None) the tree's depth is read once and bounds them; a bounded loop
+    runs max_levels passes (at least the depth: min(L - 1, max_depth,
+    the rounds a tree may take)), each a no-op once every row is at a
+    leaf, and in a CUDA graph each sits in an IF node on that condition."""
     from .learner.bundle import decode_feature_bins
     from .learner.histogram import take_cols
 
     G, N = bins_fm.shape
     dev = bins_fm.device
-    n_nodes = int(arrays.num_nodes)
-    if n_nodes == 0:
-        return torch.zeros(N, dtype=torch.int32, device=dev)
     feat = arrays.node_feature.long()
     node_col = feat if bundle is None else bundle.bundle_of[feat].long()
     pack = torch.stack([
@@ -363,12 +367,14 @@ def traverse_tree_bins(arrays: "TreeArrays", bins_fm: torch.Tensor,
         arrays.node_right.to(torch.float32),
         nan_bin[feat].to(torch.float32),
     ])  # (8, max_nodes)
-    depth = int(arrays.leaf_depth.max())
-    if depth <= 0:
-        depth = n_nodes  # tree arrays without depths: bound by node count
+    n_nodes = arrays.num_nodes
     rows = torch.arange(N, device=dev)
     row_node = torch.zeros(N, dtype=torch.int32, device=dev)
-    for _ in range(depth):
+
+    def at_internal():
+        return (row_node >= 0) & (row_node < n_nodes)
+
+    def level():
         k = torch.clamp_min(row_node, 0)
         v = take_cols(pack, k)  # (8, N)
         col = v[0].to(torch.int64)
@@ -384,6 +390,14 @@ def traverse_tree_bins(arrays: "TreeArrays", bins_fm: torch.Tensor,
                 k.long() * B + fbins.clamp(0, B - 1).long()]
             go_left = torch.where(v[4] > 0.5, cat_hit, go_left)
         child = torch.where(go_left, v[5], v[6]).to(torch.int32)
-        at_internal = (row_node >= 0) & (row_node < n_nodes)
-        row_node = torch.where(at_internal, child, row_node)
+        row_node.copy_(torch.where(at_internal(), child, row_node))
+
+    if loop is None or not loop.bounded:
+        depth = int(arrays.leaf_depth.max())
+        if depth <= 0:  # tree arrays without depths: bound by node count
+            depth = int(n_nodes)
+        for _ in range(depth):
+            level()
+    else:
+        loop.run(max_levels, lambda: at_internal().any(), level)
     return torch.where(row_node < 0, ~row_node, torch.zeros_like(row_node))

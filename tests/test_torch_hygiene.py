@@ -142,3 +142,54 @@ def test_unported_options_raise(extra):
          **extra}
     with pytest.raises(NotImplementedError):
         lgb.train(p, lgb.Dataset(X, label=y, params=p), 1)
+
+
+@pytest.mark.parametrize("key,value,item", [
+    ("snapshot_freq", 1, "A.11"),
+    ("resume", "auto", "A.11"),
+    ("resume_from", "model.txt.ckpt", "A.11"),
+    ("checkpoint_file", "ckpt.json", "A.11"),
+    ("record_file", "rec.jsonl", "A.11"),
+    ("anomaly_policy", "warn", "A.11"),
+    ("anomaly_rollback_lr_decay", 0.5, "A.11"),
+    ("anomaly_rollback_max", 3, "A.11"),
+    ("fault_plan", "round:1:kill", "A.11"),
+    ("data_source", "chunked", "A.10"),
+    ("ram_budget_mb", 64, "A.10"),
+])
+def test_unported_keys_raise_naming_their_item(key, value, item):
+    """Keys the JAX package's engine.train acts on and the port does not
+    yet (ROADMAP A.10 data plane, A.11 operations layer) raise instead of
+    being parsed and ignored."""
+    X, y = _tiny()
+    p = {"objective": "binary", "verbosity": -1, "device_type": "cpu",
+         key: value}
+    with pytest.raises(NotImplementedError, match=f"{key}.*ROADMAP {item}"):
+        lgb.train(p, lgb.Dataset(X, label=y, params=p), 1)
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_timetag_prints_the_timer_summary(capsys, fused):
+    """timetag=true turns the phase timer on (timer.enable_timetag) and
+    train prints its summary, on either loop; tpu_chunk_scan stays
+    accepted."""
+    from lightgbm_tpu_torch.timer import global_timer
+
+    X, y = _tiny()
+    p = {"objective": "binary", "verbosity": 1, "device_type": "cpu",
+         "timetag": True, "tpu_chunk_scan": "off"}
+    cbs = []
+    if not fused:
+        def before(env):
+            pass
+        before.before_iteration = True
+        cbs = [before]
+    try:
+        global_timer.reset()
+        lgb.train(p, lgb.Dataset(X, label=y, params=p), 2, callbacks=cbs)
+    finally:
+        global_timer.disable()
+        global_timer.reset()
+    out = capsys.readouterr().out
+    assert "phase timings" in out
+    assert ("fused dispatch" if fused else "update") in out
