@@ -124,6 +124,27 @@ Phases, each printed as one JSON line:
             (fused_summary gathers the paths). The small phase's
             early stopping also runs the eager loop on the card (the same
             stop, the same model text as the fused loop);
+  train_rank, train_rank_xendcg - learning to rank at MSLR-WEB10K's
+            shape (mslr_like: 10,000 queries, ~1.2M documents averaging
+            ~120 a query with one of 908, 136 float32 features, labels
+            0-4 skewed toward 0; 2,000 validation queries), lambdarank
+            then rank_xendcg at the headline widths, validation ndcg@1/3/
+            5/10: fused_vs_eager (1 warm-up + 5 timed trees; rank_xendcg
+            1 + 3), ndcg@10 rising on both loops, one lambdarank launch a
+            tree on the eager loop and one in the graph, dataset seconds
+            and peak device MB; then train_rank_profile (1 tree) and the
+            `lambdarank` kernel line: the kernel against its plain
+            version on the whole training set at iteration 0's equal
+            scores, the profiled model's scores and those scores with
+            ties, norm on and off, and on a 908- and a 4,096-document
+            query, within 5e-5 of the plain version's largest value,
+            bitwise across calls; its times against its bound (pairs a
+            call, unequal-label pairs x 24 operations / 67 TFLOP/s);
+  rank_small - 4,915 MSLR-shaped rows on the card against the CPU:
+            bagging_by_query (whole queries, the CPU's bags bit for bit)
+            and position debiasing (the eager loop and its reason,
+            finite biases); predictions within 1e-4, or the models part
+            at a near tie (gains within 1e-6 relative);
 then the `kernels` summary line and, last, {"ok": true, "device": ...}.
 Any failure raises: no `ok` line, non-zero exit. Without a CUDA device,
 or without the package beside it, the script exits non-zero at once.
@@ -157,6 +178,8 @@ REPLACES = {
     "hist_nat_f32": "lightgbm_tpu/learner/pallas_hist.py:202",
     "hist_round_cat": "lightgbm_tpu/learner/pallas_hist.py:505 "
                       "(has_cat :416-432)",
+    "lambdarank": "lightgbm_tpu/learner/ranking.py:109 (XLA, no "
+                  "pallas_call)",
 }
 SOURCES = {
     "hist_nat": "lightgbm_tpu_torch/csrc/hist_nat.cu",
@@ -170,6 +193,7 @@ SOURCES = {
     "hist_round_int8": "lightgbm_tpu_torch/csrc/hist_round.cu",
     "hist_nat_f32": "lightgbm_tpu_torch/csrc/hist_nat.cu",
     "hist_round_cat": "lightgbm_tpu_torch/csrc/hist_round.cu",
+    "lambdarank": "lightgbm_tpu_torch/csrc/lambdarank.cu",
 }
 # the training path whose run counts each kernel's launches
 PATH_OF = {"hist_nat": "train", "hist_round": "train", "take_small": "train",
@@ -177,7 +201,7 @@ PATH_OF = {"hist_nat": "train", "hist_round": "train", "take_small": "train",
            "hist_slots": "train_exact_rounds",
            "hist_round_f32": "train_f32", "hist_nat_int8": "train_quant",
            "hist_round_int8": "train_quant", "hist_nat_f32": "train_l1",
-           "hist_round_cat": "train_cat"}
+           "hist_round_cat": "train_cat", "lambdarank": "train_rank"}
 F32_PATHS = {
     "train_exact": {"tpu_growth_mode": "exact"},
     "train_exact_rounds": {"tpu_growth_mode": "exact",
@@ -1560,7 +1584,8 @@ def train_cat_path(torch, lgb, ch, np, n_warm: int = 2, n_timed: int = 10,
 FUSED_KERNELS = {"hist_round": "round_hist_kernel", "hist_nat": "nat_kernel",
                  "take_small": "take_small_kernel",
                  "seg_sum": "seg_sum_kernel", "hist": "seg_hist_kernel",
-                 "hist_nat_f32": "f32_atomic_kernel"}
+                 "hist_nat_f32": "f32_atomic_kernel",
+                 "lambdarank": "lambdarank_kernel"}
 # the kernels (by their launch counters) each path's graph must hold
 FUSED_NEEDS = {
     "train": ("hist_round", "hist_nat", "take_small", "seg_sum"),
@@ -1573,6 +1598,10 @@ FUSED_NEEDS = {
     "train_f32": ("hist_round_f32", "hist", "take_small"),
     "train_cat": ("hist_round", "hist_round_cat", "hist_nat", "take_small",
                   "seg_sum"),
+    "train_rank": ("hist_round", "hist_nat", "take_small", "seg_sum",
+                   "lambdarank"),
+    "train_rank_xendcg": ("hist_round", "hist_nat", "take_small",
+                          "seg_sum"),
 }
 
 
@@ -1710,6 +1739,8 @@ def fused_vs_eager(torch, lgb, ds, vs, name, extra, n_timed=6, n_skip=0):
                 eval_records=[len(re_), len(rf)],
                 max_eval_gap=max(gaps) if gaps else None,
                 metric_last=[re_[-1][0][2], rf[-1][0][2]],
+                records_first_last={"eager": [re_[0], re_[-1]],
+                                    "fused": [rf[0], rf[-1]]},
                 speedup=line["fused"]["trees_per_s"]
                 / line["eager"]["trees_per_s"])
     emit(line)
@@ -1934,6 +1965,317 @@ def train_continue_phase(torch, lgb, np, ds, vs, Xv, model_path):
     if line["shrinkage"] != lrs[:len(hist)]:
         raise AssertionError(f"train_continue: shrinkage {line['shrinkage']}")
     return line
+
+# ---- learning to rank at MSLR-WEB10K's published shape (Microsoft's
+# LETOR set: 10,000 queries, ~1.2M documents, 136 features, relevance
+# labels 0-4; LightGBM's Experiments page benchmarks its larger sibling
+# WEB30K as "MS LTR"), synthetic: query sizes averaging ~120 with a tail to
+# 908 documents
+MSLR_QUERIES, MSLR_VALID_QUERIES, MSLR_FEATURES = 10_000, 2_000, 136
+MSLR_MAX_DOCS = 908
+RANK_PARAMS = {"objective": "lambdarank", "metric": "ndcg",
+               "eval_at": [1, 3, 5, 10]}
+# kernel against plain: max |kernel - plain| <= RANK_TOL * max |plain|, for
+# g and h. The two differ only in the order of their f32 sums (a
+# document's <= cnt pair terms, sequential in the kernel, a tree in
+# torch): ~sqrt(cnt) x 2^-24 relative, ~4e-6 at 4,096 documents.
+RANK_TOL = 5e-5
+# operations of one pair's lambda and hessian: 2 differences and 2
+# absolute values, 3 products for delta-NDCG, the norm's add and divide,
+# the sigmoid (a product, an exp counted as 4, an add, a divide), 2
+# products for the lambda, 4 for the hessian, 3 sums
+PAIR_FLOPS = 24
+
+
+def mslr_like(n_q: int, seed: int):
+    """(X (n, 136) float32, labels, query sizes) in MSLR-WEB10K's shape,
+    from RandomState(seed): log-normal query sizes (median ~100, mean
+    ~120), one query at the published largest, 908; every fourth feature
+    a small count (as MSLR's term-frequency and length columns), the
+    rest at three decimals; labels 0-4 skewed toward 0 (MSLR's ~52 / 32 /
+    13 / 2 / 1 percent) from four features, a per-query offset and
+    noise."""
+    import numpy as np
+
+    rs = np.random.RandomState(seed)
+    g = np.clip(np.round(rs.lognormal(4.6, 0.6, n_q)), 1,
+                MSLR_MAX_DOCS).astype(np.int64)
+    g[rs.randint(n_q)] = MSLR_MAX_DOCS
+    n = int(g.sum())
+    X = np.empty((n, MSLR_FEATURES), np.float32)
+    for j in range(MSLR_FEATURES):
+        col = rs.randn(n).astype(np.float32)
+        X[:, j] = (np.floor(np.expm1(1.2 * np.abs(col))) if j % 4 == 0
+                   else np.round(col, 3))
+    z = (X[:, 1] + 0.6 * X[:, 2] - 0.4 * X[:, 3] + 0.2 * X[:, 4]
+         + np.repeat(0.5 * rs.randn(n_q), g) + 0.8 * rs.randn(n))
+    y = np.digitize(z, np.quantile(z, [0.52, 0.84, 0.97, 0.99]))
+    return X, y.astype(np.float32), g
+
+
+def rank_pairs(lay, label, score, trunc: int):
+    """The pairs a lambdarank call visits: index pairs (i, j), i < j, i
+    below the truncation level, and among them those of unequal labels
+    (the only ones that do work), with each query sorted by `score`."""
+    import numpy as np
+
+    lab, sc = label.cpu().numpy(), score.cpu().numpy()
+    pairs = work = 0
+    for q in range(lay.num_queries):
+        a, b = int(lay.offsets[q]), int(lay.offsets[q + 1])
+        cnt = b - a
+        T = min(cnt, trunc)
+        pairs += T * (cnt - 1) - T * (T - 1) // 2
+        sl = lab[a:b][np.argsort(-sc[a:b], kind="stable")]
+        for i in range(T):
+            work += int(np.count_nonzero(sl[i + 1:] != sl[i]))
+    return pairs, work
+
+
+def _rank_err(kernel, plain) -> dict:
+    """max |kernel - plain| (abs) and over max |plain| (rel), for g and
+    h."""
+    out = {"abs": [], "rel": []}
+    for k, p in zip(kernel, plain):
+        err = float((k - p).abs().max())
+        out["abs"].append(err)
+        out["rel"].append(err / max(float(p.abs().max()), 1e-30))
+    return out
+
+
+def lambdarank_line(torch, gb, later):
+    """The lambdarank kernel against its plain version (ranking.
+    lambdarank_plain) on the whole MSLR-shaped training set: iteration
+    0's equal scores, a later iteration's training scores and those
+    scores with injected ties (rounded to 1/8), each with the norm on and
+    off; a query of 908 and one of 4,096 documents; two calls bitwise.
+    Times on the later scores: the kernel's single-call CUDA-event median
+    (ms), device_ms, host_us, device operations a call, the plain
+    version's ms; the pairs a call, and the bound max(bytes / 3.35 TB/s,
+    unequal-label pairs x PAIR_FLOPS / 67 TFLOP/s). No single torch call
+    computes the lambdas (library_ms null)."""
+    from lightgbm_tpu_torch.learner import cuda_rank, ranking
+
+    o = gb.objective
+    lay = o._layout
+    args = (o.label, o._gain_dev, o._imd_dev, o._sigmoid, o._trunc)
+    later = later.contiguous()
+    sets = {"iter0_equal": torch.zeros_like(later), "later": later,
+            "later_ties": torch.round(later * 8) / 8}
+    compare = {}
+    for sname, sc in sets.items():
+        for norm in (True, False):
+            k = cuda_rank.lambdarank(lay, sc, *args, norm, o.weight)
+            p = ranking.lambdarank_plain(lay, sc, *args, norm, o.weight)
+            compare[f"{sname}_norm{int(norm)}"] = _rank_err(k, p)
+    # a 908- and a 4,096-document query (random scores, MSLR's label mix)
+    rs_ = torch.Generator(device="cpu").manual_seed(31)
+    big = ranking.QueryLayout([4096, MSLR_MAX_DOCS, 120, 1], 5125 + 43)
+    bl = torch.multinomial(torch.tensor([.52, .32, .13, .02, .01]),
+                           big.npad, True, generator=rs_).to(torch.float32)
+    bs = torch.randn(big.npad, generator=rs_)
+    bg = ranking.default_label_gain(4)
+    bimd = ranking.inverse_max_dcg(bl.numpy(), big, bg, 30)
+    dev = later.device
+    bargs = (bl.to(dev), torch.from_numpy(bg.astype("float32")).to(dev),
+             torch.from_numpy(bimd.astype("float32")).to(dev), 1.0, 30, True)
+    kb = cuda_rank.lambdarank(big, bs.to(dev), *bargs)
+    pb = ranking.lambdarank_plain(big, bs.to(dev), *bargs)
+    compare["q4096_q908"] = _rank_err(kb, pb)
+    a = cuda_rank.lambdarank(lay, later, *args, o._norm, o.weight)
+    b = cuda_rank.lambdarank(lay, later, *args, o._norm, o.weight)
+    bitwise = all(torch.equal(x.view(torch.int32), y.view(torch.int32))
+                  for x, y in zip(a, b))
+    run = lambda: cuda_rank.lambdarank(lay, later, *args, o._norm, o.weight)
+    plain = lambda: ranking.lambdarank_plain(lay, later, *args, o._norm,
+                                             o.weight)
+    nums = kernel_numbers(run)
+    plain_ms = cuda_ms(plain, reps=5, warm=1)
+    pairs, work = rank_pairs(lay, o.label[:lay.num_docs], later[:lay.num_docs],
+                             o._trunc)
+    nbytes = 4 * lay.npad * (2 + (o.weight is not None) + 2) + 8 * \
+        lay.num_queries
+    bms, by = bound(nbytes, work * PAIR_FLOPS)
+    rel = max(e for v in compare.values() for e in v["rel"])
+    d = dict(max_abs_err=max(e for v in compare.values() for e in v["abs"]),
+             max_rel_err=rel, err_by_set=compare,
+             tolerance=f"max |kernel - plain| <= {RANK_TOL} x max |plain|",
+             bitwise_across_calls=bitwise, plain_ms=plain_ms,
+             bound_ms=bms, bound_by=by, library_ms=None,
+             library="none: no single torch call computes the lambdas",
+             shape=f"{lay.num_queries} queries, {lay.num_docs} documents, "
+                   f"largest {lay.max_docs}, truncation {o._trunc}",
+             pairs_per_call=pairs, unequal_label_pairs_per_call=work,
+             bytes_per_call=nbytes, **nums)
+    emit_kernel("lambdarank", d)
+    if not (rel <= RANK_TOL and bitwise):
+        raise AssertionError(f"lambdarank: kernel against plain {compare}, "
+                             f"bitwise across calls {bitwise}")
+    return d
+
+
+def _ndcg10(records) -> float:
+    return [v for _s, name, v, _h in records if name == "ndcg@10"][0]
+
+
+def train_rank_phase(torch, lgb, ch):
+    """train_rank and train_rank_xendcg: lambdarank (then rank_xendcg) on
+    the MSLR-shaped set at the headline widths (255 leaves, 255 bins, lr
+    0.1, min_data_in_leaf 20), validation ndcg@1/3/5/10: fused_vs_eager
+    (1 warm-up + 5 timed trees; rank_xendcg 1 + 3), a 1-tree profile of
+    lambdarank's eager loop, and the lambdarank kernel line on that
+    model's training scores."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    X, y, g = mslr_like(MSLR_QUERIES, 41)
+    Xv, yv, gv = mslr_like(MSLR_VALID_QUERIES, 43)
+    t_gen = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ds = lgb.Dataset(X, label=y, group=g, free_raw_data=False)
+    ds.construct()
+    vs = lgb.Dataset(Xv, label=yv, group=gv, reference=ds,
+                     free_raw_data=False)
+    vs.construct()
+    t_data = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    rank = fused_vs_eager(torch, lgb, ds, vs, "train_rank", RANK_PARAMS,
+                          n_timed=5)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    eager_launch = rank["eager"]["launches_counted"].get("lambdarank", 0)
+    first_last = rank["records_first_last"]
+    ndcg = {loop: [_ndcg10(r) for r in first_last[loop]]
+            for loop in first_last}
+    emit({"phase": "train_rank", "rows": int(X.shape[0]),
+          "valid_rows": int(Xv.shape[0]), "features": MSLR_FEATURES,
+          "queries": len(g), "valid_queries": len(gv),
+          "largest_query": int(g.max()), "mean_query": float(g.mean()),
+          "label_mix": np.bincount(y.astype(int), minlength=5).tolist(),
+          "num_leaves": L, "data_seconds": t_gen,
+          "dataset_seconds": t_data, "peak_device_mb": peak,
+          "ndcg10_tree1_last": ndcg, "lambdarank_launches_eager":
+          eager_launch, "eager_trees": rank["trees"],
+          "lambdarank_in_graph":
+          rank["fused"]["captured_launches"].get("lambdarank"),
+          "trees_per_s": [rank["eager"]["trees_per_s"],
+                          rank["fused"]["trees_per_s"]]})
+    if eager_launch != rank["trees"] or \
+            rank["fused"]["captured_launches"].get("lambdarank") != 1:
+        raise AssertionError(f"train_rank: lambdarank launched "
+                             f"{eager_launch} times in {rank['trees']} "
+                             "eager trees, or not once in the graph")
+    if not all(v[1] > v[0] for v in ndcg.values()):
+        raise AssertionError(f"train_rank: ndcg@10 did not rise: {ndcg}")
+    xe = fused_vs_eager(torch, lgb, ds, vs, "train_rank_xendcg",
+                        {**RANK_PARAMS, "objective": "rank_xendcg"},
+                        n_timed=3)
+    xe_ndcg = [_ndcg10(r) for r in xe["records_first_last"]["fused"]]
+    emit({"phase": "train_rank_xendcg", "ndcg10_tree1_last": xe_ndcg,
+          "trees_per_s": [xe["eager"]["trees_per_s"],
+                          xe["fused"]["trees_per_s"]]})
+    if not xe_ndcg[1] > xe_ndcg[0]:
+        raise AssertionError(f"train_rank_xendcg: ndcg@10 {xe_ndcg}")
+    params = {"num_leaves": L, "max_bin": 255, "learning_rate": 0.1,
+              "min_data_in_leaf": 20, "verbosity": -1, **RANK_PARAMS}
+    bst = lgb.Booster(params, ds)
+    bst.add_valid(vs, "valid")
+    bst.update()
+    profile_phase(torch, bst, 1, "train_rank_profile")
+    line = lambdarank_line(torch, bst._gbdt, bst._gbdt.train.score[0])
+    return rank, line
+
+
+def first_split_gap(ta, tb):
+    """The first node, over two models' trees in order, whose split
+    (feature, threshold) differs: (tree, node, gain_a, gain_b), or None
+    when every split agrees."""
+    for i, (a, b) in enumerate(zip(ta, tb)):
+        for n in range(min(a.num_leaves, b.num_leaves) - 1):
+            if (a.split_feature[n], a.threshold[n]) != \
+                    (b.split_feature[n], b.threshold[n]):
+                return i, n, float(a.split_gain[n]), float(b.split_gain[n])
+        if a.num_leaves != b.num_leaves:
+            return i, min(a.num_leaves, b.num_leaves) - 1, None, None
+    return None
+
+
+def rank_small_phase(lgb, np):
+    """A few thousand rows of the MSLR shape on the card against the CPU:
+    lambdarank with bagging_by_query (whole queries in every bag, exactly
+    round(0.5 Q) of them, the card's bags of 5 windows bitwise the CPU's),
+    and lambdarank with positions (the eager loop and the reason train
+    logs, finite position biases). Predictions within 1e-4 of the CPU
+    run's, or the models agree up to a near tie: the first split where
+    they part has gains within 1e-6 relative (ROADMAP C; the lambdas'
+    f32 sums run in another order on the card, and 132 of the 136
+    features carry no signal, so such ties are common here)."""
+    X, y, g = mslr_like(40, 47)
+    Xv, yv, gv = mslr_like(10, 53)
+    pos = np.concatenate([np.arange(c) % 10 for c in g])
+    base = {"num_leaves": 31, "min_data_in_leaf": 20, "verbosity": -1,
+            **RANK_PARAMS}
+    out, errs, ties = {}, {}, {}
+    for name, extra, position in (
+            ("bagging_by_query", {"bagging_fraction": 0.5,
+                                  "bagging_freq": 1,
+                                  "bagging_by_query": True}, None),
+            ("positions", {}, pos)):
+        preds, models, bags = {}, {}, {}
+        for device in ("cuda", "cpu"):
+            p = dict(base, device_type=device, **extra)
+            ds = lgb.Dataset(X, label=y, group=g, position=position,
+                             params=p)
+            vs = lgb.Dataset(Xv, label=yv, group=gv, reference=ds)
+            ev = {}
+            bst = lgb.train(p, ds, 5, valid_sets=[vs], valid_names=["v"],
+                            evals_result=ev)
+            preds[device] = bst.predict(Xv, raw_score=True)
+            gb = bst._gbdt
+            models[device] = gb.models
+            if getattr(gb.strategy, "by_query", False):
+                bags[device] = np.stack([gb.strategy.window_mask(
+                    w, gb.dev["valid"], None).cpu().numpy()
+                    for w in range(5)])
+            if device == "cuda":
+                rec = {"ndcg10": [ev["v"]["ndcg@10"][0],
+                                  ev["v"]["ndcg@10"][-1]],
+                       "fused": gb._fused is not None,
+                       "eager_reason": gb.fused_ineligible_reason()}
+                if name == "positions":
+                    pb = gb.objective.position_biases.cpu().numpy()
+                    rec["position_biases"] = pb.tolist()
+                    rec["finite"] = bool(np.isfinite(pb).all())
+                else:
+                    bag = gb.strategy.window_mask(
+                        0, gb.dev["valid"], None).cpu().numpy()
+                    qb = np.r_[0, np.cumsum(g)]
+                    per_q = [bag[qb[q]:qb[q + 1]] for q in range(len(g))]
+                    rec["whole_queries"] = all(v.min() == v.max()
+                                               for v in per_q)
+                    rec["queries_in_bag"] = int(sum(v[0] for v in per_q))
+                out[name] = rec
+        if bags:
+            out[name]["bags_equal_cpu"] = bool(np.array_equal(
+                bags["cuda"], bags["cpu"]))
+        errs[name] = float(np.abs(preds["cuda"] - preds["cpu"]).max())
+        ties[name] = first_split_gap(models["cuda"], models["cpu"])
+    emit({"phase": "rank_small", "rows": int(len(y)), "trees": 5, **out,
+          "max_abs_pred_diff_card_vs_cpu": errs, "tolerance": 1e-4,
+          "first_split_gap_card_vs_cpu": ties})
+    bq, ps = out["bagging_by_query"], out["positions"]
+    if not (bq["whole_queries"] and bq["queries_in_bag"] == round(
+            0.5 * len(g)) and bq["fused"] and bq["bags_equal_cpu"]):
+        raise AssertionError(f"rank_small: bagging_by_query {bq}")
+    if ps["fused"] or "position debiasing" not in str(ps["eager_reason"]) \
+            or not ps["finite"]:
+        raise AssertionError(f"rank_small: positions {ps}")
+    for name, e in errs.items():
+        t = ties[name]
+        near = t is not None and t[2] is not None and \
+            abs(t[2] - t[3]) <= 1e-6 * abs(t[3])
+        if not (e < 1e-4 or near):
+            raise AssertionError(f"rank_small {name}: card and CPU disagree "
+                                 f"by {e}, first split apart {t}")
 
 
 def main() -> int:
@@ -2164,6 +2506,14 @@ def main() -> int:
                                                   cat_round["fullest"],
                                                   cat_synth)
     emit_kernel("hist_round_cat", lines["hist_round_cat"])
+
+    # ---- learning to rank at MSLR-WEB10K's shape: lambdarank (the
+    # lambdarank kernel) and rank_xendcg, both loops; then small runs of
+    # bagging_by_query and position debiasing against the CPU
+    rank, lines["lambdarank"] = train_rank_phase(torch, lgb, ch)
+    path_launches["train_rank"] = rank["eager"]["launches_counted"]
+    fused_lines["train_rank"] = rank
+    rank_small_phase(lgb, np)
 
     kernels = []
     for name, d in lines.items():

@@ -2,8 +2,10 @@
 
 The port of lightgbm_tpu/basic.py for the main path: a Dataset over a
 dense matrix (with `reference=` for validation sets binned with the
-training set's mappers, and the constructor's `categorical_feature`,
-indices or names, as the JAX package takes it), and a Booster that trains
+training set's mappers, the constructor's `categorical_feature`,
+indices or names, as the JAX package takes it, and the ranking metadata:
+`group` (query sizes, whose sum must be the rows) and `position`, with
+their set_ / get_ accessors), and a Booster that trains
 (update, with a custom objective's gradients too), continues from a
 loaded model (_continue_from), takes new parameters between iterations
 (reset_parameter), evaluates with custom metrics (feval), predicts on the
@@ -56,16 +58,20 @@ class Dataset:
         label: Any = None,
         reference: Optional["Dataset"] = None,
         weight: Any = None,
+        group: Any = None,
         init_score: Any = None,
         feature_name: Union[str, List[str]] = "auto",
         categorical_feature: Union[str, List[Union[int, str]]] = "auto",
         params: Optional[Dict[str, Any]] = None,
         free_raw_data: bool = True,
+        position: Any = None,
     ):
         self.data = data
         self.label = _to_1d(label)
         self.reference = reference
         self.weight = _to_1d(weight)
+        self.group = _to_1d(group)
+        self.position = _to_1d(position)
         self.init_score = _to_1d(init_score)
         self.feature_name = feature_name
         self.categorical_feature = categorical_feature
@@ -128,13 +134,37 @@ class Dataset:
             self.reference.construct()
             ref_binned = self.reference._binned
         self._binned = BinnedDataset.from_numpy(
-            arr, cfg, label=self.label, weight=self.weight,
-            init_score=self.init_score, feature_names=names,
+            arr, cfg, label=self.label, weight=self.weight, group=self.group,
+            init_score=self.init_score, position=self.position,
+            feature_names=names,
             categorical_feature=cat, reference=ref_binned,
         )
         if self.free_raw_data:
             self.data = None
         return self
+
+    # the query metadata (the JAX package's basic.py:557-597): set before
+    # or after construct; after it, the binned metadata changes too
+    def set_group(self, group) -> "Dataset":
+        self.group = _to_1d(group)
+        if self._binned is not None:
+            self._binned.metadata.group = (
+                None if group is None else np.asarray(self.group, np.int64))
+        return self
+
+    def set_position(self, position) -> "Dataset":
+        self.position = _to_1d(position)
+        if self._binned is not None:
+            self._binned.metadata.position = (
+                None if position is None
+                else np.asarray(self.position, np.int32))
+        return self
+
+    def get_group(self):
+        return self.group
+
+    def get_position(self):
+        return self.position
 
 
 class Booster:

@@ -198,7 +198,8 @@ class GBDT:
         levels = config.num_grad_quant_bins if qgrad else self._hist_levels
         if self.objective is not None:
             self.objective.init(train_set, self.device)
-        self.strategy = create_sample_strategy(config)
+        self.strategy = create_sample_strategy(
+            config, train_set.metadata.group, self.device)
         # the raw labels: pos / neg bagging's classes, the percentile
         # refit's residuals
         label = train_set.metadata.label
@@ -509,14 +510,20 @@ class GBDT:
             log.fatal("custom objective requires explicit grad/hess")
         if not self._models and not self._pending:
             init_scores = self._boost_from_average()
-        g, h = self._gradients()
+        g, h = self._gradients(self.iter_)
         return g, h, init_scores
 
-    def _gradients(self):
-        """The objective's (K, Npad) f32 gradients at the current score."""
+    def _gradients(self, it):
+        """The objective's (K, Npad) f32 gradients at the current score;
+        an objective that needs_iter (rank_xendcg's draws) gets the
+        iteration `it`, a host int or the fused loop's device counter
+        (boosting._obj_grads of the JAX package)."""
         K = self.num_class
         score = self.train.score if K > 1 else self.train.score[0]
-        g, h = self.objective.get_gradients(score)
+        if self.objective.needs_iter:
+            g, h = self.objective.get_gradients(score, it)
+        else:
+            g, h = self.objective.get_gradients(score)
         return (g.reshape(K, -1).to(torch.float32),
                 h.reshape(K, -1).to(torch.float32))
 
@@ -614,6 +621,9 @@ class GBDT:
 
         if self.objective is None:
             return "no built-in objective (custom fobj)"
+        if self.objective.has_host_state:
+            return (f"objective {self.objective.name} keeps cross-iteration "
+                    "host state (e.g. position debiasing)")
         if self.spec.rounds_slots == 0:
             return ("the exact grower (tpu_growth_mode=exact) reads the "
                     "card once per split and is not captured yet")
@@ -666,7 +676,7 @@ class GBDT:
             log.warning(f"iteration {self.iter_}: a tree outgrew the fused "
                         f"loop's {f.round_cap} rounds; grown again on the "
                         "eager loop")
-            grad, hess = self._gradients()
+            grad, hess = self._gradients(self.iter_)
             init = (self._init_scores if self.iter_ == 0
                     else [0.0] * K)
             trees, _ = self._iteration(self.iter_, grad, hess, init,
@@ -829,7 +839,7 @@ class _FusedProgram:
             self.eval_sets.append((ss, names, hb, DeviceEvalSet(
                 gb.config, names, hb, pad(meta.label),
                 None if meta.weight is None else pad(meta.weight),
-                ss.dev["valid"], self.K)))
+                ss.dev["valid"], self.K, meta.group)))
         self.it = torch.full((), gb.iter_, dtype=torch.int64, device=dev)
         self.base = self.it.clone()
         self.stopped = torch.zeros((), dtype=torch.bool, device=dev)
@@ -853,7 +863,7 @@ class _FusedProgram:
 
     def _body(self, loop: DeviceLoop, active: torch.Tensor) -> None:
         gb = self.gb
-        grad, hess = gb._gradients()
+        grad, hess = gb._gradients(self.it)
         first = self.it == 0
         trees, done = gb._iteration(self.it, grad, hess, self.init, loop,
                                     first=first, active=active)

@@ -12,10 +12,11 @@ a chunk's rows at once (boosting.fused_collect).
 Semantics mirror metrics.py (reference src/metric/*.hpp): weighted
 means over the valid (non-padding) rows, the metric's transform of the
 raw score, and the exact tie-handled AUC through one device sort. The
-ranking metrics (ndcg, map) need query groups, which the port does not
-have yet (ROADMAP A.3): supported_names returns None for them, and for
-every metric with no device form, so such a run stays on the eager
-loop.
+ranking metrics ndcg@k and map@k (one value per eval_at entry) sort the
+scores along the documents of the dataset's padded (Q, M) query layout
+(learner/ranking.py); without query groups supported_names returns None
+for them, as for every metric with no device form, so such a run stays
+on the eager loop.
 """
 
 from __future__ import annotations
@@ -184,6 +185,22 @@ def _make_multiclass(name: str, cfg: Config, label: torch.Tensor,
     return None
 
 
+def _make_rank(base: str, k: int, cfg: Config, label: torch.Tensor,
+               group: np.ndarray) -> Callable:
+    """ndcg@k or map@k over the dataset's query layout (shared with the
+    objective and the other k through build_query_layout's cache)."""
+    from .learner.ranking import (build_query_layout, label_gains, map_at,
+                                  ndcg_at)
+
+    layout = build_query_layout(np.asarray(group), int(label.shape[0]))
+    layout.device(label.device)
+    if base == "map":
+        return lambda s: map_at(layout, s, label, [k])[0]
+    gains = label_gains(cfg, label.cpu().numpy())
+    gain = torch.from_numpy(gains.astype(np.float32)).to(label.device)
+    return lambda s: ndcg_at(layout, s, label, gain, [k])[0]
+
+
 class DeviceEvalSet:
     """The metrics of one dataset as one fn(score (K, Npad)) -> (m,) f32,
     the JAX package's DeviceEvalSet."""
@@ -191,7 +208,7 @@ class DeviceEvalSet:
     def __init__(self, cfg: Config, metric_names: List[str],
                  higher_better: List[bool], label: torch.Tensor,
                  weight: Optional[torch.Tensor], valid: torch.Tensor,
-                 num_class: int):
+                 num_class: int, group: Optional[np.ndarray] = None):
         self.names = metric_names
         self.higher_better = higher_better
         label = label.to(torch.float32)
@@ -199,6 +216,10 @@ class DeviceEvalSet:
         fns = []
         for nm in metric_names:
             base = nm.split("@")[0]
+            if base in ("ndcg", "map"):
+                fns.append((_make_rank(base, int(nm.split("@")[1]), cfg,
+                                       label, group), False))
+                continue
             if num_class > 1 and base in ("multi_logloss", "multi_error"):
                 f, multi = _make_multiclass(base, cfg, label, w), True
             elif base == "auc":
@@ -226,10 +247,18 @@ _DEVICE_NAMES = frozenset({
 
 def supported_names(metric_objs) -> Optional[Tuple[List[str], List[bool]]]:
     """Host Metric objects -> (display names, higher_better) when every
-    one has a device form, else None (the JAX package's supported_names;
-    ndcg and map need query groups, which the port has not yet)."""
+    one has a device form, else None (the JAX package's supported_names).
+    ndcg and map need the dataset's query groups and expand to one name
+    per eval_at entry, as the host metric's eval() tuples do."""
     names, hb = [], []
     for m in metric_objs:
+        if m.name in ("ndcg", "map"):
+            if getattr(m, "group", None) is None:
+                return None
+            for k in list(m.config.eval_at) or [1, 2, 3, 4, 5]:
+                names.append(f"{m.name}@{k}")
+                hb.append(True)
+            continue
         if m.name not in _DEVICE_NAMES:
             return None
         display = m.name

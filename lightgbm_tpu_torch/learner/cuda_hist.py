@@ -12,6 +12,7 @@ paths launch (lightgbm_tpu/learner/pallas_hist.py):
 | `seg_sum`        | csrc/seg_sum.cu    | seg_sum_tpu / _segsum_kernel      |
 | `hist`           | csrc/hist.cu       | hist_tpu / _hist_kernel           |
 | `hist_slots`     | csrc/hist.cu       | hist_slots_tpu / _hist_slots_kernel |
+| `cuda_rank.lambdarank` | csrc/lambdarank.cu | no pallas_call: the XLA pair tensors of learner/ranking.py lambdarank_gradients |
 
 hist_round takes the round's category sets (cat_mask) on datasets with
 categorical features: every channel mode then runs its categorical
@@ -63,7 +64,7 @@ LAUNCHES: Dict[str, int] = {
     "hist_nat": 0, "hist_round": 0, "take_small": 0, "seg_sum": 0,
     "hist": 0, "hist_slots": 0, "hist_round_f32": 0,
     "hist_nat_int8": 0, "hist_round_int8": 0, "hist_nat_f32": 0,
-    "hist_round_cat": 0,
+    "hist_round_cat": 0, "lambdarank": 0,
 }
 
 # shared memory a block may use on sm_90 (mirrors hist_common.cuh)
@@ -171,6 +172,10 @@ def load() -> ctypes.CDLL:
                                   + [I] * 10 + [P])
         lib.lgbm_hist_slots.argtypes = ([P, P, I, P, P, I] + [P] * 4
                                         + [I] * 10 + [P])
+        F = ctypes.c_float
+        lib.lgbm_lambdarank.argtypes = ([P, P, P, I, P, I] + [P] * 5
+                                        + [I] * 3 + [F] * 3 + [I] * 3
+                                        + [F, I, P])
         # csrc/graph.cu: capture, replay and IF nodes (device_loop.py)
         lib.lgbm_graph_begin.argtypes = [P]
         lib.lgbm_graph_end.argtypes = [P, ctypes.POINTER(P), ctypes.POINTER(P),
@@ -182,6 +187,7 @@ def load() -> ctypes.CDLL:
         for fn in (lib.lgbm_hist_nat, lib.lgbm_hist_nat_f32,
                    lib.lgbm_hist_round, lib.lgbm_take_small,
                    lib.lgbm_seg_sum, lib.lgbm_hist, lib.lgbm_hist_slots,
+                   lib.lgbm_lambdarank,
                    lib.lgbm_graph_begin, lib.lgbm_graph_end,
                    lib.lgbm_graph_launch, lib.lgbm_graph_destroy,
                    lib.lgbm_if_begin, lib.lgbm_if_end):

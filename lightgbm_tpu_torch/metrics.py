@@ -5,10 +5,10 @@ training loop calls (boosting.eval_set): the regression family (l2,
 rmse, r2, l1, quantile, huber, fair, poisson, mape, gamma,
 gamma_deviance, tweedie), binary_logloss, binary_error, auc,
 average_precision, multi_logloss, multi_error, auc_mu, cross_entropy,
-cross_entropy_lambda and kullback_leibler. Host-side numpy over (label,
-raw score) on unpadded arrays; each metric reports (name, value,
-higher_better) with the reference names. The ranking metrics (ndcg,
-map) are not ported (ROADMAP queue A) and raise.
+cross_entropy_lambda, kullback_leibler, and the ranking metrics ndcg@k
+and map@k over the query groups (one value per eval_at entry).
+Host-side numpy over (label, raw score) on unpadded arrays; each metric
+reports (name, value, higher_better) with the reference names.
 """
 
 from __future__ import annotations
@@ -398,6 +398,67 @@ class KullbackLeiblerMetric(_PointwiseMetric):
         return [(self.name, float(offset + ce), False)]
 
 
+class NDCGMetric(Metric):
+    name = "ndcg"
+    higher_better = True
+
+    def eval(self, score):
+        if self.group is None:
+            log.fatal("ndcg metric requires query information")
+        qb = np.concatenate([[0], np.cumsum(self.group)]).astype(int)
+        ks = list(self.config.eval_at) or [1, 2, 3, 4, 5]
+        gains_cfg = list(self.config.label_gain)
+        max_label = int(self.label.max())
+        if not gains_cfg:
+            gains_cfg = [(1 << i) - 1 for i in range(max_label + 1)]
+        lg = np.asarray(gains_cfg, dtype=np.float64)
+        results = {k: [] for k in ks}
+        for q in range(len(qb) - 1):
+            lab = self.label[qb[q]: qb[q + 1]].astype(int)
+            sc = score[qb[q]: qb[q + 1]]
+            order = np.argsort(-sc, kind="stable")
+            ideal = np.sort(lab)[::-1]
+            for k in ks:
+                kk = min(k, len(lab))
+                disc = 1.0 / np.log2(np.arange(kk) + 2.0)
+                dcg = np.sum(lg[lab[order[:kk]]] * disc)
+                idcg = np.sum(lg[ideal[:kk]] * disc)
+                results[k].append(dcg / idcg if idcg > 0 else 1.0)
+        return [(f"ndcg@{k}", float(np.mean(results[k])), True) for k in ks]
+
+
+class MapMetric(Metric):
+    name = "map"
+    higher_better = True
+
+    def eval(self, score):
+        if self.group is None:
+            log.fatal("map metric requires query information")
+        qb = np.concatenate([[0], np.cumsum(self.group)]).astype(int)
+        ks = list(self.config.eval_at) or [1, 2, 3, 4, 5]
+        results = {k: [] for k in ks}
+        for q in range(len(qb) - 1):
+            # reference map_metric.hpp CalMapAtK: relevance is
+            # label > 0.5, the normalizer is min(TOTAL positives in the
+            # query, k) — not positives within the top k — and queries
+            # with no positives count as 1.0
+            lab = (self.label[qb[q]: qb[q + 1]] > 0.5).astype(np.float64)
+            sc = score[qb[q]: qb[q + 1]]
+            order = np.argsort(-sc, kind="stable")
+            rel = lab[order]
+            npos = float(np.sum(rel))
+            for k in ks:
+                kk = min(k, len(rel))
+                hits = np.cumsum(rel[:kk])
+                if npos > 0:
+                    ap = (np.sum(hits / np.arange(1, kk + 1) * rel[:kk])
+                          / min(npos, kk))
+                else:
+                    ap = 1.0
+                results[k].append(ap)
+        return [(f"map@{k}", float(np.mean(results[k])), True) for k in ks]
+
+
 _METRICS: Dict[str, type] = {
     "l2": L2Metric, "mean_squared_error": L2Metric, "mse": L2Metric,
     "regression": L2Metric, "regression_l2": L2Metric,
@@ -426,6 +487,8 @@ _METRICS: Dict[str, type] = {
     "xentlambda": CrossEntropyLambdaMetric,
     "kullback_leibler": KullbackLeiblerMetric,
     "kldiv": KullbackLeiblerMetric,
+    "ndcg": NDCGMetric, "lambdarank": NDCGMetric, "rank_xendcg": NDCGMetric,
+    "map": MapMetric, "mean_average_precision": MapMetric,
 }
 
 # metric implied by each objective when metric param is empty (metric.cpp)
@@ -436,12 +499,9 @@ _DEFAULT_METRIC = {
     "multiclass": "multi_logloss", "multiclassova": "multi_logloss",
     "cross_entropy": "cross_entropy",
     "cross_entropy_lambda": "cross_entropy_lambda",
+    "lambdarank": "ndcg",
+    "rank_xendcg": "ndcg",
 }
-
-# the JAX package's ranking metrics, not ported yet
-_NOT_PORTED = frozenset({
-    "ndcg", "lambdarank", "rank_xendcg", "map", "mean_average_precision",
-})
 
 
 def create_metrics(config: Config) -> List[Metric]:
@@ -454,10 +514,6 @@ def create_metrics(config: Config) -> List[Metric]:
         key = n.strip().lower()
         if key in ("none", "null", "na", "custom", ""):
             continue
-        if key in _NOT_PORTED:
-            raise NotImplementedError(
-                f"metric {n} is not ported yet (ROADMAP queue A)"
-            )
         if key not in _METRICS:
             log.warning(f"Unknown metric {n}, ignored")
             continue

@@ -3,15 +3,17 @@
 The port of lightgbm_tpu/objectives.py for the regression family
 (RegressionL2 :127 and RegressionL1, Huber, Fair, Poisson, Quantile,
 MAPE, Gamma, Tweedie :152-280), Binary :282, MulticlassSoftmax :334,
-MulticlassOVA :363, CrossEntropy :394 and CrossEntropyLambda :417, with
-the same math and factory names. Scores and labels are padded row
+MulticlassOVA :363, CrossEntropy :394, CrossEntropyLambda :417 and the
+ranking objectives LambdaRank :470 and RankXENDCG :605, with the same
+math and factory names. Scores and labels are padded row
 vectors on the training device; padding rows produce gradients the
 grower masks out through the validity channel. Host statistics
 (boost_from_score) run in numpy on the same float32 label array as the
 JAX package, so the initial scores agree bit for bit. L1, Huber,
 Quantile and MAPE renew their leaves by weighted percentile
-(is_renew_tree_output; learner/renewal.py). The ranking objectives are
-not ported (ROADMAP queue A) and raise.
+(is_renew_tree_output; learner/renewal.py). LambdaRank's lambdas are the
+card's lambdarank kernel (learner/ranking.py, csrc/lambdarank.cu);
+RankXENDCG is torch ops over the padded query layout.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from . import log
+from . import log, rng
 from .config import Config
 from .dataset import BinnedDataset
 
@@ -31,6 +33,13 @@ class ObjectiveFunction:
 
     name = "custom"
     num_class = 1
+    # get_gradients takes the iteration (rank_xendcg redraws its
+    # perturbation each iteration); the loops pass it
+    needs_iter = False
+    # state carried from one iteration's gradients to the next on the
+    # host side of the loop (lambdarank's position biases): the fused
+    # loop does not apply
+    has_host_state = False
     # objectives that refit leaf outputs with residual percentiles
     # (objective_function.h:55 IsRenewTreeOutput)
     is_renew_tree_output = False
@@ -422,6 +431,157 @@ class CrossEntropyLambda(ObjectiveFunction):
         return np.logaddexp(0.0, score)
 
 
+# ---------------------------------------------------------------- ranking
+def _query_group(name: str, dataset) -> np.ndarray:
+    group = dataset.metadata.group
+    if group is None:
+        log.fatal(f"{name} requires query group information")
+    return group
+
+
+class LambdaRank(ObjectiveFunction):
+    """reference rank_objective.hpp LambdarankNDCG: per query, the
+    documents sorted by score and pairwise delta-NDCG weighted sigmoid
+    lambdas, with the truncation level, the norm, label_gain and the
+    document weights; the hessian floored at 2e-7 (queries of equal
+    labels give none). With positions, the position-bias factors
+    (rank_objective.hpp:55-98,302) shift the scores before the lambdas
+    and take a Newton step from the lambdas each iteration: host-side
+    state across iterations, so such a run keeps to the eager loop
+    (has_host_state), as in the JAX package."""
+
+    name = "lambdarank"
+
+    def init(self, dataset, device):
+        from .learner.ranking import (build_query_layout, inverse_max_dcg,
+                                      label_gains)
+
+        super().init(dataset, device)
+        group = _query_group(self.name, dataset)
+        label = dataset.metadata.label
+        npad = dataset.num_rows_padded()
+        self._layout = build_query_layout(group, npad)
+        self._layout.device(device)
+        gains = label_gains(self.config, label)
+        self._trunc = int(self.config.lambdarank_truncation_level)
+        self._norm = bool(self.config.lambdarank_norm)
+        self._sigmoid = float(self.config.sigmoid)
+        if self._sigmoid <= 0:
+            log.fatal(f"Sigmoid param {self._sigmoid} should be greater "
+                      "than zero")
+        imd = inverse_max_dcg(label, self._layout, gains, self._trunc)
+        t = lambda a: torch.from_numpy(
+            np.ascontiguousarray(a, dtype=np.float32)).to(device)
+        self._gain_dev = t(gains)
+        self._imd_dev = t(imd)
+        self._pos_biases = None
+        pos = dataset.metadata.position
+        if pos is not None:
+            pos = np.asarray(pos, np.int64)
+            self._num_pos = int(pos.max()) + 1
+            posp = np.zeros(npad, np.int32)
+            posp[: len(pos)] = pos
+            self._positions = torch.from_numpy(posp).to(device)
+            self._valid_rows = t(np.arange(npad) < len(pos))
+            self._pos_reg = _f32(
+                self.config.lambdarank_position_bias_regularization)
+            self._pos_lr = _f32(self.config.learning_rate)
+            self._pos_biases = torch.zeros(self._num_pos,
+                                           dtype=torch.float32,
+                                           device=device)
+            self.has_host_state = True
+
+    def _lambdas(self, score, hess_floor):
+        from .learner.ranking import lambdarank
+
+        return lambdarank(self._layout, score, self.label, self._gain_dev,
+                          self._imd_dev, self._sigmoid, self._trunc,
+                          self._norm, self.weight, hess_floor)
+
+    def get_gradients(self, score):
+        if self._pos_biases is None:
+            return self._lambdas(score, True)
+        from .learner.histogram import seg_sum
+
+        b = self._pos_biases
+        g, h = self._lambdas(score + b[self._positions.long()], False)
+        # UpdatePositionBiasFactors: a Newton step on the utility's
+        # derivatives in each position's bias factor (seg_sum: the same
+        # bits on every run on the card)
+        v = self._valid_rows
+        d1, d2, cnt = seg_sum(torch.stack([-g * v, -h * v, v]),
+                              self._positions, self._num_pos)
+        reg = self._pos_reg
+        d1 = d1 - b * reg * cnt
+        d2 = d2 - reg * cnt
+        self._pos_biases = b + self._pos_lr * d1 / (torch.abs(d2)
+                                                     + _f32(0.001))
+        return g, torch.clamp_min(h, _f32(2e-7))
+
+    @property
+    def position_biases(self):
+        """The learned per-position bias factors (None without positions)."""
+        return self._pos_biases
+
+
+class RankXENDCG(ObjectiveFunction):
+    """reference rank_objective.hpp RankXENDCG: per-query softmax scores
+    against a perturbed 2^label ground truth, with the three-term gradient
+    series of the XE-NDCG loss. Its uniforms are the JAX package's bits:
+    rng.uniform over the padded (Q, M) layout keyed fold_in(key(
+    objective_seed), it), `it` the loop's iteration (the device counter
+    on the fused loop)."""
+
+    name = "rank_xendcg"
+    needs_iter = True
+
+    def check_label(self, label):
+        if np.any(label < 0):
+            log.fatal("[rank_xendcg]: relevance labels must be non-negative")
+
+    def init(self, dataset, device):
+        from .learner.ranking import build_query_layout
+
+        super().init(dataset, device)
+        group = _query_group(self.name, dataset)
+        self._layout = build_query_layout(group, dataset.num_rows_padded())
+        d = self._layout.device(device)
+        self._multi = d["qvalid"].sum(dim=1, keepdim=True) > 1
+        self._key = rng.key(self.config.objective_seed, device)
+
+    def get_gradients(self, score, it=0):
+        lay = self._layout
+        d = lay.device(score.device)
+        qd, qv = d["qdoc"], d["qvalid"]
+        eps = _f32(1e-15)
+        zero = torch.zeros((), dtype=torch.float32, device=score.device)
+        s = torch.where(qv, score[qd], -1e30)
+        lb = torch.where(qv, self.label[qd], zero)
+        # jax.nn.softmax's formula, per query
+        e = torch.exp(s - s.max(dim=1, keepdim=True).values)
+        rho = e / e.sum(dim=1, keepdim=True)
+        u = rng.uniform(rng.fold_in(self._key, it), qv.shape)
+        phi = torch.where(qv, torch.exp2(torch.floor(lb)) - u, zero)
+        inv_den = 1.0 / torch.clamp_min(phi.sum(dim=1, keepdim=True), eps)
+        t1 = -phi * inv_den + rho
+        one_m = torch.clamp_min(1.0 - rho, eps)
+        p2 = t1 / one_m
+        sum1 = torch.where(qv, p2, zero).sum(dim=1, keepdim=True)
+        t2 = rho * (sum1 - p2)
+        p3 = t2 / one_m
+        sum2 = torch.where(qv, p3, zero).sum(dim=1, keepdim=True)
+        lam = t1 + t2 + rho * (sum2 - p3)
+        hess = rho * (1.0 - rho)
+        ok = qv & self._multi
+        lam = torch.where(ok, lam, zero).reshape(-1)[d["cell"]]
+        hess = torch.where(ok, hess, zero).reshape(-1)[d["cell"]]
+        pad = lay.npad - lay.num_docs
+        g = torch.nn.functional.pad(lam, (0, pad))
+        h = torch.nn.functional.pad(hess, (0, pad))
+        g, h = self._w(g, h)
+        return g, torch.clamp_min(h, _f32(2e-7))
+
+
 _OBJECTIVES = {
     "regression": RegressionL2,
     "regression_l1": RegressionL1,
@@ -437,6 +597,8 @@ _OBJECTIVES = {
     "multiclassova": MulticlassOVA,
     "cross_entropy": CrossEntropy,
     "cross_entropy_lambda": CrossEntropyLambda,
+    "lambdarank": LambdaRank,
+    "rank_xendcg": RankXENDCG,
 }
 
 
@@ -446,8 +608,5 @@ def create_objective(config: Config) -> Optional[ObjectiveFunction]:
     if name == "none":
         return None
     if name not in _OBJECTIVES:
-        raise NotImplementedError(
-            f"objective {name} is not ported yet (ROADMAP queue A); the "
-            f"port has {', '.join(_OBJECTIVES)}"
-        )
+        log.fatal(f"Unknown objective type name: {name}")
     return _OBJECTIVES[name](config)

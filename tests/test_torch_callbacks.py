@@ -26,6 +26,9 @@ import lightgbm_tpu as lgb_j
 import lightgbm_tpu_torch as lgb_t
 from test_torch_sampling import assert_same_sampled_models
 from test_torch_train import _data
+from _port_threads import one_torch_thread
+
+one_torch_thread()  # one torch thread a test worker (see the module)
 
 PINS = {"tpu_growth_mode": "rounds", "tpu_hist_dtype": "int16",
         "verbosity": -1}

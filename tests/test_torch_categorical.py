@@ -45,6 +45,9 @@ from lightgbm_tpu_torch.learner.split import best_split as best_t
 from lightgbm_tpu_torch.tree import Tree as TreeT
 from lightgbm_tpu_torch.tree import traverse_tree_bins as traverse_t
 from test_categorical import _oracle_cat_subset
+from _port_threads import one_torch_thread
+
+one_torch_thread()  # one torch thread a test worker (see the module)
 
 PINS = {"tpu_growth_mode": "rounds", "tpu_hist_dtype": "int16",
         "verbosity": -1}

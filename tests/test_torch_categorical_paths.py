@@ -22,6 +22,9 @@ import pytest
 
 from test_torch_categorical import (_cat_data, _trees, assert_same_models,
                                     train_both)
+from _port_threads import one_torch_thread
+
+one_torch_thread()  # one torch thread a test worker (see the module)
 
 PATHS = {
     "quant": {"tpu_growth_mode": "rounds", "use_quantized_grad": True,

@@ -15,6 +15,9 @@ import torch
 import lightgbm_tpu_torch as lgb
 from lightgbm_tpu_torch.learner import cuda_hist
 from lightgbm_tpu_torch.learner import histogram as ht
+from _port_threads import one_torch_thread
+
+one_torch_thread()  # one torch thread a test worker (see the module)
 
 pytestmark = pytest.mark.cuda
 
@@ -1136,3 +1139,113 @@ def test_fused_graph_matches_eager_bitwise(dev, extra):
     assert torch.equal(bf._gbdt.valids[0].score, be._gbdt.valids[0].score)
     m = list(ee["v"])[0]
     np.testing.assert_allclose(ef["v"][m], ee["v"][m], rtol=1e-5, atol=1e-7)
+
+
+# ---- lambdarank (csrc/lambdarank.cu) against ranking.lambdarank_plain on
+# the card: max |kernel - plain| <= RANK_TOL * max |plain| for g and h. The
+# two differ only in the order of their f32 sums (a document's <= cnt pair
+# terms, sequential in the kernel, a tree in torch): ~sqrt(cnt) x 2^-24
+# relative, 4e-6 at 4,096 documents; RANK_TOL leaves ~10x room.
+RANK_TOL = 5e-5
+
+
+def _rank_inputs(group, dev, scores="random", labels=5, seed=0, pad=37):
+    from lightgbm_tpu_torch.learner import ranking
+
+    rs = np.random.RandomState(seed)
+    group = np.asarray(group)
+    n = int(group.sum())
+    npad = n + pad
+    lab = np.zeros(npad, np.float32)
+    lab[:n] = np.minimum(rs.geometric(0.45, n) - 1, labels - 1)
+    if scores == "equal":
+        sc = np.zeros(npad, np.float32)
+    else:
+        sc = rs.randn(npad).astype(np.float32)
+        if scores == "ties":
+            sc = np.round(sc * 2) / 2
+    w = (rs.rand(npad) + 0.5).astype(np.float32)
+    lay = ranking.QueryLayout(group, npad)
+    gain = ranking.default_label_gain(labels - 1)
+    imd = ranking.inverse_max_dcg(lab, lay, gain, 30)
+    t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+    return lay, t(sc), t(lab), t(gain), t(imd), t(w)
+
+
+def _rank_close(k, p):
+    scale = float(p.abs().max())
+    err = float((k - p).abs().max())
+    assert err <= RANK_TOL * max(scale, 1e-30), (err, scale)
+
+
+RANK_GROUPS = {
+    "one_doc_queries": [1] * 50 + [3, 1, 2],
+    "mixed": [7, 3, 12, 1, 5, 120, 64, 2],
+    "q908": [908, 5, 120],
+    "q4096": [4096, 17],
+}
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("norm", [True, False])
+@pytest.mark.parametrize("scores", ["random", "equal", "ties"])
+@pytest.mark.parametrize("groups", list(RANK_GROUPS))
+def test_lambdarank_kernel_matches_plain(dev, groups, scores, norm,
+                                         weighted):
+    from lightgbm_tpu_torch.learner import cuda_rank, ranking
+
+    lay, sc, lab, gain, imd, w = _rank_inputs(RANK_GROUPS[groups], dev,
+                                              scores)
+    w = w if weighted else None
+    before = cuda_hist.LAUNCHES["lambdarank"]
+    gk, hk = ranking.lambdarank(lay, sc, lab, gain, imd, 1.0, 30, norm, w)
+    assert cuda_hist.LAUNCHES["lambdarank"] == before + 1
+    gp, hp = ranking.lambdarank_plain(lay, sc, lab, gain, imd, 1.0, 30,
+                                      norm, w)
+    _rank_close(gk, gp)
+    _rank_close(hk, hp)
+    assert bool((hk >= np.float32(2e-7)).all())
+    # the padding rows: g 0, h the floor
+    assert bool((gk[lay.num_docs:] == 0).all())
+    # a query of one document, or of equal labels, has no pair
+    if groups == "one_doc_queries":
+        assert bool((gk[:50] == 0).all())
+    g2, h2 = cuda_rank.lambdarank(lay, sc, lab, gain, imd, 1.0, 30, norm, w,
+                                  hess_floor=False)
+    assert torch.equal(g2, gk)
+    _rank_close(h2, ranking.lambdarank_plain(lay, sc, lab, gain, imd, 1.0,
+                                             30, norm, w, False)[1])
+
+
+def test_lambdarank_kernel_equal_labels(dev):
+    from lightgbm_tpu_torch.learner import ranking
+
+    lay, sc, lab, gain, imd, w = _rank_inputs([9, 40, 3], dev)
+    lab = 2.0 * (torch.arange(lab.shape[0], device=dev)
+                 < lay.num_docs).to(torch.float32)
+    gk, hk = ranking.lambdarank(lay, sc, lab, gain, imd, 1.0, 30, True)
+    assert bool((gk == 0).all())
+    assert bool((hk == np.float32(2e-7)).all())
+
+
+def test_lambdarank_kernel_bitwise_across_calls(dev):
+    from lightgbm_tpu_torch.learner import ranking
+
+    lay, sc, lab, gain, imd, w = _rank_inputs(
+        [908, 120, 4096, 1, 30] * 3, dev, "ties")
+    a = ranking.lambdarank(lay, sc, lab, gain, imd, 1.0, 30, True, w)
+    b = ranking.lambdarank(lay, sc, lab, gain, imd, 1.0, 30, True, w)
+    assert all(torch.equal(x.view(torch.int32), y.view(torch.int32))
+               for x, y in zip(a, b))
+
+
+def test_lambdarank_kernel_refuses_past_shared_memory(dev):
+    from lightgbm_tpu_torch.learner import cuda_rank, ranking
+
+    limit = (cuda_hist._MAX_SMEM - cuda_hist._SMEM_STATIC) // 4
+    limit = (limit - cuda_rank.RANK_THREADS) // 5
+    lay, sc, lab, gain, imd, w = _rank_inputs([limit + 1, 3], dev)
+    before = cuda_hist.LAUNCHES["lambdarank"]
+    with pytest.raises(ValueError, match="kernel limit"):
+        ranking.lambdarank(lay, sc, lab, gain, imd, 1.0, 30, True)
+    assert cuda_hist.LAUNCHES["lambdarank"] == before

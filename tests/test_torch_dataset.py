@@ -11,6 +11,9 @@ from lightgbm_tpu.dataset import BinnedDataset as BinnedJ
 from lightgbm_tpu_torch import convert
 from lightgbm_tpu_torch.config import Config as ConfigT
 from lightgbm_tpu_torch.dataset import BinnedDataset as BinnedT
+from _port_threads import one_torch_thread
+
+one_torch_thread()  # one torch thread a test worker (see the module)
 
 
 def _dense(seed=3, n=900, f=6):

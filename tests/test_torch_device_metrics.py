@@ -13,6 +13,9 @@ from lightgbm_tpu.config import Config as ConfigJ
 from lightgbm_tpu_torch import device_metrics as dm_t
 from lightgbm_tpu_torch.config import Config as ConfigT
 from lightgbm_tpu_torch.metrics import create_metrics
+from _port_threads import one_torch_thread
+
+one_torch_thread()  # one torch thread a test worker (see the module)
 
 POINTWISE = ["l2", "rmse", "l1", "r2", "quantile", "huber", "fair",
              "poisson", "mape", "gamma", "gamma_deviance", "tweedie",

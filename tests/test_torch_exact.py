@@ -34,6 +34,9 @@ from lightgbm_tpu_torch.learner import histogram as ht
 from lightgbm_tpu_torch.learner.grower import GrowerSpec as SpecT
 from lightgbm_tpu_torch.learner.grower import grow_tree as grow_t
 from lightgbm_tpu_torch.learner.grower import make_split_params as params_t
+from _port_threads import one_torch_thread
+
+one_torch_thread()  # one torch thread a test worker (see the module)
 
 # the JAX package's learner/__init__ exports a function named histogram
 hj = importlib.import_module("lightgbm_tpu.learner.histogram")

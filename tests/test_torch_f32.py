@@ -29,6 +29,9 @@ from test_torch_exact import (
     assert_same_tree,
     grow_both,
 )
+from _port_threads import one_torch_thread
+
+one_torch_thread()  # one torch thread a test worker (see the module)
 
 hj = importlib.import_module("lightgbm_tpu.learner.histogram")
 

@@ -35,10 +35,13 @@ from torch.utils._python_dispatch import TorchDispatchMode
 import lightgbm_tpu as lgb_j
 import lightgbm_tpu_torch as lgb_t
 from lightgbm_tpu_torch import boosting, device_metrics, rng, sample_strategy
-from lightgbm_tpu_torch.learner import device_loop, quantize, renewal, \
-    rounds, split
+from lightgbm_tpu_torch.learner import device_loop, quantize, ranking, \
+    renewal, rounds, split
 from lightgbm_tpu_torch.tree import traverse_tree_bins
 from test_torch_train import _STRUCT, _data, _trees
+from _port_threads import one_torch_thread
+
+one_torch_thread()  # one torch thread a test worker (see the module)
 
 PINS = {"tpu_growth_mode": "rounds", "tpu_hist_dtype": "int16",
         "verbosity": -1}
@@ -313,7 +316,7 @@ STEP_CODE = [
     boosting.GBDT._renew_true, boosting._FusedProgram.step,
     boosting._FusedProgram._body, boosting._FusedProgram._pack,
     rounds.grow_tree_rounds, traverse_tree_bins, split, rng,
-    sample_strategy, quantize, renewal, device_metrics,
+    sample_strategy, quantize, renewal, device_metrics, ranking,
 ]
 
 

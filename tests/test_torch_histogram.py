@@ -15,6 +15,9 @@ from lightgbm_tpu.learner.bundle import BundleInfo as BundleJ
 from lightgbm_tpu.learner.bundle import decode_feature_bins
 from lightgbm_tpu_torch.learner import cuda_hist
 from lightgbm_tpu_torch.learner import histogram as ht
+from _port_threads import one_torch_thread
+
+one_torch_thread()  # one torch thread a test worker (see the module)
 
 # the JAX package's learner/__init__ exports a function named histogram
 hj = importlib.import_module("lightgbm_tpu.learner.histogram")

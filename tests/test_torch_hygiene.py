@@ -14,6 +14,9 @@ import torch
 import lightgbm_tpu_torch as lgb
 from lightgbm_tpu_torch.learner.histogram import hist_nat_slots
 from lightgbm_tpu_torch.learner.quantize import resolve_hist_dtype
+from _port_threads import one_torch_thread
+
+one_torch_thread()  # one torch thread a test worker (see the module)
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "lightgbm_tpu")
@@ -131,10 +134,10 @@ def test_auto_means_int16_everywhere():
     {"linear_tree": True},
     {"tree_learner": "voting"},
     {"boosting": "dart"},
-    {"objective": "lambdarank"},
+    {"cegb_penalty_split": 0.1},
     {"extra_trees": True},
     {"boosting": "rf", "bagging_freq": 1, "bagging_fraction": 0.5},
-    {"metric": "ndcg"},
+    {"forcedsplits_filename": "forced.json"},
 ])
 def test_unported_options_raise(extra):
     X, y = _tiny()

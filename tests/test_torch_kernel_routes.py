@@ -12,6 +12,9 @@ import numpy as np
 import pytest
 
 from lightgbm_tpu_torch.learner import cuda_hist as ch
+from _port_threads import one_torch_thread
+
+one_torch_thread()  # one torch thread a test worker (see the module)
 
 SMS = 132  # H100 SXM
 N_REFIT = 1_001_472  # 1M rows padded to the 2048-row block

@@ -22,6 +22,9 @@ from lightgbm_tpu_torch.metrics import create_metrics as metrics_t
 from test_torch_callbacks import _per_iteration
 from test_torch_sampling import assert_same_sampled_models
 from test_torch_train import _data
+from _port_threads import one_torch_thread
+
+one_torch_thread()  # one torch thread a test worker (see the module)
 
 PINS = {"tpu_growth_mode": "rounds", "tpu_hist_dtype": "int16",
         "verbosity": -1}
@@ -121,5 +124,17 @@ def test_metric_values(name, weighted):
 
 @pytest.mark.parametrize("name", ["ndcg", "map"])
 def test_ranking_metrics_still_refused(name):
-    with pytest.raises(NotImplementedError):
-        metrics_t(ConfigT({"objective": "binary", "metric": name}))
+    """Ported with ranking (tests/test_torch_ranking.py holds their
+    values): the metric is built as the JAX package builds it, and
+    without query groups its evaluation fails as the JAX package's
+    does."""
+    params = {"objective": "binary", "metric": name}
+    mj, mt = metrics_j(ConfigJ(params)), metrics_t(ConfigT(params))
+    assert [m.name for m in mt] == [m.name for m in mj] == [name]
+    msgs = []
+    for m in (mj[0], mt[0]):
+        m.init(np.zeros(4, np.float32), None, None)
+        with pytest.raises(Exception) as ex:
+            m.eval(np.zeros(4))
+        msgs.append(str(ex.value))
+    assert msgs[0] == msgs[1] == f"{name} metric requires query information"

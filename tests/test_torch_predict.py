@@ -10,6 +10,9 @@ import pytest
 
 import lightgbm_tpu as lgb_j
 import lightgbm_tpu_torch as lgb_t
+from _port_threads import one_torch_thread
+
+one_torch_thread()  # one torch thread a test worker (see the module)
 
 ES = {"pred_early_stop": True, "pred_early_stop_freq": 1,
       "pred_early_stop_margin": 0.5}

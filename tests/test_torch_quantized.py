@@ -30,6 +30,9 @@ from lightgbm_tpu_torch.learner import histogram as ht
 from lightgbm_tpu_torch.learner.quantize import discretize_gradients_int, \
     resolve_hist_dtype
 from test_torch_exact import assert_same_models
+from _port_threads import one_torch_thread
+
+one_torch_thread()  # one torch thread a test worker (see the module)
 
 hj = importlib.import_module("lightgbm_tpu.learner.histogram")
 

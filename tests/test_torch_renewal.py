@@ -37,6 +37,9 @@ from lightgbm_tpu_torch.learner import histogram as ht
 from lightgbm_tpu_torch.learner.renewal import renew_leaf_values as renew_t
 from lightgbm_tpu_torch.metrics import create_metrics as metrics_t
 from test_torch_exact import _channels, _gh_both, assert_same_models
+from _port_threads import one_torch_thread
+
+one_torch_thread()  # one torch thread a test worker (see the module)
 
 hj = importlib.import_module("lightgbm_tpu.learner.histogram")
 

@@ -8,6 +8,9 @@ import pytest
 import torch
 
 from lightgbm_tpu_torch import rng
+from _port_threads import one_torch_thread
+
+one_torch_thread()  # one torch thread a test worker (see the module)
 
 SEEDS = [0, 1, 17, 2 ** 31 - 1, -3]
 

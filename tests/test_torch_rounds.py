@@ -28,6 +28,9 @@ from lightgbm_tpu_torch.learner.grower import GrowerSpec as SpecT
 from lightgbm_tpu_torch.learner.grower import grow_tree as grow_t
 from lightgbm_tpu_torch.learner.grower import make_split_params as params_t
 from lightgbm_tpu_torch.tree import traverse_tree_bins as traverse_t
+from _port_threads import one_torch_thread
+
+one_torch_thread()  # one torch thread a test worker (see the module)
 
 
 def _dense(n=1000, f=8, seed=11):

@@ -29,6 +29,9 @@ from lightgbm_tpu_torch import rng
 from lightgbm_tpu_torch import sample_strategy as ss_t
 from lightgbm_tpu_torch.config import Config as ConfigT
 from test_torch_train import _data
+from _port_threads import one_torch_thread
+
+one_torch_thread()  # one torch thread a test worker (see the module)
 
 SEEDS = [0, 17, 2 ** 31 - 1]
 PINS = {"tpu_growth_mode": "rounds", "tpu_hist_dtype": "int16",

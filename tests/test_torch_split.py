@@ -18,6 +18,9 @@ from lightgbm_tpu_torch.learner.split import (best_split as best_t,
                                               cumsum_last,
                                               feature_best_gains as fbg_t,
                                               first_argmax)
+from _port_threads import one_torch_thread
+
+one_torch_thread()  # one torch thread a test worker (see the module)
 
 F, B, N = 7, 24, 600
 PARAMS = {

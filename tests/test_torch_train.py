@@ -14,6 +14,9 @@ import lightgbm_tpu as lgb_j
 import lightgbm_tpu_torch as lgb_t
 from lightgbm_tpu_torch.convert import booster_from_model_string
 from lightgbm_tpu_torch.learner.split import SplitParams, leaf_gain
+from _port_threads import one_torch_thread
+
+one_torch_thread()  # one torch thread a test worker (see the module)
 
 PINS = {"tpu_growth_mode": "rounds", "tpu_hist_dtype": "int16",
         "verbosity": -1}
