@@ -1,4 +1,5 @@
-"""Drive lightgbm_tpu_torch's training path on one CUDA card and check it.
+"""Drive lightgbm_tpu_torch's training and serving paths on one CUDA card
+and check them.
 
 Run from the repository root with no arguments:
 
@@ -145,6 +146,40 @@ Phases, each printed as one JSON line:
             and position debiasing (the eager loop and its reason,
             finite biases); predictions within 1e-4, or the models part
             at a near tie (gains within 1e-6 relative);
+  serve_forest - serving: the Higgs-like binary model
+            trained to 500 trees on the fused loop, then
+            Booster.predict(device="cuda") (the tensorized forest,
+            serving/forest.py: one take_small gather of the packed node
+            table a level) on the 100,000 validation rows against the
+            host walker: raw scores within rtol 1e-5 / atol 1e-5, pred_leaf
+            exactly, rows/s of both; the same on 20-tree models of
+            train_cat's data (category bitsets) and train_rank's (136
+            columns); take_small launches counted from zero over the
+            Higgs-like check (the kernels line's launches);
+  take_small_serve - kernel line: one level's gather of a 4096-row bucket
+            over the 500 trees (2,048,000 lanes, k = 9, L = 500 x
+            max_nodes, the unstaged path), bitwise against
+            take_cols_plain and across launches, in turns with
+            index_select, its bound (bytes / 3.35 TB/s) and launches per
+            call;
+  serve_dispatch - BucketDispatcher warmed up (one CUDA graph per rung
+            of 16 ... 4096), then 100 requests of 1-5,000 rows: captures
+            equal the rungs and do not grow, every answer bitwise the
+            unbucketed forest's; graph nodes and device ms a replay per
+            rung;
+  serve_loaded - bench_serve.py's phases 1-2 (20,000 x 16 rows,
+            RandomState(0), 50 trees x 31 leaves, batch 1): baseline (1
+            replica, 256 direct requests) and loaded (2 replicas behind
+            the MicroBatcher, 8 threads x a window of 128, 8,192
+            requests): qps, p50 / p99 ms, coalesce ratio, device calls, a
+            64-row probe bitwise equal across both paths; then the same
+            with the 500-tree, 255-leaf forest;
+  serve_http - serve_http on a free local port: /readyz 200 after
+            warm-up, /v1/score equal to a direct predict, /metrics with
+            lgbmtpu_serve_* series;
+  serve_contrib - device TreeSHAP on the 50-tree model, 1,024 rows,
+            against host shap.py (8 worker processes): within 1e-5, rows
+            summing to the raw score; device ms and peak memory;
 then the `kernels` summary line and, last, {"ok": true, "device": ...}.
 Any failure raises: no `ok` line, non-zero exit. Without a CUDA device,
 or without the package beside it, the script exits non-zero at once.
@@ -180,6 +215,8 @@ REPLACES = {
                       "(has_cat :416-432)",
     "lambdarank": "lightgbm_tpu/learner/ranking.py:109 (XLA, no "
                   "pallas_call)",
+    "take_small_serve": "lightgbm_tpu/learner/pallas_hist.py:569 (via "
+                        "lightgbm_tpu/serving/forest.py:253 take_cols)",
 }
 SOURCES = {
     "hist_nat": "lightgbm_tpu_torch/csrc/hist_nat.cu",
@@ -194,6 +231,7 @@ SOURCES = {
     "hist_nat_f32": "lightgbm_tpu_torch/csrc/hist_nat.cu",
     "hist_round_cat": "lightgbm_tpu_torch/csrc/hist_round.cu",
     "lambdarank": "lightgbm_tpu_torch/csrc/lambdarank.cu",
+    "take_small_serve": "lightgbm_tpu_torch/csrc/take_small.cu",
 }
 # the training path whose run counts each kernel's launches
 PATH_OF = {"hist_nat": "train", "hist_round": "train", "take_small": "train",
@@ -201,7 +239,8 @@ PATH_OF = {"hist_nat": "train", "hist_round": "train", "take_small": "train",
            "hist_slots": "train_exact_rounds",
            "hist_round_f32": "train_f32", "hist_nat_int8": "train_quant",
            "hist_round_int8": "train_quant", "hist_nat_f32": "train_l1",
-           "hist_round_cat": "train_cat", "lambdarank": "train_rank"}
+           "hist_round_cat": "train_cat", "lambdarank": "train_rank",
+           "take_small_serve": "serve_forest"}
 F32_PATHS = {
     "train_exact": {"tpu_growth_mode": "exact"},
     "train_exact_rounds": {"tpu_growth_mode": "exact",
@@ -2182,7 +2221,7 @@ def train_rank_phase(torch, lgb, ch):
     bst.update()
     profile_phase(torch, bst, 1, "train_rank_profile")
     line = lambdarank_line(torch, bst._gbdt, bst._gbdt.train.score[0])
-    return rank, line
+    return rank, line, (ds, vs)
 
 
 def first_split_gap(ta, tb):
@@ -2276,6 +2315,461 @@ def rank_small_phase(lgb, np):
         if not (e < 1e-4 or near):
             raise AssertionError(f"rank_small {name}: card and CPU disagree "
                                  f"by {e}, first split apart {t}")
+
+
+# ---- serving: the tensorized forest, the bucketed
+# dispatcher's CUDA graphs, the registry under load, HTTP, device SHAP
+SERVE_TREES = 500
+SERVE_ROWS = 100_000
+SERVE_TOL = dict(rtol=1e-5, atol=1e-5)
+# bench_serve.py's defaults (phases 1-2): 20,000 x 16 training rows,
+# RandomState(0), 50 trees x 31 leaves, batch 1; baseline 256 direct
+# requests, loaded 8,192 through 2 replicas, 8 threads x a window of 128
+BENCH_SERVE = dict(train_rows=20_000, features=16, trees=50, leaves=31,
+                   base_requests=256, requests=8192, threads=8,
+                   window=128, replicas=2)
+
+
+def serve_check(np, bst, X, name, n_host=2000):
+    """Booster.predict(device="cuda") against the host walker on X: raw
+    scores within SERVE_TOL, pred_leaf exactly. The walker runs once over
+    X for its leaves (pred_leaf); its raw scores are those leaves' values
+    added tree by tree, as GBDT.predict_raw adds them, and equal
+    Booster.predict(raw_score=True) on the first n_host rows, whose time
+    gives the walker's rows/s. The card's rows/s is its second call (the
+    first also packs and uploads the tables)."""
+    bst.predict(X[:1000], device="cuda", raw_score=True)
+    t0 = time.perf_counter()
+    raw_d = bst.predict(X, device="cuda", raw_score=True)
+    t_dev = time.perf_counter() - t0
+    leaf_d = bst.predict(X, device="cuda", pred_leaf=True)
+    leaf_h = bst.predict(X, pred_leaf=True)
+    raw_h = np.zeros(X.shape[0])
+    for t, tree in enumerate(bst._gbdt.models):
+        raw_h += tree.leaf_value[leaf_h[:, t]]
+    t0 = time.perf_counter()
+    walked = bst.predict(X[:n_host], raw_score=True)
+    t_host = time.perf_counter() - t0
+    ok = bool(np.allclose(raw_d, raw_h, **SERVE_TOL))
+    line = {"model": name, "rows": int(X.shape[0]),
+            "trees": bst.num_trees(), "features": int(X.shape[1]),
+            "max_abs_err": float(np.abs(raw_d - raw_h).max()),
+            "within_tol": ok, "tolerance": SERVE_TOL,
+            "leaves_equal": bool(np.array_equal(leaf_d, leaf_h)),
+            "host_raw_is_walker": bool(np.array_equal(walked,
+                                                      raw_h[:n_host])),
+            "card_rows_per_s": X.shape[0] / t_dev,
+            "host_rows_per_s": n_host / t_host}
+    if not (ok and line["leaves_equal"] and line["host_raw_is_walker"]):
+        raise AssertionError(f"serve_forest: {name} on the card differs "
+                             f"from the host walker: {line}")
+    return line
+
+
+def serve_forest_phase(torch, lgb, ch, np, ds, Xv, cat_sets, rank_sets):
+    """The Higgs-like binary model (255 leaves, max_bin 255) trained to
+    SERVE_TREES trees on the fused loop, scored on the 100,000 validation
+    rows on the card (Booster.predict(device="cuda"): the tensorized
+    forest, take_small at every level) against the host walker; then the
+    same check on 20-tree models of train_cat's data (category bitsets
+    on the card) and train_rank's (136 columns). Returns the 500-tree
+    booster and the take_small launches of the Higgs-like check."""
+    params = {"objective": "binary", "num_leaves": L, "max_bin": 255,
+              "learning_rate": 0.1, "min_data_in_leaf": 20,
+              "verbosity": -1}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bst = lgb.train(params, ds, SERVE_TREES)
+    torch.cuda.synchronize()
+    t_train = time.perf_counter() - t0
+    if bst._gbdt._fused is None or bst.num_trees() != SERVE_TREES:
+        raise AssertionError("serve_forest: the model was not trained on "
+                             "the fused loop")
+    ch.reset_launch_counts()
+    higgs = serve_check(np, bst, Xv[:SERVE_ROWS], "higgs_500")
+    launches = dict(ch.LAUNCHES)
+    if launches["take_small"] == 0:
+        raise AssertionError("serve_forest: take_small was not launched")
+    checks = [higgs]
+    for name, (cds, cvs), extra in (
+            ("train_cat_20", cat_sets, {}),
+            ("train_rank_20", rank_sets, RANK_PARAMS)):
+        b = lgb.train({**params, **extra}, cds, 20)
+        checks.append(serve_check(np, b, cvs.data[:SERVE_ROWS], name))
+    forest_meta = lgb.serving.TensorForest.from_booster(bst).meta
+    emit({"phase": "serve_forest", "train_trees": SERVE_TREES,
+          "train_seconds": t_train,
+          "train_trees_per_s": SERVE_TREES / t_train,
+          "forest": forest_meta, "checks": checks,
+          "take_small_launches": launches["take_small"],
+          "launches": {k: v for k, v in launches.items() if v}})
+    return bst, launches
+
+
+@contextlib.contextmanager
+def recording_take_call(ch, k, nth, store):
+    """While active, keep the arguments of the nth take_small call of
+    table height k (store["args"] = (tab, idx))."""
+    orig = ch.take_small
+    seen = [0]
+
+    def recording(tab, idx):
+        if tab.shape[0] == k:
+            if seen[0] == nth:
+                store["args"] = (tab.clone(), idx.clone())
+            seen[0] += 1
+        return orig(tab, idx)
+    ch.take_small = recording
+    try:
+        yield
+    finally:
+        ch.take_small = orig
+
+
+def take_small_serve_line(torch, hist, ch, forest):
+    """take_small at the serving shape: one level's gather (the fourth)
+    of a 4096-row bucket over the SERVE_TREES-tree forest, k = 9 packed
+    node fields, L = trees x max_nodes (past the 48 KB shared-memory
+    stage: the unstaged generic path). Bitwise against take_cols_plain
+    and across two launches; in turns with index_select; launches per
+    call from the profiler."""
+    store = {}
+    x = torch.randn((4096, 28), device="cuda")
+    tw = torch.ones(forest.num_trees, device="cuda")
+    with recording_take_call(ch, 9, 3, store):
+        forest.apply(x, tw)
+    tab, idx = store["args"]
+    run = lambda: hist.take_cols(tab, idx)  # noqa: E731
+    a, b, p = run(), run(), hist.take_cols_plain(tab, idx)
+    torch.cuda.synchronize()
+    if not (torch.equal(a, b) and torch.equal(a, p)):
+        raise AssertionError("take_small_serve disagrees with its plain "
+                             "version or across launches")
+    k, Lt = tab.shape
+    n = idx.shape[0]
+    safe = idx.clamp(0, Lt - 1).long()
+    # idx read once, the table once, the (9, n) output written once
+    bb, by = bound(n * 4 + k * Lt * 4 + k * n * 4, 0)
+    d = dict(shape=f"tab ({k},{Lt}) idx ({n},)", lanes=n, k=k, L=Lt,
+             tolerance="exact", bitwise_repeat=True,
+             max_abs_err=float((a - p).abs().max()),
+             **in_turns(run, lambda: torch.index_select(tab, 1, safe)),
+             plain_ms=cuda_ms(lambda: hist.take_cols_plain(tab, idx)),
+             bound_ms=bb, bound_by=by,
+             launches_per_call=launches_per_call(run))
+    return d
+
+
+def serve_dispatch_phase(torch, np, lgb, bst, X_pool):
+    """BucketDispatcher on the card: warm up every rung (one CUDA graph
+    each), then 100 requests of 1-5,000 rows from a 20,000-row pool:
+    captures equal the rungs and do not grow, every answer (scores and
+    leaves) bitwise the unbucketed forest's on the pool; per rung the
+    graph's nodes and its device ms a replay."""
+    f = lgb.serving.TensorForest.from_booster(bst)
+    disp = lgb.serving.BucketDispatcher(f, name="chip_dispatch")
+    t0 = time.perf_counter()
+    disp.warmup(num_features=X_pool.shape[1])
+    warm_s = time.perf_counter() - t0
+    caps = disp.captures
+    xt = torch.from_numpy(np.ascontiguousarray(X_pool, np.float32)).cuda()
+    score, leaf = f.apply(xt, torch.ones(f.num_trees, device="cuda"))
+    score = score.cpu().numpy().T.astype(np.float64)
+    leaf = leaf.cpu().numpy().astype(np.int64)
+    rs = np.random.RandomState(29)
+    sizes = [int(s) for s in rs.randint(1, 5001, 100)]
+    bad = []
+    t0 = time.perf_counter()
+    for n in sizes:
+        lo = int(rs.randint(0, len(X_pool) - n + 1))
+        r = disp.score_raw(X_pool[lo:lo + n])
+        lf = disp.predict_leaf(X_pool[lo:lo + n])
+        if not (np.array_equal(r, score[:, lo:lo + n])
+                and np.array_equal(lf, leaf[lo:lo + n])):
+            bad.append(n)
+    t_req = time.perf_counter() - t0
+    rungs = {}
+    with torch.cuda.stream(disp.stream):
+        for (b, _), prog in disp._programs.items():
+            rep = prog.graph.replay
+            dev_ms, how = device_ms(rep, calls=20)
+            rungs[b] = {"graph_nodes": prog.graph.nodes,
+                        "capture_s": prog.graph.capture_s,
+                        "ms": cuda_ms(rep, reps=10), "device_ms": dev_ms,
+                        "device_time": how, "replays": prog.graph.replays}
+    line = {"phase": "serve_dispatch", "buckets": list(disp.buckets),
+            "trees": f.num_trees, "levels": f.levels,
+            "warmup_seconds": warm_s, "captures_after_warmup": caps,
+            "captures_after_requests": disp.captures,
+            "requests": len(sizes), "rows": int(sum(sizes)),
+            "seconds_for_requests": t_req, "mismatched_requests": bad,
+            "rungs": rungs}
+    emit(line)
+    if caps != len(disp.buckets) or disp.captures != caps or bad:
+        raise AssertionError(f"serve_dispatch: captures {caps} -> "
+                             f"{disp.captures} for {len(disp.buckets)} "
+                             f"buckets, mismatched requests {bad}")
+    return line
+
+
+def _pct(vals, p):
+    v = sorted(vals)
+    return v[min(len(v) - 1, int(p * (len(v) - 1) + 0.5))] if v else 0.0
+
+
+def _lat_summary(lat, wall):
+    return {"qps": len(lat) / wall, "p50_ms": 1e3 * _pct(lat, 0.50),
+            "p95_ms": 1e3 * _pct(lat, 0.95), "p99_ms": 1e3 * _pct(lat, 0.99),
+            "mean_ms": 1e3 * sum(lat) / len(lat), "requests": len(lat),
+            "wall_s": wall}
+
+
+def _fire(np, predict, n_requests, n_feat):
+    """bench_serve.py _fire with one client: closed-loop batch-1 calls."""
+    wrs = np.random.RandomState(0)
+    lat = []
+    t0 = time.perf_counter()
+    for _ in range(n_requests):
+        rows = wrs.randn(1, n_feat).astype(np.float32)
+        t = time.perf_counter()
+        predict(rows)
+        lat.append(time.perf_counter() - t)
+    return _lat_summary(lat, time.perf_counter() - t0)
+
+
+def _fire_pipelined(np, submit, n_requests, n_threads, window, n_feat):
+    """bench_serve.py _fire_pipelined: each client thread keeps up to
+    `window` futures outstanding; latency is submit -> completion."""
+    import threading
+
+    lat, lock = [], threading.Lock()
+    per_thread = max(n_requests // n_threads, 1)
+
+    def worker(seed):
+        wrs = np.random.RandomState(seed)
+        mine, outstanding = [], []
+
+        def collect(pair):
+            t_submit, fut = pair
+            fut.result()
+            mine.append(time.perf_counter() - t_submit)
+
+        for _ in range(per_thread):
+            rows = wrs.randn(1, n_feat).astype(np.float32)
+            outstanding.append((time.perf_counter(), submit(rows)))
+            if len(outstanding) >= window:
+                collect(outstanding.pop(0))
+        for pair in outstanding:
+            collect(pair)
+        with lock:
+            lat.extend(mine)
+
+    threads = [threading.Thread(target=worker, args=(i,), daemon=True)
+               for i in range(n_threads)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return _lat_summary(lat, time.perf_counter() - t0)
+
+
+def _serve_counters():
+    from lightgbm_tpu_torch.obs.metrics import default_registry
+
+    return {name: sum(v.values())
+            for name, v in default_registry().snapshot().items()
+            if name.startswith("lgbmtpu_serve_")}
+
+
+def serve_loaded_phase(torch, np, lgb, bst, n_feat, name):
+    """bench_serve.py's phases 1-2 on the card: baseline (1 replica,
+    direct calls, 256 batch-1 requests, one client) and loaded (2
+    replicas behind the MicroBatcher, 8 threads x a window of 128, 8,192
+    batch-1 requests): qps, p50 / p99 ms, coalesce ratio and device calls
+    (from the /metrics counters), and a 64-row probe bitwise equal across
+    the direct and the batched paths."""
+    B = BENCH_SERVE
+    rs = np.random.RandomState(0)
+    probe = rs.randn(64, n_feat).astype(np.float32)
+    warm = rs.randn(1, n_feat).astype(np.float32)
+    base_reg = lgb.serving.ModelRegistry(warmup=True)
+    base_reg.load("bench", bst, num_features=n_feat)
+    for _ in range(3):
+        base_reg.predict("bench", warm, raw_score=True)
+        base_reg.predict("bench", probe, raw_score=True)
+    before = _serve_counters()
+    baseline = _fire(np, lambda r: base_reg.predict("bench", r,
+                                                    raw_score=True),
+                     B["base_requests"], n_feat)
+    after = _serve_counters()
+    baseline["device_calls"] = int(
+        after.get("lgbmtpu_serve_bucket_dispatch_total", 0)
+        - before.get("lgbmtpu_serve_bucket_dispatch_total", 0))
+    base_pred = np.asarray(base_reg.predict("bench", probe))
+    loaded_reg = lgb.serving.ModelRegistry(warmup=True,
+                                           replicas=B["replicas"])
+    loaded_reg.load("bench", bst, num_features=n_feat)
+    batcher = loaded_reg.batcher("bench")
+    for _ in range(3):
+        batcher.submit(warm).result()
+        loaded_reg.predict("bench", probe, via_queue=True)
+    before = _serve_counters()
+    loaded = _fire_pipelined(np, batcher.submit, B["requests"],
+                             B["threads"], B["window"], n_feat)
+    after = _serve_counters()
+    d = {k: after.get(k, 0.0) - before.get(k, 0.0) for k in after}
+    drains = d.get("lgbmtpu_serve_coalesced_batch_rows_count", 0.0)
+    loaded.update(
+        device_calls=int(d.get("lgbmtpu_serve_bucket_dispatch_total", 0)),
+        coalesce_ratio=(d.get("lgbmtpu_serve_coalesced_requests_total", 0)
+                        / drains if drains else 0.0),
+        padded_rows=int(d.get("lgbmtpu_serve_padded_rows_total", 0)))
+    loaded_pred = np.asarray(loaded_reg.predict("bench", probe,
+                                                via_queue=True))
+    mv = loaded_reg._entry("bench")
+    line = {"phase": "serve_loaded", "model": name,
+            "trees": bst.num_trees(), "features": n_feat,
+            "max_leaves": max(t.num_leaves for t in bst._gbdt.models),
+            "baseline": baseline, "loaded": loaded,
+            "speedup_x": loaded["qps"] / baseline["qps"],
+            "probe_bit_identical": bool(np.array_equal(base_pred,
+                                                       loaded_pred)),
+            "captures_per_replica": [r.captures for r in mv.replicas],
+            "traffic": {k: B[k] for k in ("base_requests", "requests",
+                                          "threads", "window",
+                                          "replicas")}}
+    emit(line)
+    loaded_reg.unload("bench")
+    base_reg.unload("bench")
+    if not line["probe_bit_identical"]:
+        raise AssertionError(f"serve_loaded {name}: the probe differs "
+                             "between the direct and the batched paths")
+    return line
+
+
+def serve_http_phase(np, lgb, bst, n_feat):
+    """serve_http on a free local port: /readyz 200 after warm-up,
+    /v1/score equal to a direct predict, /metrics with lgbmtpu_serve_*
+    series; the server is shut down and its thread joined."""
+    import threading
+    import urllib.request
+
+    reg = lgb.serving.ModelRegistry(warmup=True)
+    reg.load("default", bst, num_features=n_feat)
+    httpd = lgb.serving.serve_http(reg, port=0, block=False)
+    th = threading.Thread(target=httpd.serve_forever, daemon=True)
+    th.start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    rows = np.random.RandomState(3).randn(5, n_feat).astype(np.float32)
+    try:
+        with urllib.request.urlopen(base + "/readyz", timeout=30) as r:
+            ready = (r.status, json.loads(r.read()))
+        req = urllib.request.Request(
+            base + "/v1/score", data=json.dumps(
+                {"rows": rows.tolist()}).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=30) as r:
+            scored = json.loads(r.read())
+        with urllib.request.urlopen(base + "/metrics", timeout=30) as r:
+            metrics = r.read().decode()
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        th.join(timeout=10)
+    direct = reg.predict("default", rows)
+    series = sorted({ln.split("{")[0].split(" ")[0]
+                     for ln in metrics.splitlines()
+                     if ln.startswith("lgbmtpu_serve_")})
+    line = {"phase": "serve_http", "readyz": ready[0],
+            "ready": ready[1].get("ok"),
+            "score_equal_direct": bool(np.array_equal(
+                np.asarray(scored["pred"]), direct)),
+            "metrics_series": series, "thread_joined": not th.is_alive()}
+    emit(line)
+    if not (ready[0] == 200 and line["score_equal_direct"] and series
+            and line["thread_joined"]):
+        raise AssertionError(f"serve_http: {line}")
+    return line
+
+
+def _host_contrib(args):
+    """Host TreeSHAP of a chunk of rows (a worker of serve_contrib)."""
+    model_str, X = args
+    import lightgbm_tpu_torch as lgb
+
+    return lgb.Booster(model_str=model_str).predict(X, pred_contrib=True)
+
+
+def serve_contrib_phase(torch, np, lgb, bst, n_feat, rows=1024):
+    """Device TreeSHAP (contrib_apply) on the bench_serve model, 1,024
+    rows, against host shap.py (8 worker processes): within SERVE_TOL
+    (rtol 1e-5, atol 1e-5, as the CPU tests hold it), rows summing to the
+    raw score as closely; device ms (CUDA events, tables packed first)
+    and peak device memory of the call."""
+    import multiprocessing as mp
+
+    X = np.random.RandomState(5).randn(rows, n_feat).astype(np.float32)
+    f = lgb.serving.TensorForest.from_booster(bst)
+    f.contrib_tables()
+    f.predict_contrib(X[:16])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_mb = torch.cuda.memory_allocated() / 2 ** 20
+    xt = torch.from_numpy(X).cuda()
+    tw = torch.ones(f.num_trees, device="cuda")
+    ms = cuda_ms(lambda: f.apply_contrib(xt, tw), reps=5, warm=1)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20 - base_mb
+    dev = f.predict_contrib(X)
+    t0 = time.perf_counter()
+    text = bst.model_to_string()
+    with mp.get_context("spawn").Pool(8) as pool:
+        host = np.concatenate(pool.map(
+            _host_contrib, [(text, c) for c in np.array_split(X, 8)]))
+    t_host = time.perf_counter() - t0
+    raw = bst.predict(X, raw_score=True)
+    err = float(np.abs(dev - host).max())
+    sum_err = float(np.abs(dev.sum(axis=1) - raw).max())
+    ok = bool(np.allclose(dev, host, **SERVE_TOL)
+              and np.allclose(dev.sum(axis=1), raw, **SERVE_TOL))
+    line = {"phase": "serve_contrib", "rows": rows, "trees": f.num_trees,
+            "max_leaves": f.meta["max_leaves"],
+            "path_feats": f.contrib_tables()[1]["path_feats"],
+            "path_edges": f.contrib_tables()[1]["path_edges"],
+            "max_abs_err_vs_host": err, "row_sum_err": sum_err,
+            "within_tol": ok, "tolerance": SERVE_TOL, "device_ms": ms,
+            "peak_device_mb": peak, "host_seconds_8_procs": t_host}
+    emit(line)
+    if not ok:
+        raise AssertionError(f"serve_contrib: {line}")
+    return line
+
+
+def serve_phases(torch, lgb, ch, hist, np, ds, Xv, cat_sets, rank_sets):
+    """Every serving phase in order; returns the take_small_serve kernel
+    line and the launches of the serve_forest run."""
+    bst, launches = serve_forest_phase(torch, lgb, ch, np, ds, Xv,
+                                       cat_sets, rank_sets)
+    forest = lgb.serving.TensorForest.from_booster(bst)
+    line = take_small_serve_line(torch, hist, ch, forest)
+    emit_kernel("take_small_serve", line)
+    del forest
+    pool = Xv[:20_000]
+    serve_dispatch_phase(torch, np, lgb, bst, pool)
+    B = BENCH_SERVE
+    rs = np.random.RandomState(0)
+    Xb = rs.randn(B["train_rows"], B["features"]).astype(np.float32)
+    yb = (Xb[:, 0] + 0.5 * Xb[:, 1] > 0).astype(np.float32)
+    small = lgb.train({"objective": "binary", "num_leaves": B["leaves"],
+                       "verbosity": -1},
+                      lgb.Dataset(Xb, label=yb, free_raw_data=False),
+                      B["trees"])
+    serve_loaded_phase(torch, np, lgb, small, B["features"],
+                       "bench_serve_50x31")
+    serve_loaded_phase(torch, np, lgb, bst, Xv.shape[1], "higgs_500x255")
+    serve_http_phase(np, lgb, small, B["features"])
+    serve_contrib_phase(torch, np, lgb, small, B["features"])
+    return line, launches
 
 
 def main() -> int:
@@ -2499,7 +2993,6 @@ def main() -> int:
     path_launches["train_cat"] = cat["launches"]
     fused_lines["train_cat"] = fused_vs_eager(torch, lgb, *cat_sets,
                                               "train_cat", {})
-    del cat_sets
     if "fullest" not in cat_round:
         raise AssertionError("no categorical hist_round call was captured")
     lines["hist_round_cat"] = hist_round_cat_line(torch, hist, ch,
@@ -2510,10 +3003,19 @@ def main() -> int:
     # ---- learning to rank at MSLR-WEB10K's shape: lambdarank (the
     # lambdarank kernel) and rank_xendcg, both loops; then small runs of
     # bagging_by_query and position debiasing against the CPU
-    rank, lines["lambdarank"] = train_rank_phase(torch, lgb, ch)
+    rank, lines["lambdarank"], rank_sets = train_rank_phase(torch, lgb, ch)
     path_launches["train_rank"] = rank["eager"]["launches_counted"]
     fused_lines["train_rank"] = rank
     rank_small_phase(lgb, np)
+
+    # ---- serving: the 500-tree forest on the card against the host
+    # walker, the take_small_serve line, the bucketed dispatcher's
+    # graphs, bench_serve's loaded phases, HTTP and device TreeSHAP
+    lines["take_small_serve"], serve_launches = serve_phases(
+        torch, lgb, ch, hist, np, ds, Xv, cat_sets, rank_sets)
+    path_launches["serve_forest"] = {"take_small_serve":
+                                     serve_launches["take_small"]}
+    del cat_sets, rank_sets
 
     kernels = []
     for name, d in lines.items():

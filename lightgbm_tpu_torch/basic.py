@@ -10,9 +10,12 @@ their set_ / get_ accessors), and a Booster that trains
 loaded model (_continue_from), takes new parameters between iterations
 (reset_parameter), evaluates with custom metrics (feval), predicts on the
 host (with the per-row prediction early stop of classification), and
-saves / loads the text model. Text files, sparse
-matrices, Sequences, pandas and Arrow inputs, subsets, refit, SHAP and
-device prediction are not ported yet (ROADMAP queue A) and raise.
+saves / loads the text model and dumps the JSON one (dump_model).
+predict also gives leaf indices (pred_leaf) and host TreeSHAP
+contributions (pred_contrib), and scores on the card through the
+tensorized forest with device="cuda" (serving/forest.py). Text files,
+sparse matrices, Sequences, pandas and Arrow inputs, subsets and refit
+are not ported yet (ROADMAP queue A) and raise.
 """
 
 from __future__ import annotations
@@ -315,19 +318,59 @@ class Booster:
     def predict(self, data: Any, start_iteration: int = 0,
                 num_iteration: Optional[int] = None, raw_score: bool = False,
                 pred_leaf: bool = False, pred_contrib: bool = False,
-                **kwargs: Any) -> np.ndarray:
+                validate_features: bool = False,
+                device: Optional[str] = None, **kwargs: Any) -> np.ndarray:
+        """Predictions of the host walker (device None / "cpu" / "host"),
+        or of the tensorized forest on the card (device "cuda", "gpu" or
+        "tpu"; it raises when torch sees no card). pred_leaf gives the
+        (N, trees) leaf indices, pred_contrib the (N, K * (F + 1)) SHAP
+        values of host TreeSHAP, which has no device version behind this
+        entry point (a warning says so under device=; the forest's
+        device TreeSHAP is serving's contrib op). validate_features is
+        accepted and, as in the JAX package on a dense matrix, checks
+        nothing: a numpy matrix carries no feature names."""
         other = set(kwargs) - set(_EARLY_STOP_KEYS)
-        if pred_leaf or pred_contrib or other:
+        if other:
             raise NotImplementedError(
-                "pred_leaf / pred_contrib / prediction options "
-                f"{sorted(other)} are not ported yet (ROADMAP queue A)")
+                f"prediction options {sorted(other)} are not ported yet "
+                "(ROADMAP queue A)")
         arr = _to_2d_numpy(data)
         if num_iteration is None:
             num_iteration = self.best_iteration if self.best_iteration > 0 \
                 else -1
-        return self._gbdt.predict(arr, start_iteration, num_iteration,
-                                  raw_score=raw_score,
-                                  early_stop=self._early_stop(kwargs))
+        g = self._gbdt
+        if device not in (None, "", "cpu", "host"):
+            from .serving.forest import serve_device
+
+            dev = serve_device(device)  # raises without a card
+            if pred_contrib:
+                log.warning("pred_contrib has no device implementation; "
+                            "using the host SHAP path")
+            elif kwargs.get("pred_early_stop",
+                            self.params.get("pred_early_stop", False)):
+                log.warning("pred_early_stop has no device implementation; "
+                            "using the host predictor")
+            else:
+                from .serving.forest import TensorForest
+
+                forest = TensorForest.from_booster(self, device=dev)
+                if pred_leaf:
+                    return forest.predict_leaf(arr, start_iteration,
+                                               num_iteration)
+                raw = forest.predict_raw(arr, start_iteration, num_iteration)
+                if not raw_score:
+                    raw = g.convert_output(raw)
+                return raw[0] if g.num_class == 1 else raw.T
+        if pred_leaf:
+            return g.predict_leaf_index(arr, start_iteration, num_iteration)
+        if pred_contrib:
+            if any(t.is_linear for t in g.models):
+                log.fatal("pred_contrib (SHAP) is not supported for models "
+                          "with linear trees")
+            return g.predict_contrib(arr, start_iteration, num_iteration)
+        return g.predict(arr, start_iteration, num_iteration,
+                         raw_score=raw_score,
+                         early_stop=self._early_stop(kwargs))
 
     def _early_stop(self, kwargs) -> Optional[Tuple[int, float]]:
         """The per-row prediction early stop (prediction_early_stop.cpp)
@@ -355,6 +398,36 @@ class Booster:
         if ni is None:
             ni = self.best_iteration if self.best_iteration > 0 else -1
         return save_model_string(self._gbdt, self.config, ni, start_iteration)
+
+    def dump_model(self, num_iteration: Optional[int] = None,
+                   start_iteration: int = 0, importance_type: str = "split",
+                   object_hook=None) -> Dict[str, Any]:
+        """The JSON model (LGBM_BoosterDumpModel) as a dict; object_hook
+        is applied as json.loads applies it, bottom-up over every
+        dict."""
+        from .model_io import dump_model_dict
+
+        ni = num_iteration
+        if ni is None:
+            ni = self.best_iteration if self.best_iteration > 0 else -1
+        d = dump_model_dict(self._gbdt, self.config, ni, start_iteration,
+                            importance_type)
+        if object_hook is not None:
+            import json
+
+            d = json.loads(json.dumps(d), object_hook=object_hook)
+        return d
+
+    @classmethod
+    def _from_loaded(cls, config: Config, gbdt) -> "Booster":
+        """A prediction-capable Booster around a loaded (config, GBDT),
+        as load_model_dict returns them."""
+        b = cls.__new__(cls)
+        b.params, b.best_iteration, b.best_score = {}, -1, {}
+        b._train_data_name = "training"
+        b.config, b._gbdt = config, gbdt
+        b.train_set, b._valid_sets, b._name_valid_sets = None, [], []
+        return b
 
     def save_model(self, filename: Union[str, Path],
                    num_iteration: Optional[int] = None,

@@ -777,18 +777,53 @@ class GBDT:
             out /= end - start_iteration
         return out
 
+    def convert_output(self, raw: np.ndarray) -> np.ndarray:
+        """Raw (K, N) margins -> the objective's prediction space; a
+        loaded model builds its objective from the model text's config
+        on first use (objective none converts nothing)."""
+        if self.objective is None:
+            self.objective = create_objective(self.config)
+        if self.objective is None:
+            return raw
+        return self.objective.convert_output(raw)
+
     def predict(self, X, start_iteration=0, num_iteration=-1,
                 raw_score=False, early_stop=None):
         raw = self.predict_raw(X, start_iteration, num_iteration,
                                early_stop)
         if not raw_score:
-            if self.objective is None:
-                self.objective = create_objective(self.config)
-            if self.objective is not None:
-                raw = self.objective.convert_output(raw)
+            raw = self.convert_output(raw)
         if self.num_class == 1:
             return raw[0]
         return raw.T  # (N, K)
+
+    def predict_leaf_index(self, X, start_iteration=0, num_iteration=-1):
+        """(N, used trees) leaf index of each row in each tree."""
+        X = np.asarray(X, dtype=np.float64)
+        K = self.num_class
+        n_iters = len(self.models) // K
+        end = n_iters if num_iteration <= 0 else min(
+            n_iters, start_iteration + num_iteration)
+        cols = [self.models[it * K + k].predict_leaf(X)
+                for it in range(start_iteration, end) for k in range(K)]
+        return (np.stack(cols, axis=1) if cols
+                else np.zeros((X.shape[0], 0), np.int64))
+
+    def predict_contrib(self, X, start_iteration=0, num_iteration=-1):
+        """SHAP feature contributions (tree.h:140 PredictContrib), host
+        TreeSHAP (shap.py): (N, K * (F + 1))."""
+        from .shap import predict_contrib
+
+        X = np.asarray(X, dtype=np.float64)
+        nf = self.train_set.num_total_features if self.train_set else len(
+            getattr(self, "feature_names", []) or [])
+        if nf == 0:
+            nf = max((int(np.max(t.split_feature)) for t in self.models
+                      if len(t.split_feature)), default=-1) + 1
+            nf = max(nf, X.shape[1])
+        return predict_contrib(self.models, X, nf, self.num_class,
+                               start_iteration, num_iteration,
+                               self.average_output)
 
 
 def _bits(x: torch.Tensor) -> torch.Tensor:

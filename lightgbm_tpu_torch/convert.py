@@ -1,10 +1,11 @@
 """Carry the JAX package's state into the port, as plain numpy.
 
-A GBDT's "weights" are its binned dataset and its trees. These three
-functions take what lightgbm_tpu holds, handed over as numpy arrays or
-text (the port imports nothing of lightgbm_tpu), and build the port's
-objects, so a test can feed both growers the same binned data and check
-that the port predicts what a JAX-trained model predicts.
+A GBDT's "weights" are its binned dataset and its trees. These functions
+take what lightgbm_tpu holds, handed over as numpy arrays, model text or
+the JSON model dict (the port imports nothing of lightgbm_tpu), and
+build the port's objects, so a test can feed both growers the same
+binned data and check that the port predicts what a JAX-trained model
+predicts.
 """
 
 from __future__ import annotations
@@ -107,3 +108,12 @@ def booster_from_model_string(s: str):
     from .basic import Booster
 
     return Booster(model_str=s)
+
+
+def booster_from_model_dict(d: Mapping[str, Any]):
+    """A prediction-capable Booster from the JSON model dict the JAX
+    package dumps (Booster.dump_model), through the port's loader."""
+    from .basic import Booster
+    from .model_io import load_model_dict
+
+    return Booster._from_loaded(*load_model_dict(dict(d)))

@@ -5,7 +5,9 @@ A copy of the text save and load of lightgbm_tpu/model_io.py
 reference format (src/boosting/gbdt_model_text.cpp SaveModelToString
 :314 / LoadModelFromString :424, per-tree blocks src/io/tree.cpp
 Tree::ToString :343). Models written by either package load in the
-other. The JSON dump and the C++ code generator are not ported.
+other. The JSON dump (dump_model_dict, Booster.dump_model) and its
+loader (load_model_dict) are copies of the JAX package's too; the C++
+code generator is not ported.
 """
 
 from __future__ import annotations
@@ -286,3 +288,295 @@ def load_model_string(model_str: str):
     return cfg, gbdt
 
 
+# ----------------------------------------------------------------------
+def _node_to_dict(t: Tree, index: int) -> Dict[str, Any]:
+    """Nested node dict (src/io/tree.cpp:462 NodeToJSON)."""
+    if index >= 0:
+        dt = int(t.decision_type[index])
+        d: Dict[str, Any] = {
+            "split_index": index,
+            "split_feature": int(t.split_feature[index]),
+            "split_gain": float(t.split_gain[index]),
+        }
+        if dt & 1:  # categorical
+            ci = int(t.threshold[index])
+            lo, hi = int(t.cat_boundaries[ci]), int(t.cat_boundaries[ci + 1])
+            words = t.cat_threshold[lo:hi]
+            cats = [
+                32 * w + b
+                for w in range(len(words))
+                for b in range(32)
+                if (int(words[w]) >> b) & 1
+            ]
+            d["threshold"] = "||".join(str(cv) for cv in cats)
+            d["decision_type"] = "=="
+        else:
+            d["threshold"] = float(t.threshold[index])
+            d["decision_type"] = "<="
+        d["default_left"] = bool(dt & 2)
+        d["missing_type"] = ("None", "Zero", "NaN")[min((dt >> 2) & 3, 2)]
+        d["internal_value"] = float(t.internal_value[index]) if index < len(t.internal_value) else 0.0
+        d["internal_weight"] = float(t.internal_weight[index]) if index < len(t.internal_weight) else 0.0
+        d["internal_count"] = int(t.internal_count[index]) if index < len(t.internal_count) else 0
+        d["left_child"] = _node_to_dict(t, int(t.left_child[index]))
+        d["right_child"] = _node_to_dict(t, int(t.right_child[index]))
+        return d
+    leaf = ~index
+    d = {
+        "leaf_index": leaf,
+        "leaf_value": float(t.leaf_value[leaf]),
+        "leaf_weight": float(t.leaf_weight[leaf]) if leaf < len(t.leaf_weight) else 0.0,
+        "leaf_count": int(t.leaf_count[leaf]) if leaf < len(t.leaf_count) else 0,
+    }
+    if t.is_linear:
+        # linear-leaf model terms (extension: the reference ToJSON emits
+        # none, so its dumps cannot round-trip linear trees; ours can —
+        # keys only appear on linear models, non-linear dumps unchanged)
+        d["leaf_const"] = (
+            float(t.leaf_const[leaf]) if leaf < len(t.leaf_const) else 0.0
+        )
+        d["leaf_features"] = (
+            [int(f) for f in t.leaf_features[leaf]]
+            if leaf < len(t.leaf_features) else []
+        )
+        d["leaf_coeff"] = (
+            [float(c) for c in t.leaf_coeff[leaf]]
+            if leaf < len(t.leaf_coeff) else []
+        )
+    return d
+
+
+def tree_to_dict(t: Tree, tree_index: int) -> Dict[str, Any]:
+    """(src/io/tree.cpp:415 ToJSON)"""
+    d: Dict[str, Any] = {
+        "tree_index": tree_index,
+        "num_leaves": t.num_leaves,
+        "num_cat": t.num_cat,
+        "shrinkage": t.shrinkage,
+    }
+    if t.is_linear:
+        d["is_linear"] = True
+    if t.num_leaves == 1:
+        d["tree_structure"] = {
+            "leaf_value": float(t.leaf_value[0]),
+            "leaf_count": int(t.leaf_count[0]) if len(t.leaf_count) else 0,
+        }
+        if t.is_linear and len(t.leaf_const):
+            d["tree_structure"]["leaf_const"] = float(t.leaf_const[0])
+            d["tree_structure"]["leaf_features"] = []
+            d["tree_structure"]["leaf_coeff"] = []
+    else:
+        d["tree_structure"] = _node_to_dict(t, 0)
+    return d
+
+
+def dump_model_dict(
+    gbdt, cfg: Config, num_iteration: int = -1, start_iteration: int = 0,
+    importance_type: str = "split",
+) -> Dict[str, Any]:
+    """JSON model dump (gbdt_model_text.cpp:24 DumpModel), as returned by
+    Booster.dump_model()."""
+    ds = gbdt.train_set
+    feature_names = ds.feature_names if ds is not None else getattr(gbdt, "feature_names", [])
+    feature_infos = ds.feature_infos() if ds is not None else getattr(
+        gbdt, "feature_infos_", ["none"] * len(feature_names))
+    K = gbdt.num_class
+
+    total_iteration = len(gbdt.models) // K
+    start_iteration = max(0, min(start_iteration, total_iteration))
+    num_used = len(gbdt.models)
+    if num_iteration > 0:
+        num_used = min((start_iteration + num_iteration) * K, num_used)
+    start_model = start_iteration * K
+
+    infos = []
+    for s in feature_infos:
+        if s.startswith("["):
+            lo, hi = s[1:-1].split(":")
+            infos.append({"min_value": float(lo), "max_value": float(hi), "values": []})
+        elif s and s != "none":
+            infos.append({
+                "min_value": 0, "max_value": 0,
+                "values": [int(v) for v in s.split(":")],
+            })
+        else:
+            infos.append({"min_value": 0, "max_value": 0, "values": []})
+
+    # importances over exactly the dumped tree range
+    imp = np.zeros(len(feature_names))
+    for i in range(start_model, num_used):
+        t = gbdt.models[i]
+        if importance_type == "gain":
+            imp += t.feature_importance_gain(len(feature_names))
+        else:
+            imp += t.feature_importance_split(len(feature_names))
+    cast = float if importance_type == "gain" else int
+    pairs = [(cast(imp[i]), feature_names[i]) for i in range(len(feature_names)) if imp[i] > 0]
+    pairs.sort(key=lambda p: -p[0])
+
+    return {
+        "name": "tree",
+        "version": MODEL_VERSION,
+        "num_class": cfg.num_class,
+        "num_tree_per_iteration": K,
+        "label_index": 0,
+        "max_feature_idx": len(feature_names) - 1,
+        "objective": _objective_to_string(cfg),
+        "average_output": bool(gbdt.average_output),
+        "feature_names": list(feature_names),
+        "monotone_constraints": list(cfg.monotone_constraints),
+        "feature_infos": dict(zip(feature_names, infos)),
+        "tree_info": [
+            tree_to_dict(gbdt.models[i], i - start_model)
+            for i in range(start_model, num_used)
+        ],
+        "feature_importances": {name: v for v, name in pairs},
+        "pandas_categorical": None,
+    }
+
+
+    if cur is not None:
+        trees.append(parse_tree_block(cur))
+    gbdt.models = trees
+    return cfg, gbdt
+
+
+# ---------------------------------------------------------------------------
+# JSON model loading: the inverse of dump_model_dict, so a Booster
+# round-trips through its dump_model() JSON (the registry's second
+# interop surface next to the text format; the reference only WRITES
+# JSON — DumpModel has no C++ loader — so this is a deliberate
+# extension for the serving registry).
+
+_MISSING_TYPE_BITS = {"None": 0, "Zero": 1, "NaN": 2}
+
+
+def tree_from_dict(d: Dict[str, Any]) -> Tree:
+    """Nested tree_structure dict (tree_to_dict output) -> Tree."""
+    n = int(d["num_leaves"])
+    t = Tree(num_leaves=n, shrinkage=float(d.get("shrinkage", 1.0)))
+    t.is_linear = bool(d.get("is_linear", False))
+    root = d.get("tree_structure", {})
+    if t.is_linear:
+        t.leaf_const = np.zeros(n, np.float64)
+        t.leaf_features = [[] for _ in range(n)]
+        t.leaf_coeff = [[] for _ in range(n)]
+    if n <= 1:
+        t.leaf_value = np.asarray([float(root.get("leaf_value", 0.0))])
+        t.leaf_count = np.asarray([int(root.get("leaf_count", 0))], np.int64)
+        t.leaf_weight = np.zeros(1, np.float64)
+        if t.is_linear:
+            t.leaf_const[0] = float(
+                root.get("leaf_const", root.get("leaf_value", 0.0))
+            )
+        return t
+    m = n - 1
+    t.split_feature = np.zeros(m, np.int32)
+    t.split_gain = np.zeros(m, np.float64)
+    t.threshold = np.zeros(m, np.float64)
+    t.decision_type = np.zeros(m, np.int32)
+    t.left_child = np.zeros(m, np.int32)
+    t.right_child = np.zeros(m, np.int32)
+    t.internal_value = np.zeros(m, np.float64)
+    t.internal_weight = np.zeros(m, np.float64)
+    t.internal_count = np.zeros(m, np.int64)
+    t.leaf_value = np.zeros(n, np.float64)
+    t.leaf_weight = np.zeros(n, np.float64)
+    t.leaf_count = np.zeros(n, np.int64)
+    cat_boundaries = [0]
+    cat_threshold: List[int] = []
+    n_cat = 0
+
+    def child_ix(node: Dict[str, Any]) -> int:
+        if "split_index" in node:
+            return int(node["split_index"])
+        return ~int(node.get("leaf_index", 0))
+
+    stack = [root]
+    while stack:
+        node = stack.pop()
+        if "split_index" not in node:  # leaf
+            li = int(node.get("leaf_index", 0))
+            t.leaf_value[li] = float(node.get("leaf_value", 0.0))
+            t.leaf_weight[li] = float(node.get("leaf_weight", 0.0))
+            t.leaf_count[li] = int(node.get("leaf_count", 0))
+            if t.is_linear:
+                t.leaf_const[li] = float(
+                    node.get("leaf_const", node.get("leaf_value", 0.0))
+                )
+                t.leaf_features[li] = [
+                    int(f) for f in node.get("leaf_features", [])
+                ]
+                t.leaf_coeff[li] = [
+                    float(c) for c in node.get("leaf_coeff", [])
+                ]
+            continue
+        i = int(node["split_index"])
+        t.split_feature[i] = int(node["split_feature"])
+        t.split_gain[i] = float(node.get("split_gain", 0.0))
+        dt = 0
+        if node.get("decision_type") == "==":  # categorical bitset
+            dt |= 1
+            cats = [int(c) for c in str(node["threshold"]).split("||") if c]
+            n_words = (max(cats) // 32 + 1) if cats else 1
+            words = [0] * n_words
+            for cv in cats:
+                words[cv // 32] |= 1 << (cv % 32)
+            t.threshold[i] = float(n_cat)
+            cat_threshold.extend(words)
+            cat_boundaries.append(len(cat_threshold))
+            n_cat += 1
+        else:
+            t.threshold[i] = float(node["threshold"])
+        if node.get("default_left"):
+            dt |= 2
+        dt |= _MISSING_TYPE_BITS.get(str(node.get("missing_type")), 0) << 2
+        t.decision_type[i] = dt
+        t.internal_value[i] = float(node.get("internal_value", 0.0))
+        t.internal_weight[i] = float(node.get("internal_weight", 0.0))
+        t.internal_count[i] = int(node.get("internal_count", 0))
+        left, right = node["left_child"], node["right_child"]
+        t.left_child[i] = child_ix(left)
+        t.right_child[i] = child_ix(right)
+        stack.append(right)
+        stack.append(left)
+    t.num_cat = n_cat
+    t.cat_boundaries = np.asarray(cat_boundaries, np.int64)
+    t.cat_threshold = np.asarray(cat_threshold, np.uint32)
+    return t
+
+
+def load_model_dict(d: Dict[str, Any]):
+    """dump_model_dict output -> prediction-capable (Config, GBDT)."""
+    params: Dict[str, Any] = {}
+    obj = _parse_objective(str(d.get("objective", "regression")))
+    params["objective"] = obj["objective"]
+    for src, dst, typ in (("num_class", "num_class", int),
+                          ("sigmoid", "sigmoid", float),
+                          ("alpha", "alpha", float),
+                          ("c", "fair_c", float),
+                          ("tweedie_variance_power",
+                           "tweedie_variance_power", float)):
+        if src in obj:
+            params[dst] = typ(obj[src])
+    from .boosting import GBDT
+
+    cfg = Config(params)
+    gbdt = GBDT(cfg, None)
+    gbdt.num_class = int(d.get("num_tree_per_iteration", 1))
+    gbdt.average_output = bool(d.get("average_output", False))
+    gbdt.feature_names = list(d.get("feature_names", []))
+    infos = []
+    for name in gbdt.feature_names:
+        fi = (d.get("feature_infos") or {}).get(name)
+        if not fi:
+            infos.append("none")
+        elif fi.get("values"):
+            infos.append(":".join(str(int(v)) for v in fi["values"]))
+        elif fi.get("min_value") or fi.get("max_value"):
+            infos.append(f"[{fi['min_value']:g}:{fi['max_value']:g}]")
+        else:
+            infos.append("none")
+    gbdt.feature_infos_ = infos
+    gbdt.models = [tree_from_dict(td) for td in d.get("tree_info", [])]
+    return cfg, gbdt

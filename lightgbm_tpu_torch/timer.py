@@ -7,17 +7,19 @@ The port of lightgbm_tpu/timer.py's Timer. Phases are host regions
 that must include it passes `block=True`: the clock stops after
 torch.cuda.synchronize on the training device. `timetag=true` in the
 training parameters turns the global timer on (engine.train calls
-enable_timetag) and train prints the summary when it returns. Not
-ported yet: the LIGHTGBM_TPU_TIMETAG environment switch, the serving
-latency statistics (LatencyStats, ROADMAP A.9) and the trace-sink
-hooks of obs/ (A.11).
+enable_timetag) and train prints the summary when it returns. LatencyStats /
+latency_stats are the serving paths' latency rings (a copy of the JAX
+package's), exported on /metrics through obs/metrics.py. Not ported yet:
+the LIGHTGBM_TPU_TIMETAG environment switch and the trace-sink hooks of
+obs/ (A.11).
 """
 
 from __future__ import annotations
 
+import threading
 import time
 from contextlib import contextmanager
-from typing import Dict, Iterator, Optional, Tuple
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import torch
 
@@ -90,3 +92,100 @@ def enable_timetag() -> None:
     """The `timetag=true` hook of engine.train: turn the global phase
     timer on mid-process."""
     global_timer.enable()
+
+
+class LatencyStats:
+    """Latency/throughput counters for serving paths.
+
+    Unlike Timer scopes (accumulating host-region stopwatches for
+    training phases), serving needs DISTRIBUTION statistics — a p99
+    regression hides completely in an accumulated total. Keeps a ring
+    of the most recent `window` request latencies plus lifetime count /
+    row totals; `snapshot()` derives mean/p50/p95/p99 over the ring and
+    rows/sec over the lifetime. Thread-safe: the serving server and the
+    microbatch worker observe from different threads.
+    """
+
+    def __init__(self, window: int = 2048) -> None:
+        self._window = int(window)
+        self._ring: List[float] = []
+        self._pos = 0
+        self._count = 0
+        self._rows = 0
+        self._total_s = 0.0
+        self._t0 = time.perf_counter()
+        self._lock = threading.Lock()
+
+    def observe(self, seconds: float, rows: int = 1) -> None:
+        with self._lock:
+            if len(self._ring) < self._window:
+                self._ring.append(float(seconds))
+            else:
+                self._ring[self._pos] = float(seconds)
+                self._pos = (self._pos + 1) % self._window
+            self._count += 1
+            self._rows += int(rows)
+            self._total_s += float(seconds)
+
+    def snapshot(self) -> Dict[str, float]:
+        with self._lock:
+            ring = sorted(self._ring)
+            count, rows, total = self._count, self._rows, self._total_s
+            uptime = time.perf_counter() - self._t0
+
+        def pct(p: float) -> float:
+            if not ring:
+                return 0.0
+            return ring[min(len(ring) - 1, int(p * (len(ring) - 1) + 0.5))]
+
+        # mean over the same ring the percentiles cover — a lifetime
+        # mean would stay inflated by cold-start outliers forever and
+        # read as mean >> p99 on a warmed-up server
+        mean = sum(ring) / len(ring) if ring else 0.0
+        return {
+            "count": count,
+            "rows": rows,
+            "mean_ms": round(1e3 * mean, 4),
+            "p50_ms": round(1e3 * pct(0.50), 4),
+            "p95_ms": round(1e3 * pct(0.95), 4),
+            "p99_ms": round(1e3 * pct(0.99), 4),
+            "rows_per_sec": round(rows / uptime, 2) if uptime > 0 else 0.0,
+            "busy_frac": round(total / uptime, 4) if uptime > 0 else 0.0,
+        }
+
+    def reset(self) -> None:
+        with self._lock:
+            self._ring.clear()
+            self._pos = 0
+            self._count = 0
+            self._rows = 0
+            self._total_s = 0.0
+            self._t0 = time.perf_counter()
+
+
+_latency: Dict[str, LatencyStats] = {}
+_latency_lock = threading.Lock()
+
+
+def latency_stats(name: str, model: Optional[str] = None) -> LatencyStats:
+    """Named process-global LatencyStats (one per serving entry point,
+    mirroring global_timer's named-scope registry). Each named ring
+    registers itself on the obs metrics registry at creation, so
+    `/metrics` scrapes and `ModelRegistry.stats()` read the SAME
+    object — one source of truth for serving latency. ``model`` tags
+    the exported series with a ``{model=...}`` label."""
+    with _latency_lock:
+        created = name not in _latency
+        if created:
+            _latency[name] = LatencyStats()
+        stats = _latency[name]
+    if created:
+        from .obs.metrics import register_latency_collector
+
+        register_latency_collector(name, stats, model=model)
+    return stats
+
+
+def latency_summary() -> Dict[str, Dict[str, float]]:
+    with _latency_lock:
+        return {k: v.snapshot() for k, v in sorted(_latency.items())}

@@ -244,12 +244,35 @@ class Tree:
             out[m] = np.where(nanrow, self.leaf_value[l], v)
         return out
 
+    def max_depth(self) -> int:
+        """Decisions on the longest root-to-leaf path (0 for a stump)."""
+        if self.num_leaves <= 1:
+            return 0
+        depth = np.zeros(len(self.left_child), np.int32)
+        md = 1
+        for i in range(len(self.left_child)):
+            for c in (self.left_child[i], self.right_child[i]):
+                if c >= 0:
+                    depth[c] = depth[i] + 1
+                    md = max(md, depth[c] + 1)
+                else:
+                    md = max(md, depth[i] + 1)
+        return int(md)
+
     def feature_importance_split(self, num_features: int) -> np.ndarray:
         imp = np.zeros(num_features)
         for i in range(len(self.split_feature)):
             if self.split_gain[i] > 0:
                 imp[self.split_feature[i]] += 1
         return imp
+
+    def feature_importance_gain(self, num_features: int) -> np.ndarray:
+        imp = np.zeros(num_features)
+        for i in range(len(self.split_feature)):
+            if self.split_gain[i] > 0:
+                imp[self.split_feature[i]] += self.split_gain[i]
+        return imp
+
 
 def tree_to_arrays(t: Tree, dataset: "BinnedDataset",
                    device="cpu") -> "TreeArrays":

@@ -1249,3 +1249,131 @@ def test_lambdarank_kernel_refuses_past_shared_memory(dev):
     with pytest.raises(ValueError, match="kernel limit"):
         ranking.lambdarank(lay, sc, lab, gain, imd, 1.0, 30, True)
     assert cuda_hist.LAUNCHES["lambdarank"] == before
+
+
+# ---- serving: the tensorized forest on the card
+def _serve_model(cat: bool = True):
+    """A 12-tree binary model trained on the CPU (a categorical column
+    and NaN missing values), and rows with unseen / negative
+    categories."""
+    rs = np.random.RandomState(11)
+    X = rs.randn(1500, 6)
+    X[:, 2] = rs.randint(0, 9, 1500)
+    X[rs.rand(1500) < 0.05, 4] = np.nan
+    y = (np.nan_to_num(X[:, 0]) + (X[:, 2] % 2) > 0.4).astype(float)
+    p = {"objective": "binary", "num_leaves": 23, "verbosity": -1,
+         "device_type": "cpu", "min_data_in_leaf": 5}
+    ds = lgb.Dataset(X, label=y, params=p,
+                     categorical_feature=[2] if cat else "auto")
+    bst = lgb.train(p, ds, 12)
+    Xq = rs.randn(3000, 6)
+    Xq[:, 2] = rs.randint(-2, 14, 3000)
+    Xq[rs.rand(3000) < 0.05, 4] = np.nan
+    return bst, Xq
+
+
+def test_forest_card_matches_cpu(dev):
+    """The forest's gathers (take_small), decisions, leaf gather and
+    fixed-order class sums give the CPU's bits; leaves exactly."""
+    from lightgbm_tpu_torch.serving import TensorForest
+
+    bst, Xq = _serve_model()
+    fc = TensorForest.from_booster(bst, device=dev)
+    fh = TensorForest.from_booster(bst, device="cpu")
+    assert fc.meta["has_cat"]
+    before = cuda_hist.LAUNCHES["take_small"]
+    raw = fc.predict_raw(Xq, 1, 8)
+    assert cuda_hist.LAUNCHES["take_small"] - before == fc.levels
+    np.testing.assert_array_equal(raw, fh.predict_raw(Xq, 1, 8))
+    np.testing.assert_array_equal(fc.predict_leaf(Xq), fh.predict_leaf(Xq))
+    np.testing.assert_allclose(raw, bst._gbdt.predict_raw(Xq, 1, 8),
+                               rtol=1e-5, atol=1e-5)
+    np.testing.assert_array_equal(
+        bst.predict(Xq, device="cuda", pred_leaf=True),
+        bst.predict(Xq, pred_leaf=True))
+    np.testing.assert_allclose(fc.predict_contrib(Xq[:200]),
+                               fh.predict_contrib(Xq[:200]),
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_take_small_k9_unstaged_bitwise(dev):
+    """The forest's gather: k = 9 (the generic path) on a table of 500
+    trees x 254 nodes, far past the 48 KB shared-memory stage, indices
+    in and out of range."""
+    rs = np.random.RandomState(9)
+    L = 500 * 254
+    tab = torch.from_numpy(rs.randn(9, L).astype(np.float32))
+    idx = torch.from_numpy(rs.randint(-3, L + 3, 409_600).astype(np.int32))
+    out = ht.take_cols(tab.to(dev), idx.to(dev))
+    assert torch.equal(out.cpu(), ht.take_cols_plain(tab, idx))
+    assert torch.equal(ht.take_cols(tab.to(dev), idx.to(dev)), out)
+
+
+def test_dispatcher_one_capture_per_bucket(dev):
+    """100 mixed-size requests (empty, one row, past the top rung): one
+    CUDA graph per rung, each answer the unbucketed forest's bits, and
+    warm-up leaves nothing to capture later."""
+    from lightgbm_tpu_torch.serving import BucketDispatcher, TensorForest
+
+    bst, Xq = _serve_model()
+    f = TensorForest.from_booster(bst, device=dev)
+    tw = torch.ones(f.num_trees, device=dev)
+    score, leaf = f.apply(torch.from_numpy(Xq.astype(np.float32)).to(dev),
+                          tw)
+    score = score.cpu().numpy().T.astype(np.float64)
+    leaf = leaf.cpu().numpy().astype(np.int64)
+    buckets = (16, 64, 256)
+    disp = BucketDispatcher(f, buckets=buckets)
+    rs = np.random.RandomState(4)
+    sizes = [int(s) for s in rs.randint(1, 300, 94)] + [0, 1, 256, 257,
+                                                        549, 0]
+    for n in sizes:
+        lo = int(rs.randint(0, len(Xq) - n + 1))
+        np.testing.assert_array_equal(disp.score_raw(Xq[lo:lo + n]),
+                                      score[:, lo:lo + n])
+        np.testing.assert_array_equal(disp.predict_leaf(Xq[lo:lo + n]),
+                                      leaf[lo:lo + n])
+    assert disp.captures == len(buckets) == len(disp.programs)
+    assert all(n > 0 for n in disp.graph_nodes().values())
+    warm = BucketDispatcher(f, buckets=buckets)
+    warm.warmup(num_features=6)
+    assert warm.captures == len(buckets)
+    for n in sizes[:30]:
+        np.testing.assert_array_equal(warm.score_raw(Xq[:n], 2, 5),
+                                      disp.score_raw(Xq[:n], 2, 5))
+    assert warm.captures == len(buckets)
+
+
+def test_replicas_capture_at_first_use_under_load(dev):
+    """Two replicas with no warm-up behind the MicroBatcher, fed by 8
+    threads: each replica captures its rungs from its own worker thread
+    while the other scores, and every answer is the CPU forest's bits."""
+    import threading
+
+    from lightgbm_tpu_torch.serving import ModelRegistry, TensorForest
+
+    bst, Xq = _serve_model()
+    want = TensorForest.from_booster(bst, device="cpu").predict_raw(Xq)[0]
+    reg = ModelRegistry(replicas=2, buckets=(16, 64, 256))
+    reg.load("m", bst)
+    mb = reg.batcher("m")
+    got = {}
+
+    def client(c):
+        futs = [(i, mb.submit(Xq[i:i + 1 + i % 5]))
+                for i in range(c, 1500, 8)]
+        for i, f in futs:
+            got[i] = f.result(timeout=60)[:, 0]
+
+    ts = [threading.Thread(target=client, args=(c,)) for c in range(8)]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(timeout=120)
+    assert not any(t.is_alive() for t in ts)
+    for i, v in got.items():
+        np.testing.assert_array_equal(v, want[i:i + 1 + i % 5])
+    mv = reg._entry("m")
+    assert all(d.captures <= 3 for d in mv.replicas)
+    assert sum(d.captures for d in mv.replicas) > 0
+    reg.unload("m")

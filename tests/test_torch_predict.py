@@ -67,9 +67,15 @@ def test_pred_early_stop_regression_warns_and_ignores(capsys):
 
 
 def test_other_predict_options_still_raise():
+    """Options the port does not implement raise; pred_leaf and
+    pred_contrib are ported and answer as the JAX package's."""
     text, X = _model("binary", trees=2)
     bt = lgb_t.Booster(model_str=text)
-    with pytest.raises(NotImplementedError, match="pred_leaf"):
-        bt.predict(X, pred_leaf=True)
+    bj = lgb_j.Booster(model_str=text)
+    np.testing.assert_array_equal(bt.predict(X, pred_leaf=True),
+                                  bj.predict(X, pred_leaf=True))
+    np.testing.assert_allclose(bt.predict(X[:20], pred_contrib=True),
+                               bj.predict(X[:20], pred_contrib=True),
+                               rtol=0, atol=1e-6)
     with pytest.raises(NotImplementedError, match="num_threads"):
         bt.predict(X, num_threads=2)
