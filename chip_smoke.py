@@ -67,6 +67,33 @@ Phases, each printed as one JSON line:
             validation scores against Booster(model_file=...)'s raw
             predictions (1e-5), then 3 trees with bagging, early stopping
             on validation AUC, record_evaluation and reset_parameter;
+  api_cv - lgb.cv on the train phase's 1M rows (5 stratified folds of
+            799,999-800,001 training rows, 20 rounds, early stopping 5 on
+            AUC) on the fused loop: 5 graph captures, valid auc-mean
+            rising, fold 0's model text equal to train() on
+            ds.subset(train_idx) with ds.subset(test_idx) as validation
+            set, rollback_one_iter on that fused booster (host and device
+            trees in step, the card's scores the host's within 1e-4), and
+            fused cv against eager cv on 2 folds x 3 rounds bit for bit;
+            capture s, trees/s over all folds, peak device MB;
+  api_booster - on the train phase's booster: one more tree rolled back
+            (validation scores within 1e-6 of before), set_leaf_output (the
+            host predict, the device tree's leaf_value, predict on the
+            card), refit on the 100,000 validation rows against the same
+            refit under device_type=cpu (leaves within 1e-5), lower_bound
+            <= raw predictions <= upper_bound, split importances equal to
+            the model text's, shuffle_models (predictions within 1e-6);
+  api_sparse - a 1M x 1,000 one-hot CSR (onehot_csr: 20 fields of 50
+            levels, Zipf-like level frequencies, 20M non-zeros) built
+            without densifying (its toarray raises): construct seconds,
+            the bundled columns (EFB folds each field into one), 10 trees
+            on the fused loop with validation AUC rising, and a 20,000-row
+            slice trained on the card and on the CPU within 1e-4;
+  api_file - the first 200,000 rows as CSV with a header, TSV and LibSVM
+            (%.17g), each through Dataset(path): the numpy Dataset's bin
+            matrix and 5-tree model text bit for bit; save_binary ->
+            Dataset(bin_path) and a .weight sidecar give the same model
+            as the numpy input and as weight=; write and parse seconds;
   train_exact, train_exact_rounds, train_f32 - the same workload on the
             f32 paths (tpu_growth_mode=exact; exact + tpu_growth_rounds;
             rounds + tpu_hist_dtype=bf16x2), 1 warmup tree then 3 timed
@@ -2005,6 +2032,363 @@ def train_continue_phase(torch, lgb, np, ds, vs, Xv, model_path):
         raise AssertionError(f"train_continue: shrinkage {line['shrinkage']}")
     return line
 
+# ---- the Python API on the card (api_cv, api_booster, api_sparse,
+# api_file): the train phase's data and booster
+API_PARAMS = {"objective": "binary", "num_leaves": L, "max_bin": 255,
+              "learning_rate": 0.1, "min_data_in_leaf": 20, "metric": "auc",
+              "verbosity": -1}
+
+
+def api_cv_phase(torch, lgb, np, ds):
+    """lgb.cv on the train phase's 1M rows: 5 stratified folds, 20 rounds,
+    early stopping 5 on AUC, every fold on the fused loop (one CUDA graph
+    captured a fold); fold 0 against train() on ds.subset(train_idx) with
+    ds.subset(test_idx) as its validation set, bit for bit; rollback on
+    fold 0's fused booster; fused cv against eager cv on 2 folds x 3
+    rounds, bit for bit."""
+    from lightgbm_tpu_torch.engine import _make_n_folds
+
+    params = dict(API_PARAMS, early_stopping_round=5)
+    folds = list(_make_n_folds(ds, 5, params, 0, True, True))
+    sizes = [[len(tr), len(te)] for tr, te in folds]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = lgb.cv(params, ds, 20, nfold=5, stratified=True, seed=0,
+                 return_cvbooster=True)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    cvb = res.pop("cvbooster")
+    best = cvb.best_iteration
+    fused = [b._gbdt._fused for b in cvb.boosters]
+    graphs = [f.graph for f in fused if f is not None and f.graph]
+    capture_s = [g.capture_s for g in graphs]
+    trees = sum(b.num_trees() for b in cvb.boosters)
+    auc = res["valid auc-mean"]
+    # fold 0 against train() on the same subsets
+    tr, te = folds[0]
+    b0 = cvb.boosters[0]
+    n0 = b0.num_trees()
+    ref = lgb.train(params, ds.subset(tr), n0, valid_sets=[ds.subset(te)],
+                    valid_names=["valid"])
+    fold0_equal = (ref.model_to_string(num_iteration=-1)
+                   == b0.model_to_string(num_iteration=-1))
+    # rollback on a fused booster: host and device trees in step, the
+    # card's validation scores those of the first n0 - 1 iterations
+    b0.rollback_one_iter()
+    m = min(20000, len(te))
+    host = b0.predict(ds.data[te[:m]], raw_score=True, num_iteration=n0 - 1)
+    card = b0._gbdt.valids[0].score[0, :m].cpu().numpy()
+    rollback = {"trees": b0.num_trees(),
+                "device_trees": len(b0._gbdt.device_trees),
+                "iteration": b0.current_iteration(),
+                "max_abs_card_vs_host": float(np.abs(card - host).max())}
+    del ref, cvb, b0, fused, graphs
+    # the fused loop against the eager loop, 2 folds x 3 rounds
+    two = {}
+    for name, cbs in (("fused", []), ("eager", [_eager])):
+        two[name] = lgb.cv(API_PARAMS, ds, 3, folds=folds[:2],
+                           return_cvbooster=True, callbacks=cbs)
+    pairs = zip(two["fused"]["cvbooster"].boosters,
+                two["eager"]["cvbooster"].boosters)
+    fused_eq_eager = all(
+        a.model_to_string() == b.model_to_string()
+        and torch.equal(a._gbdt.valids[0].score, b._gbdt.valids[0].score)
+        for a, b in pairs)
+    del two
+    torch.cuda.empty_cache()
+    line = {"phase": "api_cv", "rows": ds.num_data(), "folds": 5,
+            "fold_sizes_train_test": sizes, "rounds": 20,
+            "early_stopping_round": 5, "iterations": len(auc),
+            "best_iteration": best, "valid_auc_mean": auc,
+            "captures": len(capture_s), "capture_s": capture_s,
+            "seconds": dt, "trees": trees, "trees_per_s": trees / dt,
+            "trees_per_s_after_capture": trees / (dt - sum(capture_s)),
+            "peak_device_mb": peak, "fold0_equals_train": fold0_equal,
+            "fused_rollback": rollback, "fused_equals_eager_2x3":
+            fused_eq_eager}
+    emit(line)
+    if all(n % 16 == 0 for s in sizes for n in s):
+        raise AssertionError(f"api_cv: every fold size is a multiple of 16")
+    if len(capture_s) != 5:
+        raise AssertionError(f"api_cv: {len(capture_s)} graph captures")
+    if not auc[-1] > auc[0]:
+        raise AssertionError(f"api_cv: AUC did not rise: {auc}")
+    if not fold0_equal:
+        raise AssertionError("api_cv: fold 0 differs from train() on its "
+                             "subsets")
+    if (rollback["trees"] != n0 - 1 or rollback["device_trees"] != n0 - 1
+            or rollback["max_abs_card_vs_host"] > 1e-4):
+        raise AssertionError(f"api_cv: fused rollback {rollback}")
+    if not fused_eq_eager:
+        raise AssertionError("api_cv: fused cv differs from eager cv")
+    return line
+
+
+def api_booster_phase(torch, lgb, np, bst, Xv, yv):
+    """The Booster accessors on the train phase's booster: rollback_one_iter
+    (one more tree, rolled back: the validation scores of before, within
+    1e-6), set_leaf_output (host predict, the device tree and
+    predict(device="cuda")), refit on the 100,000 validation rows against
+    the same refit under device_type=cpu (1e-5), the bounds around the raw
+    predictions, split importances against the model text's, and
+    shuffle_models (predictions within 1e-6)."""
+    gb = bst._gbdt
+    line = {"phase": "api_booster", "trees": bst.num_trees()}
+    # rollback_one_iter
+    n_it = bst.current_iteration()
+    before = gb.valids[0].score.clone()
+    bst.update()
+    bst.rollback_one_iter()
+    rb = float((gb.valids[0].score - before).abs().max())
+    line["rollback"] = {"iteration_after_update": n_it + 1,
+                        "iteration": bst.current_iteration(),
+                        "max_abs_valid_score_vs_before": rb,
+                        "tolerance": 1e-6}
+    if not (rb <= 1e-6 and bst.current_iteration() == n_it
+            and bst.num_trees() == n_it and len(gb.device_trees) == n_it):
+        raise AssertionError(f"api_booster: rollback {line['rollback']}")
+    # set_leaf_output
+    rows = Xv[:5000]
+    p0 = bst.predict(rows, raw_score=True)
+    leaf0 = bst.predict(rows, pred_leaf=True)[:, 0]
+    lid = int(np.bincount(leaf0).argmax())
+    v = bst.get_leaf_output(0, lid)
+    bst.set_leaf_output(0, lid, v + 0.5)
+    d = bst.predict(rows, raw_score=True) - p0
+    dev_v = float(gb.device_trees[0].leaf_value[lid])
+    p_card = bst.predict(rows, raw_score=True, device="cuda")
+    card_err = float(np.abs(p_card - (p0 + d)).max())
+    bst.set_leaf_output(0, lid, v)
+    hit = leaf0 == lid
+    line["set_leaf_output"] = {
+        "leaf": lid, "rows_in_leaf": int(hit.sum()),
+        "host_shift_in_leaf": float(np.abs(d[hit] - 0.5).max()),
+        "host_shift_elsewhere": float(np.abs(d[~hit]).max()),
+        "device_leaf_value_err": abs(dev_v - (v + 0.5)),
+        "card_predict_vs_host": card_err}
+    s = line["set_leaf_output"]
+    if not (s["host_shift_in_leaf"] < 1e-9 and s["host_shift_elsewhere"] == 0
+            and s["device_leaf_value_err"] < 1e-6 and card_err < 1e-5):
+        raise AssertionError(f"api_booster: set_leaf_output {s}")
+    # refit on the validation rows, on the card and on the CPU
+    text = bst.model_to_string()
+    t0 = time.perf_counter()
+    r_card = bst.refit(Xv, yv)
+    t_card = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    r_cpu = lgb.Booster(params={"device_type": "cpu"},
+                        model_str=text).refit(Xv, yv)
+    t_cpu = time.perf_counter() - t0
+    leaf_err = max(float(np.abs(a.leaf_value - b.leaf_value).max())
+                   for a, b in zip(r_card._gbdt.models, r_cpu._gbdt.models))
+    changed = max(float(np.abs(a.leaf_value - b.leaf_value).max())
+                  for a, b in zip(r_card._gbdt.models, gb.models))
+    line["refit"] = {"rows": int(len(yv)), "seconds_card": t_card,
+                     "seconds_cpu": t_cpu, "max_leaf_diff_card_vs_cpu":
+                     leaf_err, "tolerance": 1e-5,
+                     "max_leaf_change": changed,
+                     "source_unchanged": bst.model_to_string() == text}
+    if not (leaf_err < 1e-5 and changed > 0
+            and line["refit"]["source_unchanged"]):
+        raise AssertionError(f"api_booster: refit {line['refit']}")
+    del r_card, r_cpu
+    # bounds, importances, shuffle
+    raw = bst.predict(Xv, raw_score=True)
+    lo, hi = bst.lower_bound(), bst.upper_bound()
+    line["bounds"] = {"lower": lo, "upper": hi, "raw_min": float(raw.min()),
+                      "raw_max": float(raw.max())}
+    if not lo <= raw.min() <= raw.max() <= hi:
+        raise AssertionError(f"api_booster: bounds {line['bounds']}")
+    imp = bst.feature_importance("split")
+    names = bst.feature_name()
+    footer = text.split("feature_importances:\n")[1].split("\n\n")[0]
+    from_text = {k: int(v) for k, v in
+                 (ln.split("=") for ln in footer.strip().splitlines())}
+    ours = {names[i]: int(imp[i]) for i in range(len(names)) if imp[i] > 0}
+    line["feature_importance_equals_text"] = ours == from_text
+    if ours != from_text:
+        raise AssertionError(f"api_booster: importances {ours} {from_text}")
+    sb = lgb.Booster(model_str=text)
+    np.random.seed(0)
+    sb.shuffle_models()
+    order_changed = [t.leaf_value[0] for t in sb._gbdt.models] != \
+        [t.leaf_value[0] for t in gb.models]
+    sh = float(np.abs(sb.predict(rows, raw_score=True) - p0).max())
+    line["shuffle_models"] = {"order_changed": order_changed,
+                              "max_abs_pred_diff": sh}
+    emit(line)
+    if not (order_changed and sh < 1e-6):
+        raise AssertionError(f"api_booster: shuffle {line['shuffle_models']}")
+    return line
+
+
+ONEHOT_FIELDS, ONEHOT_LEVELS = 20, 50
+
+
+def onehot_csr(rows: int, valid_rows: int, seed: int = 29):
+    """(train CSR, label, validation CSR, label): rows x 1,000 one-hot
+    columns, 20 fields of 50 levels each from RandomState(seed), a field's
+    level frequencies Zipf-like (1 / rank^1.2, the ranks in a random
+    order), 20 non-zeros a row; the label from a logistic model over the
+    levels (a weight per level, the logit centred on its median)."""
+    import numpy as np
+    import scipy.sparse as sp
+
+    rs = np.random.RandomState(seed)
+    F, V = ONEHOT_FIELDS, ONEHOT_LEVELS
+    n = rows + valid_rows
+    levels = np.empty((n, F), np.int32)
+    for f in range(F):
+        p = 1.0 / np.arange(1, V + 1) ** 1.2
+        p = p[rs.permutation(V)]
+        levels[:, f] = rs.choice(V, size=n, p=p / p.sum())
+    w = rs.randn(F, V) * 0.6
+    logit = w[np.arange(F), levels].sum(axis=1)
+    logit -= np.median(logit)
+    y = (rs.rand(n) < 1.0 / (1.0 + np.exp(-logit))).astype(np.float32)
+    cols = (levels + np.arange(F, dtype=np.int32) * V).ravel()
+    m = sp.csr_matrix((np.ones(n * F, np.float32), cols,
+                       np.arange(0, n * F + 1, F)), shape=(n, F * V))
+    return m[:rows], y[:rows], m[rows:], y[rows:]
+
+
+def api_sparse_phase(torch, lgb, np, ch):
+    """A 1M x 1,000 one-hot CSR (onehot_csr) built into a Dataset without
+    densifying it (its toarray raises), EFB folding each field into few
+    columns; 10 trees on the fused loop with validation AUC rising; a
+    20,000-row slice trained on the card and on the CPU, predictions
+    within 1e-4."""
+    import scipy.sparse as sp
+
+    class NoDense(sp.csr_matrix):
+        def toarray(self, *a, **k):
+            raise AssertionError("api_sparse: the CSR input was densified")
+
+    t0 = time.perf_counter()
+    Xs, ys, Xsv, ysv = onehot_csr(1_000_000, 100_000)
+    t_make = time.perf_counter() - t0
+    train_csr = NoDense(Xs)
+    params = dict(API_PARAMS)
+    t0 = time.perf_counter()
+    ds = lgb.Dataset(train_csr, label=ys).construct()
+    t_construct = time.perf_counter() - t0
+    b = ds._binned
+    vs = lgb.Dataset(Xsv, label=ysv, reference=ds)
+    ev = {}
+    ch.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bst = lgb.train(params, ds, 10, valid_sets=[vs], valid_names=["valid"],
+                    evals_result=ev)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {k: v for k, v in ch.LAUNCHES.items() if v}
+    auc = ev["valid"]["auc"]
+    fused = bst._gbdt._fused
+    preds = {}
+    for device in ("cuda", "cpu"):
+        p = dict(params, num_leaves=31, device_type=device)
+        small = lgb.Dataset(Xs[:20000], label=ys[:20000], params=p)
+        preds[device] = lgb.train(p, small, 5).predict(Xsv[:2000],
+                                                       raw_score=True)
+    err = float(np.abs(preds["cuda"] - preds["cpu"]).max())
+    line = {"phase": "api_sparse", "rows": Xs.shape[0],
+            "columns": Xs.shape[1], "nnz": int(Xs.nnz),
+            "make_seconds": t_make, "construct_seconds": t_construct,
+            "used_features": int(b.num_used_features),
+            "bundled_columns": int(b.bins.shape[0]),
+            "col_bins": int(b.col_bins), "trees": bst.num_trees(),
+            "train_seconds": dt, "trees_per_s": bst.num_trees() / dt,
+            "fused_captured": bool(fused is not None and fused.graph.captured),
+            "valid_auc": auc, "launches": launches,
+            "small_max_abs_pred_diff_card_vs_cpu": err, "tolerance": 1e-4}
+    emit(line)
+    if not (fused is not None and fused.graph.captured):
+        raise AssertionError("api_sparse: the fused loop did not capture")
+    if not auc[-1] > auc[0]:
+        raise AssertionError(f"api_sparse: AUC did not rise: {auc}")
+    if not err < 1e-4:
+        raise AssertionError(f"api_sparse: card and CPU differ by {err}")
+    if not all(launches.get(k, 0) > 0 for k in ("hist_round", "take_small")):
+        raise AssertionError(f"api_sparse: launches {launches}")
+    return line
+
+
+def api_file_phase(torch, lgb, np, X, y):
+    """The first 200,000 rows written as CSV with a header, as TSV and as
+    LibSVM (%.17g: the float64 values exactly), each read back through
+    Dataset(path): the numpy Dataset's bin matrix and, after 5 trees, its
+    model text bit for bit; save_binary -> Dataset(bin_path) and a .weight
+    sidecar (against weight=) give the same model too."""
+    out = Path("build") / "chip_smoke" / "api_file"
+    out.mkdir(parents=True, exist_ok=True)
+    n, f = min(200_000, len(y)), X.shape[1]
+    Xf = np.asarray(X[:n], np.float64)
+    yf = np.asarray(y[:n], np.float64)
+    rows = np.column_stack([yf, Xf])
+    names = [f"Column_{i}" for i in range(f)]
+    header = {"header": True}
+    write_s, paths = {}, {}
+    for fmt, delim in (("csv", ","), ("tsv", "\t")):
+        paths[fmt] = out / f"train.{fmt}"
+        t0 = time.perf_counter()
+        with open(paths[fmt], "w") as fh:
+            fh.write(delim.join(["label"] + names) + "\n")
+            np.savetxt(fh, rows, delimiter=delim, fmt="%.17g")
+        write_s[fmt] = time.perf_counter() - t0
+    paths["libsvm"] = out / "train.svm"
+    t0 = time.perf_counter()
+    np.savetxt(paths["libsvm"], rows, fmt="%.17g " + " ".join(
+        f"{j}:%.17g" for j in range(f)))
+    write_s["libsvm"] = time.perf_counter() - t0
+    params = dict(API_PARAMS, metric="auc")
+
+    def model(ds):
+        return lgb.train(params, ds, 5).model_to_string()
+
+    refs = {}
+    for key, p in (("header", header), ("plain", {})):
+        ds = lgb.Dataset(Xf, label=yf, params=p).construct()
+        refs[key] = (ds, model(ds))
+    result = {}
+    for fmt in ("csv", "tsv", "libsvm"):
+        key = "plain" if fmt == "libsvm" else "header"
+        ref_ds, ref_text = refs[key]
+        t0 = time.perf_counter()
+        ds = lgb.Dataset(str(paths[fmt]),
+                         params=header if key == "header" else {})
+        ds.construct()
+        parse_s = time.perf_counter() - t0
+        b, rb = ds._binned, ref_ds._binned
+        result[fmt] = {
+            "write_seconds": write_s[fmt], "construct_seconds": parse_s,
+            "bins_equal": bool(np.array_equal(b.bins, rb.bins)),
+            "model_text_equal": model(ds) == ref_text}
+    bin_path = out / "train.bin"
+    refs["plain"][0].save_binary(bin_path)
+    t0 = time.perf_counter()
+    ds = lgb.Dataset(str(bin_path)).construct()
+    result["binary"] = {"load_seconds": time.perf_counter() - t0,
+                        "model_text_equal": model(ds) == refs["plain"][1]}
+    w = np.random.RandomState(31).uniform(0.5, 1.5, n)
+    wpath = out / "weighted.csv"
+    np.savetxt(wpath, rows, delimiter=",", fmt="%.17g")
+    np.savetxt(str(wpath) + ".weight", w, fmt="%.17g")
+    with_weight = model(lgb.Dataset(Xf, label=yf, weight=w))
+    result["weight_sidecar"] = {
+        "model_text_equal": model(lgb.Dataset(str(wpath))) == with_weight}
+    line = {"phase": "api_file", "rows": n, "features": f, **result}
+    emit(line)
+    bad = {k: v for k, v in result.items()
+           if not all(v.get(c, True) for c in ("bins_equal",
+                                                "model_text_equal"))}
+    if bad:
+        raise AssertionError(f"api_file: {bad}")
+    return line
+
+
 # ---- learning to rank at MSLR-WEB10K's published shape (Microsoft's
 # LETOR set: 10,000 queries, ~1.2M documents, 136 features, relevance
 # labels 0-4; LightGBM's Experiments page benchmarks its larger sibling
@@ -2881,6 +3265,13 @@ def main() -> int:
         torch, lgb, ch, ds, vs, "train_goss", GOSS_PARAMS, 11, 2, n_timed,
         round_caps["train_goss"], root_caps["train_goss"])
     train_continue_phase(torch, lgb, np, ds, vs, Xv, path)
+
+    # ---- the Python API: cv on the fused loop, the Booster accessors,
+    # a one-hot CSR and text / binary file inputs
+    api_cv_phase(torch, lgb, np, ds)
+    api_booster_phase(torch, lgb, np, bst, Xv, yv)
+    api_sparse_phase(torch, lgb, np, ch)
+    api_file_phase(torch, lgb, np, X, y)
 
     # ---- use_quantized_grad on the same binned data: the int8 modes,
     # compared with the int16 path at the same tree count

@@ -1,17 +1,22 @@
 """lightgbm_tpu_torch: the PyTorch / CUDA port of lightgbm_tpu.
 
-LightGBM's training API (Dataset, Booster, train and its callbacks) on
-torch tensors; the histogram, partition, take and segment-sum passes of
-training run as hand-written CUDA kernels for the NVIDIA H100
-(learner/cuda_hist.py, csrc/). Entry points run on the card unless
-device_type=cpu is passed, which selects the kernels' plain PyTorch
-versions. Booster.predict(X, device="cuda") and the serving package
-(serving.ModelRegistry, the bucketed dispatcher's CUDA graphs, the
+LightGBM's Python API on torch tensors: Dataset (dense, pandas, Arrow,
+scipy sparse, text and binary file inputs), Booster, train, cv and its
+CVBooster, the callbacks, and the scikit-learn estimators (which need
+scikit-learn, as in the JAX package). The histogram, partition, take and
+segment-sum passes of training run as hand-written CUDA kernels for the
+NVIDIA H100 (learner/cuda_hist.py, csrc/). Entry points run on the card
+unless device_type=cpu is passed, which selects the kernels' plain
+PyTorch versions. Booster.predict(X, device="cuda") and the serving
+package (serving.ModelRegistry, the bucketed dispatcher's CUDA graphs, the
 JSON-lines and HTTP servers) score trained models on the card. The
 package imports neither jax nor lightgbm_tpu.
+
+Names of the JAX package that are not ported yet are here and raise
+NotImplementedError naming their ROADMAP item (NOT_PORTED).
 """
 
-from .basic import Booster, Dataset
+from .basic import Booster, Dataset, Sequence, set_network
 from .callback import (
     CallbackEnv,
     EarlyStopException,
@@ -20,10 +25,55 @@ from .callback import (
     record_evaluation,
     reset_parameter,
 )
-from .engine import train
-from .log import LightGBMError
+from .engine import CVBooster, cv, train
+from .log import LightGBMError, register_logger
+from .sklearn import LGBMClassifier, LGBMModel, LGBMRanker, LGBMRegressor
 from . import serving
 
-__all__ = ["Booster", "CallbackEnv", "Dataset", "EarlyStopException",
-           "LightGBMError", "early_stopping", "log_evaluation",
-           "record_evaluation", "reset_parameter", "serving", "train"]
+__version__ = "0.1.0"
+
+# public names of the JAX package the port does not implement yet, with
+# the ROADMAP item that ports each; each raises NotImplementedError
+NOT_PORTED = {
+    "Sequence": "A.10",
+    "set_network": "A.8",
+    "DaskLGBMClassifier": "A.8",
+    "DaskLGBMRegressor": "A.8",
+    "DaskLGBMRanker": "A.8",
+    "plot_importance": "A.11",
+    "plot_split_value_histogram": "A.11",
+    "plot_metric": "A.11",
+    "plot_tree": "A.11",
+    "create_tree_digraph": "A.11",
+    "Booster.set_network": "A.8",
+    "Booster.free_network": "A.8",
+}
+
+
+def _refusal(name: str, item: str):
+    def refuse(*args, **kwargs):
+        raise NotImplementedError(f"{name} is not ported yet (ROADMAP "
+                                  f"{item})")
+
+    refuse.__name__ = name
+    refuse.__doc__ = f"Not ported yet (ROADMAP {item}): raises."
+    return refuse
+
+
+DaskLGBMClassifier = _refusal("DaskLGBMClassifier", "A.8")
+DaskLGBMRegressor = _refusal("DaskLGBMRegressor", "A.8")
+DaskLGBMRanker = _refusal("DaskLGBMRanker", "A.8")
+plot_importance = _refusal("plot_importance", "A.11")
+plot_split_value_histogram = _refusal("plot_split_value_histogram", "A.11")
+plot_metric = _refusal("plot_metric", "A.11")
+plot_tree = _refusal("plot_tree", "A.11")
+create_tree_digraph = _refusal("create_tree_digraph", "A.11")
+
+__all__ = ["Booster", "CVBooster", "CallbackEnv", "Dataset",
+           "EarlyStopException", "LGBMClassifier", "LGBMModel", "LGBMRanker",
+           "LGBMRegressor", "LightGBMError", "Sequence", "cv",
+           "early_stopping", "log_evaluation", "record_evaluation",
+           "register_logger", "reset_parameter", "serving", "set_network",
+           "train", "DaskLGBMClassifier", "DaskLGBMRegressor",
+           "DaskLGBMRanker", "plot_importance", "plot_split_value_histogram",
+           "plot_metric", "plot_tree", "create_tree_digraph", "__version__"]

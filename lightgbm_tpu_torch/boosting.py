@@ -107,7 +107,8 @@ def check_supported(config: Config, train_set: BinnedDataset) -> None:
                 f"{key}={getattr(c, key)!r} is not ported yet (ROADMAP "
                 f"{item})")
     if c.boosting != "gbdt":
-        _not_ported(f"boosting={c.boosting}")
+        raise NotImplementedError(f"boosting={c.boosting} is not ported yet "
+                                  "(ROADMAP A.4)")
     if c.feature_fraction_bynode < 1.0 or c.extra_trees:
         _not_ported("per-node extras (feature_fraction_bynode, extra_trees)")
     if (c.cegb_penalty_split > 0.0 or c.cegb_penalty_feature_coupled
@@ -738,6 +739,117 @@ class GBDT:
 
     def num_trees(self) -> int:
         return len(self.models)
+
+    def rollback_one_iter(self) -> None:
+        """GBDT::RollbackOneIter (gbdt.cpp:462): pop the last iteration's
+        K trees (host and device, in step; a fused run's pending trees are
+        materialized first) and subtract them from every score set through
+        the binned traversal; a stump's constant (the boost-from-score
+        bias) is subtracted as it was added."""
+        if self.iter_ <= 0:
+            return
+        models = self.models
+        for k in reversed(range(self.num_class)):
+            tree = models.pop()
+            arrays = self._on_device(self.device_trees.pop())
+            for ss in [self.train] + self.valids:
+                if tree.num_leaves > 1:
+                    leaf = self._traverse(arrays, ss.dev)
+                    ss.score[k] -= arrays.leaf_value[leaf.long()]
+                elif abs(float(tree.leaf_value[0])) > 1e-15:
+                    ss.score[k] -= float(tree.leaf_value[0])
+        self.iter_ -= 1
+        if not models:
+            # the first iteration again: boost-from-average adds its
+            # scores anew (the popped trees carried them)
+            self._init_scores = None
+
+    def feature_importance(self, importance_type: str = "split"
+                           ) -> np.ndarray:
+        """Split counts or summed gains per feature over every tree."""
+        nf = self.train_set.num_total_features if self.train_set else (
+            max((int(np.max(t.split_feature)) for t in self.models
+                 if len(t.split_feature)), default=-1) + 1)
+        imp = np.zeros(nf)
+        for t in self.models:
+            if importance_type == "gain":
+                imp += t.feature_importance_gain(nf)
+            else:
+                imp += t.feature_importance_split(nf)
+        return imp
+
+    def refit(self, X: np.ndarray, label: np.ndarray, weight=None,
+              group=None) -> None:
+        """Refit the leaf outputs of the existing trees on new rows
+        (gbdt.cpp:266 RefitTree, FitByExistingTree), as the JAX package
+        does: each row's leaf in every tree from the host walker; per
+        iteration the objective's gradients at the score refitted so far
+        (on this booster's device); per leaf the float64 sums of g and h,
+        the L1 soft threshold and the max_delta_step clip, times the
+        tree's shrinkage, blended with refit_decay_rate into the old
+        output. The device trees take the new leaf values."""
+        from .dataset import Metadata
+
+        X = np.asarray(X, dtype=np.float64)
+        N, K, c = X.shape[0], self.num_class, self.config
+        decay, lam = c.refit_decay_rate, c.lambda_l2
+        leaf_pred = self.predict_leaf_index(X)  # (N, models)
+
+        class _Rows:
+            """The new rows as the objective reads a dataset, unpadded."""
+            metadata = Metadata(
+                label=np.asarray(label, np.float32),
+                weight=(None if weight is None
+                        else np.asarray(weight, np.float32)),
+                group=None if group is None else np.asarray(group, np.int32))
+            num_data = N
+
+            @staticmethod
+            def padded(arr, fill: float = 0.0, dtype=np.float32):
+                return np.asarray(arr, dtype)
+
+            @staticmethod
+            def num_rows_padded():
+                return N
+
+        device = torch.device(resolve_device(c))
+        obj = create_objective(c)
+        if obj is None:
+            log.fatal("Cannot refit without an objective function")
+        obj.init(_Rows(), device)
+        score = np.zeros((K, N), np.float64)
+        for it in range(len(self.models) // K):
+            s = torch.from_numpy((score if K > 1 else score[0])
+                                 .astype(np.float32)).to(device)
+            gs, hs = (obj.get_gradients(s, it) if obj.needs_iter
+                      else obj.get_gradients(s))
+            gs = gs.cpu().numpy().astype(np.float64).reshape(K, N)
+            hs = hs.cpu().numpy().astype(np.float64).reshape(K, N)
+            for k in range(K):
+                t = self.models[it * K + k]
+                leaves = leaf_pred[:, it * K + k]
+                sum_g = np.bincount(leaves, weights=gs[k],
+                                    minlength=t.num_leaves)
+                sum_h = np.bincount(leaves, weights=hs[k],
+                                    minlength=t.num_leaves)
+                tg = np.sign(sum_g) * np.maximum(np.abs(sum_g) - c.lambda_l1,
+                                                 0.0)
+                with np.errstate(divide="ignore", invalid="ignore"):
+                    new_out = np.where(sum_h + lam > 1e-15,
+                                       -tg / (sum_h + lam), 0.0)
+                if c.max_delta_step > 0.0:
+                    new_out = np.clip(new_out, -c.max_delta_step,
+                                      c.max_delta_step)
+                new_out = new_out * t.shrinkage
+                # cover statistics stay as trained (FitByExistingTree)
+                t.leaf_value = decay * t.leaf_value + (1.0 - decay) * new_out
+                score[k] += t.leaf_value[leaves]
+        for mi, arrays in enumerate(self.device_trees[:len(self.models)]):
+            lv = np.zeros(tuple(arrays.leaf_value.shape), np.float32)
+            n = min(len(lv), len(self.models[mi].leaf_value))
+            lv[:n] = self.models[mi].leaf_value[:n]
+            self.device_trees[mi] = arrays._replace(
+                leaf_value=torch.from_numpy(lv).to(arrays.leaf_value.device))
 
     def predict_raw(self, X: np.ndarray, start_iteration: int = 0,
                     num_iteration: int = -1,

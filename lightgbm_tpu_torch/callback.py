@@ -163,8 +163,11 @@ def early_stopping(
             if first_metric_only and first_metric[0] != eval_name_splitted[-1]:
                 continue
             # reference callback.py:521: train-set metrics never trigger
-            # the stop
-            if (env.model is not None
+            # the stop; in cv, the cv_agg entries of the training folds
+            # (the validation folds' entries do stop it)
+            if (env.evaluation_result_list[i][0] == "cv_agg"
+                    and eval_name_splitted[0] in ("train", "training")) or (
+                    env.model is not None
                     and hasattr(env.model, "_train_data_name")
                     and env.evaluation_result_list[i][0]
                     == env.model._train_data_name):

@@ -1377,3 +1377,81 @@ def test_replicas_capture_at_first_use_under_load(dev):
     assert all(d.captures <= 3 for d in mv.replicas)
     assert sum(d.captures for d in mv.replicas) > 0
     reg.unload("m")
+
+
+# ---- the Python API on the card: cv, subset, rollback, sparse and file
+# inputs
+def _api_data(n=2000, f=8, seed=11):
+    rs = np.random.RandomState(seed)
+    X = rs.randn(n, f).astype(np.float32)
+    y = (X @ rs.randn(f) + 0.5 * rs.randn(n) > 0).astype(float)
+    return X, y
+
+
+API_PARAMS = {"objective": "binary", "num_leaves": 31, "metric": "auc",
+              "min_data_in_leaf": 5, "verbosity": -1}
+
+
+def test_cv_fused_equals_eager_on_the_card(dev):
+    """Every fold's CUDA graph against the eager per-fold loop: the same
+    model text and validation scores bit for bit, results within 1e-5 (the
+    fused loop's device metrics against the host's)."""
+    X, y = _api_data()
+    out = {}
+    for fused in (True, False):
+        ds = lgb.Dataset(X, label=y, free_raw_data=False)
+        out[fused] = lgb.cv(API_PARAMS, ds, 4, nfold=3,
+                            return_cvbooster=True,
+                            callbacks=[] if fused else [_eager])
+    bf, be = (out[f]["cvbooster"].boosters for f in (True, False))
+    assert any(b.train_set.num_data() % 16 for b in bf)
+    for a, b in zip(bf, be):
+        fp = a._gbdt._fused
+        assert fp is not None and fp.graph.captured
+        assert a.model_to_string() == b.model_to_string()
+        assert torch.equal(a._gbdt.valids[0].score, b._gbdt.valids[0].score)
+    np.testing.assert_allclose(out[True]["valid auc-mean"],
+                               out[False]["valid auc-mean"], rtol=1e-5)
+
+
+def test_subset_of_2003_rows_trains_as_the_cpu(dev):
+    X, y = _api_data(n=3000)
+    idx = np.arange(2003)
+    preds = []
+    for device in ("cuda", "cpu"):
+        p = {**API_PARAMS, "device_type": device}
+        ds = lgb.Dataset(X, label=y, params=p).construct()
+        bst = lgb.train(p, ds.subset(idx), 5)
+        preds.append(bst.predict(X[2003:], raw_score=True))
+    np.testing.assert_allclose(preds[0], preds[1], atol=1e-4)
+
+
+def test_rollback_one_iter_on_the_card(dev):
+    X, y = _api_data()
+    ds = lgb.Dataset(X[:1500], label=y[:1500])
+    vs = lgb.Dataset(X[1500:], label=y[1500:], reference=ds)
+    bst = lgb.train(API_PARAMS, ds, 5, valid_sets=[vs])
+    ref = lgb.train(API_PARAMS, ds, 4, valid_sets=[vs],
+                    callbacks=[_eager])
+    bst.rollback_one_iter()
+    assert bst.current_iteration() == 4 and bst.num_trees() == 4
+    assert len(bst._gbdt.device_trees) == 4
+    np.testing.assert_allclose(bst._gbdt.valids[0].score.cpu().numpy(),
+                               ref._gbdt.valids[0].score.cpu().numpy(),
+                               atol=1e-6)
+
+
+def test_csr_and_csv_inputs_train_on_the_card(dev, tmp_path):
+    import scipy.sparse as sparse
+
+    X, y = _api_data()
+    X[np.abs(X) < 0.8] = 0.0
+    dense = lgb.train(API_PARAMS, lgb.Dataset(X, label=y), 4)
+    csr = lgb.train(API_PARAMS, lgb.Dataset(sparse.csr_matrix(X), label=y), 4)
+    path = tmp_path / "d.csv"
+    np.savetxt(path, np.column_stack([y, X.astype(np.float64)]),
+               delimiter=",", fmt="%.17g")
+    csv = lgb.train(API_PARAMS, lgb.Dataset(str(path)), 4)
+    assert csv.model_to_string() == dense.model_to_string()
+    np.testing.assert_allclose(csr.predict(X), dense.predict(X), atol=1e-5)
+    assert csr._gbdt.device.type == "cuda"
