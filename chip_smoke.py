@@ -1174,7 +1174,9 @@ def airline_like(rows: int, valid_rows: int, seed: int = 23,
 def small_phase(lgb, np):
     """Small runs on the card against the same runs on the CPU: the
     default path, the exact path, use_quantized_grad (int8 modes),
-    regression_l1 (the percentile refit), categorical runs on the int16,
+    regression_l1 (the percentile refit), DART (dropping more often than
+    its defaults), RF and every per-node extra on together, categorical
+    runs on the int16,
     use_quantized_grad (as bench.py sets it, and without stochastic
     rounding and leaf renewal) and bf16x2 paths, and the sampled runs
     (sampled_runs); the first categorical use_quantized_grad run and the
@@ -1188,7 +1190,10 @@ def small_phase(lgb, np):
             ("default", {}, y),
             ("exact", {"tpu_growth_mode": "exact"}, y),
             ("quant", QUANT_PARAMS, y),
-            ("l1", {"objective": "regression_l1"}, z)):
+            ("l1", {"objective": "regression_l1"}, z),
+            ("dart", dict(DART_PARAMS, drop_rate=0.3, skip_drop=0.2), y),
+            ("rf", RF_PARAMS, y),
+            ("extras", extras_params(X.shape[1]), y)):
         preds = {}
         for device in ("cuda", "cpu"):
             p = dict(params, device_type=device, **extra)
@@ -1666,6 +1671,8 @@ FUSED_NEEDS = {
                   "seg_sum"),
     "train_rank": ("hist_round", "hist_nat", "take_small", "seg_sum",
                    "lambdarank"),
+    "train_extras": ("hist_round", "hist_nat", "take_small", "seg_sum"),
+    "train_forced": ("hist_round", "hist_nat", "take_small", "seg_sum"),
     "train_rank_xendcg": ("hist_round", "hist_nat", "take_small",
                           "seg_sum"),
 }
@@ -1709,7 +1716,8 @@ def loop_profile(torch, run, n_trees):
             "device_ops_per_tree": ops / n_trees}, names
 
 
-def fused_vs_eager(torch, lgb, ds, vs, name, extra, n_timed=6, n_skip=0):
+def fused_vs_eager(torch, lgb, ds, vs, name, extra, n_timed=6, n_skip=0,
+                   check=None):
     """The eager loop, then the fused CUDA-graph loop, on the same data
     and parameters at the headline widths: n_skip untimed trees (GOSS
     samples from tree 12), 1 warm-up tree, n_timed timed trees. Eager:
@@ -1726,7 +1734,9 @@ def fused_vs_eager(torch, lgb, ds, vs, name, extra, n_timed=6, n_skip=0):
     and overflows. Holds model text and validation scores bitwise equal,
     eval records within 1e-5, 0 overflows and FUSED_NEEDS[name] in the
     graph (their wrappers ran during the capture; the profile's kernel
-    symbols of two replays are printed beside)."""
+    symbols of two replays are printed beside). check(booster), when
+    given, holds each loop's model (it raises) and its result is printed
+    under the loop."""
     from lightgbm_tpu_torch.learner import cuda_hist as ch
 
     params = {"objective": "binary", "num_leaves": L, "max_bin": 255,
@@ -1773,6 +1783,7 @@ def fused_vs_eager(torch, lgb, ds, vs, name, extra, n_timed=6, n_skip=0):
                 gb.fused_dispatch(2)
                 gb.fused_collect()
         launches = {k: v for k, v in ch.LAUNCHES.items() if v}
+        checked = check(bst) if check is not None else None
         res[loop] = (bst.model_to_string(),
                      gb.valids[0].score.clone(), records)
         prof, names = loop_profile(torch, two, 2)
@@ -1780,6 +1791,8 @@ def fused_vs_eager(torch, lgb, ds, vs, name, extra, n_timed=6, n_skip=0):
                       "host_ms_per_tree": host * 1e3 / n_timed,
                       "wall_ms_per_tree": wall * 1e3 / n_timed,
                       "launches_counted": launches, **prof}
+        if checked is not None:
+            line[loop]["check"] = checked
         if loop == "fused":
             fp = gb._fused
             r = sorted(fp.rounds)
@@ -1833,6 +1846,210 @@ BAG_PARAMS = {"bagging_fraction": 0.8, "bagging_freq": 1,
               "feature_fraction": 0.8}
 GOSS_PARAMS = {"data_sample_strategy": "goss", "top_rate": 0.2,
                "other_rate": 0.1}
+
+
+# DART at LightGBM's defaults, RF as its docs set it (bagging at the
+# bootstrap's 0.632 plus feature_fraction)
+DART_PARAMS = {"boosting": "dart", "drop_rate": 0.1, "skip_drop": 0.5,
+               "max_drop": 50}
+RF_PARAMS = {"boosting": "rf", "bagging_fraction": 0.632, "bagging_freq": 1,
+             "feature_fraction": 0.8}
+# the kernels of the int16 rounds path that DART, RF, the extras and the
+# forced plan run
+INT16_NEEDS = ("hist_round", "hist_nat", "take_small", "seg_sum")
+
+
+def extras_params(n_feat: int) -> dict:
+    """Every per-node extra on together: extra_trees, a per-node half of
+    the features, two interaction groups (the first and second half of
+    the columns), and split + lazy CEGB costs of about one gain unit at
+    the root of 1M rows."""
+    half = n_feat // 2
+    groups = [list(range(half)), list(range(half, n_feat))]
+    return {"extra_trees": True, "feature_fraction_bynode": 0.5,
+            "interaction_constraints": ",".join(
+                "[" + ",".join(map(str, g)) + "]" for g in groups),
+            "cegb_penalty_split": 1e-6,
+            "cegb_penalty_feature_lazy": [2e-6] * n_feat}
+
+
+def group_crossings(bst, n_feat: int) -> dict:
+    """Root-to-leaf paths of every tree, and those whose split features
+    fall in both halves of the columns (there must be none)."""
+    half = n_feat // 2
+    paths = crossing = 0
+    for tree in bst._gbdt.models:
+        stack = [(0, frozenset())]
+        while stack:
+            n, feats = stack.pop()
+            if n < 0 or tree.num_leaves < 2:
+                paths += 1
+                lo = any(f < half for f in feats)
+                crossing += lo and any(f >= half for f in feats)
+                continue
+            f = feats | {int(tree.split_feature[n])}
+            stack += [(int(tree.left_child[n]), f),
+                      (int(tree.right_child[n]), f)]
+    if crossing or not paths:
+        raise AssertionError(f"{crossing} of {paths} paths cross the "
+                             "interaction groups")
+    return {"paths": paths, "crossing_paths": crossing}
+
+
+# a 3-level forced plan (7 splits) on the first seven columns at 0.0,
+# their medians
+FORCED_PLAN = {"feature": 0, "threshold": 0.0,
+               "left": {"feature": 1, "threshold": 0.0,
+                        "left": {"feature": 3, "threshold": 0.0},
+                        "right": {"feature": 4, "threshold": 0.0}},
+               "right": {"feature": 2, "threshold": 0.0,
+                         "left": {"feature": 5, "threshold": 0.0},
+                         "right": {"feature": 6, "threshold": 0.0}}}
+
+
+def forced_plan_held(bst) -> dict:
+    """The first 7 splits of every tree are the plan: nodes 0..6 split
+    features 0..6 in BFS order at the bin bound nearest 0, node i's
+    children nodes 2i + 1 and 2i + 2."""
+    trees = bst._gbdt.models
+    for i, tree in enumerate(trees):
+        ok = (tree.num_leaves > 7
+              and list(tree.split_feature[:7]) == list(range(7))
+              and all(abs(float(tree.threshold[n])) < 0.05
+                      for n in range(7))
+              and all(int(tree.left_child[n]) == 2 * n + 1
+                      and int(tree.right_child[n]) == 2 * n + 2
+                      for n in range(3)))
+        if not ok:
+            raise AssertionError(f"tree {i} does not start with the plan: "
+                                 f"{list(tree.split_feature[:7])}")
+    return {"trees_starting_with_plan": len(trees)}
+
+
+def fresh_train_score(torch, gb):
+    """The train score rebuilt from the stored model: each device tree
+    traversed over the binned rows, its leaf values summed."""
+    score = torch.zeros_like(gb.train.score[0])
+    for arrays in gb.device_trees:
+        leaf = gb._traverse(arrays, gb.train.dev).long()
+        score += torch.where(leaf >= 0, arrays.leaf_value[leaf.clamp_min(0)],
+                             torch.zeros_like(score))
+    return score
+
+
+def train_dart_phase(torch, lgb, ch, np, ds, vs, n_trees=30):
+    """DART at its defaults on the headline workload, eager loop (its
+    fused_ineligible_reason): AUC after the first and the last tree,
+    drops a tree, trees/s, device ms a tree (2 profiled trees), and the
+    train score against a fresh traversal of the stored, renormalized
+    model (within 1e-4)."""
+    params = {"objective": "binary", "num_leaves": L, "max_bin": 255,
+              "learning_rate": 0.1, "min_data_in_leaf": 20, "metric": "auc",
+              "verbosity": -1, **DART_PARAMS}
+    bst = lgb.Booster(params, ds)
+    bst.add_valid(vs, "valid")
+    gb = bst._gbdt
+    drops = []
+    select = gb._select_drops
+
+    def recording():
+        d = select()
+        drops.append(len(d))
+        return d
+
+    gb._select_drops = recording
+    ch.reset_launch_counts()
+    bst.update()
+    auc1 = bst.eval_valid()[0][2]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_trees - 3):
+        bst.update()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    prof, _names = loop_profile(torch, lambda: (bst.update(), bst.update()),
+                                2)
+    launches = {k: v for k, v in ch.LAUNCHES.items() if v}
+    auc_last = bst.eval_valid()[0][2]
+    n = gb.train_set.num_data
+    err = float((fresh_train_score(torch, gb)[:n]
+                 - gb.train.score[0, :n]).abs().max())
+    line = {"phase": "train_dart", **DART_PARAMS, "rows": n,
+            "num_leaves": L, "trees": len(gb.models),
+            "trees_per_s": (n_trees - 3) / dt, "auc_tree1": auc1,
+            "auc_last": auc_last, "drops_per_tree": float(np.mean(drops)),
+            "iterations_with_drops": int(sum(d > 0 for d in drops)),
+            "max_drops": max(drops), "launches": launches,
+            "launches_per_tree": {k: v / n_trees for k, v in launches.items()},
+            "train_score_vs_fresh_traversal": err, "tolerance": 1e-4,
+            "fused_ineligible_reason": gb.fused_ineligible_reason(), **prof}
+    emit(line)
+    missing = [k for k in INT16_NEEDS if not launches.get(k)]
+    if missing or not sum(drops):
+        raise AssertionError(f"train_dart: {missing} not launched, "
+                             f"{sum(drops)} drops")
+    if not (auc_last > auc1 and err < 1e-4 and len(gb.models) == n_trees):
+        raise AssertionError(f"train_dart: AUC {auc1} -> {auc_last}, "
+                             f"score vs fresh traversal {err}")
+    return line
+
+
+def train_rf_phase(torch, lgb, ch, np, ds, vs, Xv, n_trees=30):
+    """Random forest on the headline workload, eager loop: AUC after the
+    first and the last tree, trees/s; the validation score against the
+    mean of the host walker's per-tree predictions; a save / load round
+    trip; Booster.predict(device="cuda") (the tensorized forest's
+    average_output branch) against the host walker within 1e-5."""
+    params = {"objective": "binary", "num_leaves": L, "max_bin": 255,
+              "min_data_in_leaf": 20, "metric": "auc", "verbosity": -1,
+              **RF_PARAMS}
+    bst = lgb.Booster(params, ds)
+    bst.add_valid(vs, "valid")
+    gb = bst._gbdt
+    ch.reset_launch_counts()
+    bst.update()
+    auc1 = bst.eval_valid()[0][2]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_trees - 3):
+        bst.update()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    prof, _names = loop_profile(torch, lambda: (bst.update(), bst.update()),
+                                2)
+    launches = {k: v for k, v in ch.LAUNCHES.items() if v}
+    auc_last = bst.eval_valid()[0][2]
+    rows = Xv[:2000]
+    per_tree = np.stack([t.predict(rows) for t in gb.models])
+    card = gb.valids[0].score[0, :2000].cpu().numpy().astype(np.float64)
+    mean_err = float(np.abs(card - per_tree.mean(axis=0)).max())
+    path = Path("build") / "chip_smoke" / "rf_model.txt"
+    bst.save_model(path)
+    host = bst.predict(Xv[:20000], raw_score=True)
+    reloaded = lgb.Booster(model_file=path).predict(Xv[:20000],
+                                                    raw_score=True)
+    on_card = bst.predict(Xv[:20000], raw_score=True, device="cuda")
+    card_err = float(np.abs(on_card - host).max())
+    line = {"phase": "train_rf", **RF_PARAMS, "rows": gb.train_set.num_data,
+            "num_leaves": L, "trees": len(gb.models),
+            "trees_per_s": (n_trees - 3) / dt, "auc_tree1": auc1,
+            "auc_last": auc_last,
+            "valid_score_vs_mean_of_trees": mean_err,
+            "identical_after_reload": bool(np.array_equal(host, reloaded)),
+            "predict_cuda_vs_host": card_err, "tolerance": 1e-5,
+            "launches": launches,
+            "launches_per_tree": {k: v / n_trees for k, v in launches.items()},
+            "fused_ineligible_reason": gb.fused_ineligible_reason(), **prof}
+    emit(line)
+    missing = [k for k in INT16_NEEDS if not launches.get(k)]
+    if missing:
+        raise AssertionError(f"train_rf: {missing} not launched")
+    if not (auc_last > auc1 and mean_err < 1e-4 and card_err < 1e-5
+            and line["identical_after_reload"]):
+        raise AssertionError(f"train_rf: AUC {auc1} -> {auc_last}, mean "
+                             f"{mean_err}, card {card_err}, reload "
+                             f"{line['identical_after_reload']}")
+    return line
 
 
 def bag_ties(torch, gb, it: int, mask) -> dict:
@@ -3359,6 +3576,19 @@ def main() -> int:
             ("train_f32", (ds, vs), F32_PATHS["train_f32"], 0)):
         fused_lines[name] = fused_vs_eager(torch, lgb, *sets, name, extra,
                                            n_skip=skip)
+
+    # ---- DART and RF (eager loop), every per-node extra on together and
+    # a 3-level forced plan (both loops, in turns)
+    train_dart_phase(torch, lgb, ch, np, ds, vs)
+    train_rf_phase(torch, lgb, ch, np, ds, vs, Xv)
+    fused_lines["train_extras"] = fused_vs_eager(
+        torch, lgb, ds, vs, "train_extras", extras_params(X.shape[1]),
+        check=lambda b: group_crossings(b, X.shape[1]))
+    forced_path = Path("build") / "chip_smoke" / "forced.json"
+    forced_path.write_text(json.dumps(FORCED_PLAN))
+    fused_lines["train_forced"] = fused_vs_eager(
+        torch, lgb, ds, vs, "train_forced",
+        {"forcedsplits_filename": str(forced_path)}, check=forced_plan_held)
 
     # ---- hist_round in each mode on its path's first and fullest rounds
     # (the int16 mode also on the sampled paths' first sampled trees), and

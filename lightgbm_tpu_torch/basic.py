@@ -565,7 +565,7 @@ class Booster:
             if not isinstance(train_set, Dataset):
                 raise TypeError("Training data should be Dataset instance, "
                                 f"met {type(train_set).__name__}")
-            from .boosting import GBDT
+            from .boosting import create_boosting
             from .config import DATASET_PARAMS, resolve_alias
 
             net = {resolve_alias(k): v for k, v in self.params.items()}
@@ -576,7 +576,7 @@ class Booster:
             ds_part = {k: v for k, v in train_set.params.items()
                        if resolve_alias(k) in DATASET_PARAMS}
             self.config = Config({**ds_part, **self.params})
-            self._gbdt = GBDT(self.config, train_set._binned)
+            self._gbdt = create_boosting(self.config, train_set._binned)
             self.train_set = train_set
             self._valid_sets: List[Dataset] = []
             self._name_valid_sets: List[str] = []
@@ -640,6 +640,9 @@ class Booster:
             raise LightGBMError("Resetting train_set is not supported")
         if fobj is None:
             return self._gbdt.train_one_iter()
+        # DART drops its trees before the score is read (dart.hpp:80)
+        if hasattr(self._gbdt, "before_gradients"):
+            self._gbdt.before_gradients()
         grad, hess = fobj(self._inner_predict_raw(0), self.train_set)
         return self._gbdt.train_one_iter(np.asarray(grad), np.asarray(hess))
 

@@ -37,8 +37,20 @@ traversals and the device metrics (device_metrics.py), with the sticky
 (_FusedProgram). Its loops are bounded and skip their idle steps inside
 the graph (learner/device_loop.py), so its trees and scores are the
 eager loop's bit for bit. The exact grower (tpu_growth_mode=exact) reads
-the card once per split and stays on the eager loop (ROADMAP A). DART,
-RF, per-node sampling and the other options the main path does not run
+the card once per split and stays on the eager loop (ROADMAP A).
+
+The per-node extras (extra_trees, feature_fraction_bynode, the CEGB
+penalties, interaction_constraints) and forced splits
+(forcedsplits_filename) are set up here as the JAX package sets them up
+(boosting.py:458-567): the (groups, used features) matrix, the CEGB
+tables, the forced plan read from its JSON file, and the node key
+fold_in(key(extra_seed), it * K + k) of each tree; the growers apply
+them. They run on both loops, but coupled CEGB, whose used features
+carry across trees, stays on the eager loop. DART and RF (the
+subclasses at the end, create_boosting) run on the eager loop only, as
+in the JAX package: DART drops and rescales past trees every
+iteration, RF averages every score set. Linear trees, the distributed
+learners, tpu_debug_check_split and monotone intermediate / advanced
 raise NotImplementedError (ROADMAP queue A).
 """
 
@@ -56,6 +68,8 @@ from .dataset import BinnedDataset
 from .learner import cuda_hist
 from .learner.device_loop import BOUNDED, EAGER, CudaGraph, DeviceLoop
 from .learner.grower import (
+    CegbInfo,
+    ForcedSplits,
     GrowerSpec,
     TreeArrays,
     add_score,
@@ -96,8 +110,10 @@ UNPORTED_KEYS = {
 }
 
 
-def check_supported(config: Config, train_set: BinnedDataset) -> None:
-    """Refuse every option the port does not implement yet, loudly."""
+def check_supported(config: Config) -> None:
+    """Refuse every option the port does not implement yet, loudly
+    (monotone intermediate / advanced: GBDT.__init__, which knows whether
+    the JAX package would fall back to basic)."""
     from .config import _PARAMS
 
     c = config
@@ -106,30 +122,80 @@ def check_supported(config: Config, train_set: BinnedDataset) -> None:
             raise NotImplementedError(
                 f"{key}={getattr(c, key)!r} is not ported yet (ROADMAP "
                 f"{item})")
-    if c.boosting != "gbdt":
-        raise NotImplementedError(f"boosting={c.boosting} is not ported yet "
-                                  "(ROADMAP A.4)")
-    if c.feature_fraction_bynode < 1.0 or c.extra_trees:
-        _not_ported("per-node extras (feature_fraction_bynode, extra_trees)")
-    if (c.cegb_penalty_split > 0.0 or c.cegb_penalty_feature_coupled
-            or c.cegb_penalty_feature_lazy):
-        _not_ported("CEGB penalties")
-    if c.interaction_constraints:
-        _not_ported("interaction_constraints")
-    if c.forcedsplits_filename:
-        _not_ported("forced splits")
+    if c.boosting not in ("gbdt", "dart", "rf"):
+        log.fatal(f"Unknown boosting type {c.boosting}")
     if c.linear_tree:
-        _not_ported("linear_tree")
+        _not_ported("linear_tree (A.6)")
     if c.tree_learner not in ("serial",):
-        _not_ported(f"tree_learner={c.tree_learner} (distributed learners)")
+        _not_ported(f"tree_learner={c.tree_learner} (distributed learners, "
+                    "A.8)")
     if c.tpu_debug_check_split:
         _not_ported("tpu_debug_check_split")
+
+
+def _mono_beyond_basic(config: Config, train_set: BinnedDataset) -> bool:
+    """Monotone constraints under method intermediate or advanced."""
     mono = train_set.monotone_constraints
-    if (mono is not None and np.any(mono != 0)
-            and c.monotone_constraints_method in ("intermediate",
-                                                  "advanced")):
-        _not_ported(f"monotone_constraints_method="
-                    f"{c.monotone_constraints_method}")
+    return bool(mono is not None and np.any(mono != 0)
+                and config.monotone_constraints_method in ("intermediate",
+                                                           "advanced"))
+
+
+def _load_forced_splits(path: str, ds: BinnedDataset,
+                        device) -> Optional[ForcedSplits]:
+    """A forcedsplits JSON file -> its BFS plan (the JAX package's
+    _load_forced_splits, boosting.py:226; ForceSplits,
+    serial_tree_learner.cpp:627): each node {feature, threshold, left?,
+    right?}; a threshold maps to a bin through the feature's mapper; the
+    left child keeps its parent's leaf id and the right child takes
+    i + 1 (Tree::Split numbering). A bad file, or a plan with no usable
+    split, warns and returns None."""
+    import json
+    from collections import deque
+
+    from .binning import BinType
+
+    try:
+        with open(path) as f:
+            root = json.load(f)
+    except (OSError, ValueError) as e:
+        log.warning(f"cannot read forcedsplits_filename {path}: {e}")
+        return None
+    used_pos = {int(f): i for i, f in enumerate(ds.used_features)}
+    leaves, feats, bins_ = [], [], []
+    q = deque([(root, 0)])
+    i = 0
+    while q:
+        node, leaf = q.popleft()
+        if not isinstance(node, dict) or "feature" not in node:
+            continue
+        f_orig = int(node["feature"])
+        if f_orig not in used_pos:
+            log.warning(f"forced split on unused/trivial feature {f_orig}; "
+                        "skipping this branch")
+            continue
+        m = ds.mappers[f_orig]
+        if m.bin_type == BinType.CATEGORICAL:
+            log.warning("forced splits on categorical features are not "
+                        f"supported; skipping feature {f_orig}")
+            continue
+        thr = float(node.get("threshold", 0.0))
+        b = int(np.searchsorted(m.upper_bounds, thr, side="left"))
+        b = min(b, max(m.num_bin - 2, 0))
+        leaves.append(leaf)
+        feats.append(used_pos[f_orig])
+        bins_.append(b)
+        new_leaf = i + 1  # the right child's leaf id
+        if isinstance(node.get("left"), dict):
+            q.append((node["left"], leaf))
+        if isinstance(node.get("right"), dict):
+            q.append((node["right"], new_leaf))
+        i += 1
+    if not leaves:
+        return None
+    t = lambda v: torch.tensor(v, dtype=torch.int32, device=device)
+    return ForcedSplits(leaf=t(leaves), feature=t(feats), bin=t(bins_),
+                        n=len(leaves))
 
 
 def tree_arrays_to_host(a: TreeArrays) -> TreeArrays:
@@ -160,6 +226,8 @@ class GBDT:
         self._fused: Optional[_FusedProgram] = None
         self.fused_overflow_count = 0  # iterations re-run on the eager loop
         self.objective: Optional[ObjectiveFunction] = None
+        # why this configuration stays on the eager loop, if it must
+        self._force_sync_reason: Optional[str] = None
         if train_set is None:
             return  # prediction-only booster (model loaded from text)
 
@@ -167,7 +235,7 @@ class GBDT:
         from .learner.quantize import resolve_hist_dtype
 
         warn_unimplemented(config)
-        check_supported(config, train_set)
+        check_supported(config)
         self.device = torch.device(resolve_device(config))
         self.objective = create_objective(config)
         # growth strategy (boosting.py:604-689 of the JAX package): `auto`
@@ -211,6 +279,20 @@ class GBDT:
 
         cats = [m for m in train_set.used_mappers()
                 if m.bin_type == BinType.CATEGORICAL]
+        n_groups, n_forced = self._setup_node_extras(config, train_set)
+        use_extra = config.extra_trees
+        use_bynode = config.feature_fraction_bynode < 1.0
+        extras = bool(use_extra or use_bynode or self._cegb_info is not None
+                      or n_groups)
+        if _mono_beyond_basic(config, train_set):
+            if not (extras or n_forced):
+                _not_ported(f"monotone_constraints_method="
+                            f"{config.monotone_constraints_method} (A.5)")
+            log.warning(
+                "monotone_constraints_method=intermediate/advanced is "
+                "incompatible with per-node extras / forced splits / "
+                "voting / tree_learner=feature; falling back to "
+                "method=basic")
         self.spec = GrowerSpec(
             num_leaves=config.num_leaves,
             num_bins=train_set.max_num_bin,
@@ -230,12 +312,20 @@ class GBDT:
                                   or self._int_packed),
             quant_int8=use_rounds and levels <= 127 and (
                 qgrad or self._int_packed),
-            rounds=config.tpu_growth_rounds and not use_rounds,
+            # the permuted grower's round phase excludes the extras and
+            # forced splits (permuted.py:212-213)
+            rounds=(config.tpu_growth_rounds and not use_rounds
+                    and not n_forced and not extras),
             # sorted-subset search when a categorical is wider than
             # max_cat_to_onehot (boosting.py:448-452 of the JAX package)
             cat_subset=any(m.num_bin > config.max_cat_to_onehot
                            for m in cats),
             has_cat=bool(cats),
+            extra_trees=use_extra,
+            ff_bynode=use_bynode,
+            cegb=self._cegb_info is not None,
+            n_groups=n_groups,
+            n_forced=n_forced,
         )
         self.params = make_split_params(config)
         self.train = self._score_set(train_set, "training", self.dev)
@@ -244,8 +334,66 @@ class GBDT:
         # tree by one level at most)
         L = config.num_leaves
         self._max_levels = min(
-            L - 1, round_cap(L, self.spec.rounds_slots or 1),
-            config.max_depth if config.max_depth > 0 else L - 1)
+            L - 1, round_cap(L, self.spec.rounds_slots or 1) + n_forced,
+            config.max_depth if config.max_depth > 0 and not n_forced
+            else L - 1)
+
+    def _setup_node_extras(self, config: Config, train_set: BinnedDataset):
+        """The per-node extras' and forced splits' tables (the JAX
+        package's GBDT.__init__, boosting.py:458-567): the (groups, used
+        features) interaction matrix, the CEGB penalties over the used
+        features (a list of the wrong length is fatal), the forced plan,
+        and the node key of extra_trees / feature_fraction_bynode.
+        Returns (groups, forced splits)."""
+        from .config import parse_interaction_constraints
+
+        used = [int(f) for f in train_set.used_features]
+        groups = parse_interaction_constraints(
+            config.interaction_constraints, len(train_set.mappers))
+        self._group_mat = None
+        if groups:
+            pos = {f: i for i, f in enumerate(used)}
+            gm = np.zeros((len(groups), len(used)), bool)
+            for gi, gr in enumerate(groups):
+                for f in gr:
+                    if f in pos:
+                        gm[gi, pos[f]] = True
+            self._group_mat = torch.from_numpy(gm).to(self.device)
+        self._cegb_info = None
+        if (config.cegb_penalty_split > 0.0
+                or len(config.cegb_penalty_feature_coupled) > 0
+                or len(config.cegb_penalty_feature_lazy) > 0):
+            def pen(t):
+                if not t:
+                    return torch.zeros(len(used), dtype=torch.float32,
+                                       device=self.device)
+                if len(t) != len(train_set.mappers):
+                    log.fatal("cegb_penalty_feature_* must have one entry "
+                              "per feature")
+                return torch.tensor([t[f] for f in used],
+                                    dtype=torch.float32, device=self.device)
+
+            self._cegb_info = CegbInfo(
+                coupled=pen(config.cegb_penalty_feature_coupled),
+                lazy=pen(config.cegb_penalty_feature_lazy),
+                used=torch.zeros(len(used), dtype=torch.bool,
+                                 device=self.device))
+            if len(config.cegb_penalty_feature_coupled) > 0:
+                # charged once per feature model-wide
+                # (is_feature_used_in_split_): each tree marks its
+                # features, between trees
+                self._force_sync_reason = (
+                    "coupled CEGB penalties track model-wide feature use")
+        self._forced = None
+        if config.forcedsplits_filename:
+            self._forced = _load_forced_splits(config.forcedsplits_filename,
+                                               train_set, self.device)
+        self._node_key = (rng.key(config.extra_seed, self.device)
+                          if (config.extra_trees
+                              or config.feature_fraction_bynode < 1.0)
+                          else None)
+        return (len(groups),
+                0 if self._forced is None else self._forced.n)
 
     # ------------------------------------------------------------------
     def _score_set(self, ds: BinnedDataset, name: str, dev) -> _ScoreSet:
@@ -326,32 +474,54 @@ class GBDT:
             if self._int_packed:
                 gq, hq, scale = self._quantize(gk, hk, it, k)
                 arrays, row_leaf = self._grow(gq, hq, mask, feat_mask,
-                                              valid, scale, loop)
+                                              valid, it, k, scale, loop)
                 if self._true_renew_ok:
                     arrays = self._renew_true(arrays, row_leaf, gk, hk, mask)
                 return arrays, row_leaf
-            return self._grow(gk, hk, mask, feat_mask, valid, None, loop)
+            return self._grow(gk, hk, mask, feat_mask, valid, it, k, None,
+                              loop)
         gq, hq, scale = self._quantize(gk, hk, it, k)
         if self.spec.quant:
             arrays, row_leaf = self._grow(gq, hq, mask, feat_mask, valid,
-                                          scale, loop)
+                                          it, k, scale, loop)
         else:
             arrays, row_leaf = self._grow(gq * scale[0], hq * scale[1], mask,
-                                          feat_mask, valid, None, loop)
+                                          feat_mask, valid, it, k, None,
+                                          loop)
         if c.quant_train_renew_leaf and self._quant_renew_ok:
             arrays = self._renew_true(arrays, row_leaf, gk, hk, mask)
         return arrays, row_leaf
 
-    def _grow(self, gk, hk, mask, feat_mask, valid, gh_scale=None,
+    def _grow(self, gk, hk, mask, feat_mask, valid, it, k, gh_scale=None,
               loop=None):
         """Grow one tree on f32 gradients, or on integer levels with
-        their scales (boosting._grow)."""
+        their scales (boosting._grow), with the per-node extras' node key
+        fold_in(key(extra_seed), it * K + k) (`it` a host int or the
+        fused loop's device counter)."""
         d = self.dev
+        rng_key = None
+        if self._node_key is not None:
+            rng_key = rng.fold_in(self._node_key, it * self.num_class + k)
         return grow_tree(
             d["bins"], d["nan_bin"], d["num_bins"], d["mono"], d["is_cat"],
             gk, hk, mask, feat_mask, self.params, self.spec, valid=valid,
             bundle=d["bundle"], gh_scale=gh_scale, loop=loop,
+            rng_key=rng_key, group_mat=self._group_mat,
+            cegb=self._cegb_info, forced=self._forced,
         )
+
+    def _mark_used(self, arrays: TreeArrays) -> None:
+        """Coupled CEGB: the tree's split features count as used for the
+        trees after it (the JAX package's sync loop, boosting.py:1312)."""
+        info = self._cegb_info
+        if info is None or not len(self.config.cegb_penalty_feature_coupled):
+            return
+        F = info.used.shape[0]
+        live = (torch.arange(arrays.node_feature.shape[0],
+                             device=info.used.device) < arrays.num_nodes)
+        hit = (arrays.node_feature.long()[:, None]
+               == torch.arange(F, device=info.used.device)[None, :])
+        info.used.logical_or_((hit & live[:, None]).any(dim=0))
 
     def _renewal_setup(self):
         """(alpha, weights) for the percentile leaf refit, or (None, None)
@@ -553,6 +723,7 @@ class GBDT:
             feat_mask = self._sample_features(it, k)
             arrays, row_leaf = self._grow_maybe_quantized(
                 gk, hk, mask, feat_mask, valid, it, k, loop)
+            self._mark_used(arrays)
             if renew_alpha is not None:
                 arrays = self._apply_renewal(arrays, row_leaf,
                                              self.train.score[k], mask,
@@ -620,6 +791,8 @@ class GBDT:
         logs it)."""
         from .device_metrics import supported_names
 
+        if self._force_sync_reason is not None:
+            return self._force_sync_reason
         if self.objective is None:
             return "no built-in objective (custom fobj)"
         if self.objective.has_host_state:
@@ -977,6 +1150,7 @@ class _FusedProgram:
         self.K = gb.num_class
         self.rows = gb._check_every  # the most iterations of a dispatch
         self.round_cap = round_cap(gb.spec.num_leaves, gb.spec.rounds_slots)
+        self.round_cap += gb.spec.n_forced  # a round a forced split
         self.eval_sets = []
         for ss in ([gb.train] if track_train else []) + gb.valids:
             names, hb = supported_names(ss.metrics)
@@ -1132,3 +1306,257 @@ class _FusedProgram:
                 out.append((ss.name, name, float(evals[j]), h))
                 j += 1
         return out
+
+
+class DART(GBDT):
+    """DART: dropouts meet multiple additive regression trees
+    (dart.hpp:23; the JAX package's DART, boosting.py:2432). Before each
+    iteration a random set of past iterations is dropped: their trees
+    leave the train score, so the gradients (a custom fobj's too) see the
+    reduced ensemble; the new trees are grown with shrinkage lr / (1 + k)
+    (lr / (lr + k) under xgboost_dart_mode); then the dropped trees are
+    scaled by k / (k + 1) (k / (k + lr)) for good, with every score set
+    moved to match. Each drop and rescale is a traversal of the binned
+    rows and a take_small score update on the card. Eager loop only."""
+
+    def __init__(self, config: Config, train_set: Optional[BinnedDataset]):
+        super().__init__(config, train_set)
+        self._force_sync_reason = ("DART dropout mutates past trees every "
+                                   "iteration")
+        self._tree_weight: List[float] = []  # per-iteration weights
+        self._sum_weight = 0.0
+        self._pending_drops: Optional[List[int]] = None
+
+    def _tree_score_delta(self, ss: _ScoreSet, arrays: TreeArrays, k: int,
+                          scale: float) -> None:
+        """score[k] += scale * tree over the score set's binned rows."""
+        leaf = self._traverse(arrays, ss.dev)
+        ss.score[k] = add_score(ss.score[k], leaf,
+                                self._on_device(arrays).leaf_value, scale)
+
+    def _select_drops(self) -> List[int]:
+        """The iterations this one drops: a pure function of (drop_seed,
+        iteration) through numpy's RandomState, as the JAX package draws
+        them; skip_drop skips the dropout, the first iteration drops
+        nothing; weighted by each tree's weight unless uniform_drop, at
+        most max_drop (> 0)."""
+        c = self.config
+        r = np.random.RandomState(
+            (int(c.drop_seed) * 2654435761 + self.iter_) % (2 ** 32))
+        if r.rand() < c.skip_drop or self.iter_ == 0:
+            return []
+        drops: List[int] = []
+        if not c.uniform_drop:
+            inv_avg = len(self._tree_weight) / max(self._sum_weight, 1e-300)
+            rate = c.drop_rate
+            if c.max_drop > 0:
+                rate = min(rate, c.max_drop * inv_avg
+                           / max(self._sum_weight, 1e-300))
+            for i in range(self.iter_):
+                if r.rand() < rate * self._tree_weight[i] * inv_avg:
+                    drops.append(i)
+                    if len(drops) >= c.max_drop > 0:
+                        break
+        else:
+            rate = c.drop_rate
+            if c.max_drop > 0:
+                rate = min(rate, c.max_drop / max(1, self.iter_))
+            for i in range(self.iter_):
+                if r.rand() < rate:
+                    drops.append(i)
+                    if len(drops) >= c.max_drop > 0:
+                        break
+        return drops
+
+    def _dropped_trees(self, drops: List[int]):
+        """(model index, class) of each split tree of the dropped
+        iterations."""
+        K = self.num_class
+        models = self.models
+        return [(i * K + k, k) for i in drops for k in range(K)
+                if models[i * K + k].num_leaves > 1]
+
+    def before_gradients(self) -> None:
+        """Take the dropped trees out of the train score and set this
+        iteration's shrinkage (dart.hpp:80 GetTrainingScore drops lazily,
+        so a custom objective also sees the dropped ensemble); once per
+        iteration."""
+        if self._pending_drops is not None:
+            return
+        c = self.config
+        drops = self._select_drops()
+        k_drop = float(len(drops))
+        for mi, k in self._dropped_trees(drops):
+            self._tree_score_delta(self.train, self.device_trees[mi], k, -1.0)
+        if not c.xgboost_dart_mode:
+            self.shrinkage_rate = c.learning_rate / (1.0 + k_drop)
+        else:
+            self.shrinkage_rate = (c.learning_rate if not drops
+                                   else c.learning_rate
+                                   / (c.learning_rate + k_drop))
+        self._pending_drops = drops
+
+    def train_one_iter(self, grad=None, hess=None) -> bool:
+        c = self.config
+        self.before_gradients()
+        drops = self._pending_drops or []
+        self._pending_drops = None
+        k_drop = float(len(drops))
+        stop = super().train_one_iter(grad, hess)
+        self._materialize()  # the stop check, every iteration
+        if stop or self._stopped:
+            # put the dropped trees back: the train score again sums the
+            # stored ensemble
+            for mi, k in self._dropped_trees(drops):
+                self._tree_score_delta(self.train, self.device_trees[mi], k,
+                                       1.0)
+            return True
+        if drops:
+            # Normalize (dart.hpp): each dropped tree keeps `factor` of
+            # its weight; the train score lacks it, the valid scores
+            # still hold all of it
+            if not c.xgboost_dart_mode:
+                factor = k_drop / (k_drop + 1.0)
+                valid_delta = -1.0 / (k_drop + 1.0)
+            else:
+                factor = k_drop / (k_drop + c.learning_rate)
+                valid_delta = -c.learning_rate / (k_drop + c.learning_rate)
+            models = self.models
+            for mi, k in self._dropped_trees(drops):
+                arrays = self._on_device(self.device_trees[mi])
+                for vs in self.valids:
+                    self._tree_score_delta(vs, arrays, k, valid_delta)
+                self._tree_score_delta(self.train, arrays, k, factor)
+                self.device_trees[mi] = arrays._replace(
+                    leaf_value=arrays.leaf_value * factor)
+                models[mi].leaf_value = models[mi].leaf_value * factor
+                models[mi].shrinkage *= factor
+            if not c.uniform_drop:
+                for i in drops:
+                    self._sum_weight -= self._tree_weight[i] / (
+                        k_drop + (1.0 if not c.xgboost_dart_mode
+                                  else c.learning_rate))
+                    self._tree_weight[i] *= factor
+        if not c.uniform_drop:
+            self._tree_weight.append(self.shrinkage_rate)
+            self._sum_weight += self.shrinkage_rate
+        return False
+
+
+class RF(GBDT):
+    """Random forest (rf.hpp:25; the JAX package's RF, boosting.py:2579):
+    the gradients are computed once, from the constant initial score;
+    each tree is grown on its bag / feature sample with shrinkage 1,
+    carries the initial score itself (AddBias), and every score set holds
+    the running average (score * m + tree) / (m + 1) of the m + 1 trees
+    so far; prediction averages the trees (average_output). The
+    renewing objectives refit each tree's leaves on label - init (the
+    percentile refit, hist_nat's f32 mode on the card). Eager loop
+    only."""
+
+    def __init__(self, config: Config, train_set: Optional[BinnedDataset]):
+        c = config
+        if train_set is not None and c.data_sample_strategy == "bagging":
+            bag_ok = c.bagging_freq > 0 and 0.0 < c.bagging_fraction < 1.0
+            feat_ok = 0.0 < c.feature_fraction < 1.0
+            if not (bag_ok or feat_ok):
+                log.fatal("RF mode requires bagging (bagging_freq>0, "
+                          "bagging_fraction in (0,1)) or feature_fraction "
+                          "in (0,1)")
+        super().__init__(config, train_set)
+        self._force_sync_reason = ("random forest averages scores per "
+                                   "iteration")
+        self.average_output = True
+        self.shrinkage_rate = 1.0
+        if train_set is None:
+            return
+        if self.objective is None:
+            log.fatal("RF mode does not support custom objective functions")
+        K = self.num_class
+        self._rf_init_scores = [
+            (self.objective.boost_from_score(k) if c.boost_from_average
+             else 0.0) for k in range(K)]
+        const = torch.tensor(self._rf_init_scores, dtype=torch.float32,
+                             device=self.device)[:, None].expand(
+            K, train_set.num_rows_padded()).contiguous()
+        score = const if K > 1 else const[0]
+        g, h = (self.objective.get_gradients(score, 0)
+                if self.objective.needs_iter
+                else self.objective.get_gradients(score))
+        self._rf_grad = g.reshape(K, -1).to(torch.float32)
+        self._rf_hess = h.reshape(K, -1).to(torch.float32)
+
+    def train_one_iter(self, grad=None, hess=None) -> bool:
+        from .learner.renewal import renew_leaf_values
+
+        if grad is not None or hess is not None:
+            log.fatal("RF mode does not support custom objective functions")
+        K = self.num_class
+        m = float(self.iter_)  # trees already averaged into the scores
+        valid = self.dev["valid"]
+        renew_alpha, renew_w = self._renewal_setup()
+        models = self.models
+        for k in range(K):
+            mask, gk, hk = self.strategy.sample(
+                self.iter_, self._rf_grad[k], self._rf_hess[k], valid,
+                self._label_dev)
+            feat_mask = self._sample_features(self.iter_, k)
+            arrays, row_leaf = self._grow_maybe_quantized(
+                gk, hk, mask, feat_mask, valid, self.iter_, k,
+                DeviceLoop(EAGER))
+            self._mark_used(arrays)
+            init_k = self._rf_init_scores[k]
+            if int(arrays.num_nodes) > 0:
+                if renew_alpha is not None:
+                    arrays = arrays._replace(leaf_value=renew_leaf_values(
+                        arrays.leaf_value, row_leaf,
+                        self._label_dev - init_k, renew_w * mask,
+                        renew_alpha, self.spec.num_leaves))
+                tree = Tree.from_arrays(tree_arrays_to_host(arrays),
+                                        self.train_set, 1.0)
+                tree.leaf_value = tree.leaf_value + init_k
+                arrays = arrays._replace(leaf_value=arrays.leaf_value + init_k)
+            else:
+                tree = Tree(num_leaves=1, shrinkage=1.0)
+                tree.leaf_value = np.array([init_k], np.float64)
+                lv = arrays.leaf_value.clone()
+                lv[:1].fill_(init_k)
+                arrays = arrays._replace(leaf_value=lv)
+            for ss, leaf in [(self.train, row_leaf)] + [
+                    (vs, self._traverse(arrays, vs.dev))
+                    for vs in self.valids]:
+                sc = add_score(ss.score[k] * m, leaf, arrays.leaf_value, 1.0)
+                ss.score[k] = sc / (m + 1.0)
+            models.append(tree)
+            self.device_trees.append(arrays)
+        self.iter_ += 1
+        return False
+
+    def rollback_one_iter(self) -> None:
+        """Take the last iteration's trees out of the running averages."""
+        if self.iter_ <= 0:
+            return
+        m = float(self.iter_)
+        models = self.models
+        for k in reversed(range(self.num_class)):
+            models.pop()
+            arrays = self._on_device(self.device_trees.pop())
+            for ss in [self.train] + self.valids:
+                leaf = self._traverse(arrays, ss.dev)
+                sc = ss.score[k] * m - arrays.leaf_value[leaf.long()]
+                ss.score[k] = sc / (m - 1.0) if m > 1 else sc * 0
+        self.iter_ -= 1
+
+
+def create_boosting(config: Config,
+                    train_set: Optional[BinnedDataset]) -> GBDT:
+    """The boosting factory (boosting.cpp:40; the JAX package's
+    create_boosting)."""
+    b = config.boosting
+    if b == "gbdt":
+        return GBDT(config, train_set)
+    if b == "dart":
+        return DART(config, train_set)
+    if b == "rf":
+        return RF(config, train_set)
+    log.fatal(f"Unknown boosting type {b}")

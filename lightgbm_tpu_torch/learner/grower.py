@@ -4,18 +4,22 @@ The port of lightgbm_tpu/learner/grower.py: the fixed-size tree layout
 of the reference (include/LightGBM/tree.h; child pointers >= 0 are
 internal nodes, < 0 leaves as ~leaf), the leaf output math of a chosen
 split, the basic monotone intervals, the score update through the
-row -> leaf vector, and grow_tree's dispatch between the rounds grower
-(rounds.py) and the sequential permuted grower (permuted.py). The JAX
-package's flat grower is not ported.
+row -> leaf vector, the per-node split candidates (make_node_candidates:
+interaction constraints, feature_fraction_bynode, extra_trees and the
+CEGB penalties) and the forced-split plan both growers share, and
+grow_tree's dispatch between the rounds grower (rounds.py) and the
+sequential permuted grower (permuted.py). The JAX package's flat grower
+is not ported.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from .split import SplitParams, SplitRecord, leaf_output
+from .. import rng
+from .split import SplitParams, SplitRecord, leaf_gain, leaf_output
 
 
 class GrowerSpec(NamedTuple):
@@ -46,6 +50,42 @@ class GrowerSpec(NamedTuple):
     # categorical directions and the rounds grower's fused pass takes the
     # per-slot category sets (hist_round's categorical mode)
     has_cat: bool = False
+    # per-node extras (make_node_candidates): one random numerical
+    # threshold per feature and node (extra_trees), a per-node feature
+    # subsample (feature_fraction_bynode < 1), the CEGB penalties, and
+    # the number of interaction-constraint groups (0 = unconstrained)
+    extra_trees: bool = False
+    ff_bynode: bool = False
+    cegb: bool = False
+    n_groups: int = 0
+    # length of the forced-split plan (forcedsplits_filename), 0 = none
+    n_forced: int = 0
+
+    @property
+    def per_node(self) -> bool:
+        return bool(self.extra_trees or self.ff_bynode or self.cegb
+                    or self.n_groups)
+
+
+class CegbInfo(NamedTuple):
+    """CEGB penalty tables over the used features
+    (cost_effective_gradient_boosting.hpp)."""
+
+    coupled: torch.Tensor  # (F,) f32 — once per feature, model-wide
+    lazy: torch.Tensor  # (F,) f32 — per row, along each tree path
+    used: torch.Tensor  # (F,) bool — features earlier trees split on
+
+
+class ForcedSplits(NamedTuple):
+    """A forced-split plan (serial_tree_learner.cpp:627 ForceSplits): the
+    BFS-ordered (leaf, feature, bin) of each prescribed split, leaf ids
+    laid out as Tree::Split numbers them (the JAX package's
+    permuted.ForcedSplits); device tensors, so a CUDA graph reads them."""
+
+    leaf: torch.Tensor  # (n,) int32 — leaf id when the split applies
+    feature: torch.Tensor  # (n,) int32 — used-feature index
+    bin: torch.Tensor  # (n,) int32 — threshold bin
+    n: int
 
 
 class TreeArrays(NamedTuple):
@@ -89,6 +129,92 @@ def make_split_params(cfg) -> SplitParams:
         max_cat_threshold=int(cfg.max_cat_threshold),
         max_cat_to_onehot=int(cfg.max_cat_to_onehot),
         min_data_per_group=f(cfg.min_data_per_group),
+        cegb_tradeoff=f(cfg.cegb_tradeoff),
+        cegb_penalty_split=f(cfg.cegb_penalty_split),
+        feature_fraction_bynode=f(cfg.feature_fraction_bynode),
+    )
+
+
+def make_node_candidates(spec: GrowerSpec, params: SplitParams, feat_mask,
+                         num_bins, nan_bin, rng_key, group_mat,
+                         cegb: Optional[CegbInfo]):
+    """The per-node split candidates both growers share (the JAX
+    package's make_node_candidates, grower.py:265): interaction-group
+    filtering, the feature_fraction_bynode subsample, extra_trees' random
+    thresholds and the CEGB DeltaGain penalty (with its per-tree-path
+    lazy approximation). Returns node_candidates(salts, groups,
+    path_used, count, feat_used) -> (feat_mask, rand_bin, penalty), each
+    (n, F) or None, for a batch of n nodes at once (the JAX package vmaps
+    it over a round's children): salts (n,) the node keys, groups
+    (n, NG) the constraint groups still legal, path_used (n, F) the
+    features on each node's path, count (n,) its rows, feat_used (F,)
+    the features used anywhere so far. The draws are the JAX package's
+    bits: fold_in(rng_key, 2 * salt) then uniform(F) for the subsample,
+    2 * salt + 1 for the thresholds."""
+    F = num_bins.shape[0]
+
+    def node_candidates(salts, groups, path_used, count, feat_used):
+        n = salts.shape[0]
+        fm = feat_mask[None].expand(n, F)
+        rb = pen = None
+        if spec.n_groups:
+            fm = fm & (group_mat[None] & groups[:, :, None]).any(dim=1)
+        # both draws of every node in one batch (the same bits as one
+        # draw at a time, at half the device operations)
+        words = [2 * salts] * spec.ff_bynode + [2 * salts + 1] * \
+            spec.extra_trees
+        if words:
+            draws = rng.uniform_many(
+                rng.fold_in_many(rng_key, torch.cat(words)), F)
+        if spec.ff_bynode:
+            # ceil(frac * valid) of the still-valid features, at least one
+            # (ColSampler samples from used_feature_indices_)
+            u = draws[:n]
+            u = torch.where(fm, u, torch.full_like(u, float("inf")))
+            n_valid = fm.sum(dim=1).to(torch.float32)
+            n_pick = torch.clamp_min(torch.ceil(
+                params.feature_fraction_bynode * n_valid).to(torch.int64), 1)
+            rank = torch.argsort(torch.argsort(u, dim=1, stable=True),
+                                 dim=1, stable=True)
+            fm = fm & (rank < n_pick[:, None])
+        if spec.extra_trees:
+            u = draws[-n:]
+            n_thr = torch.clamp_min(
+                num_bins - 1 - (nan_bin >= 0).to(num_bins.dtype), 1)
+            rb = torch.floor(u * n_thr.to(torch.float32)).to(torch.int32)
+        if spec.cegb:
+            c = count.to(torch.float32)[:, None]
+            pen = params.cegb_tradeoff * (
+                params.cegb_penalty_split * c
+                + cegb.coupled[None] * (~feat_used).to(torch.float32)[None]
+                + cegb.lazy[None] * c * (~path_used).to(torch.float32))
+        return fm, rb, pen
+
+    return node_candidates
+
+
+def forced_record(rec: SplitRecord, at: torch.Tensor, ff, fb, sums,
+                  params: SplitParams) -> SplitRecord:
+    """rec with the forced split in the slots `at` marks: numerical at
+    (ff, fb), missing values right, gain left + right - parent."""
+    flg, flh, flc, fpg, fph, fpn = sums
+    gain = (leaf_gain(flg, flh, params)
+            + leaf_gain(fpg - flg, fph - flh, params)
+            - leaf_gain(fpg, fph, params))
+
+    def put(a, v):
+        return torch.where(at, v.to(a.dtype), a)
+
+    return SplitRecord(
+        gain=put(rec.gain, gain), feature=put(rec.feature, ff),
+        bin=put(rec.bin, fb), default_left=rec.default_left & ~at,
+        is_cat=None if rec.is_cat is None else rec.is_cat & ~at,
+        cat_mask=(None if rec.cat_mask is None
+                  else rec.cat_mask & ~at[:, None]),
+        left_g=put(rec.left_g, flg), left_h=put(rec.left_h, flh),
+        left_c=put(rec.left_c, flc), right_g=put(rec.right_g, fpg - flg),
+        right_h=put(rec.right_h, fph - flh),
+        right_c=put(rec.right_c, fpn - flc),
     )
 
 
@@ -149,20 +275,31 @@ def empty_tree(L: int, B: int, device) -> TreeArrays:
 
 def grow_tree(bins_fm, nan_bin, num_bins, mono, is_cat, grad, hess, mask,
               feat_mask, params: SplitParams, spec: GrowerSpec,
-              valid=None, bundle=None, gh_scale=None, loop=None
+              valid=None, bundle=None, gh_scale=None, loop=None,
+              rng_key=None, group_mat=None, cegb=None, forced=None
               ) -> Tuple[TreeArrays, torch.Tensor]:
     """Grow one tree -> (tree arrays, per-row leaf, -1 on padding rows).
     Dispatches as the JAX package's grow_tree does: the rounds grower
     when spec.rounds_slots > 0 (its round loop as `loop` says,
     device_loop.py), else the sequential permuted grower (f32 gradients
     only; gh_scale must then be None; it reads the card once per split
-    and takes no loop)."""
+    and takes no loop). rng_key (the tree's node key: extra_trees,
+    feature_fraction_bynode), group_mat ((NG, F) interaction groups),
+    cegb (CegbInfo) and forced (ForcedSplits) feed the per-node extras
+    and the forced phase that spec names."""
+    if spec.per_node and (spec.extra_trees or spec.ff_bynode) \
+            and rng_key is None:
+        raise ValueError("extra_trees / feature_fraction_bynode need rng_key")
+    if spec.n_forced and forced is None:
+        raise ValueError("spec.n_forced requires the forced= split plan")
+    extras = dict(rng_key=rng_key, group_mat=group_mat, cegb=cegb,
+                  forced=forced)
     if spec.rounds_slots > 0:
         from .rounds import grow_tree_rounds
 
         return grow_tree_rounds(bins_fm, nan_bin, num_bins, mono, is_cat,
                                 grad, hess, mask, feat_mask, params, spec,
-                                valid, bundle, gh_scale, loop)
+                                valid, bundle, gh_scale, loop, **extras)
     if loop is not None and loop.bounded:
         raise ValueError("the permuted grower runs on the eager loop only")
     if gh_scale is not None:
@@ -172,7 +309,7 @@ def grow_tree(bins_fm, nan_bin, num_bins, mono, is_cat, grad, hess, mask,
 
     return grow_tree_permuted(bins_fm, nan_bin, num_bins, mono, is_cat, grad,
                               hess, mask, feat_mask, params, spec, valid,
-                              bundle)
+                              bundle, **extras)
 
 
 def add_score(score: torch.Tensor, row_leaf: torch.Tensor,

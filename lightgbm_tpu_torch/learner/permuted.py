@@ -33,11 +33,17 @@ A row of a categorical split goes left iff its bin is in the split's
 category set (cat_mask), in both phases (permuted.py _go_left, :367-372);
 the histogram kernels do not depend on the split type.
 
-Not ported, each refused upstream: per-node extras (extra_trees,
-feature_fraction_bynode, CEGB, interaction constraints), forced splits,
-voting and any mesh axis, and monotone intermediate/advanced (ROADMAP
-queue A). Monotone basic, NaN default-left, max_depth, EFB bundles and
-categorical splits are kept.
+The per-node extras (grower.make_node_candidates) draw the candidates
+of a split's two children in one batch, salts 2 i + 1 and 2 i + 2 at
+split i (permuted.py:813-840), and a forced-split plan (:559-622) takes
+the first n splits at their prescribed leaves while an entry leaves both
+children non-empty; each rides the split's one host read. Neither
+combines with the round phase (permuted.py:212-213, as in the JAX
+package).
+
+Not ported, each refused upstream: voting and any mesh axis, and
+monotone intermediate/advanced (ROADMAP queue A). Monotone basic, NaN
+default-left, max_depth, EFB bundles and categorical splits are kept.
 """
 
 from __future__ import annotations
@@ -49,15 +55,19 @@ import torch
 
 from .bundle import BundleInfo, decode_feature_bins, expand_hist
 from .grower import (
+    CegbInfo,
+    ForcedSplits,
     GrowerSpec,
     TreeArrays,
     empty_tree,
+    forced_record,
+    make_node_candidates,
     monotone_child_intervals,
     split_leaf_outputs,
 )
 from .histogram import build_gh3, hist_slots, histogram, root_sums
 from .split import BIG, NEG_INF, SplitParams, SplitRecord, best_split, \
-    first_argmax, leaf_output, map_record
+    cumsum_last, first_argmax, leaf_output, map_record
 
 
 def _excl_prefix(x: torch.Tensor) -> torch.Tensor:
@@ -72,7 +82,9 @@ class _Grower:
 
     def __init__(self, bins_fm, nan_bin, num_bins, mono, is_cat, grad, hess,
                  mask, feat_mask, params: SplitParams, spec: GrowerSpec,
-                 valid, bundle: Optional[BundleInfo]):
+                 valid, bundle: Optional[BundleInfo], rng_key=None,
+                 group_mat=None, cegb: Optional[CegbInfo] = None,
+                 forced: Optional[ForcedSplits] = None):
         L, B = spec.num_leaves, spec.num_bins
         G, N = bins_fm.shape
         dev = bins_fm.device
@@ -90,13 +102,35 @@ class _Grower:
         hist0 = histogram(bins_fm, gh, self.Bc)
         root_out = leaf_output(root[0], root[1], params)
         big = torch.full((1,), BIG, dtype=torch.float32, device=dev)
+        # the forced plan on the host (the split loop indexes it there)
+        self.forced = (None if forced is None else list(zip(
+            forced.leaf.tolist(), forced.feature.tolist(),
+            forced.bin.tolist())))
+        self.group_mat = group_mat
+        fm0, rb0, pen0 = feat_mask, None, None
+        if spec.per_node:
+            F = num_bins.shape[0]
+            self.node_candidates = make_node_candidates(
+                spec, params, feat_mask, num_bins, nan_bin, rng_key,
+                group_mat, cegb)
+            self.leaf_groups = torch.ones((L, max(1, spec.n_groups)),
+                                          dtype=torch.bool, device=dev)
+            self.path_used = torch.zeros((L, F), dtype=torch.bool,
+                                         device=dev)
+            self.feat_used = (cegb.used.clone() if spec.cegb else
+                              torch.zeros(F, dtype=torch.bool, device=dev))
+            fm0, rb0, pen0 = self.node_candidates(
+                torch.zeros(1, dtype=torch.int64, device=dev),
+                self.leaf_groups[:1], self.path_used[:1], root[2:3],
+                self.feat_used)
         rec0 = best_split(
             self.exp_hist(hist0[None], root[0:1], root[1:2], root[2:3]),
             root[0:1], root[1:2], root[2:3], num_bins, nan_bin, mono, params,
-            feat_mask, parent_output=root_out[None],
+            fm0, parent_output=root_out[None],
             cmin=-big if self.has_mono else None,
             cmax=big if self.has_mono else None, has_mono=self.has_mono,
             is_cat=self.is_cat, cat_subset=spec.cat_subset,
+            penalty=pen0, rand_bin=rb0,
         )
 
         self.pbins = bins_fm.clone()  # leaf-grouped along the row axis
@@ -162,18 +196,23 @@ class _Grower:
         self.node_right[node] = ~new
 
     def children_best(self, left_h, right_h, rec: SplitRecord, lo, ro,
-                      cmn, cmx, depths: List[int]) -> SplitRecord:
+                      cmn, cmx, depths: List[int],
+                      extras=(None, None, None)) -> SplitRecord:
         """Best splits of the left children then the right children, in
-        one batched search; a child at max_depth gets gain NEG_INF."""
+        one batched search; a child at max_depth gets gain NEG_INF.
+        extras: the children's (feat_mask, rand_bin, penalty) under the
+        per-node extras."""
         ch_g = torch.cat([rec.left_g, rec.right_g])
         ch_h = torch.cat([rec.left_h, rec.right_h])
         ch_c = torch.cat([rec.left_c, rec.right_c])
+        fm, rb, pen = extras
         ch = best_split(
             self.exp_hist(torch.cat([left_h, right_h]), ch_g, ch_h, ch_c),
             ch_g, ch_h, ch_c, self.num_bins, self.nan_bin, self.mono,
-            self.params, self.feat_mask, parent_output=torch.cat([lo, ro]),
+            self.params, self.feat_mask if fm is None else fm,
+            parent_output=torch.cat([lo, ro]),
             cmin=cmn, cmax=cmx, has_mono=self.has_mono, is_cat=self.is_cat,
-            cat_subset=self.spec.cat_subset,
+            cat_subset=self.spec.cat_subset, penalty=pen, rand_bin=rb,
         )
         md = self.spec.max_depth
         ok = [md <= 0 or d < md for d in depths]
@@ -329,19 +368,45 @@ class _Grower:
             self.i = i + n
 
     # ------------------------------------------------------- sequential
-    def next_split(self) -> Tuple[int, bool, int, int]:
-        """The split's host read: (leaf, gain > 0, segment begin, count)."""
+    def next_split(self):
+        """The split's host read: (leaf, gain > 0, segment begin, count,
+        the forced record when the plan's entry i applies, else None)."""
         am = first_argmax(self.best.gain).reshape(1)
-        keep = (self.best.gain.max() > 0.0).to(torch.int64).reshape(1)
-        head = torch.cat([am, keep, self.seg_begin[am], self.seg_count[am]])
-        l, keep, b, c = head.tolist()
-        return int(l), bool(keep), int(b), int(c)
+        keep = self.best.gain.max() > 0.0
+        rec_f = None
+        if self.forced is not None and self.i < len(self.forced):
+            fl, ff, fb = self.forced[self.i]
+            fh = self.exp_hist(self.hist[fl:fl + 1], self.leaf_g[fl:fl + 1],
+                               self.leaf_h[fl:fl + 1],
+                               self.leaf_c[fl:fl + 1])[0]
+            flg, flh, flc = cumsum_last(fh[:, ff])[:, fb]
+            fpg, fph, fpn = self.leaf_g[fl], self.leaf_h[fl], \
+                self.leaf_c[fl]
+            use = ((flc > 0) & (fpn - flc > 0)).reshape(1)
+            am = torch.where(use, fl, am)
+            keep = keep | use[0]
+            rec_f = (use, ff, fb, (flg, flh, flc, fpg, fph, fpn))
+        head = torch.cat([am, keep.to(torch.int64).reshape(1),
+                          self.seg_begin[am], self.seg_count[am]]
+                         + ([rec_f[0].to(torch.int64)] if rec_f else []))
+        vals = head.tolist()
+        l, keep, b, c = (int(v) for v in vals[:4])
+        if rec_f is None or not vals[4]:
+            return l, bool(keep), b, c, None
+        use, ff, fb, sums = rec_f
+        rec = map_record(lambda f: f[l:l + 1].clone(), self.best)
+        return l, bool(keep), b, c, forced_record(
+            rec, use, torch.tensor(ff, device=self.dev),
+            torch.tensor(fb, device=self.dev), sums, self.params)
 
-    def split_one(self, l: int, b: int, c: int) -> None:
-        """Split leaf l, whose rows are [b, b + c) (permuted.py body)."""
+    def split_one(self, l: int, b: int, c: int,
+                  rec: Optional[SplitRecord] = None) -> None:
+        """Split leaf l, whose rows are [b, b + c) (permuted.py body), by
+        its best split or by `rec` (a forced one)."""
         i, new = self.i, self.i + 1
         dev = self.dev
-        rec = map_record(lambda f: f[l:l + 1].clone(), self.best)
+        if rec is None:
+            rec = map_record(lambda f: f[l:l + 1].clone(), self.best)
         lo, ro, iv = self.outputs(rec, slice(l, l + 1))
         self.link(l, i, new)
         depth = self.leaf_depth[l] + 1
@@ -391,8 +456,27 @@ class _Grower:
             cmn, cmx = torch.cat([iv[0], iv[2]]), torch.cat([iv[1], iv[3]])
         else:
             cmn = cmx = None
+        extras = (None, None, None)
+        if self.spec.per_node:
+            # the two children's candidates: groups still legal and path
+            # features from the parent plus its split feature
+            F = self.path_used.shape[1]
+            f_oh = torch.arange(F, device=dev)[None, :] == feat[:, None]
+            grp = self.leaf_groups[l:l + 1]
+            if self.spec.n_groups:
+                grp = grp & self.group_mat[:, feat].T
+            pu = self.path_used[l:l + 1] | f_oh
+            self.feat_used = self.feat_used | f_oh[0]
+            extras = self.node_candidates(
+                torch.tensor([2 * i + 1, 2 * i + 2], dtype=torch.int64,
+                             device=dev),
+                torch.cat([grp, grp]), torch.cat([pu, pu]),
+                torch.cat([rec.left_c, rec.right_c]), self.feat_used)
+            for arr, v in ((self.leaf_groups, grp), (self.path_used, pu)):
+                arr[l] = v[0]
+                arr[new] = v[0]
         ch = self.children_best(left_h[None], right_h[None], rec, lo, ro,
-                                cmn, cmx, [depth])
+                                cmn, cmx, [depth], extras)
         self.record(slice(l, l + 1), slice(new, new + 1), slice(i, i + 1),
                     rec, lo, ro, iv, ch)
         self.leaf_parent[l] = self.leaf_parent[new] = i
@@ -439,17 +523,25 @@ def grow_tree_permuted(
     spec: GrowerSpec,
     valid: Optional[torch.Tensor] = None,
     bundle: Optional[BundleInfo] = None,
+    rng_key: Optional[torch.Tensor] = None,
+    group_mat: Optional[torch.Tensor] = None,
+    cegb: Optional[CegbInfo] = None,
+    forced: Optional[ForcedSplits] = None,
 ) -> Tuple[TreeArrays, torch.Tensor]:
     """Grow one tree -> (tree arrays, natural-order row -> leaf, -1 on
-    rows with valid == 0)."""
+    rows with valid == 0). rng_key, group_mat, cegb and forced: the
+    per-node extras and forced plan of grower.grow_tree."""
+    if spec.rounds and (spec.per_node or spec.n_forced):
+        raise ValueError("tpu_growth_rounds excludes per-node extras")
     g = _Grower(bins_fm, nan_bin, num_bins, mono, is_cat, grad, hess, mask,
-                feat_mask, params, spec, valid, bundle)
+                feat_mask, params, spec, valid, bundle, rng_key, group_mat,
+                cegb, forced)
     L = spec.num_leaves
     if spec.rounds and L > 2:
         g.round_phase(torch.where(g.valid_f > 0, 0, L).to(torch.int32))
     while g.i < L - 1:
-        l, keep, b, c = g.next_split()
+        l, keep, b, c, rec = g.next_split()
         if not keep:
             break
-        g.split_one(l, b, c)
+        g.split_one(l, b, c, rec)
     return g.finish(valid)

@@ -33,11 +33,21 @@ tables carry is_cat and the (B,) left category set, and with
 spec.has_cat the fused pass takes the round's per-slot sets (params
 column 10 flags a categorical slot; hist_round's categorical mode).
 
+The per-node extras (extra_trees, feature_fraction_bynode, CEGB,
+interaction constraints; grower.make_node_candidates) draw each new
+child's candidates in one batch over the round's 2W children, salts
+2 * node + 1 (left) and + 2 (right), as the JAX package vmaps them
+(rounds.py:898-930): a fixed number of device operations a round. The
+round state carries each leaf's legal constraint groups and the
+features on its path, and the tree's used features. A forced-split
+plan (rounds.py:442-505) splits one prescribed leaf a round while
+i < n: its record replaces the leaf's best one and its selection gain
+is raised to BIG, so the round takes it first; an entry that would
+leave a child empty falls back to the best-gain split.
+
 Not ported, each refused upstream: voting / reduce-scatter / any mesh
-axis, per-node extras (extra_trees, feature_fraction_bynode, CEGB,
-interaction constraints), monotone intermediate and advanced, and
-forced splits (ROADMAP queue A). Monotone basic is kept: it costs
-nothing beyond the interval tensors.
+axis and monotone intermediate and advanced (ROADMAP queue A).
+Monotone basic is kept: it costs nothing beyond the interval tensors.
 """
 
 from __future__ import annotations
@@ -48,9 +58,13 @@ import torch
 
 from .bundle import BundleInfo, expand_hist
 from .grower import (
+    CegbInfo,
+    ForcedSplits,
     GrowerSpec,
     TreeArrays,
     empty_tree,
+    forced_record,
+    make_node_candidates,
     monotone_child_intervals,
     split_leaf_outputs,
 )
@@ -58,7 +72,7 @@ from .device_loop import DeviceLoop
 from .histogram import INT8_MAX, build_gh3, build_gh8_quant, \
     hist_nat_slots, hist_round, histogram, root_sums, root_sums_quant
 from .split import BIG, NEG_INF, SplitParams, SplitRecord, best_split, \
-    leaf_output, map_record
+    cumsum_last, leaf_output, map_record
 
 _TAIL_EXACT_ROWS = 32 * 8192  # rounds.py:436
 
@@ -85,6 +99,14 @@ def round_cap(num_leaves: int, slots: int) -> int:
                                   + (L - 1).bit_length()) + 8))
 
 
+def tree_round_cap(spec: GrowerSpec) -> int:
+    """round_cap of a spec: a forced plan's phase takes one round a split
+    on top of the rest."""
+    L = spec.num_leaves
+    return min(max(L - 1, 1), round_cap(L, spec.rounds_slots or 1)
+               + spec.n_forced)
+
+
 def grow_tree_rounds(
     bins_fm: torch.Tensor,  # (G, N) int32, natural row order
     nan_bin: torch.Tensor,  # (F,) int32
@@ -101,13 +123,19 @@ def grow_tree_rounds(
     bundle: Optional[BundleInfo] = None,
     gh_scale: Optional[torch.Tensor] = None,  # (2,) [g_scale, h_scale]
     loop: Optional[DeviceLoop] = None,
+    rng_key: Optional[torch.Tensor] = None,  # the tree's node key
+    group_mat: Optional[torch.Tensor] = None,  # (NG, F) bool
+    cegb: Optional[CegbInfo] = None,
+    forced: Optional[ForcedSplits] = None,
 ) -> Tuple[TreeArrays, torch.Tensor]:
     """Grow one tree -> (tree arrays, natural-order row -> leaf, -1 on
     rows with valid == 0). gh_scale carries the level scales when
     spec.quant and must be None otherwise. loop: how the round loop runs
     (device_loop; EAGER when None, up to L - 1 rounds; a bounded loop
-    runs round_cap(L, S)); the tree's (rounds taken, still growing) are
-    appended to loop.trees as device tensors."""
+    runs tree_round_cap(spec)); the tree's (rounds taken, still growing)
+    are appended to loop.trees as device tensors. rng_key, group_mat,
+    cegb and forced: the per-node extras and forced plan of
+    grower.grow_tree."""
     if spec.quant != (gh_scale is not None):
         raise ValueError("gh_scale is required with spec.quant (integer "
                          "levels) and refused without it")
@@ -123,6 +151,9 @@ def grow_tree_rounds(
     has_mono = spec.has_mono
     # a dataset without categorical features skips their search
     cat_arg = is_cat if spec.has_cat else None
+    F = num_bins.shape[0]
+    per_node = spec.per_node
+    n_forced = spec.n_forced
 
     def exp_hist(h, g_, h_, c_):
         return expand_hist(h, g_, h_, c_, bundle) if spec.efb else h
@@ -150,12 +181,29 @@ def grow_tree_rounds(
         hist0 = histogram(bins_fm, gh, Bc)
     root_out = leaf_output(root[0], root[1], params)
     big = torch.full((1,), BIG, dtype=torch.float32, device=dev)
+    fm0, rb0, pen0 = feat_mask, None, None
+    if per_node:
+        # per-leaf constraint groups and path features (one row past the
+        # tree's, as below), the tree's used features; the root's draws
+        # take salt 0
+        node_candidates = make_node_candidates(
+            spec, params, feat_mask, num_bins, nan_bin, rng_key, group_mat,
+            cegb)
+        leaf_groups = torch.ones((L + 1, max(1, spec.n_groups)),
+                                 dtype=torch.bool, device=dev)
+        path_used = torch.zeros((L + 1, F), dtype=torch.bool, device=dev)
+        feat_used = (cegb.used.clone() if spec.cegb else
+                     torch.zeros(F, dtype=torch.bool, device=dev))
+        fm0, rb0, pen0 = node_candidates(
+            torch.zeros(1, dtype=torch.int64, device=dev), leaf_groups[:1],
+            path_used[:1], root[2:3], feat_used)
     rec0 = best_split(
         exp_hist(hist0[None], root[0:1], root[1:2], root[2:3]),
         root[0:1], root[1:2], root[2:3], num_bins, nan_bin, mono, params,
-        feat_mask, parent_output=root_out[None],
+        fm0, parent_output=root_out[None],
         cmin=-big if has_mono else None, cmax=big if has_mono else None,
         has_mono=has_mono, is_cat=cat_arg, cat_subset=spec.cat_subset,
+        penalty=pen0, rand_bin=rb0,
     )
 
     # The working arrays carry one row past the tree's: node L - 1 and
@@ -197,21 +245,59 @@ def grow_tree_rounds(
     if not spec.efb:
         unused_row[8:9].fill_(-1)
 
+    forced_now = []  # this round's forced_step, until the round runs
+
+    def forced_step():
+        """Plan entry min(i, n - 1) on its leaf's histogram: (leaf,
+        feature, bin, whether it applies now with both children
+        non-empty, the left and parent (g, h, count) sums); the JAX
+        package's forced block of round_step and _forced_valid. Computed
+        once a round: the loop's predicate, the split count and the
+        round read the same state."""
+        if not forced_now:
+            forced_now.append(_forced_step())
+        return forced_now[0]
+
+    def _forced_step():
+        # (1,) index tensors throughout: a 0-dim tensor index would be
+        # read back to the host
+        fi = torch.clamp_max(i, n_forced - 1).reshape(1)
+        fl, ff, fb = (a.index_select(0, fi).long()
+                      for a in (forced.leaf, forced.feature, forced.bin))
+        pg, ph, pc = (a.index_select(0, fl) for a in (leaf_g, leaf_h, leaf_c))
+        fh = exp_hist(hist.index_select(0, fl), pg, ph, pc)[0]  # (3, F, B)
+        left = cumsum_last(fh.index_select(1, ff)[:, 0])
+        flg, flh, flc = left.index_select(1, fb)[:, 0]
+        fpg, fph, fpn = pg[0], ph[0], pc[0]
+        use = (i < n_forced) & (flc > 0) & (fpn - flc > 0)
+        return fl[0], ff[0], fb[0], use, (flg, flh, flc, fpg, fph, fpn)
+
     def growing():
-        return (i < L - 1) & (best.gain[:L].max() > 0.0)
+        keep = best.gain[:L].max() > 0.0
+        if n_forced:
+            # a forced step that can split keeps the tree growing
+            keep = keep | forced_step()[3]
+        return (i < L - 1) & keep
 
     def split_count():
         """Leaves this round splits: the JAX package's min(budget, width,
         n_cand), where its width ladder picks the smallest width >=
         n_cand, so the number is min(budget, S, n_cand) at any width; 0
         exactly when the tree has stopped (then a round over S static
-        slots changes nothing: every write goes to the dump rows)."""
+        slots changes nothing: every write goes to the dump rows). In a
+        forced phase one leaf: the plan's when its entry applies, else
+        the best one when any gain is positive."""
         n_pos = (best.gain[:L] > 0.0).sum()
         budget0 = (L - 1) - i
         n_cand = torch.minimum(budget0, n_pos)
         if tail_exact:
             n_cand = torch.minimum(n_cand,
                                    torch.clamp_min((budget0 + 1) // 2, 1))
+        if n_forced:
+            use = forced_step()[3]
+            n_cand = torch.where(i < n_forced,
+                                 (use | (n_pos > 0)).to(n_cand.dtype),
+                                 n_cand)
         return torch.clamp(torch.minimum(n_cand, budget0), 0, S)
 
     def one_round(W: int):
@@ -224,13 +310,23 @@ def grow_tree_rounds(
         dump_node = torch.full((W,), L - 1, dtype=torch.int64, device=dev)
         dump_leaf = torch.full((W,), L, dtype=torch.int64, device=dev)
 
-        # ---- select: top-k by gain, lower leaf index first on ties
-        order = torch.sort(best.gain[:L], descending=True,
+        # ---- select: top-k by gain, lower leaf index first on ties; a
+        # forced entry that applies goes first
+        gain_sel = best.gain[:L]
+        if n_forced:
+            fl, ff, fb, use_f, sums = forced_step()
+            at_fl = use_f & (torch.arange(L, device=dev) == fl)
+            gain_sel = torch.where(at_fl, torch.full_like(gain_sel, BIG),
+                                   gain_sel)
+        order = torch.sort(gain_sel, descending=True,
                            stable=True).indices[:W]
         tl = torch.where(act, order, dump_leaf)  # taken leaves
         node_ids = torch.where(act, i + slot, dump_node)
         new_ids = torch.where(act, i + slot + 1, dump_leaf)
         rec = map_record(lambda f: f[tl], best)
+        if n_forced:
+            rec = forced_record(rec, use_f & (tl == fl), ff, fb, sums,
+                                 params)
 
         # ---- outputs / monotone intervals of the taken splits
         pmin, pmax = leaf_min[tl], leaf_max[tl]
@@ -336,11 +432,32 @@ def grow_tree_rounds(
             ch_mn, ch_mx = torch.cat([lmin, rmin]), torch.cat([lmax, rmax])
         else:
             ch_mn = ch_mx = None
+        ch_fm, ch_rb, ch_pen = feat_mask, None, None
+        if per_node:
+            # the 2 W children's candidates in one batch: groups still
+            # legal and path features from the parent plus its split
+            # feature; the tree's used features first take the round's
+            f_oh = (torch.arange(F, device=dev)[None, :]
+                    == rec.feature.long()[:, None])  # (W, F)
+            ch_grp = leaf_groups[tl]
+            if spec.n_groups:
+                ch_grp = ch_grp & group_mat[:, rec.feature.long()].T
+            ch_pu = path_used[tl] | f_oh
+            feat_used.logical_or_((f_oh & act[:, None]).any(dim=0))
+            node = i + slot
+            ch_fm, ch_rb, ch_pen = node_candidates(
+                torch.cat([2 * node + 1, 2 * node + 2]),
+                torch.cat([ch_grp, ch_grp]), torch.cat([ch_pu, ch_pu]), ch_c,
+                feat_used)
+            for arr, v in ((leaf_groups, ch_grp), (path_used, ch_pu)):
+                _put(arr, tl, v)
+                _put(arr, new_ids, v)
         ch_rec = best_split(
             exp_hist(torch.cat([left_s, right_s]), ch_g, ch_h, ch_c),
-            ch_g, ch_h, ch_c, num_bins, nan_bin, mono, params, feat_mask,
+            ch_g, ch_h, ch_c, num_bins, nan_bin, mono, params, ch_fm,
             parent_output=ch_po, cmin=ch_mn, cmax=ch_mx, has_mono=has_mono,
             is_cat=cat_arg, cat_subset=spec.cat_subset,
+            penalty=ch_pen, rand_bin=ch_rb,
         )
         depth_ok = (torch.ones_like(depth_new, dtype=torch.bool)
                     if spec.max_depth <= 0 else depth_new < spec.max_depth)
@@ -357,10 +474,11 @@ def grow_tree_rounds(
         _put(leaf_parent, tl, node_ids)
         _put(leaf_parent, new_ids, node_ids)
         i.add_(n_split)
+        forced_now.clear()  # the state moved on
         n_rounds.add_((n_split > 0).to(torch.int32))
 
     if loop.bounded:
-        loop.run(round_cap(L, S), growing, lambda: one_round(S))
+        loop.run(tree_round_cap(spec), growing, lambda: one_round(S))
     else:
         for _ in range(L - 1):  # one host read a round
             n = int(split_count())
@@ -383,3 +501,4 @@ def grow_tree_rounds(
         row_leaf = torch.where(valid > 0, row_leaf,
                                torch.full_like(row_leaf, -1))
     return t, row_leaf
+

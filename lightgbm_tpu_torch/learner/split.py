@@ -49,6 +49,11 @@ class SplitParams(NamedTuple):
     max_cat_threshold: int
     max_cat_to_onehot: int
     min_data_per_group: float
+    # CEGB (cost_effective_gradient_boosting.hpp:79 DeltaGain)
+    cegb_tradeoff: float = 1.0
+    cegb_penalty_split: float = 0.0
+    # per-node feature sampling rate (ColSampler feature_fraction_bynode)
+    feature_fraction_bynode: float = 1.0
 
 
 class SplitRecord(NamedTuple):
@@ -255,7 +260,7 @@ def _best_split_impl(
     nan_bin: torch.Tensor,  # (F,) int32, -1 if no NaN bin
     mono: torch.Tensor,  # (F,) int32 in {-1, 0, 1}
     params: SplitParams,
-    feat_mask: Optional[torch.Tensor] = None,  # (F,) bool
+    feat_mask: Optional[torch.Tensor] = None,  # (F,) or per leaf (Bt, F)
     parent_output: Optional[torch.Tensor] = None,  # (Bt,)
     cmin: Optional[torch.Tensor] = None,  # (Bt,) monotone interval
     cmax: Optional[torch.Tensor] = None,
@@ -264,6 +269,9 @@ def _best_split_impl(
     # without categorical features, whose search skips their directions
     cat_subset: bool = False,  # the dataset has categoricals wider than
     # max_cat_to_onehot: the sorted-subset directions are searched
+    penalty: Optional[torch.Tensor] = None,  # (Bt, F) CEGB DeltaGain
+    rand_bin: Optional[torch.Tensor] = None,  # (Bt, F) extra_trees: the
+    # one numerical threshold each feature may split at in each leaf
 ):
     Bt, _, F, B = hist.shape
     dev = hist.device
@@ -316,6 +324,13 @@ def _best_split_impl(
         num_mask = num_mask & ~is_cat[:, None]
     ok_dr = ok_dr & num_mask[None]
     ok_dl = ok_dl & num_mask[None]
+    if rand_bin is not None:
+        # extra_trees: one random numerical threshold per feature and
+        # leaf, in the original bin space (before the tie-break
+        # reindexing below); the categorical directions keep their search
+        rb_ok = bin_idx[None] == rand_bin[:, :, None]
+        ok_dr = ok_dr & rb_ok
+        ok_dl = ok_dl & rb_ok
 
     if has_cat:
         # categorical one-vs-rest: bin t alone goes left; under
@@ -364,8 +379,13 @@ def _best_split_impl(
     gains = torch.stack(dirs, dim=-1) - shift
     ok = torch.stack(oks, dim=-1)  # (Bt, F, B, D)
     if feat_mask is not None:
-        ok = ok & feat_mask[None, :, None, None]
+        fm = feat_mask if feat_mask.dim() == 2 else feat_mask[None]
+        ok = ok & fm[:, :, None, None]
     gains = torch.where(ok, gains, torch.full_like(gains, NEG_INF))
+    if penalty is not None:
+        # CEGB DeltaGain: each feature's acquisition cost comes off every
+        # candidate of that feature, the masked ones included
+        gains = gains - penalty[:, :, None, None]
 
     flat = gains.reshape(Bt, -1)
     idx = first_argmax(flat, dim=1)  # (Bt,)

@@ -16,6 +16,9 @@ those functions on torch tensors:
 - `uniform(key, shape)`: 23 random mantissa bits of
   threefry2x32(key, (hi(i), lo(i))) xor-folded, as a float in [1, 2),
   minus 1;
+- `fold_in_many` / `uniform_many`: the same two functions over a batch
+  of data words or keys (jax.vmap of them: the per-node draws of a
+  round's children, grower.make_node_candidates);
 - `permutation(key, n)`: jax's `_shuffle` of arange(n), a few rounds of
   a stable sort by fresh 32-bit keys (the per-tree feature_fraction
   mask, boosting._sample_features).
@@ -77,6 +80,23 @@ def fold_in(k: torch.Tensor, data: Union[int, torch.Tensor]) -> torch.Tensor:
                        device=k.device)
     h1, h2 = threefry2x32(k[0], k[1], torch.zeros_like(d), d)
     return torch.cat([h1, h2])
+
+
+def fold_in_many(k: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
+    """fold_in(k, data[j]) for each j of an (n,) integer tensor, as one
+    batch: (n, 2) keys (jax.vmap of fold_in over the data)."""
+    d = data.to(torch.int64).reshape(-1) & _MASK
+    h1, h2 = threefry2x32(k[0], k[1], torch.zeros_like(d), d)
+    return torch.stack([h1, h2], dim=1)
+
+
+def uniform_many(keys: torch.Tensor, n: int) -> torch.Tensor:
+    """uniform(keys[j], (n,)) for each of (m, 2) keys, as one batch:
+    (m, n) float32 on [0, 1) (jax.vmap of uniform over the keys)."""
+    hi, lo = _counters(int(n), keys.device)
+    b1, b2 = threefry2x32(keys[:, :1], keys[:, 1:], hi[None, :], lo[None, :])
+    fbits = (((b1 ^ b2) >> 9) | 0x3F800000).to(torch.int32)
+    return torch.clamp_min(fbits.view(torch.float32) - 1.0, 0.0)
 
 
 def _counters(n: int, device) -> Tuple[torch.Tensor, torch.Tensor]:

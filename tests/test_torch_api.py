@@ -525,11 +525,6 @@ def test_refusals_name_their_item(tmp_path):
     with pytest.raises(NotImplementedError, match="A.8"):
         lgb_t.Booster({**CPU, "num_machines": 2},
                       lgb_t.Dataset(X, label=y, params=CPU))
-    for boosting in ("dart", "rf"):
-        with pytest.raises(NotImplementedError, match="A.4"):
-            lgb_t.train({**CPU, "objective": "binary", "boosting": boosting,
-                         "bagging_fraction": 0.5, "bagging_freq": 1},
-                        lgb_t.Dataset(X, label=y, params=CPU), 1)
     from lightgbm_tpu_torch.dataset import BinnedDataset
 
     with pytest.raises(NotImplementedError, match="A.10"):

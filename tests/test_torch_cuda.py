@@ -1455,3 +1455,72 @@ def test_csr_and_csv_inputs_train_on_the_card(dev, tmp_path):
     assert csv.model_to_string() == dense.model_to_string()
     np.testing.assert_allclose(csr.predict(X), dense.predict(X), atol=1e-5)
     assert csr._gbdt.device.type == "cuda"
+
+
+# ---- DART, RF, the per-node extras and forced splits on the card
+MODE_EXTRA_CASES = {
+    "dart": {"boosting": "dart", "drop_rate": 0.3, "skip_drop": 0.2},
+    "rf": {"boosting": "rf", "bagging_fraction": 0.632, "bagging_freq": 1,
+           "feature_fraction": 0.8},
+    "extras": {"extra_trees": True, "feature_fraction_bynode": 0.5,
+               "interaction_constraints": "[0,1,2,3,4],[5,6,7,8,9]",
+               "cegb_penalty_split": 1e-4,
+               "cegb_penalty_feature_lazy": [2e-4] * 10},
+    "coupled": {"cegb_penalty_feature_coupled": [0.5] * 10},
+    "forced": {"forcedsplits_filename": None},
+    "exact_extras": {"tpu_growth_mode": "exact", "extra_trees": True,
+                     "feature_fraction_bynode": 0.5,
+                     "interaction_constraints": "[0,1,2,3,4],[5,6,7,8,9]"},
+}
+FORCED_PLAN = {"feature": 0, "threshold": 0.0,
+               "left": {"feature": 1, "threshold": 0.0},
+               "right": {"feature": 2, "threshold": 0.0}}
+
+
+def _mode_extra_params(case, tmp_path):
+    extra = dict(MODE_EXTRA_CASES[case])
+    if "forcedsplits_filename" in extra:
+        import json
+
+        path = tmp_path / "forced.json"
+        path.write_text(json.dumps(FORCED_PLAN))
+        extra["forcedsplits_filename"] = str(path)
+    return {"objective": "binary", "num_leaves": 31, "verbosity": -1,
+            **extra}
+
+
+@pytest.mark.parametrize("case", list(MODE_EXTRA_CASES))
+def test_boosting_modes_and_extras_card_match_cpu(dev, case, tmp_path):
+    """5 iterations on 6,000 rows on the card and on the CPU: raw
+    predictions within 1e-4."""
+    rs = np.random.RandomState(9)
+    X = rs.randn(7000, 10).astype(np.float32)
+    y = (X @ rs.randn(10) + 0.3 * rs.randn(7000) > 0).astype(float)
+    preds = []
+    for device in ("cuda", "cpu"):
+        p = {**_mode_extra_params(case, tmp_path), "device_type": device}
+        bst = lgb.train(p, lgb.Dataset(X[:6000], label=y[:6000], params=p),
+                        5)
+        preds.append(bst.predict(X[6000:], raw_score=True))
+    np.testing.assert_allclose(preds[0], preds[1], atol=1e-4)
+
+
+@pytest.mark.parametrize("case", ["extras", "forced"])
+def test_extras_fused_graph_matches_eager_bitwise(dev, case, tmp_path):
+    """The per-node extras and a forced plan inside the captured CUDA
+    graph: model text and validation scores equal the eager loop's."""
+    rs = np.random.RandomState(5)
+    X = rs.randn(22000, 10).astype(np.float32)
+    y = (X @ rs.randn(10) + 0.3 * rs.randn(22000) > 0).astype(float)
+    p = {**_mode_extra_params(case, tmp_path), "metric": "auc"}
+    out = {}
+    for fused in (True, False):
+        ds = lgb.Dataset(X[:20000], label=y[:20000], params=p)
+        vs = lgb.Dataset(X[20000:], label=y[20000:], reference=ds)
+        out[fused] = lgb.train(p, ds, 5, valid_sets=[vs],
+                               callbacks=[] if fused else [_eager])
+    bf, be = out[True], out[False]
+    fp = bf._gbdt._fused
+    assert fp is not None and fp.graph.captured and fp.graph.replays == 4
+    assert bf.model_to_string() == be.model_to_string()
+    assert torch.equal(bf._gbdt.valids[0].score, be._gbdt.valids[0].score)

@@ -133,11 +133,13 @@ def test_auto_means_int16_everywhere():
 @pytest.mark.parametrize("extra", [
     {"linear_tree": True},
     {"tree_learner": "voting"},
-    {"boosting": "dart"},
-    {"cegb_penalty_split": 0.1},
-    {"extra_trees": True},
-    {"boosting": "rf", "bagging_freq": 1, "bagging_fraction": 0.5},
-    {"forcedsplits_filename": "forced.json"},
+    {"monotone_constraints": [1, 0, 0],
+     "monotone_constraints_method": "intermediate"},
+    {"monotone_constraints": [1, 0, 0],
+     "monotone_constraints_method": "advanced"},
+    {"tree_learner": "data"},
+    {"tree_learner": "feature"},
+    {"tpu_debug_check_split": True},
 ])
 def test_unported_options_raise(extra):
     X, y = _tiny()
