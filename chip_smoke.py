@@ -31,8 +31,10 @@ Phases, each printed as one JSON line:
             lines come later too, on arguments captured from the training
             paths, kernel and library timed in turns;
   small   - 20k-row runs on the card against the same runs on the CPU
-            (plain versions), default, exact, use_quantized_grad and
-            regression_l1 runs, and categorical runs (the train_cat schema
+            (plain versions), default, exact, use_quantized_grad,
+            regression_l1, dart, rf, extras, monotone intermediate and
+            advanced, and linear_tree runs, and categorical runs (the
+            train_cat schema
             plus a 3-category column, so one-vs-rest runs too) on the
             int16, use_quantized_grad (bench.py's parameters, and
             cat_quant_det without stochastic rounding and leaf renewal)
@@ -89,8 +91,9 @@ Phases, each printed as one JSON line:
             the bundled columns (EFB folds each field into one), 10 trees
             on the fused loop with validation AUC rising, and a 20,000-row
             slice trained on the card and on the CPU within 1e-4;
-  api_file - the first 200,000 rows as CSV with a header, TSV and LibSVM
-            (%.17g), each through Dataset(path): the numpy Dataset's bin
+  api_file - the first 100,000 rows (200,000 before the script outgrew its
+            limit) as CSV with
+            a header, TSV and LibSVM (%.17g), each through Dataset(path): the numpy Dataset's bin
             matrix and 5-tree model text bit for bit; save_binary ->
             Dataset(bin_path) and a .weight sidecar give the same model
             as the numpy input and as weight=; write and parse seconds;
@@ -152,6 +155,28 @@ Phases, each printed as one JSON line:
             (fused_summary gathers the paths). The small phase's
             early stopping also runs the eager loop on the card (the same
             stop, the same model text as the fused loop);
+  mono_dataset, train_mono_intermediate, train_mono_advanced,
+  train_mono_basic, train_mono_exact - monotone constraints on the
+            Higgs-like rows (binned again: a Dataset takes its
+            constraints when it is constructed) on columns 0, 1, 3 and
+            5, each in the direction the label moves with it
+            (mono_directions); intermediate and advanced through
+            fused_vs_eager (1 warm-up and 4 timed trees), their check
+            the resolved method, the splits the conflict guard deferred
+            and those on the constrained columns a tree, and on the
+            eager loop the violation scan (2,000 validation rows, each
+            constrained column swept across the model's thresholds on
+            it: no step against its direction beyond 1e-6), AUC rising
+            on both loops; a `*_tables` line each: grower.mono_bounds
+            and the all-leaf re-search of one eager tree replayed, device
+            ms a tree; basic on the fused loop (AUC, trees/s); and
+            intermediate on the exact grower (63 leaves, 2 eager trees);
+  train_linear - linear_tree (linear_lambda 0.1) on the binary
+            workload, 5 eager trees: trees/s, host ms a tree in the leaf
+            fits and in the rest, AUC after each tree; the train score of
+            50,000 rows against a fresh predict(raw_score=True) and
+            predict(device="cuda") against the host walker on 20,000
+            validation rows (1e-5), the model text round trip;
   train_rank, train_rank_xendcg - learning to rank at MSLR-WEB10K's
             shape (mslr_like: 10,000 queries, ~1.2M documents averaging
             ~120 a query with one of 908, 136 float32 features, labels
@@ -177,8 +202,10 @@ Phases, each printed as one JSON line:
             trained to 500 trees on the fused loop, then
             Booster.predict(device="cuda") (the tensorized forest,
             serving/forest.py: one take_small gather of the packed node
-            table a level) on the 100,000 validation rows against the
-            host walker: raw scores within rtol 1e-5 / atol 1e-5, pred_leaf
+            table a level) on the 100,000 validation rows, the first
+            20,000 of them (all 100,000 before the script outgrew its
+            limit) against the host
+            walker: raw scores within rtol 1e-5 / atol 1e-5, pred_leaf
             exactly, rows/s of both; the same on 20-tree models of
             train_cat's data (category bitsets) and train_rank's (136
             columns); take_small launches counted from zero over the
@@ -283,7 +310,14 @@ QUANT_PARAMS = {"use_quantized_grad": True, "num_grad_quant_bins": 4,
                 "quant_train_renew_leaf": True}
 
 
+T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line also carries the script's seconds
+    so far (t_s)."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": round(time.perf_counter() - T0, 1)}
     print(json.dumps(obj), flush=True)
 
 
@@ -1193,7 +1227,12 @@ def small_phase(lgb, np):
             ("l1", {"objective": "regression_l1"}, z),
             ("dart", dict(DART_PARAMS, drop_rate=0.3, skip_drop=0.2), y),
             ("rf", RF_PARAMS, y),
-            ("extras", extras_params(X.shape[1]), y)):
+            ("extras", extras_params(X.shape[1]), y),
+            ("mono_intermediate", mono_params(
+                X.shape[1], "intermediate", mono_directions(np, X, y)), y),
+            ("mono_advanced", mono_params(
+                X.shape[1], "advanced", mono_directions(np, X, y)), y),
+            ("linear", {"linear_tree": True, "linear_lambda": 0.1}, y)):
         preds = {}
         for device in ("cuda", "cpu"):
             p = dict(params, device_type=device, **extra)
@@ -1675,6 +1714,10 @@ FUSED_NEEDS = {
     "train_forced": ("hist_round", "hist_nat", "take_small", "seg_sum"),
     "train_rank_xendcg": ("hist_round", "hist_nat", "take_small",
                           "seg_sum"),
+    # monotone constraints turn the true-gradient leaf renewal off (it
+    # would bypass their clamps), so seg_sum does not run there
+    "train_mono_intermediate": ("hist_round", "hist_nat", "take_small"),
+    "train_mono_advanced": ("hist_round", "hist_nat", "take_small"),
 }
 
 
@@ -1924,6 +1967,314 @@ def forced_plan_held(bst) -> dict:
             raise AssertionError(f"tree {i} does not start with the plan: "
                                  f"{list(tree.split_feature[:7])}")
     return {"trees_starting_with_plan": len(trees)}
+
+
+# the constrained Higgs-like columns; each is constrained in the direction
+# the label moves with it on the rows at hand (mono_directions): at 1M
+# rows bench.py's logit weights of columns 0, 1, 3 and 5 are -2.06,
+# +1.61, -0.51 and -0.04, so a constraint against them would keep every
+# split off these columns and leave the bounds nothing to do
+MONO_COLUMNS = (0, 1, 3, 5)
+
+
+def mono_directions(np, X, y) -> dict:
+    """+1 / -1 for each constrained column: the sign of its correlation
+    with the label."""
+    return {f: 1 if np.corrcoef(X[:, f], y)[0, 1] >= 0 else -1
+            for f in MONO_COLUMNS}
+
+
+def mono_params(n_feat: int, method: str, directions: dict) -> dict:
+    mono = [directions.get(f, 0) for f in range(n_feat)]
+    return {"monotone_constraints": mono,
+            "monotone_constraints_method": method}
+
+
+def mono_sets(lgb, X, y, Xv, yv, directions: dict):
+    """The Higgs-like rows binned again with the constraints: a Dataset
+    takes its monotone_constraints when it is constructed, and one built
+    on a reference takes the reference's."""
+    t0 = time.perf_counter()
+    dm = lgb.Dataset(X, label=y, free_raw_data=False,
+                     params={"monotone_constraints": mono_params(
+                         X.shape[1], "basic", directions)[
+                             "monotone_constraints"]})
+    dm.construct()
+    vm = lgb.Dataset(Xv, label=yv, reference=dm, free_raw_data=False)
+    emit({"phase": "mono_dataset", "seconds": time.perf_counter() - t0,
+          "directions": directions})
+    return dm, vm
+
+
+def violation_scan(np, bst, Xv, directions: dict, rows: int = 2000) -> dict:
+    """Each constrained column swept across its bin thresholds on `rows`
+    validation rows: the host walker's raw predictions must not fall
+    (rise, for a decreasing column) by more than 1e-6 from one grid value
+    to the next. The grid is every threshold the model splits the column
+    at (each a bin upper bound; a prediction changes nowhere else) and
+    one value past the last."""
+    base = np.asarray(Xv[:rows], np.float64)
+    rows = len(base)
+    worst, points = {}, {}
+    for f, d in directions.items():
+        thr = sorted({float(t.threshold[n]) for t in bst._gbdt.models
+                      for n in range(len(t.split_feature))
+                      if int(t.split_feature[n]) == f})
+        grid = np.array(thr + [thr[-1] + 1.0] if thr else [0.0])
+        points[f] = len(grid)
+        Xg = np.repeat(base, len(grid), axis=0)
+        Xg[:, f] = np.tile(grid, rows)
+        pred = bst.predict(Xg, raw_score=True).reshape(rows, len(grid))
+        worst[f] = float((np.diff(pred, axis=1) * d).min()) \
+            if len(grid) > 1 else 0.0
+    if min(worst.values()) < -1e-6:
+        raise AssertionError(f"monotone violation: worst steps {worst}")
+    return {"rows": rows, "grid_points_by_column": points,
+            "worst_step_by_column": worst}
+
+
+def mono_check(np, Xv, method: str, directions: dict):
+    """fused_vs_eager's check for a monotone path: the method resolved,
+    the splits the conflict guard deferred and the splits on the
+    constrained columns, a tree, and on the eager loop the violation
+    scan."""
+    mode = {"intermediate": 1, "advanced": 2}[method]
+
+    def check(bst):
+        gb = bst._gbdt
+        if gb.spec.mono_mode != mode:
+            raise AssertionError(f"mono_mode {gb.spec.mono_mode}, not {mode}")
+        models = gb.models
+        out = {"mono_mode": mode, "deferred_per_tree":
+               int(gb.mono_deferred) / len(models),
+               "constrained_splits_per_tree": sum(
+                   int(f) in directions for t in models
+                   for f in t.split_feature) / len(models)}
+        if gb._fused is None:
+            out["violation_scan"] = violation_scan(np, bst, Xv, directions)
+        return out
+
+    return check
+
+
+def mono_tables_ms(torch, lgb, ds, method: str, directions: dict) -> dict:
+    """One eager tree of the monotone path with every call of
+    grower.mono_bounds (the bounds' tables) and of the re-search (the
+    batched split search over all L leaves) recorded, then each set
+    replayed as one call of device_ms: device ms a tree of each (the
+    calls are dense, so the final tensors time as the recorded ones)."""
+    from lightgbm_tpu_torch.learner import rounds
+
+    params = {"objective": "binary", "num_leaves": L, "max_bin": 255,
+              "learning_rate": 0.1, "min_data_in_leaf": 20,
+              "verbosity": -1, **mono_params(28, method, directions)}
+    tables, research = [], []
+    orig_b, orig_s = rounds.mono_bounds, rounds.best_split
+
+    def rec_bounds(*a):
+        tables.append(a)
+        return orig_b(*a)
+
+    def rec_search(hist, *a, **k):
+        if hist.shape[0] == L:
+            research.append((hist,) + a + (k,))
+        return orig_s(hist, *a, **k)
+
+    rounds.mono_bounds, rounds.best_split = rec_bounds, rec_search
+    try:
+        bst = lgb.Booster(params, ds)
+        bst.update()
+        torch.cuda.synchronize()
+    finally:
+        rounds.mono_bounds, rounds.best_split = orig_b, orig_s
+
+    def replay(fn, calls, kw):
+        def run():
+            for c in calls:
+                fn(*c[:-1], **c[-1]) if kw else fn(*c)
+        return device_ms(run, 1)
+
+    (t_ms, t_how), (r_ms, r_how) = (replay(orig_b, tables, False),
+                                    replay(orig_s, research, True))
+    return {"rounds": len(tables), "tables_device_ms_per_tree": t_ms,
+            "research_device_ms_per_tree": r_ms,
+            "timed_by": sorted({t_how, r_how})}
+
+
+def train_mono_phase(torch, lgb, np, ds, vs, Xv, method: str,
+                     directions: dict) -> dict:
+    """train_mono_<method>: the monotone path through fused_vs_eager (1
+    warm-up and 4 timed trees a loop), AUC rising from the first tree to
+    the last on both loops, with the tables' device ms a tree beside."""
+    tables = mono_tables_ms(torch, lgb, ds, method, directions)
+    name = "train_mono_" + method
+    line = fused_vs_eager(torch, lgb, ds, vs, name,
+                          mono_params(28, method, directions), n_timed=4,
+                          check=mono_check(np, Xv, method, directions))
+    emit({"phase": name + "_tables", **tables})
+    for loop, (first, last) in line["records_first_last"].items():
+        if not last[0][2] > first[0][2]:
+            raise AssertionError(f"{name} {loop}: AUC did not rise: "
+                                 f"{first[0][2]} -> {last[0][2]}")
+    line["tables"] = tables
+    return line
+
+
+def train_mono_basic_line(torch, lgb, ds, vs, directions: dict,
+                          n_timed: int = 4) -> dict:
+    """Basic monotone with the same constraints on the fused loop (1
+    warm-up, n_timed timed trees), for the AUC and trees/s beside
+    intermediate and advanced."""
+    params = {"objective": "binary", "num_leaves": L, "max_bin": 255,
+              "learning_rate": 0.1, "min_data_in_leaf": 20, "metric": "auc",
+              "verbosity": -1, **mono_params(28, "basic", directions)}
+    bst = lgb.Booster(params, ds)
+    bst.add_valid(vs, "valid")
+    gb = bst._gbdt
+    gb.fused_start(track_train=False)
+    gb.fused_dispatch(1)
+    first = gb.fused_collect()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gb.fused_dispatch(n_timed)
+    last = gb.fused_collect()
+    torch.cuda.synchronize()
+    line = {"phase": "train_mono_basic", "timed_trees": n_timed,
+            "trees_per_s": n_timed / (time.perf_counter() - t0),
+            "auc_first_last": [first[0][0][2], last[-1][0][2]],
+            "mono_mode": gb.spec.mono_mode}
+    emit(line)
+    return line
+
+
+def train_mono_exact_phase(torch, lgb, ch, np, ds, vs, Xv, directions: dict,
+                           n_trees: int = 2) -> dict:
+    """train_mono_exact: intermediate on the exact grower (the per-split
+    recompute and re-search), eager, n_trees trees at 63 leaves (cut from
+    the headline 255: the exact grower searches every leaf again after
+    each split), AUC after the first and the last tree, launches, the
+    violation scan."""
+    params = {"objective": "binary", "num_leaves": 63, "max_bin": 255,
+              "learning_rate": 0.1, "min_data_in_leaf": 20, "metric": "auc",
+              "verbosity": -1, "tpu_growth_mode": "exact",
+              **mono_params(28, "intermediate", directions)}
+    bst = lgb.Booster(params, ds)
+    bst.add_valid(vs, "valid")
+    ch.reset_launch_counts()
+    aucs, wall = [], 0.0
+    for _ in range(n_trees):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bst.update()
+        torch.cuda.synchronize()
+        wall += time.perf_counter() - t0
+        aucs.append(bst.eval_valid()[0][2])
+    gb = bst._gbdt
+    launches = {k: v for k, v in ch.LAUNCHES.items() if v}
+    line = {"phase": "train_mono_exact", "num_leaves": 63,
+            "reduced": "num_leaves 255 -> 63", "trees": n_trees,
+            "trees_per_s": n_trees / wall, "auc": aucs,
+            "mono_mode": gb.spec.mono_mode,
+            "rounds_slots": gb.spec.rounds_slots, "launches": launches,
+            "launches_per_tree": {k: v / n_trees
+                                  for k, v in launches.items()},
+            "violation_scan": violation_scan(np, bst, Xv, directions)}
+    emit(line)
+    if gb.spec.mono_mode != 1 or gb.spec.rounds_slots != 0:
+        raise AssertionError("train_mono_exact: not intermediate on exact")
+    if not launches.get("hist") or not aucs[-1] > aucs[0]:
+        raise AssertionError(f"train_mono_exact: {line}")
+    return line
+
+
+def train_linear_phase(torch, lgb, ch, np, X, y, Xv, yv, ds,
+                       n_trees: int = 5) -> dict:
+    """train_linear: linear_tree on the binary workload (linear_lambda
+    0.1), eager, n_trees trees: trees/s, host ms a tree in the leaf fits
+    (GBDT._fit_linear) and in the rest, AUC after the first and the last
+    tree, launches; the train score of the first 50,000 rows against a
+    fresh predict(raw_score=True) (1e-5), predict(device="cuda") against
+    the host walker on 20,000 validation rows (1e-5), and the model text
+    round trip (the same trees, the same predictions)."""
+    from lightgbm_tpu_torch import boosting
+
+    params = {"objective": "binary", "num_leaves": L, "max_bin": 255,
+              "learning_rate": 0.1, "min_data_in_leaf": 20, "metric": "auc",
+              "verbosity": -1, "linear_tree": True, "linear_lambda": 0.1}
+    t0 = time.perf_counter()
+    dl = lgb.Dataset(X, label=y, reference=ds, params={"linear_tree": True},
+                     free_raw_data=False)
+    dl.construct()
+    vl = lgb.Dataset(Xv, label=yv, reference=dl, free_raw_data=False)
+    t_data = time.perf_counter() - t0
+    bst = lgb.Booster(params, dl)
+    bst.add_valid(vl, "valid")
+    fit_s = []
+    orig = boosting.GBDT._fit_linear
+
+    def timed_fit(self, *a, **k):
+        t = time.perf_counter()
+        orig(self, *a, **k)
+        fit_s.append(time.perf_counter() - t)
+
+    boosting.GBDT._fit_linear = timed_fit
+    ch.reset_launch_counts()
+    aucs, wall = [], 0.0
+    try:
+        for _ in range(n_trees):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            bst.update()
+            torch.cuda.synchronize()
+            wall += time.perf_counter() - t0
+            aucs.append(bst.eval_valid()[0][2])
+    finally:
+        boosting.GBDT._fit_linear = orig
+    gb = bst._gbdt
+    launches = {k: v for k, v in ch.LAUNCHES.items() if v}
+    n_chk = 50_000
+    train_gap = float(np.abs(
+        gb.train.score[0, :n_chk].cpu().numpy().astype(np.float64)
+        - bst.predict(X[:n_chk], raw_score=True)).max())
+    host = bst.predict(Xv[:20_000], raw_score=True)
+    card = bst.predict(Xv[:20_000], raw_score=True, device="cuda")
+    card_gap = float(np.abs(card - host).max())
+    path = Path("build") / "chip_smoke" / "linear.txt"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    bst.save_model(path)
+    loaded = lgb.Booster(model_file=path)
+    trees = lambda t: t.split("end of trees")[0]
+    round_trip = {
+        "text": trees(loaded.model_to_string()) == trees(
+            bst.model_to_string()),
+        "predict": bool(np.array_equal(
+            loaded.predict(Xv[:2000], raw_score=True),
+            bst.predict(Xv[:2000], raw_score=True)))}
+    models = gb.models
+    line = {"phase": "train_linear", "rows": int(X.shape[0]),
+            "num_leaves": L, "trees": n_trees, "dataset_seconds": t_data,
+            "trees_per_s": n_trees / wall,
+            "host_ms_per_tree_fit": 1e3 * sum(fit_s) / n_trees,
+            "host_ms_per_tree_rest": 1e3 * (wall - sum(fit_s)) / n_trees,
+            "auc": aucs, "launches": launches,
+            "launches_per_tree": {k: v / n_trees
+                                  for k, v in launches.items()},
+            "all_linear": all(t.is_linear for t in models),
+            "fitted_leaves": sum(1 for t in models for c in t.leaf_coeff
+                                 if len(c)),
+            "train_score_vs_predict": train_gap,
+            "card_vs_host_predict": card_gap, "tolerance": 1e-5,
+            "model_text_round_trip": round_trip,
+            "fused_ineligible_reason": gb.fused_ineligible_reason()}
+    emit(line)
+    if not (line["all_linear"] and line["fitted_leaves"]
+            and all(round_trip.values()) and train_gap < 1e-5 and card_gap < 1e-5
+            and aucs[-1] > aucs[0]):
+        raise AssertionError(f"train_linear: {line}")
+    missing = [k for k in INT16_NEEDS if not launches.get(k)]
+    if missing:
+        raise AssertionError(f"train_linear: {missing} not launched")
+    return line
 
 
 def fresh_train_score(torch, gb):
@@ -2534,14 +2885,15 @@ def api_sparse_phase(torch, lgb, np, ch):
 
 
 def api_file_phase(torch, lgb, np, X, y):
-    """The first 200,000 rows written as CSV with a header, as TSV and as
+    """The first 100,000 rows (200,000 before; halved to keep the script
+    inside its limit) written as CSV with a header, as TSV and as
     LibSVM (%.17g: the float64 values exactly), each read back through
     Dataset(path): the numpy Dataset's bin matrix and, after 5 trees, its
     model text bit for bit; save_binary -> Dataset(bin_path) and a .weight
     sidecar (against weight=) give the same model too."""
     out = Path("build") / "chip_smoke" / "api_file"
     out.mkdir(parents=True, exist_ok=True)
-    n, f = min(200_000, len(y)), X.shape[1]
+    n, f = min(100_000, len(y)), X.shape[1]
     Xf = np.asarray(X[:n], np.float64)
     yf = np.asarray(y[:n], np.float64)
     rows = np.column_stack([yf, Xf])
@@ -2596,7 +2948,8 @@ def api_file_phase(torch, lgb, np, X, y):
     with_weight = model(lgb.Dataset(Xf, label=yf, weight=w))
     result["weight_sidecar"] = {
         "model_text_equal": model(lgb.Dataset(str(wpath))) == with_weight}
-    line = {"phase": "api_file", "rows": n, "features": f, **result}
+    line = {"phase": "api_file", "rows": n, "features": f,
+            "reduced": "rows 200,000 -> 100,000", **result}
     emit(line)
     bad = {k: v for k, v in result.items()
            if not all(v.get(c, True) for c in ("bins_equal",
@@ -2931,18 +3284,23 @@ BENCH_SERVE = dict(train_rows=20_000, features=16, trees=50, leaves=31,
                    window=128, replicas=2)
 
 
-def serve_check(np, bst, X, name, n_host=2000):
-    """Booster.predict(device="cuda") against the host walker on X: raw
-    scores within SERVE_TOL, pred_leaf exactly. The walker runs once over
-    X for its leaves (pred_leaf); its raw scores are those leaves' values
-    added tree by tree, as GBDT.predict_raw adds them, and equal
-    Booster.predict(raw_score=True) on the first n_host rows, whose time
-    gives the walker's rows/s. The card's rows/s is its second call (the
-    first also packs and uploads the tables)."""
+def serve_check(np, bst, X, name, n_host=2000, n_check=20_000):
+    """Booster.predict(device="cuda") against the host walker: the card
+    scores all of X (its rows/s is the second call's: the first also
+    packs and uploads the tables); on the first n_check rows (all of X
+    before; cut to keep the script inside its limit) its raw
+    scores are held within SERVE_TOL and its pred_leaf exactly. The
+    walker runs once over those rows for their leaves (pred_leaf); its
+    raw scores are those leaves' values added tree by tree, as
+    GBDT.predict_raw adds them, and equal Booster.predict(raw_score=True)
+    on the first n_host rows, whose time gives the walker's rows/s."""
     bst.predict(X[:1000], device="cuda", raw_score=True)
     t0 = time.perf_counter()
     raw_d = bst.predict(X, device="cuda", raw_score=True)
     t_dev = time.perf_counter() - t0
+    rows = X.shape[0]
+    X = X[:n_check]
+    raw_d = raw_d[:n_check]
     leaf_d = bst.predict(X, device="cuda", pred_leaf=True)
     leaf_h = bst.predict(X, pred_leaf=True)
     raw_h = np.zeros(X.shape[0])
@@ -2952,14 +3310,15 @@ def serve_check(np, bst, X, name, n_host=2000):
     walked = bst.predict(X[:n_host], raw_score=True)
     t_host = time.perf_counter() - t0
     ok = bool(np.allclose(raw_d, raw_h, **SERVE_TOL))
-    line = {"model": name, "rows": int(X.shape[0]),
+    line = {"model": name, "rows": int(rows),
+            "rows_checked": int(X.shape[0]),
             "trees": bst.num_trees(), "features": int(X.shape[1]),
             "max_abs_err": float(np.abs(raw_d - raw_h).max()),
             "within_tol": ok, "tolerance": SERVE_TOL,
             "leaves_equal": bool(np.array_equal(leaf_d, leaf_h)),
             "host_raw_is_walker": bool(np.array_equal(walked,
                                                       raw_h[:n_host])),
-            "card_rows_per_s": X.shape[0] / t_dev,
+            "card_rows_per_s": rows / t_dev,
             "host_rows_per_s": n_host / t_host}
     if not (ok and line["leaves_equal"] and line["host_raw_is_walker"]):
         raise AssertionError(f"serve_forest: {name} on the card differs "
@@ -2999,6 +3358,7 @@ def serve_forest_phase(torch, lgb, ch, np, ds, Xv, cat_sets, rank_sets):
         checks.append(serve_check(np, b, cvs.data[:SERVE_ROWS], name))
     forest_meta = lgb.serving.TensorForest.from_booster(bst).meta
     emit({"phase": "serve_forest", "train_trees": SERVE_TREES,
+          "reduced": "host-checked rows 100,000 -> 20,000",
           "train_seconds": t_train,
           "train_trees_per_s": SERVE_TREES / t_train,
           "forest": forest_meta, "checks": checks,
@@ -3589,6 +3949,18 @@ def main() -> int:
     fused_lines["train_forced"] = fused_vs_eager(
         torch, lgb, ds, vs, "train_forced",
         {"forcedsplits_filename": str(forced_path)}, check=forced_plan_held)
+
+    # ---- monotone intermediate and advanced (both loops, in turns) with
+    # basic beside them, intermediate on the exact grower, linear trees
+    dirs = mono_directions(np, X, y)
+    dm, vm = mono_sets(lgb, X, y, Xv, yv, dirs)
+    for method in ("intermediate", "advanced"):
+        fused_lines["train_mono_" + method] = train_mono_phase(
+            torch, lgb, np, dm, vm, Xv, method, dirs)
+    train_mono_basic_line(torch, lgb, dm, vm, dirs)
+    train_mono_exact_phase(torch, lgb, ch, np, dm, vm, Xv, dirs)
+    del dm, vm
+    train_linear_phase(torch, lgb, ch, np, X, y, Xv, yv, ds)
 
     # ---- hist_round in each mode on its path's first and fullest rounds
     # (the int16 mode also on the sampled paths' first sampled trees), and

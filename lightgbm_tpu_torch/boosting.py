@@ -49,8 +49,14 @@ them. They run on both loops, but coupled CEGB, whose used features
 carry across trees, stays on the eager loop. DART and RF (the
 subclasses at the end, create_boosting) run on the eager loop only, as
 in the JAX package: DART drops and rescales past trees every
-iteration, RF averages every score set. Linear trees, the distributed
-learners, tpu_debug_check_split and monotone intermediate / advanced
+iteration, RF averages every score set.
+
+Monotone intermediate and advanced resolve as in the JAX package
+(_mono_mode) and ride both loops on the rounds grower; intermediate also
+rides the exact grower. linear_tree keeps the eager loop: after each
+tree the leaves' ridge models are fitted on the host in f64
+(_fit_linear), and their per-row outputs, not the leaves' constants, go
+into the scores. The distributed learners and tpu_debug_check_split
 raise NotImplementedError (ROADMAP queue A).
 """
 
@@ -76,7 +82,7 @@ from .learner.grower import (
     grow_tree,
     make_split_params,
 )
-from .learner.rounds import round_cap
+from .learner.rounds import tree_round_cap
 from .timer import global_timer as _gt
 from .metrics import Metric, create_metrics
 from .objectives import ObjectiveFunction, create_objective
@@ -111,9 +117,7 @@ UNPORTED_KEYS = {
 
 
 def check_supported(config: Config) -> None:
-    """Refuse every option the port does not implement yet, loudly
-    (monotone intermediate / advanced: GBDT.__init__, which knows whether
-    the JAX package would fall back to basic)."""
+    """Refuse every option the port does not implement yet, loudly."""
     from .config import _PARAMS
 
     c = config
@@ -124,21 +128,11 @@ def check_supported(config: Config) -> None:
                 f"{item})")
     if c.boosting not in ("gbdt", "dart", "rf"):
         log.fatal(f"Unknown boosting type {c.boosting}")
-    if c.linear_tree:
-        _not_ported("linear_tree (A.6)")
     if c.tree_learner not in ("serial",):
         _not_ported(f"tree_learner={c.tree_learner} (distributed learners, "
                     "A.8)")
     if c.tpu_debug_check_split:
         _not_ported("tpu_debug_check_split")
-
-
-def _mono_beyond_basic(config: Config, train_set: BinnedDataset) -> bool:
-    """Monotone constraints under method intermediate or advanced."""
-    mono = train_set.monotone_constraints
-    return bool(mono is not None and np.any(mono != 0)
-                and config.monotone_constraints_method in ("intermediate",
-                                                           "advanced"))
 
 
 def _load_forced_splits(path: str, ds: BinnedDataset,
@@ -228,6 +222,10 @@ class GBDT:
         self.objective: Optional[ObjectiveFunction] = None
         # why this configuration stays on the eager loop, if it must
         self._force_sync_reason: Optional[str] = None
+        self.mono_deferred: Optional[torch.Tensor] = None
+        # linear_tree: each new tree's leaf fits (constants, features,
+        # coefficients) by model index, until _materialize takes them
+        self._linear_fits: Dict[int, tuple] = {}
         if train_set is None:
             return  # prediction-only booster (model loaded from text)
 
@@ -280,19 +278,21 @@ class GBDT:
         cats = [m for m in train_set.used_mappers()
                 if m.bin_type == BinType.CATEGORICAL]
         n_groups, n_forced = self._setup_node_extras(config, train_set)
+        # linear_tree: each tree's leaf ridge fits run on the host in f64
+        # (boosting.py:531-539 of the JAX package; LightGBM solves them
+        # on the CPU too, linear_tree_learner.cpp:344)
+        if config.linear_tree:
+            self._force_sync_reason = "linear_tree leaf fits run on host"
+            if train_set.raw_data is None:
+                log.fatal("linear_tree requires raw feature values; "
+                          "construct the Dataset with linear_tree in its "
+                          "params")
         use_extra = config.extra_trees
         use_bynode = config.feature_fraction_bynode < 1.0
         extras = bool(use_extra or use_bynode or self._cegb_info is not None
                       or n_groups)
-        if _mono_beyond_basic(config, train_set):
-            if not (extras or n_forced):
-                _not_ported(f"monotone_constraints_method="
-                            f"{config.monotone_constraints_method} (A.5)")
-            log.warning(
-                "monotone_constraints_method=intermediate/advanced is "
-                "incompatible with per-node extras / forced splits / "
-                "voting / tree_learner=feature; falling back to "
-                "method=basic")
+        mono_mode = self._mono_mode(config, has_mono, extras, n_forced,
+                                    use_rounds)
         self.spec = GrowerSpec(
             num_leaves=config.num_leaves,
             num_bins=train_set.max_num_bin,
@@ -308,14 +308,15 @@ class GBDT:
             col_bins=train_set.col_bins,
             quant_levels=levels,
             has_mono=has_mono,
+            mono_mode=mono_mode,
             quant=use_rounds and ((qgrad and levels <= 256)
                                   or self._int_packed),
             quant_int8=use_rounds and levels <= 127 and (
                 qgrad or self._int_packed),
-            # the permuted grower's round phase excludes the extras and
-            # forced splits (permuted.py:212-213)
+            # the permuted grower's round phase excludes the extras,
+            # forced splits and monotone intermediate (permuted.py:212-220)
             rounds=(config.tpu_growth_rounds and not use_rounds
-                    and not n_forced and not extras),
+                    and not n_forced and not extras and not mono_mode),
             # sorted-subset search when a categorical is wider than
             # max_cat_to_onehot (boosting.py:448-452 of the JAX package)
             cat_subset=any(m.num_bin > config.max_cat_to_onehot
@@ -328,15 +329,48 @@ class GBDT:
             n_forced=n_forced,
         )
         self.params = make_split_params(config)
+        # splits the intermediate / advanced conflict guard put off to a
+        # later round, summed over every tree grown (device counter)
+        self.mono_deferred = (torch.zeros((), dtype=torch.int64,
+                                          device=self.device)
+                              if mono_mode and use_rounds else None)
         self.train = self._score_set(train_set, "training", self.dev)
         # passes of a traversal in a bounded loop: at least the depth of
         # any tree the rounds grower can return there (a round deepens a
         # tree by one level at most)
         L = config.num_leaves
         self._max_levels = min(
-            L - 1, round_cap(L, self.spec.rounds_slots or 1) + n_forced,
+            L - 1, tree_round_cap(self.spec),
             config.max_depth if config.max_depth > 0 and not n_forced
             else L - 1)
+
+    @staticmethod
+    def _mono_mode(config: Config, has_mono: bool, extras: bool,
+                   n_forced: int, use_rounds: bool) -> int:
+        """monotone_constraints_method as the JAX package resolves it
+        (boosting.py:568-632): 1 intermediate, 2 advanced, else 0 basic;
+        beside the per-node extras, a forced plan, voting or
+        tree_learner=feature both fall back to basic, and off the rounds
+        grower advanced becomes intermediate, each with its warning."""
+        mode = 0
+        if has_mono:
+            mode = {"intermediate": 1, "advanced": 2}.get(
+                config.monotone_constraints_method, 0)
+        if mode and (extras or n_forced
+                     or config.tree_learner in ("voting", "feature")):
+            log.warning(
+                "monotone_constraints_method=intermediate/advanced is "
+                "incompatible with per-node extras / forced splits / "
+                "voting / tree_learner=feature; falling back to "
+                "method=basic")
+            mode = 0
+        if mode == 2 and not use_rounds:
+            log.warning(
+                "monotone_constraints_method=advanced rides the rounds "
+                "grower only (tpu_growth_mode=rounds); using "
+                "method=intermediate on the sequential path")
+            mode = 1
+        return mode
 
     def _setup_node_extras(self, config: Config, train_set: BinnedDataset):
         """The per-node extras' and forced splits' tables (the JAX
@@ -415,6 +449,10 @@ class GBDT:
         return ss
 
     def add_valid(self, valid_set: BinnedDataset, name: str) -> None:
+        if self.config.linear_tree and valid_set.raw_data is None:
+            log.fatal(f"linear_tree requires raw feature values of the "
+                      f"validation set {name}; construct it with "
+                      "reference= to the training set")
         self.valids.append(self._score_set(
             valid_set, name, valid_set.device_arrays(self.device)))
 
@@ -508,6 +546,7 @@ class GBDT:
             bundle=d["bundle"], gh_scale=gh_scale, loop=loop,
             rng_key=rng_key, group_mat=self._group_mat,
             cegb=self._cegb_info, forced=self._forced,
+            deferred=self.mono_deferred,
         )
 
     def _mark_used(self, arrays: TreeArrays) -> None:
@@ -611,11 +650,17 @@ class GBDT:
                 self.iter_ = len(self._models) // K
                 self._stopped = True
                 return
-            for a, (k, bias, shrink) in zip(group, meta[i0: i0 + K]):
+            for j, (a, (k, bias, shrink)) in enumerate(
+                    zip(group, meta[i0: i0 + K])):
                 if int(a.num_nodes) > 0:
                     # stored leaf values already carry shrinkage + bias
                     tree = Tree.from_arrays(a, self.train_set, 1.0)
                     tree.shrinkage = shrink
+                    fit = self._linear_fits.pop(base + i0 + j, None)
+                    if fit is not None:
+                        tree.is_linear = True
+                        (tree.leaf_value, tree.leaf_const,
+                         tree.leaf_features, tree.leaf_coeff) = fit
                 else:
                     tree = Tree(num_leaves=1, shrinkage=1.0)
                     tree.leaf_value = np.array([bias], np.float64)
@@ -728,7 +773,7 @@ class GBDT:
                 arrays = self._apply_renewal(arrays, row_leaf,
                                              self.train.score[k], mask,
                                              renew_alpha, renew_w)
-            grown.append((arrays, row_leaf))
+            grown.append((arrays, row_leaf, (gk, hk, mask)))
         done = act = None
         if active is not None:
             # the trees count unless one outgrew a bounded loop's cap
@@ -736,17 +781,22 @@ class GBDT:
                 [ovf for _r, ovf in loop.trees[-K:]]).any()
             act = done.to(torch.float32)
         trees = []
-        for k, (arrays, row_leaf) in enumerate(grown):
+        for k, (arrays, row_leaf, sample) in enumerate(grown):
             ok = (arrays.num_nodes > 0).to(torch.float32)
             if act is not None:
                 ok = ok * act
             lv = arrays.leaf_value * (self.shrinkage_rate * ok)
-            for ss, leaf in [(self.train, row_leaf)] + [
-                    (vs, self._traverse(arrays, vs.dev, loop))
-                    for vs in self.valids]:
-                new_score = add_score(ss.score[k], leaf, lv, 1.0)
-                ss.score[k] = (new_score if done is None
-                               else torch.where(done, new_score, ss.score[k]))
+            if (self.config.linear_tree and done is None
+                    and int(arrays.num_nodes) > 0):
+                # the leaves' linear models score the rows (eager only)
+                self._fit_linear(k, arrays, row_leaf, *sample, init_scores[k])
+            else:
+                for ss, leaf in [(self.train, row_leaf)] + [
+                        (vs, self._traverse(arrays, vs.dev, loop))
+                        for vs in self.valids]:
+                    new_score = add_score(ss.score[k], leaf, lv, 1.0)
+                    ss.score[k] = (new_score if done is None else
+                                   torch.where(done, new_score, ss.score[k]))
             if abs(init_scores[k]) > 1e-15:
                 # AddBias (gbdt.cpp:424-426): only the stored tree
                 # carries the boost-from-average bias
@@ -755,6 +805,45 @@ class GBDT:
                     first, biased, lv)
             trees.append(arrays._replace(leaf_value=lv))
         return trees, done
+
+    def _fit_linear(self, k: int, arrays: TreeArrays, row_leaf, gk, hk, mask,
+                    bias: float) -> None:
+        """linear_tree (the JAX package's sync loop, boosting.py
+        :1330-1381): a ridge model per leaf of the new tree from its
+        row -> leaf map, the sampled true gradients and the bag mask
+        (Tree.fit_linear_leaves, f64 on the host; one copy off the card),
+        whose per-row outputs go into the train score and, through each
+        validation row's leaf (the binned traversal), its raw values into
+        every validation score. The host tree's leaf values are the
+        grower's times the shrinkage in f64, as the JAX package's sync
+        loop makes them; the fit keeps until _materialize puts it on the
+        host tree, with the boost-from-average bias on the values and the
+        constants."""
+        from .binning import BinType
+
+        ds = self.train_set
+        n = ds.num_data
+        host = torch.stack([row_leaf[:n].view(torch.float32), gk[:n],
+                            hk[:n], mask[:n]]).cpu()
+        rl = host[0].view(torch.int32).numpy()
+        g, h, m = (host[j].numpy() for j in (1, 2, 3))
+        tree = Tree.from_arrays(tree_arrays_to_host(arrays), ds,
+                                self.shrinkage_rate)
+        cat_set = {int(f) for f in ds.used_features
+                   if ds.mappers[int(f)].bin_type == BinType.CATEGORICAL}
+        tree.fit_linear_leaves(rl, g, h, ds.raw_data, cat_set,
+                               self.config.linear_lambda,
+                               self.shrinkage_rate, row_mask=m > 0)
+        for ss, leaf in [(self.train, rl)] + [
+                (vs, self._traverse(arrays, vs.dev)[:vs.dataset.num_data]
+                 .cpu().numpy()) for vs in self.valids]:
+            out = np.zeros(ss.dataset.num_rows_padded(), np.float32)
+            out[:ss.dataset.num_data] = tree.linear_leaf_outputs(
+                ss.dataset.raw_data, leaf)
+            ss.score[k] += torch.from_numpy(out).to(self.device)
+        self._linear_fits[len(self.device_trees) + k] = (
+            tree.leaf_value + bias, tree.leaf_const + bias,
+            tree.leaf_features, tree.leaf_coeff)
 
     def train_one_iter(self, grad=None, hess=None) -> bool:
         """One boosting iteration; True when training should stop (no
@@ -1149,8 +1238,7 @@ class _FusedProgram:
         dev = gb.device
         self.K = gb.num_class
         self.rows = gb._check_every  # the most iterations of a dispatch
-        self.round_cap = round_cap(gb.spec.num_leaves, gb.spec.rounds_slots)
-        self.round_cap += gb.spec.n_forced  # a round a forced split
+        self.round_cap = tree_round_cap(gb.spec)
         self.eval_sets = []
         for ss in ([gb.train] if track_train else []) + gb.valids:
             names, hb = supported_names(ss.metrics)

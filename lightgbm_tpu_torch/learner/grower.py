@@ -3,8 +3,9 @@
 The port of lightgbm_tpu/learner/grower.py: the fixed-size tree layout
 of the reference (include/LightGBM/tree.h; child pointers >= 0 are
 internal nodes, < 0 leaves as ~leaf), the leaf output math of a chosen
-split, the basic monotone intervals, the score update through the
-row -> leaf vector, the per-node split candidates (make_node_candidates:
+split, the basic monotone intervals and the intermediate / advanced
+bounds (mono_bounds), the score update through the row -> leaf vector,
+the per-node split candidates (make_node_candidates:
 interaction constraints, feature_fraction_bynode, extra_trees and the
 CEGB penalties) and the forced-split plan both growers share, and
 grow_tree's dispatch between the rounds grower (rounds.py) and the
@@ -19,7 +20,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from .. import rng
-from .split import SplitParams, SplitRecord, leaf_gain, leaf_output
+from .split import BIG, SplitParams, SplitRecord, leaf_gain, leaf_output
 
 
 class GrowerSpec(NamedTuple):
@@ -34,7 +35,15 @@ class GrowerSpec(NamedTuple):
     efb: bool = False  # bin matrix columns are EFB bundles
     col_bins: int = 0  # bundle-column bin axis (0 = num_bins)
     quant_levels: int = 256  # integer levels of the gradient channels
-    has_mono: bool = False  # any monotone constraint (basic method)
+    has_mono: bool = False  # any monotone constraint
+    # monotone_constraints_method (the JAX package's mono_mode,
+    # grower.py:136-150): 0 basic (children bounded at the split's
+    # midpoint), 1 intermediate (every leaf's bounds recomputed from the
+    # opposite subtrees' output extrema after each split or round, and
+    # every leaf's best split searched again under them), 2 advanced
+    # (rounds grower only: those extrema taken only over leaves whose
+    # per-feature bin ranges can meet, monotone_constraints.hpp:858)
+    mono_mode: int = 0
     # rounds grower: integer-level channels (True) or f32 channels
     quant: bool = True
     # integer levels within +-127 ride the kernels' int8 mode
@@ -256,6 +265,68 @@ def monotone_child_intervals(feature, is_cat, mono, lo, ro, cur_min,
     return lmin, lmax, rmin, rmax
 
 
+def mono_bounds(mode: int, anc_in, anc_left, leaf_out, node_feature,
+                node_cat, mono, i_new, flo=None, fhi=None):
+    """Every leaf's monotone [min, max] under the intermediate (mode 1)
+    or advanced (mode 2) method, the JAX package's recompute
+    (rounds.py:966-1099, permuted.py:866-905; monotone_constraints.hpp
+    :516 GoUpToFindLeavesToUpdate, :858 AdvancedLeafConstraints): a leaf
+    in the left subtree of a live increasing node a is bounded above by
+    the least output of a's right subtree, one in its right subtree below
+    by the greatest output of its left subtree (mirrored for a decreasing
+    node); a categorical node bounds nothing. anc_in / anc_left (L, L-1)
+    bool: node a is an ancestor of the leaf / the leaf is on its left
+    side; leaf_out (L,) the leaves' outputs; node_feature / node_cat
+    (L-1,) the tree's nodes; i_new the splits made (a 0-dim tensor):
+    leaves 0..i_new and nodes 0..i_new-1 are live. Under the advanced
+    method a leaf r bounds leaf x through node a only where their bin
+    ranges (flo, fhi] ((L, F) int32) meet in every feature but a's split
+    feature. Only max and min reduce, so the bounds are exact: the same
+    on every device and loop. Returns (min, max), (L,) each."""
+    L = leaf_out.shape[0]
+    dev = leaf_out.device
+    valid_leaf = torch.arange(L, device=dev) <= i_new
+    nf = node_feature.long()
+    node_m = mono[nf] * (~node_cat).to(mono.dtype)
+    node_alive = torch.arange(L - 1, device=dev) < i_new
+    in_l = anc_in & anc_left & valid_leaf[:, None]
+    in_r = anc_in & ~anc_left & valid_leaf[:, None]
+    if mode == 2:
+        # ivf[x, r, f]: the ranges of leaves x and r meet in feature f;
+        # ok_pair[x, r, a]: they meet everywhere but (perhaps) on node
+        # a's split feature
+        F = flo.shape[1]
+        ivf = (torch.maximum(flo[:, None, :], flo[None, :, :])
+               < torch.minimum(fhi[:, None, :], fhi[None, :, :]))
+        n_bad = (~ivf).sum(dim=2)
+        bad_fa = ~ivf.index_select(2, nf.clamp_max(F - 1))  # (L, L, L-1)
+        ok_pair = (n_bad[:, :, None] - bad_fa.to(n_bad.dtype)) <= 0
+        out3 = leaf_out[None, :, None]
+
+        def ext(in_m, hi: bool):
+            sel = in_m[None, :, :] & ok_pair
+            if hi:
+                return torch.where(sel, out3, -BIG).amax(dim=1)
+            return torch.where(sel, out3, BIG).amin(dim=1)  # (L, L-1)
+    else:
+        out2 = leaf_out[:, None]
+
+        def ext(in_m, hi: bool):
+            if hi:
+                return torch.where(in_m, out2, -BIG).amax(dim=0)[None]
+            return torch.where(in_m, out2, BIG).amin(dim=0)[None]
+
+    l_max, l_min = ext(in_l, True), ext(in_l, False)
+    r_max, r_min = ext(in_r, True), ext(in_r, False)
+    inc = (node_alive & (node_m > 0))[None, :]
+    dec = (node_alive & (node_m < 0))[None, :]
+    cmax = torch.where(in_l & inc, r_min, BIG)
+    cmax = torch.where(in_r & dec, l_min, cmax)
+    cmin = torch.where(in_r & inc, l_max, -BIG)
+    cmin = torch.where(in_l & dec, r_max, cmin)
+    return cmin.amax(dim=1), cmax.amin(dim=1)
+
+
 def empty_tree(L: int, B: int, device) -> TreeArrays:
     zi = lambda n: torch.zeros(n, dtype=torch.int32, device=device)
     zf = lambda n: torch.zeros(n, dtype=torch.float32, device=device)
@@ -276,8 +347,8 @@ def empty_tree(L: int, B: int, device) -> TreeArrays:
 def grow_tree(bins_fm, nan_bin, num_bins, mono, is_cat, grad, hess, mask,
               feat_mask, params: SplitParams, spec: GrowerSpec,
               valid=None, bundle=None, gh_scale=None, loop=None,
-              rng_key=None, group_mat=None, cegb=None, forced=None
-              ) -> Tuple[TreeArrays, torch.Tensor]:
+              rng_key=None, group_mat=None, cegb=None, forced=None,
+              deferred=None) -> Tuple[TreeArrays, torch.Tensor]:
     """Grow one tree -> (tree arrays, per-row leaf, -1 on padding rows).
     Dispatches as the JAX package's grow_tree does: the rounds grower
     when spec.rounds_slots > 0 (its round loop as `loop` says,
@@ -286,7 +357,9 @@ def grow_tree(bins_fm, nan_bin, num_bins, mono, is_cat, grad, hess, mask,
     and takes no loop). rng_key (the tree's node key: extra_trees,
     feature_fraction_bynode), group_mat ((NG, F) interaction groups),
     cegb (CegbInfo) and forced (ForcedSplits) feed the per-node extras
-    and the forced phase that spec names."""
+    and the forced phase that spec names. deferred: a 0-dim int64 device
+    tensor to which the rounds grower adds the splits that monotone
+    intermediate / advanced's conflict guard put off to a later round."""
     if spec.per_node and (spec.extra_trees or spec.ff_bynode) \
             and rng_key is None:
         raise ValueError("extra_trees / feature_fraction_bynode need rng_key")
@@ -299,7 +372,8 @@ def grow_tree(bins_fm, nan_bin, num_bins, mono, is_cat, grad, hess, mask,
 
         return grow_tree_rounds(bins_fm, nan_bin, num_bins, mono, is_cat,
                                 grad, hess, mask, feat_mask, params, spec,
-                                valid, bundle, gh_scale, loop, **extras)
+                                valid, bundle, gh_scale, loop,
+                                deferred=deferred, **extras)
     if loop is not None and loop.bounded:
         raise ValueError("the permuted grower runs on the eager loop only")
     if gh_scale is not None:

@@ -41,9 +41,18 @@ children non-empty; each rides the split's one host read. Neither
 combines with the round phase (permuted.py:212-213, as in the JAX
 package).
 
-Not ported, each refused upstream: voting and any mesh axis, and
-monotone intermediate/advanced (ROADMAP queue A). Monotone basic, NaN
-default-left, max_depth, EFB bundles and categorical splits are kept.
+Monotone intermediate (spec.mono_mode 1, permuted.py:841-918) keeps
+every leaf's ancestry ((L, L-1) bools on the device) and, after each
+split, takes every leaf's bounds from grower.mono_bounds and searches
+every live leaf's best split again under them in one batch: device
+work inside the split, no read beyond the split's one. It excludes the
+round phase, the per-node extras and a forced plan, as in the JAX
+package (boosting falls back or turns the round phase off); advanced
+becomes intermediate on this grower (boosting, with a warning).
+
+Not ported, refused upstream: voting and any mesh axis (ROADMAP queue
+A). Monotone basic, NaN default-left, max_depth, EFB bundles and
+categorical splits are kept.
 """
 
 from __future__ import annotations
@@ -62,6 +71,7 @@ from .grower import (
     empty_tree,
     forced_record,
     make_node_candidates,
+    mono_bounds,
     monotone_child_intervals,
     split_leaf_outputs,
 )
@@ -166,6 +176,12 @@ class _Grower:
         self.leaf_min = torch.full((L,), -BIG, dtype=torch.float32,
                                    device=dev)
         self.leaf_max = torch.full((L,), BIG, dtype=torch.float32, device=dev)
+        if spec.mono_mode:
+            # ancestry: anc_in[x, a] node a is above leaf x, anc_left[x, a]
+            # on its left side
+            self.anc_in = torch.zeros((L, L - 1), dtype=torch.bool,
+                                      device=dev)
+            self.anc_left = torch.zeros_like(self.anc_in)
         self.t = empty_tree(L, B, dev)
         self.t.leaf_value[0] = root_out
         self.t.leaf_weight[0] = root[1]
@@ -231,7 +247,7 @@ class _Grower:
             rec, self.params, self.t.leaf_value[leaves],
             pmin if self.has_mono else None, pmax if self.has_mono else None,
             self.num_bins, self.spec.cat_subset)
-        if self.has_mono:
+        if self.has_mono and not self.spec.mono_mode:
             lmin, lmax, rmin, rmax = monotone_child_intervals(
                 rec.feature, rec.is_cat, self.mono, lo, ro, pmin, pmax)
             return lo, ro, (lmin, lmax, rmin, rmax)
@@ -263,6 +279,8 @@ class _Grower:
             lmin, lmax, rmin, rmax = iv
             self.leaf_min[leaves], self.leaf_min[news] = lmin, rmin
             self.leaf_max[leaves], self.leaf_max[news] = lmax, rmax
+        if ch is None:  # monotone intermediate: searched again after
+            return
         n = rec.gain.shape[0]
         for f, v in zip(self.best, ch):
             if f is not None:
@@ -475,13 +493,50 @@ class _Grower:
             for arr, v in ((self.leaf_groups, grp), (self.path_used, pu)):
                 arr[l] = v[0]
                 arr[new] = v[0]
-        ch = self.children_best(left_h[None], right_h[None], rec, lo, ro,
-                                cmn, cmx, [depth], extras)
+        ch = None
+        if not self.spec.mono_mode:
+            ch = self.children_best(left_h[None], right_h[None], rec, lo, ro,
+                                    cmn, cmx, [depth], extras)
         self.record(slice(l, l + 1), slice(new, new + 1), slice(i, i + 1),
                     rec, lo, ro, iv, ch)
         self.leaf_parent[l] = self.leaf_parent[new] = i
         self.leaf_depth[l] = self.leaf_depth[new] = depth
         self.i = new
+        if self.spec.mono_mode:
+            self.mono_split(l, i, new)
+
+    def mono_split(self, l: int, i: int, new: int) -> None:
+        """After split i of leaf l (children l and new), monotone
+        intermediate (permuted.py:866-918): the ancestry takes the split,
+        every leaf's bounds are computed again (grower.mono_bounds), and
+        every live leaf's best split is searched again under them."""
+        L, dev = self.L, self.dev
+        self.anc_in[new] = self.anc_in[l]
+        self.anc_left[new] = self.anc_left[l]
+        self.anc_in[l, i] = self.anc_in[new, i] = True
+        self.anc_left[l, i] = True
+        t = self.t
+        i_new = torch.full((), new, dtype=torch.int64, device=dev)
+        nmin, nmax = mono_bounds(1, self.anc_in, self.anc_left,
+                                 t.leaf_value, t.node_feature, t.node_cat,
+                                 self.mono, i_new)
+        rec = best_split(
+            self.exp_hist(self.hist, self.leaf_g, self.leaf_h, self.leaf_c),
+            self.leaf_g, self.leaf_h, self.leaf_c, self.num_bins,
+            self.nan_bin, self.mono, self.params, self.feat_mask,
+            parent_output=t.leaf_value, cmin=nmin, cmax=nmax, has_mono=True,
+            is_cat=self.is_cat, cat_subset=self.spec.cat_subset)
+        live = [x <= new and (self.spec.max_depth <= 0
+                              or self.leaf_depth[x] < self.spec.max_depth)
+                for x in range(L)]
+        live = torch.tensor(live, dtype=torch.bool, device=dev)
+        rec = rec._replace(gain=torch.where(
+            live, rec.gain, torch.full_like(rec.gain, NEG_INF)))
+        for f, v in zip(self.best, rec):
+            if f is not None:
+                f.copy_(v)
+        self.leaf_min.copy_(nmin)
+        self.leaf_max.copy_(nmax)
 
     # ----------------------------------------------------------- result
     def finish(self, valid) -> Tuple[TreeArrays, torch.Tensor]:
@@ -533,6 +588,14 @@ def grow_tree_permuted(
     per-node extras and forced plan of grower.grow_tree."""
     if spec.rounds and (spec.per_node or spec.n_forced):
         raise ValueError("tpu_growth_rounds excludes per-node extras")
+    if spec.mono_mode and (spec.per_node or spec.n_forced or spec.rounds):
+        # permuted.py:214-220: the re-search takes the plain feature mask
+        raise ValueError(
+            "monotone intermediate/advanced excludes per-node extras / "
+            "forced splits / rounds")
+    if spec.mono_mode == 2:
+        raise ValueError("monotone advanced rides the rounds grower only "
+                         "(boosting runs intermediate on the exact grower)")
     g = _Grower(bins_fm, nan_bin, num_bins, mono, is_cat, grad, hess, mask,
                 feat_mask, params, spec, valid, bundle, rng_key, group_mat,
                 cegb, forced)

@@ -45,9 +45,22 @@ i < n: its record replaces the leaf's best one and its selection gain
 is raised to BIG, so the round takes it first; an entry that would
 leave a child empty falls back to the best-gain split.
 
-Not ported, each refused upstream: voting / reduce-scatter / any mesh
-axis and monotone intermediate and advanced (ROADMAP queue A).
-Monotone basic is kept: it costs nothing beyond the interval tensors.
+Monotone constraints ride all three methods. Basic costs nothing beyond
+the interval tensors. Intermediate and advanced (spec.mono_mode 1 / 2,
+rounds.py:98-121, :527-556, :966-1104) carry the ancestry of every leaf
+((L, L-1) bools: which nodes are above it, and on which side) and, under
+advanced, every leaf's per-feature bin range. A round first defers any
+candidate on the other side of a live monotone ancestor from a
+higher-gain candidate of the same round (their bounds were computed
+from each other's outputs before the round); node ids stay consecutive
+across the holes. After the fused pass it extends the ancestry, takes
+every leaf's bounds from grower.mono_bounds, and searches every live
+leaf's best split again under them over the histogram pool, in one
+batch. Neither composes with the per-node extras or a forced plan
+(boosting falls back to basic with a warning).
+
+Not ported, refused upstream: voting / reduce-scatter / any mesh axis
+(ROADMAP queue A).
 """
 
 from __future__ import annotations
@@ -65,6 +78,7 @@ from .grower import (
     empty_tree,
     forced_record,
     make_node_candidates,
+    mono_bounds,
     monotone_child_intervals,
     split_leaf_outputs,
 )
@@ -101,8 +115,14 @@ def round_cap(num_leaves: int, slots: int) -> int:
 
 def tree_round_cap(spec: GrowerSpec) -> int:
     """round_cap of a spec: a forced plan's phase takes one round a split
-    on top of the rest."""
+    on top of the rest. Under monotone intermediate / advanced the
+    conflict guard can put off all but one split of a round (a 255-leaf
+    Higgs-like tree takes 42-60 rounds on the card), so the cap is the
+    most rounds any tree can take, L - 1; a replay skips the rounds a
+    tree does not need."""
     L = spec.num_leaves
+    if spec.mono_mode:
+        return max(L - 1, 1)
     return min(max(L - 1, 1), round_cap(L, spec.rounds_slots or 1)
                + spec.n_forced)
 
@@ -127,6 +147,7 @@ def grow_tree_rounds(
     group_mat: Optional[torch.Tensor] = None,  # (NG, F) bool
     cegb: Optional[CegbInfo] = None,
     forced: Optional[ForcedSplits] = None,
+    deferred: Optional[torch.Tensor] = None,  # 0-dim int64 counter
 ) -> Tuple[TreeArrays, torch.Tensor]:
     """Grow one tree -> (tree arrays, natural-order row -> leaf, -1 on
     rows with valid == 0). gh_scale carries the level scales when
@@ -135,7 +156,7 @@ def grow_tree_rounds(
     runs tree_round_cap(spec)); the tree's (rounds taken, still growing)
     are appended to loop.trees as device tensors. rng_key, group_mat,
     cegb and forced: the per-node extras and forced plan of
-    grower.grow_tree."""
+    grower.grow_tree; deferred: grower.grow_tree's guard counter."""
     if spec.quant != (gh_scale is not None):
         raise ValueError("gh_scale is required with spec.quant (integer "
                          "levels) and refused without it")
@@ -154,6 +175,13 @@ def grow_tree_rounds(
     F = num_bins.shape[0]
     per_node = spec.per_node
     n_forced = spec.n_forced
+    mono_mode = spec.mono_mode
+    if mono_mode and (per_node or n_forced):
+        # rounds.py:186-198: the re-search takes the plain feature mask
+        raise ValueError(
+            "monotone intermediate/advanced excludes per-node extras / "
+            "forced splits (boosting downgrades the combination to "
+            "method=basic)")
 
     def exp_hist(h, g_, h_, c_):
         return expand_hist(h, g_, h_, c_, bundle) if spec.efb else h
@@ -238,6 +266,16 @@ def grow_tree_rounds(
     leaf_parent = torch.full((L + 1,), -1, dtype=torch.int64, device=dev)
     leaf_min = torch.full((L + 1,), -BIG, dtype=torch.float32, device=dev)
     leaf_max = torch.full((L + 1,), BIG, dtype=torch.float32, device=dev)
+    if mono_mode:
+        # ancestry of each leaf (row L the dump's): anc_in[x, a] node a
+        # is above leaf x, anc_left[x, a] on its left side
+        anc_in = torch.zeros((L + 1, L - 1), dtype=torch.bool, device=dev)
+        anc_left = torch.zeros_like(anc_in)
+        iota_n = torch.arange(L - 1, device=dev)
+    if mono_mode == 2:
+        # each leaf's bin range (lo, hi] per feature
+        leaf_flo = torch.full((L + 1, F), -1, dtype=torch.int32, device=dev)
+        leaf_fhi = torch.full((L + 1, F), B, dtype=torch.int32, device=dev)
     i = torch.zeros((), dtype=torch.int64, device=dev)  # splits so far
     n_rounds = torch.zeros((), dtype=torch.int32, device=dev)
     unused_row = torch.zeros(16, dtype=torch.int32, device=dev)
@@ -320,9 +358,26 @@ def grow_tree_rounds(
                                    gain_sel)
         order = torch.sort(gain_sel, descending=True,
                            stable=True).indices[:W]
+        rank = slot
+        if mono_mode:
+            # the same-round conflict guard (rounds.py:527-548): a
+            # candidate that shares a live monotone ancestor with a
+            # higher-gain candidate, on the other side of it, waits for
+            # the next round; node ids stay consecutive over the holes
+            node_m = ((mono[t.node_feature[:L - 1].long()] != 0)
+                      & ~t.node_cat[:L - 1] & (iota_n < i))
+            a_in, a_lf = anc_in[order], anc_left[order]  # (W, L-1)
+            conf = (a_in[:, None] & a_in[None] & (a_lf[:, None] ^ a_lf[None])
+                    & node_m).any(dim=2)  # (W, W)
+            earlier = slot[None, :] < slot[:, None]
+            take = act & ~(conf & earlier & act[None, :]).any(dim=1)
+            if deferred is not None:
+                deferred.add_((act & ~take).sum())
+            act = take
+            rank = torch.cumsum(act.to(torch.int64), dim=0) - 1
         tl = torch.where(act, order, dump_leaf)  # taken leaves
-        node_ids = torch.where(act, i + slot, dump_node)
-        new_ids = torch.where(act, i + slot + 1, dump_leaf)
+        node_ids = torch.where(act, i + rank, dump_node)
+        new_ids = torch.where(act, i + rank + 1, dump_leaf)
         rec = map_record(lambda f: f[tl], best)
         if n_forced:
             rec = forced_record(rec, use_f & (tl == fl), ff, fb, sums,
@@ -335,7 +390,7 @@ def grow_tree_rounds(
             rec, params, parent_out,
             pmin if has_mono else None, pmax if has_mono else None,
             num_bins, spec.cat_subset)
-        if has_mono:
+        if has_mono and not mono_mode:
             lmin, lmax, rmin, rmax = monotone_child_intervals(
                 rec.feature, rec.is_cat, mono, lo, ro, pmin, pmax)
         depth_new = t.leaf_depth[tl] + 1
@@ -423,6 +478,9 @@ def grow_tree_rounds(
             _put(arr, tl, left)
             _put(arr, new_ids, right)
 
+        if mono_mode:
+            mono_round(tl, new_ids, node_ids, act, rec)
+            return
         # ---- best splits of the 2 W new children, one batch
         ch_g = torch.cat([rec.left_g, rec.right_g])
         ch_h = torch.cat([rec.left_h, rec.right_h])
@@ -471,11 +529,67 @@ def grow_tree_rounds(
                                      (leaf_max, lmax, rmax)):
                 _put(arr, tl, left)
                 _put(arr, new_ids, right)
+        end_round(tl, new_ids, node_ids, n_split)
+
+    def end_round(tl, new_ids, node_ids, n_taken):
         _put(leaf_parent, tl, node_ids)
         _put(leaf_parent, new_ids, node_ids)
-        i.add_(n_split)
+        i.add_(n_taken)
         forced_now.clear()  # the state moved on
-        n_rounds.add_((n_split > 0).to(torch.int32))
+        n_rounds.add_((n_taken > 0).to(torch.int32))
+
+    def mono_round(tl, new_ids, node_ids, act, rec):
+        """The end of an intermediate / advanced round (rounds.py
+        :966-1104): the ancestry and (advanced) the bin ranges take the
+        round's splits, every leaf's bounds are computed again
+        (grower.mono_bounds), and every live leaf's best split is searched
+        again under them in one batch. A round that splits nothing
+        computes the same bounds and splits again."""
+        oh = (iota_n[None, :] == node_ids[:, None]) & act[:, None]
+        row_in, row_lf = anc_in[tl], anc_left[tl]  # before the round
+        _put(anc_in, tl, row_in | oh)  # the left child keeps the id
+        _put(anc_left, tl, row_lf | oh)
+        _put(anc_in, new_ids, row_in | oh)
+        _put(anc_left, new_ids, row_lf)
+        flo = fhi = None
+        if mono_mode == 2:
+            # a numerical split narrows its feature's range in both
+            # children; categorical splits and features with a NaN bin
+            # keep the full range
+            feat = rec.feature.long()
+            refine = act & (nan_bin[feat] < 0)
+            if rec.is_cat is not None:
+                refine = refine & ~rec.is_cat
+            f_oh = ((torch.arange(F, device=dev)[None, :] == feat[:, None])
+                    & refine[:, None])
+            lo_p, hi_p = leaf_flo[tl], leaf_fhi[tl]
+            b_ = rec.bin[:, None]
+            _put(leaf_fhi, tl, torch.where(f_oh, torch.minimum(hi_p, b_),
+                                           hi_p))
+            _put(leaf_flo, new_ids, torch.where(
+                f_oh, torch.maximum(lo_p, b_), lo_p))
+            _put(leaf_fhi, new_ids, hi_p)
+            flo, fhi = leaf_flo[:L], leaf_fhi[:L]
+        n_taken = act.sum()
+        i_new = i + n_taken
+        nmin, nmax = mono_bounds(mono_mode, anc_in[:L], anc_left[:L],
+                                 t.leaf_value[:L], t.node_feature[:L - 1],
+                                 t.node_cat[:L - 1], mono, i_new, flo, fhi)
+        lg, lh, lc = leaf_g[:L], leaf_h[:L], leaf_c[:L]
+        rec_all = best_split(
+            exp_hist(hist[:L], lg, lh, lc), lg, lh, lc, num_bins, nan_bin,
+            mono, params, feat_mask, parent_output=t.leaf_value[:L],
+            cmin=nmin, cmax=nmax, has_mono=True, is_cat=cat_arg,
+            cat_subset=spec.cat_subset)
+        live = torch.arange(L, device=dev) <= i_new
+        if spec.max_depth > 0:
+            live = live & (t.leaf_depth[:L] < spec.max_depth)
+        rec_all = rec_all._replace(gain=torch.where(
+            live, rec_all.gain, torch.full_like(rec_all.gain, NEG_INF)))
+        map_record(lambda b, v: b[:L].copy_(v), best, rec_all)
+        leaf_min[:L].copy_(nmin)
+        leaf_max[:L].copy_(nmax)
+        end_round(tl, new_ids, node_ids, n_taken)
 
     if loop.bounded:
         loop.run(tree_round_cap(spec), growing, lambda: one_round(S))

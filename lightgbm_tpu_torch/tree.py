@@ -244,6 +244,67 @@ class Tree:
             out[m] = np.where(nanrow, self.leaf_value[l], v)
         return out
 
+    def fit_linear_leaves(self, row_leaf: np.ndarray, grad: np.ndarray,
+                          hess: np.ndarray, raw: np.ndarray,
+                          cat_features: set, linear_lambda: float,
+                          shrinkage: float,
+                          row_mask: "np.ndarray | None" = None) -> None:
+        """One ridge model per leaf on the leaf's path features (the JAX
+        package's Tree.fit_linear_leaves, tree.py:262-319;
+        linear_tree_learner.cpp:255-358 CalculateLinear): over the leaf's
+        in-bag rows without a NaN among those features, solve
+        coeffs = -(X^T H X + lambda I)^-1 X^T g in float64 (X with a
+        constant column, lambda off the constant), scaled by the
+        shrinkage. Categorical features stay off the paths; a leaf with
+        fewer usable rows than coefficients, a singular system or a
+        non-finite solution keeps its plain value as the constant."""
+        L = self.num_leaves
+        paths: List[List[int]] = [[] for _ in range(L)]
+
+        def walk(node, feats):
+            if node < 0:
+                paths[~node] = feats
+                return
+            f = int(self.split_feature[node])
+            nf = feats if (f in cat_features or f in feats) else feats + [f]
+            walk(int(self.left_child[node]), nf)
+            walk(int(self.right_child[node]), nf)
+
+        if L > 1:
+            walk(0, [])
+        self.is_linear = True
+        self.leaf_const = self.leaf_value.astype(np.float64).copy()
+        self.leaf_features = [list(p) for p in paths]
+        self.leaf_coeff = [[0.0] * len(p) for p in paths]
+        raw = np.asarray(raw, np.float64)
+        for leaf in range(L):
+            feats = paths[leaf]
+            k = len(feats)
+            sel = row_leaf == leaf
+            if row_mask is not None:  # in-bag rows only (bagging / GOSS)
+                sel = sel & row_mask
+            if k == 0 or not np.any(sel):
+                continue
+            Xl = raw[np.ix_(sel, feats)]
+            ok = ~np.isnan(Xl).any(axis=1)
+            if int(ok.sum()) < k + 1:
+                continue
+            Xa = np.concatenate([Xl[ok], np.ones((int(ok.sum()), 1))],
+                                axis=1)
+            g = np.asarray(grad, np.float64)[sel][ok]
+            h = np.asarray(hess, np.float64)[sel][ok]
+            A = (Xa.T * h) @ Xa
+            A[np.arange(k), np.arange(k)] += linear_lambda
+            b = Xa.T @ g
+            try:
+                coef = -np.linalg.solve(A, b)
+            except np.linalg.LinAlgError:
+                continue
+            if not np.isfinite(coef).all():
+                continue
+            self.leaf_coeff[leaf] = [float(c) * shrinkage for c in coef[:k]]
+            self.leaf_const[leaf] = float(coef[k]) * shrinkage
+
     def max_depth(self) -> int:
         """Decisions on the longest root-to-leaf path (0 for a stump)."""
         if self.num_leaves <= 1:

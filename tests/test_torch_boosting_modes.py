@@ -12,6 +12,7 @@ on the same seeded inputs, with JAX on the CPU.
   predictions; rollback takes the last trees out of the average as the
   JAX package does; the model text round trip; the fatal message without
   bagging or feature_fraction, and the refused custom objective;
+  multiclass diverges only at a tie of exact zero gain (ROADMAP C.1);
 - both run on the eager loop with the JAX package's reasons, and the
   scikit-learn estimators take boosting_type "dart" and "rf".
 """
@@ -225,6 +226,28 @@ def test_rf_rollback_matches_jax():
     per_tree = np.stack([t.predict(Xv) for t in gt.models])
     np.testing.assert_allclose(gt.get_score(gt.valids[0])[0],
                                per_tree.mean(axis=0), atol=1e-5)
+
+
+def test_rf_multiclass_diverges_only_at_ties(monkeypatch):
+    """ROADMAP C.1 decided, a tie: RF multiclass with bagging. Trees 0-13
+    match; in tree 14 (iteration 4, class 2) the port splits, at its
+    node 6, an in-bag leaf whose rows are all of one class and so carry
+    one gradient level and one hessian level: every split of it has
+    children with equal g / h ratios, a gain of exactly zero, which the
+    port's f32 evaluation rounds to +2^-17 (a unit in the last place of
+    its leaf-gain terms) and the JAX package's to at most 0. The port's
+    tree then lacks the JAX package's last split for want of leaves."""
+    from test_torch_monotone import (_grad_recorder,
+                                     assert_first_difference_is_tie)
+
+    X, y, _Xv, _yv = _data("multiclass")
+    p = {**BASE, "objective": "multiclass", "num_class": 3,
+         "boosting": "rf", "bagging_fraction": 0.632, "bagging_freq": 1}
+    bj = lgb_j.train(p, lgb_j.Dataset(X, label=y), ROUNDS)
+    grads = _grad_recorder(monkeypatch)
+    pt = {**p, "device_type": "cpu"}
+    bt = lgb_t.train(pt, lgb_t.Dataset(X, label=y, params=pt), ROUNDS)
+    assert assert_first_difference_is_tie(bj, bt, X, grads) == (14, 6)
 
 
 def test_rf_regression_l1_refits_on_label_minus_init():

@@ -1524,3 +1524,65 @@ def test_extras_fused_graph_matches_eager_bitwise(dev, case, tmp_path):
     assert fp is not None and fp.graph.captured and fp.graph.replays == 4
     assert bf.model_to_string() == be.model_to_string()
     assert torch.equal(bf._gbdt.valids[0].score, be._gbdt.valids[0].score)
+
+
+# ---- monotone intermediate / advanced and linear trees on the card
+MONO_LINEAR_CASES = {
+    "intermediate": {"monotone_constraints": [1, -1, 0, 1, 0, -1, 0, 0, 0,
+                                              0],
+                     "monotone_constraints_method": "intermediate"},
+    "advanced": {"monotone_constraints": [1, -1, 0, 1, 0, -1, 0, 0, 0, 0],
+                 "monotone_constraints_method": "advanced"},
+    "exact_intermediate": {"tpu_growth_mode": "exact",
+                           "monotone_constraints": [1, -1, 0, 1, 0, -1, 0,
+                                                    0, 0, 0],
+                           "monotone_constraints_method": "intermediate"},
+    "linear": {"linear_tree": True, "linear_lambda": 0.1},
+}
+
+
+@pytest.mark.parametrize("case", list(MONO_LINEAR_CASES))
+def test_mono_and_linear_card_match_cpu(dev, case):
+    """5 iterations on 6,000 rows on the card and on the CPU: raw
+    predictions within 1e-4; linear trees' device predict within 1e-5 of
+    the host walker's."""
+    rs = np.random.RandomState(9)
+    X = rs.randn(7000, 10).astype(np.float32)
+    y = (X @ rs.randn(10) + 0.3 * rs.randn(7000) > 0).astype(float)
+    preds = []
+    for device in ("cuda", "cpu"):
+        p = {"objective": "binary", "num_leaves": 31, "verbosity": -1,
+             **MONO_LINEAR_CASES[case], "device_type": device}
+        bst = lgb.train(p, lgb.Dataset(X[:6000], label=y[:6000], params=p),
+                        5)
+        preds.append(bst.predict(X[6000:], raw_score=True))
+        if device == "cuda" and case == "linear":
+            np.testing.assert_allclose(
+                bst.predict(X[6000:], raw_score=True, device="cuda"),
+                preds[0], atol=1e-5)
+    np.testing.assert_allclose(preds[0], preds[1], atol=1e-4)
+
+
+@pytest.mark.parametrize("method", ["intermediate", "advanced"])
+def test_mono_fused_graph_matches_eager_bitwise(dev, method):
+    """The conflict guard, the bounds' tables and the re-search inside the
+    captured CUDA graph: model text, validation scores and the deferred
+    count equal the eager loop's."""
+    rs = np.random.RandomState(5)
+    X = rs.randn(22000, 10).astype(np.float32)
+    y = (X @ rs.randn(10) + 0.3 * rs.randn(22000) > 0).astype(float)
+    p = {"objective": "binary", "num_leaves": 63, "verbosity": -1,
+         "metric": "auc", **MONO_LINEAR_CASES[method]}
+    out = {}
+    for fused in (True, False):
+        ds = lgb.Dataset(X[:20000], label=y[:20000], params=p)
+        vs = lgb.Dataset(X[20000:], label=y[20000:], reference=ds)
+        out[fused] = lgb.train(p, ds, 5, valid_sets=[vs],
+                               callbacks=[] if fused else [_eager])
+    bf, be = out[True], out[False]
+    fp = bf._gbdt._fused
+    assert fp is not None and fp.graph.captured and fp.graph.replays == 4
+    assert bf._gbdt.fused_overflow_count == 0
+    assert bf.model_to_string() == be.model_to_string()
+    assert torch.equal(bf._gbdt.valids[0].score, be._gbdt.valids[0].score)
+    assert int(be._gbdt.mono_deferred) > 0

@@ -187,7 +187,6 @@ def test_round_cap_overflow_reruns_on_eager_loop(bounded, monkeypatch):
     """With the cap at 2 rounds every 31-leaf tree outgrows it: each
     iteration is grown again on the eager loop, and counted."""
     monkeypatch.setattr(rounds, "round_cap", lambda L, S: 2)
-    monkeypatch.setattr(boosting, "round_cap", lambda L, S: 2)
     params = {"objective": "binary", "num_leaves": 31, "min_data_in_leaf": 5,
               "metric": "auc"}
     data = _data("binary")

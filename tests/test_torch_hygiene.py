@@ -91,13 +91,12 @@ def test_cpu_must_be_asked_for(no_card):
 
 def test_growth_mode_exact_raises():
     """The exact path trains; what its JAX counterpart adds beyond the
-    port (here monotone intermediate) still raises."""
+    port (here the voting-parallel learner) still raises."""
     X, y = _tiny()
     p = {"objective": "binary", "verbosity": -1, "device_type": "cpu",
          "tpu_growth_mode": "exact"}
     assert lgb.train(p, lgb.Dataset(X, label=y, params=p), 1).num_trees() == 1
-    p = dict(p, monotone_constraints=[1, 0, 0],
-             monotone_constraints_method="intermediate")
+    p = dict(p, tree_learner="voting")
     with pytest.raises(NotImplementedError, match="queue A"):
         lgb.train(p, lgb.Dataset(X, label=y, params=p), 1)
 
@@ -131,11 +130,11 @@ def test_auto_means_int16_everywhere():
 
 
 @pytest.mark.parametrize("extra", [
-    {"linear_tree": True},
+    {"num_machines": 2},
     {"tree_learner": "voting"},
-    {"monotone_constraints": [1, 0, 0],
+    {"tree_learner": "voting", "monotone_constraints": [1, 0, 0],
      "monotone_constraints_method": "intermediate"},
-    {"monotone_constraints": [1, 0, 0],
+    {"tree_learner": "feature", "monotone_constraints": [1, 0, 0],
      "monotone_constraints_method": "advanced"},
     {"tree_learner": "data"},
     {"tree_learner": "feature"},
@@ -147,6 +146,30 @@ def test_unported_options_raise(extra):
          **extra}
     with pytest.raises(NotImplementedError):
         lgb.train(p, lgb.Dataset(X, label=y, params=p), 1)
+
+
+@pytest.mark.parametrize("extra", [
+    {"linear_tree": True},
+    {"monotone_constraints": [1, 0, 0],
+     "monotone_constraints_method": "intermediate"},
+    {"monotone_constraints": [1, 0, 0],
+     "monotone_constraints_method": "advanced"},
+])
+def test_formerly_refused_options_train(extra):
+    """linear_tree and monotone intermediate / advanced train now."""
+    X, y = _tiny()
+    p = {"objective": "binary", "verbosity": -1, "device_type": "cpu",
+         **extra}
+    bst = lgb.train(p, lgb.Dataset(X, label=y, params=p), 2)
+    assert bst.num_trees() == 2
+    gb = bst._gbdt
+    if "linear_tree" in extra:
+        assert all(t.is_linear for t in gb.models)
+        assert gb.fused_ineligible_reason() == \
+            "linear_tree leaf fits run on host"
+    else:
+        assert gb.spec.mono_mode == {"intermediate": 1, "advanced": 2}[
+            extra["monotone_constraints_method"]]
 
 
 @pytest.mark.parametrize("key,value,item", [

@@ -20,8 +20,8 @@ lightgbm_tpu on the same seeded inputs, with JAX on the CPU.
   reads nothing back from the device with all of them on;
 - the set-up's refusals and fall-backs: coupled CEGB's eager-loop
   reason, a CEGB list of the wrong length, an unreadable forced plan,
-  monotone intermediate with extras (basic, warned) and without (raises
-  naming A.5), tpu_growth_rounds with extras (round phase off).
+  monotone intermediate with extras (basic, warned) and without
+  (intermediate), tpu_growth_rounds with extras (round phase off).
 """
 
 import json
@@ -405,8 +405,9 @@ def test_monotone_intermediate_falls_back_with_extras():
             "monotone_constraints_method": "intermediate"}
     gb = _tiny({**mono, "extra_trees": True})._gbdt
     assert gb.spec.extra_trees and gb.spec.has_mono
-    with pytest.raises(NotImplementedError, match="A.5"):
-        _tiny(mono)
+    assert gb.spec.mono_mode == 0
+    gb = _tiny(mono)._gbdt  # without an extra: intermediate
+    assert gb.spec.mono_mode == 1 and not gb.spec.extra_trees
 
 
 def test_growth_rounds_phase_off_with_extras(forced_file):
