@@ -145,16 +145,19 @@ Phases, each printed as one JSON line:
   *_fused_vs_eager - the fused loop against the eager loop in turns, on
             the same data and parameters, for train, train_bag,
             train_goss, train_quant, train_l1, train_f32 (after the f32
-            paths) and train_cat (after its phase): 1 warm-up and 6 timed
-            trees each (train_goss 11 unsampled trees first); trees/s,
-            host ms a tree, device busy share and device operations a
-            tree for both loops; capture seconds, graph nodes, graph
-            launches a tree, rounds per tree and overflows for the graph;
-            model text and validation scores bitwise equal, eval records
-            within 1e-5, 0 overflows and the path's kernels in the graph
-            (fused_summary gathers the paths). The small phase's
-            early stopping also runs the eager loop on the card (the same
-            stop, the same model text as the fused loop);
+            paths), train_exact and train_exact_rounds (the exact grower,
+            its splits on the segment ladder and its round phase in the
+            graph: 1 warm-up and 3 timed trees) and train_cat (after its
+            phase): 1 warm-up and 6 timed trees each (train_goss 11
+            unsampled trees first); trees/s, host ms a tree, splits a
+            tree, device busy share and device operations a tree for both
+            loops; capture seconds, graph nodes, graph launches a tree,
+            rounds per tree and overflows for the graph; model text and
+            validation scores bitwise equal, eval records within 1e-5, 0
+            overflows and the path's kernels in the graph (fused_summary
+            gathers the paths). The small phase's early stopping also
+            runs the eager loop on the card (the same stop, the same
+            model text as the fused loop);
   mono_dataset, train_mono_intermediate, train_mono_advanced,
   train_mono_basic, train_mono_exact - monotone constraints on the
             Higgs-like rows (binned again: a Dataset takes its
@@ -170,7 +173,9 @@ Phases, each printed as one JSON line:
             on both loops; a `*_tables` line each: grower.mono_bounds
             and the all-leaf re-search of one eager tree replayed, device
             ms a tree; basic on the fused loop (AUC, trees/s); and
-            intermediate on the exact grower (63 leaves, 2 eager trees);
+            intermediate on the exact grower (63 leaves, 2 eager trees),
+            then train_mono_exact_fused_vs_eager (the same, 1 warm-up and
+            2 timed trees each loop);
   train_linear - linear_tree (linear_lambda 0.1) on the binary
             workload, 5 eager trees: trees/s, host ms a tree in the leaf
             fits and in the rest, AUC after each tree; the train score of
@@ -234,6 +239,17 @@ Phases, each printed as one JSON line:
   serve_contrib - device TreeSHAP on the 50-tree model, 1,024 rows,
             against host shap.py (8 worker processes): within 1e-5, rows
             summing to the raw score; device ms and peak memory;
+  serve_fleet - the multi-tenant ModelFleet: 7 tenants (text cuts of the
+            500-tree forest at 50, 100, 200, 300 and 500 trees, the
+            20-tree categorical and ranking models; at least 3 shape
+            families) behind 4 resident slots, rungs 16 / 64 / 256: one
+            request a tenant and rung (captures = families x rungs),
+            then a Zipf-like churn trace of 600 requests of 1-256 rows:
+            page-ins, evictions, captures (unchanged by the trace), p50 /
+            p99 ms of resident and of paged requests, qps, each tenant's
+            worst difference from its own TensorForest on the card
+            (<= 1e-5) and the slots it used; and one tenant scored from
+            two slots of its stack (the same bits, one capture);
 then the `kernels` summary line and, last, {"ok": true, "device": ...}.
 Any failure raises: no `ok` line, non-zero exit. Without a CUDA device,
 or without the package beside it, the script exits non-zero at once.
@@ -1718,6 +1734,11 @@ FUSED_NEEDS = {
     # would bypass their clamps), so seg_sum does not run there
     "train_mono_intermediate": ("hist_round", "hist_nat", "take_small"),
     "train_mono_advanced": ("hist_round", "hist_nat", "take_small"),
+    # the exact grower: hist for the root and every split's smaller
+    # child, hist_slots for the round phase
+    "train_exact": ("hist", "take_small"),
+    "train_exact_rounds": ("hist", "hist_slots", "take_small"),
+    "train_mono_exact": ("hist", "take_small"),
 }
 
 
@@ -1760,7 +1781,7 @@ def loop_profile(torch, run, n_trees):
 
 
 def fused_vs_eager(torch, lgb, ds, vs, name, extra, n_timed=6, n_skip=0,
-                   check=None):
+                   check=None, n_profile=1, eager_profile=None):
     """The eager loop, then the fused CUDA-graph loop, on the same data
     and parameters at the headline widths: n_skip untimed trees (GOSS
     samples from tree 12), 1 warm-up tree, n_timed timed trees. Eager:
@@ -1770,16 +1791,21 @@ def fused_vs_eager(torch, lgb, ds, vs, name, extra, n_timed=6, n_skip=0,
     the first dispatch runs the warm-up tree and captures the
     iteration's graph, the timed trees are one dispatch of replays.
     Per loop: trees/s (card synchronized), host ms a tree (the host
-    clock until the trees are enqueued), and from a 2-tree torch.profiler
-    run the device busy share, device operations a tree and (fused) the
-    kernel symbols its replays ran; for the graph: capture seconds,
-    nodes, graph launches a tree, rounds per tree (min / median / max)
-    and overflows. Holds model text and validation scores bitwise equal,
+    clock until the trees are enqueued), and from an n_profile-tree
+    torch.profiler run the device busy share, device operations a tree
+    and (fused) the kernel symbols its replays ran; for the graph: capture seconds,
+    nodes, graph launches a tree, rounds per tree (min / median / max;
+    the exact grower's: its round phase's) and overflows; splits per tree
+    (min / median / max) under each loop. Holds model text and validation scores bitwise equal,
     eval records within 1e-5, 0 overflows and FUSED_NEEDS[name] in the
     graph (their wrappers ran during the capture; the profile's kernel
-    symbols of two replays are printed beside). check(booster), when
+    symbols of the profiled replays are printed beside). check(booster), when
     given, holds each loop's model (it raises) and its result is printed
-    under the loop."""
+    under the loop. n_profile: the trees (replays) each profile runs;
+    eager_profile: a profile_phase line of the same eager run taken
+    earlier in the script, whose numbers stand in for the eager loop's
+    profile (an eager exact tree takes ~50 s under the profiler).
+    `seconds` gives each part's wall time."""
     from lightgbm_tpu_torch.learner import cuda_hist as ch
 
     params = {"objective": "binary", "num_leaves": L, "max_bin": 255,
@@ -1787,7 +1813,9 @@ def fused_vs_eager(torch, lgb, ds, vs, name, extra, n_timed=6, n_skip=0,
               "verbosity": -1, **extra}
     res, line = {}, {"phase": name + "_fused_vs_eager",
                      "trees": n_skip + 1 + n_timed, "timed_trees": n_timed}
+    secs = line["seconds"] = {}
     for loop in ("eager", "fused"):
+        t_loop = time.perf_counter()
         bst = lgb.Booster(params, ds)
         bst.add_valid(vs, "valid")
         gb = bst._gbdt
@@ -1808,13 +1836,14 @@ def fused_vs_eager(torch, lgb, ds, vs, name, extra, n_timed=6, n_skip=0,
                 records.append(bst.eval_valid())
 
             def two():
-                bst.update()
-                bst.update()
+                for _ in range(n_profile):
+                    bst.update()
         else:
             gb.fused_start(track_train=False)
             gb.fused_dispatch(n_skip + 1)
             records += gb.fused_collect()
             torch.cuda.synchronize()
+            secs["fused_first_dispatch"] = time.perf_counter() - t_loop
             t0 = time.perf_counter()
             gb.fused_dispatch(n_timed)
             host = time.perf_counter() - t0
@@ -1823,16 +1852,31 @@ def fused_vs_eager(torch, lgb, ds, vs, name, extra, n_timed=6, n_skip=0,
             records += gb.fused_collect()
 
             def two():
-                gb.fused_dispatch(2)
+                gb.fused_dispatch(n_profile)
                 gb.fused_collect()
         launches = {k: v for k, v in ch.LAUNCHES.items() if v}
         checked = check(bst) if check is not None else None
+        splits = sorted(t.num_leaves - 1 for t in gb.models)
         res[loop] = (bst.model_to_string(),
                      gb.valids[0].score.clone(), records)
-        prof, names = loop_profile(torch, two, 2)
+        secs[loop] = time.perf_counter() - t_loop
+        t_prof = time.perf_counter()
+        if loop == "eager" and eager_profile is not None:
+            p = eager_profile
+            prof, names = {"profile_of": p["phase"],
+                           "profiled_wall_ms_per_tree": p["wall_ms_per_tree"],
+                           "device_ms_per_tree": p["device_ms_per_tree"],
+                           "device_busy_share": p["device_busy_share"],
+                           "device_ops_per_tree":
+                               p["kernel_launches_per_tree"]}, {}
+        else:
+            prof, names = loop_profile(torch, two, n_profile)
+        secs[loop + "_profile"] = time.perf_counter() - t_prof
         line[loop] = {"trees_per_s": n_timed / wall,
                       "host_ms_per_tree": host * 1e3 / n_timed,
                       "wall_ms_per_tree": wall * 1e3 / n_timed,
+                      "splits_per_tree": [splits[0], splits[len(splits) // 2],
+                                          splits[-1]],
                       "launches_counted": launches, **prof}
         if checked is not None:
             line[loop]["check"] = checked
@@ -1841,7 +1885,7 @@ def fused_vs_eager(torch, lgb, ds, vs, name, extra, n_timed=6, n_skip=0,
             r = sorted(fp.rounds)
             line[loop].update({
                 "graph_launches_per_tree": fp.graph.replays
-                / (n_skip + n_timed + 2),
+                / (n_skip + n_timed + n_profile),
                 "capture_s": fp.graph.capture_s, "graph_nodes":
                 fp.graph.nodes, "round_cap": fp.round_cap,
                 "rounds_per_tree": [r[0], r[len(r) // 2], r[-1]],
@@ -3333,7 +3377,8 @@ def serve_forest_phase(torch, lgb, ch, np, ds, Xv, cat_sets, rank_sets):
     forest, take_small at every level) against the host walker; then the
     same check on 20-tree models of train_cat's data (category bitsets
     on the card) and train_rank's (136 columns). Returns the 500-tree
-    booster and the take_small launches of the Higgs-like check."""
+    booster, the take_small launches of the Higgs-like check, and the
+    20-tree boosters by name with 4,096 of their validation rows."""
     params = {"objective": "binary", "num_leaves": L, "max_bin": 255,
               "learning_rate": 0.1, "min_data_in_leaf": 20,
               "verbosity": -1}
@@ -3351,11 +3396,13 @@ def serve_forest_phase(torch, lgb, ch, np, ds, Xv, cat_sets, rank_sets):
     if launches["take_small"] == 0:
         raise AssertionError("serve_forest: take_small was not launched")
     checks = [higgs]
+    small = {}
     for name, (cds, cvs), extra in (
             ("train_cat_20", cat_sets, {}),
             ("train_rank_20", rank_sets, RANK_PARAMS)):
         b = lgb.train({**params, **extra}, cds, 20)
         checks.append(serve_check(np, b, cvs.data[:SERVE_ROWS], name))
+        small[name] = (b, cvs.data[:4096])
     forest_meta = lgb.serving.TensorForest.from_booster(bst).meta
     emit({"phase": "serve_forest", "train_trees": SERVE_TREES,
           "reduced": "host-checked rows 100,000 -> 20,000",
@@ -3364,7 +3411,7 @@ def serve_forest_phase(torch, lgb, ch, np, ds, Xv, cat_sets, rank_sets):
           "forest": forest_meta, "checks": checks,
           "take_small_launches": launches["take_small"],
           "launches": {k: v for k, v in launches.items() if v}})
-    return bst, launches
+    return bst, launches, small
 
 
 @contextlib.contextmanager
@@ -3706,11 +3753,169 @@ def serve_contrib_phase(torch, np, lgb, bst, n_feat, rows=1024):
     return line
 
 
+# serve_fleet: cuts of the 500-tree forest (text models at these
+# num_iteration values) beside the 20-tree categorical and ranking
+# models, behind a fleet of FLEET_CAPACITY resident slots
+FLEET_CUTS = (50, 100, 200, 300, 500)
+FLEET_CAPACITY = 4
+FLEET_BUCKETS = (16, 64, 256)
+FLEET_REQUESTS = 600
+
+
+def serve_fleet_phase(torch, np, lgb, bst, Xh, small20):
+    """The model fleet on the card: tenants of at least three shape
+    families (the cuts, and the 20-tree categorical and ranking models),
+    more than FLEET_CAPACITY of them. First every tenant takes one
+    request a rung (it pages in, and each family stack captures its
+    rungs: captures = families x rungs); then a Zipf-like churn trace
+    (tenant i drawn with weight 1 / (i + 1), RandomState(31)) of
+    FLEET_REQUESTS requests of 1-256 rows (log-uniform). Prints page-ins,
+    evictions, captures (which must not grow over the trace), p50 / p99
+    ms of requests served resident and of requests that paged their
+    tenant in, qps, and per tenant its worst difference from its own
+    TensorForest on the card over every request (<= 1e-5; 0 means the
+    same bits) and the slots it was paged into: a tenant seen in two
+    slots scored the same bits in both."""
+    from lightgbm_tpu_torch.serving import ModelFleet, TensorForest
+
+    tenants = {f"higgs_{n}": (bst.model_to_string(num_iteration=n), Xh)
+               for n in FLEET_CUTS}
+    for name, (b, rows) in small20.items():
+        tenants[name] = (b.model_to_string(), rows)
+    names = list(tenants)
+    refs = {}
+    for name, (text, rows) in tenants.items():
+        own = TensorForest.from_booster(lgb.Booster(model_str=text))
+        refs[name] = own.predict_raw(rows)[0]
+    fleet = ModelFleet(buckets=FLEET_BUCKETS, capacity=FLEET_CAPACITY,
+                       slots_per_family=FLEET_CAPACITY)
+    for name, (text, rows) in tenants.items():
+        fleet.load(name, text, num_features=rows.shape[1])
+    worst = {n: 0.0 for n in names}
+    slots = {n: set() for n in names}
+
+    def request(name, lo, n):
+        rows = tenants[name][1]
+        before = fleet.fleet_stats()["pages_in"]
+        t0 = time.perf_counter()
+        got = fleet.predict(name, rows[lo:lo + n], raw_score=True)
+        dt = (time.perf_counter() - t0) * 1e3
+        paged = fleet.fleet_stats()["pages_in"] > before
+        entry = fleet._names[name]["versions"][0]
+        slots[name].add((id(entry.stack), entry.slot))
+        worst[name] = max(worst[name], float(np.abs(
+            got - refs[name][lo:lo + n]).max()))
+        return dt, paged
+
+    t0 = time.perf_counter()
+    for name in names:
+        for n in (1, 17, 65):
+            request(name, 0, n)
+    warm_s = time.perf_counter() - t0
+    fs0 = fleet.fleet_stats()
+    captures0 = fleet.captures()
+    rs = np.random.RandomState(31)
+    w = 1.0 / np.arange(1, len(names) + 1)
+    picks = rs.choice(len(names), FLEET_REQUESTS, p=w / w.sum())
+    sizes = np.exp(rs.uniform(0, np.log(256), FLEET_REQUESTS)).astype(int)
+    lat = {"resident": [], "paged": []}
+    t0 = time.perf_counter()
+    for i, n in zip(picks, sizes):
+        name = names[i]
+        lo = int(rs.randint(0, tenants[name][1].shape[0] - n + 1))
+        dt, paged = request(name, lo, int(n))
+        lat["paged" if paged else "resident"].append(dt)
+    wall = time.perf_counter() - t0
+    fs = fleet.fleet_stats()
+    graphs = {str(k): {b: p.graph.nodes
+                       for (b, _), p in st.programs.by_shape.items()
+                       if p.graph is not None}
+              for k, v in fleet._stacks.items() for st in v}
+    captures1 = fleet.captures()
+    # one graph a stack, rung and row width: the tenants here give each
+    # family one width
+    widths = {(e.family, e.width) for r in fleet._names.values()
+              for e in r["versions"]}
+    fleet.close()
+    move = fleet_slot_move(np, lgb, tenants, refs)
+    moved = [n for n in names if len(slots[n]) > 1]
+    line = {"phase": "serve_fleet", "tenants": len(names),
+            "capacity": FLEET_CAPACITY, "buckets": list(FLEET_BUCKETS),
+            "families": len(fs["families"]), "stacks": fs["stacks"],
+            "family_widths": len(widths),
+            "warm_seconds": warm_s, "captures_after_warm": captures0,
+            "captures_after_trace": captures1,
+            "pages_in_warm": fs0["pages_in"],
+            "pages_in": fs["pages_in"], "evictions": fs["evictions"],
+            "requests": FLEET_REQUESTS, "rows": int(sizes.sum()),
+            "qps": FLEET_REQUESTS / wall,
+            "resident_requests": len(lat["resident"]),
+            "paged_requests": len(lat["paged"]),
+            "resident_p50_ms": _pct(lat["resident"], 0.5),
+            "resident_p99_ms": _pct(lat["resident"], 0.99),
+            "paged_p50_ms": _pct(lat["paged"], 0.5),
+            "paged_p99_ms": _pct(lat["paged"], 0.99),
+            "worst_vs_own_forest": worst,
+            "slots_seen": {n: len(slots[n]) for n in names},
+            "moved_tenants": moved, "slot_move": move,
+            "graph_nodes": graphs, "tolerance": 1e-5}
+    emit(line)
+    rungs = len(FLEET_BUCKETS)
+    if not (line["families"] >= 3 and len(names) > FLEET_CAPACITY
+            and fs["stacks"] == line["families"] == len(widths)
+            and captures0 == line["families"] * rungs
+            and line["captures_after_trace"] == captures0):
+        raise AssertionError(f"serve_fleet: families, stacks or captures: "
+                             f"{line}")
+    if max(worst.values()) > 1e-5 or any(worst[n] != 0.0 for n in moved):
+        raise AssertionError(f"serve_fleet: a tenant differs from its own "
+                             f"forest: {line}")
+    if not (move["slots"][0] != move["slots"][1] and move["same_bits"]
+            and move["captures"] == 1):
+        raise AssertionError(f"serve_fleet: the slot move: {move}")
+    if not (fs["evictions"] > 0 and line["paged_requests"] > 0):
+        raise AssertionError(f"serve_fleet: no paging under churn: {line}")
+    return line
+
+
+def fleet_slot_move(np, lgb, tenants, refs):
+    """One tenant scored from two slots of its family's stack: a fleet of
+    two slots a family and a residency of two pages a second tenant of
+    higgs_300's family ("other", the same text) into slot 0 and
+    higgs_300 into slot 1, scores it, touches "other", pages
+    train_cat_20 in (evicting higgs_300) and higgs_300 again (evicting
+    "other": it takes slot 0). Both higgs_300 answers must be the same
+    bits, its own forest's, through the stack's one graph."""
+    from lightgbm_tpu_torch.serving import ModelFleet
+
+    fleet = ModelFleet(buckets=(16,), capacity=2, slots_per_family=2)
+    t = f"higgs_{FLEET_CUTS[-2]}"  # higgs_300
+    srcs = {"other": t, t: t, "train_cat_20": "train_cat_20"}
+    for name, src in srcs.items():
+        fleet.load(name, tenants[src][0],
+                   num_features=tenants[src][1].shape[1])
+    rows = tenants[t][1][:16]
+    got, where = [], []
+    for name in ("other", t, "other", "train_cat_20", t):
+        out = fleet.predict(name, tenants[srcs[name]][1][:16],
+                            raw_score=True)
+        if name == t:
+            got.append(out)
+            where.append(fleet._names[name]["versions"][0].slot)
+    stack, = fleet._stacks[fleet._names[t]["versions"][0].family]
+    out = {"slots": where, "same_bits": bool(
+        np.array_equal(got[0], got[1])
+        and np.array_equal(got[0], refs[t][:16])),
+        "captures": stack.programs.captures, "rows": int(rows.shape[0])}
+    fleet.close()
+    return out
+
+
 def serve_phases(torch, lgb, ch, hist, np, ds, Xv, cat_sets, rank_sets):
     """Every serving phase in order; returns the take_small_serve kernel
     line and the launches of the serve_forest run."""
-    bst, launches = serve_forest_phase(torch, lgb, ch, np, ds, Xv,
-                                       cat_sets, rank_sets)
+    bst, launches, small20 = serve_forest_phase(torch, lgb, ch, np, ds, Xv,
+                                                cat_sets, rank_sets)
     forest = lgb.serving.TensorForest.from_booster(bst)
     line = take_small_serve_line(torch, hist, ch, forest)
     emit_kernel("take_small_serve", line)
@@ -3730,6 +3935,7 @@ def serve_phases(torch, lgb, ch, hist, np, ds, Xv, cat_sets, rank_sets):
     serve_loaded_phase(torch, np, lgb, bst, Xv.shape[1], "higgs_500x255")
     serve_http_phase(np, lgb, small, B["features"])
     serve_contrib_phase(torch, np, lgb, small, B["features"])
+    serve_fleet_phase(torch, np, lgb, bst, Xv[:4096], small20)
     return line, launches
 
 
@@ -3906,8 +4112,9 @@ def main() -> int:
 
     captured = {}
     seg_calls = {"train_exact": {}, "train_exact_rounds": {}}
+    f32_profiles = {}
     for name in F32_PATHS:
-        path_launches[name], _ = train_f32_path(
+        path_launches[name], f32_profiles[name] = train_f32_path(
             torch, lgb, ch, permuted, ds, vs, name,
             capture=captured if name == "train_exact_rounds" else None,
             rounds_cap=round_caps.get(name), seg_calls=seg_calls.get(name))
@@ -3936,6 +4143,13 @@ def main() -> int:
             ("train_f32", (ds, vs), F32_PATHS["train_f32"], 0)):
         fused_lines[name] = fused_vs_eager(torch, lgb, *sets, name, extra,
                                            n_skip=skip)
+    # ... and on the exact grower with and without its round phase: 3
+    # timed trees (an eager exact tree takes ~1.7 s) and the eager loop's
+    # profile from its f32 path phase
+    for name in ("train_exact", "train_exact_rounds"):
+        fused_lines[name] = fused_vs_eager(
+            torch, lgb, ds, vs, name, F32_PATHS[name], n_timed=3,
+            eager_profile=f32_profiles[name])
 
     # ---- DART and RF (eager loop), every per-node extra on together and
     # a 3-level forced plan (both loops, in turns)
@@ -3959,6 +4173,10 @@ def main() -> int:
             torch, lgb, np, dm, vm, Xv, method, dirs)
     train_mono_basic_line(torch, lgb, dm, vm, dirs)
     train_mono_exact_phase(torch, lgb, ch, np, dm, vm, Xv, dirs)
+    fused_lines["train_mono_exact"] = fused_vs_eager(
+        torch, lgb, dm, vm, "train_mono_exact",
+        {"num_leaves": 63, "tpu_growth_mode": "exact",
+         **mono_params(X.shape[1], "intermediate", dirs)}, n_timed=2)
     del dm, vm
     train_linear_phase(torch, lgb, ch, np, X, y, Xv, yv, ds)
 

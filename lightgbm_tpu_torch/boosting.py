@@ -36,8 +36,9 @@ traversals and the device metrics (device_metrics.py), with the sticky
 `stopped` and `overflow` carries, replayed with no host read in between
 (_FusedProgram). Its loops are bounded and skip their idle steps inside
 the graph (learner/device_loop.py), so its trees and scores are the
-eager loop's bit for bit. The exact grower (tpu_growth_mode=exact) reads
-the card once per split and stays on the eager loop (ROADMAP A).
+eager loop's bit for bit. Both growers ride it: the rounds grower's
+rounds, and the exact grower's L - 1 split steps (each partition on the
+segment-capacity ladder) after its round phase.
 
 The per-node extras (extra_trees, feature_fraction_bynode, the CEGB
 penalties, interaction_constraints) and forced splits
@@ -82,6 +83,7 @@ from .learner.grower import (
     grow_tree,
     make_split_params,
 )
+from .learner.permuted import round_phase_cap
 from .learner.rounds import tree_round_cap
 from .timer import global_timer as _gt
 from .metrics import Metric, create_metrics
@@ -887,9 +889,6 @@ class GBDT:
         if self.objective.has_host_state:
             return (f"objective {self.objective.name} keeps cross-iteration "
                     "host state (e.g. position debiasing)")
-        if self.spec.rounds_slots == 0:
-            return ("the exact grower (tpu_growth_mode=exact) reads the "
-                    "card once per split and is not captured yet")
         for ss in [self.train] + self.valids:
             if supported_names(ss.metrics) is None:
                 return (f"metric(s) {[m.name for m in ss.metrics]} have no "
@@ -1238,7 +1237,12 @@ class _FusedProgram:
         dev = gb.device
         self.K = gb.num_class
         self.rows = gb._check_every  # the most iterations of a dispatch
-        self.round_cap = tree_round_cap(gb.spec)
+        # the rounds grower's round cap, or the exact grower's round-phase
+        # cap (its sequential phase is L - 1 steps and cannot overflow)
+        spec = gb.spec
+        self.round_cap = (tree_round_cap(spec) if spec.rounds_slots else
+                          round_phase_cap(spec.num_leaves) if spec.rounds
+                          else 0)
         self.eval_sets = []
         for ss in ([gb.train] if track_train else []) + gb.valids:
             names, hb = supported_names(ss.metrics)

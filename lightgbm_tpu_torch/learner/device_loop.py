@@ -43,7 +43,7 @@ import contextlib
 import ctypes
 import gc
 import time
-from typing import Callable, List, Optional
+from typing import Callable, List, Optional, Tuple
 
 import torch
 
@@ -84,6 +84,32 @@ class DeviceLoop:
             else:
                 with self.graph.when(pred()):
                     body()
+
+    def ladder(self, value: torch.Tensor, caps: Tuple[int, ...],
+               body: Callable[[int], None]) -> None:
+        """body(cap) for the smallest of `caps` (descending; caps[0]
+        bounds every value) that is >= value, a one-element device int:
+        that body alone, its cap chosen on the host (EAGER), the widest
+        body, which serves every value and reads nothing (BOUNDED), or
+        every body in an IF node on its own range of values (CAPTURE).
+        A body's result must not depend on the cap it runs at."""
+        if self.mode == EAGER:
+            v = int(value)
+            body(min(c for c in caps if c >= v))
+        elif self.mode == BOUNDED or len(caps) == 1:
+            body(caps[0])
+        else:
+            v = value.reshape(())
+            for j, cap in enumerate(caps):
+                # the values for which cap is the smallest that fits
+                if j + 1 == len(caps):
+                    pred = v <= cap
+                elif j == 0:
+                    pred = v > caps[1]
+                else:
+                    pred = (v <= cap) & (v > caps[j + 1])
+                with self.graph.when(pred):
+                    body(cap)
 
     def cond(self, pred: torch.Tensor, body: Callable[[], None]) -> None:
         """body() when pred (a 0-dim device bool) holds: read on the host

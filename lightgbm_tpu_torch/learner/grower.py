@@ -353,8 +353,8 @@ def grow_tree(bins_fm, nan_bin, num_bins, mono, is_cat, grad, hess, mask,
     Dispatches as the JAX package's grow_tree does: the rounds grower
     when spec.rounds_slots > 0 (its round loop as `loop` says,
     device_loop.py), else the sequential permuted grower (f32 gradients
-    only; gh_scale must then be None; it reads the card once per split
-    and takes no loop). rng_key (the tree's node key: extra_trees,
+    only; gh_scale must then be None; its split and round loops as
+    `loop` says). rng_key (the tree's node key: extra_trees,
     feature_fraction_bynode), group_mat ((NG, F) interaction groups),
     cegb (CegbInfo) and forced (ForcedSplits) feed the per-node extras
     and the forced phase that spec names. deferred: a 0-dim int64 device
@@ -374,8 +374,6 @@ def grow_tree(bins_fm, nan_bin, num_bins, mono, is_cat, grad, hess, mask,
                                 grad, hess, mask, feat_mask, params, spec,
                                 valid, bundle, gh_scale, loop,
                                 deferred=deferred, **extras)
-    if loop is not None and loop.bounded:
-        raise ValueError("the permuted grower runs on the eager loop only")
     if gh_scale is not None:
         raise ValueError("the permuted grower takes f32 gradients, not "
                          "integer levels with scales")
@@ -383,7 +381,7 @@ def grow_tree(bins_fm, nan_bin, num_bins, mono, is_cat, grad, hess, mask,
 
     return grow_tree_permuted(bins_fm, nan_bin, num_bins, mono, is_cat, grad,
                               hess, mask, feat_mask, params, spec, valid,
-                              bundle, **extras)
+                              bundle, loop=loop, **extras)
 
 
 def add_score(score: torch.Tensor, row_leaf: torch.Tensor,

@@ -200,8 +200,23 @@ def histogram_plain(bins_fm: torch.Tensor, gh: torch.Tensor, num_bins: int,
                     begin=0, count=None, cap: Optional[int] = None
                     ) -> torch.Tensor:
     """Plain version of hist: fixed-point sums over rows [begin,
-    begin + count)."""
+    begin + count). Tensor bounds are never read on the host: the rows
+    inside them are a mask over all N rows (the same sums)."""
     G, N = bins_fm.shape
+    if isinstance(begin, torch.Tensor) or isinstance(count, torch.Tensor):
+        if cap is None:
+            raise ValueError("tensor bounds need a host cap")
+        dev = bins_fm.device
+        pos = torch.arange(N, device=dev)
+        b = torch.as_tensor(begin, device=dev).reshape(-1)[:1]
+        e = N if count is None else \
+            b + torch.as_tensor(count, device=dev).reshape(-1)[:1]
+        inside = (pos >= b) & (pos < e)
+        vals = torch.where(inside[None, :], gh, torch.zeros_like(gh))
+        k = fx_exponents(_absmax(vals), int(cap))
+        acc = _slot_hist_int64(bins_fm, fx_quantize(vals, k),
+                               (~inside).to(torch.int64), 1, num_bins)[0]
+        return fx_to_f32(acc, k)
     b, c = _segment(begin, count, N)
     cap = c if cap is None else int(cap)
     rows = slice(b, b + c)

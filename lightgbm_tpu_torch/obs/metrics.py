@@ -19,8 +19,9 @@ a scrape sees and the percentile the stats op returns never disagree.
 
 Recording is a dict upsert under a per-metric lock. When the registry is
 disabled (env LIGHTGBM_TPU_METRICS=0, or ``disable()``) every record call
-is a single attribute check. The training recorders, the fleet's, the
-gateway's and the online loop's are not ported (ROADMAP A.9, A.11).
+is a single attribute check. The fleet's recorders are here
+(lgbmtpu_fleet_*); the training recorders, the gateway's and the online
+loop's are not ported (ROADMAP A.11).
 """
 
 from __future__ import annotations
@@ -470,6 +471,28 @@ def record_registry_event(event: str, model: str) -> None:
     r.counter("lgbmtpu_registry_events_total",
               "model registry lifecycle events",
               labels=("event", "model")).inc(1, event=event, model=model)
+
+
+def record_fleet_page(model: str, event: str) -> None:
+    """Fleet device paging: ``page_in`` / ``evict`` / ``warmup`` /
+    ``page_fail`` for one tenant (serving/fleet.py LRU residency)."""
+    r = _default
+    if not r.enabled:
+        return
+    r.counter("lgbmtpu_fleet_page_events_total",
+              "fleet device paging events, by model and kind",
+              labels=("model", "event")).inc(1, model=model, event=event)
+
+
+def record_fleet_resident(resident: int, capacity: int) -> None:
+    """Current fleet residency against the configured capacity."""
+    r = _default
+    if not r.enabled:
+        return
+    r.gauge("lgbmtpu_fleet_resident_models",
+            "models currently resident in device memory").set(resident)
+    r.gauge("lgbmtpu_fleet_capacity_models",
+            "configured fleet residency capacity").set(capacity)
 
 
 def record_request_op(op: str, ok: bool) -> None:

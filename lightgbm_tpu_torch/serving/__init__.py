@@ -10,15 +10,19 @@ The port of lightgbm_tpu/serving:
   of the shape ladder) and the thread-safe microbatch queue;
 - ``registry``: load / hot-swap / version Boosters (text or JSON model)
   behind one scoring entry point, with N dispatcher replicas a version;
+- ``fleet``: the multi-tenant ModelFleet, shape families of models in
+  stacked device tables with LRU paging, one CUDA graph a family stack
+  and rung (ForestStack);
 - ``server``: the JSON-lines loop and the HTTP front end (/v1/<op>,
-  /healthz, /readyz, /metrics).
+  /v1/fleet, /healthz, /readyz, /metrics).
 
-Not ported: the multi-tenant ModelFleet with device paging, the
-gateway and the online loop (ROADMAP A.9), and a row-sharded forest
-(A.8). Importing one of their names raises NotImplementedError.
+Not ported: the gateway and the online loop (ROADMAP A.11, with the
+operations layer they import), and a row-sharded forest (A.8).
+Importing one of the gateway's names raises NotImplementedError.
 """
 
 from .dispatch import DEFAULT_BUCKETS, BucketDispatcher, MicroBatcher
+from .fleet import ForestStack, ModelFleet
 from .forest import TensorForest
 from .registry import ModelRegistry
 from .server import ScoringServer, readiness, serve_http
@@ -29,6 +33,8 @@ __all__ = [
     "MicroBatcher",
     "DEFAULT_BUCKETS",
     "ModelRegistry",
+    "ModelFleet",
+    "ForestStack",
     "ScoringServer",
     "serve_http",
     "readiness",
@@ -36,12 +42,9 @@ __all__ = [
 
 # the JAX package's serving names not ported yet, each with the
 # ROADMAP item that ports it
-NOT_PORTED = {
-    **{n: "A.9 (the model fleet)" for n in ("ModelFleet", "ForestStack")},
-    **{n: "A.9 (the gateway)" for n in (
-        "Gateway", "gateway_http", "CircuitBreaker", "HedgePolicy",
-        "RollingLatency", "BackendPool")},
-}
+NOT_PORTED = {n: "A.11 (the gateway, with the operations layer)" for n in (
+    "Gateway", "gateway_http", "CircuitBreaker", "HedgePolicy",
+    "RollingLatency", "BackendPool")}
 
 
 def __getattr__(name):

@@ -19,6 +19,13 @@ Each dispatcher owns a CUDA stream of its own, so replicas of one model
 dispatcher are serialized by its lock (its buffers are shared). On the
 CPU the same padded calls run directly, with no graph.
 
+The programs, their lock and their stream form a ProgramSet. The model
+fleet (serving/fleet.py) gives every tenant of one family stack a
+dispatcher of its own (its stats, its rows' width check) over the
+stack's one ProgramSet: a call binds the tenant first (forest.bind(),
+which writes its slot into the stack's slot buffer) and replays the
+family's graph, all under the set's lock.
+
 ``MicroBatcher`` is the queueing half: callers ``submit()`` rows from any
 thread and get a Future; one worker per dispatcher drains the queue,
 coalesces pending requests into one padded device call, and fans the
@@ -68,6 +75,28 @@ CONTRIB_MAX_ROWS = 256
 _CAPTURE_LOCK = threading.Lock()
 
 
+class ProgramSet:
+    """The rungs' programs of one table set, with the lock and the CUDA
+    stream that every call into them takes. A dispatcher owns one; the
+    fleet's tenants of one family stack share theirs (their graphs read
+    the stack's slot buffer), so a family captures each rung once
+    however many tenants page through it."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.stream = (torch.cuda.Stream(device) if device.type == "cuda"
+                       else None)
+        self.lock = threading.Lock()
+        self.by_shape: Dict[Tuple[int, int], "_Program"] = {}
+        self.captures = 0  # CUDA graphs captured (one per rung and width)
+
+    def scope(self):
+        """The set's stream as torch's current stream (the CPU: none)."""
+        if self.stream is None:
+            return contextlib.nullcontext()
+        return torch.cuda.stream(self.stream)
+
+
 @dataclass
 class _Program:
     """One rung's static buffers and, on the card, its CUDA graph and the
@@ -85,7 +114,8 @@ class BucketDispatcher:
     device (one CUDA graph per rung on the card)."""
 
     def __init__(self, forest, buckets: Sequence[int] = DEFAULT_BUCKETS,
-                 name: str = "serve", model: Optional[str] = None):
+                 name: str = "serve", model: Optional[str] = None,
+                 programs: Optional[ProgramSet] = None):
         if not buckets:
             raise ValueError("need at least one bucket size")
         self.buckets: Tuple[int, ...] = tuple(
@@ -94,11 +124,20 @@ class BucketDispatcher:
         self.name = name
         self.device = forest.device
         self._cuda = self.device.type == "cuda"
-        self.stream = torch.cuda.Stream(self.device) if self._cuda else None
         self._stats = latency_stats(name, model=model)
-        self._lock = threading.Lock()
-        self._programs: Dict[Tuple[int, int], _Program] = {}
-        self.captures = 0  # CUDA graphs captured (one per rung and width)
+        # the rungs' programs, lock and stream: the dispatcher's own, or a
+        # fleet family's, shared with its other tenants
+        self.program_set = programs if programs is not None else \
+            ProgramSet(self.device)
+        self.stream = self.program_set.stream
+        self._lock = self.program_set.lock
+        self._programs = self.program_set.by_shape
+
+    @property
+    def captures(self) -> int:
+        """CUDA graphs captured for this dispatcher's programs (one per
+        rung and width; a fleet family's, for all its tenants)."""
+        return self.program_set.captures
 
     # ------------------------------------------------------------------
     @property
@@ -119,9 +158,7 @@ class BucketDispatcher:
         return self.buckets[-1]
 
     def _scope(self):
-        if self.stream is None:
-            return contextlib.nullcontext()
-        return torch.cuda.stream(self.stream)
+        return self.program_set.scope()
 
     def _program(self, b: int, F: int) -> _Program:
         """The rung's program, built at first use (caller holds the lock
@@ -132,7 +169,7 @@ class BucketDispatcher:
         f = self.forest
         prog = _Program(
             x=torch.zeros((b, F), dtype=torch.float32, device=self.device),
-            tree_w=torch.ones(f.num_trees, dtype=torch.float32,
+            tree_w=torch.ones(f.weight_len, dtype=torch.float32,
                               device=self.device))
         if self._cuda:
             from ..learner.device_loop import CudaGraph
@@ -146,7 +183,7 @@ class BucketDispatcher:
                 graph.capture(lambda _loop: outs.extend(
                     f.apply(prog.x, prog.tree_w)))
             prog.graph, (prog.score, prog.leaf) = graph, outs
-            self.captures += 1
+            self.program_set.captures += 1
         self._programs[(b, F)] = prog
         return prog
 
@@ -160,6 +197,21 @@ class BucketDispatcher:
         with self._lock, self._scope():
             for b in self.buckets:
                 self._program(b, F)
+            if self._cuda:
+                self.stream.synchronize()
+
+    def warm_rung(self, b: int, num_features: int) -> None:
+        """Build rung b's program for rows of num_features (on the card:
+        capture its graph the first time) and run it once for this
+        forest, waiting for the card: the fleet's page-in, after which a
+        request is pure scoring."""
+        with self._lock, self._scope():
+            prog = self._program(self.bucket_for(int(b)), int(num_features))
+            self.forest.bind()
+            if prog.graph is not None:
+                prog.graph.replay()
+            else:
+                self.forest.apply(prog.x, prog.tree_w)
             if self._cuda:
                 self.stream.synchronize()
 
@@ -178,6 +230,7 @@ class BucketDispatcher:
             record_bucket_dispatch(self.name, b, rows)
             with self._lock, self._scope():
                 prog = self._program(b, F)
+                self.forest.bind()
                 prog.x[:rows].copy_(torch.from_numpy(chunk))
                 if rows < b:
                     prog.x[rows:].zero_()

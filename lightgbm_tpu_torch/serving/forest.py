@@ -38,11 +38,16 @@ value into its feature column in f64 with index_add_, whose order on the
 card is not fixed: contributions agree with host TreeSHAP within 1e-5,
 not bit for bit across runs.
 
+The fleet's stacked tables (the JAX package's pad_forest_tables and
+stacked_forest_apply): a shape family's models padded to the family's
+power-of-two dimensions and laid side by side as one forest of S x T
+trees (stack_tables), a slot scored by offsetting every table index by
+the slot, a 0-dim int32 on the device.
+
 Everything here takes a device: "cuda" (also "gpu" and "tpu", the JAX
 package's word) runs on the card and raises when torch sees none;
 "cpu" runs the same torch ops there. The JAX package's row-sharded
-forest (mesh=) and the fleet's stacked tables are not ported (ROADMAP
-A.8, A.9).
+forest (mesh=) is not ported (ROADMAP A.8).
 """
 
 from __future__ import annotations
@@ -206,10 +211,11 @@ def pack_forest_tables(models, num_class: int
 
 
 def go_left(v: torch.Tensor, x: torch.Tensor, catw: torch.Tensor,
-            has_cat: bool) -> torch.Tensor:
+            has_cat: bool, cat_base=0) -> torch.Tensor:
     """Split decision for gathered node params ``v`` (9, *S) against
     gathered feature values ``x`` (*S): Tree.go_left on the device, shared
-    by the traversal and the TreeSHAP path evaluation."""
+    by the traversal and the TreeSHAP path evaluation. cat_base: where
+    the forest's bitset words start in catw (a stack slot's)."""
     thr = v[1]
     mt = v[2].to(torch.int32)
     dl = v[3] > 0.5
@@ -226,7 +232,7 @@ def go_left(v: torch.Tensor, x: torch.Tensor, catw: torch.Tensor,
         iv = iv.clamp(-1.0, 2.0 ** 30).to(torch.int32)
         ok = (~isna) & (iv >= 0) & (iv < 32 * nw)
         ivc = iv.clamp(min=0)
-        widx = v[7].to(torch.int32) + ivc // 32
+        widx = v[7].to(torch.int32) + cat_base + ivc // 32
         w = catw[widx.clamp(0, catw.shape[0] - 1).long()]
         # bit s of an int32 word: (w >> s) & 1 under the arithmetic shift
         bit = (w >> (ivc % 32)) & 1
@@ -252,34 +258,43 @@ def class_sums(w: torch.Tensor, K: int) -> torch.Tensor:
 
 def forest_apply(tables: Dict[str, torch.Tensor], X: torch.Tensor,
                  tree_w: torch.Tensor, *, has_cat: bool = True,
-                 linear: bool = False, levels: int = 0
+                 linear: bool = False, levels: int = 0, slot=None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Traversal: (N, F) f32 rows x all T trees -> per-class raw scores
     (N, K) f32 and per-tree leaf indices (N, T) int32, on the device of
     the tables. `tree_w` is the (T,) f32 per-tree weight implementing
     iteration truncation; `levels` the levels to descend (the forest's
-    max depth; <= 0 takes max_nodes, which always suffices). Reads
-    nothing back to the host."""
+    max depth; <= 0 takes max_nodes, which always suffices). With `slot`
+    (a 0-dim int32 on the tables' device), the tables are a family's
+    stack (stack_tables) and the forest is slot `slot`'s T = len(tree_w)
+    trees: every table index is offset on the device. Reads nothing back
+    to the host."""
     from ..learner.histogram import take_cols
 
     pack = tables["pack"]
-    T, L = tables["leaf_value"].shape
-    M = pack.shape[1] // T
+    T_all, L = tables["leaf_value"].shape
+    T = tree_w.shape[0]
+    M = pack.shape[1] // T_all
     K = tables["class_onehot"].shape[1]
     N = X.shape[0]
     dev = X.device
-    tpos = (torch.arange(T, dtype=torch.int32, device=dev) * M)[None, :]
-    cur = tables["init_node"][None, :].expand(N, T)
+    tree = torch.arange(T, dtype=torch.int32, device=dev)
+    cat_base = 0
+    if slot is not None:
+        tree = tree + slot * T
+        cat_base = slot * (tables["catw"].shape[0] // (T_all // T))
+    tpos = (tree * M)[None, :]
+    cur = tables["init_node"][tree][None, :].expand(N, T)
     for _ in range(levels if levels > 0 else M):
         node = cur.clamp(min=0)  # leaf lanes compute a dead decision
         flat = (tpos + node).reshape(-1)  # (N*T,) int32
         v = take_cols(pack, flat).view(9, N, T)
         x = torch.gather(X, 1, v[0].long())  # (N, T)
-        gl = go_left(v, x, tables["catw"], has_cat)
+        gl = go_left(v, x, tables["catw"], has_cat, cat_base)
         child = torch.where(gl, v[5], v[6]).to(torch.int32)
         cur = torch.where(cur >= 0, child, cur)
     leaf = torch.where(cur < 0, ~cur, 0)  # (N, T) int32
-    lflat = ((torch.arange(T, device=dev) * L)[None, :] + leaf).reshape(-1)
+    lflat = ((tree * L)[None, :] + leaf).reshape(-1)
     val = tables["leaf_value"].reshape(-1)[lflat].view(N, T)
     if linear:
         Ck = tables["leaf_feat"].shape[2]
@@ -302,8 +317,125 @@ def forest_apply(tables: Dict[str, torch.Tensor], X: torch.Tensor,
     return score, leaf
 
 
+def stacked_forest_apply(stack: Dict[str, torch.Tensor], slot: torch.Tensor,
+                         X: torch.Tensor, tree_w: torch.Tensor, *,
+                         has_cat: bool = True, linear: bool = False,
+                         levels: int = 0
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Score slot `slot` of a family's stacked tables (stack_tables): the
+    fleet's scoring entry (serving/fleet.py). The slot is a 0-dim int32
+    on the stack's device, never a host int, so one CUDA graph a rung
+    serves every slot: paging a model into or out of a slot captures
+    nothing. The slot's trees score the same bits as their own
+    TensorForest: padding trees weigh 0, and padding iterations pad the
+    fixed-order class sums exactly as the forest's own power of two
+    does."""
+    return forest_apply(stack, X, tree_w, has_cat=has_cat, linear=linear,
+                        levels=levels, slot=slot)
+
+
 def _pow2(n: int) -> int:
     return 1 << max(int(n) - 1, 0).bit_length()
+
+
+def family_key(meta: Dict[str, Any],
+               tables: Dict[str, np.ndarray]) -> Tuple:
+    """The shape family of a packed model (the JAX package's fleet
+    _family_key): each table dimension quantized to a power of two, so
+    models padding to one key share a stack and its graphs. Trees are
+    quantized by whole iterations (num_class x a power of two), which
+    class_sums' per-iteration order needs; with one class that is the
+    JAX package's count."""
+    K = int(meta["num_class"])
+    d = max(int(meta["max_depth"]), 1)
+    return (
+        K * _pow2(-(-int(meta["num_trees"]) // K)),
+        _pow2(meta["max_nodes"]),
+        _pow2(meta["max_leaves"]),
+        K,
+        _pow2(tables["catw"].shape[0]),
+        _pow2(tables["leaf_feat"].shape[2]),
+        1 << (d - 1).bit_length(),
+        bool(meta["has_cat"]),
+        bool(meta["linear"]),
+    )
+
+
+def pad_forest_tables(tables, meta, *, num_trees: int, max_nodes: int,
+                      max_leaves: int, cat_words: int, lin_feats: int):
+    """Pad one model's host tables out to a shape family's dimensions
+    (all targets >= the model's own; the JAX package's padder), so that
+    models of one family share a stack. Padding reuses the packer's
+    inert encodings: children -1 (straight to leaf 0), init_node -1
+    (stump at leaf 0), zero leaf values and zero class-onehot rows, so
+    padded trees score exactly 0 under any tree-weight vector."""
+    T, M = meta["num_trees"], meta["max_nodes"]
+    L = meta["max_leaves"]
+    K = tables["class_onehot"].shape[1]
+    Ck = tables["leaf_feat"].shape[2]
+    W = tables["catw"].shape[0]
+    T2, M2, L2 = int(num_trees), int(max_nodes), int(max_leaves)
+    W2, Ck2 = int(cat_words), int(lin_feats)
+    if min(T2 - T, M2 - M, L2 - L, W2 - W, Ck2 - Ck) < 0:
+        raise ValueError("pad targets must cover the model's own dims")
+    pack = np.zeros((9, T2, M2), np.float32)
+    pack[5:7] = -1.0  # padding nodes route straight to leaf 0
+    pack[:, :T, :M] = np.asarray(tables["pack"]).reshape(9, T, M)
+    catw = np.zeros(W2, np.int32)
+    catw[:W] = np.asarray(tables["catw"])
+    init_node = np.full(T2, -1, np.int32)
+    init_node[:T] = np.asarray(tables["init_node"])
+    class_onehot = np.zeros((T2, K), np.float32)
+    class_onehot[:T] = np.asarray(tables["class_onehot"])
+
+    def grow(a, shape):
+        out = np.zeros(shape, a.dtype)
+        out[tuple(slice(0, s) for s in a.shape)] = a
+        return out
+
+    out = {
+        "pack": pack.reshape(9, T2 * M2),
+        "catw": catw,
+        "leaf_value": grow(np.asarray(tables["leaf_value"]), (T2, L2)),
+        "leaf_const": grow(np.asarray(tables["leaf_const"]), (T2, L2)),
+        "leaf_nf": grow(np.asarray(tables["leaf_nf"]), (T2, L2)),
+        "leaf_feat": grow(np.asarray(tables["leaf_feat"]), (T2, L2, Ck2)),
+        "leaf_coeff": grow(np.asarray(tables["leaf_coeff"]),
+                           (T2, L2, Ck2)),
+        "init_node": init_node,
+        "class_onehot": class_onehot,
+    }
+    meta2 = dict(meta, num_trees=T2, max_nodes=M2, max_leaves=L2)
+    return out, meta2
+
+
+def stack_tables(padded: Dict[str, np.ndarray], slots: int,
+                 device) -> Dict[str, torch.Tensor]:
+    """Zeroed device tables for `slots` models of one family, laid out as
+    one forest of slots x T trees: a slot's pack columns, catw words and
+    per-tree rows are contiguous (slot_views)."""
+    out = {}
+    for k, v in padded.items():
+        a = np.asarray(v)
+        shape = ((9, slots * a.shape[1]) if k == "pack"
+                 else (slots * a.shape[0],) + a.shape[1:])
+        out[k] = torch.zeros(shape, dtype=torch.from_numpy(a[:0]).dtype,
+                             device=device)
+    return out
+
+
+def slot_views(stack: Dict[str, torch.Tensor], slot: int,
+               slots: int) -> Dict[str, torch.Tensor]:
+    """The views of one slot in stack_tables' layout."""
+    out = {}
+    for k, t in stack.items():
+        if k == "pack":
+            w = t.shape[1] // slots
+            out[k] = t[:, slot * w:(slot + 1) * w]
+        else:
+            w = t.shape[0] // slots
+            out[k] = t[slot * w:(slot + 1) * w]
+    return out
 
 
 def pack_contrib_tables(models, num_class: int):
@@ -502,8 +634,14 @@ class TensorForest:
         self.average_output = bool(average_output)
         self.max_feature = meta["max_feature"]
         self.num_devices = 1
+        self.weight_len = self.num_trees  # the (T,) tree weights apply takes
         self.tables = {k: torch.from_numpy(np.ascontiguousarray(v))
                        .to(self.device) for k, v in tables.items()}
+
+    def bind(self) -> None:
+        """Make this forest the one a dispatcher's programs score: a
+        TensorForest owns its tables, so nothing to do (a fleet tenant
+        writes its slot, serving/fleet.py)."""
 
     @classmethod
     def from_booster(cls, booster, device="cuda", mesh=None

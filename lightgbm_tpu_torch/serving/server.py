@@ -21,9 +21,13 @@ Request ops:
   {"op": "swap", "model": "m", "version": 2}
   {"op": "rollback", "model": "m"}
   {"op": "models"} / {"op": "stats"} / {"op": "ping"} / {"op": "quit"}
-  {"op": "fleet"} and {"op": "ingest"} answer as the JAX package's plain
-  registry does (the fleet and the online loop are not ported, ROADMAP
-  A.9).
+  {"op": "fleet"}   # residency, paging and capture counts of a
+                    # ModelFleet (serving/fleet.py); GET /v1/fleet too
+  {"op": "ingest"} answers as the JAX package's does with no online loop
+  attached (the loop is not ported, ROADMAP A.11).
+
+Either transport serves a ModelRegistry or a ModelFleet: the load op's
+"deadline_ms" / "queue_cap" set a fleet tenant's QoS.
 
 Responses: {"ok": true, ...} or {"ok": false, "error": "..."}; scores
 ride as nested lists, latency from timer.latency_stats rides in

@@ -1586,3 +1586,105 @@ def test_mono_fused_graph_matches_eager_bitwise(dev, method):
     assert bf.model_to_string() == be.model_to_string()
     assert torch.equal(bf._gbdt.valids[0].score, be._gbdt.valids[0].score)
     assert int(be._gbdt.mono_deferred) > 0
+
+
+# ---- the exact grower's fused loop: its split steps (each partition on
+# the segment-capacity ladder, IF nodes on the device's segment size),
+# its round phase and monotone intermediate inside the captured graph
+EXACT_CASES = {
+    "exact": {"tpu_growth_mode": "exact"},
+    "exact_rounds": {"tpu_growth_mode": "exact", "tpu_growth_rounds": True},
+    "exact_mono": {"tpu_growth_mode": "exact",
+                   "monotone_constraints": [1, -1, 0, 1, 0, 0, 0, 0, 0, 0],
+                   "monotone_constraints_method": "intermediate"},
+}
+
+
+@pytest.mark.parametrize("case", list(EXACT_CASES))
+def test_exact_fused_graph_matches_eager_bitwise(dev, case, monkeypatch):
+    """The exact grower in one CUDA graph an iteration: the graph holds
+    hist (and hist_slots with the round phase), the capture allocates no
+    kernel scratch (the warm-up iteration sized it), and its model text
+    and validation scores equal the eager loop's."""
+    from lightgbm_tpu_torch.learner import device_loop
+
+    capture = device_loop.CudaGraph.capture
+    scratch = []
+
+    def ptrs():
+        return {k: {n: t.data_ptr() for n, t in b.items()}
+                for k, b in cuda_hist._SEG_SCRATCH.items()}
+
+    def watched(self, fn):
+        before = ptrs()
+        capture(self, fn)
+        scratch.append((before, ptrs()))
+
+    monkeypatch.setattr(device_loop.CudaGraph, "capture", watched)
+    rs = np.random.RandomState(5)
+    X = rs.randn(22000, 10).astype(np.float32)
+    y = (X @ rs.randn(10) + 0.3 * rs.randn(22000) > 0).astype(float)
+    p = {"objective": "binary", "num_leaves": 63, "verbosity": -1,
+         "metric": "auc", **EXACT_CASES[case]}
+    out = {}
+    for fused in (True, False):
+        ds = lgb.Dataset(X[:20000], label=y[:20000], params=p)
+        vs = lgb.Dataset(X[20000:], label=y[20000:], reference=ds)
+        out[fused] = lgb.train(p, ds, 5, valid_sets=[vs],
+                               callbacks=[] if fused else [_eager])
+    bf, be = out[True], out[False]
+    fp = bf._gbdt._fused
+    assert fp is not None and fp.graph.captured and fp.graph.replays == 4
+    assert bf._gbdt.fused_overflow_count == 0
+    assert fp.captured_launches.get("hist", 0) > 0
+    assert (fp.captured_launches.get("hist_slots", 0) > 0) == \
+        (case == "exact_rounds")
+    (before, after), = scratch
+    assert before and before == after
+    assert bf.model_to_string() == be.model_to_string()
+    assert torch.equal(bf._gbdt.valids[0].score, be._gbdt.valids[0].score)
+
+
+def test_fleet_card_matches_cpu(dev):
+    """Five tenants in two shape families paged through a fleet of three
+    slots on the card and on the CPU: the same scores (within 1e-5; the
+    same bits), the same leaves, one CUDA graph a family stack and rung
+    however many page-ins, and a tenant moved to another slot scores the
+    same bits."""
+    from lightgbm_tpu_torch.serving import ModelFleet
+
+    bst, Xq = _serve_model()
+    texts = {"cat": bst.model_to_string()}
+    for i, cut in enumerate((3, 5, 9, 12)):
+        texts[f"cut{i}"] = bst.model_to_string(num_iteration=cut)
+    buckets = (16, 64)
+    fleets = {d: ModelFleet(buckets=buckets, capacity=3,
+                            slots_per_family=4, device=d)
+              for d in (dev, "cpu")}
+    for f in fleets.values():
+        for name, text in texts.items():
+            f.load(name, text)
+    Xr = Xq[:50]
+    try:
+        first = {}
+        for sweep in range(3):
+            for name in texts:
+                n = 10 if sweep == 1 else 50
+                got = fleets[dev].predict(name, Xr[:n], raw_score=True)
+                want = fleets["cpu"].predict(name, Xr[:n], raw_score=True)
+                np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+                np.testing.assert_array_equal(got, want)
+                if sweep != 1:
+                    first.setdefault(name, got)
+                    np.testing.assert_array_equal(got, first[name])
+        fs = fleets[dev].fleet_stats()
+        assert fs["pages_in"] > len(texts) and fs["evictions"] > 0
+        fams = len(fs["families"])
+        assert fams >= 2 and fs["stacks"] == fams
+        assert fleets[dev].captures() == fams * len(buckets)
+        np.testing.assert_array_equal(
+            fleets[dev].predict("cat", Xr, pred_leaf=True),
+            fleets["cpu"].predict("cat", Xr, pred_leaf=True))
+    finally:
+        for f in fleets.values():
+            f.close()

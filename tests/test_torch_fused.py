@@ -35,8 +35,8 @@ from torch.utils._python_dispatch import TorchDispatchMode
 import lightgbm_tpu as lgb_j
 import lightgbm_tpu_torch as lgb_t
 from lightgbm_tpu_torch import boosting, device_metrics, rng, sample_strategy
-from lightgbm_tpu_torch.learner import device_loop, quantize, ranking, \
-    renewal, rounds, split
+from lightgbm_tpu_torch.learner import device_loop, permuted, quantize, \
+    ranking, renewal, rounds, split
 from lightgbm_tpu_torch.tree import traverse_tree_bins
 from test_torch_train import _STRUCT, _data, _trees
 from _port_threads import one_torch_thread
@@ -280,9 +280,10 @@ class _NoReadBack(TorchDispatchMode):
 
 def test_step_reads_nothing_back(bounded, monkeypatch):
     """Every fused step (gradients, sampling, quantization, the rounds
-    grower, renewal, score updates, traversal, device metrics, the ring
-    write) under a mode that refuses host reads and cross-device
-    copies, with bagging, GOSS-free quantized levels and the l1 refit."""
+    and the exact grower, renewal, score updates, traversal, device
+    metrics, the ring write) under a mode that refuses host reads and
+    cross-device copies, with bagging, GOSS-free quantized levels, the
+    l1 refit, the exact grower's round phase and its per-node extras."""
     step = boosting._FusedProgram.step
     calls = []
 
@@ -292,9 +293,19 @@ def test_step_reads_nothing_back(bounded, monkeypatch):
             step(self, loop)
 
     monkeypatch.setattr(boosting._FusedProgram, "step", guarded)
+    exact = {"tpu_growth_mode": "exact"}
     for params, task in (FUSED_CASES["binary_bagging_ff"],
                          FUSED_CASES["regression_l1"],
-                         FUSED_CASES["quantized"]):
+                         FUSED_CASES["quantized"],
+                         # the exact grower: its split steps on the
+                         # segment ladder, its round phase, the extras
+                         ({**FUSED_CASES["binary_bagging_ff"][0], **exact},
+                          "binary"),
+                         ({**FUSED_CASES["regression_l1"][0], **exact,
+                           "tpu_growth_rounds": True}, "regression"),
+                         ({**FUSED_CASES["regression"][0], **exact,
+                           "extra_trees": True,
+                           "feature_fraction_bynode": 0.5}, "regression")):
         _train(params, _data(task), 3, fused=True)
     assert calls and set(calls) == {device_loop.BOUNDED}
     # the guard is live: the eager loop reads its predicate
@@ -314,7 +325,8 @@ STEP_CODE = [
     boosting.GBDT._grow_maybe_quantized, boosting.GBDT._apply_renewal,
     boosting.GBDT._renew_true, boosting._FusedProgram.step,
     boosting._FusedProgram._body, boosting._FusedProgram._pack,
-    rounds.grow_tree_rounds, traverse_tree_bins, split, rng,
+    rounds.grow_tree_rounds, permuted.grow_tree_permuted, permuted._Grower,
+    traverse_tree_bins, split, rng,
     sample_strategy, quantize, renewal, device_metrics, ranking,
 ]
 

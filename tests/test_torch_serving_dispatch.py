@@ -486,7 +486,8 @@ def test_latency_stats_counters():
 
 # ---------------------------------------------------------------- refusals
 @pytest.mark.parametrize("name,item", [
-    ("ModelFleet", "A.9"), ("Gateway", "A.9"), ("gateway_http", "A.9")])
+    ("CircuitBreaker", "A.11"), ("Gateway", "A.11"),
+    ("gateway_http", "A.11")])
 def test_deferred_serving_names_raise(name, item):
     import lightgbm_tpu_torch.serving as s
 
