@@ -7,7 +7,9 @@ Run from the repository root with no arguments:
 
 Phases, each printed as one JSON line:
   device  - nvidia-smi's name and power limit, torch and CUDA versions;
-  build   - seconds to build the kernel library from csrc/ (0 on a hit);
+  build   - seconds to build the kernel library from csrc/ (0 on a hit)
+            and the native host library (native/fastparse.cpp, g++); the
+            script fails if the native library is not loaded;
   kernel  - one line per kernel (or kernel mode) at its path's shapes: its
             result against the plain PyTorch version on the same inputs
             (exact for the integer histograms, int16 and int8 modes, take
@@ -97,6 +99,28 @@ Phases, each printed as one JSON line:
             matrix and 5-tree model text bit for bit; save_binary ->
             Dataset(bin_path) and a .weight sidecar give the same model
             as the numpy input and as weight=; write and parse seconds;
+            the parse runs in the native library (native/fastparse.cpp,
+            which must be loaded): its seconds and rows/s per format, and
+            the CSV through np.loadtxt too, the same matrix bit for bit;
+  cli     - python -m lightgbm_tpu_torch at the train phase's width on
+            save_binary caches of its data: task=train (10 trees,
+            snapshot_freq=5, resume=auto) killed by the fault plan
+            round:7:kill, run again (it resumes from round 5) and run
+            clean elsewhere: the two model files bit for bit, on the
+            fused loop; task=predict on the card on the validation rows
+            against the host walker (Booster.predict) within 1e-5;
+            task=serve over stdio with
+            device_put:2:raise and host_fallback=true: the faulted
+            request's scores within 1e-5 of the device's; wall seconds,
+            the snapshot round's ms;
+  fallback_latency - in one process, a registry on the card with
+            host_fallback: median ms of a 1-row and a 1,000-row request
+            answered by the card and by the host fallback;
+  recorder - train() with record_file and anomaly_policy=warn against
+            train() without, on the fused loop, in turns: trees/s and
+            graph nodes of each; 6 recorded trees on both loops, the
+            fused records the eager records key for key and bit for bit
+            but the timings and the evaluations (within 1e-6);
   train_exact, train_exact_rounds, train_f32 - the same workload on the
             f32 paths (tpu_growth_mode=exact; exact + tpu_growth_rounds;
             rounds + tpu_hist_dtype=bf16x2), 1 warmup tree then 3 timed
@@ -177,7 +201,7 @@ Phases, each printed as one JSON line:
             then train_mono_exact_fused_vs_eager (the same, 1 warm-up and
             2 timed trees each loop);
   train_linear - linear_tree (linear_lambda 0.1) on the binary
-            workload, 5 eager trees: trees/s, host ms a tree in the leaf
+            workload, 3 eager trees (5 before the cli phase came): trees/s, host ms a tree in the leaf
             fits and in the rest, AUC after each tree; the train score of
             50,000 rows against a fresh predict(raw_score=True) and
             predict(device="cuda") against the host walker on 20,000
@@ -187,8 +211,8 @@ Phases, each printed as one JSON line:
             ~120 a query with one of 908, 136 float32 features, labels
             0-4 skewed toward 0; 2,000 validation queries), lambdarank
             then rank_xendcg at the headline widths, validation ndcg@1/3/
-            5/10: fused_vs_eager (1 warm-up + 5 timed trees; rank_xendcg
-            1 + 3), ndcg@10 rising on both loops, one lambdarank launch a
+            5/10: fused_vs_eager (1 warm-up + 3 timed trees, 5 before
+            the cli phase came; rank_xendcg 1 + 3), ndcg@10 rising on both loops, one lambdarank launch a
             tree on the eager loop and one in the graph, dataset seconds
             and peak device MB; then train_rank_profile (1 tree) and the
             `lambdarank` kernel line: the kernel against its plain
@@ -236,7 +260,8 @@ Phases, each printed as one JSON line:
   serve_http - serve_http on a free local port: /readyz 200 after
             warm-up, /v1/score equal to a direct predict, /metrics with
             lgbmtpu_serve_* series;
-  serve_contrib - device TreeSHAP on the 50-tree model, 1,024 rows,
+  serve_contrib - device TreeSHAP on the 50-tree model, 512 rows (1,024
+            before the cli phase came),
             against host shap.py (8 worker processes): within 1e-5, rows
             summing to the raw score; device ms and peak memory;
   serve_fleet - the multi-tenant ModelFleet: 7 tenants (text cuts of the
@@ -257,6 +282,7 @@ or without the package beside it, the script exits non-zero at once.
 
 import contextlib
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -2934,7 +2960,17 @@ def api_file_phase(torch, lgb, np, X, y):
     LibSVM (%.17g: the float64 values exactly), each read back through
     Dataset(path): the numpy Dataset's bin matrix and, after 5 trees, its
     model text bit for bit; save_binary -> Dataset(bin_path) and a .weight
-    sidecar (against weight=) give the same model too."""
+    sidecar (against weight=) give the same model too. The files go
+    through the native library's parsers (it must be loaded): each
+    format's parse seconds and rows/s (parsers.load_text_file alone),
+    and the CSV also through np.loadtxt (the Python path) in the same
+    run, its matrix bit for bit the native one's."""
+    from lightgbm_tpu_torch import native
+    from lightgbm_tpu_torch.parsers import load_text_file
+
+    if native.get_lib() is None:
+        raise AssertionError(f"api_file: the native library is not loaded: "
+                             f"{native.BUILD_ERROR}")
     out = Path("build") / "chip_smoke" / "api_file"
     out.mkdir(parents=True, exist_ok=True)
     n, f = min(100_000, len(y)), X.shape[1]
@@ -2975,10 +3011,22 @@ def api_file_phase(torch, lgb, np, X, y):
         ds.construct()
         parse_s = time.perf_counter() - t0
         b, rb = ds._binned, ref_ds._binned
+        t0 = time.perf_counter()
+        parsed = load_text_file(str(paths[fmt]), header=key == "header")
+        native_s = time.perf_counter() - t0
         result[fmt] = {
             "write_seconds": write_s[fmt], "construct_seconds": parse_s,
+            "native_parse_seconds": native_s,
+            "native_rows_per_s": n / native_s,
             "bins_equal": bool(np.array_equal(b.bins, rb.bins)),
             "model_text_equal": model(ds) == ref_text}
+        if fmt == "csv":
+            t0 = time.perf_counter()
+            plain = np.loadtxt(paths[fmt], delimiter=",", skiprows=1,
+                               dtype=np.float64, ndmin=2)
+            result[fmt]["np_loadtxt_seconds"] = time.perf_counter() - t0
+            result[fmt]["native_equals_loadtxt"] = bool(np.array_equal(
+                np.column_stack([parsed["label"], parsed["X"]]), plain))
     bin_path = out / "train.bin"
     refs["plain"][0].save_binary(bin_path)
     t0 = time.perf_counter()
@@ -2997,9 +3045,283 @@ def api_file_phase(torch, lgb, np, X, y):
     emit(line)
     bad = {k: v for k, v in result.items()
            if not all(v.get(c, True) for c in ("bins_equal",
-                                                "model_text_equal"))}
+                                                "model_text_equal",
+                                                "native_equals_loadtxt"))}
     if bad:
         raise AssertionError(f"api_file: {bad}")
+    return line
+
+
+def cli_phase(torch, lgb, np, ds, vs, Xv, n_serve: int = 5):
+    """The command line at the Higgs-like width (1M x 28, 255 leaves,
+    max_bin 255), on binary caches of the train phase's data written by
+    save_binary: python -m lightgbm_tpu_torch task=train with
+    snapshot_freq=5 and resume=auto (10 trees, validation AUC), first
+    under the fault plan round:7:kill (LGBMTPU_FAULT_PLAN: it must die by
+    SIGKILL and leave the checkpoint of round 5), then the same command
+    again (it resumes), each in a process of its own; then a clean run
+    in another directory: the resumed model file bit for bit the clean
+    one, both on the fused loop (their manifests' phase timers hold its
+    round span). Then task=predict (on the card: the tensorized forest)
+    on the validation rows against the host walker (Booster.predict)
+    within 1e-5, and task=serve over stdio with
+    fault_plan=device_put:2:raise and host_fallback=true: the faulted
+    request's scores (the host walker's) against the device answers to
+    the same rows within 1e-5. The clean run, predict and serve call
+    cli.main in this process (the same entry point without a process's
+    ~10 s start; cut to keep the script inside its limit). Wall seconds
+    of each command, the snapshot round's ms (the manifest's timer)."""
+    out = Path("build") / "chip_smoke" / "cli"
+    out.mkdir(parents=True, exist_ok=True)
+    ds.save_binary(out / "train.bin")
+    vs.save_binary(out / "valid.bin")
+    conf = "\n".join([
+        "task = train", "data = ../train.bin", "valid_data = ../valid.bin",
+        "objective = binary", "metric = auc", f"num_leaves = {L}",
+        "max_bin = 255", "learning_rate = 0.1", "min_data_in_leaf = 20",
+        "num_trees = 10", "snapshot_freq = 5", "resume = auto",
+        "output_model = model.txt", "verbosity = -1", ""])
+    env = dict(os.environ, PYTHONPATH=str(Path.cwd().resolve()))
+    env.pop("LGBMTPU_FAULT_PLAN", None)
+
+    def run(cwd, args, plan=None, timeout=300):
+        """python -m lightgbm_tpu_torch in a process of its own."""
+        e = dict(env, **({"LGBMTPU_FAULT_PLAN": plan} if plan else {}))
+        t0 = time.perf_counter()
+        p = subprocess.run([sys.executable, "-m", "lightgbm_tpu_torch",
+                            *args], cwd=cwd, env=e, capture_output=True,
+                           text=True, timeout=timeout)
+        return p, time.perf_counter() - t0
+
+    def run_here(cwd, args, stdin=""):
+        """The same entry point, cli.main, in this process (no interpreter
+        and CUDA start): stdin and stdout swapped for the call, the phase
+        timer that timetag turns on reset before and after it."""
+        import io
+
+        from lightgbm_tpu_torch import cli
+        from lightgbm_tpu_torch.resilience import faultinject
+        from lightgbm_tpu_torch.timer import global_timer
+
+        here, saved = os.getcwd(), (sys.stdin, sys.stdout)
+        out = io.StringIO()
+        global_timer.reset()
+        t0 = time.perf_counter()
+        try:
+            os.chdir(cwd)
+            sys.stdin, sys.stdout = io.StringIO(stdin), out
+            rc = cli.main(list(args))
+        finally:
+            sys.stdin, sys.stdout = saved
+            os.chdir(here)
+            global_timer.disable()
+            global_timer.reset()
+            faultinject.disarm()
+        return rc, out.getvalue(), time.perf_counter() - t0
+
+    walls = {}
+    for d in ("crashed", "clean"):
+        (out / d).mkdir(exist_ok=True)
+        for f in (out / d).iterdir():
+            f.unlink()
+        (out / d / "train.conf").write_text(conf)
+    train_args = ["config=train.conf", "timetag=true",
+                  "run_manifest=manifest.json"]
+    p, walls["train_killed"] = run(out / "crashed", train_args,
+                                   plan="round:7:kill")
+    killed = p.returncode == -9 and not (out / "crashed" / "model.txt"
+                                         ).exists()
+    state = json.loads((out / "crashed" / "model.txt.ckpt").read_text())
+    ckpt_round = state["engine_round"]
+    p2, walls["train_resumed"] = run(out / "crashed", train_args)
+    if p2.returncode != 0:
+        raise AssertionError(f"cli train failed: {p2.stderr[-3000:]}")
+    rc3, _, walls["train_clean_in_process"] = run_here(out / "clean",
+                                                       train_args)
+    resumed = (out / "crashed" / "model.txt").read_bytes()
+    clean = (out / "clean" / "model.txt").read_bytes()
+    timers = {d: json.loads((out / d / "manifest.json").read_text()
+                            )["phase_timers"] for d in ("crashed", "clean")}
+    fused = all("round: fused step" in t for t in timers.values())
+    snap = timers["clean"].get("snapshot", {"seconds": 0.0, "calls": 0})
+    # predict: the validation rows as a text file
+    np.savetxt(out / "valid.tsv", np.column_stack([np.zeros(len(Xv)), Xv]),
+               delimiter="\t", fmt="%.17g")
+    from lightgbm_tpu_torch.learner import cuda_hist
+
+    # the traversal's launches (read as a difference: no count is reset)
+    taken = cuda_hist.LAUNCHES["take_small"]
+    rc4, _, walls["predict_in_process"] = run_here(out / "clean", [
+        "task=predict", "data=../valid.tsv", "input_model=model.txt",
+        "output_result=pred.txt"])
+    taken = cuda_hist.LAUNCHES["take_small"] - taken
+    ref = lgb.Booster(model_file=str(out / "clean" / "model.txt"))
+    pred_err = float(np.abs(np.loadtxt(out / "clean" / "pred.txt")
+                            - ref.predict(Xv)).max())
+    # serve: the same rows in every request; the second is faulted
+    rows = np.asarray(Xv[:n_serve], np.float64).tolist()
+    reqs = [{"op": "ping"}] + [{"op": "score", "rows": rows,
+                                "raw_score": True}] * 3 + [{"op": "quit"}]
+    rc5, served, walls["serve_in_process"] = run_here(out / "clean", [
+        "task=serve", "input_model=model.txt", "host_fallback=true",
+        "fault_plan=device_put:2:raise", "serve_buckets=16,64"],
+        stdin="".join(json.dumps(r) + "\n" for r in reqs))
+    if (rc3, rc4, rc5) != (0, 0, 0):
+        raise AssertionError(f"cli: train / predict / serve returned "
+                             f"{(rc3, rc4, rc5)}")
+    resp = [json.loads(x) for x in served.splitlines() if x.strip()]
+    scores = [np.asarray(r["pred"], np.float64) for r in resp[1:4]]
+    fallback_err = float(np.abs(scores[1] - scores[0]).max())
+    device_err = float(np.abs(scores[2] - scores[0]).max())
+    line = {"phase": "cli", "rows": ds.num_data(), "features": 28,
+            "num_leaves": L, "trees": 10, "killed_by_sigkill": killed,
+            "checkpoint_round": ckpt_round,
+            "resumed_equals_clean": resumed == clean, "fused_loop": fused,
+            "wall_seconds": walls,
+            "snapshot_ms_per_round": (1000 * snap["seconds"]
+                                      / max(snap["calls"], 1)),
+            "snapshot_rounds": snap["calls"],
+            "predict_rows": len(Xv), "predict_card_vs_host": pred_err,
+            "predict_take_small_launches": taken,
+            "serve_ok": all(r.get("ok") for r in resp),
+            "serve_fallback_vs_device": fallback_err,
+            "serve_device_vs_device": device_err, "tolerance": 1e-5}
+    emit(line)
+    if not (killed and ckpt_round == 5 and resumed == clean and fused):
+        raise AssertionError(f"cli: kill / resume failed: {line} "
+                             f"{p.stderr[-2000:]}")
+    if not (pred_err < 1e-5 and taken > 0 and line["serve_ok"]
+            and len(resp) == 5
+            and fallback_err < 1e-5):
+        raise AssertionError(f"cli: predict / serve failed: {line}")
+    return line
+
+
+def fallback_latency(np, lgb, model_path, Xv, n_rows=(1, 1000), reps=20):
+    """Device answers against host-fallback answers in one process: a
+    registry on the card with host_fallback=True, each request scored
+    normally and with its device call faulted (device_put:1:raise armed
+    before each), median ms of each."""
+    from lightgbm_tpu_torch.resilience import faultinject
+    from lightgbm_tpu_torch.serving import ModelRegistry
+
+    reg = ModelRegistry(buckets=(16, 1024), warmup=True, host_fallback=True)
+    reg.load("m", str(model_path))
+    out = {}
+    for n in n_rows:
+        X = np.asarray(Xv[:n], np.float32)
+        dev, host = [], []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            a = reg.predict("m", X, raw_score=True)
+            dev.append(time.perf_counter() - t0)
+            faultinject.arm("device_put:1:raise")
+            t0 = time.perf_counter()
+            b = reg.predict("m", X, raw_score=True)
+            host.append(time.perf_counter() - t0)
+        faultinject.disarm()
+        out[str(n)] = {"device_ms": 1000 * statistics.median(dev),
+                       "fallback_ms": 1000 * statistics.median(host),
+                       "max_abs_diff": float(np.abs(a - b).max())}
+    return out
+
+
+def recorder_phase(torch, lgb, np, ds, vs, n_trees: int = 40):
+    """The flight recorder on the fused loop: train() with record_file
+    and anomaly_policy=warn against train() without, after an untimed
+    1-tree run of each, 1 and 1 + n_trees trees each (in turns: off, on,
+    on, off), trees/s = n_trees / (the median 1 + n_trees run - the
+    median 1-tree run), the walls themselves, and the train graph's nodes
+    with the recorder off and on; then 6 recorded trees on both loops
+    (a no-op before-iteration callback keeps one eager): the fused
+    records equal the eager records key for key, every value bit for
+    bit but the timings and the evaluations (device f32 metrics on the
+    fused loop, host metrics on the eager loop: within 1e-6)."""
+    from lightgbm_tpu_torch.obs.recorder import read_stream
+
+    out = Path("build") / "chip_smoke" / "recorder"
+    out.mkdir(parents=True, exist_ok=True)
+    base = dict(API_PARAMS)
+    rec = dict(base, record_file=str(out / "fused.jsonl"),
+               anomaly_policy="warn")
+    from lightgbm_tpu_torch import engine
+    from lightgbm_tpu_torch.obs.recorder import FlightRecorder
+
+    walls = {"off": {}, "on": {}}
+    nodes = {}
+    host = {"fused_round": [0.0, 0], "record_write": [0.0, 0]}
+
+    def timed(key, fn):
+        def wrapper(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                host[key][0] += time.perf_counter() - t0
+                host[key][1] += 1
+        return wrapper
+
+    for p in (base, rec):  # untimed: this shape's first calls warm up
+        lgb.train(p, ds, 1, valid_sets=[vs], valid_names=["v"])
+    orig = engine._ObsHooks.fused_round, FlightRecorder.record
+    # the recorder's host work a round: its whole hook (tree stats, the
+    # JSON line, the sentinel) and the line's write and flush in it
+    engine._ObsHooks.fused_round = timed("fused_round", orig[0])
+    FlightRecorder.record = timed("record_write", orig[1])
+    try:
+        for mode in ("off", "on", "on", "off"):
+            p = base if mode == "off" else rec
+            for n in (1, 1 + n_trees):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                b = lgb.train(p, ds, n, valid_sets=[vs], valid_names=["v"])
+                torch.cuda.synchronize()
+                walls[mode].setdefault(n, []).append(
+                    time.perf_counter() - t0)
+                nodes[mode] = b._gbdt._fused.graph.nodes
+    finally:
+        engine._ObsHooks.fused_round, FlightRecorder.record = orig
+    tps = {m: n_trees / (statistics.median(w[1 + n_trees])
+                         - statistics.median(w[1]))
+           for m, w in walls.items()}
+    fused = read_stream(str(out / "fused.jsonl"))
+
+    def no_op(env):
+        pass
+
+    no_op.before_iteration = True
+    paths = {}
+    for loop, cbs in (("fused", []), ("eager", [no_op])):
+        paths[loop] = str(out / f"{loop}6.jsonl")
+        lgb.train(dict(rec, record_file=paths[loop]), ds, 6,
+                  valid_sets=[vs], valid_names=["v"], callbacks=cbs)
+    fr, er = (read_stream(paths[k]) for k in ("fused", "eager"))
+    timing = {"t_unix", "phases", "chunk_phases", "trees_per_sec"}
+    same_keys = [sorted(set(a) - {"chunk_phases"})
+                 == sorted(set(b) - {"chunk_phases"})
+                 for a, b in zip(fr, er)]
+    bitwise = [all(a[k] == b[k] for k in a if k not in timing | {"evals"})
+               for a, b in zip(fr, er)]
+    eval_gap = max(abs(a["evals"][k] - b["evals"][k])
+                   for a, b in zip(fr, er) for k in a["evals"])
+    line = {"phase": "recorder", "rows": ds.num_data(), "timed_trees":
+            n_trees, "fused_trees_per_s_off": tps["off"],
+            "fused_trees_per_s_on": tps["on"],
+            "on_over_off": tps["on"] / tps["off"],
+            "graph_nodes_off": nodes["off"], "graph_nodes_on": nodes["on"],
+            "walls": {m: {str(k): v for k, v in w.items()}
+                      for m, w in walls.items()},
+            "host_ms_per_round": {k: 1000 * t / max(c, 1)
+                                  for k, (t, c) in host.items()},
+            "records": len(fused), "records_compared": len(fr),
+            "same_keys": all(same_keys), "bitwise_but_timing_and_evals":
+            all(bitwise), "eval_max_abs_gap": eval_gap,
+            "eval_tolerance": 1e-6}
+    emit(line)
+    if not (len(fr) == len(er) == 6 and all(same_keys) and all(bitwise)
+            and eval_gap < 1e-6 and len(fused) == 1 + n_trees):
+        raise AssertionError(f"recorder: fused records differ: {line} "
+                             f"{fr[0]} {er[0]}")
     return line
 
 
@@ -3159,7 +3481,7 @@ def train_rank_phase(torch, lgb, ch):
     """train_rank and train_rank_xendcg: lambdarank (then rank_xendcg) on
     the MSLR-shaped set at the headline widths (255 leaves, 255 bins, lr
     0.1, min_data_in_leaf 20), validation ndcg@1/3/5/10: fused_vs_eager
-    (1 warm-up + 5 timed trees; rank_xendcg 1 + 3), a 1-tree profile of
+    (1 warm-up + 3 timed trees; rank_xendcg 1 + 3), a 1-tree profile of
     lambdarank's eager loop, and the lambdarank kernel line on that
     model's training scores."""
     import numpy as np
@@ -3177,7 +3499,7 @@ def train_rank_phase(torch, lgb, ch):
     t_data = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
     rank = fused_vs_eager(torch, lgb, ds, vs, "train_rank", RANK_PARAMS,
-                          n_timed=5)
+                          n_timed=3)
     peak = torch.cuda.max_memory_allocated() / 2 ** 20
     eager_launch = rank["eager"]["launches_counted"].get("lambdarank", 0)
     first_last = rank["records_first_last"]
@@ -3710,7 +4032,7 @@ def _host_contrib(args):
 
 
 def serve_contrib_phase(torch, np, lgb, bst, n_feat, rows=1024):
-    """Device TreeSHAP (contrib_apply) on the bench_serve model, 1,024
+    """Device TreeSHAP (contrib_apply) on the bench_serve model, `rows`
     rows, against host shap.py (8 worker processes): within SERVE_TOL
     (rtol 1e-5, atol 1e-5, as the CPU tests hold it), rows summing to the
     raw score as closely; device ms (CUDA events, tables packed first)
@@ -3934,7 +4256,7 @@ def serve_phases(torch, lgb, ch, hist, np, ds, Xv, cat_sets, rank_sets):
                        "bench_serve_50x31")
     serve_loaded_phase(torch, np, lgb, bst, Xv.shape[1], "higgs_500x255")
     serve_http_phase(np, lgb, small, B["features"])
-    serve_contrib_phase(torch, np, lgb, small, B["features"])
+    serve_contrib_phase(torch, np, lgb, small, B["features"], rows=512)
     serve_fleet_phase(torch, np, lgb, bst, Xv[:4096], small20)
     return line, launches
 
@@ -3960,12 +4282,22 @@ def main() -> int:
           "cuda": torch.version.cuda,
           "name": torch.cuda.get_device_name(0)})
 
+    from lightgbm_tpu_torch import native
+
     t0 = time.perf_counter()
     ch.build()
     ch.load()
-    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+    nvcc_wall = time.perf_counter() - t0
+    native_lib = native.get_lib()
+    emit({"phase": "build", "seconds": nvcc_wall,
           "nvcc_seconds": ch.BUILD_SECONDS,
-          "library": str(ch.library_path())})
+          "library": str(ch.library_path()),
+          "native_loaded": native_lib is not None,
+          "native_gxx_seconds": native.BUILD_SECONDS,
+          "native_library": str(native.library_path())})
+    if native_lib is None:
+        raise AssertionError(f"the native library did not build: "
+                             f"{native.BUILD_ERROR}")
 
     lines, cat_synth, take_synth = kernel_phase(torch, hist, ch)
     small_phase(lgb, np)
@@ -4055,6 +4387,13 @@ def main() -> int:
     api_booster_phase(torch, lgb, np, bst, Xv, yv)
     api_sparse_phase(torch, lgb, np, ch)
     api_file_phase(torch, lgb, np, X, y)
+    # ---- the command line (kill, resume, predict, serve with a faulted
+    # device call) on binary caches of this data; the flight recorder
+    cli = cli_phase(torch, lgb, np, ds, vs, Xv)
+    emit({"phase": "fallback_latency", **fallback_latency(
+        np, lgb, Path("build") / "chip_smoke" / "cli" / "clean" / "model.txt",
+        Xv), "cli_serve_fallback_vs_device": cli["serve_fallback_vs_device"]})
+    recorder_phase(torch, lgb, np, ds, vs)
 
     # ---- use_quantized_grad on the same binned data: the int8 modes,
     # compared with the int16 path at the same tree count
@@ -4178,7 +4517,7 @@ def main() -> int:
         {"num_leaves": 63, "tpu_growth_mode": "exact",
          **mono_params(X.shape[1], "intermediate", dirs)}, n_timed=2)
     del dm, vm
-    train_linear_phase(torch, lgb, ch, np, X, y, Xv, yv, ds)
+    train_linear_phase(torch, lgb, ch, np, X, y, Xv, yv, ds, n_trees=3)
 
     # ---- hist_round in each mode on its path's first and fullest rounds
     # (the int16 mode also on the sampled paths' first sampled trees), and

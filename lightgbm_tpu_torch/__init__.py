@@ -40,11 +40,11 @@ NOT_PORTED = {
     "DaskLGBMClassifier": "A.8",
     "DaskLGBMRegressor": "A.8",
     "DaskLGBMRanker": "A.8",
-    "plot_importance": "A.11",
-    "plot_split_value_histogram": "A.11",
-    "plot_metric": "A.11",
-    "plot_tree": "A.11",
-    "create_tree_digraph": "A.11",
+    "plot_importance": "A.11, second half",
+    "plot_split_value_histogram": "A.11, second half",
+    "plot_metric": "A.11, second half",
+    "plot_tree": "A.11, second half",
+    "create_tree_digraph": "A.11, second half",
     "Booster.set_network": "A.8",
     "Booster.free_network": "A.8",
 }
@@ -63,11 +63,11 @@ def _refusal(name: str, item: str):
 DaskLGBMClassifier = _refusal("DaskLGBMClassifier", "A.8")
 DaskLGBMRegressor = _refusal("DaskLGBMRegressor", "A.8")
 DaskLGBMRanker = _refusal("DaskLGBMRanker", "A.8")
-plot_importance = _refusal("plot_importance", "A.11")
-plot_split_value_histogram = _refusal("plot_split_value_histogram", "A.11")
-plot_metric = _refusal("plot_metric", "A.11")
-plot_tree = _refusal("plot_tree", "A.11")
-create_tree_digraph = _refusal("create_tree_digraph", "A.11")
+plot_importance = _refusal("plot_importance", "A.11, second half")
+plot_split_value_histogram = _refusal("plot_split_value_histogram", "A.11, second half")
+plot_metric = _refusal("plot_metric", "A.11, second half")
+plot_tree = _refusal("plot_tree", "A.11, second half")
+create_tree_digraph = _refusal("create_tree_digraph", "A.11, second half")
 
 __all__ = ["Booster", "CVBooster", "CallbackEnv", "Dataset",
            "EarlyStopException", "LGBMClassifier", "LGBMModel", "LGBMRanker",

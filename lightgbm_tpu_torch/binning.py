@@ -64,6 +64,15 @@ def greedy_find_bin(
     bub: List[float] = []
     if num_distinct == 0:
         return [float("inf")]
+    # the native library runs the same double arithmetic in C++; the
+    # Python loop below runs only where it is not loaded
+    from . import native
+
+    nb = native.greedy_find_bin(np.asarray(distinct_values, np.float64),
+                                np.asarray(counts, np.int64), max_bin,
+                                total_cnt, min_data_in_bin)
+    if nb is not None:
+        return [float(v) for v in nb]
     if num_distinct <= max_bin:
         cur_cnt_inbin = 0
         for i in range(num_distinct - 1):
@@ -479,6 +488,11 @@ class BinMapper:
             self.num_bin - 1 if self.missing_type == MissingType.NAN
             else self.default_bin
         )
+        from . import native
+
+        out = native.values_to_bins(values, self.upper_bounds, nan_target)
+        if out is not None:  # else the library is not loaded
+            return out
         nan_mask = np.isnan(values)
         vv = np.where(nan_mask, 0.0, values)
         bins = np.searchsorted(self.upper_bounds, vv, side="left").astype(np.int32)

@@ -101,6 +101,12 @@ class _ScoreSet:
     dev: Any = None  # the dataset's device arrays
 
 
+# the timer span of one fused iteration's dispatch (its host cost: a
+# graph replay's enqueue, or on the CPU the step itself); the flight
+# recorder reads one a round
+FUSED_ROUND_PHASE = "round: fused step"
+
+
 def _not_ported(what: str) -> None:
     raise NotImplementedError(f"{what} is not ported yet (ROADMAP queue A)")
 
@@ -109,10 +115,6 @@ def _not_ported(what: str) -> None:
 # that ports each (the JAX package's engine.train acts on all of them);
 # set away from its default, each raises
 UNPORTED_KEYS = {
-    **{k: "A.11 operations layer" for k in (
-        "snapshot_freq", "resume", "resume_from", "checkpoint_file",
-        "record_file", "anomaly_policy", "anomaly_rollback_lr_decay",
-        "anomaly_rollback_max", "fault_plan")},
     "data_source": "A.10 data plane",
     "ram_budget_mb": "A.10 data plane",
 }
@@ -221,6 +223,13 @@ class GBDT:
         self._init_scores: Optional[List[float]] = None
         self._fused: Optional[_FusedProgram] = None
         self.fused_overflow_count = 0  # iterations re-run on the eager loop
+        # the flight recorder (engine.train's record_file / anomaly_policy):
+        # while it is set the eager loop reads each round's gradient norms
+        # back (_last_gh_norm); the fused step writes them after its eval
+        # values, and fused_collect leaves them in _last_gh_rows
+        self.recorder = None
+        self._last_gh_norm: Optional[Tuple[float, float]] = None
+        self._last_gh_rows: List[Tuple[float, float]] = []
         self.objective: Optional[ObjectiveFunction] = None
         # why this configuration stays on the eager loop, if it must
         self._force_sync_reason: Optional[str] = None
@@ -854,6 +863,9 @@ class GBDT:
         if self._stopped:
             return True
         grad, hess, init_scores = self._prepare_gradients(grad, hess)
+        if self.recorder is not None:
+            self._last_gh_norm = _host_floats(
+                gh_norms(grad, hess, self.train_set.num_data))
         trees, _ = self._iteration(self.iter_, grad, hess, init_scores,
                                    DeviceLoop(EAGER))
         for k, arrays in enumerate(trees):
@@ -933,6 +945,10 @@ class GBDT:
                      self.shrinkage_rate))
         evals = [row[1] for row in rows[:done]]
         self.iter_ = f.it0 + done
+        gh_rows = []
+        if f.want_gh:  # the step's last two values are the gh norms
+            gh_rows = [tuple(e[-2:]) for e in evals]
+            evals = [e[:-2] for e in evals]
         if overflow:
             self.fused_overflow_count += 1
             log.warning(f"iteration {self.iter_}: a tree outgrew the fused "
@@ -950,9 +966,13 @@ class GBDT:
                                            self.shrinkage_rate))
             self.iter_ += 1
             evals.append(f.eval_now())
+            if f.want_gh:
+                gh_rows.append(_host_floats(
+                    gh_norms(grad, hess, self.train_set.num_data)))
             f.resume(self.iter_)
         self._materialize()
         produced = len(self._models) // K - n_before
+        self._last_gh_rows = gh_rows[:produced]
         return [f.records(e) for e in evals[:produced]]
 
     def fused_truncate(self, n_iters: int) -> None:
@@ -983,6 +1003,25 @@ class GBDT:
             for name, val, hb in m.eval(s):
                 out.append((ss.name, name, val, hb))
         return out
+
+    def padding_scores(self) -> Optional[List[float]]:
+        """The training score of the padding rows, one value a class
+        (no tree adds to a padding row: it keeps boost-from-average's
+        score, or an init model's traversal); None without padding. It is
+        training state a checkpoint carries: the gradient quantization's
+        scale is the largest |gradient| over every row, padding included,
+        and Booster._continue_from's traversal gives padding rows other
+        scores than the run that wrote the checkpoint held."""
+        n = self.train_set.num_data
+        if self.train.score.shape[1] == n:
+            return None
+        return [float(v) for v in self.train.score[:, n].cpu()]
+
+    def restore_padding_scores(self, values: List[float]) -> None:
+        """Give the padding rows a checkpoint's padding_scores()."""
+        n = self.train_set.num_data
+        for k, v in enumerate(values):
+            self.train.score[k, n:].fill_(float(v))
 
     def get_score(self, ss: _ScoreSet) -> np.ndarray:
         """A score set's (K, N) raw scores on the host, float64."""
@@ -1120,13 +1159,22 @@ class GBDT:
         early_stop = (freq, margin) stops a row's accumulation once, at a
         multiple of freq iterations, its margin (2 |score| with one
         class, top1 - top2 with several) exceeds margin
-        (prediction_early_stop.cpp; the JAX package's predict_raw)."""
+        (prediction_early_stop.cpp; the JAX package's predict_raw).
+        Without early stopping and linear trees, the native library's
+        threaded walk gives the same sums (each row's leaves added in
+        tree order in float64) whenever it is loaded."""
         X = np.asarray(X, dtype=np.float64)
         K = self.num_class
         n_iters = len(self.models) // K
         end = n_iters if num_iteration <= 0 else min(
             n_iters, start_iteration + num_iteration)
         out = np.zeros((K, X.shape[0]))
+        if (early_stop is None
+                and not any(t.is_linear for t in self.models)
+                and self._predict_native(X, start_iteration, end, out)):
+            if self.average_output and end > start_iteration:
+                out /= end - start_iteration
+            return out
         active = np.ones(X.shape[0], bool)
         Xa = X  # resliced only when rows stop
         for it in range(start_iteration, end):
@@ -1149,6 +1197,27 @@ class GBDT:
         if self.average_output and end > start_iteration:
             out /= end - start_iteration
         return out
+
+    def _predict_native(self, X: np.ndarray, start: int, end: int,
+                        out: np.ndarray) -> bool:
+        """Fill out (K, N) with the native walk; False (out untouched)
+        when the library is not loaded or X is too narrow. The trees are
+        packed at every call: refit, set_leaf_output and rollback change
+        them in place."""
+        from . import native
+
+        if native.get_lib() is None:
+            return False
+        pm = native.PackedModel(self.models)
+        X = np.ascontiguousarray(X)
+        K = self.num_class
+        for k in range(K):
+            r = native.predict_packed(
+                pm, X, (np.arange(start, end) * K + k).astype(np.int32))
+            if r is None:  # X too narrow: so at k = 0, out untouched
+                return False
+            out[k] = r
+        return True
 
     def convert_output(self, raw: np.ndarray) -> np.ndarray:
         """Raw (K, N) margins -> the objective's prediction space; a
@@ -1197,6 +1266,22 @@ class GBDT:
         return predict_contrib(self.models, X, nf, self.num_class,
                                start_iteration, num_iteration,
                                self.average_output)
+
+
+def gh_norms(grad: torch.Tensor, hess: torch.Tensor, n: int
+             ) -> torch.Tensor:
+    """(2,) f32 [sqrt(sum g^2), sqrt(sum h^2)] over a round's (K, n)
+    gradients of the real rows (a padded row's score, and so its
+    gradient, differs after a resume), the flight recorder's gh norms:
+    the same reductions on the same shapes on both loops, so the fused
+    step's values are the eager loop's bits."""
+    g, h = grad[:, :n], hess[:, :n]
+    return torch.stack([torch.sqrt(torch.sum(g * g)),
+                        torch.sqrt(torch.sum(h * h))])
+
+
+def _host_floats(x: torch.Tensor) -> Tuple[float, ...]:
+    return tuple(float(v) for v in x.cpu().tolist())
 
 
 def _bits(x: torch.Tensor) -> torch.Tensor:
@@ -1268,6 +1353,11 @@ class _FusedProgram:
         self.n = 0
         self.rounds: List[int] = []  # rounds of each kept tree
         self.captured_launches: Dict[str, int] = {}
+        # the flight recorder's gh norms ride the eval row's tail; with
+        # neither record_file nor anomaly_policy set the step (and the
+        # captured graph) is the one without them
+        c = gb.config
+        self.want_gh = bool(c.record_file or c.anomaly_policy != "off")
 
     # ---- the step
     def step(self, loop: DeviceLoop) -> None:
@@ -1282,6 +1372,8 @@ class _FusedProgram:
                                     first=first, active=active)
         grew = torch.stack([a.num_nodes > 0 for a in trees]).any()
         evals = [es(ss.score) for ss, _n, _h, es in self.eval_sets]
+        if self.want_gh:
+            evals.append(gh_norms(grad, hess, gb.train_set.num_data))
         row = self._pack(trees, loop.trees[-self.K:], evals)
         slot = (self.it - self.base).clamp(0, self.rows - 1)
         self.ring.index_put_((slot.reshape(1),), row[None])
@@ -1340,24 +1432,28 @@ class _FusedProgram:
         self.it0, self.n = self.gb.iter_, n
         self.base.fill_(self.it0)
         for _ in range(n):
-            if self.graph is None:
-                self.step(DeviceLoop(self.cpu_loop))
-            elif self.graph.captured:
-                self.graph.replay()
-            else:
-                g = self.graph
-                cur = torch.cuda.current_stream(g.device)
-                g.stream.wait_stream(cur)
-                with torch.cuda.stream(g.stream):
-                    self.step(DeviceLoop(BOUNDED))
-                cur.wait_stream(g.stream)
-                before = dict(cuda_hist.LAUNCHES)
-                g.capture(self.step)
-                # the kernels the graph holds (a replay launches them
-                # without passing through their wrappers)
-                self.captured_launches = {
-                    k: v - before[k] for k, v in cuda_hist.LAUNCHES.items()
-                    if v > before[k]}
+            with _gt.scope(FUSED_ROUND_PHASE):
+                self._dispatch_one()
+
+    def _dispatch_one(self) -> None:
+        if self.graph is None:
+            self.step(DeviceLoop(self.cpu_loop))
+        elif self.graph.captured:
+            self.graph.replay()
+        else:
+            g = self.graph
+            cur = torch.cuda.current_stream(g.device)
+            g.stream.wait_stream(cur)
+            with torch.cuda.stream(g.stream):
+                self.step(DeviceLoop(BOUNDED))
+            cur.wait_stream(g.stream)
+            before = dict(cuda_hist.LAUNCHES)
+            g.capture(self.step)
+            # the kernels the graph holds (a replay launches them
+            # without passing through their wrappers)
+            self.captured_launches = {
+                k: v - before[k] for k, v in cuda_hist.LAUNCHES.items()
+                if v > before[k]}
 
     def collect(self):
         """(iterations done, whether the next one overflowed, per done

@@ -272,6 +272,10 @@ _PARAMS: Dict[str, _P] = {
     # handler thread) and the request-body byte cap (413 over it)
     "serve_socket_timeout_s": (30.0, float, (), _pos),
     "serve_max_body_mb": (64.0, float, (), _pos),
+    # the port's own key: task=serve's registry or fleet rescores a chunk
+    # whose host-to-device copy failed on the host walker (the JAX
+    # package's registry always does; the port's does only when asked)
+    "host_fallback": (False, bool, (), None),
     # ---- serving gateway (task=gateway; serving/gateway.py,
     # docs/RESILIENCE.md "Serving gateway") ----
     # comma-separated backend base URLs (e.g.

@@ -42,6 +42,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import gc
+import threading
 import time
 from typing import Callable, List, Optional, Tuple
 
@@ -134,6 +135,43 @@ def _gc_restored(enabled: bool):
             gc.enable()
 
 
+# A graph's memory pool must not die while any capture is under way, in
+# any thread: the pool's destructor empties it, which torch's allocator
+# refuses then (an internal assert, raised from a destructor: the
+# process aborts). That happens when a serving worker captures while
+# another thread drops an earlier graph (an unload, or a collection that
+# thread ran). So a pool that dies during a capture is parked here and
+# freed when the last capture ends, under the lock that starts captures.
+_CAPTURE_STATE = threading.RLock()
+_captures_under_way = 0
+_parked_pools: List[object] = []
+
+
+@contextlib.contextmanager
+def _capture_under_way():
+    global _captures_under_way
+    with _CAPTURE_STATE:
+        _captures_under_way += 1
+    try:
+        yield
+    finally:
+        with _CAPTURE_STATE:
+            _captures_under_way -= 1
+            if _captures_under_way == 0:
+                _parked_pools.clear()  # the parked pools die here
+
+
+def _release_pool(graph: "CudaGraph") -> None:
+    """Drop a dying graph's pool now, or park it while a capture is
+    under way."""
+    with _CAPTURE_STATE:
+        pool = getattr(graph, "pool", None)
+        graph.pool = None
+        if pool is not None and _captures_under_way:
+            _parked_pools.append(pool)
+        del pool
+
+
 def _lib():
     from .cuda_hist import load
 
@@ -187,12 +225,12 @@ class CudaGraph:
         cur = torch.cuda.current_stream(self.device)
         self.stream.wait_stream(cur)
         handle = self.stream.cuda_stream
-        # no garbage collection while the pool takes the allocations: an
-        # earlier graph's pool freed now would fail torch's allocator
-        # (it empties a pool only while no capture is under way)
+        # no garbage collection while the pool takes the allocations; a
+        # graph that dies meanwhile (in any thread) parks its pool until
+        # no capture is under way (_release_pool)
         gc_was_on = gc.isenabled()
         gc.disable()
-        with _gc_restored(gc_was_on), \
+        with _gc_restored(gc_was_on), _capture_under_way(), \
                 torch.cuda.use_mem_pool(self.pool, self.device), \
                 torch.cuda.stream(self.stream), \
                 cuda_hist.scratch_stream(handle):
@@ -267,5 +305,6 @@ class CudaGraph:
     def __del__(self):
         try:
             self.close()
+            _release_pool(self)
         except Exception:  # noqa: BLE001 - interpreter shutdown
             pass

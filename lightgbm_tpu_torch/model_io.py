@@ -6,8 +6,8 @@ reference format (src/boosting/gbdt_model_text.cpp SaveModelToString
 :314 / LoadModelFromString :424, per-tree blocks src/io/tree.cpp
 Tree::ToString :343). Models written by either package load in the
 other. The JSON dump (dump_model_dict, Booster.dump_model) and its
-loader (load_model_dict) are copies of the JAX package's too; the C++
-code generator is not ported.
+loader (load_model_dict) are copies of the JAX package's too, and so is
+the C++ code generator of task=convert_model (model_to_if_else).
 """
 
 from __future__ import annotations
@@ -580,3 +580,117 @@ def load_model_dict(d: Dict[str, Any]):
     gbdt.feature_infos_ = infos
     gbdt.models = [tree_from_dict(td) for td in d.get("tree_info", [])]
     return cfg, gbdt
+
+
+
+# ---------------------------------------------------------------------------
+# convert_model: if-else C++ export (reference GBDT::SaveModelToIfElse,
+# src/boosting/gbdt_model_text.cpp:289 + Tree::ToIfElse, src/io/tree.cpp:566).
+# Deviation (deliberate): the reference emits member-function snippets
+# that only compile inside its own build tree; this emits a SELF-CONTAINED
+# translation unit with the same PredictTree{i} functions plus an
+# `extern "C" Predict` entry, so the artifact is usable standalone. The
+# ByMap variants are not emitted.
+
+def _node_if_else(t: Tree, node: int, indent: str) -> str:
+    from .tree import _CAT_MASK, _DEFAULT_LEFT_MASK
+
+    if node < 0:  # leaf
+        return f"{indent}return {float(t.leaf_value[~node])!r};\n"
+    dt = int(t.decision_type[node])
+    f = int(t.split_feature[node])
+    out = [f"{indent}fval = arr[{f}];\n"]
+    if dt & _CAT_MASK:
+        ci = int(t.threshold[node])
+        lo = int(t.cat_boundaries[ci])
+        hi = int(t.cat_boundaries[ci + 1])
+        out.append(
+            f"{indent}ifv = std::isnan(fval) ? -1 : (int)fval;\n"
+            f"{indent}if (ifv >= 0 && ifv < {32 * (hi - lo)} && "
+            f"((cat_threshold[{lo} + ifv / 32] >> (ifv & 31)) & 1)) {{\n"
+        )
+    else:
+        mt = (dt >> 2) & 3
+        dl = bool(dt & _DEFAULT_LEFT_MASK)
+        thr = repr(float(t.threshold[node]))
+        if mt != 2:  # missing != NaN: NaN behaves as 0.0 (tree.h Decision)
+            out.append(f"{indent}if (std::isnan(fval)) fval = 0.0;\n")
+        if mt == 2:
+            cond = (f"std::isnan(fval) || fval <= {thr}" if dl
+                    else f"!std::isnan(fval) && fval <= {thr}")
+        elif mt == 1:
+            z = "std::fabs(fval) <= 1e-35"
+            cond = (f"({z}) || fval <= {thr}" if dl
+                    else f"!({z}) && fval <= {thr}")
+        else:
+            cond = f"fval <= {thr}"
+        out.append(f"{indent}if ({cond}) {{\n")
+    out.append(_node_if_else(t, int(t.left_child[node]), indent + "  "))
+    out.append(f"{indent}}} else {{\n")
+    out.append(_node_if_else(t, int(t.right_child[node]), indent + "  "))
+    out.append(f"{indent}}}\n")
+    return "".join(out)
+
+
+def model_to_if_else(models: List[Tree], num_class: int,
+                     average_output: bool = False) -> str:
+    """The full if-else translation unit for a trained model."""
+    import sys
+
+    if any(t.is_linear for t in models):
+        from . import log
+
+        log.fatal(
+            "convert_model does not support linear trees (leaf_coeff "
+            "terms have no if-else form in the reference either)"
+        )
+    # chain-shaped trees recurse once per level; bound is num_leaves.
+    # Raise the interpreter limit only for the duration of the walk —
+    # it is process-global state and must not outlive this call.
+    max_leaves = max((t.num_leaves for t in models), default=1)
+    old_limit = sys.getrecursionlimit()
+    parts = [
+        "// generated by lightgbm_tpu convert_model "
+        "(reference: GBDT::SaveModelToIfElse)\n",
+        "#include <cmath>\n#include <cstring>\n\n",
+    ]
+    try:
+        sys.setrecursionlimit(max(old_limit, 4 * max_leaves + 1000))
+        for i, t in enumerate(models):
+            parts.append(f"double PredictTree{i}(const double* arr) {{\n")
+            if t.num_leaves <= 1:
+                parts.append(f"  return {float(t.leaf_value[0])!r};\n}}\n\n")
+                continue
+            if len(t.cat_threshold):
+                words = ",".join(str(int(w)) for w in t.cat_threshold)
+                parts.append(
+                    f"  static const unsigned int cat_threshold[] = "
+                    f"{{{words}}};\n"
+                )
+            parts.append("  double fval = 0.0; (void)fval;\n")
+            if len(t.cat_threshold):
+                parts.append("  int ifv = 0; (void)ifv;\n")
+            parts.append(_node_if_else(t, 0, "  "))
+            parts.append("}\n\n")
+    finally:
+        sys.setrecursionlimit(old_limit)
+
+    n = len(models)
+    ptrs = ", ".join(f"PredictTree{i}" for i in range(n))
+    parts.append(
+        f"double (*PredictTreePtr[])(const double*) = {{ {ptrs} }};\n\n"
+        f"static const int num_tree_per_iteration_ = {num_class};\n"
+        f"static const int num_iteration_for_pred_ = {n // max(num_class, 1)};\n\n"
+        "extern \"C\" void Predict(const double* features, double* output) {\n"
+        "  std::memset(output, 0, sizeof(double) * num_tree_per_iteration_);\n"
+        "  for (int i = 0; i < num_iteration_for_pred_; ++i)\n"
+        "    for (int k = 0; k < num_tree_per_iteration_; ++k)\n"
+        "      output[k] += (*PredictTreePtr[i * num_tree_per_iteration_ + k])(features);\n"
+    )
+    if average_output:  # boosting=rf reports the MEAN of the trees
+        parts.append(
+            "  for (int k = 0; k < num_tree_per_iteration_; ++k)\n"
+            "    output[k] /= num_iteration_for_pred_;\n"
+        )
+    parts.append("}\n")
+    return "".join(parts)

@@ -20,8 +20,9 @@ a scrape sees and the percentile the stats op returns never disagree.
 Recording is a dict upsert under a per-metric lock. When the registry is
 disabled (env LIGHTGBM_TPU_METRICS=0, or ``disable()``) every record call
 is a single attribute check. The fleet's recorders are here
-(lgbmtpu_fleet_*); the training recorders, the gateway's and the online
-loop's are not ported (ROADMAP A.11).
+(lgbmtpu_fleet_*), and the training, host-fallback and native-build
+recorders; the gateway's and the online loop's are not ported (ROADMAP
+A.11, second half).
 """
 
 from __future__ import annotations
@@ -507,3 +508,60 @@ def record_request_op(op: str, ok: bool) -> None:
         r.counter("lgbmtpu_serve_protocol_errors_total",
                   "protocol requests answered with ok=false",
                   labels=("op",)).inc(1, op=op)
+
+
+def record_training_round(n_iters: int, n_trees: int,
+                          seconds: float) -> None:
+    """One collected fused chunk, or one eager iteration."""
+    r = _default
+    if not r.enabled:
+        return
+    r.counter("lgbmtpu_train_iterations_total",
+              "boosting iterations completed").inc(n_iters)
+    r.counter("lgbmtpu_train_trees_total",
+              "trees trained (iterations x classes)").inc(n_trees)
+    if seconds > 0:
+        r.gauge("lgbmtpu_train_trees_per_sec",
+                "trees/second over the most recent chunk"
+                ).set(n_trees / seconds)
+        r.histogram("lgbmtpu_train_chunk_seconds",
+                    "wall seconds per dispatched training chunk"
+                    ).observe(seconds)
+
+
+def record_eval_values(evals) -> None:
+    """Each round's ``(dataset, metric, value, higher_better)`` tuples on
+    ``lgbmtpu_eval_metric{dataset,metric}``: the learning curve on
+    /metrics with no callback."""
+    r = _default
+    if not r.enabled or not evals:
+        return
+    g = r.gauge("lgbmtpu_eval_metric",
+                "most recent per-round evaluation metric value",
+                labels=("dataset", "metric"))
+    for item in evals:
+        g.set(float(item[2]), dataset=item[0], metric=item[1])
+
+
+def record_host_fallback(entry: str) -> None:
+    """One serving chunk scored by the host walker after its device
+    call raised (serving/dispatch.py)."""
+    r = _default
+    if not r.enabled:
+        return
+    r.counter("lgbmtpu_serve_host_fallback_total",
+              "chunks degraded to the host tree-walker after a device "
+              "scoring fault",
+              labels=("entry",)).inc(1, entry=entry)
+
+
+def record_native_build(seconds: float, ok: bool) -> None:
+    """One build of the native host library (native/__init__.py)."""
+    r = _default
+    if not r.enabled:
+        return
+    r.counter("lgbmtpu_native_builds_total",
+              "native fastparse toolchain builds",
+              labels=("result",)).inc(1, result="ok" if ok else "failed")
+    r.gauge("lgbmtpu_native_build_seconds",
+            "wall seconds of the most recent native build").set(seconds)

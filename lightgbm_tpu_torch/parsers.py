@@ -6,13 +6,16 @@ The port of lightgbm_tpu/parsers.py (reference src/io/parser.cpp, the
 DatasetLoader text pipeline dataset_loader.cpp:210 LoadFromFile, the
 sidecar loading of src/io/metadata.cpp: <data>.weight, <data>.query /
 <data>.group, <data>.init, and Dataset::SaveBinaryFile dataset.h:700).
-Parsing is a host numpy pipeline that gives one dense float64 matrix;
-the delimited formats go through np.loadtxt (the JAX package's fallback
-when its native parser is not built), so a value written with %.17g
-reads back as the same double. The .bin cache stores the binned
-dataset (mappers, bin matrix, metadata) as an npz in the JAX package's
-format, so either package reads the other's file; the port adds one key,
-`bundle`, holding the EFB layout, which the JAX package's writer drops.
+Parsing gives one dense float64 matrix: the native library's threaded
+C++ parsers (native/fastparse.cpp) when it is loaded, else np.loadtxt
+for the delimited formats and a bulk numpy conversion for LibSVM. Both
+paths give the same doubles (a value written with %.17g reads back as
+itself); the native parser also takes LightGBM's missing-value tokens
+(na, null, none, ?, an empty field) as NaN, where np.loadtxt raises.
+The .bin cache stores the binned dataset (mappers, bin matrix,
+metadata) as an npz in the JAX package's format, so either package reads
+the other's file; the port adds one key, `bundle`, holding the EFB
+layout, which the JAX package's writer drops.
 
 Streamed loading (two_round=true) is ROADMAP A.10 and raises in
 basic.Dataset.construct.
@@ -69,8 +72,12 @@ def _parse_delim(path: Path, delim: str,
         first = _read_lines(path, 1)[0]
         names = [c.strip() for c in first.split(delim)]
         skip = 1
-    data = np.loadtxt(path, delimiter=delim, skiprows=skip,
-                      dtype=np.float64, ndmin=2)
+    from . import native
+
+    data = native.parse_delim(str(path), delim, skip)
+    if data is None:  # no library, or a file the C++ parser refuses
+        data = np.loadtxt(path, delimiter=delim, skiprows=skip,
+                          dtype=np.float64, ndmin=2)
     return data, names
 
 
@@ -79,7 +86,13 @@ def _parse_libsvm(path: Path) -> Tuple[np.ndarray, np.ndarray]:
     used as they are (0- and 1-based files both occur; the reference's
     LibSVMParser keeps raw indices); a token without ':' is skipped and a
     repeated index keeps its last value, as the JAX package parses it.
-    The tokens are converted in two bulk numpy calls."""
+    The native parser does it when the library is loaded; else the
+    tokens are converted in two bulk numpy calls."""
+    from . import native
+
+    res = native.parse_libsvm(str(path))
+    if res is not None:
+        return res
     labels: List[str] = []
     counts: List[int] = []
     pairs: List[str] = []

@@ -16,8 +16,8 @@ The port of lightgbm_tpu/serving:
 - ``server``: the JSON-lines loop and the HTTP front end (/v1/<op>,
   /v1/fleet, /healthz, /readyz, /metrics).
 
-Not ported: the gateway and the online loop (ROADMAP A.11, with the
-operations layer they import), and a row-sharded forest (A.8).
+Not ported: the gateway and the online loop (ROADMAP A.11, second
+half), and a row-sharded forest (A.8).
 Importing one of the gateway's names raises NotImplementedError.
 """
 
@@ -42,7 +42,7 @@ __all__ = [
 
 # the JAX package's serving names not ported yet, each with the
 # ROADMAP item that ports it
-NOT_PORTED = {n: "A.11 (the gateway, with the operations layer)" for n in (
+NOT_PORTED = {n: "A.11, second half (the gateway)" for n in (
     "Gateway", "gateway_http", "CircuitBreaker", "HedgePolicy",
     "RollingLatency", "BackendPool")}
 

@@ -32,9 +32,17 @@ coalesces pending requests into one padded device call, and fans the
 rows of the result back out, with admission control (QueueOverflow),
 per-request deadlines (DeadlineExceeded) and ShutdownError on close().
 
-Not ported: the JAX package's host fallback (a faulted device chunk
-rescored by the host walker, which comes with fault injection, ROADMAP
-A.11) and the mesh alignment of the rungs (A.8).
+A chunk whose host-to-device copy fails (an injected fault at the
+``device_put`` site, or the card out of memory) degrades to the host
+walker when ``host_fallback`` is set (ModelRegistry / ModelFleet
+``host_fallback=True``): slower, warned once and counted in
+``lgbmtpu_serve_host_fallback_total``, but the request answers. Without
+it the error propagates. Any other error of the device call (a capture,
+launch or replay, after which the card may be in a sticky error state)
+always propagates, and the dispatcher keeps it in ``device_error``,
+which /readyz reports as not ready (an out-of-memory error propagates
+too, and is not kept). Not ported: the mesh alignment of the rungs
+(A.8).
 """
 
 from __future__ import annotations
@@ -50,17 +58,21 @@ import numpy as np
 import torch
 
 from ..config import DEFAULT_SERVE_BUCKETS as DEFAULT_BUCKETS
+from .. import log
 from ..obs.metrics import (
     record_bucket_dispatch,
     record_coalesce,
+    record_host_fallback,
     record_queue_depth,
     record_serve_rejection,
 )
 from ..resilience.errors import (
     DeadlineExceeded,
+    InjectedFault,
     QueueOverflow,
     ShutdownError,
 )
+from ..resilience.faultinject import fault_point
 from ..timer import latency_stats
 
 # cap on rows per device TreeSHAP call: contrib intermediates are
@@ -129,6 +141,12 @@ class BucketDispatcher:
         # fleet family's, shared with its other tenants
         self.program_set = programs if programs is not None else \
             ProgramSet(self.device)
+        # (rows, start, end) -> (raw (n, K) sums, leaves (n, T)) on the
+        # host, for a chunk whose host-to-device copy failed (registry.py)
+        self.host_fallback = None
+        self._fallback_warned = False
+        # the last capture / launch / replay error (None: healthy)
+        self.device_error: Optional[str] = None
         self.stream = self.program_set.stream
         self._lock = self.program_set.lock
         self._programs = self.program_set.by_shape
@@ -216,10 +234,14 @@ class BucketDispatcher:
                 self.stream.synchronize()
 
     # ------------------------------------------------------------------
-    def _bucketed_chunks(self, X: np.ndarray, tw: np.ndarray):
+    def _bucketed_chunks(self, X: np.ndarray, tw: np.ndarray, start: int,
+                         end: int):
         """Yield (score (n,K), leaf (n,T)) per top-rung chunk, each scored
         at its padded ladder shape: EVERY device call of the dispatcher
-        goes through here, so no request shape escapes the ladder."""
+        goes through here, so no request shape escapes the ladder. A
+        chunk whose host-to-device copy fails is scored by host_fallback
+        when one is set (module docstring); any other device error
+        propagates and is kept in device_error."""
         N, F = X.shape
         top = self.buckets[-1]
         twt = torch.from_numpy(tw)
@@ -228,21 +250,55 @@ class BucketDispatcher:
             rows = chunk.shape[0]
             b = self.bucket_for(rows)
             record_bucket_dispatch(self.name, b, rows)
+            out = None
             with self._lock, self._scope():
-                prog = self._program(b, F)
-                self.forest.bind()
-                prog.x[:rows].copy_(torch.from_numpy(chunk))
-                if rows < b:
-                    prog.x[rows:].zero_()
-                prog.tree_w.copy_(twt)
-                if prog.graph is not None:
-                    prog.graph.replay()
-                    score, leaf = prog.score, prog.leaf
-                else:
-                    score, leaf = self.forest.apply(prog.x, prog.tree_w)
-                out = (score[:rows].cpu().numpy(),
-                       leaf[:rows].cpu().numpy())
+                try:
+                    prog = self._program(b, F)
+                    self.forest.bind()
+                    if self._copy_in(prog, chunk, twt):
+                        if prog.graph is not None:
+                            prog.graph.replay()
+                            score, leaf = prog.score, prog.leaf
+                        else:
+                            score, leaf = self.forest.apply(prog.x,
+                                                            prog.tree_w)
+                        out = (score[:rows].cpu().numpy(),
+                               leaf[:rows].cpu().numpy())
+                except (InjectedFault, torch.cuda.OutOfMemoryError):
+                    raise  # transient: the next call may succeed
+                except Exception as exc:  # noqa: BLE001 — kept, re-raised
+                    self.device_error = f"{type(exc).__name__}: {exc}"
+                    raise
+            if out is None:  # the copy failed: the host walker answers
+                if not self._fallback_warned:
+                    self._fallback_warned = True
+                    log.warning(
+                        f"device copy fault on entry {self.name!r}; "
+                        "degrading faulted chunks to the host tree-walker "
+                        "(slower; counted in "
+                        "lgbmtpu_serve_host_fallback_total)")
+                record_host_fallback(self.name)
+                s, lf = self.host_fallback(chunk, start, end)
+                out = (np.asarray(s, np.float32), np.asarray(lf))
             yield out
+
+    def _copy_in(self, prog: _Program, chunk: np.ndarray,
+                 twt: torch.Tensor) -> bool:
+        """Copy a chunk's rows and the tree weights into the program's
+        inputs; False when the copy faulted and host_fallback is set (the
+        fallback's only trigger), else the fault propagates."""
+        rows, b = chunk.shape[0], prog.x.shape[0]
+        try:
+            fault_point("device_put")
+            prog.x[:rows].copy_(torch.from_numpy(chunk))
+            if rows < b:
+                prog.x[rows:].zero_()
+            prog.tree_w.copy_(twt)
+        except (InjectedFault, torch.cuda.OutOfMemoryError):
+            if self.host_fallback is None:
+                raise
+            return False
+        return True
 
     def _prep(self, X, start_iteration: int, num_iteration: int):
         X = np.ascontiguousarray(np.asarray(X, np.float32))
@@ -261,7 +317,7 @@ class BucketDispatcher:
         if X.shape[0] == 0:  # filtered-empty request, not an error
             return np.zeros((self.forest.num_class, 0), np.float64)
         t0 = time.perf_counter()
-        outs = [s for s, _ in self._bucketed_chunks(X, tw)]
+        outs = [s for s, _ in self._bucketed_chunks(X, tw, start, end)]
         out = np.concatenate(outs).T.astype(np.float64)  # (K, N)
         if self.forest.average_output and end > start:
             out /= end - start
@@ -276,7 +332,7 @@ class BucketDispatcher:
         if X.shape[0] == 0:
             return np.zeros((0, (end - start) * K), np.int64)
         t0 = time.perf_counter()
-        leaves = [lf for _, lf in self._bucketed_chunks(X, tw)]
+        leaves = [lf for _, lf in self._bucketed_chunks(X, tw, start, end)]
         out = np.concatenate(leaves)[:, start * K: end * K]
         self._stats.observe(time.perf_counter() - t0, X.shape[0])
         return out.astype(np.int64)

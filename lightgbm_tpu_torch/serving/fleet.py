@@ -47,9 +47,13 @@ scoring) happens OUTSIDE it; a stack's writers are serialized by its
 `writing` flag under the condition, and a slot is never reassigned
 while pinned.
 
-Not ported: fault injection at the page-in (fault_point("fleet_page"),
-ROADMAP A.11), the host fallback (A.11, with fault injection: True
-raises) and a mesh (A.8: raises).
+Faults: the ``fleet_page`` fault site precedes each page-in's table
+write (a fault there leaves the tenant cold, as any page-in failure
+does), and ``host_fallback=True`` gives every tenant's dispatcher the
+registry's host fallback (a chunk whose host-to-device copy failed is
+scored on the host walker; default False, as the registry's; other
+device errors propagate and ``device_faults()`` keeps them). Not ported: a mesh
+(A.8: raises).
 """
 
 from __future__ import annotations
@@ -70,6 +74,7 @@ from ..obs.metrics import (
     record_serve_rejection,
 )
 from ..resilience.errors import QueueOverflow
+from ..resilience.faultinject import fault_point
 from .dispatch import DEFAULT_BUCKETS, BucketDispatcher, ProgramSet
 from .forest import (
     contrib_apply,
@@ -82,7 +87,12 @@ from .forest import (
     stack_tables,
     stacked_forest_apply,
 )
-from .registry import _booster_from, _declared_width
+from .registry import (
+    _booster_from,
+    _declared_width,
+    _make_host_fallback,
+    build_kernels,
+)
 
 
 class ForestStack:
@@ -217,8 +227,8 @@ class ModelFleet:
     ModelRegistry, so ScoringServer and the HTTP front end work
     unchanged, over a capacity-bounded device residency."""
 
-    # the online loop's attachment points (ROADMAP A.11): the same
-    # duck-typed surface as ModelRegistry
+    # the online loop's attachment points (ROADMAP A.11, second half):
+    # the same duck-typed surface as ModelRegistry
     ingest_sink = None
     health_probe = None
 
@@ -230,12 +240,8 @@ class ModelFleet:
         if mesh is not None:
             raise NotImplementedError(
                 "a fleet over a mesh is not ported yet (ROADMAP A.8)")
-        if host_fallback:
-            raise NotImplementedError(
-                "host_fallback (rescoring a faulted device chunk with the "
-                "host walker) is not ported yet (ROADMAP A.11, with fault "
-                "injection)")
         self.device = serve_device(device)
+        self.host_fallback = bool(host_fallback)
         self.buckets = tuple(int(b) for b in buckets)
         self.default_warmup = bool(warmup)
         self.deadline_s = float(deadline_s)
@@ -263,6 +269,7 @@ class ModelFleet:
         row width its page-in warms (default: the model's declared
         width)."""
         booster, src = _booster_from(source)
+        build_kernels(self.device)
         g = booster._gbdt
         tables, meta = pack_forest_tables(list(g.models), g.num_class)
         fam = family_key(meta, tables)
@@ -341,6 +348,9 @@ class ModelFleet:
             d = BucketDispatcher(entry.forest, self.buckets, name=name,
                                  model=entry.name,
                                  programs=entry.stack.programs)
+            if self.host_fallback:
+                d.host_fallback = _make_host_fallback(entry.booster,
+                                                      entry.forest)
             entry.dispatcher = d
         return d
 
@@ -382,6 +392,7 @@ class ModelFleet:
         # ---- device work outside the condition
         pinned = False
         try:
+            fault_point("fleet_page")
             fam = entry.family
             padded, _ = pad_forest_tables(
                 entry.host_tables, entry.meta, num_trees=fam[0],
@@ -530,6 +541,16 @@ class ModelFleet:
                 }
                 for name, rec in self._names.items()
             }
+
+    def device_faults(self) -> Dict[str, str]:
+        """"name:vN" -> the last capture, launch or replay error of the
+        tenant's dispatcher (ModelRegistry.device_faults)."""
+        with self._cond:
+            return {f"{name}:v{e.version}": e.dispatcher.device_error
+                    for name, rec in self._names.items()
+                    for e in rec["versions"]
+                    if e.dispatcher is not None
+                    and e.dispatcher.device_error}
 
     def stats(self) -> Dict[str, Any]:
         """Per model, its active version's latency stats (empty before

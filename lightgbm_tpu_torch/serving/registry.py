@@ -20,10 +20,19 @@ own graphs (one per rung), so their calls overlap on the card; direct
 predicts round-robin over them and the MicroBatcher runs one worker per
 replica.
 
-Deviations from the JAX package: ``host_fallback`` (a faulted device
-chunk rescored by the host walker) defaults to False and True raises
-(it comes with fault injection, ROADMAP A.11); ``mesh`` (a row-sharded
-forest) raises (A.8).
+``host_fallback=True`` rescores a chunk whose host-to-device copy
+failed on the host walker (Booster.predict on the host: the native
+library's walk for the scores, the numpy walk for the leaf indices),
+counted in ``lgbmtpu_serve_host_fallback_total`` (dispatch.py). A
+capture, launch or replay error is never answered on the host: it
+propagates and ``device_faults()`` keeps it (/readyz: not ready). A load
+on the card builds the kernels first, so a kernel that does not build
+raises at load, fallback or not.
+
+Deviations from the JAX package: ``host_fallback`` defaults to False
+(the JAX package's to True), so a device fault is an error unless the
+caller asks for the fallback; ``mesh`` (a row-sharded forest) raises
+(A.8).
 """
 
 from __future__ import annotations
@@ -78,6 +87,42 @@ def _booster_from(source: Any):
     return Booster(model_file=s), s
 
 
+def _make_host_fallback(booster, forest):
+    """BucketDispatcher.host_fallback: score a chunk with the host walker
+    (Booster.predict's default, no card in the loop) in the dispatcher's
+    layout: summed raw margins (n, K) (the dispatcher divides an
+    average_output model itself) and the (n, T) leaf matrix with the used
+    trees in place."""
+    K = forest.num_class
+    T = forest.num_trees
+
+    def fallback(chunk, start, end):
+        n = chunk.shape[0]
+        ni = end - start if end > start else -1
+        raw = booster.predict(chunk, start_iteration=start,
+                              num_iteration=ni, raw_score=True)
+        raw = np.asarray(raw, np.float64).reshape(n, K)
+        if forest.average_output and end > start:
+            raw = raw * (end - start)
+        leaf = booster.predict(chunk, start_iteration=start,
+                               num_iteration=ni, pred_leaf=True)
+        leaf_full = np.zeros((n, T), np.int64)
+        leaf_full[:, start * K: end * K] = np.asarray(
+            leaf, np.int64).reshape(n, -1)
+        return raw, leaf_full
+
+    return fallback
+
+
+def build_kernels(device) -> None:
+    """Build and load the CUDA kernels now when serving on the card, so a
+    build failure raises at load and never reaches the host fallback."""
+    if device.type == "cuda":
+        from ..learner import cuda_hist
+
+        cuda_hist.load()
+
+
 def _declared_width(booster) -> Optional[int]:
     """The model's feature count: the training set's, or the model
     text's feature names (None when neither says)."""
@@ -98,12 +143,8 @@ class ModelRegistry:
             raise NotImplementedError(
                 "a row-sharded registry (mesh=) is not ported yet (ROADMAP "
                 "A.8)")
-        if host_fallback:
-            raise NotImplementedError(
-                "host_fallback (rescoring a faulted device chunk with the "
-                "host walker) is not ported yet (ROADMAP A.11, with fault "
-                "injection)")
         self.device = serve_device(device)
+        self.host_fallback = bool(host_fallback)
         self.buckets = tuple(int(b) for b in buckets)
         self.default_warmup = bool(warmup)
         self.replicas = max(int(replicas), 1)
@@ -125,6 +166,7 @@ class ModelRegistry:
         Packing, captures and warm-up happen OUTSIDE the lock: a load
         never stalls scoring on already-active models."""
         booster, src = _booster_from(source)
+        build_kernels(self.device)
         forest = TensorForest.from_booster(booster, device=self.device)
         dispatchers = [
             BucketDispatcher(
@@ -133,6 +175,10 @@ class ModelRegistry:
             )
             for i in range(self.replicas)
         ]
+        if self.host_fallback:
+            fb = _make_host_fallback(booster, forest)
+            for d in dispatchers:
+                d.host_fallback = fb
         do_warm = self.default_warmup if warmup is None else warmup
         if do_warm:
             if num_features is None:
@@ -227,6 +273,17 @@ class ModelRegistry:
                 }
                 for name, versions in self._models.items()
             }
+
+    def device_faults(self) -> Dict[str, str]:
+        """"name:vN" -> the last capture, launch or replay error of one of
+        the version's dispatchers; /readyz is not ready while any is
+        kept (a host fallback never clears one)."""
+        with self._lock:
+            return {f"{name}:v{mv.version}": d.device_error
+                    for name, versions in self._models.items()
+                    for mv in versions
+                    for d in (mv.replicas or [mv.dispatcher])
+                    if d.device_error}
 
     def stats(self) -> Dict[str, Any]:
         # one pass under the lock (like models()): resolving entries

@@ -24,15 +24,16 @@ Request ops:
   {"op": "fleet"}   # residency, paging and capture counts of a
                     # ModelFleet (serving/fleet.py); GET /v1/fleet too
   {"op": "ingest"} answers as the JAX package's does with no online loop
-  attached (the loop is not ported, ROADMAP A.11).
+  attached (the loop is not ported, ROADMAP A.11, second half).
 
 Either transport serves a ModelRegistry or a ModelFleet: the load op's
 "deadline_ms" / "queue_cap" set a fleet tenant's QoS.
 
 Responses: {"ok": true, ...} or {"ok": false, "error": "..."}; scores
 ride as nested lists, latency from timer.latency_stats rides in
-"stats". The JAX package's fault-injection hook (fault_plan) is not
-ported (ROADMAP A.11), nor is the command line's task=serve.
+"stats". The ``serve_request`` fault site runs before every request
+(resilience/faultinject.py); cli.py's task=serve drives either
+transport.
 """
 
 from __future__ import annotations
@@ -50,6 +51,7 @@ from ..resilience.errors import (
     QueueOverflow,
     ShutdownError,
 )
+from ..resilience.faultinject import fault_point
 from .registry import ModelRegistry
 
 # typed failure -> HTTP status (the JSONL transport carries the same
@@ -86,6 +88,10 @@ def handle_request(registry: ModelRegistry, req: Dict[str, Any]) -> Dict[str, An
 def _handle_request(registry: ModelRegistry, req: Dict[str, Any]) -> Dict[str, Any]:
     op = req.get("op", "score")
     try:
+        # a planned fault can delay or fail the Nth request here
+        # (fault_plan "serve_request:N:..."), through the degradation
+        # paths a real failure takes
+        fault_point("serve_request")
         if op == "ping":
             return {"ok": True, "pong": True}
         if op == "models":
@@ -191,10 +197,10 @@ class ScoringServer:
 def readiness(registry: ModelRegistry,
               draining: Optional[Any] = None) -> Dict[str, Any]:
     """The /readyz verdict (liveness is /healthz: "the process is
-    up"). Ready means: not draining, >=1 model loaded, microbatch
-    queue depth under the admission cap, and — when an online loop is
-    attached — its heartbeat fresh. A gateway routes traffic on THIS
-    verdict only."""
+    up"). Ready means: not draining, >=1 model loaded, no device fault
+    kept (device_faults), microbatch queue depth under the admission
+    cap, and — when an online loop is attached — its heartbeat fresh. A
+    gateway routes traffic on THIS verdict only."""
     out: Dict[str, Any] = {
         "ok": False, "role": "backend",
         "draining": bool(draining is not None and draining.is_set()),
@@ -212,6 +218,14 @@ def readiness(registry: ModelRegistry,
     out["models"] = len(models or {})
     if not models:
         out["reason"] = "no models loaded"
+        return out
+    faults_of = getattr(registry, "device_faults", None)
+    faults = faults_of() if faults_of is not None else {}
+    if faults:
+        # a capture / launch / replay error: the card may be in a sticky
+        # error state, so route traffic elsewhere
+        out["device_faults"] = faults
+        out["reason"] = "device fault"
         return out
     cap = int(getattr(registry, "queue_cap", 0) or 0)
     depths = default_registry().snapshot().get(

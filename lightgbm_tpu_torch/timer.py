@@ -9,9 +9,13 @@ torch.cuda.synchronize on the training device. `timetag=true` in the
 training parameters turns the global timer on (engine.train calls
 enable_timetag) and train prints the summary when it returns. LatencyStats /
 latency_stats are the serving paths' latency rings (a copy of the JAX
-package's), exported on /metrics through obs/metrics.py. Not ported yet:
-the LIGHTGBM_TPU_TIMETAG environment switch and the trace-sink hooks of
-obs/ (A.11).
+package's), exported on /metrics through obs/metrics.py.
+
+Span sinks (the JAX package's trace-sink hooks): while a sink is
+subscribed, every scope and add() also reports (name, start, seconds) to
+it, timer on or off; obs/tracing.py's span recorder and
+obs/recorder.py's per-round phases subscribe here. Not ported: the
+LIGHTGBM_TPU_TIMETAG environment switch.
 """
 
 from __future__ import annotations
@@ -19,9 +23,39 @@ from __future__ import annotations
 import threading
 import time
 from contextlib import contextmanager
-from typing import Dict, Iterator, List, Optional, Tuple
+from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
 import torch
+
+# subscribed span sinks, (name, start_s, dur_s) -> None: the slot that
+# obs.tracing owns (set_trace_sink) plus any added ones (the flight
+# recorder's); a tuple read without a lock on every scope
+_trace_sinks: tuple = ()
+_primary_sink: Optional[Callable[[str, float, float], None]] = None
+
+
+def set_trace_sink(
+        sink: Optional[Callable[[str, float, float], None]]) -> None:
+    """Install (or with None remove) the tracing slot's sink; sinks
+    added through add_trace_sink stay."""
+    global _trace_sinks, _primary_sink
+    sinks = [s for s in _trace_sinks if s is not _primary_sink]
+    _primary_sink = sink
+    if sink is not None:
+        sinks.append(sink)
+    _trace_sinks = tuple(sinks)
+
+
+def add_trace_sink(sink: Callable[[str, float, float], None]) -> None:
+    global _trace_sinks
+    if sink not in _trace_sinks:
+        _trace_sinks = _trace_sinks + (sink,)
+
+
+def remove_trace_sink(sink: Callable[[str, float, float], None]) -> None:
+    # == not `is`: a bound method is a new object at every attribute read
+    global _trace_sinks
+    _trace_sinks = tuple(s for s in _trace_sinks if s != sink)
 
 
 def _sync(device: Optional[torch.device]) -> None:
@@ -50,20 +84,28 @@ class Timer:
     def scope(self, name: str, block: bool = False) -> Iterator[None]:
         """Time a region; with block=True the clock stops once the card
         has finished the work queued in it."""
-        if not self.enabled:
+        if not self.enabled and not _trace_sinks:
             yield
             return
         t0 = time.perf_counter()
         yield
         if block:
             _sync(self.device)
-        self.add(name, time.perf_counter() - t0)
+        self.add(name, time.perf_counter() - t0, t0)
 
-    def add(self, name: str, seconds: float) -> None:
-        """Record an externally timed region, as scope() does."""
+    def add(self, name: str, seconds: float,
+            start: Optional[float] = None) -> None:
+        """Record an externally timed region, as scope() does (`start`:
+        its time.perf_counter() start, for the span sinks)."""
         if self.enabled:
             self._acc[name] = self._acc.get(name, 0.0) + seconds
             self._cnt[name] = self._cnt.get(name, 0) + 1
+        sinks = _trace_sinks
+        if sinks:
+            if start is None:
+                start = time.perf_counter() - seconds
+            for sink in sinks:
+                sink(name, start, seconds)
 
     def summary(self) -> Dict[str, Tuple[float, int]]:
         """{phase: (seconds, calls)}, the longest first."""

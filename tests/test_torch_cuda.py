@@ -1344,6 +1344,42 @@ def test_dispatcher_one_capture_per_bucket(dev):
     assert warm.captures == len(buckets)
 
 
+def test_graph_dies_during_another_capture(dev):
+    """A graph dropped in one thread while another thread captures (a
+    client's collection, or an unload, while a serving worker captures):
+    its memory pool is parked until no capture is under way, and the
+    process goes on (torch's allocator aborts when a pool is emptied
+    during a capture); the capture that was under way replays right."""
+    import threading
+
+    from lightgbm_tpu_torch.learner import device_loop
+    from lightgbm_tpu_torch.learner.device_loop import CudaGraph
+
+    x = torch.ones(1 << 20, device=dev)
+    old = CudaGraph(dev)
+    old.capture(lambda _loop: x.mul(2.0))  # its output lives in old.pool
+    inside, release = threading.Event(), threading.Event()
+    new, out = CudaGraph(dev), []
+
+    def body(_loop):
+        out.append(x.add(1.0))
+        inside.set()
+        release.wait(30)
+
+    t = threading.Thread(target=new.capture, args=(body,))
+    t.start()
+    assert inside.wait(30)
+    del old  # dies here, while `new` captures in the other thread
+    parked = len(device_loop._parked_pools)
+    release.set()
+    t.join(60)
+    assert not t.is_alive() and new.captured
+    assert parked == 1 and not device_loop._parked_pools
+    new.replay()
+    torch.cuda.synchronize(dev)
+    assert torch.equal(out[0], torch.full_like(x, 2.0))
+
+
 def test_replicas_capture_at_first_use_under_load(dev):
     """Two replicas with no warm-up behind the MicroBatcher, fed by 8
     threads: each replica captures its rungs from its own worker thread
@@ -1688,3 +1724,145 @@ def test_fleet_card_matches_cpu(dev):
     finally:
         for f in fleets.values():
             f.close()
+
+
+# ---- the recovery layer on the card (ROADMAP A.7, A.11 first half)
+def _resume_data():
+    rs = np.random.RandomState(11)
+    X = rs.randn(3000, 8)
+    y = ((X @ rs.randn(8) + 0.3 * rs.randn(3000)) > 0).astype(float)
+    return X[:2500], y[:2500], X[2500:], y[2500:]
+
+
+def _eager_cb(env):
+    """Keeps train() on the eager loop."""
+
+
+_eager_cb.before_iteration = True
+
+
+def _card_train(d, monkeypatch, plan=None, fused=True, **extra):
+    from lightgbm_tpu_torch.resilience import faultinject
+
+    monkeypatch.chdir(d)
+    if plan:
+        monkeypatch.setenv(faultinject.ENV_VAR, plan)
+    else:
+        monkeypatch.delenv(faultinject.ENV_VAR, raising=False)
+    X, y, Xv, yv = _resume_data()
+    p = {"objective": "binary", "num_leaves": 31, "min_data_in_leaf": 5,
+         "bagging_fraction": 0.7, "bagging_freq": 1, "snapshot_freq": 5,
+         "resume": "auto", "output_model": "model.txt",
+         "metric": "binary_logloss", "verbosity": -1, **extra}
+    ds = lgb.Dataset(X, label=y, params=p)
+    vs = lgb.Dataset(Xv, label=yv, reference=ds)
+    return lgb.train(p, ds, 10, valid_sets=[vs], valid_names=["v"],
+                     callbacks=[] if fused else [_eager_cb])
+
+
+@pytest.mark.parametrize("loop", ["fused", "eager"])
+def test_resume_bitwise_on_card(dev, tmp_path, monkeypatch, loop):
+    """A crash at round 7 (checkpoint at 5), then resume=auto: the model
+    text is bit for bit an uninterrupted run's, on the card."""
+    from lightgbm_tpu_torch.resilience.errors import InjectedFault
+
+    fused = loop == "fused"
+    for d in ("crashed", "clean"):
+        (tmp_path / d).mkdir()
+    with pytest.raises(InjectedFault):
+        _card_train(tmp_path / "crashed", monkeypatch, "round:7:raise",
+                    fused)
+    resumed = _card_train(tmp_path / "crashed", monkeypatch, fused=fused)
+    whole = _card_train(tmp_path / "clean", monkeypatch, fused=fused)
+    assert (resumed._gbdt._fused is not None) == fused
+    assert resumed.model_to_string() == whole.model_to_string()
+
+
+def test_fused_records_equal_eager_on_card(dev, tmp_path, monkeypatch):
+    """The gh norms the captured step writes after its evaluations are the
+    eager loop's bits; so is every other recorded value but the timings
+    and the evaluations (device f32 metrics against host metrics)."""
+    from lightgbm_tpu_torch.obs.recorder import read_stream
+
+    recs = {}
+    for loop in ("fused", "eager"):
+        (tmp_path / loop).mkdir()
+        _card_train(tmp_path / loop, monkeypatch, fused=loop == "fused",
+                    snapshot_freq=-1, resume="off", record_file="r.jsonl")
+        recs[loop] = read_stream(str(tmp_path / loop / "r.jsonl"))
+    timing = {"t_unix", "phases", "chunk_phases", "trees_per_sec"}
+    assert len(recs["fused"]) == len(recs["eager"]) == 10
+    for a, b in zip(recs["fused"], recs["eager"]):
+        assert set(a) - {"chunk_phases"} == set(b)
+        for k in set(a) - timing - {"evals"}:
+            assert a[k] == b[k], k
+        for k in a["evals"]:
+            assert abs(a["evals"][k] - b["evals"][k]) <= 1e-6
+
+
+def test_device_put_fault_answered_by_host_fallback(dev):
+    """A registry on the card with host_fallback: a faulted device call is
+    answered by the host walker within 1e-5 of the card's answer and
+    counted; a registry without it raises the fault."""
+    from lightgbm_tpu_torch.obs.metrics import default_registry
+    from lightgbm_tpu_torch.resilience import faultinject
+    from lightgbm_tpu_torch.resilience.errors import InjectedFault
+    from lightgbm_tpu_torch.serving import ModelRegistry
+
+    bst, Xq = _serve_model()
+    text = bst.model_to_string()
+    reg = ModelRegistry(buckets=(16, 64), warmup=True, host_fallback=True)
+    reg.load("m", text)
+    want = reg.predict("m", Xq[:40], raw_score=True)
+    before = sum(default_registry().snapshot().get(
+        "lgbmtpu_serve_host_fallback_total", {}).values())
+    try:
+        faultinject.arm("device_put:1:raise")
+        got = reg.predict("m", Xq[:40], raw_score=True)
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+        after = sum(default_registry().snapshot()[
+            "lgbmtpu_serve_host_fallback_total"].values())
+        assert after == before + 1
+        plain = ModelRegistry(buckets=(16, 64))
+        plain.load("m", text)
+        faultinject.arm("device_put:1:raise")
+        with pytest.raises(InjectedFault):
+            plain.predict("m", Xq[:3])
+    finally:
+        faultinject.disarm()
+
+
+def test_replay_error_propagates_despite_host_fallback(dev, monkeypatch):
+    """A CUDA error from a graph's replay is never answered on the host:
+    with host_fallback=True it propagates, the fallback counter stays,
+    and the registry keeps the error (/readyz: not ready)."""
+    from lightgbm_tpu_torch.learner.device_loop import CudaGraph
+    from lightgbm_tpu_torch.obs.metrics import default_registry
+    from lightgbm_tpu_torch.serving import ModelRegistry
+    from lightgbm_tpu_torch.serving.server import readiness
+
+    bst, Xq = _serve_model()
+    reg = ModelRegistry(buckets=(16, 64), warmup=True, host_fallback=True)
+    reg.load("m", bst.model_to_string())
+    reg.predict("m", Xq[:40], raw_score=True)
+    count = lambda: sum(default_registry().snapshot().get(
+        "lgbmtpu_serve_host_fallback_total", {}).values())
+    before = count()
+
+    def replay(self):
+        raise RuntimeError("CUDA error: an illegal memory access was "
+                           "encountered")
+
+    monkeypatch.setattr(CudaGraph, "replay", replay)
+    with pytest.raises(RuntimeError, match="illegal memory"):
+        reg.predict("m", Xq[:40], raw_score=True)
+    assert count() == before
+    assert "illegal memory" in reg.device_faults()["m:v1"]
+    assert readiness(reg)["reason"] == "device fault"
+
+
+def test_native_library_loaded(dev):
+    from lightgbm_tpu_torch import native
+
+    assert native.get_lib() is not None, native.BUILD_ERROR
+    assert native.library_path().exists()

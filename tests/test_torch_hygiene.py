@@ -5,6 +5,7 @@ whose code is not ported raise NotImplementedError instead of being
 ignored."""
 
 import ast
+import json
 from pathlib import Path
 
 import numpy as np
@@ -185,15 +186,46 @@ def test_formerly_refused_options_train(extra):
     ("data_source", "chunked", "A.10"),
     ("ram_budget_mb", 64, "A.10"),
 ])
-def test_unported_keys_raise_naming_their_item(key, value, item):
-    """Keys the JAX package's engine.train acts on and the port does not
-    yet (ROADMAP A.10 data plane, A.11 operations layer) raise instead of
-    being parsed and ignored."""
+def test_unported_keys_raise_naming_their_item(key, value, item, tmp_path,
+                                               monkeypatch):
+    """Keys the JAX package's engine.train acts on. Those the port does
+    not act on yet (ROADMAP A.10, the data plane) raise instead of being
+    parsed and ignored. Those of A.11's first half (checkpoints, resume,
+    fault plans, the flight recorder, anomaly policies) were refused
+    until they were ported; now each trains and does what it says."""
     X, y = _tiny()
     p = {"objective": "binary", "verbosity": -1, "device_type": "cpu",
          key: value}
-    with pytest.raises(NotImplementedError, match=f"{key}.*ROADMAP {item}"):
-        lgb.train(p, lgb.Dataset(X, label=y, params=p), 1)
+    if item == "A.10":
+        with pytest.raises(NotImplementedError,
+                           match=f"{key}.*ROADMAP {item}"):
+            lgb.train(p, lgb.Dataset(X, label=y, params=p), 1)
+        return
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.delenv("LGBMTPU_FAULT_PLAN", raising=False)
+    p.setdefault("snapshot_freq", 1)
+    p["output_model"] = "model.txt"
+    if key == "resume_from":  # the checkpoint it names, first
+        lgb.train({**p, "resume_from": ""},
+                  lgb.Dataset(X, label=y, params=p), 1)
+    # round:1:kill would end this process at round 1: one round there
+    rounds = 1 if key == "fault_plan" else 2
+    b = lgb.train(p, lgb.Dataset(X, label=y, params=p), rounds)
+    assert b.num_trees() == rounds
+    assert (tmp_path / f"model.txt.snapshot_iter_{rounds}").exists()
+    ckpt = tmp_path / ("ckpt.json" if key == "checkpoint_file"
+                       else "model.txt.ckpt")
+    assert json.loads(ckpt.read_text())["engine_round"] == rounds
+    if key == "fault_plan":
+        from lightgbm_tpu_torch.resilience import faultinject
+
+        plan = faultinject.active()
+        faultinject.disarm()
+        assert plan.spec == value and not plan.clauses[0].done
+    if key == "record_file":
+        assert len((tmp_path / "rec.jsonl").read_text().splitlines()) == 3
+    if key == "anomaly_policy":
+        assert b.anomaly_summary == {"policy": "warn", "trips": {}}
 
 
 @pytest.mark.parametrize("fused", [True, False])
