@@ -54,7 +54,8 @@ Phases, each printed as one JSON line:
             the default int16 rounds path, 2 warmup trees then 10 timed
             trees: trees/s, validation AUC after tree 1 and after the last
             tree, launches per kernel;
-  profile - torch.profiler over 2 more trees: device busy share and the
+  profile - torch.profiler over 1 more tree (2 before the online loop
+            came): device busy share and the
             kernels taking the most device time per tree;
   model   - save_model -> Booster(model_file=...) -> identical predictions
             on 1000 validation rows; host predictions match the scores
@@ -72,7 +73,8 @@ Phases, each printed as one JSON line:
             predictions (1e-5), then 3 trees with bagging, early stopping
             on validation AUC, record_evaluation and reset_parameter;
   api_cv - lgb.cv on the train phase's 1M rows (5 stratified folds of
-            799,999-800,001 training rows, 20 rounds, early stopping 5 on
+            799,999-800,001 training rows, 10 rounds (20 before the
+            online loop came), early stopping 5 on
             AUC) on the fused loop: 5 graph captures, valid auc-mean
             rising, fold 0's model text equal to train() on
             ds.subset(train_idx) with ds.subset(test_idx) as validation
@@ -93,8 +95,8 @@ Phases, each printed as one JSON line:
             the bundled columns (EFB folds each field into one), 10 trees
             on the fused loop with validation AUC rising, and a 20,000-row
             slice trained on the card and on the CPU within 1e-4;
-  api_file - the first 100,000 rows (200,000 before the script outgrew its
-            limit) as CSV with
+  api_file - the first 50,000 rows (200,000, then 100,000, before the
+            script outgrew its limit) as CSV with
             a header, TSV and LibSVM (%.17g), each through Dataset(path): the numpy Dataset's bin
             matrix and 5-tree model text bit for bit; save_binary ->
             Dataset(bin_path) and a .weight sidecar give the same model
@@ -111,20 +113,38 @@ Phases, each printed as one JSON line:
             against the host walker (Booster.predict) within 1e-5;
             task=serve over stdio with
             device_put:2:raise and host_fallback=true: the faulted
-            request's scores within 1e-5 of the device's; wall seconds,
-            the snapshot round's ms;
+            request's scores within 1e-5 of the device's; task=loop over
+            stdio in a process of its own (a 50,000-row microbatch
+            through the ingest op, one promoted verdict, quit); wall
+            seconds, the snapshot round's ms;
   fallback_latency - in one process, a registry on the card with
             host_fallback: median ms of a 1-row and a 1,000-row request
             answered by the card and by the host fallback;
+  online_loop - the online train-and-serve loop (online/) on the cli
+            phase's clean model: a card registry serves while four
+            cycles refit 10 trees on 50,000 fresh rows of the same
+            concept each (clean, NaN labels, flipped labels, clean:
+            promoted, rolled_back, rejected, promoted; the first batch
+            through the HTTP ingest op), judged on the 100,000
+            validation rows (AUC); two threads score the registry during
+            every cycle (0 torn answers: each within 1e-5 of v(n)'s or
+            v(n+1)'s host walker; p50 / p99 inside and outside the
+            cycles); a raise at loop_refit on a fifth cycle, a restart
+            serving the last promotion's bits, a refit of the same rows
+            twice (the same text) and the replayed cycle, profiled: the
+            launches of hist_nat, hist_round, seg_sum and take_small in
+            one cycle;
   recorder - train() with record_file and anomaly_policy=warn against
-            train() without, on the fused loop, in turns: trees/s and
+            train() without, on the fused loop, in turns (1 + 20 trees,
+            40 before the online loop came): trees/s and
             graph nodes of each; 6 recorded trees on both loops, the
             fused records the eager records key for key and bit for bit
             but the timings and the evaluations (within 1e-6);
   train_exact, train_exact_rounds, train_f32 - the same workload on the
             f32 paths (tpu_growth_mode=exact; exact + tpu_growth_rounds;
-            rounds + tpu_hist_dtype=bf16x2), 1 warmup tree then 3 timed
-            trees each, with the same checks and a 1-tree profile; then
+            rounds + tpu_hist_dtype=bf16x2), 1 warmup tree then 2 timed
+            trees each (3 before the online loop came), with the same
+            checks and a 1-tree profile; then
             the hist_slots line (the warmup tree's fullest round of
             train_exact_rounds) and two replay lines: hist_tree, every
             hist call of train_exact's warmup tree (its segment bounds
@@ -171,9 +191,11 @@ Phases, each printed as one JSON line:
             train_goss, train_quant, train_l1, train_f32 (after the f32
             paths), train_exact and train_exact_rounds (the exact grower,
             its splits on the segment ladder and its round phase in the
-            graph: 1 warm-up and 3 timed trees) and train_cat (after its
-            phase): 1 warm-up and 6 timed trees each (train_goss 11
-            unsampled trees first); trees/s, host ms a tree, splits a
+            graph: 1 warm-up and 2 timed trees, 3 before the online loop
+            came) and train_cat (after its phase): 1 warm-up and 6 timed
+            trees each (train_goss 11 unsampled trees first, then 3 timed
+            trees; train_cat, train_extras and train_forced 3; 6 before
+            the online loop came); trees/s, host ms a tree, splits a
             tree, device busy share and device operations a tree for both
             loops; capture seconds, graph nodes, graph launches a tree,
             rounds per tree and overflows for the graph; model text and
@@ -188,7 +210,8 @@ Phases, each printed as one JSON line:
             constraints when it is constructed) on columns 0, 1, 3 and
             5, each in the direction the label moves with it
             (mono_directions); intermediate and advanced through
-            fused_vs_eager (1 warm-up and 4 timed trees), their check
+            fused_vs_eager (1 warm-up and 2 timed trees; 4 before the
+            online loop came), their check
             the resolved method, the splits the conflict guard deferred
             and those on the constrained columns a tree, and on the
             eager loop the violation scan (2,000 validation rows, each
@@ -232,8 +255,8 @@ Phases, each printed as one JSON line:
             Booster.predict(device="cuda") (the tensorized forest,
             serving/forest.py: one take_small gather of the packed node
             table a level) on the 100,000 validation rows, the first
-            20,000 of them (all 100,000 before the script outgrew its
-            limit) against the host
+            10,000 of them (all 100,000, then 20,000, before the script
+            outgrew its limit) against the host
             walker: raw scores within rtol 1e-5 / atol 1e-5, pred_leaf
             exactly, rows/s of both; the same on 20-tree models of
             train_cat's data (category bitsets) and train_rank's (136
@@ -260,8 +283,17 @@ Phases, each printed as one JSON line:
   serve_http - serve_http on a free local port: /readyz 200 after
             warm-up, /v1/score equal to a direct predict, /metrics with
             lgbmtpu_serve_* series;
-  serve_contrib - device TreeSHAP on the 50-tree model, 512 rows (1,024
-            before the cli phase came),
+  gateway - serving/gateway.py in front of two serve_http backends on
+            card registries (the 50 x 31 model): 8 client threads, 2,000
+            batch-1 requests through the gateway and 2,000 direct (qps,
+            p50 / p99); 400 requests each under gw_backend_5xx, under
+            gw_slow_backend (hedges fired and won within their budget)
+            and across a backend's drain (its /readyz 503, no attempt
+            reaches it): 0 client failures, every answer within 1e-5 of
+            the host walker; the gateway's /metrics merges both
+            backends' series;
+  serve_contrib - device TreeSHAP on the 50-tree model, 256 rows (1,024
+            before the cli phase came, 512 before the online loop),
             against host shap.py (8 worker processes): within 1e-5, rows
             summing to the raw score; device ms and peak memory;
   serve_fleet - the multi-tenant ModelFleet: 7 tenants (text cuts of the
@@ -1503,7 +1535,7 @@ def profile_phase(torch, bst, n_trees: int = 2, name: str = "profile"):
     return out
 
 
-def train_f32_path(torch, lgb, ch, perm, ds, vs, name, n_timed=3,
+def train_f32_path(torch, lgb, ch, perm, ds, vs, name, n_timed=2,
                    capture=None, rounds_cap=None, seg_calls=None):
     """One f32 path on the headline workload: 1 warmup tree, n_timed
     timed trees, AUC after the first and the last tree, launches, a
@@ -2174,12 +2206,12 @@ def mono_tables_ms(torch, lgb, ds, method: str, directions: dict) -> dict:
 def train_mono_phase(torch, lgb, np, ds, vs, Xv, method: str,
                      directions: dict) -> dict:
     """train_mono_<method>: the monotone path through fused_vs_eager (1
-    warm-up and 4 timed trees a loop), AUC rising from the first tree to
+    warm-up and 2 timed trees a loop), AUC rising from the first tree to
     the last on both loops, with the tables' device ms a tree beside."""
     tables = mono_tables_ms(torch, lgb, ds, method, directions)
     name = "train_mono_" + method
     line = fused_vs_eager(torch, lgb, ds, vs, name,
-                          mono_params(28, method, directions), n_timed=4,
+                          mono_params(28, method, directions), n_timed=2,
                           check=mono_check(np, Xv, method, directions))
     emit({"phase": name + "_tables", **tables})
     for loop, (first, last) in line["records_first_last"].items():
@@ -2678,7 +2710,7 @@ API_PARAMS = {"objective": "binary", "num_leaves": L, "max_bin": 255,
 
 
 def api_cv_phase(torch, lgb, np, ds):
-    """lgb.cv on the train phase's 1M rows: 5 stratified folds, 20 rounds,
+    """lgb.cv on the train phase's 1M rows: 5 stratified folds, 10 rounds,
     early stopping 5 on AUC, every fold on the fused loop (one CUDA graph
     captured a fold); fold 0 against train() on ds.subset(train_idx) with
     ds.subset(test_idx) as its validation set, bit for bit; rollback on
@@ -2692,7 +2724,7 @@ def api_cv_phase(torch, lgb, np, ds):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    res = lgb.cv(params, ds, 20, nfold=5, stratified=True, seed=0,
+    res = lgb.cv(params, ds, 10, nfold=5, stratified=True, seed=0,
                  return_cvbooster=True)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
@@ -2973,7 +3005,7 @@ def api_file_phase(torch, lgb, np, X, y):
                              f"{native.BUILD_ERROR}")
     out = Path("build") / "chip_smoke" / "api_file"
     out.mkdir(parents=True, exist_ok=True)
-    n, f = min(100_000, len(y)), X.shape[1]
+    n, f = min(50_000, len(y)), X.shape[1]
     Xf = np.asarray(X[:n], np.float64)
     yf = np.asarray(y[:n], np.float64)
     rows = np.column_stack([yf, Xf])
@@ -3052,7 +3084,7 @@ def api_file_phase(torch, lgb, np, X, y):
     return line
 
 
-def cli_phase(torch, lgb, np, ds, vs, Xv, n_serve: int = 5):
+def cli_phase(torch, lgb, np, ds, vs, Xv, yv, n_serve: int = 5):
     """The command line at the Higgs-like width (1M x 28, 255 leaves,
     max_bin 255), on binary caches of the train phase's data written by
     save_binary: python -m lightgbm_tpu_torch task=train with
@@ -3069,8 +3101,12 @@ def cli_phase(torch, lgb, np, ds, vs, Xv, n_serve: int = 5):
     request's scores (the host walker's) against the device answers to
     the same rows within 1e-5. The clean run, predict and serve call
     cli.main in this process (the same entry point without a process's
-    ~10 s start; cut to keep the script inside its limit). Wall seconds
-    of each command, the snapshot round's ms (the manifest's timer)."""
+    ~10 s start; cut to keep the script inside its limit). Last,
+    task=loop over stdio in a process of its own on the clean model: a
+    50,000-row microbatch of the same concept through the ingest op, one
+    verdict cycle (it must promote: the models op then reads version 2
+    active), quit. Wall seconds of each command, the snapshot round's ms
+    (the manifest's timer)."""
     out = Path("build") / "chip_smoke" / "cli"
     out.mkdir(parents=True, exist_ok=True)
     ds.save_binary(out / "train.bin")
@@ -3169,6 +3205,7 @@ def cli_phase(torch, lgb, np, ds, vs, Xv, n_serve: int = 5):
     if (rc3, rc4, rc5) != (0, 0, 0):
         raise AssertionError(f"cli: train / predict / serve returned "
                              f"{(rc3, rc4, rc5)}")
+    loop_line = cli_loop_process(np, out / "clean", env, Xv, yv, walls)
     resp = [json.loads(x) for x in served.splitlines() if x.strip()]
     scores = [np.asarray(r["pred"], np.float64) for r in resp[1:4]]
     fallback_err = float(np.abs(scores[1] - scores[0]).max())
@@ -3185,7 +3222,8 @@ def cli_phase(torch, lgb, np, ds, vs, Xv, n_serve: int = 5):
             "predict_take_small_launches": taken,
             "serve_ok": all(r.get("ok") for r in resp),
             "serve_fallback_vs_device": fallback_err,
-            "serve_device_vs_device": device_err, "tolerance": 1e-5}
+            "serve_device_vs_device": device_err, "tolerance": 1e-5,
+            "loop_process": loop_line}
     emit(line)
     if not (killed and ckpt_round == 5 and resumed == clean and fused):
         raise AssertionError(f"cli: kill / resume failed: {line} "
@@ -3194,7 +3232,63 @@ def cli_phase(torch, lgb, np, ds, vs, Xv, n_serve: int = 5):
             and len(resp) == 5
             and fallback_err < 1e-5):
         raise AssertionError(f"cli: predict / serve failed: {line}")
+    if not (loop_line["rc"] == 0 and loop_line["outcome"] == "promoted"
+            and loop_line["active_version"] == 2):
+        raise AssertionError(f"cli: task=loop failed: {loop_line}")
     return line
+
+
+def cli_loop_process(np, cwd, env, Xv, yv, walls, hold_rows=20_000):
+    """python -m lightgbm_tpu_torch task=loop over stdio in cwd (on its
+    model.txt, the holdout the first hold_rows validation rows with
+    their labels): one 50,000-row microbatch (higgs_batch, seed 111)
+    through the ingest op, then, once the loop's state records a
+    verdict, the models op and quit. Its stderr goes to loop.log."""
+    import shutil
+
+    np.savetxt(cwd / "holdout.tsv", np.column_stack(
+        [yv[:hold_rows], Xv[:hold_rows]]), delimiter="\t", fmt="%.9g")
+    shutil.rmtree(cwd / "loop", ignore_errors=True)
+    Xb, yb = higgs_batch(50_000, 111)
+    args = ["task=loop", "input_model=model.txt",
+            "valid_data=holdout.tsv", "loop_dir=loop",
+            "serve_buckets=16,64"] + [f"{k}={v}"
+                                      for k, v in LOOP_PARAMS.items()]
+    state = cwd / "loop" / "loop_state.json"
+    t0 = time.perf_counter()
+    with open(cwd / "loop.log", "w") as err:
+        p = subprocess.Popen([sys.executable, "-m", "lightgbm_tpu_torch",
+                              *args], cwd=cwd, env=env, text=True,
+                             stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+                             stderr=err)
+        try:
+            p.stdin.write(json.dumps({"op": "ingest", "rows": Xb.tolist(),
+                                      "labels": yb.tolist()}) + "\n")
+            p.stdin.flush()
+            while time.perf_counter() - t0 < 300 and p.poll() is None:
+                if state.exists() and json.loads(
+                        state.read_text())["cycle"] >= 1:
+                    break
+                time.sleep(0.2)
+            out, _ = p.communicate(
+                json.dumps({"op": "models"}) + "\n"
+                + json.dumps({"op": "quit"}) + "\n", timeout=120)
+        finally:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    walls["loop_process"] = time.perf_counter() - t0
+    resp = [json.loads(x) for x in out.splitlines() if x.strip()]
+    st = json.loads(state.read_text()) if state.exists() else {}
+    models = [r for r in resp if "models" in r]
+    return {"rc": p.returncode, "responses": len(resp),
+            "ingest_ok": bool(resp and resp[0].get("ok")),
+            "outcome": st.get("last_outcome"), "version": st.get("version"),
+            "holdout_auc": st.get("incumbent_metrics"),
+            "active_version": (models[0]["models"]["default"]["active"]
+                               if models else None),
+            "log_tail": (cwd / "loop.log").read_text()[-1500:]
+            if p.returncode else ""}
 
 
 def fallback_latency(np, lgb, model_path, Xv, n_rows=(1, 1000), reps=20):
@@ -3226,7 +3320,279 @@ def fallback_latency(np, lgb, model_path, Xv, n_rows=(1, 1000), reps=20):
     return out
 
 
-def recorder_phase(torch, lgb, np, ds, vs, n_trees: int = 40):
+_CONCEPT_W = {}
+
+
+def higgs_batch(rows: int, seed: int, feats: int = 28,
+                concept_rows: int = 1_000_000):
+    """Fresh rows of the Higgs-like concept of higgs_like(concept_rows):
+    the weight vector w that higgs_stream draws after its X (so the same
+    RandomState(17) stream), features, noise and labels from
+    RandomState(seed). The online loop's microbatches."""
+    import numpy as np
+
+    key = (concept_rows, feats)
+    if key not in _CONCEPT_W:
+        rs = np.random.RandomState(17)
+        rs.standard_normal((concept_rows, feats))
+        _CONCEPT_W[key] = rs.randn(feats)
+    w = _CONCEPT_W[key]
+    r = np.random.RandomState(seed)
+    X = r.randn(rows, feats).astype(np.float32)
+    logits = X[:, : feats // 2] @ w[: feats // 2] + np.sin(X[:, feats // 2]) * 2.0
+    z = (logits + r.randn(rows)).astype(np.float32)
+    return X, (z > 0).astype(np.float32)
+
+
+LOOP_PARAMS = {"objective": "binary", "metric": "auc", "num_leaves": L,
+               "max_bin": 255, "learning_rate": 0.1, "min_data_in_leaf": 20,
+               "verbosity": -1, "loop_rounds": 10, "loop_min_rows": 50_000}
+# the online loop's microbatches: (kind, seed); kind names the labels
+LOOP_BATCHES = (("clean", 101), ("nan", 102), ("flip", 103), ("clean", 104))
+LOOP_KERNELS = ("hist_nat", "hist_round", "seg_sum", "take_small")
+
+
+def _pcts(lat):
+    return {"requests": len(lat), "p50_ms": 1e3 * _pct(lat, 0.50),
+            "p99_ms": 1e3 * _pct(lat, 0.99)}
+
+
+class _Scorers:
+    """Two threads scoring 1-256-row requests of a fixed pool through a
+    registry while ``run`` is set: each answer with its rows and latency,
+    tagged by whether a verdict cycle was running when it was sent."""
+
+    def __init__(self, np, reg, pool, seed=0):
+        import threading
+
+        self.np, self.reg, self.pool = np, reg, pool
+        self.in_cycle = threading.Event()
+        self.run = threading.Event()
+        self.stop = threading.Event()
+        self.answers, self.errors = [], []
+        self.threads = [threading.Thread(target=self._run, args=(seed + i,),
+                                         daemon=True) for i in range(2)]
+        for t in self.threads:
+            t.start()
+
+    def _run(self, seed):
+        rs = self.np.random.RandomState(seed)
+        while not self.stop.is_set():
+            if not self.run.wait(0.05):
+                continue
+            n = int(rs.randint(1, 257))
+            a = int(rs.randint(0, len(self.pool) - n + 1))
+            during = self.in_cycle.is_set()
+            t0 = time.perf_counter()
+            try:
+                p = self.reg.predict("default", self.pool[a:a + n],
+                                     raw_score=True)
+            except Exception as e:  # noqa: BLE001 — shown by the phase
+                self.errors.append(repr(e))
+                return
+            self.answers.append((a, n, self.np.asarray(p, self.np.float64),
+                                 time.perf_counter() - t0, during))
+
+    def close(self):
+        self.run.clear()
+        self.stop.set()
+        for t in self.threads:
+            t.join(timeout=60)
+
+
+def online_loop_phase(torch, lgb, ch, np, Xv, yv, v0_path):
+    """The online train-and-serve loop on the card (online/, ROADMAP
+    A.11): v0 is the cli phase's clean 10-tree model, the holdout the
+    100,000 validation rows (metric auc); a card registry serves while
+    four cycles refit 10 trees of 255 leaves on 50,000 fresh rows of v0's
+    concept each (higgs_batch, seeds 101-104): clean -> promoted, NaN
+    labels -> rolled_back, flipped labels -> rejected, clean ->
+    promoted; the first arrives through the serving ingest op over HTTP.
+    Two threads score 1-256-row requests through the registry the whole
+    time: every answer within 1e-5 of v(n)'s or v(n+1)'s host walker (0
+    torn), p50 / p99 inside the cycles and in a window outside them.
+    Then a raise at loop_refit on a fifth cycle: a new OnlineLoop and
+    registry on the same directory serve the last promotion's bits; the
+    restarted loop refits the fifth batch twice (the same candidate text,
+    byte for byte) and replays the cycle. Per cycle: seconds of the
+    margins, the refit (its capture s, trees/s), the evaluation and the
+    promotion (the registry's load with its warm-up captures); holdout
+    AUC per version; the kernels' launches over the replayed cycle, with
+    no scorer running (torch.profiler's kernel symbols, CUDA graph
+    replays included), and the launch counters over the phase (reset
+    before it). The scorers pause while a batch is drawn and spooled."""
+    import shutil
+    import threading
+    import urllib.request
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from lightgbm_tpu_torch import online
+    from lightgbm_tpu_torch.resilience import faultinject
+    from lightgbm_tpu_torch.resilience.errors import InjectedFault
+    from lightgbm_tpu_torch.serving import ModelRegistry, serve_http
+
+    d = Path("build") / "chip_smoke" / "online_loop"
+    shutil.rmtree(d, ignore_errors=True)
+    params = dict(LOOP_PARAMS, loop_dir=str(d))
+    hold = (Xv, yv)
+    pool = np.asarray(Xv[:1024], np.float32)
+    ch.reset_launch_counts()
+    t_phase = time.perf_counter()
+    loop = online.OnlineLoop(params, hold, initial_model=str(v0_path))
+    reg = ModelRegistry(buckets=(16, 64, 256), warmup=True)
+    loop.attach(reg)
+    httpd = serve_http(reg, 0, block=False)
+    th = threading.Thread(target=httpd.serve_forever, daemon=True)
+    th.start()
+    versions = {0: lgb.Booster(model_file=str(v0_path))}
+    host = {0: versions[0].predict(pool, raw_score=True)}
+    scorers = _Scorers(np, reg, pool)
+    scorers.run.set()
+    time.sleep(1.0)  # the window outside any cycle
+    scorers.run.clear()
+    cycles, auc = [], {}
+    try:
+        for i, (kind, seed) in enumerate(LOOP_BATCHES):
+            t_spool = time.perf_counter()
+            Xb, yb = higgs_batch(50_000, seed)
+            labels = {"nan": np.full(len(yb), np.nan),
+                      "flip": 1.0 - yb}.get(kind, yb)
+            body = {"rows": Xb.tolist(), "labels": labels.tolist()}
+            if i == 0:
+                req = urllib.request.Request(
+                    f"http://127.0.0.1:{httpd.server_address[1]}/v1/ingest",
+                    data=json.dumps(body).encode(),
+                    headers={"Content-Type": "application/json"})
+                with urllib.request.urlopen(req, timeout=300) as r:
+                    if not json.loads(r.read())["ok"]:
+                        raise AssertionError("online_loop: ingest refused")
+            else:
+                loop.spool.append(body["rows"], body["labels"])
+            del body
+            t_cycle = time.perf_counter()
+            scorers.in_cycle.set()
+            scorers.run.set()
+            outcome = loop.cycle()
+            scorers.run.clear()
+            scorers.in_cycle.clear()
+            t_end = time.perf_counter()
+            lc = dict(loop.last_cycle)
+            v = loop.state["version"]
+            if v not in versions:
+                versions[v] = lgb.Booster(model_file=loop.state["model_path"])
+                host[v] = versions[v].predict(pool, raw_score=True)
+            cand = lc["candidate_metrics"]
+            cycles.append({
+                "kind": kind, "outcome": outcome, "serving_version": v,
+                "rows": lc["rows"], "spool_s": t_cycle - t_spool,
+                "cycle_s": t_end - t_cycle, "margins_s": lc["margins_s"],
+                "refit_s": lc["refit_s"],
+                "refit_capture_s": lc["refit_capture_s"],
+                "refit_trees_per_s": (LOOP_PARAMS["loop_rounds"]
+                                      / lc["refit_s"]),
+                "eval_s": lc["eval_s"], "promote_ms": 1e3 * lc["promote_s"],
+                "candidate_auc": cand[0] if cand else None,
+                "incumbent_auc": lc["incumbent_metrics"][0]})
+            auc[v] = (cand[0] if outcome == "promoted"
+                      else lc["incumbent_metrics"][0])
+        auc[0] = cycles[0]["incumbent_auc"]
+        served = np.asarray(reg.predict("default", pool, raw_score=True))
+    finally:
+        scorers.close()
+        httpd.shutdown()
+        httpd.server_close()
+        th.join(timeout=10)
+    launches = {k: ch.LAUNCHES[k] for k in LOOP_KERNELS}
+    # torn answers: neither the serving version's nor the next one's
+    torn = 0
+    vs = sorted(host)
+    for a, n, p, _, _ in scorers.answers:
+        if not any(np.allclose(p, host[v][a:a + n], rtol=1e-5, atol=1e-5)
+                   for v in vs):
+            torn += 1
+    lat_in = [x[3] for x in scorers.answers if x[4]]
+    lat_out = [x[3] for x in scorers.answers if not x[4]]
+    # ---- a raise at loop_refit on the fifth cycle, then a restart
+    Xb, yb = higgs_batch(50_000, 105)
+    loop.spool.append(Xb.tolist(), yb.tolist())
+    plan = f"loop_refit:{loop.state['cycle']}:raise"
+    faultinject.arm(plan)
+    try:
+        loop.cycle()
+        raised = False
+    except InjectedFault:
+        raised = True
+    finally:
+        faultinject.disarm()
+    del loop
+    t_restart = time.perf_counter()
+    re_loop = online.OnlineLoop(params, hold)
+    reg2 = ModelRegistry(buckets=(16, 64, 256), warmup=True)
+    re_loop.attach(reg2)
+    restart_bits = bool(np.array_equal(
+        np.asarray(reg2.predict("default", pool, raw_score=True)), served))
+    st = re_loop.state
+    batches, _ = re_loop.spool.read_from(st["ingest_offset"])
+    Xr, yr, wr = online.stack_batches(batches)
+    init = re_loop._margins(re_loop._incumbent, Xr)
+    first = re_loop._splice(re_loop._train_delta(Xr, yr, wr, init))
+    restart_s = time.perf_counter() - t_restart
+    # the replay, with no scorer running: the cycle's own kernels (CUDA
+    # activity alone: with the CPU's too, this cycle's counts read short
+    # and the session took ~28 s on the H100)
+    t_replay = time.perf_counter()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        replay = re_loop.cycle()
+        torch.cuda.synchronize()
+    names = {}
+    for e in prof.key_averages():
+        if "cuda" in str(getattr(e, "device_type", "")).lower():
+            names[e.key] = names.get(e.key, 0) + e.count
+    prof_launches = {k: sum(c for nm, c in names.items()
+                            if FUSED_KERNELS[k] in nm) for k in LOOP_KERNELS}
+    replay_times = {k: v for k, v in re_loop.last_cycle.items()
+                    if k.endswith("_s")}
+    replay_times["profiled_cycle_s"] = time.perf_counter() - t_replay
+    second = open(online.model_path(str(d), st["version"] + 1)).read()
+    line = {"phase": "online_loop", "holdout_rows": len(yv),
+            "batch_rows": 50_000, "num_leaves": L,
+            "loop_rounds": LOOP_PARAMS["loop_rounds"],
+            "verdicts": [c["outcome"] for c in cycles], "cycles": cycles,
+            "holdout_auc_by_version": {str(k): v for k, v in auc.items()},
+            "answers": len(scorers.answers), "scorer_errors": scorers.errors,
+            "torn_answers": torn,
+            "scorers_in_cycles": _pcts(lat_in),
+            "scorers_outside": _pcts(lat_out),
+            "fault_raised_at_loop_refit": raised,
+            "restart_serves_same_bits": restart_bits,
+            "restart_version": st["version"], "replay_outcome": replay,
+            "replay_cycle_s": replay_times,
+            "restart_and_second_refit_s": restart_s,
+            "refit_twice_same_text": first == second,
+            "launches_counted": launches,
+            "launches_profiled_replay_cycle": prof_launches,
+            "phase_s": time.perf_counter() - t_phase}
+    emit(line)
+    if line["verdicts"] != ["promoted", "rolled_back", "rejected",
+                            "promoted"]:
+        raise AssertionError(f"online_loop: verdicts {line['verdicts']}")
+    if torn or scorers.errors or not lat_in or not lat_out:
+        raise AssertionError(f"online_loop: {torn} torn answers, errors "
+                             f"{scorers.errors[:3]}")
+    if not (raised and restart_bits and first == second
+            and st["version"] == 2):
+        raise AssertionError(f"online_loop: restart / replay failed: "
+                             f"{line}")
+    if not all(launches[k] > 0 and prof_launches[k] > 0
+               for k in LOOP_KERNELS):
+        raise AssertionError(f"online_loop: a kernel was not launched: "
+                             f"{launches} {prof_launches}")
+    return line
+
+
+def recorder_phase(torch, lgb, np, ds, vs, n_trees: int = 20):
     """The flight recorder on the fused loop: train() with record_file
     and anomaly_policy=warn against train() without, after an untimed
     1-tree run of each, 1 and 1 + n_trees trees each (in turns: off, on,
@@ -3650,7 +4016,7 @@ BENCH_SERVE = dict(train_rows=20_000, features=16, trees=50, leaves=31,
                    window=128, replicas=2)
 
 
-def serve_check(np, bst, X, name, n_host=2000, n_check=20_000):
+def serve_check(np, bst, X, name, n_host=2000, n_check=10_000):
     """Booster.predict(device="cuda") against the host walker: the card
     scores all of X (its rows/s is the second call's: the first also
     packs and uploads the tables); on the first n_check rows (all of X
@@ -4023,6 +4389,200 @@ def serve_http_phase(np, lgb, bst, n_feat):
     return line
 
 
+def _gw_client(np, url, pool, ref, n_requests, n_threads=8, seed=0):
+    """n_threads client threads sending n_requests batch-1 score requests
+    (a row of the pool each) to url: latencies, failures and the worst
+    difference from the host walker's answer (ref)."""
+    import http.client
+    import threading
+    import urllib.parse
+
+    lat, fails, worst, lock = [], [], [0.0], threading.Lock()
+    per = n_requests // n_threads
+    host, port = urllib.parse.urlsplit(url).hostname, urllib.parse.urlsplit(
+        url).port
+
+    def worker(k):
+        rs = np.random.RandomState(seed * 100 + k)
+        mine, bad, w = [], [], 0.0
+        for _ in range(per):
+            i = int(rs.randint(0, len(pool)))
+            body = json.dumps({"rows": pool[i:i + 1].tolist(),
+                               "raw_score": True})
+            t0 = time.perf_counter()
+            conn = http.client.HTTPConnection(host, port, timeout=60)
+            try:
+                conn.request("POST", "/v1/score", body=body, headers={
+                    "Content-Type": "application/json"})
+                r = conn.getresponse()
+                out = json.loads(r.read())
+                if r.status != 200:
+                    raise OSError(f"HTTP {r.status}: {out}")
+                mine.append(time.perf_counter() - t0)
+                w = max(w, abs(float(out["pred"][0]) - float(ref[i])))
+            except (OSError, KeyError, ValueError) as e:
+                bad.append(repr(e)[:200])
+            finally:
+                conn.close()
+        with lock:
+            lat.extend(mine)
+            fails.extend(bad)
+            worst[0] = max(worst[0], w)
+
+    ths = [threading.Thread(target=worker, args=(k,), daemon=True)
+           for k in range(n_threads)]
+    t0 = time.perf_counter()
+    for t in ths:
+        t.start()
+    for t in ths:
+        t.join()
+    out = _lat_summary(lat, time.perf_counter() - t0) if lat else {}
+    out.update(failures=len(fails), failure_samples=fails[:3],
+               max_abs_vs_host=worst[0])
+    return out
+
+
+def _gw_counts():
+    from lightgbm_tpu_torch.obs.metrics import default_registry
+
+    out = {}
+    for s in default_registry().samples():
+        if s.name.startswith("lgbmtpu_gateway_") and s.kind == "counter":
+            key = s.name[len("lgbmtpu_gateway_"):] + "".join(
+                f"|{v}" for _, v in s.labels)
+            out[key] = s.value
+    return out
+
+
+def _gw_delta(before, after):
+    return {k: v - before.get(k, 0.0) for k, v in after.items()
+            if v != before.get(k, 0.0)}
+
+
+def gateway_phase(torch, np, lgb, ch, bst, n_feat, n_requests=2000,
+                  n_fault=200):
+    """The serving gateway (serving/gateway.py) in front of two
+    serve_http backends, each on a card registry in this process with
+    bench_serve's 50 x 31 model: 8 client threads (a connection a
+    request) send n_requests batch-1 score requests through the gateway,
+    then n_requests straight to one backend (qps, p50 / p99 of each);
+    then n_fault requests each under gw_backend_5xx (one attempt in 20
+    raises, 3 retries: 0 client failures, retries and breaker
+    transitions counted), under gw_slow_backend (one attempt in 25
+    stalls 200 ms: hedges fired and won, within the hedge budget), and
+    across one backend's drain (its /readyz 503, no attempt reaches it,
+    0 failures); the gateway's /metrics merging both backends' series.
+    Every answer within 1e-5 of the host walker. The launch counters are
+    reset before the backends load (their warm-up captures the
+    take_small gathers)."""
+    import threading
+    import urllib.request
+
+    from lightgbm_tpu_torch.resilience import faultinject
+    from lightgbm_tpu_torch.serving import (Gateway, ModelRegistry,
+                                            gateway_http, serve_http)
+
+    rs = np.random.RandomState(5)
+    pool = rs.randn(2000, n_feat).astype(np.float32)
+    ref = bst.predict(pool, raw_score=True)
+    text = bst.model_to_string()
+    ch.reset_launch_counts()
+    backs = []
+    for _ in range(2):
+        reg = ModelRegistry(warmup=True)
+        reg.load("default", text, num_features=n_feat)
+        drain = threading.Event()
+        h = serve_http(reg, 0, block=False, draining=drain)
+        t = threading.Thread(target=h.serve_forever, daemon=True)
+        t.start()
+        backs.append((h, t, drain,
+                      f"http://127.0.0.1:{h.server_address[1]}"))
+    gw = Gateway([b[3] for b in backs], retries=3, backoff_base_s=0.01,
+                 health_interval_s=60.0)
+    gw.start(wait_ready_s=30.0)
+    front = gateway_http(gw, 0, block=False)
+    ft = threading.Thread(target=front.serve_forever, daemon=True)
+    ft.start()
+    url = f"http://127.0.0.1:{front.server_address[1]}"
+    line = {"phase": "gateway", "model": "bench_serve_50x31",
+            "backends": 2, "client_threads": 8, "requests": n_requests}
+    try:
+        line["gateway_load"] = _gw_client(np, url, pool, ref, n_requests,
+                                          seed=0)
+        line["direct_load"] = _gw_client(np, backs[0][3], pool, ref,
+                                         n_requests, seed=1)
+        c0 = _gw_counts()
+        faultinject.arm(";".join(f"gw_backend_5xx:{k}:raise"
+                                 for k in range(5, 3 * n_fault, 20)))
+        line["backend_5xx"] = _gw_client(np, url, pool, ref, n_fault, seed=7)
+        faultinject.disarm()
+        c1 = _gw_counts()
+        line["backend_5xx"]["counters"] = _gw_delta(c0, c1)
+        hedges0 = gw.hedge.counters()
+        faultinject.arm(";".join(f"gw_slow_backend:{k}:delay:0.2"
+                                 for k in range(3, 3 * n_fault, 25)))
+        line["slow_backend"] = _gw_client(np, url, pool, ref, n_fault,
+                                          seed=8)
+        faultinject.disarm()
+        c2 = _gw_counts()
+        h1 = gw.hedge.counters()
+        cap = gw.hedge.burst + gw.hedge.budget_frac * h1["requests"]
+        line["slow_backend"].update(
+            counters=_gw_delta(c1, c2),
+            hedges=h1["hedges"] - hedges0["hedges"],
+            hedge_cap=cap, hedges_total=h1["hedges"])
+        backs[0][2].set()  # backend 0 drains
+        try:
+            urllib.request.urlopen(backs[0][3] + "/readyz", timeout=30)
+            drained_readyz = 200
+        except urllib.error.HTTPError as e:
+            drained_readyz = e.code
+        pool_counts = gw.check_now()
+        name0 = gw.pool.backends[0].name
+        line["drain"] = _gw_client(np, url, pool, ref, n_fault, seed=9)
+        c3 = _gw_counts()
+        line["drain"].update(
+            backend0_readyz=drained_readyz,
+            alive_ready_after=list(pool_counts),
+            attempts_to_drained=sum(v for k, v in _gw_delta(c2, c3).items()
+                                    if k.startswith("attempts")
+                                    and name0 in k))
+        with urllib.request.urlopen(url + "/metrics", timeout=60) as r:
+            metrics = r.read().decode()
+        line["merged_metrics"] = {
+            "gateway_series": sum(1 for ln in metrics.splitlines()
+                                  if ln.startswith("lgbmtpu_gateway_")),
+            "serve_series": sum(1 for ln in metrics.splitlines()
+                                if ln.startswith("lgbmtpu_serve_")),
+            "processes": gw.merged_metrics()["processes"]}
+        line["take_small_launches"] = ch.LAUNCHES["take_small"]
+    finally:
+        faultinject.disarm()
+        gw.stop()
+        for h, t, _, _ in [(front, ft, None, None)] + backs:
+            h.shutdown()
+            h.server_close()
+            t.join(timeout=10)
+    emit(line)
+    runs = [line[k] for k in ("gateway_load", "direct_load", "backend_5xx",
+                              "slow_backend", "drain")]
+    if any(r["failures"] or r["max_abs_vs_host"] > 1e-5 for r in runs):
+        raise AssertionError(f"gateway: failures or answers off: {line}")
+    sb, bx = line["slow_backend"], line["backend_5xx"]["counters"]
+    if not (bx.get("retries_total", 0) > 0 and sb["hedges"] > 0
+            and sb["hedges_total"] <= sb["hedge_cap"]
+            and sb["counters"].get("hedges_total|won", 0) > 0):
+        raise AssertionError(f"gateway: retries / hedges: {line}")
+    if not (line["drain"]["backend0_readyz"] == 503
+            and line["drain"]["attempts_to_drained"] == 0
+            and line["merged_metrics"]["serve_series"] > 0
+            and line["merged_metrics"]["gateway_series"] > 0
+            and line["merged_metrics"]["processes"] == 3
+            and line["take_small_launches"] > 0):
+        raise AssertionError(f"gateway: drain / metrics: {line}")
+    return line
+
+
 def _host_contrib(args):
     """Host TreeSHAP of a chunk of rows (a worker of serve_contrib)."""
     model_str, X = args
@@ -4256,7 +4816,8 @@ def serve_phases(torch, lgb, ch, hist, np, ds, Xv, cat_sets, rank_sets):
                        "bench_serve_50x31")
     serve_loaded_phase(torch, np, lgb, bst, Xv.shape[1], "higgs_500x255")
     serve_http_phase(np, lgb, small, B["features"])
-    serve_contrib_phase(torch, np, lgb, small, B["features"], rows=512)
+    gateway_phase(torch, np, lgb, ch, small, B["features"])
+    serve_contrib_phase(torch, np, lgb, small, B["features"], rows=256)
     serve_fleet_phase(torch, np, lgb, bst, Xv[:4096], small20)
     return line, launches
 
@@ -4349,7 +4910,7 @@ def main() -> int:
         raise AssertionError(f"a kernel was not launched: {launches}")
     if not (auc_last > auc1 and auc_last > 0.85):
         raise AssertionError(f"AUC did not improve: {auc1} -> {auc_last}")
-    profile_phase(torch, bst)
+    profile_phase(torch, bst, 1)
 
     # ---- model: text round trip and host-vs-card agreement
     out_dir = Path("build") / "chip_smoke"
@@ -4389,10 +4950,13 @@ def main() -> int:
     api_file_phase(torch, lgb, np, X, y)
     # ---- the command line (kill, resume, predict, serve with a faulted
     # device call) on binary caches of this data; the flight recorder
-    cli = cli_phase(torch, lgb, np, ds, vs, Xv)
+    cli = cli_phase(torch, lgb, np, ds, vs, Xv, yv)
+    v0_path = Path("build") / "chip_smoke" / "cli" / "clean" / "model.txt"
     emit({"phase": "fallback_latency", **fallback_latency(
-        np, lgb, Path("build") / "chip_smoke" / "cli" / "clean" / "model.txt",
-        Xv), "cli_serve_fallback_vs_device": cli["serve_fallback_vs_device"]})
+        np, lgb, v0_path, Xv),
+        "cli_serve_fallback_vs_device": cli["serve_fallback_vs_device"]})
+    # ---- the online train-and-serve loop on the cli phase's model
+    online_loop_phase(torch, lgb, ch, np, Xv, yv, v0_path)
     recorder_phase(torch, lgb, np, ds, vs)
 
     # ---- use_quantized_grad on the same binned data: the int8 modes,
@@ -4472,36 +5036,40 @@ def main() -> int:
     # ---- the fused loop: the eager loop and the CUDA-graph loop in turns
     # on each rounds path (train_cat after its own phase)
     fused_lines = {}
-    for name, sets, extra, skip in (
-            ("train", (ds, vs), {}, 0),
-            ("train_bag", (ds, vs), BAG_PARAMS, 0),
-            ("train_goss", (ds, vs), GOSS_PARAMS, 11),
-            ("train_quant", (ds, vs), QUANT_PARAMS, 0),
+    # (train_goss: 3 timed trees, 6 before the online loop came)
+    for name, sets, extra, skip, timed in (
+            ("train", (ds, vs), {}, 0, 6),
+            ("train_bag", (ds, vs), BAG_PARAMS, 0, 6),
+            ("train_goss", (ds, vs), GOSS_PARAMS, 11, 3),
+            ("train_quant", (ds, vs), QUANT_PARAMS, 0, 6),
             ("train_l1", (ds_l1, vs_l1),
-             {"objective": "regression_l1", "metric": "l1"}, 0),
-            ("train_f32", (ds, vs), F32_PATHS["train_f32"], 0)):
+             {"objective": "regression_l1", "metric": "l1"}, 0, 6),
+            ("train_f32", (ds, vs), F32_PATHS["train_f32"], 0, 6)):
         fused_lines[name] = fused_vs_eager(torch, lgb, *sets, name, extra,
-                                           n_skip=skip)
-    # ... and on the exact grower with and without its round phase: 3
-    # timed trees (an eager exact tree takes ~1.7 s) and the eager loop's
-    # profile from its f32 path phase
+                                           n_timed=timed, n_skip=skip)
+    # ... and on the exact grower with and without its round phase: 2
+    # timed trees (3 before the online loop came; an eager exact tree
+    # takes ~1.7 s) and the eager loop's profile from its f32 path phase
     for name in ("train_exact", "train_exact_rounds"):
         fused_lines[name] = fused_vs_eager(
-            torch, lgb, ds, vs, name, F32_PATHS[name], n_timed=3,
+            torch, lgb, ds, vs, name, F32_PATHS[name], n_timed=2,
             eager_profile=f32_profiles[name])
 
     # ---- DART and RF (eager loop), every per-node extra on together and
     # a 3-level forced plan (both loops, in turns)
-    train_dart_phase(torch, lgb, ch, np, ds, vs)
-    train_rf_phase(torch, lgb, ch, np, ds, vs, Xv)
+    # (20 trees each, 30 before the online loop came; train_extras and
+    # train_forced 3 timed trees, 6 before)
+    train_dart_phase(torch, lgb, ch, np, ds, vs, n_trees=20)
+    train_rf_phase(torch, lgb, ch, np, ds, vs, Xv, n_trees=20)
     fused_lines["train_extras"] = fused_vs_eager(
         torch, lgb, ds, vs, "train_extras", extras_params(X.shape[1]),
-        check=lambda b: group_crossings(b, X.shape[1]))
+        n_timed=3, check=lambda b: group_crossings(b, X.shape[1]))
     forced_path = Path("build") / "chip_smoke" / "forced.json"
     forced_path.write_text(json.dumps(FORCED_PLAN))
     fused_lines["train_forced"] = fused_vs_eager(
         torch, lgb, ds, vs, "train_forced",
-        {"forcedsplits_filename": str(forced_path)}, check=forced_plan_held)
+        {"forcedsplits_filename": str(forced_path)}, n_timed=3,
+        check=forced_plan_held)
 
     # ---- monotone intermediate and advanced (both loops, in turns) with
     # basic beside them, intermediate on the exact grower, linear trees
@@ -4541,8 +5109,9 @@ def main() -> int:
     cat_round = {}
     cat, _, cat_sets = train_cat_path(torch, lgb, ch, np, capture=cat_round)
     path_launches["train_cat"] = cat["launches"]
+    # (3 timed trees, 6 before the online loop came)
     fused_lines["train_cat"] = fused_vs_eager(torch, lgb, *cat_sets,
-                                              "train_cat", {})
+                                              "train_cat", {}, n_timed=3)
     if "fullest" not in cat_round:
         raise AssertionError("no categorical hist_round call was captured")
     lines["hist_round_cat"] = hist_round_cat_line(torch, hist, ch,

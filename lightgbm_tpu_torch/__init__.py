@@ -12,8 +12,11 @@ package (serving.ModelRegistry, the bucketed dispatcher's CUDA graphs, the
 JSON-lines and HTTP servers) score trained models on the card. The
 package imports neither jax nor lightgbm_tpu.
 
-Names of the JAX package that are not ported yet are here and raise
-NotImplementedError naming their ROADMAP item (NOT_PORTED).
+The online train-and-serve loop (online/), the serving gateway
+(serving.Gateway) and the plots (plot_importance, plot_metric, plot_tree,
+plot_split_value_histogram, create_tree_digraph; they need matplotlib)
+are here too. Names of the JAX package that are not ported yet are here
+and raise NotImplementedError naming their ROADMAP item (NOT_PORTED).
 """
 
 from .basic import Booster, Dataset, Sequence, set_network
@@ -27,6 +30,13 @@ from .callback import (
 )
 from .engine import CVBooster, cv, train
 from .log import LightGBMError, register_logger
+from .plotting import (
+    create_tree_digraph,
+    plot_importance,
+    plot_metric,
+    plot_split_value_histogram,
+    plot_tree,
+)
 from .sklearn import LGBMClassifier, LGBMModel, LGBMRanker, LGBMRegressor
 from . import serving
 
@@ -40,11 +50,6 @@ NOT_PORTED = {
     "DaskLGBMClassifier": "A.8",
     "DaskLGBMRegressor": "A.8",
     "DaskLGBMRanker": "A.8",
-    "plot_importance": "A.11, second half",
-    "plot_split_value_histogram": "A.11, second half",
-    "plot_metric": "A.11, second half",
-    "plot_tree": "A.11, second half",
-    "create_tree_digraph": "A.11, second half",
     "Booster.set_network": "A.8",
     "Booster.free_network": "A.8",
 }
@@ -63,11 +68,6 @@ def _refusal(name: str, item: str):
 DaskLGBMClassifier = _refusal("DaskLGBMClassifier", "A.8")
 DaskLGBMRegressor = _refusal("DaskLGBMRegressor", "A.8")
 DaskLGBMRanker = _refusal("DaskLGBMRanker", "A.8")
-plot_importance = _refusal("plot_importance", "A.11, second half")
-plot_split_value_histogram = _refusal("plot_split_value_histogram", "A.11, second half")
-plot_metric = _refusal("plot_metric", "A.11, second half")
-plot_tree = _refusal("plot_tree", "A.11, second half")
-create_tree_digraph = _refusal("create_tree_digraph", "A.11, second half")
 
 __all__ = ["Booster", "CVBooster", "CallbackEnv", "Dataset",
            "EarlyStopException", "LGBMClassifier", "LGBMModel", "LGBMRanker",

@@ -57,8 +57,10 @@ Monotone intermediate and advanced resolve as in the JAX package
 rides the exact grower. linear_tree keeps the eager loop: after each
 tree the leaves' ridge models are fitted on the host in f64
 (_fit_linear), and their per-row outputs, not the leaves' constants, go
-into the scores. The distributed learners and tpu_debug_check_split
-raise NotImplementedError (ROADMAP queue A).
+into the scores. tpu_debug_check_split (LightGBM's CheckSplit) keeps
+the eager loop and recounts every new tree's leaves from the row -> leaf
+partition (_check_split). The distributed learners raise
+NotImplementedError (ROADMAP A.8).
 """
 
 from __future__ import annotations
@@ -135,8 +137,6 @@ def check_supported(config: Config) -> None:
     if c.tree_learner not in ("serial",):
         _not_ported(f"tree_learner={c.tree_learner} (distributed learners, "
                     "A.8)")
-    if c.tpu_debug_check_split:
-        _not_ported("tpu_debug_check_split")
 
 
 def _load_forced_splits(path: str, ds: BinnedDataset,
@@ -289,6 +289,10 @@ class GBDT:
         cats = [m for m in train_set.used_mappers()
                 if m.bin_type == BinType.CATEGORICAL]
         n_groups, n_forced = self._setup_node_extras(config, train_set)
+        if config.tpu_debug_check_split:
+            # the check reads every tree's partition back
+            self._force_sync_reason = ("tpu_debug_check_split reads back "
+                                       "per iteration")
         # linear_tree: each tree's leaf ridge fits run on the host in f64
         # (boosting.py:531-539 of the JAX package; LightGBM solves them
         # on the CPU too, linear_tree_learner.cpp:344)
@@ -779,6 +783,8 @@ class GBDT:
             feat_mask = self._sample_features(it, k)
             arrays, row_leaf = self._grow_maybe_quantized(
                 gk, hk, mask, feat_mask, valid, it, k, loop)
+            if self.config.tpu_debug_check_split and active is None:
+                self._check_split(arrays, row_leaf, hk, mask)
             self._mark_used(arrays)
             if renew_alpha is not None:
                 arrays = self._apply_renewal(arrays, row_leaf,
@@ -816,6 +822,47 @@ class GBDT:
                     first, biased, lv)
             trees.append(arrays._replace(leaf_value=lv))
         return trees, done
+
+    def _check_split(self, arrays: TreeArrays, row_leaf, hk, mask) -> None:
+        """tpu_debug_check_split (the JAX package's _check_split;
+        LightGBM's CheckSplit, serial_tree_learner.h:174): the per-leaf
+        counts and hessian sums recounted from the partition (row ->
+        leaf) must match the tree's histogram-derived ones, else
+        log.fatal at the iteration where they parted. Eager loop only;
+        one copy of the partition off the card a tree."""
+        n_nodes = int(arrays.num_nodes)
+        if n_nodes <= 0:
+            return
+        L = self.spec.num_leaves
+        rl = row_leaf.cpu().numpy()
+        m = mask.cpu().numpy()
+        ok = (rl >= 0) & (m > 0)
+        cnt = np.bincount(rl[ok], minlength=L).astype(np.float64)
+        hsum = None
+        if not self.config.use_quantized_grad:
+            # quantized growth sums discretized hessians: only the
+            # counts compare with the raw ones
+            hw = (hk.cpu().numpy() * m).astype(np.float64)
+            hsum = np.bincount(rl[ok], weights=hw[ok], minlength=L)
+        t_cnt = arrays.leaf_count.cpu().numpy().astype(np.float64)
+        t_h = arrays.leaf_weight.cpu().numpy().astype(np.float64)
+        nl = n_nodes + 1
+        if not np.allclose(cnt[:nl], t_cnt[:nl], atol=0.5):
+            bad = int(np.argmax(np.abs(cnt[:nl] - t_cnt[:nl])))
+            log.fatal(
+                f"CheckSplit: leaf {bad} partition count {cnt[bad]} != "
+                f"histogram-derived count {t_cnt[bad]} "
+                f"(iteration {self.iter_})"
+            )
+        if hsum is not None and not np.allclose(
+            hsum[:nl], t_h[:nl], rtol=1e-3, atol=1e-3
+        ):
+            bad = int(np.argmax(np.abs(hsum[:nl] - t_h[:nl])))
+            log.fatal(
+                f"CheckSplit: leaf {bad} partition hessian sum "
+                f"{hsum[bad]} != histogram-derived {t_h[bad]} "
+                f"(iteration {self.iter_})"
+            )
 
     def _fit_linear(self, k: int, arrays: TreeArrays, row_leaf, gk, hk, mask,
                     bias: float) -> None:
@@ -1748,3 +1795,34 @@ def create_boosting(config: Config,
     if b == "rf":
         return RF(config, train_set)
     log.fatal(f"Unknown boosting type {b}")
+
+
+def splice_continued(base: GBDT, delta: GBDT) -> GBDT:
+    """Graft a continuation's trees onto the model it warm-started from
+    (the JAX package's splice_continued, boosting.py:2698).
+
+    The online loop's init_score handoff: the candidate v(n+1) is
+    trained as a fresh booster over the microbatch with ``init_score`` =
+    v(n)'s raw margins, so the delta trees hold only the residual on top
+    of v(n). Raw scores add, so ``base.models + delta.models`` scores
+    v(n+1), with no replay of every earlier tree a cycle. Mutates and
+    returns ``base``."""
+    if base.num_class != delta.num_class:
+        raise ValueError(
+            f"cannot splice: num_tree_per_iteration mismatch "
+            f"({base.num_class} vs {delta.num_class})"
+        )
+    if base.average_output or delta.average_output:
+        raise ValueError(
+            "cannot splice averaged (rf) models: predictions divide by "
+            "iteration count, so tree lists do not compose by append"
+        )
+    combined = list(base.models) + list(delta.models)
+    if len(combined) % base.num_class:
+        raise ValueError(
+            f"cannot splice: {len(combined)} trees is not a whole number "
+            f"of {base.num_class}-tree iterations"
+        )
+    base.models = combined  # the setter also drops pending device trees
+    base.iter_ = len(combined) // base.num_class
+    return base

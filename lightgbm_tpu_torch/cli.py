@@ -17,8 +17,10 @@ LGBMTPU_FAULT_PLAN environment variable arms a fault plan as in the JAX
 package. ``profile_dir=`` records the run's timer spans (obs/tracing.py)
 and a torch.profiler Chrome trace of the host and the card;
 ``run_manifest=`` writes the run manifest (obs/manifest.py).
-``task=gateway`` and ``task=loop`` raise NotImplementedError (ROADMAP
-A.11, second half).
+``task=gateway`` fronts many ``task=serve`` HTTP backends
+(serving/gateway.py; host-side, no card), and ``task=loop`` runs the
+online train-and-serve loop (online/): it serves the promoted model
+while each verdict cycle refits, gates and promotes on the card.
 """
 
 from __future__ import annotations
@@ -320,7 +322,7 @@ def _task_serve(params: Dict[str, str]) -> None:
 
             # SIGTERM drains: readiness goes false, new requests shed
             # 503, in-flight ones finish, then the process exits
-            draining = threading.Event()
+            draining = threading.Event()  # lint: allow[per-call-lock] — one a process, shared with every handler thread
             httpd = serve_http(
                 registry, cfg.serve_port, cfg.serve_host, block=False,
                 socket_timeout_s=cfg.serve_socket_timeout_s,
@@ -349,11 +351,173 @@ def _task_serve(params: Dict[str, str]) -> None:
         _restore_logger(saved)
 
 
-def _not_ported_task(task: str) -> None:
-    raise NotImplementedError(
-        f"task={task} is not ported yet (ROADMAP A.11, second half: the "
-        "gateway and the online loop)")
+def _task_gateway(params: Dict[str, str]) -> None:
+    """task=gateway: the resilient serving gateway (serving/gateway.py),
+    a host-side HTTP front end over the ``task=serve`` backends named by
+    ``gateway_backends=`` (comma-separated base URLs): least-outstanding
+    balancing over backends passing /readyz, full-jitter retries and
+    latency-triggered hedges for idempotent ops, per-backend circuit
+    breakers, deadline propagation, and a SIGTERM drain. ``GET
+    /metrics`` serves the merged exposition of the gateway and every
+    live backend."""
+    import signal
+    import threading
 
+    from .config import Config
+    from .resilience import faultinject
+    from .serving.gateway import Gateway, gateway_http
+
+    t0 = time.time()
+    cfg = Config(dict(params))
+    # a fault plan arms the gw_* sites before any request flows
+    faultinject.configure(cfg.fault_plan)
+    urls = [u.strip() for u in str(cfg.gateway_backends).split(",")
+            if u.strip()]
+    if not urls:
+        log.fatal("task=gateway needs gateway_backends= "
+                  "(comma-separated backend base URLs)")
+    gw = Gateway(
+        urls,
+        retries=cfg.gateway_retries,
+        backoff_base_s=cfg.gateway_backoff_base_s,
+        hedge_quantile=cfg.gateway_hedge_quantile,
+        hedge_budget=cfg.gateway_hedge_budget,
+        breaker_failures=cfg.gateway_breaker_failures,
+        breaker_cooldown_s=cfg.gateway_breaker_cooldown_s,
+        default_deadline_ms=cfg.gateway_deadline_ms,
+        health_interval_s=cfg.gateway_health_interval_s,
+        attempt_timeout_s=cfg.serve_socket_timeout_s,
+    )
+    gw.start()
+    httpd = gateway_http(
+        gw, cfg.gateway_port, cfg.gateway_host, block=False,
+        max_body_mb=cfg.serve_max_body_mb,
+        socket_timeout_s=cfg.serve_socket_timeout_s)
+
+    def _drain(signum, frame):  # noqa: ARG001 — signal API
+        def _go() -> None:
+            # readiness off and new work shed, the requests in flight
+            # finished, then the listener stops
+            gw.drain(cfg.gateway_drain_timeout_s)
+            httpd.shutdown()
+
+        threading.Thread(target=_go, daemon=True).start()
+
+    try:
+        signal.signal(signal.SIGTERM, _drain)
+    except ValueError:
+        pass  # not the main thread (an in-process caller)
+    try:
+        httpd.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        gw.stop()
+        httpd.server_close()
+    log.info(f"Finished, elapsed {time.time() - t0:.2f} seconds")
+
+
+def _task_loop(params: Dict[str, str]) -> None:
+    """task=loop: the online train-and-serve loop (online/). Serves the
+    promoted model on the configured transport (HTTP on serve_port,
+    else JSON lines over stdin / stdout) while verdict cycles refit,
+    gate and promote from the microbatches the ``ingest`` op spools.
+    ``valid_data=`` names the holdout shard the gate judges on; v0 comes
+    from ``input_model=`` when that file exists, else it is trained from
+    ``data=``; a loop_dir that already holds state resumes from it."""
+    import threading
+
+    from .config import Config
+    from .online import OnlineLoop, state_path
+    from .parsers import load_text_file
+    from .resilience import faultinject
+    from .serving import ModelRegistry, ScoringServer, serve_http
+
+    t0 = time.time()
+    cfg = Config(dict(params))
+    saved = _save_logger()
+    if cfg.serve_port == 0:
+        # stdio: the JSON-lines protocol owns stdout to EOF, so every log
+        # line goes to stderr from the start (restored on exit)
+        log.register_logger(_StderrLogger)
+    try:
+        # a fault plan arms the loop_* / serve_request sites first
+        faultinject.configure(cfg.fault_plan)
+        device = "cpu" if cfg.device_type == "cpu" else "cuda"
+        vpath = str(params.get("valid_data", params.get("valid", ""))
+                    ).split(",")[0]
+        if not vpath:
+            log.fatal("task=loop needs valid_data= (the holdout shard the "
+                      "promotion gate judges on)")
+        loaded = load_text_file(
+            vpath,
+            header=_truthy(params.get("header", "false")),
+            label_column=params.get("label_column", 0),
+            weight_column=params.get("weight_column", ""),
+            group_column=params.get("group_column", ""),
+            ignore_column=params.get("ignore_column", ""),
+            categorical_feature=params.get("categorical_feature", ""),
+        )
+        holdout = (loaded["X"], loaded["label"], loaded["weight"])
+
+        init_model = None
+        if not Path(state_path(cfg.loop_dir)).exists():
+            model_path = params.get("input_model", "")
+            if model_path and Path(model_path).exists():
+                init_model = model_path
+            elif params.get("data"):
+                from .engine import train
+
+                ds = _load_dataset(params, params["data"])
+                log.info(f"task=loop: training v0 from {params['data']}")
+                init_model = train(dict(params), ds,
+                                   num_boost_round=cfg.num_iterations)
+            else:
+                log.fatal("task=loop needs input_model= or data= to seed "
+                          "v0 (or an existing loop_dir to resume)")
+
+        loop = OnlineLoop(dict(params), holdout, initial_model=init_model,
+                          device=device)
+        registry = ModelRegistry(
+            buckets=cfg.serve_buckets, warmup=cfg.serve_warmup,
+            deadline_s=cfg.serve_deadline_ms / 1000.0,
+            queue_cap=cfg.serve_queue_cap, replicas=cfg.serve_replicas,
+            device=device,
+        )
+        loop.attach(registry, cfg.serve_model_name)
+
+        if cfg.serve_port > 0:
+            httpd = serve_http(registry, cfg.serve_port, cfg.serve_host,
+                               block=False)
+            server_thread = threading.Thread(
+                target=httpd.serve_forever, name="lgb-loop-http",
+                daemon=True)
+            server_thread.start()
+            try:
+                n = loop.run()
+                log.info(f"task=loop: {n} verdict cycle(s) complete")
+            finally:
+                httpd.shutdown()
+                httpd.server_close()
+        else:
+            # the loop runs on its own thread and stops when the request
+            # stream ends
+            loop_thread = threading.Thread(
+                target=loop.run, name="lgb-online-loop", daemon=True)
+            loop_thread.start()
+            n = ScoringServer(registry).serve(sys.stdin, sys.stdout)
+            loop.stop_event.set()
+            loop_thread.join(timeout=60.0)
+            print(f"[loop] handled {n} requests", file=sys.stderr)
+        # logged here, while stdio's reroute still holds
+        log.info(f"Finished, elapsed {time.time() - t0:.2f} seconds")
+    finally:
+        _restore_logger(saved)
+
+
+# tasks that log their own summary (serve and loop while stdio's
+# reroute still holds)
+_LOGS_OWN_SUMMARY = ("serve", "gateway", "loop")
 
 _TASKS = {
     "train": _task_train,
@@ -363,6 +527,8 @@ _TASKS = {
     "convert_model": _task_convert_model,
     "refit": _task_refit, "refit_tree": _task_refit,
     "serve": _task_serve,
+    "gateway": _task_gateway,
+    "loop": _task_loop,
 }
 
 
@@ -432,12 +598,10 @@ def main(argv: Optional[List[str]] = None) -> int:
     if not params:
         print("usage: python -m lightgbm_tpu_torch config=<file> "
               "[key=value ...]\ntasks: train (default), predict, "
-              "save_binary, convert_model, refit, serve",
+              "save_binary, convert_model, refit, serve, gateway, loop",
               file=sys.stderr)
         return 1
     task = params.get("task", "train")
-    if task in ("gateway", "loop"):
-        _not_ported_task(task)
     if task not in _TASKS:
         log.fatal(f"Unknown task {task}")
     if _truthy(params.get("timetag", "")):
@@ -453,7 +617,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     t0 = time.time()
     try:
         _TASKS[task](params)
-        if task != "serve":  # serve logs its own protocol-safe summary
+        if task not in _LOGS_OWN_SUMMARY:
             log.info(f"Finished, elapsed {time.time() - t0:.2f} seconds")
         return 0
     finally:
@@ -461,7 +625,7 @@ def main(argv: Optional[List[str]] = None) -> int:
             # after task=serve stdio owns stdout to EOF: export lines go
             # to stderr
             saved = _save_logger()
-            if task == "serve":
+            if task in ("serve", "loop"):
                 log.register_logger(_StderrLogger)
             try:
                 _export(task, params, profile_dir, manifest_path, rec, prof)

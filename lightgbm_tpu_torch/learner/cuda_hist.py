@@ -160,7 +160,9 @@ def load() -> ctypes.CDLL:
     with _lock:
         if _lib is not None:
             return _lib
-        lib = ctypes.CDLL(str(build()))
+        # one build a process: every other caller needs the library and
+        # must wait for it anyway
+        lib = ctypes.CDLL(str(build()))  # lint: allow[blocking-under-lock]
         P, I = ctypes.c_void_p, ctypes.c_int
         lib.lgbm_hist_nat.argtypes = [I] + [P] * 5 + [I] * 17 + [P]
         lib.lgbm_hist_nat_f32.argtypes = [P] * 6 + [I] * 8 + [P]

@@ -9,13 +9,12 @@ inside a captured CUDA graph:
 - ``recorder`` — the flight recorder: one JSONL record per boosting
   round, behind the ``record_file=`` param;
 - ``anomaly`` — sentinels over the flight-record stream behind
-  ``anomaly_policy=off|warn|abort|rollback``.
-
-Not ported: ``aggregate`` (merging many processes' snapshots and
-streams; ROADMAP A.11, second half).
+  ``anomaly_policy=off|warn|abort|rollback``;
+- ``aggregate`` — many processes' snapshots, scrapes and flight-record
+  streams merged into one view (the gateway's merged /metrics).
 """
 
-from . import anomaly, manifest, metrics, recorder, tracing
+from . import aggregate, anomaly, manifest, metrics, recorder, tracing
 from .anomaly import AnomalyAbort, AnomalySentinel
 from .manifest import build_manifest, write_manifest
 from .metrics import (
@@ -42,6 +41,7 @@ __all__ = [
     "MetricsRegistry",
     "Sample",
     "TraceRecorder",
+    "aggregate",
     "anomaly",
     "build_manifest",
     "default_registry",

@@ -20,9 +20,10 @@ a scrape sees and the percentile the stats op returns never disagree.
 Recording is a dict upsert under a per-metric lock. When the registry is
 disabled (env LIGHTGBM_TPU_METRICS=0, or ``disable()``) every record call
 is a single attribute check. The fleet's recorders are here
-(lgbmtpu_fleet_*), and the training, host-fallback and native-build
-recorders; the gateway's and the online loop's are not ported (ROADMAP
-A.11, second half).
+(lgbmtpu_fleet_*), the training, host-fallback and native-build
+recorders, the online loop's (lgbmtpu_promotion_events_total,
+lgbmtpu_ingest_*, lgbmtpu_online_*) and the gateway's
+(lgbmtpu_gateway_*), under the JAX package's series names.
 """
 
 from __future__ import annotations
@@ -565,3 +566,122 @@ def record_native_build(seconds: float, ok: bool) -> None:
               labels=("result",)).inc(1, result="ok" if ok else "failed")
     r.gauge("lgbmtpu_native_build_seconds",
             "wall seconds of the most recent native build").set(seconds)
+
+
+def record_promotion_event(outcome: str) -> None:
+    """One online-loop gate verdict: ``promoted`` (the gate passed, the
+    registry swapped), ``rejected`` (the holdout metric fell),
+    ``rolled_back`` (an anomaly sentinel tripped or the refit failed:
+    a poisoned microbatch reverts to v(n)). online/loop.py."""
+    r = _default
+    if not r.enabled:
+        return
+    r.counter("lgbmtpu_promotion_events_total",
+              "online-loop promotion gate verdicts, by outcome",
+              labels=("outcome",)).inc(1, outcome=outcome)
+
+
+def record_ingest(rows: int) -> None:
+    """One microbatch appended to the online loop's ingest spool."""
+    r = _default
+    if not r.enabled:
+        return
+    r.counter("lgbmtpu_ingest_batches_total",
+              "microbatches accepted through the ingest op").inc(1)
+    r.counter("lgbmtpu_ingest_rows_total",
+              "rows accepted through the ingest op").inc(rows)
+
+
+def record_loop_progress(version: int, cycle: int, offset: int) -> None:
+    """Online-loop liveness gauges: the promoted version, the verdict
+    cycles and the spool bytes consumed."""
+    r = _default
+    if not r.enabled:
+        return
+    r.gauge("lgbmtpu_online_version",
+            "currently promoted online-loop model version").set(version)
+    r.gauge("lgbmtpu_online_cycles_total",
+            "online-loop verdict cycles completed").set(cycle)
+    r.gauge("lgbmtpu_online_ingest_offset_bytes",
+            "ingest spool bytes consumed through the last verdict"
+            ).set(offset)
+
+
+# the gateway's recorders (serving/gateway.py): outcome is the gateway's
+# verdict on a client request (ok / failed / shed / deadline /
+# unavailable / drain / fanout_partial), result one backend attempt's
+# fate (ok / 5xx / error / cancelled); a breaker's state is a coded
+# gauge (0 closed, 1 half_open, 2 open) beside a transitions counter
+_BREAKER_STATE_CODE = {"closed": 0, "half_open": 1, "open": 2}
+
+
+def record_gateway_request(op: str, outcome: str, seconds: float) -> None:
+    """One client request through Gateway.handle, end to end."""
+    r = _default
+    if not r.enabled:
+        return
+    r.counter("lgbmtpu_gateway_requests_total",
+              "gateway client requests, by op and outcome",
+              labels=("op", "outcome")).inc(1, op=op, outcome=outcome)
+    r.histogram("lgbmtpu_gateway_request_seconds",
+                "gateway end-to-end request latency (incl. retries "
+                "and hedges)", labels=("op",)).observe(seconds, op=op)
+
+
+def record_gateway_attempt(backend: str, result: str) -> None:
+    """One backend attempt (primary, retry or hedge)."""
+    r = _default
+    if not r.enabled:
+        return
+    r.counter("lgbmtpu_gateway_attempts_total",
+              "backend attempts, by backend and result",
+              labels=("backend", "result")).inc(
+        1, backend=backend, result=result)
+
+
+def record_gateway_retry() -> None:
+    r = _default
+    if not r.enabled:
+        return
+    r.counter("lgbmtpu_gateway_retries_total",
+              "retry rounds scheduled (full-jitter backoff)").inc(1)
+
+
+def record_gateway_hedge(outcome: str) -> None:
+    """Hedge verdicts: ``fired`` / ``won`` / ``denied_budget`` /
+    ``no_backend``."""
+    r = _default
+    if not r.enabled:
+        return
+    r.counter("lgbmtpu_gateway_hedges_total",
+              "hedged-attempt verdicts, by outcome",
+              labels=("outcome",)).inc(1, outcome=outcome)
+
+
+def record_gateway_breaker(backend: str, state: str) -> None:
+    """A breaker transition: the new state as a coded gauge and a
+    counter."""
+    r = _default
+    if not r.enabled:
+        return
+    r.gauge("lgbmtpu_gateway_breaker_state",
+            "circuit state per backend (0 closed, 1 half_open, 2 open)",
+            labels=("backend",)).set(
+        _BREAKER_STATE_CODE.get(state, -1), backend=backend)
+    r.counter("lgbmtpu_gateway_breaker_transitions_total",
+              "breaker transitions, by backend and destination state",
+              labels=("backend", "to")).inc(1, backend=backend, to=state)
+
+
+def record_gateway_pool(alive: int, ready: int, total: int) -> None:
+    r = _default
+    if not r.enabled:
+        return
+    r.gauge("lgbmtpu_gateway_backends_alive",
+            "backends answering HTTP at the last probe sweep"
+            ).set(alive)
+    r.gauge("lgbmtpu_gateway_backends_ready",
+            "backends passing /readyz at the last probe sweep"
+            ).set(ready)
+    r.gauge("lgbmtpu_gateway_backends_total",
+            "configured backend slots").set(total)

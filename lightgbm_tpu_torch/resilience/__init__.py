@@ -9,12 +9,12 @@ lightgbm_tpu/resilience/):
   named host-side sites); a None check when disarmed.
 - ``errors`` — the typed failure vocabulary the serving degradation
   paths raise and the HTTP transport maps to status codes.
-
-Not ported: ``backoff`` and ``heartbeat``, whose only users are the
-gateway, the online loop and the multihost trainer (ROADMAP A.11,
-second half, and A.8).
+- ``backoff`` + ``heartbeat`` — the one retry-with-backoff helper (the
+  gateway's retries, the metrics scrape) and per-worker heartbeat files
+  with a health report (the online loop's liveness on /readyz).
 """
 
+from .backoff import backoff_delay, delays, full_jitter_delay, retry_call
 from .checkpoint import (
     load_checkpoint,
     save_checkpoint,
@@ -28,19 +28,27 @@ from .errors import (
     ShutdownError,
 )
 from .faultinject import FaultPlan, arm, configure, disarm, fault_point
+from .heartbeat import HeartbeatWriter, health_report, read_heartbeats
 
 __all__ = [
     "CheckpointError",
     "DeadlineExceeded",
     "FaultPlan",
+    "HeartbeatWriter",
     "InjectedFault",
     "QueueOverflow",
     "ResilienceError",
     "ShutdownError",
     "arm",
+    "backoff_delay",
     "configure",
+    "delays",
     "disarm",
     "fault_point",
+    "full_jitter_delay",
+    "health_report",
     "load_checkpoint",
+    "read_heartbeats",
+    "retry_call",
     "save_checkpoint",
 ]

@@ -29,10 +29,14 @@ production code already passes through:
                     ``trigger`` is the 1-based Nth hit;
 - ``fleet_page``  — serving/fleet.py, before each page-in's table
                     write; ``trigger`` is the 1-based Nth hit;
-- ``loop_*`` / ``gw_*`` — the online loop's and the gateway's sites,
-                    parsed as the JAX package parses them; nothing in
-                    the port visits them yet (ROADMAP A.11, second
-                    half).
+- ``loop_ingest`` / ``loop_refit`` / ``loop_eval`` / ``loop_promote``
+                  — online/loop.py, once per verdict cycle at each
+                    phase's edge; ``trigger`` is the ABSOLUTE cycle;
+- ``gw_connect`` / ``gw_slow_backend`` / ``gw_backend_5xx`` — the
+                    gateway's backend attempt (before the socket opens,
+                    before the response read, after it);
+                    ``gw_drain`` — Gateway.drain; ``trigger`` is the
+                    1-based Nth hit.
 
 Actions: ``raise`` (InjectedFault), ``kill`` (SIGKILL — a real
 no-cleanup crash for the checkpoint/resume tests), ``delay:<seconds>``

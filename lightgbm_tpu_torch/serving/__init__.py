@@ -14,16 +14,26 @@ The port of lightgbm_tpu/serving:
   stacked device tables with LRU paging, one CUDA graph a family stack
   and rung (ForestStack);
 - ``server``: the JSON-lines loop and the HTTP front end (/v1/<op>,
-  /v1/fleet, /healthz, /readyz, /metrics).
+  /v1/fleet, /healthz, /readyz, /metrics);
+- ``gateway``: the resilient front end over many serving processes
+  (readiness-gated pool, least-outstanding balancing, full-jitter
+  retries, hedged requests, circuit breakers, deadline propagation,
+  drain, the merged /metrics).
 
-Not ported: the gateway and the online loop (ROADMAP A.11, second
-half), and a row-sharded forest (A.8).
-Importing one of the gateway's names raises NotImplementedError.
+Not ported: a row-sharded forest (``mesh=``, ROADMAP A.8).
 """
 
 from .dispatch import DEFAULT_BUCKETS, BucketDispatcher, MicroBatcher
 from .fleet import ForestStack, ModelFleet
 from .forest import TensorForest
+from .gateway import (
+    BackendPool,
+    CircuitBreaker,
+    Gateway,
+    HedgePolicy,
+    RollingLatency,
+    gateway_http,
+)
 from .registry import ModelRegistry
 from .server import ScoringServer, readiness, serve_http
 
@@ -38,17 +48,10 @@ __all__ = [
     "ScoringServer",
     "serve_http",
     "readiness",
+    "Gateway",
+    "gateway_http",
+    "CircuitBreaker",
+    "HedgePolicy",
+    "RollingLatency",
+    "BackendPool",
 ]
-
-# the JAX package's serving names not ported yet, each with the
-# ROADMAP item that ports it
-NOT_PORTED = {n: "A.11, second half (the gateway)" for n in (
-    "Gateway", "gateway_http", "CircuitBreaker", "HedgePolicy",
-    "RollingLatency", "BackendPool")}
-
-
-def __getattr__(name):
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"serving.{name} is not ported yet (ROADMAP {NOT_PORTED[name]})")
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

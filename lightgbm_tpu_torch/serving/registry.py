@@ -135,6 +135,12 @@ def _declared_width(booster) -> Optional[int]:
 class ModelRegistry:
     """Thread-safe named + versioned model store."""
 
+    # the online loop's attachment points (OnlineLoop.attach): the
+    # transports route the ingest op to ingest_sink, and /readyz reads
+    # health_probe
+    ingest_sink = None
+    health_probe = None
+
     def __init__(self, mesh=None, buckets=DEFAULT_BUCKETS,
                  warmup: bool = False, deadline_s: float = 0.0,
                  queue_cap: int = 0, host_fallback: bool = False,

@@ -23,8 +23,10 @@ Request ops:
   {"op": "models"} / {"op": "stats"} / {"op": "ping"} / {"op": "quit"}
   {"op": "fleet"}   # residency, paging and capture counts of a
                     # ModelFleet (serving/fleet.py); GET /v1/fleet too
-  {"op": "ingest"} answers as the JAX package's does with no online loop
-  attached (the loop is not ported, ROADMAP A.11, second half).
+  {"op": "ingest", "rows": [[...]], "labels": [...], "weights": [...]}
+                    # a labeled microbatch into the attached online
+                    # loop's spool (online/ingest.py); refused with no
+                    # loop attached
 
 Either transport serves a ModelRegistry or a ModelFleet: the load op's
 "deadline_ms" / "queue_cap" set a fleet tenant's QoS.

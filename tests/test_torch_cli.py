@@ -16,8 +16,9 @@ data, with JAX on the CPU.
   compiles to the booster's raw scores;
 - task=refit: the JAX CLI's leaf values within the parity tolerance;
 - task=serve over stdio answers as Booster.predict does;
-- task=gateway and task=loop raise NotImplementedError (ROADMAP A.11,
-  second half); profile_dir and run_manifest write their files.
+- task=gateway and task=loop refuse a call without their required keys
+  as the JAX CLI does (test_torch_online.py and test_torch_gateway.py
+  drive them); profile_dir and run_manifest write their files.
 """
 
 import ctypes
@@ -33,6 +34,7 @@ import pytest
 import lightgbm_tpu as lgb_j
 import lightgbm_tpu_torch as lgb_t
 from lightgbm_tpu.cli import main as main_j, parse_kv_args as kv_j
+from lightgbm_tpu.log import LightGBMError as LightGBMErrorJ
 from lightgbm_tpu_torch.cli import main as main_t, parse_kv_args as kv_t
 from test_torch_sampling import assert_same_sampled_models
 from _port_threads import one_torch_thread
@@ -243,8 +245,14 @@ def test_serve_stdio(work, monkeypatch, capsys):
 
 @pytest.mark.parametrize("task", ["gateway", "loop"])
 def test_unported_tasks_raise(task):
-    with pytest.raises(NotImplementedError, match="A.11, second half"):
-        main_t([f"task={task}"])
+    """task=gateway and task=loop are ported (they raised
+    NotImplementedError until the second half of A.11): without their
+    required keys each raises the JAX CLI's fatal, and no refusal."""
+    need = {"gateway": "gateway_backends", "loop": "valid_data"}[task]
+    with pytest.raises(lgb_t.LightGBMError, match=need):
+        main_t([f"task={task}", "device_type=cpu"])
+    with pytest.raises(LightGBMErrorJ, match=need):
+        main_j([f"task={task}", "device_type=cpu"])
 
 
 def test_profile_dir_and_manifest(work):

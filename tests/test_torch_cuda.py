@@ -1866,3 +1866,153 @@ def test_native_library_loaded(dev):
 
     assert native.get_lib() is not None, native.BUILD_ERROR
     assert native.library_path().exists()
+
+
+# ---- the online loop and the gateway on the card (ROADMAP A.11, second
+# half)
+def _loop_rows(seed, n):
+    rs = np.random.RandomState(seed)
+    X = rs.randn(n, 4)
+    return X, (X[:, 0] + X[:, 1] > 0).astype(np.float64)
+
+
+def test_loop_promotion_on_card_under_scoring(dev, tmp_path):
+    """A cycle on the card (the refit on the fused loop, the gate's
+    margins and metrics on the card) while two threads score through
+    the card registry: every answer v0's or v1's within 1e-5, none torn;
+    v0 a bit-exact prefix; a restart after a raise at loop_refit serves
+    the promoted bits; a replayed refit writes the same candidate text."""
+    import threading
+
+    from lightgbm_tpu_torch import online
+    from lightgbm_tpu_torch.resilience import faultinject
+    from lightgbm_tpu_torch.resilience.errors import InjectedFault
+    from lightgbm_tpu_torch.serving import ModelRegistry
+
+    core = {"objective": "binary", "metric": "auc", "num_leaves": 7,
+            "min_data_in_leaf": 5, "learning_rate": 0.2, "verbosity": -1,
+            "seed": 7}
+    X, y = _loop_rows(5, 300)
+    v0 = lgb.train({**core, "device_type": "cpu"},
+                   lgb.Dataset(X, label=y, params={"device_type": "cpu"}), 6)
+    params = {**core, "loop_dir": str(tmp_path / "loop"),
+              "loop_min_rows": 64, "loop_rounds": 4}
+    hold = _loop_rows(9, 200)
+    loop = online.OnlineLoop(params, hold, initial_model=v0)
+    reg = ModelRegistry(buckets=(16, 64), warmup=True)
+    loop.attach(reg)
+    Xb, yb = _loop_rows(43, 160)
+    loop.spool.append(Xb.tolist(), yb.tolist())
+    probe = hold[0][:16]
+    stop, seen, errs = threading.Event(), [], []
+
+    def scorer():
+        try:
+            while not stop.is_set():
+                seen.append(np.asarray(reg.predict("default", probe,
+                                                   raw_score=True)))
+        except Exception as e:  # noqa: BLE001 — shown below
+            errs.append(e)
+
+    ths = [threading.Thread(target=scorer) for _ in range(2)]
+    for t in ths:
+        t.start()
+    try:
+        assert loop.cycle() == "promoted"
+    finally:
+        stop.set()
+        for t in ths:
+            t.join(timeout=60)
+    assert not errs and seen
+    assert loop.last_cycle["refit_capture_s"] is not None
+    v1 = lgb.Booster(model_file=loop.state["model_path"])
+    p0, p1 = (b.predict(probe, raw_score=True) for b in (v0, v1))
+    torn = [p for p in seen if not (np.abs(p - p0).max() < 1e-5
+                                    or np.abs(p - p1).max() < 1e-5)]
+    assert not torn
+    np.testing.assert_array_equal(
+        v1.predict(hold[0], raw_score=True, num_iteration=6),
+        v0.predict(hold[0], raw_score=True))
+    served = reg.predict("default", probe, raw_score=True)
+    # a raise at the next refit, then a restart on the same directory
+    Xc, yc = _loop_rows(44, 160)
+    loop.spool.append(Xc.tolist(), yc.tolist())
+    plan = "loop_refit:1:raise"
+    faultinject.configure(plan)
+    try:
+        crash = online.OnlineLoop(dict(params, fault_plan=plan), hold)
+        with pytest.raises(InjectedFault):
+            crash.cycle()
+    finally:
+        faultinject.disarm()
+    re = online.OnlineLoop(params, hold)
+    reg2 = ModelRegistry(buckets=(16, 64), warmup=True)
+    re.attach(reg2)
+    assert re.state["version"] == 1
+    np.testing.assert_array_equal(reg2.predict("default", probe,
+                                               raw_score=True), served)
+    again = online.OnlineLoop(params, hold)
+    twice = []
+    for lp in (re, again):
+        batches, _ = lp.spool.read_from(lp.state["ingest_offset"])
+        Xr, yr, wr = online.stack_batches(batches)
+        init = lp._margins(lp._incumbent, Xr)
+        twice.append(lp._splice(lp._train_delta(Xr, yr, wr, init)))
+    assert twice[0] == twice[1]
+    assert re.cycle() in ("promoted", "rejected")
+
+
+def test_gateway_over_card_backends(dev):
+    """Two serve_http backends on card registries behind the gateway:
+    every answer within 1e-5 of the host walker, no failure under a
+    gw_backend_5xx fault, and /metrics merging both backends."""
+    import json
+    import threading
+    import urllib.request
+
+    from lightgbm_tpu_torch.resilience import faultinject
+    from lightgbm_tpu_torch.serving import (Gateway, ModelRegistry,
+                                            gateway_http, serve_http)
+
+    bst, Xq = _serve_model(cat=False)
+    servers = []
+    for _ in range(2):
+        reg = ModelRegistry(buckets=(16, 64), warmup=True)
+        reg.load("default", bst.model_to_string())
+        h = serve_http(reg, 0, block=False)
+        threading.Thread(target=h.serve_forever, daemon=True).start()
+        servers.append(h)
+    gw = Gateway([f"http://127.0.0.1:{h.server_address[1]}"
+                  for h in servers], retries=2, backoff_base_s=0.01,
+                 hedge_budget=0.0, health_interval_s=60.0)
+    gw.start(wait_ready_s=30.0)
+    front = gateway_http(gw, 0, block=False)
+    threading.Thread(target=front.serve_forever, daemon=True).start()
+    url = f"http://127.0.0.1:{front.server_address[1]}"
+
+    def score(i):
+        req = urllib.request.Request(
+            url + "/v1/score", data=json.dumps(
+                {"rows": np.nan_to_num(Xq[i:i + 1]).tolist()}).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=60) as r:
+            assert r.status == 200
+            return json.loads(r.read())["pred"][0]
+
+    try:
+        ref = bst.predict(np.nan_to_num(Xq[:30]))
+        got = [score(i) for i in range(15)]
+        faultinject.arm("gw_backend_5xx:2:raise;gw_backend_5xx:5:raise")
+        got += [score(i) for i in range(15, 30)]
+        faultinject.disarm()
+        np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-5)
+        with urllib.request.urlopen(url + "/metrics", timeout=60) as r:
+            text = r.read().decode()
+        assert "lgbmtpu_gateway_retries_total" in text
+        assert "lgbmtpu_serve_protocol_requests_total" in text
+    finally:
+        faultinject.disarm()
+        gw.stop()
+        for h in [front] + servers:
+            h.shutdown()
+            h.server_close()

@@ -139,7 +139,7 @@ def test_auto_means_int16_everywhere():
      "monotone_constraints_method": "advanced"},
     {"tree_learner": "data"},
     {"tree_learner": "feature"},
-    {"tpu_debug_check_split": True},
+    {"data_source": "chunked"},
 ])
 def test_unported_options_raise(extra):
     X, y = _tiny()
@@ -155,9 +155,11 @@ def test_unported_options_raise(extra):
      "monotone_constraints_method": "intermediate"},
     {"monotone_constraints": [1, 0, 0],
      "monotone_constraints_method": "advanced"},
+    {"tpu_debug_check_split": True},
 ])
 def test_formerly_refused_options_train(extra):
-    """linear_tree and monotone intermediate / advanced train now."""
+    """linear_tree, monotone intermediate / advanced and
+    tpu_debug_check_split train now."""
     X, y = _tiny()
     p = {"objective": "binary", "verbosity": -1, "device_type": "cpu",
          **extra}
@@ -168,6 +170,9 @@ def test_formerly_refused_options_train(extra):
         assert all(t.is_linear for t in gb.models)
         assert gb.fused_ineligible_reason() == \
             "linear_tree leaf fits run on host"
+    elif "tpu_debug_check_split" in extra:
+        assert gb.fused_ineligible_reason() == \
+            "tpu_debug_check_split reads back per iteration"
     else:
         assert gb.spec.mono_mode == {"intermediate": 1, "advanced": 2}[
             extra["monotone_constraints_method"]]

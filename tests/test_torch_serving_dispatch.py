@@ -489,12 +489,17 @@ def test_latency_stats_counters():
     ("CircuitBreaker", "A.11"), ("Gateway", "A.11"),
     ("gateway_http", "A.11")])
 def test_deferred_serving_names_raise(name, item):
-    """The gateway's names wait for the second half of A.11."""
+    """The gateway's names waited for the second half of A.11, which
+    ported them: each is the port's gateway object and no refusal, and
+    an unknown serving name raises AttributeError."""
     import lightgbm_tpu_torch.serving as s
+    from lightgbm_tpu_torch.serving import gateway
 
-    with pytest.raises(NotImplementedError,
-                       match=f"ROADMAP {item}, second half"):
-        getattr(s, name)
+    assert item == "A.11" and name in s.__all__
+    assert getattr(s, name) is getattr(gateway, name)
+    assert not hasattr(s, "NOT_PORTED")
+    with pytest.raises(AttributeError):
+        getattr(s, "NoSuchServingName")
 
 
 def test_deferred_options_raise(models):
