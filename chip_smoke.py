@@ -60,6 +60,16 @@ Phases, each printed as one JSON line:
   model   - save_model -> Booster(model_file=...) -> identical predictions
             on 1000 validation rows; host predictions match the scores
             the card accumulated;
+  data_plane - data_source=chunked on the train phase's rows
+            (ram_budget_mb=64: 14 chunks spooled to disk, binned in two
+            passes, the card's matrix assembled from pinned slots on a
+            copy stream): two fused trees equal the in-RAM set's (model
+            text, raw predictions and device bins bit for bit), at
+            prefetch depth 1 too; a 50,000-row CSV through the chunked
+            text spool (bit for bit the in-RAM text fit) and two_round
+            (its bins the CPU construct's); spool rows/s, pass seconds,
+            the assembly's H2D bytes and GB/s, pinned MB, RSS peak and
+            spread, beside the in-RAM device_arrays time;
   train_bag, train_goss - the workload with bagging (0.8 every tree) and
             feature_fraction 0.8, and with GOSS (top_rate 0.2, other_rate
             0.1: 11 trees before it samples): 2 warmup then 10 timed
@@ -1499,15 +1509,18 @@ def replay_check(lgb, params, X, y, cat_cols, n_trees: int = 2,
     return out
 
 
-def profile_phase(torch, bst, n_trees: int = 2, name: str = "profile"):
+def profile_phase(torch, bst, n_trees: int = 2, name: str = "profile",
+                  cpu: bool = True):
     """Where a tree's time goes: torch.profiler over n_trees more trees
     (CUPTI kernel times), the device's busy share of the wall time, and
-    the kernels that take the most device time."""
+    the kernels that take the most device time. Only the CUDA rows are
+    read; ``cpu=False`` records no CPU activity (an exact tree's ~100,000
+    host ops made its profile take ~60 s)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
+    with profile(activities=acts) as prof:
         t0 = time.perf_counter()
         for _ in range(n_trees):
             bst.update()
@@ -1604,7 +1617,10 @@ def train_f32_path(torch, lgb, ch, perm, ds, vs, name, n_timed=2,
     if not (auc_last > auc1 and auc_last > 0.85):
         raise AssertionError(f"{name}: AUC did not improve: {auc1} -> "
                              f"{auc_last}")
-    prof = profile_phase(torch, bst, 1, name + "_profile")
+    # the exact paths' host ops: CUDA activity alone (the profile of one
+    # train_exact tree took 64.7 s with the CPU's)
+    prof = profile_phase(torch, bst, 1, name + "_profile",
+                         cpu=not name.startswith("train_exact"))
     return launches, prof
 
 
@@ -1808,15 +1824,16 @@ def _eager(env):
 _eager.before_iteration = True
 
 
-def loop_profile(torch, run, n_trees):
+def loop_profile(torch, run, n_trees, cpu: bool = True):
     """torch.profiler around run() (n_trees trees): device busy share,
     device operations a tree (CUPTI sees the kernels a graph launches),
-    and the kernel names with their counts."""
+    and the kernel names with their counts. Only the CUDA rows are read;
+    ``cpu=False`` records no CPU activity."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
+    with profile(activities=acts) as prof:
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
@@ -1850,7 +1867,8 @@ def fused_vs_eager(torch, lgb, ds, vs, name, extra, n_timed=6, n_skip=0,
     iteration's graph, the timed trees are one dispatch of replays.
     Per loop: trees/s (card synchronized), host ms a tree (the host
     clock until the trees are enqueued), and from an n_profile-tree
-    torch.profiler run the device busy share, device operations a tree
+    torch.profiler run (the eager loop's with CUDA activity alone) the
+    device busy share, device operations a tree
     and (fused) the kernel symbols its replays ran; for the graph: capture seconds,
     nodes, graph launches a tree, rounds per tree (min / median / max;
     the exact grower's: its round phase's) and overflows; splits per tree
@@ -1862,7 +1880,7 @@ def fused_vs_eager(torch, lgb, ds, vs, name, extra, n_timed=6, n_skip=0,
     under the loop. n_profile: the trees (replays) each profile runs;
     eager_profile: a profile_phase line of the same eager run taken
     earlier in the script, whose numbers stand in for the eager loop's
-    profile (an eager exact tree takes ~50 s under the profiler).
+    profile (the f32 path phases profile one eager exact tree each).
     `seconds` gives each part's wall time."""
     from lightgbm_tpu_torch.learner import cuda_hist as ch
 
@@ -1928,7 +1946,11 @@ def fused_vs_eager(torch, lgb, ds, vs, name, extra, n_timed=6, n_skip=0,
                            "device_ops_per_tree":
                                p["kernel_launches_per_tree"]}, {}
         else:
-            prof, names = loop_profile(torch, two, n_profile)
+            # the eager loop with CUDA activity alone (with the CPU's its
+            # profiles took 138 s of the script, the monotone ones 20-33 s
+            # each); the fused loop's replays keep both
+            prof, names = loop_profile(torch, two, n_profile,
+                                       cpu=loop == "fused")
         secs[loop + "_profile"] = time.perf_counter() - t_prof
         line[loop] = {"trees_per_s": n_timed / wall,
                       "host_ms_per_tree": host * 1e3 / n_timed,
@@ -3081,6 +3103,190 @@ def api_file_phase(torch, lgb, np, X, y):
                                                 "native_equals_loadtxt"))}
     if bad:
         raise AssertionError(f"api_file: {bad}")
+    return line
+
+
+DATA_PLANE_LINES = ("[data_source", "[ram_budget_mb", "[data_chunk_rows",
+                    "[data_spool_dir")
+
+
+def _strip_data_lines(text: str) -> str:
+    return "\n".join(ln for ln in text.splitlines()
+                     if not ln.startswith(DATA_PLANE_LINES))
+
+
+def data_plane_phase(torch, lgb, ch, np, X, y, Xv, ds, params, smi):
+    """The out-of-core data plane (lightgbm_tpu_torch/data/) on the train
+    phase's rows: data_source=chunked with ram_budget_mb=64 (73,728-row
+    chunks, 14 of them; the raw float32 matrix 112 MB) spools X to disk,
+    bins it in two passes and assembles the card's matrix from pinned
+    slots on a copy stream; two fused trees on it and two on the train
+    phase's in-RAM set must give the same model text (apart from the
+    data-plane parameter lines), bitwise the same raw predictions on 4,096
+    validation rows and bitwise the same device bins, with the
+    assembly's steady-state RSS spread at most 64 MB and hist_nat,
+    hist_round, seg_sum and take_small launched by the streamed fit. The
+    assembly runs again at prefetch depth 1 (each pinned slot waits for
+    its copy before it is refilled): the same bins. A 50,000-row CSV of
+    the same rows is read three ways, each training 2 trees on the card:
+    the chunked text spool (data_chunk_rows=8192), bitwise the in-RAM
+    text fit; and a two_round construct, whose bins equal the CPU
+    construct's of the same file. The in-RAM set's device_arrays time is
+    timed beside the assembly's, and the link's rate from pinned memory
+    (the matrix's stored bytes in one copy, and one chunk's) beside its
+    copies'."""
+    import shutil
+
+    from lightgbm_tpu_torch.data import last_stats, reset_stats, streaming
+
+    out = Path("build") / "chip_smoke" / "data_plane"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    pc = {**params, "data_source": "chunked", "ram_budget_mb": 64,
+          "data_spool_dir": str(out / "chunked")}
+    reset_stats()
+    t0 = time.perf_counter()
+    dc = lgb.Dataset(X, label=y, params=pc)
+    dc.construct()
+    construct_s = time.perf_counter() - t0
+    ch.reset_launch_counts()
+    t0 = time.perf_counter()
+    bc = lgb.train(pc, dc, 2)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = {k: ch.LAUNCHES[k]
+                for k in ("hist_nat", "hist_round", "seg_sum", "take_small")}
+    st = last_stats()
+    asm = st["assemble"]
+
+    # the in-RAM set's device matrix, assembled again and timed; the train
+    # phase's dict goes back afterwards
+    rb = ds._binned
+    saved = rb._device
+    rb._device = None
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dev_r = rb.device_arrays("cuda")
+    torch.cuda.synchronize()
+    inram_s = time.perf_counter() - t0
+    rb._device = saved
+    br = lgb.train(params, ds, 2)
+    rows = Xv[:4096]
+    text_equal = (_strip_data_lines(bc.model_to_string())
+                  == _strip_data_lines(br.model_to_string()))
+    pred_equal = bool(np.array_equal(bc.predict(rows, raw_score=True),
+                                      br.predict(rows, raw_score=True)))
+    bins_equal = bool(torch.equal(dc._binned.device_arrays("cuda")["bins"],
+                                  dev_r["bins"]))
+
+    # depth 1: a slot is refilled only after its copy has completed
+    real_depth = streaming.prefetch_depth
+    streaming.prefetch_depth = lambda *a: 1
+    try:
+        dc._binned._device = None
+        dev1 = dc._binned.device_arrays("cuda")
+    finally:
+        streaming.prefetch_depth = real_depth
+    asm1 = last_stats()["assemble"]
+    depth1_equal = bool(torch.equal(dev1["bins"], dev_r["bins"]))
+    del dev1, dev_r
+
+    # the link beside the assembly: the matrix's stored bytes from pinned
+    # memory in one copy, and one chunk's (median of 5 each)
+    host = torch.empty(int(asm["h2d_bytes"]), dtype=torch.uint8,
+                       pin_memory=True)
+    card = torch.empty_like(host, device="cuda")
+    link = {}
+    for key, nb in (("whole", host.numel()),
+                    ("chunk", X.shape[1] * asm["chunk_rows"])):
+        ms = cuda_ms(lambda: card[:nb].copy_(host[:nb], non_blocking=True),
+                     reps=5, warm=1)
+        link[key] = {"bytes": int(nb), "ms": ms, "gb_per_s": nb / ms / 1e6}
+    del host, card
+
+    # the text inputs: 50,000 rows as CSV (%.17g: the float64 values)
+    n = 50_000
+    csv = out / "train.csv"
+    np.savetxt(csv, np.column_stack([y[:n], X[:n]]).astype(np.float64),
+               delimiter=",", fmt="%.17g")
+    pt = {**params, "data_source": "chunked", "data_chunk_rows": 8192,
+          "data_spool_dir": str(out / "text")}
+    reset_stats()
+    t0 = time.perf_counter()
+    dtc = lgb.Dataset(str(csv), params=pt)
+    btc = lgb.train(pt, dtc, 2)
+    text_chunked_s = time.perf_counter() - t0
+    text_spool = last_stats()["spool"]
+    t0 = time.perf_counter()
+    btr = lgb.train(params, lgb.Dataset(str(csv), params=params), 2)
+    text_inram_s = time.perf_counter() - t0
+    p2 = {**params, "two_round": True}
+    t0 = time.perf_counter()
+    d2 = lgb.Dataset(str(csv), params=p2)
+    b2 = lgb.train(p2, d2, 2)
+    two_round_s = time.perf_counter() - t0
+    d2cpu = lgb.Dataset(str(csv), params={**p2, "device_type": "cpu"})
+    d2cpu.construct()
+    text = {
+        "rows": n, "chunks": text_spool["chunks"],
+        "spool_rows_per_s": text_spool["rows_per_sec"],
+        "chunked_seconds": text_chunked_s, "inram_seconds": text_inram_s,
+        "two_round_seconds": two_round_s,
+        "chunked_model_text_equal": (
+            _strip_data_lines(btc.model_to_string())
+            == _strip_data_lines(btr.model_to_string())),
+        "chunked_predictions_equal": bool(np.array_equal(
+            btc.predict(rows, raw_score=True),
+            btr.predict(rows, raw_score=True))),
+        "two_round_bins_equal_cpu": bool(np.array_equal(
+            d2._binned.bins, d2cpu._binned.bins)),
+        "two_round_finite": bool(np.isfinite(b2.predict(rows)).all()),
+        "trees": [btc.num_trees(), btr.num_trees(), b2.num_trees()]}
+    gbps = lambda a: (a["h2d_bytes"] / a["h2d_seconds"] / 1e9
+                      if a["h2d_seconds"] else None)
+    line = {"phase": "data_plane", "nvidia_smi": smi,
+            "rows": int(X.shape[0]), "features": int(X.shape[1]),
+            "raw_mb": X.nbytes / 2 ** 20, "ram_budget_mb": 64,
+            "chunks": asm["chunks"], "chunk_rows": asm["chunk_rows"],
+            "prefetch_depth": asm["prefetch_depth"],
+            "spool_rows_per_s": st["spool"]["rows_per_sec"],
+            "spool_seconds": st["spool"]["seconds"],
+            "pass1_seconds": st["pass1"]["seconds"],
+            "pass2_seconds": st["pass2"]["seconds"],
+            "pass2_rows_per_s": st["pass2"]["rows_per_sec"],
+            "construct_seconds": construct_s,
+            "assemble_seconds": asm["seconds"],
+            "h2d_bytes": asm["h2d_bytes"], "h2d_seconds": asm["h2d_seconds"],
+            "h2d_gb_per_s": gbps(asm), "pinned_link": link,
+            "h2d_ms_per_chunk": [c["h2d_ms"] for c in asm["per_chunk"]],
+            "pinned_mb": asm["pinned_mb"],
+            "peak_rss_mb": asm["peak_rss_mb"],
+            "rss_spread_mb": asm["rss_spread_mb"],
+            "inram_device_arrays_seconds": inram_s,
+            "train_2_trees_seconds": train_s, "launches": launches,
+            "model_text_equal": text_equal, "predictions_equal": pred_equal,
+            "bins_equal": bins_equal,
+            "depth1": {"chunks": asm1["chunks"],
+                       "prefetch_depth": asm1["prefetch_depth"],
+                       "assemble_seconds": asm1["seconds"],
+                       "h2d_gb_per_s": gbps(asm1),
+                       "bins_equal": depth1_equal},
+            "text": text}
+    emit(line)
+    bad = [k for k, ok in (
+        ("model_text_equal", text_equal), ("predictions_equal", pred_equal),
+        ("bins_equal", bins_equal), ("depth1_bins_equal", depth1_equal),
+        ("chunks", asm["chunks"] == 14 and asm1["prefetch_depth"] == 1),
+        ("rss_spread_mb", asm["rss_spread_mb"] <= 64.0),
+        ("h2d_bytes", asm["h2d_bytes"] == X.shape[0] * X.shape[1]),
+        ("launches", all(v > 0 for v in launches.values())),
+        ("text", all(text[k] for k in (
+            "chunked_model_text_equal", "chunked_predictions_equal",
+            "two_round_bins_equal_cpu", "two_round_finite"))
+         and text["trees"] == [2, 2, 2]))
+        if not ok]
+    if bad:
+        raise AssertionError(f"data_plane: {bad}")
     return line
 
 
@@ -4443,8 +4649,20 @@ def _gw_client(np, url, pool, ref, n_requests, n_threads=8, seed=0):
 
 
 def _gw_counts():
+    """The gateway's counters, once every attempt thread has ended: a
+    hedged loser's thread outlives its request (it counts its attempt
+    when its delayed read fails), so a snapshot taken at once could
+    count a stage's attempt in the next stage."""
+    import threading
+
     from lightgbm_tpu_torch.obs.metrics import default_registry
 
+    deadline = time.monotonic() + 30
+    while any(t.name.startswith("gw-attempt-") and t.is_alive()
+              for t in threading.enumerate()):
+        if time.monotonic() > deadline:
+            raise AssertionError("gateway: attempt threads still running")
+        time.sleep(0.02)
     out = {}
     for s in default_registry().samples():
         if s.name.startswith("lgbmtpu_gateway_") and s.kind == "counter":
@@ -4930,6 +5148,8 @@ def main() -> int:
         raise AssertionError("reloaded model predicts differently")
     if not (np.isfinite(p_trained).all() and host_vs_card < 1e-4):
         raise AssertionError("host predictions disagree with card scores")
+    # ---- the out-of-core data plane on the same rows
+    data_plane_phase(torch, lgb, ch, np, X, y, Xv, ds, params, smi)
 
     # ---- the sampled paths: bagging with feature_fraction, then GOSS
     # (int(1 / 0.1) + 1 = 11 trees before it samples), and continued

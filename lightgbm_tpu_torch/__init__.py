@@ -1,7 +1,9 @@
 """lightgbm_tpu_torch: the PyTorch / CUDA port of lightgbm_tpu.
 
 LightGBM's Python API on torch tensors: Dataset (dense, pandas, Arrow,
-scipy sparse, text and binary file inputs), Booster, train, cv and its
+scipy sparse, text and binary file inputs; Sequence, two_round and
+data_source=chunked inputs larger than host RAM through the data plane,
+data/), Booster, train, cv and its
 CVBooster, the callbacks, and the scikit-learn estimators (which need
 scikit-learn, as in the JAX package). The histogram, partition, take and
 segment-sum passes of training run as hand-written CUDA kernels for the
@@ -38,14 +40,13 @@ from .plotting import (
     plot_tree,
 )
 from .sklearn import LGBMClassifier, LGBMModel, LGBMRanker, LGBMRegressor
-from . import serving
+from . import data, serving
 
 __version__ = "0.1.0"
 
 # public names of the JAX package the port does not implement yet, with
 # the ROADMAP item that ports each; each raises NotImplementedError
 NOT_PORTED = {
-    "Sequence": "A.10",
     "set_network": "A.8",
     "DaskLGBMClassifier": "A.8",
     "DaskLGBMRegressor": "A.8",
@@ -73,7 +74,8 @@ __all__ = ["Booster", "CVBooster", "CallbackEnv", "Dataset",
            "EarlyStopException", "LGBMClassifier", "LGBMModel", "LGBMRanker",
            "LGBMRegressor", "LightGBMError", "Sequence", "cv",
            "early_stopping", "log_evaluation", "record_evaluation",
-           "register_logger", "reset_parameter", "serving", "set_network",
+           "register_logger", "reset_parameter", "data", "serving",
+           "set_network",
            "train", "DaskLGBMClassifier", "DaskLGBMRegressor",
            "DaskLGBMRanker", "plot_importance", "plot_split_value_histogram",
            "plot_metric", "plot_tree", "create_tree_digraph", "__version__"]

@@ -24,14 +24,24 @@ iterations back, refits its trees' leaves on new data, reads and writes
 leaf outputs, gives feature importances and bounds, shuffles its trees,
 and saves / loads the text model and dumps the JSON one.
 
+Inputs larger than host RAM (the data plane, data/): a Sequence or a
+list of them bins in two streamed passes (BinnedDataset.from_sequences);
+two_round=true streams a delimited text file
+(parsers.load_text_file_two_round); data_source=chunked (or a
+data.store.SpooledData input) spools any input to a disk chunk store,
+bins it in two passes and assembles the card's bin matrix chunk by chunk
+from pinned buffers (data/streaming.py). Inputs the chunked path cannot
+take (a reference= validation set, linear_tree, scipy sparse, a .bin
+cache) warn and take the in-RAM path.
+
 Not ported yet, and refused with NotImplementedError naming the ROADMAP
-item: Sequence inputs and two_round=true on a text file (A.10),
-set_network and free_network (A.8).
+item: set_network and free_network (A.8).
 """
 
 from __future__ import annotations
 
 import copy
+import os
 from pathlib import Path
 from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
@@ -53,14 +63,27 @@ def _not_ported(what: str, item: str):
 
 
 class Sequence:
-    """The JAX package's random-access row sequence for streamed Dataset
-    construction (reference basic.py:905). Streamed construction is not
-    ported: making one raises."""
+    """A random-access row sequence for streamed Dataset construction
+    (reference basic.py:905 Sequence ABC). Subclass with ``__len__`` and
+    ``__getitem__`` (an int row or a slice -> numpy rows), optionally
+    set ``batch_size``, and pass one Sequence or a list of them as
+    ``Dataset(data=...)``: the bin matrix is built in two streamed passes
+    without the whole float matrix."""
 
     batch_size: int = 4096
 
-    def __new__(cls, *args, **kwargs):
-        _not_ported("Sequence inputs (streamed two-pass binning)", "A.10")
+    def __len__(self) -> int:  # pragma: no cover - abstract
+        raise NotImplementedError
+
+    def __getitem__(self, idx):  # pragma: no cover - abstract
+        raise NotImplementedError
+
+
+def _is_sequence_input(data: Any) -> bool:
+    if isinstance(data, Sequence):
+        return True
+    return (isinstance(data, list) and len(data) > 0
+            and all(isinstance(s, Sequence) for s in data))
 
 
 def set_network(*args, **kwargs) -> None:
@@ -227,6 +250,31 @@ class Dataset:
         resolve_device(cfg)
         if self.data is None:
             log.fatal("Cannot construct Dataset: raw data was freed")
+        from .data.store import SpooledData
+
+        if cfg.data_source == "chunked" or isinstance(self.data,
+                                                      SpooledData):
+            # out-of-core: spool, bin in two passes, assemble the device
+            # matrix chunk-wise; an input it cannot take warns and falls
+            # through to the in-RAM paths below
+            binned = self._construct_chunked(cfg)
+            if binned is not None:
+                self._binned = binned
+                if self.feature_name == "auto" and binned.feature_names:
+                    self.feature_name = list(binned.feature_names)
+                return self._freed()
+        if _is_sequence_input(self.data):
+            if cfg.linear_tree:
+                log.fatal("linear_tree needs raw feature values; Sequence "
+                          "streaming does not retain them")
+            names = self._names()
+            self._binned = BinnedDataset.from_sequences(
+                self.data if isinstance(self.data, list) else [self.data],
+                cfg, label=self.label, weight=self.weight, group=self.group,
+                init_score=self.init_score, position=self.position,
+                categorical_feature=self._resolve_categorical(names or []),
+                feature_names=names)
+            return self._freed()
         if isinstance(self.data, (str, Path)):
             if self._construct_file(str(self.data), merged, cfg):
                 return self
@@ -243,9 +291,7 @@ class Dataset:
                     group=self.group, init_score=self.init_score,
                     position=self.position, feature_names=names,
                     reference=ref_binned)
-                if self.free_raw_data:
-                    self.data = None
-                return self
+                return self._freed()
             n, f = self.data.shape
             log.warning(f"sparse input with categorical features or "
                         f"linear_tree takes the dense path: a {n} x {f} "
@@ -259,9 +305,68 @@ class Dataset:
             categorical_feature=self._resolve_categorical(names),
             feature_names=names, reference=ref_binned,
             keep_raw=bool(cfg.linear_tree))
+        return self._freed()
+
+    def _freed(self) -> "Dataset":
+        """construct's end: the raw data goes unless free_raw_data=False."""
         if self.free_raw_data:
             self.data = None
         return self
+
+    def _construct_chunked(self, cfg: Config) -> Optional[BinnedDataset]:
+        """The data_source=chunked construct (data/streaming.py), or None
+        when this input takes an in-RAM path (warned: a reference=
+        validation set must bin with its training set's mappers,
+        linear_tree needs the raw values, a scipy sparse matrix bins
+        sparse; a .bin cache loads binned)."""
+        from .data.store import ChunkStoreError, SpooledData
+        from .data.streaming import construct_chunked
+
+        if self.reference is not None:
+            log.warning("data_source=chunked: valid sets with reference= "
+                        "must bin with the training set's mappers; using "
+                        "the in-RAM path")
+            return None
+        if cfg.linear_tree:
+            log.warning("data_source=chunked does not retain raw feature "
+                        "values required by linear_tree; using the in-RAM "
+                        "path")
+            return None
+        data = self.data
+        names = self._names()
+        if isinstance(data, (str, Path)):
+            from .parsers import is_binary_file
+
+            if is_binary_file(str(data)):
+                return None
+        elif _is_sparse(data):
+            log.warning("data_source=chunked does not ingest scipy sparse "
+                        "matrices; using the sparse in-RAM path")
+            return None
+        elif _is_sequence_input(data):
+            data = data if isinstance(data, list) else [data]
+        elif not isinstance(data, (SpooledData, np.ndarray)):
+            data, frame_names = _to_2d_numpy(data)
+            names = names or frame_names
+        try:
+            return construct_chunked(
+                data, cfg, label=self.label, weight=self.weight,
+                group=self.group, init_score=self.init_score,
+                position=self.position,
+                categorical_feature=self._resolve_categorical(names or []),
+                feature_names=names)
+        except ChunkStoreError as e:
+            log.warning(f"data_source=chunked ingestion failed ({e}); "
+                        "falling back to the in-RAM path")
+            return None
+
+    def _override_meta(self, md) -> None:
+        """The constructor's metadata over a loaded dataset's own."""
+        for name, typ in (("label", np.float32), ("weight", np.float32),
+                          ("group", np.int64), ("init_score", np.float64),
+                          ("position", np.int32)):
+            if getattr(self, name) is not None:
+                setattr(md, name, np.asarray(getattr(self, name), typ))
 
     def _construct_file(self, path: str, params: Dict[str, Any],
                         cfg: Config) -> bool:
@@ -274,21 +379,11 @@ class Dataset:
 
         if is_binary_file(path):
             self._binned = load_binary(path)
-            md = self._binned.metadata
-            for name, typ in (("label", np.float32), ("weight", np.float32),
-                              ("group", np.int64), ("init_score", np.float64),
-                              ("position", np.int32)):
-                if getattr(self, name) is not None:
-                    setattr(md, name, np.asarray(getattr(self, name), typ))
-            if self.free_raw_data:
-                self.data = None
+            self._override_meta(self._binned.metadata)
+            self._freed()
             return True
-        if cfg.two_round:
-            _not_ported("two_round=true (streamed text loading; its sampled "
-                        "bins differ from the whole-file loader's)", "A.10")
         fp = {resolve_alias(k): v for k, v in params.items()}
-        loaded = load_text_file(
-            path,
+        columns = dict(
             header=str(fp.get("header", "false")).lower() in ("true", "1"),
             label_column=fp.get("label_column", 0),
             weight_column=fp.get("weight_column", ""),
@@ -296,6 +391,40 @@ class Dataset:
             ignore_column=fp.get("ignore_column", ""),
             categorical_feature=fp.get("categorical_feature", ""),
         )
+        # two_round streams only when asked (reference
+        # dataset_loader.cpp:210): its bin boundaries come from
+        # reservoir-sampled rows, so a large file only warns. A reference=
+        # set (its training set's mappers), linear_tree (raw values) and a
+        # constructor categorical_feature (names unknown before the parse)
+        # take the whole-file loader.
+        stream_ok = (not cfg.linear_tree and self.reference is None
+                     and self.categorical_feature in ("auto", None, ""))
+        if cfg.two_round and not stream_ok:
+            log.warning("two_round streaming skipped: linear_tree / "
+                        "reference= / constructor categorical_feature need "
+                        "the whole-file loader")
+        elif cfg.two_round:
+            from .parsers import load_text_file_two_round
+
+            res = load_text_file_two_round(path, cfg, **columns)
+            if res is not None:  # None: LibSVM, the whole-file loader
+                self._binned = res["binned"]
+                self._override_meta(self._binned.metadata)
+                if self.feature_name == "auto" and res["feature_names"]:
+                    self.feature_name = res["feature_names"]
+                self._freed()
+                return True
+        elif stream_ok:
+            from .data import warn_over_budget
+
+            warn_over_budget(
+                f"text file {path}", os.path.getsize(path),
+                cfg.ram_budget_mb,
+                "pass two_round=true or data_source=chunked to stream it "
+                "with bounded host memory (streamed binning samples rows, "
+                "so results may differ slightly from the whole-file "
+                "loader)")
+        loaded = load_text_file(path, **columns)
         self.data = loaded["X"]
         for name in ("label", "weight", "group", "init_score"):
             if getattr(self, name) is None and loaded[name] is not None:

@@ -113,25 +113,11 @@ def _not_ported(what: str) -> None:
     raise NotImplementedError(f"{what} is not ported yet (ROADMAP queue A)")
 
 
-# keys the port parses but does not act on yet, with the ROADMAP item
-# that ports each (the JAX package's engine.train acts on all of them);
-# set away from its default, each raises
-UNPORTED_KEYS = {
-    "data_source": "A.10 data plane",
-    "ram_budget_mb": "A.10 data plane",
-}
-
-
 def check_supported(config: Config) -> None:
-    """Refuse every option the port does not implement yet, loudly."""
-    from .config import _PARAMS
-
+    """Refuse every option the port does not implement yet, loudly: the
+    distributed learners (ROADMAP A.8). Every other key the JAX package's
+    engine.train acts on acts here too (the data plane's, A.10, last)."""
     c = config
-    for key, item in UNPORTED_KEYS.items():
-        if getattr(c, key) != _PARAMS[key][0]:
-            raise NotImplementedError(
-                f"{key}={getattr(c, key)!r} is not ported yet (ROADMAP "
-                f"{item})")
     if c.boosting not in ("gbdt", "dart", "rf"):
         log.fatal(f"Unknown boosting type {c.boosting}")
     if c.tree_learner not in ("serial",):

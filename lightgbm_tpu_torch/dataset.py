@@ -15,7 +15,10 @@ device:
   dataset.h:48-399) is validated host-side and shipped as device arrays;
 - a scipy sparse matrix is binned from its stored values (from_csr,
   never densified), and copy_subrow takes a row subset that shares the
-  mappers and the EFB layout (Dataset.subset, cv's folds).
+  mappers and the EFB layout (Dataset.subset, cv's folds);
+- Sequence inputs bin in two streamed passes (from_sequences, bin_chunk),
+  and data/streaming.py's StreamedBinnedDataset keeps its bins on disk
+  and assembles the device matrix chunk by chunk.
 
 There is no FixHistogram equivalent: the reference omits each feature's
 most-frequent bin from sparse storage and reconstructs it from parent
@@ -90,6 +93,27 @@ def _choose_bin_dtype(max_num_bin: int) -> Any:
     if max_num_bin <= 65536:
         return np.uint16
     return np.int32
+
+
+def bin_chunk(proto: "BinnedDataset", chunk: np.ndarray, dtype) -> np.ndarray:
+    """One (rows, features) float chunk binned with a constructed
+    dataset's mappers (and EFB-encoded) -> its (G, rows) columns: the
+    second pass of the reference's two-pass extract
+    (dataset_loader.cpp:1399), shared by the Sequence path, two_round text
+    loading and the chunk store. values_to_bins takes the native path
+    above 32,768 values and gives the Python path's bins bit for bit."""
+    used = proto.used_features
+    sub = np.empty((len(used), chunk.shape[0]), dtype=dtype)
+    for i, f in enumerate(used):
+        sub[i] = proto.mappers[f].values_to_bins(chunk[:, f]).astype(dtype)
+    if proto.bundle_layout is not None:
+        from .bundling import encode
+
+        um = [proto.mappers[f] for f in used]
+        sub, _ = encode(sub, proto.bundle_layout,
+                        [m.num_bin for m in um],
+                        [m.most_freq_bin for m in um], dtype)
+    return sub
 
 
 @dataclass
@@ -431,10 +455,66 @@ class BinnedDataset:
         )
 
     @staticmethod
-    def from_sequences(*_args, **_kwargs) -> "BinnedDataset":
-        raise NotImplementedError(
-            "Sequence inputs (streamed two-pass binning) are not ported yet "
-            "(ROADMAP A.10)")
+    def from_sequences(
+        seqs: Sequence[Any],
+        config: Config,
+        label: Optional[np.ndarray] = None,
+        weight: Optional[np.ndarray] = None,
+        group: Optional[np.ndarray] = None,
+        init_score: Optional[np.ndarray] = None,
+        position: Optional[np.ndarray] = None,
+        categorical_feature: Optional[Sequence[int]] = None,
+        feature_names: Optional[Sequence[str]] = None,
+    ) -> "BinnedDataset":
+        """Two-pass construction from random-access Sequences (reference
+        python Sequence basic.py:905 and the push APIs dataset.h:518-627):
+        pass 1 samples rows across all sequences (the JAX package's draw)
+        and builds the mappers; pass 2 bins batch-sized chunks straight
+        into the integer matrix. The whole float matrix never exists."""
+        lens = [len(s) for s in seqs]
+        total = int(np.sum(lens))
+        if total == 0:
+            log.fatal("cannot construct Dataset from empty sequences")
+        rng = np.random.RandomState(config.data_random_seed)
+        n_sample = min(total, config.bin_construct_sample_cnt)
+        idx = np.sort(rng.choice(total, n_sample, replace=False))
+        bounds = np.concatenate([[0], np.cumsum(lens)])
+
+        def row(g: int) -> np.ndarray:
+            s = int(np.searchsorted(bounds, g, side="right")) - 1
+            return np.asarray(seqs[s][int(g - bounds[s])],
+                              np.float64).reshape(-1)
+
+        sample = np.asarray([row(g) for g in idx])
+        proto = BinnedDataset.from_numpy(
+            sample, config, categorical_feature=categorical_feature,
+            feature_names=feature_names)
+        dtype = proto.bins.dtype
+        bins = np.empty((proto.bins.shape[0], total), dtype=dtype)
+        row0 = 0
+        for s in seqs:
+            bs = int(getattr(s, "batch_size", 4096) or 4096)
+            for lo in range(0, len(s), bs):
+                chunk = np.asarray(s[lo: lo + bs], np.float64)
+                if chunk.ndim == 1:
+                    chunk = chunk.reshape(1, -1)
+                bins[:, row0: row0 + chunk.shape[0]] = bin_chunk(
+                    proto, chunk, dtype)
+                row0 += chunk.shape[0]
+        return BinnedDataset(
+            bins=bins,
+            mappers=proto.mappers,
+            used_features=proto.used_features,
+            num_data=total,
+            metadata=_metadata(total, label, weight, group, init_score,
+                               position),
+            feature_names=list(proto.feature_names),
+            max_num_bin=proto.max_num_bin,
+            row_block=proto.row_block,
+            monotone_constraints=proto.monotone_constraints,
+            bundle_layout=proto.bundle_layout,
+            bundle_expand=proto.bundle_expand,
+        )
 
     def _subset_metadata(self, idx: np.ndarray) -> Metadata:
         """The metadata of a row subset. Only a subset aligned with whole
@@ -527,11 +607,19 @@ class BinnedDataset:
         device = torch.device(device)
         if self._device is not None and self._device["bins"].device == device:
             return self._device
+        bins_fm = np.zeros((self.bins.shape[0], self.num_rows_padded()),
+                           dtype=np.int32)  # bundle columns x padded rows
+        bins_fm[:, : self.num_data] = self.bins
+        self._device = self._device_dict(torch.from_numpy(bins_fm).to(device),
+                                         device)
+        return self._device
+
+    def _device_dict(self, bins, device) -> Dict[str, Any]:
+        """device_arrays' dict around an assembled (G, Np) int32 matrix."""
+        import torch
+
         npad = self.num_rows_padded()
         f = self.num_used_features
-        ncols = self.bins.shape[0]  # bundle columns (== f without EFB)
-        bins_fm = np.zeros((ncols, npad), dtype=np.int32)
-        bins_fm[:, : self.num_data] = self.bins
         um = self.used_mappers()
         nan_bin = np.array([m.nan_bin for m in um], dtype=np.int32)
         num_bins = np.array([m.num_bin for m in um], dtype=np.int32)
@@ -545,8 +633,8 @@ class BinnedDataset:
         valid = np.zeros(npad, dtype=np.float32)
         valid[: self.num_data] = 1.0
         t = lambda a: torch.from_numpy(a).to(device)
-        self._device = {
-            "bins": t(bins_fm),
+        return {
+            "bins": bins,
             "valid": t(valid),
             "nan_bin": t(nan_bin),
             "num_bins": t(num_bins),
@@ -554,7 +642,6 @@ class BinnedDataset:
             "is_cat": t(is_cat),
             "bundle": self._bundle_info(device),
         }
-        return self._device
 
     def _bundle_info(self, device):
         """Device BundleInfo for the grower, or None without EFB."""

@@ -30,7 +30,8 @@ count rounds absolutely and replay its eval history into the callbacks
 of order >= 20; ``record_file`` / ``anomaly_policy`` stream one flight
 record a round (obs/recorder.py) under the sentinels (obs/anomaly.py),
 and ``anomaly_policy=rollback`` retrains from the checkpoint with a
-decayed learning rate. The keys of ROADMAP A.10 raise.
+decayed learning rate. ``data_source=chunked`` logs its budget once
+here; the data plane itself runs in Dataset.construct (data/).
 
 cv (reference engine.py:627) trains one Booster a fold on
 Dataset.subset's row subsets (folds from _make_n_folds, or the caller's
@@ -268,6 +269,15 @@ def train(
             resume_padding = state.get("train_padding_score")
             log.info(f"Resuming training from checkpoint {found} "
                      f"(round {resume_offset})")
+
+    if cfg.data_source == "chunked":
+        # the out-of-core plane (data/): its per-chunk RSS lands in the
+        # run manifest's data_plane section
+        from .data import DEFAULT_RAM_BUDGET_MB
+
+        log.info("data_source=chunked: host memory bounded by "
+                 f"ram_budget_mb={cfg.ram_budget_mb or DEFAULT_RAM_BUDGET_MB}"
+                 " MB (per-chunk RSS recorded in the run manifest)")
 
     booster = Booster(params=params, train_set=train_set)
     valid_sets = valid_sets or []

@@ -5,8 +5,10 @@ The port of lightgbm_tpu/obs/manifest.py, the same schema
 (``lightgbm-tpu/run-manifest/v1``) and top-level keys: the resolved
 config, the device (the card's name, power limit and memory, or the
 CPU), software versions (python, numpy, torch, CUDA), phase-timer
-totals, the metrics snapshot and the flight-record summary. Two keys
-read the JAX package's jaxpr analysis, which has no counterpart here:
+totals, the metrics snapshot, the flight-record summary and the data
+plane's last ingestion (``data_plane``: spool, pass1, pass2, assemble).
+Two keys read the JAX package's jaxpr analysis, which has no counterpart
+here:
 ``compile`` (its retrace guard's compile counters) and
 ``collectives.static_budget_wire_bytes`` (its static cost budgets); the
 port writes both as ``null``. ``collectives.runtime_wire_bytes_estimate``
@@ -117,6 +119,14 @@ def build_manifest(config: Optional[Any] = None,
     fr = last_summary()
     if fr is not None:
         manifest["flight_recorder"] = fr
+    # the last chunked ingestion (spool and binning rates, per-chunk RSS,
+    # the assembly's transfer): the flat-memory record of an out-of-core
+    # run
+    from ..data import last_stats
+
+    dp = last_stats()
+    if dp is not None:
+        manifest["data_plane"] = dp
     if booster is not None:
         g = getattr(booster, "_gbdt", None)
         manifest["model"] = {

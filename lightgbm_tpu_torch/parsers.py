@@ -17,12 +17,20 @@ metadata) as an npz in the JAX package's format, so either package reads
 the other's file; the port adds one key, `bundle`, holding the EFB
 layout, which the JAX package's writer drops.
 
-Streamed loading (two_round=true) is ROADMAP A.10 and raises in
-basic.Dataset.construct.
+Streamed loading (two_round=true, reference dataset_loader.cpp:210 and
+the two-pass extract at :1399): iter_text_chunks reads a delimited file
+a chunk of lines at a time, each chunk through np.loadtxt as the JAX
+package reads it (so a missing-value token raises there, where the
+whole-file native parser gives NaN); scan_text_file reservoir-samples
+pass 1 with the JAX package's RandomState draws, and
+load_text_file_two_round bins pass 2 chunk by chunk, host memory
+O(chunk) plus the binned matrix. The chunk store's text spool
+(data/store.py) reads through the same chunks.
 """
 
 from __future__ import annotations
 
+import io
 import os
 import pickle
 import re
@@ -216,10 +224,195 @@ def load_text_file(
     }
 
 
+def delimited_layout(p: Path, header: bool, label_column: Any,
+                     weight_column: Any, group_column: Any,
+                     ignore_column: Any):
+    """The columns of a delimited text file as the streamed readers take
+    them (two_round, the chunk store's text spool): None for LibSVM, else
+    (delimiter, header lines to skip, the kept feature columns, their
+    names, the label / weight / group column indices or None)."""
+    sample_lines = _read_lines(p, 5)
+    fmt = detect_format(sample_lines[1:] if header and len(sample_lines) > 1
+                        else sample_lines)
+    if fmt == "libsvm":
+        return None
+    delim = "\t" if fmt == "tsv" else ","
+    names: List[str] = []
+    skip = 0
+    if header:
+        names = [c.strip() for c in sample_lines[0].split(delim)]
+        skip = 1
+    ncol = len(sample_lines[skip].split(delim))
+    lbl_idx = _resolve_column(label_column, names)
+    w_idx = _resolve_column(weight_column, names)
+    g_idx = _resolve_column(group_column, names)
+    ign = set(_resolve_columns(ignore_column, names))
+    drop = {i for i in (lbl_idx, w_idx, g_idx) if i is not None} | ign
+    keep = [i for i in range(ncol) if i not in drop]
+    feat_names = [names[i] for i in keep] if names else []
+    return delim, skip, keep, feat_names, lbl_idx, w_idx, g_idx
+
+
+def iter_text_chunks(path: Path, delim: str, skip: int,
+                     chunk_rows: int = 65536):
+    """(rows, columns) float64 chunks of a delimited text file, one
+    sequential read, each chunk of at most chunk_rows lines parsed by
+    np.loadtxt."""
+    buf: List[str] = []
+    with open(path, "r") as f:
+        for _ in range(skip):
+            f.readline()
+        for line in f:
+            line = line.strip("\r\n")
+            if not line:
+                continue
+            buf.append(line)
+            if len(buf) >= chunk_rows:
+                yield np.loadtxt(io.StringIO("\n".join(buf)),
+                                 delimiter=delim, dtype=np.float64, ndmin=2)
+                buf = []
+    if buf:
+        yield np.loadtxt(io.StringIO("\n".join(buf)), delimiter=delim,
+                         dtype=np.float64, ndmin=2)
+
+
+def scan_text_file(path: Path, delim: str, skip: int, n_sample: int,
+                   seed: int, keep_cols: List[int],
+                   small_cols: List[Optional[int]],
+                   chunk_rows: int = 65536):
+    """Pass 1 of two_round loading: one sequential read that
+    reservoir-samples `n_sample` feature rows (Algorithm R, vectorized a
+    chunk at a time with the JAX package's RandomState draws; the
+    reference's SampleTextData, dataset_loader.cpp:1399) and keeps the
+    per-row metadata columns whole (O(N) scalars).
+
+    Returns (total rows, sample (n, F), [the metadata columns])."""
+    rng = np.random.RandomState(seed)
+    reservoir: Optional[np.ndarray] = None
+    seen = 0
+    meta_parts: List[List[np.ndarray]] = [[] for _ in small_cols]
+    for chunk in iter_text_chunks(path, delim, skip, chunk_rows):
+        m = len(chunk)
+        feats = chunk[:, keep_cols]
+        for j, c in enumerate(small_cols):
+            if c is not None:
+                meta_parts[j].append(chunk[:, c].copy())
+        if reservoir is None:
+            reservoir = np.empty((n_sample, feats.shape[1]), np.float64)
+        fill = min(max(n_sample - seen, 0), m)
+        if fill:
+            reservoir[seen:seen + fill] = feats[:fill]
+        if m > fill:
+            # rows seen+fill+1 .. seen+m: each accepted with probability
+            # n / (its index) into a uniform slot (Algorithm R)
+            idx = np.arange(seen + fill + 1, seen + m + 1)
+            accept = rng.rand(m - fill) < (n_sample / idx)
+            nacc = int(accept.sum())
+            if nacc:
+                slots = rng.randint(0, n_sample, nacc)
+                reservoir[slots] = feats[fill:][accept]
+        seen += m
+    if seen == 0:
+        log.fatal(f"data file {path} has no data rows")
+    metas = [(np.concatenate(p) if p else None) for p in meta_parts]
+    return seen, reservoir[: min(n_sample, seen)], metas
+
+
+def load_text_file_two_round(
+    path: str,
+    config,
+    *,
+    header: bool = False,
+    label_column: Any = 0,
+    weight_column: Any = "",
+    group_column: Any = "",
+    ignore_column: Any = "",
+    categorical_feature: Any = "",
+    chunk_rows: int = 65536,
+) -> Optional[Dict[str, Any]]:
+    """The streamed (two_round) load: pass 1 samples and counts, pass 2
+    bins chunk by chunk into the integer matrix; the float matrix never
+    exists in host memory. Delimited formats only: LibSVM warns and
+    returns None (the caller takes the whole-file loader)."""
+    from .dataset import BinnedDataset, Metadata, bin_chunk
+
+    p = Path(path)
+    if not p.exists():
+        log.fatal(f"data file {path} does not exist")
+    layout = delimited_layout(p, header, label_column, weight_column,
+                              group_column, ignore_column)
+    if layout is None:
+        log.warning("two_round streaming supports delimited formats; "
+                    "LibSVM falls back to whole-file loading")
+        return None
+    delim, skip, keep, feat_names, lbl_idx, w_idx, g_idx = layout
+    total, sample, (label, weight, qid) = scan_text_file(
+        p, delim, skip, min(config.bin_construct_sample_cnt, 10 ** 9),
+        config.data_random_seed, keep, [lbl_idx, w_idx, g_idx],
+        chunk_rows=chunk_rows)
+    cats = _resolve_columns(categorical_feature, feat_names)
+    proto = BinnedDataset.from_numpy(sample, config,
+                                     categorical_feature=cats or None,
+                                     feature_names=feat_names or None)
+    dtype = proto.bins.dtype
+    bins = np.empty((proto.bins.shape[0], total), dtype=dtype)
+    row0 = 0
+    for chunk in iter_text_chunks(p, delim, skip, chunk_rows):
+        bins[:, row0:row0 + len(chunk)] = bin_chunk(proto, chunk[:, keep],
+                                                    dtype)
+        row0 += len(chunk)
+
+    group = None
+    if qid is not None:
+        runs = np.flatnonzero(np.diff(qid)) + 1
+        group = np.diff(np.concatenate([[0], runs, [len(qid)]])
+                        ).astype(np.int64)
+    init_score = None
+    wf = Path(str(p) + ".weight")
+    if weight is None and wf.exists():
+        weight = np.loadtxt(wf, dtype=np.float64, ndmin=1)
+    qf, gf = Path(str(p) + ".query"), Path(str(p) + ".group")
+    if group is None and qf.exists():
+        group = np.loadtxt(qf, dtype=np.int64, ndmin=1)
+    elif group is None and gf.exists():
+        group = np.loadtxt(gf, dtype=np.int64, ndmin=1)
+    inf = Path(str(p) + ".init")
+    if inf.exists():
+        init_score = np.loadtxt(inf, dtype=np.float64, ndmin=1)
+
+    meta = Metadata(
+        label=(np.asarray(label, np.float32) if label is not None
+               else np.zeros(total, np.float32)),
+        weight=(np.asarray(weight, np.float32) if weight is not None
+                else None),
+        group=group,
+        init_score=(np.asarray(init_score, np.float64)
+                    if init_score is not None else None),
+        position=None,
+    )
+    meta.check(total)
+    binned = BinnedDataset(
+        bins=bins,
+        mappers=proto.mappers,
+        used_features=proto.used_features,
+        num_data=total,
+        metadata=meta,
+        feature_names=list(proto.feature_names),
+        max_num_bin=proto.max_num_bin,
+        row_block=proto.row_block,
+        monotone_constraints=proto.monotone_constraints,
+        bundle_layout=proto.bundle_layout,
+        bundle_expand=proto.bundle_expand,
+    )
+    return {"binned": binned, "feature_names": feat_names or None,
+            "categorical_feature": cats or None}
+
+
 def save_binary(binned, path: str) -> None:
     """Serialize a constructed BinnedDataset (reference SaveBinaryFile,
     dataset.h:700): bin matrix, per-feature mappers, metadata; loading
-    skips parsing and FindBin."""
+    skips parsing and FindBin. A streamed dataset's matrix (a (G, 0)
+    placeholder in memory) is streamed back from its chunks first."""
     m = binned.metadata
     mapper_blobs = []
     for mp in binned.mappers:
@@ -244,7 +437,8 @@ def save_binary(binned, path: str) -> None:
     np.savez_compressed(
         fh,
         magic=BIN_MAGIC,
-        bins=binned.bins,
+        bins=(binned.materialize_bins()
+              if hasattr(binned, "materialize_bins") else binned.bins),
         used_features=np.asarray(binned.used_features, np.int64),
         label=(np.asarray(m.label, np.float64) if m.label is not None
                else np.zeros(0)),

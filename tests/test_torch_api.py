@@ -513,22 +513,36 @@ def test_not_ported_names_are_public_names_of_the_jax_package():
 
 
 def test_refusals_name_their_item(tmp_path):
+    """A.8 refuses naming its item; A.10's Sequence, two_round and
+    from_sequences construct since the data plane was ported."""
     X, y, *_ = _data("binary")
-    with pytest.raises(NotImplementedError, match="A.10"):
-        lgb_t.Sequence()
+
+    class Rows(lgb_t.Sequence):
+        def __len__(self):
+            return len(X)
+
+        def __getitem__(self, idx):
+            return X[idx]
+
+    seq = lgb_t.Dataset(Rows(), label=y, params=CPU).construct()
+    ref = lgb_t.Dataset(X, label=y, params=CPU).construct()
+    np.testing.assert_array_equal(seq._binned.bins, ref._binned.bins)
     path = tmp_path / "t.csv"
     np.savetxt(path, np.column_stack([y, X]), delimiter=",", fmt="%.17g")
-    with pytest.raises(NotImplementedError, match="A.10"):
-        lgb_t.Dataset(str(path), params={**CPU, "two_round": True}).construct()
+    two = lgb_t.Dataset(str(path), params={**CPU, "two_round": True})
+    np.testing.assert_array_equal(two.construct()._binned.bins,
+                                  ref._binned.bins)
     with pytest.raises(NotImplementedError, match="A.8"):
         lgb_t.set_network("127.0.0.1:12400")
     with pytest.raises(NotImplementedError, match="A.8"):
         lgb_t.Booster({**CPU, "num_machines": 2},
                       lgb_t.Dataset(X, label=y, params=CPU))
+    from lightgbm_tpu_torch.config import Config
     from lightgbm_tpu_torch.dataset import BinnedDataset
 
-    with pytest.raises(NotImplementedError, match="A.10"):
-        BinnedDataset.from_sequences([], None)
+    fs = BinnedDataset.from_sequences([Rows()], Config({}), label=y)
+    np.testing.assert_array_equal(fs.bins, ref._binned.bins)
+    assert set(lgb_t.NOT_PORTED.values()) == {"A.8"}
 
 
 def test_booster_has_no_attribute_error_on_jax_names():

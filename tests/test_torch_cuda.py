@@ -2016,3 +2016,67 @@ def test_gateway_over_card_backends(dev):
         for h in [front] + servers:
             h.shutdown()
             h.server_close()
+
+
+@pytest.mark.parametrize("max_bin", [255, 1000])
+def test_streamed_assembly_on_card(dev, tmp_path, monkeypatch, max_bin):
+    """The data plane's device assembly at depth 1 over ten chunks: the
+    card's bin matrix is the in-RAM set's bit for bit (uint8 and uint16
+    stored bins), the training stream waited on the copy stream, the
+    stored bytes crossed PCIe from pinned slots, and no torch call ran on
+    the reader thread. Two fused trees on each set give the same model."""
+    import threading
+
+    from lightgbm_tpu_torch.data import last_stats, reset_stats
+    from lightgbm_tpu_torch.data import streaming
+
+    rs = np.random.RandomState(3)
+    X = rs.randn(20000, 6)
+    y = (X[:, 0] + 0.5 * X[:, 1] + 0.3 * rs.randn(20000) > 0).astype(float)
+    base = {"objective": "binary", "num_leaves": 15, "verbosity": -1,
+            "max_bin": max_bin}
+    p = {**base, "data_source": "chunked", "data_chunk_rows": 2048,
+         "data_spool_dir": str(tmp_path / "spool")}
+    ds = lgb.Dataset(X, label=y, params=p).construct()
+    ref = lgb.Dataset(X, label=y, params=base).construct()
+    monkeypatch.setattr(streaming, "prefetch_depth", lambda *a: 1)
+    waits, seen = [], set()
+    real_wait = torch.cuda.Stream.wait_stream
+
+    def wait_stream(self, other):
+        waits.append((self, other))
+        return real_wait(self, other)
+
+    def prof(frame, event, arg):
+        if threading.current_thread().name != "chunk-prefetch":
+            return
+        mods = [frame.f_globals.get("__name__", "")]
+        if event == "c_call":
+            mods += [getattr(arg, "__module__", None) or "",
+                     type(getattr(arg, "__self__", None)).__module__]
+        seen.update(m for m in mods if m.split(".")[0] == "torch")
+
+    monkeypatch.setattr(torch.cuda.Stream, "wait_stream", wait_stream)
+    reset_stats()
+    threading.setprofile(prof)
+    try:
+        bins = ds._binned.device_arrays(dev)["bins"]
+    finally:
+        threading.setprofile(None)
+    asm = last_stats()["assemble"]
+    assert asm["chunks"] == 10 and asm["prefetch_depth"] == 1
+    itemsize = 1 if max_bin <= 256 else 2
+    assert asm["h2d_bytes"] == 6 * 20000 * itemsize
+    assert asm["pinned_mb"] > 0 and asm["h2d_seconds"] > 0
+    assert not seen, seen
+    default = torch.cuda.current_stream(dev)
+    assert any(s == default and o != default for s, o in waits), waits
+    assert bins.dtype == torch.int32 and bins.device.type == "cuda"
+    assert torch.equal(bins, ref._binned.device_arrays(dev)["bins"])
+    bc = lgb.train(p, ds, 2)  # on the matrix just assembled
+    br = lgb.train(base, ref, 2)
+    strip = lambda t: [ln for ln in t.splitlines()
+                       if not ln.startswith(("[data_source",
+                                             "[data_chunk_rows",
+                                             "[data_spool_dir"))]
+    assert strip(bc.model_to_string()) == strip(br.model_to_string())

@@ -139,7 +139,7 @@ def test_auto_means_int16_everywhere():
      "monotone_constraints_method": "advanced"},
     {"tree_learner": "data"},
     {"tree_learner": "feature"},
-    {"data_source": "chunked"},
+    {"tree_learner": "data", "num_machines": 4},
 ])
 def test_unported_options_raise(extra):
     X, y = _tiny()
@@ -156,10 +156,11 @@ def test_unported_options_raise(extra):
     {"monotone_constraints": [1, 0, 0],
      "monotone_constraints_method": "advanced"},
     {"tpu_debug_check_split": True},
+    {"data_source": "chunked", "data_chunk_rows": 2048},
 ])
 def test_formerly_refused_options_train(extra):
-    """linear_tree, monotone intermediate / advanced and
-    tpu_debug_check_split train now."""
+    """linear_tree, monotone intermediate / advanced,
+    tpu_debug_check_split and data_source=chunked train now."""
     X, y = _tiny()
     p = {"objective": "binary", "verbosity": -1, "device_type": "cpu",
          **extra}
@@ -173,6 +174,10 @@ def test_formerly_refused_options_train(extra):
     elif "tpu_debug_check_split" in extra:
         assert gb.fused_ineligible_reason() == \
             "tpu_debug_check_split reads back per iteration"
+    elif "data_source" in extra:
+        ref = lgb.train({**p, "data_source": "memory"},
+                        lgb.Dataset(X, label=y, params=p), 2)
+        np.testing.assert_array_equal(bst.predict(X), ref.predict(X))
     else:
         assert gb.spec.mono_mode == {"intermediate": 1, "advanced": 2}[
             extra["monotone_constraints_method"]]
@@ -193,18 +198,31 @@ def test_formerly_refused_options_train(extra):
 ])
 def test_unported_keys_raise_naming_their_item(key, value, item, tmp_path,
                                                monkeypatch):
-    """Keys the JAX package's engine.train acts on. Those the port does
-    not act on yet (ROADMAP A.10, the data plane) raise instead of being
-    parsed and ignored. Those of A.11's first half (checkpoints, resume,
-    fault plans, the flight recorder, anomaly policies) were refused
-    until they were ported; now each trains and does what it says."""
+    """Keys the JAX package's engine.train acts on, each refused until it
+    was ported and now acting: A.11's first half (checkpoints, resume,
+    fault plans, the flight recorder, anomaly policies) trains and does
+    what it says; A.10's data_source=chunked streams the Dataset through
+    the data plane, and ram_budget_mb sizes its chunks."""
     X, y = _tiny()
     p = {"objective": "binary", "verbosity": -1, "device_type": "cpu",
          key: value}
     if item == "A.10":
-        with pytest.raises(NotImplementedError,
-                           match=f"{key}.*ROADMAP {item}"):
-            lgb.train(p, lgb.Dataset(X, label=y, params=p), 1)
+        from lightgbm_tpu_torch.config import Config
+        from lightgbm_tpu_torch.data import last_stats, reset_stats
+        from lightgbm_tpu_torch.data.streaming import (StreamedBinnedDataset,
+                                                       resolve_chunk_rows)
+
+        reset_stats()
+        p["data_source"] = "chunked"
+        ds = lgb.Dataset(X, label=y, params=p)
+        assert lgb.train(p, ds, 1).num_trees() == 1
+        assert isinstance(ds._binned, StreamedBinnedDataset)
+        st = last_stats()
+        assert st["spool"]["rows"] == len(X)
+        rows = resolve_chunk_rows(X.shape[1], Config(p))
+        assert st["assemble"]["chunk_rows"] == rows
+        if key == "ram_budget_mb":
+            assert rows != resolve_chunk_rows(X.shape[1], Config({}))
         return
     monkeypatch.chdir(tmp_path)
     monkeypatch.delenv("LGBMTPU_FAULT_PLAN", raising=False)

@@ -404,18 +404,43 @@ def test_add_features_from_matches_jax():
         dt.add_features_from(freed)
 
 
-# ---- refusals
+# ---- the former refusals
 def test_refused_inputs_name_their_item(tmp_path):
+    """two_round, Sequence and data_source=chunked were refused until the
+    data plane (A.10) was ported; each constructs and trains now, as the
+    JAX package's does. What stays refused is A.8's."""
     X, y = _dense()
     path = tmp_path / "t.csv"
     _write(path, np.column_stack([y, X]))
-    with pytest.raises(NotImplementedError, match="A.10"):
-        lgb_t.Dataset(str(path), params={**CPU, "two_round": True}) \
-            .construct()
-    with pytest.raises(NotImplementedError, match="A.10"):
-        lgb_t.Sequence()
-    with pytest.raises(NotImplementedError, match="A.10"):
-        lgb_t.train({**PARAMS, **CPU, "data_source": "chunked"},
+    dt = lgb_t.Dataset(str(path), params={**CPU, "two_round": True})
+    dj = lgb_j.Dataset(str(path), params={"two_round": True})
+    dt.construct()
+    dj.construct()
+    _assert_same_binned(dt._binned, dj._binned)
+
+    class Rows(lgb_t.Sequence):
+        batch_size = 128
+
+        def __len__(self):
+            return len(X)
+
+        def __getitem__(self, idx):
+            return X[idx]
+
+    seq = lgb_t.Dataset(Rows(), label=y, params=CPU).construct()
+    np.testing.assert_array_equal(
+        seq._binned.bins,
+        lgb_t.Dataset(X, label=y, params=CPU).construct()._binned.bins)
+    p = {**PARAMS, **CPU}
+    pc = {**p, "data_source": "chunked"}
+    dc = lgb_t.Dataset(X, label=y, params=pc)
+    chunked = lgb_t.train(pc, dc, 2)
+    assert type(dc._binned).__name__ == "StreamedBinnedDataset"
+    np.testing.assert_array_equal(
+        chunked.predict(X),
+        lgb_t.train(p, lgb_t.Dataset(X, label=y, params=CPU), 2).predict(X))
+    with pytest.raises(NotImplementedError, match="A.8"):
+        lgb_t.train({**p, "tree_learner": "data"},
                     lgb_t.Dataset(X, label=y, params=CPU), 1)
 
 
