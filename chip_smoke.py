@@ -13,7 +13,8 @@ Phases, each printed as one JSON line:
   kernel  - one line per kernel (or kernel mode) at its path's shapes: its
             result against the plain PyTorch version on the same inputs
             (exact for the integer histograms, int16 and int8 modes, take
-            and the fixed-point f32 histograms; seg_sum within rtol 1e-5),
+            and the fixed-point f32 histograms; seg_sum within rtol 1e-5 of
+            the plain version in f64),
             bitwise equality across two launches for the f32 reductions
             and the int8 modes, and its median time over CUDA events
             beside the plain version's, one PyTorch library call's, and
@@ -33,6 +34,8 @@ Phases, each printed as one JSON line:
             lines come later too, on arguments captured from the training
             paths, kernel and library timed in turns;
   small   - 20k-row runs on the card against the same runs on the CPU
+            (3 trees, 5 before the distributed phase came; the early
+            stopping and replay runs keep theirs)
             (plain versions), default, exact, use_quantized_grad,
             regression_l1, dart, rf, extras, monotone intermediate and
             advanced, and linear_tree runs, and categorical runs (the
@@ -234,7 +237,8 @@ Phases, each printed as one JSON line:
             then train_mono_exact_fused_vs_eager (the same, 1 warm-up and
             2 timed trees each loop);
   train_linear - linear_tree (linear_lambda 0.1) on the binary
-            workload, 3 eager trees (5 before the cli phase came): trees/s, host ms a tree in the leaf
+            workload, 2 eager trees (5 before the cli phase came, 3
+            before the distributed phase): trees/s, host ms a tree in the leaf
             fits and in the rest, AUC after each tree; the train score of
             50,000 rows against a fresh predict(raw_score=True) and
             predict(device="cuda") against the host walker on 20,000
@@ -294,16 +298,18 @@ Phases, each printed as one JSON line:
             warm-up, /v1/score equal to a direct predict, /metrics with
             lgbmtpu_serve_* series;
   gateway - serving/gateway.py in front of two serve_http backends on
-            card registries (the 50 x 31 model): 8 client threads, 2,000
-            batch-1 requests through the gateway and 2,000 direct (qps,
+            card registries (the 50 x 31 model): 8 client threads, 1,000
+            batch-1 requests through the gateway and 1,000 direct (2,000
+            each before the distributed phase came; qps,
             p50 / p99); 400 requests each under gw_backend_5xx, under
             gw_slow_backend (hedges fired and won within their budget)
             and across a backend's drain (its /readyz 503, no attempt
             reaches it): 0 client failures, every answer within 1e-5 of
             the host walker; the gateway's /metrics merges both
             backends' series;
-  serve_contrib - device TreeSHAP on the 50-tree model, 256 rows (1,024
-            before the cli phase came, 512 before the online loop),
+  serve_contrib - device TreeSHAP on the 50-tree model, 128 rows (1,024
+            before the cli phase came, 512 before the online loop, 256
+            before the distributed phase),
             against host shap.py (8 worker processes): within 1e-5, rows
             summing to the raw score; device ms and peak memory;
   serve_fleet - the multi-tenant ModelFleet: 7 tenants (text cuts of the
@@ -317,6 +323,27 @@ Phases, each printed as one JSON line:
             worst difference from its own TensorForest on the card
             (<= 1e-5) and the slots it used; and one tenant scored from
             two slots of its stack (the same bits, one capture);
+  distributed - the distributed learners (ROADMAP A.8) on the train
+            phase's 1M x 28 rows at 255 leaves: two gloo ranks sharing
+            the card (NCCL takes one rank a GPU), each a process holding
+            half the rows (all of them under feature), binned on the
+            gathered sample; tree_learner data and voting (int16 rounds
+            path, whose sums cross as f32 at this size; voting's default
+            top_k elects all 28 columns) 3 trees, data_quant (data with
+            use_quantized_grad: the int32 reduce-scatter) 3 trees,
+            feature (the exact grower) 2 trees; each rank's trees against
+            the serial run on the card on the same bins, bit for bit:
+            trees/s after a warm tree, collective ms a tree (host wall of
+            the collectives, pinned staging included), wire bytes a tree,
+            launches a tree (each rank's counts, reset before its timed
+            trees); serving's mesh= at the two ranks against the
+            single-process forest and registry (bit for bit); then one
+            NCCL rank (world size 1, the collective layer forced onto it)
+            through every run against serial, 2 trees on 50,000 rows
+            (where the int16 sums take the reduce-scatter too),
+            and the layer's reduce_scatter / all_gather / all_reduce on
+            CUDA tensors (the loop stays eager under a mesh: nothing is
+            captured);
 then the `kernels` summary line and, last, {"ok": true, "device": ...}.
 Any failure raises: no `ok` line, non-zero exit. Without a CUDA device,
 or without the package beside it, the script exits non-zero at once.
@@ -750,15 +777,27 @@ def round_shape(torch, hist, ch, args, name, library=True):
 
 def seg_sum_numbers(torch, hist, ch, vals, idx, num_out):
     """seg_sum on (k, N) values: bitwise across two launches, within rtol
-    1e-5 of the plain version (f32 index_add_), the kernel and index_add_
-    timed in turns (in_turns), its device operations per call, and the
-    bound."""
+    1e-5 (atol 1e-3) of the plain version evaluated in f64 on the same
+    values, and within the kernel's own bound of it (|sum| x 2^-23 + N x
+    2^-38: the fixed-point rounding and the one f32 rounding), the kernel
+    and index_add_ timed in turns (in_turns), its device operations per
+    call, and the bound. The plain version in f32 (index_add_ with float
+    atomics on the card) lands its adds in no fixed order, and at L = 31
+    its own rounding error moves from run to run past the atol, so it is
+    timed and its distance from the f64 sums reported, but the kernel is
+    held against the f64 sums."""
     run = lambda: hist.seg_sum(vals, idx, num_out)
-    s1, s2, sp = run(), run(), hist.seg_sum_plain(vals, idx, num_out)
+    s1, s2 = run(), run()
+    sp = hist.seg_sum_plain(vals, idx, num_out)
+    sp64 = hist.seg_sum_plain(vals.double(), idx, num_out)
     torch.cuda.synchronize()
     if not torch.equal(s1, s2):
         raise AssertionError("seg_sum is not bitwise reproducible")
-    if not torch.allclose(s1, sp, rtol=1e-5, atol=1e-3):
+    a64 = s1.double()
+    n_rows = vals.shape[1]
+    if not (torch.allclose(a64, sp64, rtol=1e-5, atol=1e-3)
+            and bool(((a64 - sp64).abs() <= sp64.abs() * 2.0 ** -23
+                      + n_rows * 2.0 ** -38).all())):
         raise AssertionError("seg_sum disagrees with its plain version")
     k, n = vals.shape
     ok_i = (idx >= 0) & (idx < num_out)
@@ -768,8 +807,12 @@ def seg_sum_numbers(torch, hist, ch, vals, idx, num_out):
     b, bb = bound(n * 4 * (k + 1) + k * num_out * 4, k * n)
     return dict(
         shape=f"vals ({k},{n}) L={num_out}",
-        tolerance="rtol 1e-5 (atol 1e-3) vs plain; bitwise across runs",
-        max_abs_err=float((s1 - sp).abs().max()), bitwise_repeat=True,
+        tolerance=("rtol 1e-5 (atol 1e-3) and |sum| x 2^-23 + N x 2^-38 "
+                   "vs the plain version in f64; bitwise across runs"),
+        max_abs_err=float((a64 - sp64).abs().max()),
+        plain_f32_max_abs_err=float((sp.double() - sp64).abs().max()),
+        max_abs_err_vs_plain_f32=float((s1 - sp).abs().max()),
+        bitwise_repeat=True,
         **turns, launches_per_call=launches_per_call(run),
         library_call="index_add_ into a (k, L + 1) buffer",
         plain_ms=cuda_ms(lambda: hist.seg_sum_plain(vals, idx, num_out)),
@@ -1289,6 +1332,11 @@ def airline_like(rows: int, valid_rows: int, seed: int = 23,
     return X[:rows], y[:rows], X[rows:], y[rows:]
 
 
+# trees of small's card-against-CPU runs (5 until the distributed phase
+# came; the early stopping and replay runs keep theirs)
+SMALL_TREES = 3
+
+
 def small_phase(lgb, np):
     """Small runs on the card against the same runs on the CPU: the
     default path, the exact path, use_quantized_grad (int8 modes),
@@ -1320,7 +1368,8 @@ def small_phase(lgb, np):
         preds = {}
         for device in ("cuda", "cpu"):
             p = dict(params, device_type=device, **extra)
-            bst = lgb.train(p, lgb.Dataset(X, label=label, params=p), 5)
+            bst = lgb.train(p, lgb.Dataset(X, label=label, params=p),
+                            SMALL_TREES)
             preds[device] = bst.predict(Xv, raw_score=True)
         errs[path] = float(np.abs(preds["cuda"] - preds["cpu"]).max())
     # categorical: the airline schema plus a 3-category column
@@ -1336,7 +1385,7 @@ def small_phase(lgb, np):
             p = dict(params, device_type=device, **extra)
             ds = lgb.Dataset(Xc, label=yc, categorical_feature=cat_cols,
                              params=p)
-            bst = lgb.train(p, ds, 5)
+            bst = lgb.train(p, ds, SMALL_TREES)
             preds[device] = bst.predict(Xcv, raw_score=True)
             if not any(int(t.num_cat) > 0 for t in bst._gbdt.models):
                 raise AssertionError(f"small {path}: no categorical split")
@@ -1353,7 +1402,7 @@ def small_phase(lgb, np):
     sampled, goss_binary = sampled_runs(lgb, np, params, X, z, Xv, zv)
     errs.update(sampled)
     held = {k: v for k, v in errs.items() if k != "cat_quant"}
-    emit({"phase": "small", "rows": 20000, "trees": 5,
+    emit({"phase": "small", "rows": 20000, "trees": SMALL_TREES,
           "max_abs_pred_diff_card_vs_cpu": errs, "tolerance": 1e-4,
           "held": sorted(held), "cat_quant_replay": replay,
           "goss_binary": goss_binary})
@@ -1398,7 +1447,8 @@ def sampled_runs(lgb, np, params, X, z, Xv, zv):
         preds = {}
         for device in ("cuda", "cpu"):
             p = dict(params, device_type=device, **extra)
-            bst = lgb.train(p, lgb.Dataset(X, label=label, params=p), 5)
+            bst = lgb.train(p, lgb.Dataset(X, label=label, params=p),
+                            SMALL_TREES)
             preds[device] = bst.predict(Xv, raw_score=True)
         errs[name] = float(np.abs(preds["cuda"] - preds["cpu"]).max())
     # early stopping that fires: at 63 leaves and lr 1 the validation
@@ -2228,12 +2278,13 @@ def mono_tables_ms(torch, lgb, ds, method: str, directions: dict) -> dict:
 def train_mono_phase(torch, lgb, np, ds, vs, Xv, method: str,
                      directions: dict) -> dict:
     """train_mono_<method>: the monotone path through fused_vs_eager (1
-    warm-up and 2 timed trees a loop), AUC rising from the first tree to
+    warm-up and 1 timed tree a loop, 2 before the distributed phase
+    came), AUC rising from the first tree to
     the last on both loops, with the tables' device ms a tree beside."""
     tables = mono_tables_ms(torch, lgb, ds, method, directions)
     name = "train_mono_" + method
     line = fused_vs_eager(torch, lgb, ds, vs, name,
-                          mono_params(28, method, directions), n_timed=2,
+                          mono_params(28, method, directions), n_timed=1,
                           check=mono_check(np, Xv, method, directions))
     emit({"phase": name + "_tables", **tables})
     for loop, (first, last) in line["records_first_last"].items():
@@ -4677,7 +4728,7 @@ def _gw_delta(before, after):
             if v != before.get(k, 0.0)}
 
 
-def gateway_phase(torch, np, lgb, ch, bst, n_feat, n_requests=2000,
+def gateway_phase(torch, np, lgb, ch, bst, n_feat, n_requests=1000,
                   n_fault=200):
     """The serving gateway (serving/gateway.py) in front of two
     serve_http backends, each on a card registry in this process with
@@ -5035,9 +5086,356 @@ def serve_phases(torch, lgb, ch, hist, np, ds, Xv, cat_sets, rank_sets):
     serve_loaded_phase(torch, np, lgb, bst, Xv.shape[1], "higgs_500x255")
     serve_http_phase(np, lgb, small, B["features"])
     gateway_phase(torch, np, lgb, ch, small, B["features"])
-    serve_contrib_phase(torch, np, lgb, small, B["features"], rows=256)
+    serve_contrib_phase(torch, np, lgb, small, B["features"], rows=128)
     serve_fleet_phase(torch, np, lgb, bst, Xv[:4096], small20)
     return line, launches
+
+
+# ---- the distributed learners (ROADMAP A.8) ----------------------------
+DIST_PARAMS = {"objective": "binary", "num_leaves": 255, "max_bin": 255,
+               "learning_rate": 0.1, "min_data_in_leaf": 20,
+               "verbosity": -1}
+# run, tree learner, extra params, trees (the first is the warm tree).
+# At 500,000 rows a rank the int16 path's worst-case sums pass 2^24, so
+# its histograms cross as f32 sums of the integer levels (rs_wire_dtype
+# None, as in the JAX package); use_quantized_grad's 4 levels keep them
+# under it and ride the int32 reduce-scatter (use_rs)
+DIST_RUNS = (("data", "data", {}, 3),
+             ("data_quant", "data", {"use_quantized_grad": True}, 3),
+             ("voting", "voting", {}, 3),
+             ("feature", "feature", {"tpu_growth_mode": "exact",
+                                     "enable_bundle": False}, 2))
+# the kernels each run's trees launch on every rank
+DIST_KERNELS = {"data": ("hist_nat", "hist_round", "take_small", "seg_sum"),
+                "data_quant": ("hist_nat_int8", "hist_round_int8",
+                               "take_small"),
+                "voting": ("hist_nat", "hist_round", "take_small",
+                           "seg_sum"),
+                "feature": ("hist", "take_small")}
+
+
+def _trees_text(model: str) -> str:
+    """The trees of a model text, without the header and parameters that
+    name the learner."""
+    i = model.index("Tree=0") if "Tree=0" in model else 0
+    return model[i:model.index("end of trees")]
+
+
+def _eager_cb():
+    def eager(env):
+        pass
+
+    eager.before_iteration = True  # keeps a serial run on the eager loop
+    return eager
+
+
+def _dist_blocks(n: int, world: int):
+    return [(n * r // world, n * (r + 1) // world) for r in range(world)]
+
+
+def dist_rank_main(argv) -> int:
+    """One gloo rank of the distributed phase: python3 chip_smoke.py
+    --dist-rank RANK WORLD STORE OUT_DIR MODEL DEVICE ROWS."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    import lightgbm_tpu_torch as lgb
+    from lightgbm_tpu_torch.learner import cuda_hist as ch
+    from lightgbm_tpu_torch.parallel import multihost
+    from lightgbm_tpu_torch.serving import ModelRegistry, TensorForest
+
+    rank, world = int(argv[0]), int(argv[1])
+    store, out_dir, model_path, device, rows = argv[2:7]
+    rows = int(rows)
+    multihost.init_distributed(
+        init_method=f"file://{Path(store).resolve()}", num_machines=world,
+        machine_rank=rank, backend="gloo")
+    X, y, Xv, _ = higgs_like(rows)
+    lo, hi = _dist_blocks(len(X), world)[rank]
+    params = dict(DIST_PARAMS, device_type=device)
+    ref = multihost.bin_reference(X[lo:hi], params)
+    out = {"rank": rank, "world": world}
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    for run, learner, extra, n_trees in DIST_RUNS:
+        p = {**params, **extra, "tree_learner": learner}
+        Xr, yr = (X, y) if learner == "feature" else (X[lo:hi], y[lo:hi])
+        bst = lgb.Booster(p, lgb.Dataset(Xr, label=yr, reference=ref,
+                                         params=p))
+        gb = bst._gbdt
+        bst.update()  # the warm tree
+        sync()
+        dist.barrier()
+        gb._mesh.stats.reset()
+        ch.reset_launch_counts()
+        t0 = time.perf_counter()
+        for _ in range(n_trees - 1):
+            bst.update()
+        sync()
+        dt = time.perf_counter() - t0
+        launches = dict(ch.LAUNCHES)
+        st = gb._mesh.stats.as_dict()
+        n_t = n_trees - 1
+        out[run] = {
+            "trees": _trees_text(bst.model_to_string()),
+            "resolved": gb.tree_learner_resolved,
+            "mesh": gb._mesh.describe(),
+            "timed_trees": n_t, "trees_per_s": n_t / dt,
+            "collective_ms_per_tree": 1e3 * sum(st["seconds"].values()) / n_t,
+            "wire_bytes_per_tree": st["total_bytes"] / n_t,
+            "staged_bytes_per_tree": st["staged_bytes"] / n_t,
+            "calls_per_tree": {k: v / n_t for k, v in st["calls"].items()},
+            "wire_est_bytes_per_tree": (
+                gb._dp.wire_bytes_per_tree(int(gb.dev["bins"].shape[0]))
+                if learner != "feature" else 0),
+            "launches_per_tree": {k: v / n_t for k, v in launches.items()
+                                  if v},
+        }
+        del bst, gb
+    # serving's mesh=: this rank scores its block of every request
+    with open(model_path) as f:
+        text = f.read()
+    mesh = multihost.world_mesh()
+    Xs = Xv[:20000]
+    forest = TensorForest.from_booster(lgb.Booster(model_str=text),
+                                       device=device, mesh=mesh)
+    reg = ModelRegistry(device=device, mesh=mesh, buckets=(256, 4096))
+    reg.load("m", text)
+    t0 = time.perf_counter()
+    raw = forest.predict_raw(Xs)
+    out["serve_s"] = time.perf_counter() - t0
+    np.save(Path(out_dir) / f"serve_raw.{rank}.npy", raw)
+    np.save(Path(out_dir) / f"serve_reg.{rank}.npy",
+            np.asarray(reg.predict("m", Xs)))
+    out["serve_buckets"] = list(reg._entry("m").dispatcher.buckets)
+    with open(Path(out_dir) / f"rank{rank}.json", "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def nccl_rank_main(argv) -> int:
+    """The one-rank NCCL run of the distributed phase: python3
+    chip_smoke.py --nccl-rank STORE OUT_DIR ROWS. The collective layer is
+    forced onto the one rank (comm.make_mesh at min_size 1), so data,
+    voting and feature run every collective through NCCL on CUDA
+    tensors, against the serial run."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    import lightgbm_tpu_torch as lgb
+    from lightgbm_tpu_torch.parallel import comm, multihost
+
+    store, out_dir, rows = argv[0], argv[1], int(argv[2])
+    multihost.init_distributed(
+        init_method=f"file://{Path(store).resolve()}", num_machines=1,
+        machine_rank=0, backend="nccl", device="cuda:0")
+    make_mesh = comm.make_mesh
+    comm.make_mesh = lambda axis_name="data", device=None, min_size=2: \
+        make_mesh(axis_name, device, 1)
+    X, y, _, _ = higgs_like(rows)
+    params = dict(DIST_PARAMS, device_type="cuda")
+    out = {"backend": str(dist.get_backend())}
+    for run, learner, extra, _n in DIST_RUNS:
+        p = {**params, **extra}
+        ds = lgb.Dataset(X, label=y, params=p)
+        serial = lgb.train(p, ds, 2, callbacks=[_eager_cb()])
+        bst = lgb.train({**p, "tree_learner": learner},
+                        lgb.Dataset(X, label=y, reference=ds, params=p), 2)
+        gb = bst._gbdt
+        out[run] = {
+            "bitwise_vs_serial": _trees_text(bst.model_to_string())
+            == _trees_text(serial.model_to_string()),
+            "resolved": gb.tree_learner_resolved,
+            "mesh": gb._mesh.describe(),
+            "calls": gb._mesh.stats.as_dict()["calls"],
+            "fused": gb._fused is not None,
+        }
+    # the layer on CUDA tensors at one rank: reduce_scatter (int16 ->
+    # int32, padded), all_gather, all_reduce sum and max
+    m = comm.Mesh(None, "data", torch.device("cuda"))
+    x = torch.arange(3 * 5 * 2, dtype=torch.int16,
+                     device="cuda").reshape(3, 5, 2)
+    rs = m.reduce_scatter(x, dim=1)
+    ag = m.all_gather(torch.ones(4, device="cuda"))
+    ar = m.all_reduce(torch.tensor([1.5, 2.0], device="cuda"), "max")
+    out["layer"] = {
+        "reduce_scatter_ok": bool(torch.equal(rs.cpu(), x.cpu().int())),
+        "reduce_scatter_dtype": str(rs.dtype),
+        "all_gather_shape": list(ag.shape),
+        "all_reduce_max": ar.cpu().tolist(),
+        "stats": m.stats.as_dict()}
+    with open(Path(out_dir) / "nccl.json", "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def _spawn(args, log_path, env=None):
+    with open(log_path, "w") as lf:
+        return subprocess.Popen([sys.executable, os.path.abspath(__file__)]
+                                + [str(a) for a in args], stdout=lf,
+                                stderr=subprocess.STDOUT, env=env)
+
+
+def _wait_all(procs, logs, timeout: float) -> None:
+    """Wait for every process; kill them all on a timeout or a failure,
+    and raise with the failing one's log."""
+    deadline = time.perf_counter() + timeout
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.perf_counter()))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, lp in zip(procs, logs):
+        if p.returncode != 0:
+            raise AssertionError(f"{lp} exited {p.returncode}: "
+                                 + Path(lp).read_text()[-3000:])
+
+
+def distributed_phase(torch, np, lgb, X, y, Xv, device="cuda",
+                      nccl_rows=50_000, world=2):
+    """The distributed learners on the card (module docstring,
+    `distributed`): the serial runs here, the ranks in processes."""
+    import shutil
+
+    t_phase = time.perf_counter()
+    work = Path("build") / "chip_smoke" / "dist"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    # the one-rank NCCL process checks equality only: it runs beside the
+    # serial references and the gloo ranks' set-up
+    nlog = str(work / "nccl.log")
+    nccl_proc = (_spawn(["--nccl-rank", work / "nccl_store", work,
+                         nccl_rows], nlog) if nccl_rows else None)
+    try:
+        _distributed_checks(torch, np, lgb, X, y, Xv, device, world, work,
+                            t_phase, nccl_rows, nccl_proc, nlog)
+    finally:
+        if nccl_proc is not None and nccl_proc.poll() is None:
+            nccl_proc.kill()
+            nccl_proc.wait()
+
+
+def _distributed_checks(torch, np, lgb, X, y, Xv, device, world, work,
+                        t_phase, nccl_rows, nccl_proc, nlog):
+    """distributed_phase's serial runs, gloo ranks and checks (the NCCL
+    process already started beside them)."""
+    from lightgbm_tpu_torch.parallel.multihost import (binning_sample,
+                                                       reference_dataset)
+    from lightgbm_tpu_torch.serving import ModelRegistry, TensorForest
+
+    params = dict(DIST_PARAMS, device_type=device)
+    # one process holding every row, binned on the ranks' gathered sample
+    ref = reference_dataset(np.concatenate(
+        [binning_sample(X[lo:hi], params, world)
+         for lo, hi in _dist_blocks(len(X), world)]), params)
+    serial = {}
+    for run, learner, extra, n_trees in DIST_RUNS:
+        p = {**params, **extra}
+        t0 = time.perf_counter()
+        bst = lgb.train(p, lgb.Dataset(X, label=y, reference=ref, params=p),
+                        n_trees, callbacks=[_eager_cb()])
+        serial[run] = {"trees": _trees_text(bst.model_to_string()),
+                       "seconds": time.perf_counter() - t0}
+        if run == "data":
+            model_path = work / "serial_data.txt"
+            bst.save_model(model_path)
+        del bst
+    text = model_path.read_text()
+    Xs = Xv[:20000]
+    raw_1 = TensorForest.from_booster(lgb.Booster(model_str=text),
+                                      device=device).predict_raw(Xs)
+    reg = ModelRegistry(device=device, buckets=(256, 4096))
+    reg.load("m", text)
+    reg_1 = np.asarray(reg.predict("m", Xs))
+    del reg
+
+    t_ranks = time.perf_counter()
+    logs = [str(work / f"rank{r}.log") for r in range(world)]
+    procs = [_spawn(["--dist-rank", r, world, work / "store", work,
+                     model_path, device, len(X)], logs[r])
+             for r in range(world)]
+    _wait_all(procs, logs, 900)
+    ranks_s = time.perf_counter() - t_ranks
+    outs = [json.loads((work / f"rank{r}.json").read_text())
+            for r in range(world)]
+    failures = []
+    for run, learner, _extra, n_trees in DIST_RUNS:
+        r0 = outs[0][run]
+        bitwise = all(o[run]["trees"] == serial[run]["trees"]
+                      for o in outs)
+        missing = [k for k in DIST_KERNELS[run]
+                   if not all(o[run]["launches_per_tree"].get(k, 0) > 0
+                              for o in outs)]
+        emit({"phase": "distributed", "run": run, "learner": learner,
+              "world": world,
+              "rows": int(len(X)), "features": int(X.shape[1]),
+              "num_leaves": DIST_PARAMS["num_leaves"], "trees": n_trees,
+              "mesh": r0["mesh"], "resolved": r0["resolved"],
+              "bitwise_vs_serial": bitwise,
+              "trees_per_s": [o[run]["trees_per_s"] for o in outs],
+              "serial_seconds_incl_dataset": serial[run]["seconds"],
+              "collective_ms_per_tree": [o[run]["collective_ms_per_tree"]
+                                         for o in outs],
+              "wire_bytes_per_tree": r0["wire_bytes_per_tree"],
+              "wire_est_bytes_per_tree": r0["wire_est_bytes_per_tree"],
+              "staged_bytes_per_tree": r0["staged_bytes_per_tree"],
+              "calls_per_tree": r0["calls_per_tree"],
+              "launches_per_tree": [o[run]["launches_per_tree"]
+                                    for o in outs],
+              "kernels_not_launched": missing})
+        if not bitwise or missing or r0["resolved"] != learner:
+            failures.append(run)
+    serve_ok = []
+    for r in range(world):
+        raw_m = np.load(work / f"serve_raw.{r}.npy")
+        reg_m = np.load(work / f"serve_reg.{r}.npy")
+        serve_ok.append(bool(np.array_equal(raw_m, raw_1)
+                             and np.array_equal(reg_m, reg_1)))
+    emit({"phase": "distributed_serve", "world": world, "rows": len(Xs),
+          "bitwise_vs_single_process": serve_ok,
+          "buckets": outs[0]["serve_buckets"],
+          "predict_raw_s": [o["serve_s"] for o in outs]})
+    if not all(serve_ok):
+        failures.append("serve")
+
+    if nccl_proc is not None:
+        failures += nccl_part(work, nccl_rows, nccl_proc, nlog)
+    emit({"phase": "distributed_summary", "seconds":
+          time.perf_counter() - t_phase, "ranks_seconds": ranks_s,
+          "failures": failures})
+    if failures:
+        raise AssertionError(f"distributed phase failed: {failures}")
+
+
+
+
+def nccl_part(work, nccl_rows, proc, nlog) -> list:
+    """The one-rank NCCL process of the distributed phase, waited for;
+    -> what failed."""
+    failures = []
+    t_wait = time.perf_counter()
+    _wait_all([proc], [nlog], 600)
+    nccl = json.loads((work / "nccl.json").read_text())
+    emit({"phase": "distributed_nccl", "world": 1, "rows": nccl_rows,
+          "wait_seconds": time.perf_counter() - t_wait, **nccl})
+    for run, learner, _e, _n in DIST_RUNS:
+        if not (nccl[run]["bitwise_vs_serial"]
+                and nccl[run]["resolved"] == learner
+                and nccl[run]["mesh"]["backend"] == "nccl"):
+            failures.append(f"nccl_{run}")
+    if not nccl["data_quant"]["calls"].get("reduce_scatter"):
+        failures.append("nccl_reduce_scatter")
+    if not (nccl["layer"]["reduce_scatter_ok"]
+            and nccl["layer"]["reduce_scatter_dtype"] == "torch.int32"):
+        failures.append("nccl_layer")
+    return failures
 
 
 def main() -> int:
@@ -5305,7 +5703,7 @@ def main() -> int:
         {"num_leaves": 63, "tpu_growth_mode": "exact",
          **mono_params(X.shape[1], "intermediate", dirs)}, n_timed=2)
     del dm, vm
-    train_linear_phase(torch, lgb, ch, np, X, y, Xv, yv, ds, n_trees=3)
+    train_linear_phase(torch, lgb, ch, np, X, y, Xv, yv, ds, n_trees=2)
 
     # ---- hist_round in each mode on its path's first and fullest rounds
     # (the int16 mode also on the sampled paths' first sampled trees), and
@@ -5356,6 +5754,10 @@ def main() -> int:
                                      serve_launches["take_small"]}
     del cat_sets, rank_sets
 
+    # ---- the distributed learners: gloo ranks sharing the card, one
+    # NCCL rank, serving's mesh=
+    distributed_phase(torch, np, lgb, X, y, Xv)
+
     kernels = []
     for name, d in lines.items():
         path = PATH_OF[name]
@@ -5386,4 +5788,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dist-rank"]:
+        sys.exit(dist_rank_main(sys.argv[2:]))
+    if sys.argv[1:2] == ["--nccl-rank"]:
+        sys.exit(nccl_rank_main(sys.argv[2:]))
     sys.exit(main())

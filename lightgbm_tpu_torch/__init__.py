@@ -17,8 +17,10 @@ package imports neither jax nor lightgbm_tpu.
 The online train-and-serve loop (online/), the serving gateway
 (serving.Gateway) and the plots (plot_importance, plot_metric, plot_tree,
 plot_split_value_histogram, create_tree_digraph; they need matplotlib)
-are here too. Names of the JAX package that are not ported yet are here
-and raise NotImplementedError naming their ROADMAP item (NOT_PORTED).
+are here too, and the distributed learners (tree_learner=data / voting /
+feature over torch.distributed ranks, parallel/; set_network,
+run_distributed, the Dask* estimators of dask.py). NOT_PORTED, the names
+of the JAX package not ported yet, is empty.
 """
 
 from .basic import Booster, Dataset, Sequence, set_network
@@ -40,35 +42,14 @@ from .plotting import (
     plot_tree,
 )
 from .sklearn import LGBMClassifier, LGBMModel, LGBMRanker, LGBMRegressor
+from .dask import DaskLGBMClassifier, DaskLGBMRanker, DaskLGBMRegressor
 from . import data, serving
 
 __version__ = "0.1.0"
 
 # public names of the JAX package the port does not implement yet, with
-# the ROADMAP item that ports each; each raises NotImplementedError
-NOT_PORTED = {
-    "set_network": "A.8",
-    "DaskLGBMClassifier": "A.8",
-    "DaskLGBMRegressor": "A.8",
-    "DaskLGBMRanker": "A.8",
-    "Booster.set_network": "A.8",
-    "Booster.free_network": "A.8",
-}
-
-
-def _refusal(name: str, item: str):
-    def refuse(*args, **kwargs):
-        raise NotImplementedError(f"{name} is not ported yet (ROADMAP "
-                                  f"{item})")
-
-    refuse.__name__ = name
-    refuse.__doc__ = f"Not ported yet (ROADMAP {item}): raises."
-    return refuse
-
-
-DaskLGBMClassifier = _refusal("DaskLGBMClassifier", "A.8")
-DaskLGBMRegressor = _refusal("DaskLGBMRegressor", "A.8")
-DaskLGBMRanker = _refusal("DaskLGBMRanker", "A.8")
+# the ROADMAP item that ports each: none are left
+NOT_PORTED: dict = {}
 
 __all__ = ["Booster", "CVBooster", "CallbackEnv", "Dataset",
            "EarlyStopException", "LGBMClassifier", "LGBMModel", "LGBMRanker",

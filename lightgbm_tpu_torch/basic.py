@@ -34,8 +34,9 @@ from pinned buffers (data/streaming.py). Inputs the chunked path cannot
 take (a reference= validation set, linear_tree, scipy sparse, a .bin
 cache) warn and take the in-RAM path.
 
-Not ported yet, and refused with NotImplementedError naming the ROADMAP
-item: set_network and free_network (A.8).
+set_network (and num_machines > 1 in a Booster's params, and
+Booster.set_network) joins a torch.distributed process group
+(parallel/multihost.py); free_network leaves it.
 """
 
 from __future__ import annotations
@@ -56,10 +57,6 @@ _EARLY_STOP_KEYS = ("pred_early_stop", "pred_early_stop_freq",
                     "pred_early_stop_margin")
 # rows densified at a time when the host walker scores a sparse matrix
 _SPARSE_ROWS = 65536
-
-
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
 
 
 class Sequence:
@@ -86,9 +83,41 @@ def _is_sequence_input(data: Any) -> bool:
             and all(isinstance(s, Sequence) for s in data))
 
 
-def set_network(*args, **kwargs) -> None:
-    """Joining a multi-host cluster (reference basic.py set_network)."""
-    _not_ported("set_network (distributed training)", "A.8")
+def set_network(
+    machines: Any,
+    local_listen_port: int = 12400,
+    listen_time_out: int = 120,
+    num_machines: int = 1,
+    *,
+    machine_list_file: str = "",
+    machine_rank: "int | None" = None,
+    backend: "str | None" = None,
+    device: Any = None,
+    init_method: "str | None" = None,
+) -> None:
+    """Join the training cluster (reference basic.py set_network ->
+    LGBM_NetworkInit; the positional order matches: machines,
+    local_listen_port, listen_time_out, num_machines): a torch.distributed
+    process group over TCP, the first machine hosting its store
+    (parallel/multihost.init_distributed). backend: gloo or nccl (NCCL
+    for a CUDA device by default, gloo otherwise); listen_time_out is the
+    group's timeout in seconds; init_method overrides the address (a
+    file:// store, or env:// under torchrun)."""
+    from .parallel import multihost
+
+    if machines is not None and not isinstance(machines, str):
+        machines = ",".join(str(m) for m in machines)
+    multihost.init_distributed(
+        machines=machines or None,
+        machine_list_file=machine_list_file or None,
+        num_machines=num_machines if num_machines > 1 else None,
+        local_listen_port=local_listen_port,
+        machine_rank=machine_rank,
+        backend=backend,
+        device=device,
+        init_method=init_method,
+        timeout_s=max(float(listen_time_out), 1.0) * 5,
+    )
 
 
 def _is_sparse(data: Any) -> bool:
@@ -698,8 +727,19 @@ class Booster:
             from .config import DATASET_PARAMS, resolve_alias
 
             net = {resolve_alias(k): v for k, v in self.params.items()}
-            if int(net.get("num_machines", 1)) > 1:
-                _not_ported("num_machines > 1 (distributed training)", "A.8")
+            nm = int(net.get("num_machines", 1))
+            if nm > 1:
+                # distributed network params join the cluster before the
+                # booster's set-up (reference basic.py:3606); a process
+                # group that already exists is kept
+                dt = str(net.get("device_type", "cuda"))
+                set_network(
+                    machines=net.get("machines", ""),
+                    local_listen_port=int(net.get("local_listen_port",
+                                                  12400)),
+                    num_machines=nm,
+                    machine_list_file=net.get("machine_list_filename", ""),
+                    device="cpu" if dt == "cpu" else "cuda")
             train_set.params = {**train_set.params, **self.params}
             train_set.construct()
             ds_part = {k: v for k, v in train_set.params.items()
@@ -1175,11 +1215,23 @@ class Booster:
                     stack.append((left, depth + 1, ix))
         return pd.DataFrame(rows)
 
-    def set_network(self, *args, **kwargs) -> "Booster":
-        _not_ported("Booster.set_network (distributed training)", "A.8")
+    def set_network(self, machines: Any, local_listen_port: int = 12400,
+                    listen_time_out: int = 120,
+                    num_machines: int = 1) -> "Booster":
+        """Join the cluster from an existing Booster (reference basic.py
+        Booster.set_network; the module-level set_network applies)."""
+        set_network(machines, local_listen_port, listen_time_out,
+                    num_machines)
+        self._network = True
+        return self
 
     def free_network(self) -> "Booster":
-        _not_ported("Booster.free_network (distributed training)", "A.8")
+        """Leave the cluster (destroys the process group, if any)."""
+        from .parallel.multihost import free_distributed
+
+        free_distributed()
+        self._network = False
+        return self
 
 
 def _split_values(bst: Booster, feature: Union[int, str]) -> List[float]:

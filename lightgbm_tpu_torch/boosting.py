@@ -59,8 +59,21 @@ tree the leaves' ridge models are fitted on the host in f64
 (_fit_linear), and their per-row outputs, not the leaves' constants, go
 into the scores. tpu_debug_check_split (LightGBM's CheckSplit) keeps
 the eager loop and recounts every new tree's leaves from the row -> leaf
-partition (_check_split). The distributed learners raise
-NotImplementedError (ROADMAP A.8).
+partition (_check_split).
+
+The distributed learners (tree_learner=data / voting / feature, the JAX
+package's boosting.py:377-440, :727-823) run when torch.distributed has
+more than one rank (parallel/): one rank trains serially, as the JAX
+package does on one device. Under data / voting each rank passes its
+own rows; every per-row statistic that decides a tree is taken over
+every rank's rows, so N ranks grow the trees one device holding all the
+rows grows: boost-from-average and is_unbalance's counts (the
+objectives' host statistics), the quantization scale (the max |g|, |h|
+over every rank) and its stochastic-rounding draws (each rank's slice
+of the global row stream), bagging and GOSS masks (drawn over the
+gathered rows, _GlobalRowsSampler), the true-gradient renewal and the
+percentile refit (reduced), and the training metrics (gathered). The
+collectives run on the eager loop (gloo cannot be captured).
 """
 
 from __future__ import annotations
@@ -109,20 +122,13 @@ class _ScoreSet:
 FUSED_ROUND_PHASE = "round: fused step"
 
 
-def _not_ported(what: str) -> None:
-    raise NotImplementedError(f"{what} is not ported yet (ROADMAP queue A)")
-
-
 def check_supported(config: Config) -> None:
-    """Refuse every option the port does not implement yet, loudly: the
-    distributed learners (ROADMAP A.8). Every other key the JAX package's
-    engine.train acts on acts here too (the data plane's, A.10, last)."""
+    """Refuse an unknown boosting type. Every key the JAX package's
+    engine.train acts on acts here too (a tree_learner other than data,
+    voting and feature trains serially, as in the JAX package)."""
     c = config
     if c.boosting not in ("gbdt", "dart", "rf"):
         log.fatal(f"Unknown boosting type {c.boosting}")
-    if c.tree_learner not in ("serial",):
-        _not_ported(f"tree_learner={c.tree_learner} (distributed learners, "
-                    "A.8)")
 
 
 def _load_forced_splits(path: str, ds: BinnedDataset,
@@ -186,6 +192,51 @@ def tree_arrays_to_host(a: TreeArrays) -> TreeArrays:
     return TreeArrays(*[x.detach().cpu().numpy() for x in a])
 
 
+class _GlobalRowsSampler:
+    """A row sampler over every rank's rows (data-parallel bagging and
+    GOSS): each sample gathers the ranks' per-row vectors into the row
+    stream one device holding every row sees (each rank's real rows in
+    rank order, padded as that device pads), draws there with the inner
+    sampler, and keeps this rank's slice. Draws key on the global row
+    index, so the masks are one device's."""
+
+    def __init__(self, inner, mesh, counts: List[int], npad_global: int):
+        self.inner = inner
+        self.mesh = mesh
+        self.counts = counts
+        self.offset = sum(counts[:mesh.rank])
+        self.npad_global = npad_global
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
+
+    def to_global(self, x: torch.Tensor) -> torch.Tensor:
+        g = self.mesh.all_gather(x)  # (ranks, local padded rows)
+        parts = [g[r, :c] for r, c in enumerate(self.counts)]
+        tot = sum(self.counts)
+        if self.npad_global > tot:
+            parts.append(torch.zeros(self.npad_global - tot, dtype=g.dtype,
+                                     device=g.device))
+        return torch.cat(parts).to(x.dtype)
+
+    def to_local(self, x: torch.Tensor, own_tail: torch.Tensor
+                 ) -> torch.Tensor:
+        """This rank's real rows of a global vector, then its own padding
+        rows' values (own_tail: the rank's input past its real rows)."""
+        n = self.counts[self.mesh.rank]
+        return torch.cat([x[self.offset:self.offset + n],
+                          own_tail[n:].to(x.dtype)])
+
+    def sample(self, it, grad, hess, valid, label):
+        G = self.to_global
+        mask, g, h = self.inner.sample(it, G(grad), G(hess), G(valid),
+                                       None if label is None else G(label))
+        # padding rows keep their own values (a padding row's gradient
+        # enters the quantization scale): the mask's tail is valid's, 0
+        return (self.to_local(mask, valid), self.to_local(g, grad),
+                self.to_local(h, hess))
+
+
 class GBDT:
     """Boosting state and the training loop (reference gbdt.h:37)."""
 
@@ -223,6 +274,11 @@ class GBDT:
         # linear_tree: each new tree's leaf fits (constants, features,
         # coefficients) by model index, until _materialize takes them
         self._linear_fits: Dict[int, tuple] = {}
+        # the distributed learner (_setup_parallel); serial until then
+        self._mesh = self._dp = self._parallel_mode = None
+        self._row_offset = self._axis_rows = 0
+        self.tree_learner_resolved = "serial"
+        self.voting_elected_cols = self.voting_wire_bytes_est = None
         if train_set is None:
             return  # prediction-only booster (model loaded from text)
 
@@ -233,10 +289,18 @@ class GBDT:
         check_supported(config)
         self.device = torch.device(resolve_device(config))
         self.objective = create_objective(config)
+        self._setup_parallel(config, train_set)
         # growth strategy (boosting.py:604-689 of the JAX package): `auto`
         # is the rounds grower on every device here; `exact` the
-        # sequential permuted grower, with its round phase on request
+        # sequential permuted grower, with its round phase on request;
+        # tree_learner=feature rides the exact grower
         use_rounds = config.tpu_growth_mode != "exact"
+        if self._parallel_mode == "feature" and use_rounds:
+            if config.tpu_growth_mode == "rounds":
+                log.warning("tpu_growth_mode=rounds is incompatible with "
+                            "tree_learner=feature; falling back to exact "
+                            "sequential growth")
+            use_rounds = False
         self.hist_dtype, self._hist_levels = resolve_hist_dtype(
             config.tpu_hist_dtype, config.use_quantized_grad,
             config.num_grad_quant_bins, use_rounds,
@@ -260,10 +324,19 @@ class GBDT:
         # the rounds grower, <= 127 its int8 mode
         qgrad = config.use_quantized_grad
         levels = config.num_grad_quant_bins if qgrad else self._hist_levels
+        data_par = self._parallel_mode == "data"
         if self.objective is not None:
+            if data_par:
+                self.objective.stats_mesh = self._mesh
             self.objective.init(train_set, self.device)
-        self.strategy = create_sample_strategy(
-            config, train_set.metadata.group, self.device)
+        group = train_set.metadata.group
+        if data_par and group is not None:
+            group = self._mesh.gather_rows(np.asarray(group))
+        self.strategy = create_sample_strategy(config, group, self.device)
+        if data_par and type(self.strategy).__name__ != "SampleStrategy":
+            self.strategy = _GlobalRowsSampler(
+                self.strategy, self._mesh, self._row_counts,
+                self._axis_rows)
         # the raw labels: pos / neg bagging's classes, the percentile
         # refit's residuals
         label = train_set.metadata.label
@@ -283,6 +356,10 @@ class GBDT:
         # (boosting.py:531-539 of the JAX package; LightGBM solves them
         # on the CPU too, linear_tree_learner.cpp:344)
         if config.linear_tree:
+            if self._mesh is not None:
+                log.fatal("linear_tree fits each leaf on one rank's rows; "
+                          "it does not compose with a distributed tree "
+                          "learner")
             self._force_sync_reason = "linear_tree leaf fits run on host"
             if train_set.raw_data is None:
                 log.fatal("linear_tree requires raw feature values; "
@@ -329,6 +406,7 @@ class GBDT:
             n_groups=n_groups,
             n_forced=n_forced,
         )
+        self._setup_parallel_grower(config, use_rounds, n_forced)
         self.params = make_split_params(config)
         # splits the intermediate / advanced conflict guard put off to a
         # later round, summed over every tree grown (device counter)
@@ -344,6 +422,130 @@ class GBDT:
             L - 1, tree_round_cap(self.spec),
             config.max_depth if config.max_depth > 0 and not n_forced
             else L - 1)
+
+    def _setup_parallel(self, config: Config, train_set: BinnedDataset
+                        ) -> None:
+        """Tree learner selection (the JAX package's boosting.py:377-440,
+        reference tree_learner.cpp:17-59): data / voting shard rows over
+        a mesh of the torch.distributed ranks, feature its features. One
+        rank (no process group, or a group of one) trains serially.
+        Under data each rank pads its rows to the cluster-wide maximum,
+        and learns where its rows sit in the global row stream."""
+        tl = config.tree_learner
+        if tl not in ("data", "voting", "feature"):
+            return
+        from .parallel.comm import make_mesh
+
+        mesh = make_mesh("feature" if tl == "feature" else "data",
+                         self.device)
+        if mesh is None:
+            return
+        if mesh.backend == "nccl" and self.device.type != "cuda":
+            log.fatal("an NCCL process group reduces CUDA tensors: train "
+                      "on the card, or join the group with gloo")
+        if tl == "feature":
+            if train_set.bundle_layout is not None:
+                log.warning("tree_learner=feature requires EFB off (feature "
+                            "== column); falling back to serial growth. "
+                            "Set enable_bundle=false.")
+                return
+            self._mesh, self._parallel_mode = mesh, "feature"
+            log.info(f"tree_learner=feature: "
+                     f"{len(train_set.used_features)} features sharded over "
+                     f"{mesh.size} ranks ({mesh.backend}; "
+                     "feature_parallel_tree_learner.cpp semantics)")
+            return
+        if tl == "voting":
+            log.info(f"tree_learner=voting: top-{config.top_k} local-gain "
+                     "vote elects columns per round (per split on the exact "
+                     "grower); only elected columns are reduced "
+                     "(voting_parallel_tree_learner.cpp semantics)")
+        self._mesh, self._parallel_mode = mesh, "data"
+        hd = mesh._host_dev()
+        sizes = mesh.all_gather(torch.tensor(
+            [train_set.num_data, train_set.num_rows_padded()],
+            dtype=torch.int64, device=hd)).cpu().numpy()
+        # pre-partitioned ranks hold uneven blocks: pad every rank to the
+        # largest (row_block multiples, so their max is one too)
+        train_set.ensure_min_padded_rows(int(sizes[:, 1].max()))
+        self._row_counts = [int(c) for c in sizes[:, 0]]
+        self._row_offset = sum(self._row_counts[:mesh.rank])
+        b = train_set.row_block
+        self._axis_rows = -(-sum(self._row_counts) // b) * b
+
+    def _setup_parallel_grower(self, config: Config, use_rounds: bool,
+                               n_forced: int) -> None:
+        """The distributed grower around self.spec, the eager loop for
+        its collectives, and the provenance the flight recorder and the
+        run manifest read (tree_learner_resolved, voting_elected_cols,
+        voting_wire_bytes_est; the JAX package's boosting.py:727-823)."""
+        from .parallel.data_parallel import DataParallelGrower
+        from .parallel.feature_parallel import FeatureParallelGrower
+
+        if self._parallel_mode == "feature" and (self.spec.per_node
+                                                 or self.spec.n_forced):
+            log.warning("tree_learner=feature takes no per-node extras or "
+                        "forced splits; falling back to serial growth")
+            self._mesh = self._parallel_mode = None
+        use_voting = (config.tree_learner == "voting"
+                      and self._parallel_mode == "data")
+        if use_voting and n_forced and not use_rounds:
+            log.warning(
+                "tree_learner=voting with forcedsplits_filename composes "
+                "on the rounds grower (tpu_growth_mode=rounds pins the "
+                "forced columns into every election); the sequential "
+                "exact path runs with the election disabled")
+            use_voting = False
+        if self._parallel_mode == "data":
+            self._dp = DataParallelGrower(
+                self._mesh, self.spec._replace(
+                    voting_k=config.top_k if use_voting else 0),
+                self._axis_rows)
+            self.spec = self._dp.spec
+        elif self._parallel_mode == "feature":
+            self._dp = FeatureParallelGrower(self._mesh, self.spec)
+            self.spec = self._dp.spec
+        if self._mesh is not None:
+            self._force_sync_reason = (
+                "distributed runs synchronize per iteration (their "
+                "collectives run on the eager loop)")
+        g_dev = int(self.dev["bins"].shape[0])
+        self.tree_learner_resolved = (
+            "voting" if use_voting else self._parallel_mode or "serial")
+        self.voting_elected_cols = (
+            min(2 * config.top_k + n_forced, g_dev) if use_voting else None)
+        self.voting_wire_bytes_est = (
+            self._dp.wire_bytes_per_tree(g_dev) if use_voting else None)
+
+    def _record_collective_wire(self, n_trees: int) -> None:
+        """Runtime collective wire accounting: the estimated histogram
+        payload of n_trees trees the data-parallel grower grew (host
+        side, once a dispatched iteration)."""
+        if self._parallel_mode != "data":
+            return
+        from .obs.metrics import record_collective_wire
+
+        record_collective_wire(
+            "data_parallel_grow",
+            self._dp.wire_bytes_per_tree(int(self.dev["bins"].shape[0]))
+            * n_trees)
+
+    def _axis_absmax(self, g: torch.Tensor, h: torch.Tensor
+                     ) -> torch.Tensor:
+        """(2,) max |g|, |h| over every rank's rows, as one device holding
+        them all takes it: its padding rows count only when it pads (its
+        padding rows' gradients are every rank's padding rows')."""
+        n = self.train_set.num_data
+        z = torch.zeros((), dtype=torch.float32, device=g.device)
+
+        def amax(x):
+            return x.abs().max() if x.numel() else z
+
+        m = self._mesh.all_reduce(torch.stack(
+            [amax(g[:n]), amax(h[:n]), amax(g[n:]), amax(h[n:])]), "max")
+        if self._axis_rows > sum(self._row_counts):
+            return torch.maximum(m[:2], m[2:])
+        return m[:2]
 
     @staticmethod
     def _mono_mode(config: Config, has_mono: bool, extras: bool,
@@ -445,8 +647,14 @@ class GBDT:
         ss = _ScoreSet(ds, torch.from_numpy(score).to(self.device), name,
                        create_metrics(self.config), dev)
         meta = ds.metadata
+        label, weight, group = meta.label, meta.weight, meta.group
+        if ds is self.train_set and self._parallel_mode == "data":
+            # the training metrics read every rank's rows (eval_set)
+            label, weight, group = (
+                None if a is None else self._mesh.gather_rows(np.asarray(a))
+                for a in (label, weight, group))
         for m in ss.metrics:
-            m.init(meta.label, meta.weight, meta.group)
+            m.init(label, weight, group)
         return ss
 
     def add_valid(self, valid_set: BinnedDataset, name: str) -> None:
@@ -482,10 +690,12 @@ class GBDT:
         c = self.config
         key = rng.fold_in(rng.key(c.data_random_seed, gk.device),
                           it * self.num_class + k)
-        return discretize_gradients_int(gk, hk, key,
-                                        self._hist_levels
-                                        or c.num_grad_quant_bins,
-                                        c.stochastic_rounding)
+        data_par = self._parallel_mode == "data"
+        return discretize_gradients_int(
+            gk, hk, key, self._hist_levels or c.num_grad_quant_bins,
+            c.stochastic_rounding,
+            absmax=self._axis_absmax(gk, hk) if data_par else None,
+            offset=self._row_offset)
 
     def _renew_true(self, arrays, row_leaf, gk, hk, mask):
         """Leaf outputs from the TRUE per-leaf gradient sums."""
@@ -494,9 +704,15 @@ class GBDT:
         return arrays._replace(
             leaf_value=renew_leaf_with_true_gradients(
                 arrays.leaf_value, row_leaf, gk, hk, mask, self.params,
-                self.spec.num_leaves,
-            )
+                self.spec.num_leaves, **self._axis_kw())
         )
+
+    def _axis_kw(self) -> dict:
+        """A data-parallel run's reductions over every rank's rows (the
+        mesh and one device's padded rows), else nothing."""
+        if self._parallel_mode != "data":
+            return {}
+        return {"axis": self._mesh, "n_rows": self._axis_rows}
 
     def _grow_maybe_quantized(self, gk, hk, mask, feat_mask, valid, it, k,
                               loop=None):
@@ -588,8 +804,7 @@ class GBDT:
         return arrays._replace(
             leaf_value=renew_leaf_values(
                 arrays.leaf_value, row_leaf, resid, w * mask, alpha,
-                self.spec.num_leaves,
-            )
+                self.spec.num_leaves, **self._axis_kw())
         )
 
     def _on_device(self, arrays: TreeArrays) -> TreeArrays:
@@ -822,6 +1037,13 @@ class GBDT:
         L = self.spec.num_leaves
         rl = row_leaf.cpu().numpy()
         m = mask.cpu().numpy()
+        if self._parallel_mode == "data":
+            # the tree's counts are global: recount every rank's rows
+            n = self.train_set.num_data
+            rl = self._mesh.gather_rows(rl[:n])
+            m = self._mesh.gather_rows(m[:n])
+            hk = torch.from_numpy(self._mesh.gather_rows(
+                hk.cpu().numpy()[:n]))
         ok = (rl >= 0) & (m > 0)
         cnt = np.bincount(rl[ok], minlength=L).astype(np.float64)
         hsum = None
@@ -901,6 +1123,7 @@ class GBDT:
                 gh_norms(grad, hess, self.train_set.num_data))
         trees, _ = self._iteration(self.iter_, grad, hess, init_scores,
                                    DeviceLoop(EAGER))
+        self._record_collective_wire(len(trees))
         for k, arrays in enumerate(trees):
             self.device_trees.append(arrays)
             self._pending.append(arrays)
@@ -1030,6 +1253,10 @@ class GBDT:
     # ------------------------------------------------------------------
     def eval_set(self, ss: _ScoreSet) -> List[Tuple[str, str, float, bool]]:
         score = self.get_score(ss)
+        if ss is self.train and self._parallel_mode == "data":
+            # every rank's rows: the same metric, and the same early
+            # stopping decision, on every rank
+            score = self._mesh.gather_rows(score.T).T
         s = score if self.num_class > 1 else score[0]
         out = []
         for m in ss.metrics:

@@ -280,6 +280,27 @@ def _restore_logger(saved) -> None:
      log._debug_method) = saved
 
 
+
+def _serve_mesh(cfg, device: str):
+    """task=serve over several ranks (the JAX package's cli.py:315-321):
+    num_machines > 1 joins the cluster from the network params
+    (set_network), and every rank then scores its block of each
+    request's rows; None on one rank."""
+    from .basic import set_network
+    from .parallel.multihost import world_mesh
+
+    if cfg.num_machines > 1:
+        set_network(cfg.machines, cfg.local_listen_port,
+                    num_machines=cfg.num_machines,
+                    machine_list_file=cfg.machine_list_filename,
+                    device=device)
+    mesh = world_mesh()
+    if mesh is None or mesh.size < 2:
+        return None
+    log.info(f"serving rows sharded over {mesh.size} ranks "
+             f"({mesh.backend})")
+    return mesh
+
 def _task_serve(params: Dict[str, str]) -> None:
     """task=serve: load input_model into the serving registry (or, with
     serve_fleet=true, the model fleet) and answer requests:
@@ -305,10 +326,12 @@ def _task_serve(params: Dict[str, str]) -> None:
     try:
         faultinject.configure(cfg.fault_plan)
         device = "cpu" if cfg.device_type == "cpu" else "cuda"
+        mesh = _serve_mesh(cfg, device)
         common = dict(buckets=cfg.serve_buckets, warmup=cfg.serve_warmup,
                       deadline_s=cfg.serve_deadline_ms / 1000.0,
                       queue_cap=cfg.serve_queue_cap,
-                      host_fallback=cfg.host_fallback, device=device)
+                      host_fallback=cfg.host_fallback, device=device,
+                      mesh=mesh)
         if cfg.serve_fleet:
             registry = ModelFleet(capacity=cfg.serve_fleet_capacity,
                                   slots_per_family=cfg.serve_fleet_slots,

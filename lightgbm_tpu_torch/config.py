@@ -618,7 +618,7 @@ _UNIMPLEMENTED = (
     ("predict_disable_shape_check", False,
      "predict always validates the feature count"),
     ("time_out", 120,
-     "distributed training is not ported yet"),
+     "the process group's timeout is set_network's listen_time_out"),
 )
 
 

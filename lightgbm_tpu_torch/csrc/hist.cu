@@ -67,6 +67,12 @@ struct SegBufs {
   int* exps;           // (3,) fixed-point exponents
   int4* items;         // (max_items,) rows [x, y) of slot z, which has w
                        // items
+  // the fixed-point partials of a sharded run (both null otherwise):
+  // max_in (3,) channel maxima over every rank, as f32 bits, set the
+  // exponents in place of this call's own rows; raw (S, 3, G, Bc) int64
+  // takes the sums in place of out's f32
+  const unsigned* max_in;
+  fx_t* raw;
 };
 
 // Where the segments come from: hist's begin and count (a device scalar
@@ -189,7 +195,9 @@ __global__ void __launch_bounds__(kSegThreads) seg_plan_kernel(
     if (threadIdx.x < 3) x = atomicExch(w.maxbits + threadIdx.x, 0u);
     if (threadIdx.x == 0) *w.done_plan = 0;
   }
-  if (threadIdx.x < 3) w.exps[threadIdx.x] = fx_exponent(x, log2_rows);
+  if (threadIdx.x < 3)
+    w.exps[threadIdx.x] = fx_exponent(
+        w.max_in != nullptr ? w.max_in[threadIdx.x] : x, log2_rows);
   // the work list, blockDim.x slots at a time
   int base = 0;
   for (int s0 = 0; s0 < S; s0 += blockDim.x) {
@@ -329,9 +337,12 @@ __global__ void __launch_bounds__(kSegThreads) seg_hist_kernel(
   if (nit == 1) {  // the slot's only item: the whole tile, as f32
     for (int i = threadIdx.x; i < 3 * cc; i += blockDim.x) {
       const int c = i / cc, x = i - c * cc;
-      out[base + (int64_t)c * G * Bc + x] = (float)(
-          (double)(long long)limb_sum(tile + 3 * c * cpc + x, cpc)
-          * scale_of(down, c));
+      const fx_t v = limb_sum(tile + 3 * c * cpc + x, cpc);
+      if (w.raw != nullptr)
+        w.raw[base + (int64_t)c * G * Bc + x] = v;
+      else
+        out[base + (int64_t)c * G * Bc + x] = (float)(
+            (double)(long long)v * scale_of(down, c));
     }
     return;
   }
@@ -350,8 +361,11 @@ __global__ void __launch_bounds__(kSegThreads) seg_hist_kernel(
   for (int i = threadIdx.x; i < 3 * cc; i += blockDim.x) {
     const int c = i / cc;
     const int64_t o = base + (int64_t)c * G * Bc + (i - c * cc);
-    out[o] = (float)((double)(long long)atomicExch(acc + o, (fx_t)0)
-                     * scale_of(down, c));
+    const fx_t v = atomicExch(acc + o, (fx_t)0);
+    if (w.raw != nullptr)
+      w.raw[o] = v;
+    else
+      out[o] = (float)((double)(long long)v * scale_of(down, c));
   }
   if (threadIdx.x == 0) *done = 0;
 }
@@ -370,6 +384,8 @@ SegBufs seg_bufs(void* state, void* work) {
   w.n_items = wk;
   w.exps = wk + 1;
   w.items = reinterpret_cast<int4*>(wk + 4);
+  w.max_in = nullptr;
+  w.raw = nullptr;
   return w;
 }
 
@@ -377,11 +393,13 @@ int launch_seg(const void* bins, const void* gh, const SegSrc& src,
                void* state, void* work, void* acc, void* out, int G, int N,
                int S, int Bc, int chunk, int slot_items, int Gc, int n_cg,
                int max_items, int plan_blocks, int log2_rows, int vec,
-               cudaStream_t st) {
+               const void* max_in, void* raw, cudaStream_t st) {
   if (N < 1 || S < 1 || chunk < 1 || slot_items < 1 || Gc < 1
       || n_cg * Gc < G || plan_blocks < 1 || max_items < 1)
     return (int)cudaErrorInvalidValue;
-  const SegBufs w = seg_bufs(state, work);
+  SegBufs w = seg_bufs(state, work);
+  w.max_in = static_cast<const unsigned*>(max_in);
+  w.raw = static_cast<fx_t*>(raw);
   seg_plan_kernel<<<plan_blocks, kSegThreads, 0, st>>>(
       (const float*)gh, src, w, N, S, chunk, slot_items, log2_rows);
   int err = (int)cudaGetLastError();
@@ -416,6 +434,7 @@ int launch_seg(const void* bins, const void* gh, const SegSrc& src,
 // (vec: N % 4 == 0 and both 16-byte aligned); state, work, acc the scratch
 // above (acc: S x 3 x G x Bc int64; state and acc zeroed); out (S, 3, G,
 // Bc) f32, written whole; log2_rows = ceil(log2 n) of the scale's n;
+// max_in and raw: null, or a sharded run's fixed-point partials (SegBufs)
 
 // hist: one slot over rows [begin, begin + min(count, cap)). begin and
 // count: device scalars of begin_w / count_w bytes (4 or 8), or null to
@@ -427,13 +446,14 @@ extern "C" int lgbm_hist(const void* bins, const void* gh, int N,
                          void* work, void* acc, void* out, int G, int Bc,
                          int chunk, int slot_items, int Gc, int n_cg,
                          int max_items, int plan_blocks, int log2_rows,
-                         int vec, void* stream) {
+                         int vec, const void* max_in, void* raw,
+                         void* stream) {
   using namespace lgbm_torch;
   SegSrc src{begin, count, begin_val, count_val, begin_w, count_w, cap,
              nullptr, nullptr};
   return launch_seg(bins, gh, src, state, work, acc, out, G, N, 1, Bc,
                     chunk, slot_items, Gc, n_cg, max_items, plan_blocks,
-                    log2_rows, vec, (cudaStream_t)stream);
+                    log2_rows, vec, max_in, raw, (cudaStream_t)stream);
 }
 
 // hist_slots: S slots over disjoint segments, begins / counts (S,) int32
@@ -444,12 +464,13 @@ extern "C" int lgbm_hist_slots(const void* bins, const void* gh, int N,
                                void* out, int G, int Bc, int chunk,
                                int slot_items, int Gc, int n_cg,
                                int max_items, int plan_blocks,
-                               int log2_rows, int vec, void* stream) {
+                               int log2_rows, int vec, const void* max_in,
+                               void* raw, void* stream) {
   using namespace lgbm_torch;
   SegSrc src{nullptr, nullptr, 0, 0, 0, 0, 0,
              static_cast<const int32_t*>(begins),
              static_cast<const int32_t*>(counts)};
   return launch_seg(bins, gh, src, state, work, acc, out, G, N, S, Bc,
                     chunk, slot_items, Gc, n_cg, max_items, plan_blocks,
-                    log2_rows, vec, (cudaStream_t)stream);
+                    log2_rows, vec, max_in, raw, (cudaStream_t)stream);
 }

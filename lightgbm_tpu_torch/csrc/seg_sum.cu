@@ -97,6 +97,7 @@ __global__ void seg_sum_kernel(const float* __restrict__ vals,
                                int N, int vec,
                                const unsigned* __restrict__ parts,
                                int nparts, int log2_rows,
+                               const unsigned* __restrict__ max_in,
                                fx_t* __restrict__ acc,
                                unsigned* __restrict__ done,
                                float* __restrict__ out) {
@@ -115,7 +116,8 @@ __global__ void seg_sum_kernel(const float* __restrict__ vals,
 #pragma unroll
     for (int j = 0; j < kSegMaxK; ++j) {
       const unsigned x = __reduce_max_sync(0xffffffffu, m[j]);
-      if (threadIdx.x == 0 && j < k) kx[j] = fx_exponent(x, log2_rows);
+      if (threadIdx.x == 0 && j < k)
+        kx[j] = fx_exponent(max_in != nullptr ? max_in[j] : x, log2_rows);
     }
   }
   __syncthreads();
@@ -169,11 +171,14 @@ __global__ void seg_sum_kernel(const float* __restrict__ vals,
 // vals (k, N) f32, k <= 3, idx (N,) int32, N >= 1; scratch: k * L int64
 // words (the accumulator), then one word whose low half is the done
 // counter, then (nparts * k) uint32 maxima; out (k, L) f32. vec: N % 4
-// == 0 and vals / idx 16-byte aligned.
+// == 0 and vals / idx 16-byte aligned. max_in: null, or a sharded run's
+// (k,) channel maxima over every rank (f32 bits), which set the
+// exponents in place of these rows'; the int64 sums stay in the
+// scratch's accumulator after the call either way.
 extern "C" int lgbm_seg_sum(const void* vals, const void* idx, void* scratch,
                             void* out, int k, int L, int N, int blocks,
                             int nparts, int log2_rows, int vec,
-                            void* stream) {
+                            const void* max_in, void* stream) {
   using namespace lgbm_torch;
   if (k < 1 || k > kSegMaxK || nparts < 1 || nparts > kSegPartsMax)
     return (int)cudaErrorInvalidValue;
@@ -192,6 +197,6 @@ extern "C" int lgbm_seg_sum(const void* vals, const void* idx, void* scratch,
   if (e != cudaSuccess) return (int)e;
   seg_sum_kernel<<<blocks, kSegThreads, smem, st>>>(
       (const float*)vals, (const int32_t*)idx, k, L, N, vec, parts, nparts,
-      log2_rows, acc, done, (float*)out);
+      log2_rows, (const unsigned*)max_in, acc, done, (float*)out);
   return (int)cudaGetLastError();
 }

@@ -585,7 +585,18 @@ class BinnedDataset:
     def num_rows_padded(self) -> int:
         b = self.row_block
         n = ((self.num_data + b - 1) // b) * b
-        return n
+        return max(n, getattr(self, "_min_padded_rows", 0))
+
+    def ensure_min_padded_rows(self, target: int) -> None:
+        """Pad to at least `target` rows (a row_block multiple): the
+        ranks of a data-parallel run pad to the cluster-wide maximum, so
+        every rank's per-row arrays have one shape (the JAX package's
+        ensure_min_padded_rows, dataset.py:644)."""
+        if target % self.row_block != 0:
+            raise ValueError((target, self.row_block))
+        if target > self.num_rows_padded():
+            self._min_padded_rows = int(target)
+            self._device = None
 
     # ---------------- device arrays ----------------
     def device_arrays(self, device="cpu") -> Dict[str, Any]:

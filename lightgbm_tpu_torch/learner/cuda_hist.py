@@ -168,12 +168,12 @@ def load() -> ctypes.CDLL:
         lib.lgbm_hist_nat_f32.argtypes = [P] * 6 + [I] * 8 + [P]
         lib.lgbm_hist_round.argtypes = [I] + [P] * 11 + [I] * 12 + [P]
         lib.lgbm_take_small.argtypes = [P, P, P] + [I] * 5 + [P]
-        lib.lgbm_seg_sum.argtypes = [P] * 4 + [I] * 7 + [P]
+        lib.lgbm_seg_sum.argtypes = [P] * 4 + [I] * 7 + [P, P]
         L = ctypes.c_longlong
         lib.lgbm_hist.argtypes = ([P, P, I, P, P, L, L] + [I] * 3 + [P] * 4
-                                  + [I] * 10 + [P])
+                                  + [I] * 10 + [P] * 3)
         lib.lgbm_hist_slots.argtypes = ([P, P, I, P, P, I] + [P] * 4
-                                        + [I] * 10 + [P])
+                                        + [I] * 10 + [P] * 3)
         F = ctypes.c_float
         lib.lgbm_lambdarank.argtypes = ([P, P, P, I, P, I] + [P] * 5
                                         + [I] * 3 + [F] * 3 + [I] * 3
@@ -734,13 +734,29 @@ def _scalar_arg(x, dev, name: str):
     return None, int(x), 0
 
 
+def _fx_args(fx, dev):
+    """A sharded run's fixed-point partials: fx = ((3,) f32 channel maxima
+    over every rank, the scale's n) -> (the maxima's device pointer, kept
+    alive by the returned tensor, ceil(log2 n)); (None, None) for fx
+    None."""
+    from .histogram import fx_log2_rows
+
+    if fx is None:
+        return None, None, None
+    absmax, n_rows = fx
+    bits = absmax.to(device=dev, dtype=torch.float32).contiguous().view(
+        torch.int32)
+    return bits, bits.data_ptr(), fx_log2_rows(n_rows)
+
+
 def hist(bins: torch.Tensor, gh: torch.Tensor, num_bins: int, begin=0,
-         count=None, cap: Optional[int] = None) -> torch.Tensor:
+         count=None, cap: Optional[int] = None, fx=None) -> torch.Tensor:
     """(G, N) bins, (3, N) f32 channels -> (3, G, Bc) f32 fixed-point sums
     over rows [begin, begin + count); begin/count host ints or device
     0-dim int32 / int64 tensors (read by the kernel), cap a host bound on
     count (required for a device count), which also gives the scale's
-    n."""
+    n. fx: a sharded run's ((3,) maxima over every rank, the scale's n),
+    which set the scale; the result is then the (3, G, Bc) int64 sums."""
     from .histogram import fx_log2_rows
 
     _need(bins, "bins", torch.int32, 2)
@@ -763,30 +779,36 @@ def hist(bins: torch.Tensor, gh: torch.Tensor, num_bins: int, begin=0,
             raise ValueError("a device count needs a host cap")
         cap = cv
     cap = min(int(cap), N)
+    keep, max_in, log2 = _fx_args(fx, dev)
+    odt = torch.float32 if fx is None else torch.int64
     if cap <= 0 or G == 0:
-        return torch.zeros((3, G, Bc), dtype=torch.float32, device=dev)
+        return torch.zeros((3, G, Bc), dtype=odt, device=dev)
     plan = hist_plan(G, N, cap, Bc)
     stream = _stream(dev)
     state, work, acc = _scratch(_SEG_SCRATCH, dev, stream, plan,
                                  _SEG_BUFS)
-    out = torch.empty((3, G, Bc), dtype=torch.float32, device=dev)
+    out = torch.empty((3, G, Bc), dtype=odt, device=dev)
     rc = load().lgbm_hist(
         bins.data_ptr(), gh.data_ptr(), N, bp, cp, bv, cv, bw, cw, cap,
-        state.data_ptr(), work.data_ptr(), acc.data_ptr(), out.data_ptr(),
+        state.data_ptr(), work.data_ptr(), acc.data_ptr(),
+        None if fx is not None else out.data_ptr(),
         G, Bc, plan["chunk"], plan["slot_items"], plan["gc"], plan["n_cg"],
-        plan["max_items"], plan["plan_blocks"], fx_log2_rows(cap),
-        _seg_vec(bins, gh), stream)
+        plan["max_items"], plan["plan_blocks"],
+        fx_log2_rows(cap) if log2 is None else log2,
+        _seg_vec(bins, gh), max_in,
+        out.data_ptr() if fx is not None else None, stream)
     _check(rc, "hist")
+    del keep
     LAUNCHES["hist"] += 1
     return out
 
 
 def hist_slots(bins: torch.Tensor, gh: torch.Tensor, begins: torch.Tensor,
                counts: torch.Tensor, num_bins: int,
-               num_slots: int) -> torch.Tensor:
+               num_slots: int, fx=None) -> torch.Tensor:
     """(G, N) leaf-grouped bins, (3, N) f32 channels, (S,) int32 disjoint
     segments -> (S, 3, G, Bc) f32 fixed-point sums, the scale over all N
-    rows; empty slots zero."""
+    rows; empty slots zero. fx: as hist's (int64 sums)."""
     from .histogram import fx_log2_rows
 
     _need(bins, "bins", torch.int32, 2)
@@ -802,7 +824,9 @@ def hist_slots(bins: torch.Tensor, gh: torch.Tensor, begins: torch.Tensor,
     if begins.shape[0] != S or counts.shape[0] != S:
         raise ValueError(f"begins and counts must have {S} slots")
     dev = bins.device
-    out = torch.empty((S, 3, G, Bc), dtype=torch.float32, device=dev)
+    keep, max_in, log2 = _fx_args(fx, dev)
+    out = torch.empty((S, 3, G, Bc), dtype=torch.float32 if fx is None
+                      else torch.int64, device=dev)
     if N == 0 or S == 0 or G == 0:
         return out.zero_()
     plan = hist_slots_plan(G, N, S, Bc)
@@ -812,10 +836,13 @@ def hist_slots(bins: torch.Tensor, gh: torch.Tensor, begins: torch.Tensor,
     rc = load().lgbm_hist_slots(
         bins.data_ptr(), gh.data_ptr(), N, begins.data_ptr(),
         counts.data_ptr(), S, state.data_ptr(), work.data_ptr(),
-        acc.data_ptr(), out.data_ptr(), G, Bc, plan["chunk"],
-        plan["slot_items"], plan["gc"], plan["n_cg"], plan["max_items"],
-        plan["plan_blocks"], fx_log2_rows(N), _seg_vec(bins, gh), stream)
+        acc.data_ptr(), None if fx is not None else out.data_ptr(), G, Bc,
+        plan["chunk"], plan["slot_items"], plan["gc"], plan["n_cg"],
+        plan["max_items"], plan["plan_blocks"],
+        fx_log2_rows(N) if log2 is None else log2, _seg_vec(bins, gh),
+        max_in, out.data_ptr() if fx is not None else None, stream)
     _check(rc, "hist_slots")
+    del keep
     LAUNCHES["hist_slots"] += 1
     return out
 
@@ -879,10 +906,11 @@ def seg_sum_plan(k: int, L: int, N: int, sms: int,
 
 
 def seg_sum(vals: torch.Tensor, idx: torch.Tensor,
-            num_out: int) -> torch.Tensor:
+            num_out: int, fx=None) -> torch.Tensor:
     """(k, N) f32, k <= 3, (N,) int32 -> (k, num_out) f32 per-index sums
     as int64 fixed point (the same bits on every run); idx outside [0,
-    num_out) dropped."""
+    num_out) dropped. fx: a sharded run's ((k,) maxima over every rank,
+    the scale's n); the result is then the (k, num_out) int64 sums."""
     from .histogram import fx_log2_rows
 
     _need(vals, "vals", torch.float32, 2)
@@ -897,13 +925,19 @@ def seg_sum(vals: torch.Tensor, idx: torch.Tensor,
                         pv % 16 == 0 and pi % 16 == 0)
     out = torch.empty((k, L), dtype=torch.float32, device=dev)
     if N == 0 or L == 0:
-        return out.zero_()
+        return out.zero_() if fx is None else out.to(torch.int64).zero_()
+    keep, max_in, log2 = _fx_args(fx, dev)
     scratch = torch.empty(plan["scratch_words"], dtype=torch.int64,
                           device=dev)
     rc = load().lgbm_seg_sum(pv, pi, scratch.data_ptr(), out.data_ptr(), k,
                              L, N, plan["blocks"], plan["nparts"],
-                             fx_log2_rows(N), int(plan["vec"]), _stream(dev))
+                             fx_log2_rows(N) if log2 is None else log2,
+                             int(plan["vec"]), max_in, _stream(dev))
     _check(rc, "seg_sum")
+    del keep
     LAUNCHES["seg_sum"] += 1
+    if fx is not None:
+        # the accumulator keeps the int64 sums (csrc/seg_sum.cu)
+        return scratch[:k * L].reshape(k, L).clone()
     return out
 

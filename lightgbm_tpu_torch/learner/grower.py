@@ -10,12 +10,13 @@ interaction constraints, feature_fraction_bynode, extra_trees and the
 CEGB penalties) and the forced-split plan both growers share, and
 grow_tree's dispatch between the rounds grower (rounds.py) and the
 sequential permuted grower (permuted.py). The JAX package's flat grower
-is not ported.
+is not ported: feature-parallel growth rides the permuted grower
+(parallel/feature_parallel.py).
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import Any, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -69,6 +70,21 @@ class GrowerSpec(NamedTuple):
     n_groups: int = 0
     # length of the forced-split plan (forcedsplits_filename), 0 = none
     n_forced: int = 0
+    # a sharded run (the JAX spec's axis_name / axis_size, voting_k and
+    # feature_axis, grower.py:54,97-102): here an axis is a
+    # parallel.comm.Mesh rather than a name. axis_name: the data axis
+    # (rows sharded, histograms reduced); voting_k > 0 elects 2 * k
+    # columns a round (voting-parallel); feature_axis: every rank holds
+    # every row and searches its own feature block (feature-parallel,
+    # exact grower)
+    axis_name: Optional[Any] = None
+    axis_size: int = 1
+    voting_k: int = 0
+    feature_axis: Optional[Any] = None
+    # the rows a single device holding every rank's rows pads to: the n
+    # of the f32 histograms' fixed-point scale under a data axis, so
+    # each rank's int64 partials sum to that device's bits
+    axis_rows: int = 0
 
     @property
     def per_node(self) -> bool:
@@ -342,6 +358,30 @@ def empty_tree(L: int, B: int, device) -> TreeArrays:
         leaf_value=zf(L), leaf_weight=zf(L), leaf_count=zf(L),
         leaf_depth=zi(L),
     )
+
+
+def select_global_rec(rec: SplitRecord, axis, lo: int) -> SplitRecord:
+    """Every rank's best over its own column block (features from lo) ->
+    the global winner of each leaf: one all-gather of the records, the
+    max gain, ties to the lowest rank (parallel_tree_learner.h:209)."""
+    rec = rec._replace(feature=rec.feature + lo)
+    fields = [f for f in rec if f is not None]
+    # one (fields, Bt[, B]) f64 tensor per rank: every field is exact in
+    # f64 (f32 sums, int32 ids, bools)
+    packed = torch.cat([f.to(torch.float64).reshape(f.shape[0], -1)
+                        for f in fields], dim=1)  # (Bt, width)
+    allr = axis.all_gather(packed)  # (n, Bt, width)
+    w = torch.argmax(allr[:, :, 0], dim=0)  # first max: lowest rank
+    pick = allr[w, torch.arange(allr.shape[1], device=allr.device)]
+    out, j = [], 0
+    for f in rec:
+        if f is None:
+            out.append(None)
+            continue
+        width = f[0].numel()
+        out.append(pick[:, j:j + width].reshape(f.shape).to(f.dtype))
+        j += width
+    return SplitRecord(*out)
 
 
 def grow_tree(bins_fm, nan_bin, num_bins, mono, is_cat, grad, hess, mask,

@@ -69,9 +69,13 @@ def build_gh8_quant(gq: torch.Tensor, hq: torch.Tensor,
     return gh.to(torch.int32)
 
 
-def root_sums_quant(gh: torch.Tensor) -> torch.Tensor:
-    """(3,) f32 sums of the integer channels over all rows (exact)."""
-    return gh.to(torch.int64).sum(dim=1).to(torch.float32)
+def root_sums_quant(gh: torch.Tensor, axis=None) -> torch.Tensor:
+    """(3,) f32 sums of the integer channels over all rows (exact); axis
+    (a parallel.comm.Mesh) sums every rank's rows, in int64."""
+    s = gh.to(torch.int64).sum(dim=1)
+    if axis is not None:
+        s = axis.all_reduce(s)
+    return s.to(torch.float32)
 
 
 def build_gh3(grad: torch.Tensor, hess: torch.Tensor,
@@ -81,10 +85,73 @@ def build_gh3(grad: torch.Tensor, hess: torch.Tensor,
     return torch.stack([grad, hess, count]).to(torch.float32)
 
 
-def root_sums(gh: torch.Tensor) -> torch.Tensor:
+def root_sums(gh: torch.Tensor, axis=None) -> torch.Tensor:
     """(3,) f32 (sum_grad, sum_hess, count) over all rows of (3, N) f32
-    channels: summed in f64 and rounded once."""
-    return gh.to(torch.float64).sum(dim=1).to(torch.float32)
+    channels: summed in f64 and rounded once. axis (a parallel.comm.Mesh)
+    reduces the f64 sums over every rank's rows before the rounding
+    (data_parallel_tree_learner.cpp:169-221, the root allreduce)."""
+    s = gh.to(torch.float64).sum(dim=1)
+    if axis is not None:
+        s = axis.all_reduce(s)
+    return s.to(torch.float32)
+
+
+# --------------------------------------------------- sharded (mesh) wires
+def rs_exact_ok(local_rows: int, n_ranks: int, quant_levels: int) -> bool:
+    """Whether the integer reduce-scatter wire is exact for this shape
+    (lightgbm_tpu/learner/histogram.py rs_exact_ok): the global
+    hessian-channel worst case local_rows * n_ranks * levels under 2^31
+    and each rank's sums within f32's exact integers (2^24)."""
+    return rs_wire_dtype(local_rows, n_ranks, quant_levels) is not None
+
+
+def rs_wire_dtype(local_rows: int, n_ranks: int,
+                  quant_levels: int) -> "str | None":
+    """The JAX package's narrowest exact wire dtype for the quantized
+    histogram collectives: "int16" while the global worst case stays
+    under 2^15, "int32" under 2^31 (with per-rank sums under 2^24), None
+    past that (the f32 wire). Neither gloo nor NCCL reduces int16, so
+    the port's collectives carry an "int16" wire as int32
+    (parallel.comm.wire_dtype); the bytes it reports are int32's."""
+    levels = max(int(quant_levels), 1)
+    if local_rows * n_ranks * levels < 2 ** 15:
+        return "int16"
+    if (local_rows * n_ranks * levels < 2 ** 31
+            and local_rows * levels < 2 ** 24):
+        return "int32"
+    return None
+
+
+def int_wire(h: torch.Tensor, wire: "str | None") -> torch.Tensor:
+    """f32 integer sums -> the wire's integer dtype (f32 kept for None)."""
+    if wire is None:
+        return h
+    return h.to(torch.int16 if wire == "int16" else torch.int32)
+
+
+def fx_axis_absmax(gh: torch.Tensor, axis, inside=None) -> torch.Tensor:
+    """(3,) f32 channel maxima |value| over every rank's rows (or the
+    rows `inside` marks): the fixed-point scale of a sharded call, which
+    must be the one a single device holding all rows would take."""
+    a = gh.abs()
+    if inside is not None:
+        a = torch.where(inside[None, :], a, torch.zeros_like(a))
+    m = (a.amax(dim=1) if gh.shape[1] else
+         torch.zeros(gh.shape[0], dtype=torch.float32, device=gh.device))
+    return axis.all_reduce(m.to(torch.float32), "max")
+
+
+def fx_axis_reduce(acc: torch.Tensor, absmax: torch.Tensor, n_rows: int,
+                   axis) -> torch.Tensor:
+    """A sharded call's int64 fixed-point partials (..., 3, G, B) or
+    (k, L), summed over the axis and converted to f32 with the scale of
+    (absmax, n_rows): the bits one device summing every row gives."""
+    k = fx_exponents(absmax, n_rows)
+    tot = axis.all_reduce(acc)
+    if tot.dim() == 2:  # seg_sum's (k, L)
+        return (tot.to(torch.float64) * _pow2(-k)[:, None]).to(
+            torch.float32)
+    return fx_to_f32(tot, k)
 
 
 # ------------------------------------------------------------ fixed point
@@ -197,11 +264,13 @@ def _segment(begin, count, n_total: int) -> Tuple[int, int]:
 
 
 def histogram_plain(bins_fm: torch.Tensor, gh: torch.Tensor, num_bins: int,
-                    begin=0, count=None, cap: Optional[int] = None
+                    begin=0, count=None, cap: Optional[int] = None, fx=None
                     ) -> torch.Tensor:
     """Plain version of hist: fixed-point sums over rows [begin,
     begin + count). Tensor bounds are never read on the host: the rows
-    inside them are a mask over all N rows (the same sums)."""
+    inside them are a mask over all N rows (the same sums). fx: a sharded
+    call's ((3,) maxima over every rank, the scale's n): the scale comes
+    from them and the int64 sums are returned."""
     G, N = bins_fm.shape
     if isinstance(begin, torch.Tensor) or isinstance(count, torch.Tensor):
         if cap is None:
@@ -213,18 +282,20 @@ def histogram_plain(bins_fm: torch.Tensor, gh: torch.Tensor, num_bins: int,
             b + torch.as_tensor(count, device=dev).reshape(-1)[:1]
         inside = (pos >= b) & (pos < e)
         vals = torch.where(inside[None, :], gh, torch.zeros_like(gh))
-        k = fx_exponents(_absmax(vals), int(cap))
+        k = (fx_exponents(_absmax(vals), int(cap)) if fx is None
+             else fx_exponents(*fx))
         acc = _slot_hist_int64(bins_fm, fx_quantize(vals, k),
                                (~inside).to(torch.int64), 1, num_bins)[0]
-        return fx_to_f32(acc, k)
+        return acc if fx is not None else fx_to_f32(acc, k)
     b, c = _segment(begin, count, N)
     cap = c if cap is None else int(cap)
     rows = slice(b, b + c)
-    k = fx_exponents(_absmax(gh[:, rows]), cap)
+    k = (fx_exponents(_absmax(gh[:, rows]), cap) if fx is None
+         else fx_exponents(*fx))
     q = fx_quantize(gh[:, rows], k)
     zero = torch.zeros(c, dtype=torch.int64, device=bins_fm.device)
     acc = _slot_hist_int64(bins_fm[:, rows], q, zero, 1, num_bins)[0]
-    return fx_to_f32(acc, k)
+    return acc if fx is not None else fx_to_f32(acc, k)
 
 
 def histogram(
@@ -234,16 +305,20 @@ def histogram(
     begin=0,
     count=None,
     cap: Optional[int] = None,
+    fx=None,
 ) -> torch.Tensor:
     """One f32 histogram -> (3, G, Bc) over rows [begin, begin + count)
     (all rows by default) — the hist kernel on the card. begin and count
     may be 0-dim tensors on the bins' device, so a caller learns a
     segment's bounds without reading them back; `cap` (a host int) then
     bounds count and sizes the launch. The fixed-point scale takes n =
-    cap (module docstring)."""
+    cap (module docstring). fx: a sharded call's ((3,) channel maxima
+    over every rank, the scale's n): the scale a device holding every
+    row would take, and the (3, G, Bc) int64 sums to reduce
+    (fx_axis_reduce)."""
     if bins_fm.is_cuda:
-        return cuda_hist.hist(bins_fm, gh, num_bins, begin, count, cap)
-    return histogram_plain(bins_fm, gh, num_bins, begin, count, cap)
+        return cuda_hist.hist(bins_fm, gh, num_bins, begin, count, cap, fx)
+    return histogram_plain(bins_fm, gh, num_bins, begin, count, cap, fx)
 
 
 def segment_slots(begins: torch.Tensor, counts: torch.Tensor,
@@ -266,15 +341,15 @@ def segment_slots(begins: torch.Tensor, counts: torch.Tensor,
 
 def hist_slots_plain(bins_fm: torch.Tensor, gh: torch.Tensor,
                      begins: torch.Tensor, counts: torch.Tensor,
-                     num_bins: int, num_slots: int) -> torch.Tensor:
+                     num_bins: int, num_slots: int, fx=None) -> torch.Tensor:
     """Plain version of hist_slots: fixed-point sums, the scale taken
-    over all N rows."""
+    over all N rows (fx: as histogram_plain's)."""
     G, N = bins_fm.shape
-    k = fx_exponents(_absmax(gh), N)
+    k = fx_exponents(_absmax(gh), N) if fx is None else fx_exponents(*fx)
     slot = segment_slots(begins, counts, N)
     acc = _slot_hist_int64(bins_fm, fx_quantize(gh, k), slot, num_slots,
                            num_bins)
-    return fx_to_f32(acc, k)
+    return acc if fx is not None else fx_to_f32(acc, k)
 
 
 def hist_slots(
@@ -284,15 +359,16 @@ def hist_slots(
     counts: torch.Tensor,  # (S,) int32 segment lengths (0 = empty slot)
     num_bins: int,
     num_slots: int,
+    fx=None,
 ) -> torch.Tensor:
     """Per-slot f32 histograms over disjoint contiguous row segments ->
     (S, 3, G, Bc); empty slots are zero (hist_slots kernel on the card,
-    one launch for all slots)."""
+    one launch for all slots). fx: as histogram's (int64 sums)."""
     if bins_fm.is_cuda:
         return cuda_hist.hist_slots(bins_fm, gh, begins, counts, num_bins,
-                                    num_slots)
+                                    num_slots, fx)
     return hist_slots_plain(bins_fm, gh, begins, counts, num_bins,
-                            num_slots)
+                            num_slots, fx)
 
 
 # -------------------------------------------------------------- hist_round
@@ -405,11 +481,27 @@ def seg_sum_plain(vals: torch.Tensor, idx: torch.Tensor,
     return out[:, :num_out]
 
 
-def seg_sum(vals: torch.Tensor, idx: torch.Tensor, num_out: int
-            ) -> torch.Tensor:
+def seg_sum(vals: torch.Tensor, idx: torch.Tensor, num_out: int,
+            axis=None, n_rows: Optional[int] = None) -> torch.Tensor:
     """(k, N) values + (N,) int32 indices -> (k, num_out) per-index sums;
     out-of-range indices are dropped (seg_sum kernel on the card, whose
-    int64 fixed-point sums give the same bits on every run)."""
+    int64 fixed-point sums give the same bits on every run). axis (a
+    parallel.comm.Mesh, every rank's N equal) sums every rank's rows to
+    the bits one device holding them all gives: on the card the
+    kernel's int64 partials at the scale of the maxima over every rank
+    and n_rows (the rows that device would pad to), reduced exactly; on
+    the CPU the plain f32 version over the gathered rows, in rank order
+    (a rank's padding rows add zeros or drop)."""
+    if axis is not None:
+        if not vals.is_cuda:
+            return seg_sum_plain(
+                torch.cat(list(axis.all_gather(vals)), dim=1),
+                axis.all_gather(idx).reshape(-1), num_out)
+        absmax = axis.all_reduce(
+            vals.abs().amax(dim=1).to(torch.float32), "max")
+        acc = cuda_hist.seg_sum(vals.contiguous(), idx.contiguous(),
+                                num_out, (absmax, int(n_rows)))
+        return fx_axis_reduce(acc, absmax, int(n_rows), axis)
     if vals.is_cuda:
         return cuda_hist.seg_sum(vals.contiguous(), idx.contiguous(),
                                  num_out)

@@ -67,9 +67,26 @@ and a forced plan, as in the JAX package (boosting falls back or turns
 the round phase off); advanced becomes intermediate on this grower
 (boosting, with a warning).
 
-Not ported, refused upstream: voting and any mesh axis (ROADMAP queue
-A). Monotone basic, NaN default-left, max_depth, EFB bundles and
+Monotone basic, NaN default-left, max_depth, EFB bundles and
 categorical splits are kept.
+
+Two mesh axes (parallel.comm.Mesh):
+- a data axis (spec.axis_name; permuted.py:407-408, :435, :719,
+  :774-791 of the JAX package): each rank partitions its own rows; the
+  root sums are reduced, the smaller child is chosen on the global row
+  counts, and every histogram crosses the wire as int64 fixed-point
+  partials taken at the scale one device holding every row would take
+  (the channel maxima over every rank, n from spec.axis_rows), so the
+  reduced sums are that device's bits and N ranks grow the serial tree
+  bit for bit. Under spec.voting_k each split elects 2k columns from
+  the ranks' local gains on the smaller child and reduces only those
+  (hist_valid marks the stored columns that hold global sums);
+- a feature axis (spec.feature_axis: every rank holds every row and
+  every bin, feature_parallel_tree_learner.cpp): each rank builds and
+  searches only its own block of ceil(G / n) columns, and the winner is
+  an all-gather argmax whose ties go to the lowest rank (the lowest
+  feature, as one device's search picks); the partition is local and
+  the same on every rank. No histogram crosses the wire.
 """
 
 from __future__ import annotations
@@ -90,11 +107,13 @@ from .grower import (
     make_node_candidates,
     mono_bounds,
     monotone_child_intervals,
+    select_global_rec,
     split_leaf_outputs,
 )
-from .histogram import build_gh3, hist_slots, histogram, root_sums
+from .histogram import build_gh3, fx_axis_absmax, fx_axis_reduce, \
+    fx_exponents, fx_to_f32, hist_slots, histogram, root_sums
 from .split import BIG, NEG_INF, SplitParams, SplitRecord, best_split, \
-    cumsum_last, first_argmax, leaf_output, map_record
+    cumsum_last, feature_best_gains, first_argmax, leaf_output, map_record
 
 # the narrowest window of the segment ladder (the JAX package stops at
 # its 2048-row block; a narrower floor costs two graph nodes a split per
@@ -160,10 +179,39 @@ class _Grower:
         # the smaller child's histogram: the most rows it can hold sizes
         # the launch and the fixed-point scale on every split
         self.hist_cap = max(N // 2, 1)
+        # ---- mesh axes (module docstring)
+        self.ax, self.fax = spec.axis_name, spec.feature_axis
+        self.axis_rows = spec.axis_rows or N
+        self.voting = bool(spec.voting_k) and self.ax is not None
+        self.nb_t, self.nan_t, self.mono_t = num_bins, nan_bin, mono
+        self.iscat_t = self.is_cat
+        self.Gh = G  # histogram pool columns
+        if self.fax is not None:
+            if spec.efb or spec.per_node or spec.n_forced or spec.mono_mode:
+                raise ValueError("a feature axis takes plain columns: no "
+                                 "EFB, per-node extras, forced plan or "
+                                 "monotone refinement")
+            n = self.fax.size
+            Fb = -(-G // n)
+            lo = self.fax.rank * Fb
+            self.blk = (lo, min(lo + Fb, G), Fb)
+            self.Gh = Fb
+
+            def my_block(t, fill):
+                pad = torch.full((n * Fb - G,) + tuple(t.shape[1:]), fill,
+                                 dtype=t.dtype, device=dev)
+                return torch.cat([t, pad])[lo:lo + Fb]
+
+            self.nb_t, self.nan_t = my_block(num_bins, 0), \
+                my_block(nan_bin, -1)
+            self.mono_t = my_block(mono, 0)
+            self.fm_t = my_block(feat_mask, False)
+            if self.is_cat is not None:
+                self.iscat_t = my_block(is_cat, False)
 
         gh = build_gh3(grad * mask, hess * mask, mask)  # (3, N) f32
-        root = root_sums(gh)
-        hist0 = histogram(bins_fm, gh, self.Bc)
+        root = root_sums(gh, self.ax)
+        hist0 = self.hist_rows(bins_fm, gh)
         root_out = leaf_output(root[0], root[1], params)
         big = torch.full((1,), BIG, dtype=torch.float32, device=dev)
         self.group_mat = group_mat
@@ -183,15 +231,11 @@ class _Grower:
                 torch.zeros(1, dtype=torch.int64, device=dev),
                 self.leaf_groups[:1], self.path_used[:1], root[2:3],
                 self.feat_used)
-        rec0 = best_split(
+        rec0 = self.search(
             self.exp_hist(hist0[None], root[0:1], root[1:2], root[2:3]),
-            root[0:1], root[1:2], root[2:3], num_bins, nan_bin, mono, params,
-            fm0, parent_output=root_out[None],
-            cmin=-big if self.has_mono else None,
-            cmax=big if self.has_mono else None, has_mono=self.has_mono,
-            is_cat=self.is_cat, cat_subset=spec.cat_subset,
-            penalty=pen0, rand_bin=rb0,
-        )
+            root[0:1], root[1:2], root[2:3], fm0, root_out[None],
+            -big if self.has_mono else None,
+            big if self.has_mono else None, pen0, rb0)
 
         self.pbins = bins_fm.clone()  # leaf-grouped along the row axis
         self.pgh = gh
@@ -204,9 +248,13 @@ class _Grower:
         self.seg_count = torch.zeros(L + 1, dtype=torch.int64, device=dev)
         self.seg_count[0] = (self.valid_f > 0).sum()
         self.n_left = torch.zeros(1, dtype=torch.int64, device=dev)
-        self.hist = torch.zeros((L + 1, 3, G, self.Bc), dtype=torch.float32,
-                                device=dev)
+        self.hist = torch.zeros((L + 1, 3, self.Gh, self.Bc),
+                                dtype=torch.float32, device=dev)
         self.hist[0] = hist0
+        if self.voting:
+            # hist_valid[leaf, f]: the stored column holds global sums
+            self.hist_valid = torch.ones((L + 1, num_bins.shape[0]),
+                                         dtype=torch.bool, device=dev)
         zf = lambda: torch.zeros(L + 1, dtype=torch.float32, device=dev)
         zi = lambda: torch.zeros(L + 1, dtype=torch.int32, device=dev)
         self.best = SplitRecord(
@@ -250,6 +298,60 @@ class _Grower:
             return expand_hist(h, g_, h_, c_, self.bundle)
         return h
 
+    # ------------------------------------------------------ mesh helpers
+    def hist_rows(self, bins, gh) -> torch.Tensor:
+        """The histogram of all N rows: reduced over a data axis at the
+        scale of every rank's rows; the own column block on a feature
+        axis."""
+        if self.ax is not None:
+            absmax = fx_axis_absmax(gh, self.ax)
+            acc = histogram(bins, gh, self.Bc,
+                            fx=(absmax, self.axis_rows))
+            return fx_axis_reduce(acc, absmax, self.axis_rows, self.ax)
+        if self.fax is not None:
+            return self.pad_block(histogram(self.block(bins), gh, self.Bc))
+        return histogram(bins, gh, self.Bc)
+
+    def block(self, bins) -> torch.Tensor:
+        """The own column block of a (G, N) bin matrix (a contiguous
+        view: it slices the leading axis)."""
+        lo, hi, _ = self.blk
+        return bins[lo:hi]
+
+    def pad_block(self, h) -> torch.Tensor:
+        """(..., hi - lo, Bc) -> (..., Fb, Bc): zero columns past G."""
+        lo, hi, Fb = self.blk
+        if hi - lo == Fb:
+            return h
+        pad = torch.zeros(h.shape[:-2] + (Fb - (hi - lo), h.shape[-1]),
+                          dtype=h.dtype, device=h.device)
+        return torch.cat([h, pad], dim=-2)
+
+    def global_counts(self, a, b):
+        """Row counts summed over a data axis (global left / right sizes:
+        every rank must choose the same smaller child)."""
+        if self.ax is None:
+            return a, b
+        g = self.ax.all_reduce(torch.stack([a, b]))
+        return g[0], g[1]
+
+    def search(self, hist, sg, sh, sc, fm, po, cmn, cmx, pen=None, rb=None
+               ) -> SplitRecord:
+        """best_split of a batch of leaves; on a feature axis over the own
+        column block, then the global winner (select_global_rec)."""
+        if self.fax is None:
+            return best_split(
+                hist, sg, sh, sc, self.num_bins, self.nan_bin, self.mono,
+                self.params, fm, parent_output=po, cmin=cmn, cmax=cmx,
+                has_mono=self.has_mono, is_cat=self.is_cat,
+                cat_subset=self.spec.cat_subset, penalty=pen, rand_bin=rb)
+        rec = best_split(
+            hist, sg, sh, sc, self.nb_t, self.nan_t, self.mono_t,
+            self.params, self.fm_t, parent_output=po, cmin=cmn, cmax=cmx,
+            has_mono=self.has_mono, is_cat=self.iscat_t,
+            cat_subset=self.spec.cat_subset)
+        return select_global_rec(rec, self.fax, self.blk[0])
+
     def link(self, leaves, node_ids, new_ids, act) -> None:
         """Tree::Split on the links, batched: node node_ids[r] takes leaf
         leaves[r]'s place under its parent, with children ~leaves[r] and
@@ -267,24 +369,23 @@ class _Grower:
         _put(t.node_right, node_ids, ~new_ids.to(torch.int32))
 
     def children_best(self, left_h, right_h, rec: SplitRecord, lo, ro,
-                      cmn, cmx, depth, extras=(None, None, None)
-                      ) -> SplitRecord:
+                      cmn, cmx, depth, extras=(None, None, None),
+                      valid=None) -> SplitRecord:
         """Best splits of the left children then the right children, in
         one batched search; a child at max_depth gets gain NEG_INF.
         extras: the children's (feat_mask, rand_bin, penalty) under the
-        per-node extras."""
+        per-node extras; valid: voting's (2 n, F) columns that hold
+        global sums."""
         ch_g = torch.cat([rec.left_g, rec.right_g])
         ch_h = torch.cat([rec.left_h, rec.right_h])
         ch_c = torch.cat([rec.left_c, rec.right_c])
         fm, rb, pen = extras
-        ch = best_split(
+        fm = self.feat_mask if fm is None else fm
+        if valid is not None:  # voting: only columns holding global sums
+            fm = (fm if fm.dim() == 2 else fm[None]) & valid
+        ch = self.search(
             self.exp_hist(torch.cat([left_h, right_h]), ch_g, ch_h, ch_c),
-            ch_g, ch_h, ch_c, self.num_bins, self.nan_bin, self.mono,
-            self.params, self.feat_mask if fm is None else fm,
-            parent_output=torch.cat([lo, ro]),
-            cmin=cmn, cmax=cmx, has_mono=self.has_mono, is_cat=self.is_cat,
-            cat_subset=self.spec.cat_subset, penalty=pen, rand_bin=rb,
-        )
+            ch_g, ch_h, ch_c, fm, torch.cat([lo, ro]), cmn, cmx, pen, rb)
         md = self.spec.max_depth
         if md <= 0:
             return ch
@@ -414,7 +515,8 @@ class _Grower:
         self.pperm.copy_(self.pperm[inv])
         pleaf.copy_(pleaf_new[inv])
         n_r = torch.where(mask, self.seg_count - n_l, 0)
-        left_smaller = n_l <= n_r  # (L + 1,)
+        gn_l, gn_r = self.global_counts(n_l, n_r)
+        left_smaller = gn_l <= gn_r  # (L + 1,) on the global counts
         sm_begin = torch.where(left_smaller, beg, beg + n_l)[tl]
         sm_count = torch.where(left_smaller, n_l, n_r)[tl]
         seg_new = (beg + n_l)[tl]
@@ -426,8 +528,19 @@ class _Grower:
         # ---- all smaller children in one pass, larger by subtraction
         slot_begin = torch.where(act, sm_begin, 0).to(torch.int32)
         slot_count = torch.where(act, sm_count, 0).to(torch.int32)
-        small = hist_slots(self.pbins, self.pgh, slot_begin, slot_count,
-                           self.Bc, S)
+        if self.ax is not None:
+            absmax = fx_axis_absmax(self.pgh, self.ax)
+            small = fx_axis_reduce(
+                hist_slots(self.pbins, self.pgh, slot_begin, slot_count,
+                           self.Bc, S, fx=(absmax, self.axis_rows)),
+                absmax, self.axis_rows, self.ax)
+        elif self.fax is not None:
+            small = self.pad_block(hist_slots(
+                self.block(self.pbins), self.pgh, slot_begin, slot_count,
+                self.Bc, S))
+        else:
+            small = hist_slots(self.pbins, self.pgh, slot_begin, slot_count,
+                               self.Bc, S)
         large = self.hist[tl] - small
         ls = left_smaller[tl][:, None, None, None]
         left_h = torch.where(ls, small, large)
@@ -501,16 +614,16 @@ class _Grower:
                     lambda cap: self.partition(cap, b, c, feat, col, rec))
         n_l = self.n_left
         n_r = c - n_l
-        left_smaller = n_l <= n_r
+        gn_l, gn_r = self.global_counts(n_l, n_r)
+        left_smaller = gn_l <= gn_r  # on the global counts
         _put(self.seg_begin, new, b + n_l)
         _put(self.seg_count, l, n_l)
         _put(self.seg_count, new, n_r)
 
         # ---- smaller child over its segment, larger by subtraction
-        small = histogram(self.pbins, self.pgh, self.Bc,
-                          begin=torch.where(left_smaller, b, b + n_l),
-                          count=torch.where(left_smaller, n_l, n_r),
-                          cap=self.hist_cap)
+        small, el = self.small_hist(
+            torch.where(left_smaller, b, b + n_l),
+            torch.where(left_smaller, n_l, n_r))
         large = self.hist[l][0] - small
         left_h = torch.where(left_smaller, small, large)
         right_h = torch.where(left_smaller, large, small)
@@ -539,14 +652,82 @@ class _Grower:
             for arr, v in ((self.leaf_groups, grp), (self.path_used, pu)):
                 _put(arr, l, v)
                 _put(arr, new, v)
+        valid = None
+        if el is not None:
+            # the smaller child is global at the elected columns, the
+            # larger one where the parent's column was too
+            v_par = self.hist_valid[l][0]
+            v_left = torch.where(left_smaller, el, el & v_par)
+            v_right = torch.where(left_smaller, el & v_par, el)
+            _put(self.hist_valid, l, v_left[None])
+            _put(self.hist_valid, new, v_right[None])
+            valid = torch.stack([v_left, v_right])
         ch = None
         if not self.spec.mono_mode:
             ch = self.children_best(left_h[None], right_h[None], rec, lo, ro,
-                                    cmn, cmx, depth, extras)
+                                    cmn, cmx, depth, extras, valid)
         self.record(l, new, node, rec, lo, ro, iv, ch, depth)
         self.i.add_(go.to(torch.int64))
         if self.spec.mono_mode:
             self.mono_split(l, node, new, go)
+
+    def small_hist(self, begin, count):
+        """The smaller child's (3, Gh, Bc) histogram over its segment and,
+        under voting, the (F,) elected columns (else None). On a data
+        axis: int64 partials at the scale of the segment's maxima over
+        every rank and n = axis_rows // 2 (one device's hist_cap); voting
+        elects from each rank's local f32 sums and reduces only the
+        elected columns (permuted.py:719-791)."""
+        if self.fax is not None:
+            return self.pad_block(histogram(
+                self.block(self.pbins), self.pgh, self.Bc, begin=begin,
+                count=count, cap=self.hist_cap)), None
+        if self.ax is None:
+            return histogram(self.pbins, self.pgh, self.Bc, begin=begin,
+                             count=count, cap=self.hist_cap), None
+        pos = torch.arange(self.N, device=self.dev)
+        inside = (pos >= begin) & (pos < begin + count)
+        n_sc = max(self.axis_rows // 2, 1)
+        absmax = fx_axis_absmax(self.pgh, self.ax, inside)
+        # a rank's share of the globally smaller child may exceed half
+        # its rows: the launch is bounded by all of them
+        acc = histogram(self.pbins, self.pgh, self.Bc, begin=begin,
+                        count=count, cap=self.N, fx=(absmax, n_sc))
+        if not self.voting:
+            return fx_axis_reduce(acc, absmax, n_sc, self.ax), None
+        G = acc.shape[1]
+        local = fx_to_f32(acc, fx_exponents(absmax, n_sc))
+        lsum = local[:, 0, :].sum(dim=-1)  # (3,) this rank's totals
+        lg = feature_best_gains(
+            self.exp_hist(local[None], lsum[0:1], lsum[1:2], lsum[2:3]),
+            lsum[0:1], lsum[1:2], lsum[2:3], self.num_bins, self.nan_bin,
+            self.mono, self.params, self.feat_mask, is_cat=self.is_cat,
+            cat_subset=self.spec.cat_subset)[0]  # (F,)
+        if self.spec.efb:
+            col_gain = torch.full((G,), NEG_INF, dtype=torch.float32,
+                                  device=self.dev).scatter_reduce(
+                0, self.bundle.bundle_of.long(), lg, "amax")
+        else:
+            col_gain = lg
+        kG = min(self.spec.voting_k, G)
+        k2 = min(2 * self.spec.voting_k, G)
+        topi = torch.sort(col_gain, descending=True, stable=True).indices[:kG]
+        in_topk = torch.zeros(G, dtype=torch.bool, device=self.dev)
+        in_topk[topi] = True
+        votes = self.ax.all_reduce(in_topk.to(torch.float32))
+        score = self.ax.all_reduce(torch.where(
+            in_topk, torch.clamp_min(col_gain, 0.0),
+            torch.zeros_like(col_gain)))
+        eidx = torch.sort(votes * 1e12 + score, descending=True,
+                          stable=True).indices[:k2]
+        comp = fx_axis_reduce(acc[:, eidx, :], absmax, n_sc, self.ax)
+        small = torch.zeros_like(local)
+        small[:, eidx, :] = comp
+        elected = torch.zeros(G, dtype=torch.bool, device=self.dev)
+        elected[eidx] = True
+        if self.spec.efb:
+            elected = elected[self.bundle.bundle_of.long()]
+        return small, elected
 
     def partition(self, cap: int, b, c, feat, col, rec: SplitRecord
                   ) -> None:

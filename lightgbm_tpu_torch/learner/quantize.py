@@ -69,16 +69,23 @@ def resolve_hist_dtype(requested: str, use_quantized_grad: bool,
 
 def discretize_gradients_int(grad: torch.Tensor, hess: torch.Tensor,
                              key: torch.Tensor, num_bins: int,
-                             stochastic: bool):
+                             stochastic: bool, absmax=None,
+                             offset: int = 0):
     """(grad, hess) -> (grad levels, hess levels, (2,) scales): gradient
     levels in [-bins/2, bins/2], hessian levels in [0, bins]; stochastic
-    rounding truncates toward zero after adding signed uniform noise."""
-    g_scale = torch.clamp_min(grad.abs().max(), 1e-30) / (num_bins // 2)
-    h_scale = torch.clamp_min(hess.abs().max(), 1e-30) / num_bins
+    rounding truncates toward zero after adding signed uniform noise.
+    A data-parallel rank passes absmax, the (2,) max |grad|, |hess| over
+    every rank's rows, and offset, its first row's place in the global
+    row stream, whose draws it takes: the levels are then the ones one
+    device holding every row computes for these rows."""
+    gmax, hmax = ((grad.abs().max(), hess.abs().max()) if absmax is None
+                  else (absmax[0], absmax[1]))
+    g_scale = torch.clamp_min(gmax, 1e-30) / (num_bins // 2)
+    h_scale = torch.clamp_min(hmax, 1e-30) / num_bins
     if stochastic:
         keys = rng.split(key)
-        ug = rng.uniform(keys[0], grad.shape)
-        uh = rng.uniform(keys[1], hess.shape)
+        ug = rng.uniform(keys[0], grad.shape, offset)
+        uh = rng.uniform(keys[1], hess.shape, offset)
     else:
         ug = uh = 0.5
     gq = torch.trunc(grad / g_scale + torch.sign(grad) * ug)
@@ -87,15 +94,18 @@ def discretize_gradients_int(grad: torch.Tensor, hess: torch.Tensor,
 
 
 def renew_leaf_with_true_gradients(leaf_value, row_leaf, grad, hess, mask,
-                                   params, num_leaves: int):
+                                   params, num_leaves: int, axis=None,
+                                   n_rows: int = 0):
     """quant_train_renew_leaf: leaf outputs from the TRUE per-leaf sums
-    (seg_sum kernel on the card)."""
+    (seg_sum kernel on the card); axis / n_rows: a data-parallel run's
+    mesh and global padded rows, summing every rank's rows (seg_sum)."""
     from .histogram import seg_sum
     from .split import leaf_output
 
     L = num_leaves
     idx = torch.where((row_leaf >= 0) & (mask > 0), row_leaf,
                       torch.full_like(row_leaf, L)).to(torch.int32)
-    sums = seg_sum(torch.stack([grad * mask, hess * mask]), idx, L)
+    sums = seg_sum(torch.stack([grad * mask, hess * mask]), idx, L,
+                   axis=axis, n_rows=n_rows)
     renewed = leaf_output(sums[0], sums[1], params)
     return torch.where(sums[1] > 0, renewed, leaf_value)

@@ -41,7 +41,8 @@ REFIT_BINS = 256
 def renew_leaf_values(leaf_value: torch.Tensor, row_leaf: torch.Tensor,
                       resid: torch.Tensor, w: torch.Tensor, alpha: float,
                       num_leaves: int, passes: int = REFIT_PASSES,
-                      num_bins: int = REFIT_BINS) -> torch.Tensor:
+                      num_bins: int = REFIT_BINS, axis=None,
+                      n_rows: int = 0) -> torch.Tensor:
     """Weighted alpha-percentile of each leaf's residuals -> (L,) f32.
 
     leaf_value: (L,) current outputs (kept where a leaf has no rows)
@@ -49,6 +50,9 @@ def renew_leaf_values(leaf_value: torch.Tensor, row_leaf: torch.Tensor,
     resid:      (N,) f32 residuals (label - score)
     w:          (N,) f32 weights; 0 excludes a row (padding / out-of-bag)
     alpha:      percentile in [0, 1] (0.5 = median)
+    axis:       a data-parallel run's mesh (n_rows its global padded
+                rows): the range, totals and bin sums over every rank's
+                rows (the bin sums cross the wire as f32)
     """
     L, B = int(num_leaves), int(num_bins)
     dev = resid.device
@@ -62,6 +66,9 @@ def renew_leaf_values(leaf_value: torch.Tensor, row_leaf: torch.Tensor,
     # the global residual range seeds every leaf's bracket
     rmin = torch.where(incl, rv, inf).min()
     rmax = torch.where(incl, rv, -inf).max()
+    if axis is not None:
+        ext = axis.all_reduce(torch.stack([-rmin, rmax]), "max")
+        rmin, rmax = -ext[0], ext[1]
     zero = torch.zeros((), dtype=f32, device=dev)
     rmin = torch.where(torch.isfinite(rmin), rmin, zero)
     rmax = torch.where(torch.isfinite(rmax), rmax, zero)
@@ -70,7 +77,7 @@ def renew_leaf_values(leaf_value: torch.Tensor, row_leaf: torch.Tensor,
     # exclusive upper edge: the max element must land in bin B - 1
     hi = (rmax + span * 1e-6).expand(L).clone()
 
-    totals = seg_sum(wv[None, :], key, L)[0]  # (L,)
+    totals = seg_sum(wv[None, :], key, L, axis=axis, n_rows=n_rows)[0]
     target = alpha * totals
     base = torch.zeros(L, dtype=f32, device=dev)  # weight below lo
     zeros_n = torch.zeros_like(wv)
@@ -89,6 +96,8 @@ def renew_leaf_values(leaf_value: torch.Tensor, row_leaf: torch.Tensor,
         bins = torch.where(inb, binp, 0)[None, :]  # (1, N)
         gh = build_gh3(wv, zeros_n, inb.to(f32))
         h = hist_nat_slots(bins, gh, slot, L, B, quant=False)[:, 0, 0]
+        if axis is not None:
+            h = axis.all_reduce(h)
         cum = cumsum_last(h)  # (L, B) weight sums in XLA:CPU's order
         cb = base[:, None] + cum
         bstar = torch.clamp((cb < target[:, None]).sum(dim=1), 0, B - 1)

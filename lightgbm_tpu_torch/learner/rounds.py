@@ -59,8 +59,27 @@ leaf's best split again under them over the histogram pool, in one
 batch. Neither composes with the per-node extras or a forced plan
 (boosting falls back to basic with a warning).
 
-Not ported, refused upstream: voting / reduce-scatter / any mesh axis
-(ROADMAP queue A).
+A data axis (spec.axis_name, a parallel.comm.Mesh: rows sharded over
+ranks, rounds.py:225-389 and :640-720 of the JAX package) reduces the
+root sums and every histogram over the ranks; everything downstream is
+computed from the reduced sums, so every rank takes the same splits and
+partitions its own rows. The smaller child is chosen on the global counts
+of the split records. With integer levels the histograms cross the wire
+as integers (int32: neither gloo nor NCCL reduces the JAX package's int16,
+histogram.rs_wire_dtype), exact in any order, so N ranks give the serial
+trees bit for bit; f32 channels cross as f32 sums. Three reductions:
+- a plain all-reduce of the (S, 3, G, Bc) smaller-child histograms;
+- use_rs (quantized, no EFB / categoricals / extras / monotone
+  refinement / voting / forced plan, rs_exact_ok): a reduce-scatter with
+  per-rank feature ownership. Each rank keeps the (Gn = ceil(G / n))
+  columns it owns, in its histogram pool too, searches them, and the
+  global winner is an all-gather argmax whose ties go to the lowest
+  rank (the lowest feature, as one device's search picks);
+- voting (spec.voting_k): each round every rank proposes its top-k
+  columns by local gain over the round's smaller children, votes and
+  summed gains elect 2k columns (forced-plan columns pinned), and only
+  those cross the wire. hist_valid tracks which stored columns hold
+  global sums; a child searches only those.
 """
 
 from __future__ import annotations
@@ -80,13 +99,15 @@ from .grower import (
     make_node_candidates,
     mono_bounds,
     monotone_child_intervals,
+    select_global_rec,
     split_leaf_outputs,
 )
 from .device_loop import DeviceLoop
 from .histogram import INT8_MAX, build_gh3, build_gh8_quant, \
-    hist_nat_slots, hist_round, histogram, root_sums, root_sums_quant
+    hist_nat_slots, hist_round, histogram, int_wire, root_sums, \
+    root_sums_quant, rs_exact_ok, rs_wire_dtype
 from .split import BIG, NEG_INF, SplitParams, SplitRecord, best_split, \
-    cumsum_last, leaf_output, map_record
+    cumsum_last, feature_best_gains, leaf_output, map_record
 
 _TAIL_EXACT_ROWS = 32 * 8192  # rounds.py:436
 
@@ -186,6 +207,43 @@ def grow_tree_rounds(
     def exp_hist(h, g_, h_, c_):
         return expand_hist(h, g_, h_, c_, bundle) if spec.efb else h
 
+    # ---- the data axis (rounds.py:225-313): which reduction, which wire
+    ax = spec.axis_name
+    n_ax = ax.size if ax is not None else 1
+    use_voting = bool(spec.voting_k) and ax is not None
+    use_rs = bool(
+        ax is not None and spec.quant and not spec.efb and not spec.has_cat
+        and not spec.cat_subset and not mono_mode and not per_node
+        and not spec.voting_k and not n_forced
+        and rs_exact_ok(N, n_ax, levels))
+    wire = (rs_wire_dtype(N, n_ax, levels) if (ax is not None and spec.quant)
+            else None)
+    Gn = G
+    nb_t, nan_t, mono_t, fm_t = num_bins, nan_bin, mono, feat_mask
+    if use_rs:
+        Gn = -(-G // n_ax)  # columns a rank owns, the axis padded to n Gn
+        lo_f = ax.rank * Gn
+
+        def my_block(t, fill):
+            """This rank's (Gn,) slice of a feature table padded to n Gn
+            (padding: no bins, so no candidate)."""
+            pad = torch.full((n_ax * Gn - G,) + tuple(t.shape[1:]), fill,
+                             dtype=t.dtype, device=dev)
+            return torch.cat([t, pad])[lo_f:lo_f + Gn]
+
+        nb_t, nan_t = my_block(num_bins, 0), my_block(nan_bin, -1)
+        mono_t, fm_t = my_block(mono, 0), my_block(feat_mask, False)
+
+    def reduce_hist(h):
+        """(..., G, Bc) local sums -> global: the owned block under
+        use_rs, else every column (integers on the integer wire)."""
+        if use_rs:
+            return ax.reduce_scatter(int_wire(h, wire), dim=-2).to(
+                torch.float32)
+        if ax is None:
+            return h
+        return ax.all_reduce(int_wire(h, wire)).to(torch.float32)
+
     if spec.quant:
         # (3, N) int8 in the int8 mode (spec.quant_int8 below 127 levels),
         # else int32: at 127 levels a hessian level can reach 128, and
@@ -198,15 +256,15 @@ def grow_tree_rounds(
         scale3 = torch.stack([gh_scale[0], gh_scale[1],
                               torch.ones((), dtype=torch.float32,
                                          device=dev)])
-        root = root_sums_quant(gh) * scale3  # (3,)
+        root = root_sums_quant(gh, ax) * scale3  # (3,)
         hist0 = hist_nat_slots(bins_fm, gh,
                                torch.zeros(N, dtype=torch.int32, device=dev),
                                1, Bc, levels=levels)[0]
-        hist0 = hist0 * scale3[:, None, None]
+        hist0 = reduce_hist(hist0) * scale3[:, None, None]
     else:
         gh = build_gh3(grad * mask, hess * mask, mask)  # (3, N) f32
-        root = root_sums(gh)
-        hist0 = histogram(bins_fm, gh, Bc)
+        root = root_sums(gh, ax)
+        hist0 = reduce_hist(histogram(bins_fm, gh, Bc))
     root_out = leaf_output(root[0], root[1], params)
     big = torch.full((1,), BIG, dtype=torch.float32, device=dev)
     fm0, rb0, pen0 = feat_mask, None, None
@@ -227,19 +285,28 @@ def grow_tree_rounds(
             path_used[:1], root[2:3], feat_used)
     rec0 = best_split(
         exp_hist(hist0[None], root[0:1], root[1:2], root[2:3]),
-        root[0:1], root[1:2], root[2:3], num_bins, nan_bin, mono, params,
-        fm0, parent_output=root_out[None],
+        root[0:1], root[1:2], root[2:3], nb_t, nan_t, mono_t, params,
+        fm_t if use_rs else fm0, parent_output=root_out[None],
         cmin=-big if has_mono else None, cmax=big if has_mono else None,
         has_mono=has_mono, is_cat=cat_arg, cat_subset=spec.cat_subset,
         penalty=pen0, rand_bin=rb0,
     )
+    if use_rs:
+        rec0 = select_global_rec(rec0, ax, lo_f)
 
     # The working arrays carry one row past the tree's: node L - 1 and
     # leaf L take the writes of unused slots (a round splits n_split of
     # its S slots, known only on the device) and are never read for a
     # used slot; the tree returned is a view without them.
-    hist = torch.zeros((L + 1, 3, G, Bc), dtype=torch.float32, device=dev)
+    # the histogram pool: the owned column block under use_rs
+    hist = torch.zeros((L + 1, 3, Gn, Bc), dtype=torch.float32, device=dev)
     hist[0] = hist0
+    if use_voting:
+        # hist_valid[leaf, f]: the stored column holds global sums (the
+        # root's all do)
+        hist_valid = torch.ones((L + 1, F), dtype=torch.bool, device=dev)
+        kG = min(spec.voting_k, G)
+        k2 = min(2 * spec.voting_k, G)
     zf = lambda: torch.zeros(L + 1, dtype=torch.float32, device=dev)
     zi = lambda: torch.zeros(L + 1, dtype=torch.int32, device=dev)
     best = SplitRecord(
@@ -337,6 +404,51 @@ def grow_tree_rounds(
                                  (use | (n_pos > 0)).to(n_cand.dtype),
                                  n_cand)
         return torch.clamp(torch.minimum(n_cand, budget0), 0, S)
+
+    def vote_reduce(sh, act):
+        """The per-round election (rounds.py:640-720, GlobalVoting of
+        parallel_tree_learner.h:152): every rank's top-k columns by local
+        gain over the round's live smaller children, votes and summed
+        gains over the axis elect 2k (ties to the lower column, as
+        lax.top_k), the forced plan's columns pinned; only the elected
+        columns are reduced. -> (the slots' histograms, global at the
+        elected columns and zero elsewhere, the (F,) elected mask)."""
+        local = sh * scale3[:, None, None] if spec.quant else sh
+        lsum = local[:, :, 0, :].sum(dim=-1)  # (W, 3) slot totals
+        lg_s = feature_best_gains(
+            exp_hist(local, lsum[:, 0], lsum[:, 1], lsum[:, 2]),
+            lsum[:, 0], lsum[:, 1], lsum[:, 2], num_bins, nan_bin, mono,
+            params, feat_mask, is_cat=cat_arg, cat_subset=spec.cat_subset)
+        lg_s = torch.where(act[:, None], lg_s,
+                           torch.full_like(lg_s, NEG_INF))
+        fgain = lg_s.amax(dim=0)  # (F,)
+        if spec.efb:
+            col_gain = torch.full((G,), NEG_INF, dtype=torch.float32,
+                                  device=dev).scatter_reduce(
+                0, bundle.bundle_of.long(), fgain, "amax")
+        else:
+            col_gain = fgain
+        topi = torch.sort(col_gain, descending=True, stable=True).indices[:kG]
+        in_topk = torch.zeros(G, dtype=torch.bool, device=dev)
+        in_topk[topi] = True
+        votes = ax.all_reduce(in_topk.to(torch.float32))
+        score = ax.all_reduce(torch.where(
+            in_topk, torch.clamp_min(col_gain, 0.0),
+            torch.zeros_like(col_gain)))
+        eidx = torch.sort(votes * 1e12 + score, descending=True,
+                          stable=True).indices[:k2]
+        if n_forced:
+            fcols = (bundle.bundle_of[forced.feature.long()] if spec.efb
+                     else forced.feature).long()
+            eidx = torch.cat([eidx, fcols])
+        elected = torch.zeros(G, dtype=torch.bool, device=dev)
+        elected[eidx] = True
+        comp = ax.all_reduce(int_wire(sh[:, :, eidx, :], wire)).to(
+            torch.float32)
+        out = torch.zeros_like(sh)
+        out[:, :, eidx, :] = comp
+        el = elected[bundle.bundle_of.long()] if spec.efb else elected
+        return out, el
 
     def one_round(W: int):
         """One round over W slots: S in a bounded loop, the host-read
@@ -454,6 +566,11 @@ def grow_tree_rounds(
                                            Bc, L, quant=spec.quant,
                                            cat_mask=cat_mask, levels=levels)
         pleaf.copy_(pleaf_new)
+        el = None
+        if use_voting:
+            slot_hists, el = vote_reduce(slot_hists, act)
+        else:
+            slot_hists = reduce_hist(slot_hists)
         parent_s = hist[tl]
         if spec.quant:
             sums = slot_hists  # exact integer sums
@@ -472,6 +589,19 @@ def grow_tree_rounds(
         right_s = torch.where(ls, large, small)
         _put(hist, tl, left_s)
         _put(hist, new_ids, right_s)
+        ch_valid = None
+        if use_voting:
+            # the smaller child is global at the elected columns; the
+            # larger one's subtraction also needs the parent's column
+            # global (rounds.py:845-863)
+            v_small = el[None, :].expand(W, F)
+            v_large = v_small & hist_valid[tl]
+            ls_v = left_smaller[:, None]
+            v_left = torch.where(ls_v, v_small, v_large)
+            v_right = torch.where(ls_v, v_large, v_small)
+            _put(hist_valid, tl, v_left)
+            _put(hist_valid, new_ids, v_right)
+            ch_valid = torch.cat([v_left, v_right])
         for arr, left, right in ((leaf_g, rec.left_g, rec.right_g),
                                  (leaf_h, rec.left_h, rec.right_h),
                                  (leaf_c, rec.left_c, rec.right_c)):
@@ -510,13 +640,19 @@ def grow_tree_rounds(
             for arr, v in ((leaf_groups, ch_grp), (path_used, ch_pu)):
                 _put(arr, tl, v)
                 _put(arr, new_ids, v)
+        if use_rs:
+            ch_fm = fm_t
+        if ch_valid is not None:
+            ch_fm = (ch_fm if ch_fm.dim() == 2 else ch_fm[None]) & ch_valid
         ch_rec = best_split(
             exp_hist(torch.cat([left_s, right_s]), ch_g, ch_h, ch_c),
-            ch_g, ch_h, ch_c, num_bins, nan_bin, mono, params, ch_fm,
+            ch_g, ch_h, ch_c, nb_t, nan_t, mono_t, params, ch_fm,
             parent_output=ch_po, cmin=ch_mn, cmax=ch_mx, has_mono=has_mono,
             is_cat=cat_arg, cat_subset=spec.cat_subset,
             penalty=ch_pen, rand_bin=ch_rb,
         )
+        if use_rs:
+            ch_rec = select_global_rec(ch_rec, ax, lo_f)
         depth_ok = (torch.ones_like(depth_new, dtype=torch.bool)
                     if spec.max_depth <= 0 else depth_new < spec.max_depth)
         ch_gain = torch.where(torch.cat([depth_ok, depth_ok]), ch_rec.gain,

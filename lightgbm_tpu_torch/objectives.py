@@ -48,15 +48,28 @@ class ObjectiveFunction:
         self.config = config
         self.label: Optional[torch.Tensor] = None
         self.weight: Optional[torch.Tensor] = None
+        # a data-parallel run's mesh (parallel.comm.Mesh), set before
+        # init: the host statistics (boost_from_score, is_unbalance's
+        # class counts, MAPE's weights) then read every rank's rows
+        self.stats_mesh = None
+
+    def _global_rows(self, a: Optional[np.ndarray]) -> Optional[np.ndarray]:
+        """Every rank's rows of a host per-row array under stats_mesh (in
+        rank order), else the array itself."""
+        if a is None or self.stats_mesh is None:
+            return a
+        return self.stats_mesh.gather_rows(np.asarray(a))
 
     def init(self, dataset: BinnedDataset, device) -> None:
         meta = dataset.metadata
         if meta.label is None:
             log.fatal(f"objective {self.name} requires labels")
         self.check_label(meta.label)
-        self._host_label = dataset.padded(meta.label)[: dataset.num_data]
-        self._host_weight = (dataset.padded(meta.weight)[: dataset.num_data]
-                             if meta.weight is not None else None)
+        self._host_label = self._global_rows(
+            dataset.padded(meta.label)[: dataset.num_data])
+        self._host_weight = self._global_rows(
+            dataset.padded(meta.weight)[: dataset.num_data]
+            if meta.weight is not None else None)
         self.label = torch.from_numpy(dataset.padded(meta.label)).to(device)
         self.weight = (
             torch.from_numpy(dataset.padded(meta.weight)).to(device)
@@ -211,7 +224,7 @@ class MAPE(RegressionL2):
         if self.weight is not None:
             lw = lw * self.weight.cpu().numpy()
         lw = lw.astype(np.float32)
-        self._host_label_weight = lw[: dataset.num_data]
+        self._host_label_weight = self._global_rows(lw[: dataset.num_data])
         self._label_weight = torch.from_numpy(lw).to(device)
 
     def get_gradients(self, score):

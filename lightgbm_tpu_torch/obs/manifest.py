@@ -12,7 +12,9 @@ here:
 ``compile`` (its retrace guard's compile counters) and
 ``collectives.static_budget_wire_bytes`` (its static cost budgets); the
 port writes both as ``null``. ``collectives.runtime_wire_bytes_estimate``
-is 0 until the distributed learners are ported (ROADMAP A.8). Written
+sums the ``lgbmtpu_collective_wire_bytes_total`` counter, which the
+distributed learners tick a tree (boosting._record_collective_wire).
+Written
 per run through the ``run_manifest`` / ``profile_dir`` CLI params
 (cli.py), or directly via :func:`write_manifest`.
 """
@@ -98,6 +100,9 @@ def build_manifest(config: Optional[Any] = None,
                                        if hasattr(config, k)}
         else:
             cfg_section["explicit"] = dict(config)
+    snap = default_registry().snapshot()
+    runtime_wire = sum(
+        snap.get("lgbmtpu_collective_wire_bytes_total", {}).values())
     manifest: Dict[str, Any] = {
         "schema": SCHEMA,
         "created_unix": time.time(),
@@ -110,9 +115,9 @@ def build_manifest(config: Optional[Any] = None,
             name: {"seconds": round(acc, 6), "calls": cnt}
             for name, (acc, cnt) in global_timer.summary().items()
         },
-        "metrics": default_registry().snapshot(),
+        "metrics": snap,
         "collectives": {
-            "runtime_wire_bytes_estimate": 0,
+            "runtime_wire_bytes_estimate": int(runtime_wire),
             "static_budget_wire_bytes": None,
         },
     }
@@ -134,7 +139,10 @@ def build_manifest(config: Optional[Any] = None,
             "best_iteration": getattr(booster, "best_iteration", -1),
             "num_class": getattr(g, "num_class", 1),
             "hist_dtype": getattr(g, "hist_dtype", None),
-            "tree_learner": "serial",
+            "tree_learner": getattr(g, "tree_learner_resolved", None),
+            "voting_elected_cols": getattr(g, "voting_elected_cols", None),
+            "voting_wire_bytes_est": getattr(g, "voting_wire_bytes_est",
+                                             None),
         }
     if extra:
         manifest["extra"] = dict(extra)

@@ -607,6 +607,17 @@ def record_loop_progress(version: int, cycle: int, offset: int) -> None:
             ).set(offset)
 
 
+def record_collective_wire(entry: str, nbytes: int) -> None:
+    """Host-side estimate of the collective payload bytes a distributed
+    learner dispatched (boosting._record_collective_wire)."""
+    r = _default
+    if not r.enabled:
+        return
+    r.counter("lgbmtpu_collective_wire_bytes_total",
+              "estimated collective payload bytes dispatched",
+              labels=("entry",)).inc(nbytes, entry=entry)
+
+
 # the gateway's recorders (serving/gateway.py): outcome is the gateway's
 # verdict on a client request (ok / failed / shed / deadline /
 # unavailable / drain / fanout_partial), result one backend attempt's

@@ -99,9 +99,11 @@ def uniform_many(keys: torch.Tensor, n: int) -> torch.Tensor:
     return torch.clamp_min(fbits.view(torch.float32) - 1.0, 0.0)
 
 
-def _counters(n: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(hi, lo) words of the uint64 iota 0..n-1 (jax iota_2x32_shape)."""
-    i = torch.arange(n, dtype=torch.int64, device=device)
+def _counters(n: int, device, offset: int = 0
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo) words of the uint64 iota offset..offset+n-1 (jax
+    iota_2x32_shape from 0)."""
+    i = torch.arange(offset, offset + n, dtype=torch.int64, device=device)
     return (i >> 32) & _MASK, i & _MASK
 
 
@@ -112,20 +114,26 @@ def split(k: torch.Tensor, num: int = 2) -> torch.Tensor:
     return torch.stack([b1, b2], dim=1)
 
 
-def random_bits(k: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
-    """32 random bits per element (partitionable), int64 in [0, 2^32)."""
+def random_bits(k: torch.Tensor, shape: Sequence[int],
+                offset: int = 0) -> torch.Tensor:
+    """32 random bits per element (partitionable), int64 in [0, 2^32).
+    offset: the flat position of the first element in a longer stream
+    (a data-parallel rank's slice of the rows: element i of the stream
+    depends on i alone)."""
     shape = tuple(int(s) for s in shape)
     n = 1
     for s in shape:
         n *= s
-    hi, lo = _counters(n, k.device)
+    hi, lo = _counters(n, k.device, int(offset))
     b1, b2 = threefry2x32(k[0], k[1], hi, lo)
     return (b1 ^ b2).reshape(shape)
 
 
-def uniform(k: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
-    """jax.random.uniform(k, shape) for float32 on [0, 1)."""
-    bits = random_bits(k, shape)
+def uniform(k: torch.Tensor, shape: Sequence[int],
+            offset: int = 0) -> torch.Tensor:
+    """jax.random.uniform(k, shape) for float32 on [0, 1) (offset: as
+    random_bits')."""
+    bits = random_bits(k, shape, offset)
     fbits = ((bits >> 9) | 0x3F800000).to(torch.int32)
     return torch.clamp_min(fbits.view(torch.float32) - 1.0, 0.0)
 

@@ -20,7 +20,8 @@ The port of lightgbm_tpu/serving:
   retries, hedged requests, circuit breakers, deadline propagation,
   drain, the merged /metrics).
 
-Not ported: a row-sharded forest (``mesh=``, ROADMAP A.8).
+A row-sharded forest (``mesh=``, a parallel.comm.Mesh) scores each
+rank's block of rows and all-gathers the blocks (forest.TensorForest).
 """
 
 from .dispatch import DEFAULT_BUCKETS, BucketDispatcher, MicroBatcher

@@ -41,8 +41,9 @@ it the error propagates. Any other error of the device call (a capture,
 launch or replay, after which the card may be in a sticky error state)
 always propagates, and the dispatcher keeps it in ``device_error``,
 which /readyz reports as not ready (an out-of-memory error propagates
-too, and is not kept). Not ported: the mesh alignment of the rungs
-(A.8).
+too, and is not kept). A row-sharded forest (mesh=) aligns the rungs
+to multiples of its ranks and runs uncaptured: its collectives leave the
+card.
 """
 
 from __future__ import annotations
@@ -130,12 +131,23 @@ class BucketDispatcher:
                  programs: Optional[ProgramSet] = None):
         if not buckets:
             raise ValueError("need at least one bucket size")
-        self.buckets: Tuple[int, ...] = tuple(
-            sorted({max(int(b), 1) for b in buckets}))
+        n_dev = max(int(getattr(forest, "num_devices", 1)), 1)
+        # every rung must shard evenly over a mesh's ranks
+        aligned = sorted({-(-max(int(b), 1) // n_dev) * n_dev
+                          for b in buckets})
+        if aligned != sorted({max(int(b), 1) for b in buckets}):
+            log.warning(
+                f"serving buckets {sorted(int(b) for b in buckets)} "
+                f"realigned to {aligned} (a mesh of {n_dev} ranks needs "
+                "row counts divisible by the rank count)")
+        self.buckets: Tuple[int, ...] = tuple(aligned)
         self.forest = forest
         self.name = name
         self.device = forest.device
         self._cuda = self.device.type == "cuda"
+        # a row-sharded forest's collectives cannot be captured
+        self._capture = (self._cuda
+                         and getattr(forest, "mesh", None) is None)
         self._stats = latency_stats(name, model=model)
         # the rungs' programs, lock and stream: the dispatcher's own, or a
         # fleet family's, shared with its other tenants
@@ -189,7 +201,7 @@ class BucketDispatcher:
             x=torch.zeros((b, F), dtype=torch.float32, device=self.device),
             tree_w=torch.ones(f.weight_len, dtype=torch.float32,
                               device=self.device))
-        if self._cuda:
+        if self._capture:
             from ..learner.device_loop import CudaGraph
 
             with _CAPTURE_LOCK:

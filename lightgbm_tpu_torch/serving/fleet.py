@@ -52,8 +52,9 @@ write (a fault there leaves the tenant cold, as any page-in failure
 does), and ``host_fallback=True`` gives every tenant's dispatcher the
 registry's host fallback (a chunk whose host-to-device copy failed is
 scored on the host walker; default False, as the registry's; other
-device errors propagate and ``device_faults()`` keeps them). Not ported: a mesh
-(A.8: raises).
+device errors propagate and ``device_faults()`` keeps them). A mesh is
+ignored with a warning, as in the JAX package: a stack's slots share
+one program set.
 """
 
 from __future__ import annotations
@@ -238,8 +239,8 @@ class ModelFleet:
                  capacity: int = 32, slots_per_family: int = 8,
                  page_timeout_s: float = 30.0, device="cuda"):
         if mesh is not None:
-            raise NotImplementedError(
-                "a fleet over a mesh is not ported yet (ROADMAP A.8)")
+            log.warning("fleet serving ignores the mesh: stacked "
+                        "families score on this rank's device")
         self.device = serve_device(device)
         self.host_fallback = bool(host_fallback)
         self.buckets = tuple(int(b) for b in buckets)

@@ -46,8 +46,11 @@ the slot, a 0-dim int32 on the device.
 
 Everything here takes a device: "cuda" (also "gpu" and "tpu", the JAX
 package's word) runs on the card and raises when torch sees none;
-"cpu" runs the same torch ops there. The JAX package's row-sharded
-forest (mesh=) is not ported (ROADMAP A.8).
+"cpu" runs the same torch ops there. A row-sharded forest (mesh=, a
+parallel.comm.Mesh of several ranks, each holding the whole forest and
+the whole request): each rank scores its block of ceil(N / n) rows and
+the blocks are all-gathered in row order, so every rank returns every
+row's answer (the JAX package's shard_map over the row axis).
 """
 
 from __future__ import annotations
@@ -610,14 +613,12 @@ class TensorForest:
     apply() is the raw call on an already padded f32 block of rows on
     the forest's device; predict_raw / predict_leaf / predict_contrib
     take host numpy rows, as Booster.predict does. The contrib tables are
-    packed on the first contrib request only."""
+    packed on the first contrib request only. mesh: a Mesh of more than
+    one rank shards every call's rows over its ranks (module docstring);
+    every rank must make the same calls in the same order."""
 
     def __init__(self, models, num_class: int = 1,
                  average_output: bool = False, device="cuda", mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "a row-sharded forest (mesh=) is not ported yet (ROADMAP "
-                "A.8)")
         if not models:
             raise ValueError("TensorForest needs at least one tree")
         self.device = serve_device(device)
@@ -633,7 +634,8 @@ class TensorForest:
         self.num_trees = meta["num_trees"]
         self.average_output = bool(average_output)
         self.max_feature = meta["max_feature"]
-        self.num_devices = 1
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
+        self.num_devices = 1 if self.mesh is None else self.mesh.size
         self.weight_len = self.num_trees  # the (T,) tree weights apply takes
         self.tables = {k: torch.from_numpy(np.ascontiguousarray(v))
                        .to(self.device) for k, v in tables.items()}
@@ -682,9 +684,31 @@ class TensorForest:
               ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Raw call on an f32 (N, F) block on the forest's device: scores
         (N, K) and leaves (N, T)."""
-        return forest_apply(self.tables, X, tree_w,
-                            has_cat=self.meta["has_cat"],
-                            linear=self.meta["linear"], levels=self.levels)
+        return self._sharded(lambda x: forest_apply(
+            self.tables, x, tree_w, has_cat=self.meta["has_cat"],
+            linear=self.meta["linear"], levels=self.levels), X)
+
+    def _sharded(self, fn, X: torch.Tensor):
+        """fn over X's rows: directly, or under a mesh on this rank's
+        block of ceil(N / n) rows (zero rows pad the last), every rank's
+        outputs all-gathered back into row order."""
+        if self.mesh is None:
+            return fn(X)
+        n, r = self.mesh.size, self.mesh.rank
+        N = X.shape[0]
+        blk = -(-N // n)
+        mine = X[min(r * blk, N):min((r + 1) * blk, N)]
+        if mine.shape[0] < blk:
+            mine = torch.cat([mine, torch.zeros(
+                (blk - mine.shape[0],) + tuple(X.shape[1:]), dtype=X.dtype,
+                device=X.device)])
+        outs = fn(mine)
+        single = isinstance(outs, torch.Tensor)
+        gathered = [
+            self.mesh.all_gather(o).reshape((n * blk,) + tuple(o.shape[1:]))
+            [:N].to(o.dtype)
+            for o in ((outs,) if single else outs)]
+        return gathered[0] if single else tuple(gathered)
 
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device)
@@ -727,8 +751,8 @@ class TensorForest:
         """Raw device TreeSHAP on an f32 block on the forest's device:
         (N, K*(F+1)) where F is the block's width."""
         ct, _ = self.contrib_tables()
-        return contrib_apply(self.tables, ct, X, tree_w,
-                             has_cat=self.meta["has_cat"])
+        return self._sharded(lambda x: contrib_apply(
+            self.tables, ct, x, tree_w, has_cat=self.meta["has_cat"]), X)
 
     def predict_contrib(self, X, start_iteration: int = 0,
                         num_iteration: int = -1) -> np.ndarray:

@@ -31,8 +31,9 @@ raises at load, fallback or not.
 
 Deviations from the JAX package: ``host_fallback`` defaults to False
 (the JAX package's to True), so a device fault is an error unless the
-caller asks for the fallback; ``mesh`` (a row-sharded forest) raises
-(A.8).
+caller asks for the fallback; ``mesh`` (a parallel.comm.Mesh) shards
+every model's rows over its ranks (forest.TensorForest; the ranks serve
+the same requests in lockstep).
 """
 
 from __future__ import annotations
@@ -145,10 +146,7 @@ class ModelRegistry:
                  warmup: bool = False, deadline_s: float = 0.0,
                  queue_cap: int = 0, host_fallback: bool = False,
                  replicas: int = 1, device="cuda"):
-        if mesh is not None:
-            raise NotImplementedError(
-                "a row-sharded registry (mesh=) is not ported yet (ROADMAP "
-                "A.8)")
+        self.mesh = mesh
         self.device = serve_device(device)
         self.host_fallback = bool(host_fallback)
         self.buckets = tuple(int(b) for b in buckets)
@@ -173,7 +171,8 @@ class ModelRegistry:
         never stalls scoring on already-active models."""
         booster, src = _booster_from(source)
         build_kernels(self.device)
-        forest = TensorForest.from_booster(booster, device=self.device)
+        forest = TensorForest.from_booster(booster, device=self.device,
+                                           mesh=self.mesh)
         dispatchers = [
             BucketDispatcher(
                 forest, self.buckets,

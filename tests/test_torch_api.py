@@ -513,8 +513,11 @@ def test_not_ported_names_are_public_names_of_the_jax_package():
 
 
 def test_refusals_name_their_item(tmp_path):
-    """A.8 refuses naming its item; A.10's Sequence, two_round and
-    from_sequences construct since the data plane was ported."""
+    """Nothing refuses any more: A.10's Sequence, two_round and
+    from_sequences construct since the data plane was ported, and A.8's
+    set_network joins a process group (here one rank through a file
+    store, which a Booster with num_machines = 2 then keeps) and
+    free_network leaves it."""
     X, y, *_ = _data("binary")
 
     class Rows(lgb_t.Sequence):
@@ -532,17 +535,24 @@ def test_refusals_name_their_item(tmp_path):
     two = lgb_t.Dataset(str(path), params={**CPU, "two_round": True})
     np.testing.assert_array_equal(two.construct()._binned.bins,
                                   ref._binned.bins)
-    with pytest.raises(NotImplementedError, match="A.8"):
-        lgb_t.set_network("127.0.0.1:12400")
-    with pytest.raises(NotImplementedError, match="A.8"):
-        lgb_t.Booster({**CPU, "num_machines": 2},
-                      lgb_t.Dataset(X, label=y, params=CPU))
+    import torch.distributed as dist
+
+    lgb_t.set_network("127.0.0.1:12400", num_machines=1, backend="gloo",
+                      init_method=f"file://{tmp_path / 'store'}")
+    try:
+        assert dist.is_initialized() and dist.get_world_size() == 1
+        bst = lgb_t.Booster({**CPU, "num_machines": 2},
+                            lgb_t.Dataset(X, label=y, params=CPU))
+        assert bst._gbdt.tree_learner_resolved == "serial"
+    finally:
+        lgb_t.Booster(model_str=bst.model_to_string()).free_network()
+    assert not dist.is_initialized()
     from lightgbm_tpu_torch.config import Config
     from lightgbm_tpu_torch.dataset import BinnedDataset
 
     fs = BinnedDataset.from_sequences([Rows()], Config({}), label=y)
     np.testing.assert_array_equal(fs.bins, ref._binned.bins)
-    assert set(lgb_t.NOT_PORTED.values()) == {"A.8"}
+    assert lgb_t.NOT_PORTED == {}
 
 
 def test_booster_has_no_attribute_error_on_jax_names():

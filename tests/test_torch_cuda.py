@@ -2080,3 +2080,84 @@ def test_streamed_assembly_on_card(dev, tmp_path, monkeypatch, max_bin):
                                              "[data_chunk_rows",
                                              "[data_spool_dir"))]
     assert strip(bc.model_to_string()) == strip(br.model_to_string())
+
+
+# ------------------------------------------- distributed learners (A.8)
+@pytest.mark.parametrize("rows", [5000, 70001])
+def test_fx_partials_of_hist_and_seg_sum(dev, rows):
+    """The sharded mode of hist, hist_slots and seg_sum (csrc/hist.cu,
+    csrc/seg_sum.cu: given channel maxima and n, the int64 sums): equal
+    to the plain fixed point at the same scale, and at a call's own
+    maxima and n, converted back, the ordinary call's f32 bits."""
+    rs = np.random.RandomState(rows)
+    G, B = 5, 64
+    bins = torch.from_numpy(rs.randint(0, B, (G, rows)).astype(np.int32))
+    gh = torch.from_numpy(np.stack([rs.randn(rows), rs.rand(rows),
+                                    (rs.rand(rows) < 0.8) * 1.0])
+                          .astype(np.float32))
+    bd, gd = bins.to(dev), gh.to(dev)
+    absmax = gh.abs().amax(dim=1) * 3  # another rank's larger maxima
+    n_sc = 2 * rows
+    got = ht.histogram(bd, gd, B, fx=(absmax.to(dev), n_sc))
+    want = ht.histogram_plain(bins, gh, B, fx=(absmax, n_sc))
+    assert got.dtype == torch.int64 and torch.equal(got.cpu(), want)
+    seg = ht.histogram(bd, gd, B, begin=torch.tensor(7, device=dev),
+                       count=torch.tensor(rows // 3, device=dev),
+                       cap=rows, fx=(absmax.to(dev), n_sc))
+    assert torch.equal(seg.cpu(), ht.histogram_plain(
+        bins, gh, B, begin=7, count=rows // 3, fx=(absmax, n_sc)))
+    own = gh.abs().amax(dim=1)
+    acc = ht.histogram(bd, gd, B, fx=(own.to(dev), rows))
+    assert torch.equal(ht.fx_to_f32(acc.cpu(), ht.fx_exponents(own, rows)),
+                       ht.histogram(bd, gd, B).cpu())
+    begins = torch.tensor([0, rows // 2], dtype=torch.int32)
+    counts = torch.tensor([rows // 4, rows // 3], dtype=torch.int32)
+    sl = ht.hist_slots(bd, gd, begins.to(dev), counts.to(dev), B, 2,
+                       fx=(absmax.to(dev), n_sc))
+    assert torch.equal(sl.cpu(), ht.hist_slots_plain(
+        bins, gh, begins, counts, B, 2, fx=(absmax, n_sc)))
+    idx = torch.from_numpy(rs.randint(-1, 40, rows).astype(np.int32))
+    vals = gh[:2].contiguous()
+    acc = cuda_hist.seg_sum(vals.to(dev), idx.to(dev), 37,
+                            (absmax[:2].to(dev), n_sc))
+    k = ht.fx_exponents(absmax[:2], n_sc)
+    q = torch.round(vals.double() * torch.ldexp(
+        torch.ones(2, dtype=torch.float64), k.double())[:, None]).long()
+    ok = (idx >= 0) & (idx < 37)
+    ref = torch.zeros((2, 38), dtype=torch.int64).index_add_(
+        1, torch.where(ok, idx, 37).long(), torch.where(ok[None], q, 0))
+    assert torch.equal(acc.cpu(), ref[:, :37])
+
+
+@pytest.mark.parametrize("case", ["binary", "exact", "feature"])
+def test_distributed_ranks_bitwise_on_card(dev, case, tmp_path):
+    """Two gloo ranks sharing the card (NCCL takes one rank a GPU): the
+    int16 rounds path (reduce-scatter), the exact grower (fixed-point
+    partials of the hist kernels) and feature-parallel give the card's
+    serial trees bit for bit."""
+    from _torch_dist_worker import make_problem, spawn_ranks, trees_text
+
+    base = {"objective": "binary", "num_leaves": 15, "learning_rate": 0.2}
+    params = {"binary": base,
+              "exact": {**base, "tpu_growth_mode": "exact"},
+              "feature": {**base, "enable_bundle": False}}[case]
+    learner = "feature" if case == "feature" else "data"
+    problem = ["binary", 6000, 7, 3]
+    outs = spawn_ranks(tmp_path, 2, [{
+        "name": case, "problem": problem, "params": params,
+        "learner": learner, "rounds": 3, "device": "cuda"}])[case]
+    X, y, _ = make_problem(*problem)
+    p = {**params, "device_type": "cuda", "verbosity": -1}
+    if case == "feature":
+        p["tpu_growth_mode"] = "exact"
+
+    def eager(env):
+        pass
+
+    eager.before_iteration = True
+    serial = lgb.train(p, lgb.Dataset(X, label=y, params=p), 3,
+                       callbacks=[eager])
+    for o in outs:
+        assert o["resolved"] == learner
+        assert o["trees"] == trees_text(serial.model_to_string())
+        assert o["stats"]["staged_bytes"] > 0  # gloo stages the card's

@@ -295,11 +295,11 @@ def test_qos_and_residency_rejection():
 
 
 def test_deferred_fleet_options_raise():
-    """A mesh is not ported (A.8). host_fallback was refused until the
-    fault injection it answers came (A.11, first half): now it is the
-    fleet's setting (tests/test_torch_resilience.py drives it)."""
-    with pytest.raises(NotImplementedError, match="A.8"):
-        ModelFleet(mesh=object(), device="cpu")
+    """A mesh is ignored with a warning, as in the JAX package's fleet
+    (A.8). host_fallback was refused until the fault injection it
+    answers came (A.11, first half): now it is the fleet's setting
+    (tests/test_torch_resilience.py drives it)."""
+    assert ModelFleet(mesh=object(), device="cpu").capacity == 32
     assert ModelFleet(host_fallback=True, device="cpu").host_fallback
     assert not ModelFleet(device="cpu").host_fallback
 

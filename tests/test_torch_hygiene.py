@@ -1,8 +1,7 @@
 """Rules that keep later slices of the port honest: lightgbm_tpu_torch and
 chip_smoke.py import neither jax nor lightgbm_tpu; without a card the
-entry points refuse to run unless device_type=cpu is asked for; options
-whose code is not ported raise NotImplementedError instead of being
-ignored."""
+entry points refuse to run unless device_type=cpu is asked for; every
+name of the JAX package is ported (NOT_PORTED is empty)."""
 
 import ast
 import json
@@ -42,6 +41,28 @@ def _imports(path):
 def test_no_jax_or_reference_imports(path):
     bad = [m for m in _imports(path) if m.split(".")[0] in FORBIDDEN]
     assert not bad, f"{path.name} imports {bad}"
+
+
+def test_distributed_modules_import_no_jax_and_nothing_is_refused():
+    """parallel/ and dask.py are scanned above, and importing them (and
+    running the collective layer's set-up code) in a fresh interpreter
+    loads no jax; NOT_PORTED is empty since A.8."""
+    import subprocess
+    import sys
+
+    names = {str(p.relative_to(ROOT)) for p in _port_files()}
+    assert {"lightgbm_tpu_torch/dask.py",
+            "lightgbm_tpu_torch/parallel/comm.py",
+            "lightgbm_tpu_torch/parallel/data_parallel.py",
+            "lightgbm_tpu_torch/parallel/feature_parallel.py",
+            "lightgbm_tpu_torch/parallel/multihost.py"} <= names
+    code = ("import sys, lightgbm_tpu_torch.parallel, lightgbm_tpu_torch.dask;"
+            "from lightgbm_tpu_torch.parallel import multihost, comm;"
+            "assert comm.make_mesh() is None;"
+            "assert not [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'lightgbm_tpu')]")
+    subprocess.run([sys.executable, "-c", code], check=True, cwd=ROOT)
+    assert lgb.NOT_PORTED == {}
 
 
 def _tiny():
@@ -91,15 +112,18 @@ def test_cpu_must_be_asked_for(no_card):
 
 
 def test_growth_mode_exact_raises():
-    """The exact path trains; what its JAX counterpart adds beyond the
-    port (here the voting-parallel learner) still raises."""
+    """The exact path trains, and so does the voting-parallel learner
+    beside it since A.8: on one process it resolves to serial growth (as
+    the JAX package does on one device) and grows the serial trees."""
     X, y = _tiny()
     p = {"objective": "binary", "verbosity": -1, "device_type": "cpu",
          "tpu_growth_mode": "exact"}
-    assert lgb.train(p, lgb.Dataset(X, label=y, params=p), 1).num_trees() == 1
+    serial = lgb.train(p, lgb.Dataset(X, label=y, params=p), 1)
+    assert serial.num_trees() == 1
     p = dict(p, tree_learner="voting")
-    with pytest.raises(NotImplementedError, match="queue A"):
-        lgb.train(p, lgb.Dataset(X, label=y, params=p), 1)
+    vote = lgb.train(p, lgb.Dataset(X, label=y, params=p), 1)
+    assert vote._gbdt.tree_learner_resolved == "serial"
+    np.testing.assert_array_equal(vote.predict(X), serial.predict(X))
 
 
 @pytest.mark.parametrize("dtype,msg", [("bf16x2", "5-channel"),
@@ -142,11 +166,20 @@ def test_auto_means_int16_everywhere():
     {"tree_learner": "data", "num_machines": 4},
 ])
 def test_unported_options_raise(extra):
+    """The distributed options are ported (A.8). num_machines > 1 joins
+    a cluster, and with no machine list it raises as the JAX package's
+    set_network does; on one process every tree learner trains serially
+    (the JAX package on one device)."""
     X, y = _tiny()
     p = {"objective": "binary", "verbosity": -1, "device_type": "cpu",
          **extra}
-    with pytest.raises(NotImplementedError):
-        lgb.train(p, lgb.Dataset(X, label=y, params=p), 1)
+    if "num_machines" in extra:
+        with pytest.raises(ValueError, match="machines"):
+            lgb.train(p, lgb.Dataset(X, label=y, params=p), 1)
+        return
+    bst = lgb.train(p, lgb.Dataset(X, label=y, params=p), 1)
+    assert bst._gbdt.tree_learner_resolved == "serial"
+    assert bst.num_trees() == 1
 
 
 @pytest.mark.parametrize("extra", [

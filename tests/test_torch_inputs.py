@@ -408,7 +408,8 @@ def test_add_features_from_matches_jax():
 def test_refused_inputs_name_their_item(tmp_path):
     """two_round, Sequence and data_source=chunked were refused until the
     data plane (A.10) was ported; each constructs and trains now, as the
-    JAX package's does. What stays refused is A.8's."""
+    JAX package's does; A.8's tree_learner=data, refused until the
+    distributed learners were ported, trains too."""
     X, y = _dense()
     path = tmp_path / "t.csv"
     _write(path, np.column_stack([y, X]))
@@ -439,9 +440,12 @@ def test_refused_inputs_name_their_item(tmp_path):
     np.testing.assert_array_equal(
         chunked.predict(X),
         lgb_t.train(p, lgb_t.Dataset(X, label=y, params=CPU), 2).predict(X))
-    with pytest.raises(NotImplementedError, match="A.8"):
+    # tree_learner=data is ported (A.8): on one process it trains
+    # serially
+    np.testing.assert_array_equal(
         lgb_t.train({**p, "tree_learner": "data"},
-                    lgb_t.Dataset(X, label=y, params=CPU), 1)
+                    lgb_t.Dataset(X, label=y, params=CPU), 1).predict(X),
+        lgb_t.train(p, lgb_t.Dataset(X, label=y, params=CPU), 1).predict(X))
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])

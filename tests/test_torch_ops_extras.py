@@ -6,6 +6,7 @@ package's series names; tpu_debug_check_split (LightGBM's CheckSplit) on
 the eager loop; and the concurrency lint over the whole port."""
 
 import json
+import shutil
 import threading
 import time
 import urllib.error
@@ -94,17 +95,24 @@ def test_heartbeat_files_and_reports_match(tmp_path):
     w2 = hb_j.HeartbeatWriter(str(d), rank=2, interval_s=0.05).start()
     time.sleep(0.2)
     w2.stop()
-    beats_t, beats_j = hb_t.read_heartbeats(str(d)), hb_j.read_heartbeats(
-        str(d))
+    # w0 still beats every 0.05 s: both packages read one frozen copy
+    # of the two beat files (each beat lands whole through os.replace,
+    # so a copied file is a beat the live directory held).
+    frozen = tmp_path / "hb_frozen"
+    frozen.mkdir()
+    for rank in (0, 2):
+        shutil.copy(hb_t.heartbeat_path(str(d), rank), frozen)
+    beats_t = hb_t.read_heartbeats(str(frozen))
+    beats_j = hb_j.read_heartbeats(str(frozen))
     assert beats_t == beats_j and sorted(beats_t) == [0, 2]
     assert beats_t[0]["seq"] >= 2 and beats_t[2]["final"]
     assert hb_t.heartbeat_path(str(d), 7) == hb_j.heartbeat_path(str(d), 7)
-    (d / "heartbeat_rank00009.json").write_text("{torn")
+    (frozen / "heartbeat_rank00009.json").write_text("{torn")
     t = beats_t[0]["t_unix"]
     for now in (t, t + 5.0, t + 31.0):
-        rt = hb_t.health_report(str(d), expected=4, stale_after_s=30.0,
+        rt = hb_t.health_report(str(frozen), expected=4, stale_after_s=30.0,
                                 now=now)
-        rj = hb_j.health_report(str(d), expected=4, stale_after_s=30.0,
+        rj = hb_j.health_report(str(frozen), expected=4, stale_after_s=30.0,
                                 now=now)
         assert rt == rj
     assert rt["stale"] == [0] and rt["alive"] == [2] and \

@@ -503,9 +503,10 @@ def test_deferred_serving_names_raise(name, item):
 
 
 def test_deferred_options_raise(models):
-    """A row-sharded forest (mesh=) is not ported (A.8). host_fallback was
-    refused until the fault injection it answers came (A.11, first half):
-    a registry with it scores as one without it."""
+    """A row-sharded forest (mesh=) is ported (A.8): a mesh of one rank
+    scores as no mesh (tests/test_torch_serving_mesh.py runs two ranks).
+    host_fallback was refused until the fault injection it answers came
+    (A.11, first half): a registry with it scores as one without it."""
     text, X = models["regression"]
     fb = ModelRegistry(device="cpu", host_fallback=True)
     fb.load("m", text)
@@ -513,11 +514,16 @@ def test_deferred_options_raise(models):
     plain.load("m", text)
     np.testing.assert_array_equal(fb.predict("m", X[:5]),
                                   plain.predict("m", X[:5]))
-    with pytest.raises(NotImplementedError, match="A.8"):
-        ModelRegistry(mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="A.8"):
-        TensorForest.from_booster(lgb_t.Booster(model_str=text),
-                                  device="cpu", mesh=object())
+    import types
+
+    one = types.SimpleNamespace(size=1, rank=0)
+    meshed = ModelRegistry(mesh=one, device="cpu")
+    meshed.load("m", text)
+    np.testing.assert_array_equal(meshed.predict("m", X[:5]),
+                                  plain.predict("m", X[:5]))
+    forest = TensorForest.from_booster(lgb_t.Booster(model_str=text),
+                                       device="cpu", mesh=one)
+    assert forest.mesh is None and forest.num_devices == 1
 
 
 @pytest.fixture
