@@ -34,8 +34,9 @@ Phases, each printed as one JSON line:
             lines come later too, on arguments captured from the training
             paths, kernel and library timed in turns;
   small   - 20k-row runs on the card against the same runs on the CPU
-            (3 trees, 5 before the distributed phase came; the early
-            stopping and replay runs keep theirs)
+            (2 trees, 5 before the distributed phase came, 3 before
+            ops_processes; the early stopping and replay runs keep
+            theirs)
             (plain versions), default, exact, use_quantized_grad,
             regression_l1, dart, rf, extras, monotone intermediate and
             advanced, and linear_tree runs, and categorical runs (the
@@ -204,9 +205,10 @@ Phases, each printed as one JSON line:
             train_goss, train_quant, train_l1, train_f32 (after the f32
             paths), train_exact and train_exact_rounds (the exact grower,
             its splits on the segment ladder and its round phase in the
-            graph: 1 warm-up and 2 timed trees, 3 before the online loop
-            came) and train_cat (after its phase): 1 warm-up and 6 timed
-            trees each (train_goss 11 unsampled trees first, then 3 timed
+            graph: 1 warm-up and 1 timed tree, 3 before the online loop
+            came, 2 before ops_processes) and train_cat (after its
+            phase): 1 warm-up and 3 timed trees each (6 before
+            ops_processes; train_goss 11 unsampled trees first, then 3 timed
             trees; train_cat, train_extras and train_forced 3; 6 before
             the online loop came); trees/s, host ms a tree, splits a
             tree, device busy share and device operations a tree for both
@@ -307,9 +309,27 @@ Phases, each printed as one JSON line:
             reaches it): 0 client failures, every answer within 1e-5 of
             the host walker; the gateway's /metrics merges both
             backends' series;
-  serve_contrib - device TreeSHAP on the 50-tree model, 128 rows (1,024
+  ops_processes - the same 50 x 31 model saved to a file behind the
+            operations scripts' process fleet
+            (lightgbm_tpu_torch/tools/gateway_rolling.py): 2 task=serve
+            backend processes on the card and one task=gateway process
+            (the runbook's settings: no hedges, a breaker that opens on
+            one failure), each backend warmed directly; 8 client threads, 1,000 batch-1
+            requests through the gateway process and 1,000 straight to
+            one backend (qps, p50 / p99); the rolling SIGTERM restart of
+            both backends on their ports under a continuous client; kill
+            -9 of one backend under load, its restart and its breaker's
+            open -> half_open -> closed read from the gateway process's
+            /metrics (seconds to closed); the processes the gateway's
+            merged /metrics covers (3); the gateway's SIGTERM drain with
+            a 50,000-row request in flight (new work 503 shutdown, the
+            request 200, exit 0); every process's exit codes. Fails on a
+            client failure, an answer more than 1e-5 from the host
+            walker, a breaker that does not close, a merged pane of other
+            than 3 processes or a drained process exiting non-zero;
+  serve_contrib - device TreeSHAP on the 50-tree model, 64 rows (1,024
             before the cli phase came, 512 before the online loop, 256
-            before the distributed phase),
+            before the distributed phase, 128 before ops_processes),
             against host shap.py (8 worker processes): within 1e-5, rows
             summing to the raw score; device ms and peak memory;
   serve_fleet - the multi-tenant ModelFleet: 7 tenants (text cuts of the
@@ -1333,8 +1353,9 @@ def airline_like(rows: int, valid_rows: int, seed: int = 23,
 
 
 # trees of small's card-against-CPU runs (5 until the distributed phase
-# came; the early stopping and replay runs keep theirs)
-SMALL_TREES = 3
+# came, 3 until ops_processes; the early stopping and replay runs keep
+# theirs)
+SMALL_TREES = 2
 
 
 def small_phase(lgb, np):
@@ -4852,6 +4873,69 @@ def gateway_phase(torch, np, lgb, ch, bst, n_feat, n_requests=1000,
     return line
 
 
+def ops_processes_phase(np, bst, n_feat, n_requests=1000,
+                        drain_rows=50_000):
+    """gateway_phase's model behind separate processes on the card, driven
+    through lightgbm_tpu_torch/tools/gateway_rolling.py: 2 task=serve
+    backends and a task=gateway process (ProcessFleet), warmed directly;
+    1,000 batch-1 requests from 8 threads through the gateway and 1,000
+    straight to backend 0; then the runbook (the rolling SIGTERM restart
+    under a continuous client, kill -9 of backend 0 and its breaker's
+    recovery, the merged pane's process count, the gateway's drain with
+    a drain_rows request in flight). Every answer within 1e-5 of the host
+    walker (a client counts a score further off as a failure). The
+    children are SIGKILLed in a finally; a failure still prints the line
+    (with its error) and then raises."""
+    import shutil
+
+    from lightgbm_tpu_torch.tools import _procs
+    from lightgbm_tpu_torch.tools import gateway_rolling as gr
+
+    t0 = time.perf_counter()
+    work = (Path("build") / "chip_smoke" / "ops_processes").resolve()
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    bst.save_model(work / "model.txt")
+    rs = np.random.RandomState(5)
+    pool = rs.randn(2000, n_feat).astype(np.float32)
+    ref = bst.predict(pool, raw_score=True)
+    line = {"phase": "ops_processes", "model": "bench_serve_50x31",
+            "backends": 2, "client_threads": 8, "requests": n_requests,
+            "build": _procs.prebuild("cuda")}
+    fleet = gr.ProcessFleet(work / "model.txt", "cuda", work, 2)
+    err = None
+    try:
+        fleet.start()
+        line["start_s"] = time.perf_counter() - t0
+        fleet.warm(pool[:1].tolist())
+        line["gateway_load"] = gr.fixed_load(fleet.gateway_url, pool, ref,
+                                             n_requests, seed=0)
+        line["direct_load"] = gr.fixed_load(fleet.urls[0], pool, ref,
+                                            n_requests, seed=1)
+        for k in ("gateway_load", "direct_load"):
+            if line[k]["failures"] or line[k]["max_abs_vs_host"] > 1e-5:
+                raise AssertionError(f"ops_processes {k}: {line[k]}")
+        line.update(gr.runbook(fleet, pool, ref, drain_rows=drain_rows))
+        for i in range(2):
+            fleet.stop_backend(i)
+        drained = {k: [rc for rc in v if rc != -9]
+                   for k, v in fleet.exit_codes.items()}
+        if any(rc != 0 for v in drained.values() for rc in v):
+            raise AssertionError(f"a drained process exited non-zero: "
+                                 f"{fleet.exit_codes}")
+    except Exception as e:  # noqa: BLE001 — printed with the line, re-raised
+        err = e
+        line["error"] = repr(e)[:3000]
+    finally:
+        line["killed_at_end"] = fleet.close()
+    line.update(exit_codes=fleet.exit_codes, ready_s=fleet.ready_s,
+                seconds=time.perf_counter() - t0)
+    emit(line)
+    if err is not None:
+        raise err
+    return line
+
+
 def _host_contrib(args):
     """Host TreeSHAP of a chunk of rows (a worker of serve_contrib)."""
     model_str, X = args
@@ -5086,7 +5170,8 @@ def serve_phases(torch, lgb, ch, hist, np, ds, Xv, cat_sets, rank_sets):
     serve_loaded_phase(torch, np, lgb, bst, Xv.shape[1], "higgs_500x255")
     serve_http_phase(np, lgb, small, B["features"])
     gateway_phase(torch, np, lgb, ch, small, B["features"])
-    serve_contrib_phase(torch, np, lgb, small, B["features"], rows=128)
+    ops_processes_phase(np, small, B["features"])
+    serve_contrib_phase(torch, np, lgb, small, B["features"], rows=64)
     serve_fleet_phase(torch, np, lgb, bst, Xv[:4096], small20)
     return line, launches
 
@@ -5656,21 +5741,22 @@ def main() -> int:
     fused_lines = {}
     # (train_goss: 3 timed trees, 6 before the online loop came)
     for name, sets, extra, skip, timed in (
-            ("train", (ds, vs), {}, 0, 6),
-            ("train_bag", (ds, vs), BAG_PARAMS, 0, 6),
+            ("train", (ds, vs), {}, 0, 3),
+            ("train_bag", (ds, vs), BAG_PARAMS, 0, 3),
             ("train_goss", (ds, vs), GOSS_PARAMS, 11, 3),
-            ("train_quant", (ds, vs), QUANT_PARAMS, 0, 6),
+            ("train_quant", (ds, vs), QUANT_PARAMS, 0, 3),
             ("train_l1", (ds_l1, vs_l1),
-             {"objective": "regression_l1", "metric": "l1"}, 0, 6),
-            ("train_f32", (ds, vs), F32_PATHS["train_f32"], 0, 6)):
+             {"objective": "regression_l1", "metric": "l1"}, 0, 3),
+            ("train_f32", (ds, vs), F32_PATHS["train_f32"], 0, 3)):
         fused_lines[name] = fused_vs_eager(torch, lgb, *sets, name, extra,
                                            n_timed=timed, n_skip=skip)
-    # ... and on the exact grower with and without its round phase: 2
-    # timed trees (3 before the online loop came; an eager exact tree
-    # takes ~1.7 s) and the eager loop's profile from its f32 path phase
+    # ... and on the exact grower with and without its round phase: 1
+    # timed tree (3 before the online loop came, 2 before ops_processes;
+    # an eager exact tree takes ~1.7 s) and the eager loop's profile from
+    # its f32 path phase
     for name in ("train_exact", "train_exact_rounds"):
         fused_lines[name] = fused_vs_eager(
-            torch, lgb, ds, vs, name, F32_PATHS[name], n_timed=2,
+            torch, lgb, ds, vs, name, F32_PATHS[name], n_timed=1,
             eager_profile=f32_profiles[name])
 
     # ---- DART and RF (eager loop), every per-node extra on together and

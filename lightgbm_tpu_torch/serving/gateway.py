@@ -728,7 +728,11 @@ class Gateway:
             obs.record_gateway_hedge("no_backend")
             return
         if not self.hedge.try_hedge():
+            # give back what acquire took: the pool slot, and the probe
+            # slot a half-open breaker granted (else it stays half-open,
+            # admitting nothing, until the process restarts)
             self.pool.release(second)
+            second.breaker.record_cancel()
             obs.record_gateway_hedge("denied_budget")
             return
         obs.record_gateway_hedge("fired")

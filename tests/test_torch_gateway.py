@@ -16,6 +16,7 @@ against the JAX package's.
 """
 
 import json
+import queue
 import random
 import threading
 import time
@@ -223,6 +224,28 @@ def test_gateway_state_machine_matches():
     assert res["t"] == res["j"]
 
 
+def test_denied_hedge_gives_back_the_probe_slot():
+    """A hedge the budget denies releases what acquiring its backend
+    took: the pool's outstanding count and a half-open breaker's one
+    probe slot. (Kept, the slot left the breaker half-open for good: it
+    admitted no probe, so no success could close it.)"""
+    gw = gw_t.Gateway(["http://127.0.0.1:1", "http://127.0.0.1:2"],
+                      hedge_budget=0.0, breaker_failures=1,
+                      breaker_cooldown_s=0.0)
+    a, b = gw.pool.backends
+    for x in (a, b):
+        gw.pool.set_health(x, True, True)
+    b.breaker.record_failure()  # open, half-open at once (no cooldown)
+    assert b.breaker.state == "half_open"
+    gw._fire_hedge("score", {}, None, queue.Queue(),
+                   [gw_t._Attempt(a, hedge=False)])
+    assert gw.hedge.counters()["hedges"] == 0
+    assert b.outstanding == 0
+    assert b.breaker.allow()  # the probe slot is free again
+    b.breaker.record_success()
+    assert b.breaker.state == "closed"
+
+
 # ------------------------------------------------------------ readiness
 class _FakeRegistry:
     def __init__(self, models=None, queue_cap=0, probe=None, faults=None):
@@ -321,6 +344,7 @@ def _attempts():
                           "lgbmtpu_gateway_hedges_total")}
 
 
+@pytest.mark.chaos
 def test_http_gateway_over_two_cpu_backends(model):
     bst, X = model
     text = bst.model_to_string()

@@ -275,6 +275,7 @@ def _jax_sequence(d, v0_text):
     return out
 
 
+@pytest.mark.chaos
 def test_poison_reject_promote_under_scoring(tmp_path, v0_text):
     """NaN labels roll back, flipped labels are rejected, a clean batch
     promotes, as in the JAX package on the same batches (an 80-row clean
@@ -347,6 +348,7 @@ def test_poison_reject_promote_under_scoring(tmp_path, v0_text):
     assert loop.run(max_cycles=1) == 0
 
 
+@pytest.mark.chaos
 def test_fault_matrix_inprocess(tmp_path, v0_text):
     """A raise at each loop_* site leaves a restart serving v0 (state
     untouched, the spool replayable); the cycle then replays and

@@ -182,6 +182,7 @@ def _train_t(d, monkeypatch, plan=None, fused=True, rounds=10, **extra):
     return b, hist
 
 
+@pytest.mark.chaos
 @pytest.mark.parametrize("loop", ["eager", "fused"])
 def test_crash_resume_bit_identical(tmp_path, monkeypatch, loop):
     monkeypatch.setattr(boosting._FusedProgram, "cpu_loop",
@@ -207,6 +208,7 @@ def test_crash_resume_bit_identical(tmp_path, monkeypatch, loop):
     assert again.model_to_string() == whole.model_to_string()
 
 
+@pytest.mark.chaos
 def test_resume_trees_match_jax_resume(tmp_path, monkeypatch):
     """Both packages crash at round 7 and resume; the trees agree as the
     parity tests hold them (the JAX package's own resume is not bit for
@@ -236,6 +238,7 @@ def test_resume_trees_match_jax_resume(tmp_path, monkeypatch):
     assert_same_sampled_models(out["jax"], out["port"], X, Xv)
 
 
+@pytest.mark.chaos
 def test_port_resumes_a_jax_checkpoint(tmp_path, monkeypatch):
     X, y, Xv, _ = _data("binary")
     monkeypatch.chdir(tmp_path)
@@ -257,6 +260,7 @@ def test_port_resumes_a_jax_checkpoint(tmp_path, monkeypatch):
         jax_head.predict(Xv, raw_score=True), rtol=1e-6, atol=1e-6)
 
 
+@pytest.mark.chaos
 def test_sigkill_cli_resume(tmp_path):
     """A CLI training process killed by SIGKILL at round 7 resumes with
     resume=auto to the uninterrupted run's model file, byte for byte."""
@@ -295,6 +299,7 @@ def test_sigkill_cli_resume(tmp_path):
 
 
 # ------------------------------------------------------ anomaly rollback
+@pytest.mark.chaos
 def test_rollback_after_injected_nan(tmp_path):
     """A custom metric returns NaN once, at round 3: nan_metric trips,
     the run restores the checkpoint of round 2 and trains on with the
@@ -350,6 +355,7 @@ def _model_text():
     return b.model_to_string(), X
 
 
+@pytest.mark.chaos
 def test_device_fault_host_fallback_parity():
     from lightgbm_tpu.serving import ModelRegistry as RegJ
     from lightgbm_tpu_torch.obs.metrics import default_registry
@@ -384,6 +390,7 @@ def test_device_fault_host_fallback_parity():
         plain.predict("m", X[:3])
 
 
+@pytest.mark.chaos
 @pytest.mark.parametrize("where", ["capture", "launch", "copy_oom"])
 def test_fallback_answers_only_copy_faults(monkeypatch, where):
     """host_fallback answers a chunk whose host-to-device copy failed (an
@@ -448,6 +455,7 @@ def _forest_of(reg):
     return reg._names["m"]["versions"][0].forest
 
 
+@pytest.mark.chaos
 def test_serve_request_and_fleet_page_faults():
     from lightgbm_tpu_torch.serving import ModelFleet, ModelRegistry
     from lightgbm_tpu_torch.serving.server import handle_request

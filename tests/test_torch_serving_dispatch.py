@@ -196,6 +196,7 @@ class _SlowDispatcher:
         return self.disp.score_raw(X)
 
 
+@pytest.mark.chaos
 def test_microbatcher_overflow_deadline_and_close(models):
     text, X = models["binary6"]
     slow = _SlowDispatcher(BucketDispatcher(_forest(text), buckets=(16,)))
