@@ -269,7 +269,7 @@ Phases, each printed as one JSON line:
   serve_forest - serving: the Higgs-like binary model
             trained to 500 trees on the fused loop, then
             Booster.predict(device="cuda") (the tensorized forest,
-            serving/forest.py: one take_small gather of the packed node
+            serving/forest.py: one take_rows gather of the node-major
             table a level) on the 100,000 validation rows, the first
             10,000 of them (all 100,000, then 20,000, before the script
             outgrew its limit) against the host
@@ -280,10 +280,13 @@ Phases, each printed as one JSON line:
             Higgs-like check (the kernels line's launches);
   take_small_serve - kernel line: one level's gather of a 4096-row bucket
             over the 500 trees (2,048,000 lanes, k = 9, L = 500 x
-            max_nodes, the unstaged path), bitwise against
-            take_cols_plain and across launches, in turns with
-            index_select, its bound (bytes / 3.35 TB/s) and launches per
-            call;
+            max_nodes; take_rows from the (L, 16) node-major table),
+            bitwise against take_rows_plain, across launches and
+            against the old take_small path on the (9, L) table; in
+            turns with the old path (`old`), index_select on the (9, L)
+            table (the library call) and on the rows
+            (`rows_index_select`); its bound (bytes / 3.35 TB/s) and
+            launches per call (the nodes of one call in a CUDA graph);
   serve_dispatch - BucketDispatcher warmed up (one CUDA graph per rung
             of 16 ... 4096), then 100 requests of 1-5,000 rows: captures
             equal the rungs and do not grow, every answer bitwise the
@@ -545,26 +548,36 @@ def profiled_ms(fn, calls: int):
     return ms or None
 
 
-def in_turns(kernel, library) -> dict:
-    """A kernel and the library call computing the same function, timed
-    in turns in this run (kernel, library, library, kernel): single-call
-    CUDA-event medians (ms), device time per call (device_ms, with how
-    it was measured) and the host's enqueue per call (host_us)."""
-    ms = [cuda_ms(f) for f in (kernel, library, library, kernel)]
-    dev = [device_ms(f) for f in (kernel, library, library, kernel)]
-    lib = [d[0] for d in dev[1:3] if d[0] is not None]
-    if dev[0][1] != EVENTS_TIME or dev[3][1] != EVENTS_TIME:
+def in_turns(kernel, library, **others) -> dict:
+    """A kernel, the library call computing the same function and any
+    other named calls, timed in turns in this run (in order, then in
+    reverse: kernel, library, others, others reversed, library, kernel):
+    per call its single-call CUDA-event medians (ms), device time per
+    call (device_ms, with how it was measured) and the host's enqueue
+    per call (host_us). The kernel's numbers are the line's own keys,
+    the library's carry `library_`, each other call's sit under its
+    name."""
+    fns = dict(kernel=kernel, library=library, **others)
+    order = list(fns) + list(fns)[::-1]
+    ms = {n: [] for n in fns}
+    dev = {n: [] for n in fns}
+    for n in order:
+        ms[n].append(cuda_ms(fns[n]))
+    for n in order:
+        dev[n].append(device_ms(fns[n]))
+    if any(how != EVENTS_TIME for _, how in dev["kernel"]):
         raise AssertionError("the host could not enqueue the kernel's calls "
                              "ahead of the card")
-    return dict(
-        ms=(ms[0] + ms[3]) / 2, ms_turns=[ms[0], ms[3]],
-        library_ms=(ms[1] + ms[2]) / 2, library_ms_turns=[ms[1], ms[2]],
-        device_ms=(dev[0][0] + dev[3][0]) / 2,
-        device_ms_turns=[dev[0][0], dev[3][0]], device_time=dev[0][1],
-        library_device_ms=sum(lib) / len(lib) if lib else None,
-        library_device_ms_turns=[d[0] for d in dev[1:3]],
-        library_device_time=dev[1][1],
-        host_us=host_us(kernel), library_host_us=host_us(library))
+    t = {}
+    for n in fns:
+        got = [d for d, _ in dev[n] if d is not None]
+        t[n] = dict(ms=sum(ms[n]) / 2, ms_turns=ms[n],
+                    device_ms=sum(got) / len(got) if got else None,
+                    device_ms_turns=[d for d, _ in dev[n]],
+                    device_time=dev[n][0][1], host_us=host_us(fns[n]))
+    out = t.pop("kernel")
+    out.update({f"library_{k}": v for k, v in t.pop("library").items()})
+    return dict(out, **t)
 
 
 def kernel_times(fn) -> dict:
@@ -4381,57 +4394,102 @@ def serve_forest_phase(torch, lgb, ch, np, ds, Xv, cat_sets, rank_sets):
 
 
 @contextlib.contextmanager
-def recording_take_call(ch, k, nth, store):
-    """While active, keep the arguments of the nth take_small call of
-    table height k (store["args"] = (tab, idx))."""
-    orig = ch.take_small
+def recording_take_rows(ch, nth, store):
+    """While active, keep the arguments of the nth take_rows call
+    (store["args"] = (tab_rows, idx, k)) and count the take_small calls
+    of table height 9 (store["take_small_k9"]: the forest's gather before
+    its node-major table)."""
+    orig_rows, orig_small = ch.take_rows, ch.take_small
     seen = [0]
+    store["take_small_k9"] = 0
 
-    def recording(tab, idx):
-        if tab.shape[0] == k:
-            if seen[0] == nth:
-                store["args"] = (tab.clone(), idx.clone())
-            seen[0] += 1
-        return orig(tab, idx)
-    ch.take_small = recording
+    def rows(tab_rows, idx, k):
+        if seen[0] == nth:
+            store["args"] = (tab_rows.clone(), idx.clone(), k)
+        seen[0] += 1
+        return orig_rows(tab_rows, idx, k)
+
+    def small(tab, idx):
+        store["take_small_k9"] += int(tab.shape[0] == 9)
+        return orig_small(tab, idx)
+
+    ch.take_rows, ch.take_small = rows, small
     try:
         yield
     finally:
-        ch.take_small = orig
+        ch.take_rows, ch.take_small = orig_rows, orig_small
+
+
+def graph_launches(torch, fn) -> int:
+    """Device operations (kernels, fills, copies) of one call of fn: the
+    nodes of a CUDA graph that captures the call. The count
+    launches_per_call takes from the profiler, which late in this script
+    reads no event."""
+    from lightgbm_tpu_torch.learner.device_loop import CudaGraph
+
+    g = CudaGraph(torch.device("cuda"))
+    try:
+        g.capture(lambda _loop: fn())
+        return g.nodes
+    finally:
+        g.close()
 
 
 def take_small_serve_line(torch, hist, ch, forest):
-    """take_small at the serving shape: one level's gather (the fourth)
-    of a 4096-row bucket over the SERVE_TREES-tree forest, k = 9 packed
-    node fields, L = trees x max_nodes (past the 48 KB shared-memory
-    stage: the unstaged generic path). Bitwise against take_cols_plain
-    and across two launches; in turns with index_select; launches per
-    call from the profiler."""
+    """The forest's gather at the serving shape: one level's take_rows
+    call (the fourth) of a 4096-row bucket over the SERVE_TREES-tree
+    forest, k = 9 packed node fields from its (trees x max_nodes, 16)
+    node-major table. Bitwise against take_rows_plain, across two
+    launches and against the old generic take_small path on the same
+    fields as the (9, L) table; in turns: the kernel, index_select on
+    the (9, L) table (the library call), the old path ("old") and
+    index_select of the node-major rows (for reference); the bound from
+    the bytes the level needs; launches per call from a CUDA graph."""
     store = {}
     x = torch.randn((4096, 28), device="cuda")
     tw = torch.ones(forest.num_trees, device="cuda")
-    with recording_take_call(ch, 9, 3, store):
+    with recording_take_rows(ch, 3, store):
         forest.apply(x, tw)
-    tab, idx = store["args"]
-    run = lambda: hist.take_cols(tab, idx)  # noqa: E731
-    a, b, p = run(), run(), hist.take_cols_plain(tab, idx)
+    if store["take_small_k9"]:
+        raise AssertionError("take_small_serve: the forest still gathers "
+                             "from the (9, L) table")
+    tab_rows, idx, k = store["args"]
+    Lt, kp = tab_rows.shape
+    tab9 = tab_rows[:, :k].T.contiguous()
+    run = lambda: hist.take_rows(tab_rows, idx, k)  # noqa: E731
+    a, b = run(), run()
+    p = hist.take_rows_plain(tab_rows, idx, k)
+    old = hist.take_cols(tab9, idx)
     torch.cuda.synchronize()
-    if not (torch.equal(a, b) and torch.equal(a, p)):
+    bits = lambda t: t.view(torch.int32)  # noqa: E731
+    if not (torch.equal(bits(a), bits(b)) and torch.equal(bits(a), bits(p))
+            and torch.equal(bits(a), bits(old))):
         raise AssertionError("take_small_serve disagrees with its plain "
-                             "version or across launches")
-    k, Lt = tab.shape
+                             "version, across launches or with the old "
+                             "path")
     n = idx.shape[0]
     safe = idx.clamp(0, Lt - 1).long()
-    # idx read once, the table once, the (9, n) output written once
-    bb, by = bound(n * 4 + k * Lt * 4 + k * n * 4, 0)
-    d = dict(shape=f"tab ({k},{Lt}) idx ({n},)", lanes=n, k=k, L=Lt,
-             tolerance="exact", bitwise_repeat=True,
-             max_abs_err=float((a - p).abs().max()),
-             **in_turns(run, lambda: torch.index_select(tab, 1, safe)),
-             plain_ms=cuda_ms(lambda: hist.take_cols_plain(tab, idx)),
-             bound_ms=bb, bound_by=by,
-             launches_per_call=launches_per_call(run))
-    return d
+    nodes = int(torch.unique(idx[(idx >= 0) & (idx < Lt)]).numel())
+    # idx read once, the (k, n) output written once, and the k fields of
+    # each distinct node the level visits read once (a record's padding
+    # is never read; a record read again comes from L2)
+    bb, by = bound(n * 4 + k * n * 4 + nodes * k * 4, 0)
+    return dict(shape=f"tab_rows ({Lt},{kp}) idx ({n},) k {k}", lanes=n,
+                k=k, L=Lt, record_floats=kp, distinct_nodes=nodes,
+                tolerance="exact (bits)", bitwise_repeat=True,
+                bitwise_old=True, max_abs_err=float((a - p).abs().max()),
+                library="index_select(tab9, 1, safe)",
+                **in_turns(run, lambda: torch.index_select(tab9, 1, safe),
+                           old=lambda: hist.take_cols(tab9, idx),
+                           rows_index_select=lambda: torch.index_select(
+                               tab_rows, 0, safe)),
+                old_is="take_small, generic k path, unstaged (9, L)",
+                plain_ms=cuda_ms(lambda: hist.take_rows_plain(tab_rows, idx,
+                                                              k)),
+                bound_ms=bb, bound_by=by,
+                launches_per_call=graph_launches(torch, run),
+                launches_per_call_by="nodes of one call captured in a CUDA "
+                                     "graph")
 
 
 def serve_dispatch_phase(torch, np, lgb, bst, X_pool):

@@ -9,6 +9,7 @@ paths launch (lightgbm_tpu/learner/pallas_hist.py):
 | `hist_nat_f32`   | csrc/hist_nat.cu   | hist_nat_tpu, f32 (nat_ch=5) mode |
 | `hist_round`     | csrc/hist_round.cu | hist_round_tpu, int16, int8 and f32 (bf16x2) modes |
 | `take_small`     | csrc/take_small.cu | take_small_tpu / _take_kernel     |
+| `take_rows`      | csrc/take_small.cu | take_small_tpu, the serving forest's node-major gather |
 | `seg_sum`        | csrc/seg_sum.cu    | seg_sum_tpu / _segsum_kernel      |
 | `hist`           | csrc/hist.cu       | hist_tpu / _hist_kernel           |
 | `hist_slots`     | csrc/hist.cu       | hist_slots_tpu / _hist_slots_kernel |
@@ -34,7 +35,7 @@ launches on torch's current stream, raises if the C function reports a
 CUDA error, and adds one to its launch count per call (one count per
 kernel mode: the int8 modes count as hist_nat_int8 / hist_round_int8; a
 hist_round call in its categorical variant adds one to hist_round_cat
-as well).
+as well; take_rows counts as take_small, the TPU kernel both replace).
 The plain PyTorch versions live in learner/histogram.py; nothing here
 falls back to them.
 """
@@ -168,6 +169,7 @@ def load() -> ctypes.CDLL:
         lib.lgbm_hist_nat_f32.argtypes = [P] * 6 + [I] * 8 + [P]
         lib.lgbm_hist_round.argtypes = [I] + [P] * 11 + [I] * 12 + [P]
         lib.lgbm_take_small.argtypes = [P, P, P] + [I] * 5 + [P]
+        lib.lgbm_take_rows.argtypes = [P, P, P] + [I] * 5 + [P]
         lib.lgbm_seg_sum.argtypes = [P] * 4 + [I] * 7 + [P, P]
         L = ctypes.c_longlong
         lib.lgbm_hist.argtypes = ([P, P, I, P, P, L, L] + [I] * 3 + [P] * 4
@@ -188,6 +190,7 @@ def load() -> ctypes.CDLL:
         lib.lgbm_if_end.argtypes = [P, ctypes.POINTER(L)]
         for fn in (lib.lgbm_hist_nat, lib.lgbm_hist_nat_f32,
                    lib.lgbm_hist_round, lib.lgbm_take_small,
+                   lib.lgbm_take_rows,
                    lib.lgbm_seg_sum, lib.lgbm_hist, lib.lgbm_hist_slots,
                    lib.lgbm_lambdarank,
                    lib.lgbm_graph_begin, lib.lgbm_graph_end,
@@ -872,6 +875,67 @@ def take_small(tab: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     rc = load().lgbm_take_small(tab.data_ptr(), idx_ptr, out.data_ptr(), k,
                                 L, N, blocks, vec_idx, _stream(dev))
     _check(rc, "take_small")
+    LAUNCHES["take_small"] += 1
+    return out
+
+
+# floats a node-major record take_rows reads (kRecord, csrc/take_small.cu;
+# serving/forest.py PACK_WIDTH)
+TAKE_ROWS_RECORD = 16
+
+
+def take_rows_plan(tab_rows: torch.Tensor, idx: torch.Tensor, k: int,
+                   sms: int) -> dict:
+    """The checks and the launch of a take_rows call, from the tensors'
+    dtypes, shapes, strides and data pointers alone (no card needed):
+    an f32 (L, TAKE_ROWS_RECORD) row-major table, 0 < k <= its width,
+    the table 16-byte aligned (every record then is), an int32 (N,) idx;
+    raises on anything else. Returns the grid (take_small's:
+    _row_blocks), vec_idx (16-byte idx loads from an aligned pointer), L
+    and N."""
+    if tab_rows.dtype != torch.float32:
+        raise TypeError(f"take_rows: tab_rows must be torch.float32, got "
+                        f"{tab_rows.dtype}")
+    if idx.dtype != torch.int32:
+        raise TypeError(f"take_rows: idx must be torch.int32, got "
+                        f"{idx.dtype}")
+    if tab_rows.dim() != 2 or idx.dim() != 1:
+        raise ValueError(f"take_rows: tab_rows must be (L, kp) and idx "
+                         f"(N,), got {tuple(tab_rows.shape)} and "
+                         f"{tuple(idx.shape)}")
+    if not (tab_rows.is_contiguous() and idx.is_contiguous()):
+        raise ValueError("take_rows: tab_rows and idx must be contiguous")
+    L, kp = tab_rows.shape
+    if kp != TAKE_ROWS_RECORD:
+        raise ValueError(f"take_rows: a record of {kp} floats; the kernel "
+                         f"reads records of {TAKE_ROWS_RECORD}")
+    if not 0 < k <= kp:
+        raise ValueError(f"take_rows: k = {k} outside 1..{kp}")
+    if tab_rows.data_ptr() % 16:
+        raise ValueError("take_rows: the table is not 16-byte aligned")
+    N = idx.shape[0]
+    blocks, vec_idx = take_small_plan(N, sms, idx.data_ptr())
+    return dict(blocks=blocks, vec_idx=vec_idx, L=L, N=N)
+
+
+def take_rows(tab_rows: torch.Tensor, idx: torch.Tensor,
+              k: int) -> torch.Tensor:
+    """(L, TAKE_ROWS_RECORD) f32 node-major table, (N,) int32 idx ->
+    (k, N) f32 tab_rows[idx, :k].T, 0 for idx outside [0, L)."""
+    if not (tab_rows.is_cuda and idx.is_cuda):
+        raise ValueError("take_rows: tab_rows and idx must be CUDA tensors")
+    dev = tab_rows.device
+    plan = take_rows_plan(tab_rows, idx, k, _sm_count(dev))
+    N = plan["N"]
+    out = torch.empty((k, N), dtype=torch.float32, device=dev)
+    if N == 0:
+        return out
+    if out.data_ptr() % 16:
+        raise ValueError("take_rows: the output is not 16-byte aligned")
+    rc = load().lgbm_take_rows(tab_rows.data_ptr(), idx.data_ptr(),
+                               out.data_ptr(), k, plan["L"], N,
+                               plan["blocks"], plan["vec_idx"], _stream(dev))
+    _check(rc, "take_rows")
     LAUNCHES["take_small"] += 1
     return out
 

@@ -471,6 +471,26 @@ def take_cols(tab: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return take_cols_plain(tab, idx)
 
 
+def take_rows_plain(tab_rows: torch.Tensor, idx: torch.Tensor,
+                    k: int) -> torch.Tensor:
+    L = tab_rows.shape[0]
+    ok = (idx >= 0) & (idx < L)
+    out = tab_rows[idx.clamp(0, L - 1).long(), :k]
+    return torch.where(ok[:, None], out, torch.zeros(
+        (), dtype=tab_rows.dtype, device=tab_rows.device)).T.contiguous()
+
+
+def take_rows(tab_rows: torch.Tensor, idx: torch.Tensor,
+              k: int) -> torch.Tensor:
+    """(L, 16) f32 node-major table, (N,) int32 indices -> (k, N)
+    tab_rows[idx, :k].T, the same values take_cols gives from the (k, L)
+    table tab_rows[:, :k].T; indices outside [0, L) give 0 (take_rows
+    kernel on the card, which reads records of 16 floats only)."""
+    if tab_rows.is_cuda:
+        return cuda_hist.take_rows(tab_rows, idx, k)
+    return take_rows_plain(tab_rows, idx, k)
+
+
 def seg_sum_plain(vals: torch.Tensor, idx: torch.Tensor,
                   num_out: int) -> torch.Tensor:
     k, N = vals.shape

@@ -78,7 +78,9 @@ from ..resilience.errors import QueueOverflow
 from ..resilience.faultinject import fault_point
 from .dispatch import DEFAULT_BUCKETS, BucketDispatcher, ProgramSet
 from .forest import (
+    PACK_FIELDS,
     contrib_apply,
+    device_tables,
     family_key,
     pack_contrib_tables,
     pack_forest_tables,
@@ -118,14 +120,20 @@ class ForestStack:
 
     def write(self, slot: int, padded: Dict[str, np.ndarray]) -> None:
         """Upload one padded model into its slot, on the family's stream
-        under its lock (device work; outside the fleet condition)."""
+        under its lock (device work; outside the fleet condition). The
+        pack goes up as the host packed it and becomes the slot's node
+        records on the card (their zero columns are never written)."""
         ps = self.programs
         with ps.lock, ps.scope():
             if self.tables is None:
                 self.tables = stack_tables(padded, self.slots, self.device)
             views = slot_views(self.tables, slot, self.slots)
             for k, v in padded.items():
-                views[k].copy_(torch.from_numpy(np.ascontiguousarray(v)))
+                src = torch.from_numpy(np.ascontiguousarray(v))
+                if k == "pack":
+                    views[k][:, :PACK_FIELDS].copy_(src.to(self.device).T)
+                else:
+                    views[k].copy_(src)
 
 
 class _SlotForest:
@@ -456,7 +464,7 @@ class ModelFleet:
         ct, _ = pack_contrib_tables(list(g.models), entry.meta["num_class"])
         to_dev = lambda d: {k: torch.from_numpy(np.ascontiguousarray(v))
                             .to(self.device) for k, v in d.items()}
-        built = (to_dev(entry.host_tables), to_dev(ct))
+        built = (device_tables(entry.host_tables, self.device), to_dev(ct))
         with self._cond:
             # two racing packers both built valid tables: keep one
             if entry.ctables is None:

@@ -9,9 +9,16 @@ categorical bitsets, linear-leaf coefficients) into rectangular
 all rows x all trees in lockstep:
 
 - per level, every lane's node parameters come from ONE gather of the
-  packed (9, T * max_nodes) table: learner/histogram.take_cols, which is
-  the take_small kernel (csrc/take_small.cu) on the card and
-  take_cols_plain on the CPU;
+  packed node table: learner/histogram.take_rows, which is the
+  take_rows kernel (csrc/take_small.cu) on the card and take_rows_plain
+  on the CPU. The table is node-major, (T * max_nodes, PACK_WIDTH) f32,
+  one 64-byte record a node: the 9 fields of the host packer's
+  (9, T * max_nodes) pack (the JAX package's layout), then 7 zero
+  columns. The pack goes to its device as it is and is laid out there
+  (node_records), once a load (device_tables) or a fleet page-in, never
+  per call, so the host packs and copies what it did before; every
+  reader (the traversal, contrib_apply, the fleet's slots, the CPU)
+  reads that one table;
 - each lane's split-feature value is a torch.gather of its row;
 - the levels are the forest's max depth, unconditional: a level in
   which every lane already sits at a leaf changes nothing, and nothing
@@ -61,6 +68,14 @@ import numpy as np
 import torch
 
 from ..binning import K_ZERO_THRESHOLD as _K_ZERO
+
+# node fields of the packed table (pack_forest_tables), and the floats of
+# a node's record: the record take_rows reads (learner/cuda_hist.py
+# TAKE_ROWS_RECORD). 16, not 12: a 64-byte record never straddles a
+# 128-byte line, and the serving forest's gathers ran 5% faster so on
+# the H100 (PERF.md)
+PACK_FIELDS = 9
+PACK_WIDTH = 16
 
 
 def serve_device(device) -> torch.device:
@@ -178,8 +193,9 @@ def pack_forest_tables(models, num_class: int
         np.concatenate(catw_parts).astype(np.uint32)
         if catw_parts else np.zeros(1, np.uint32)
     )
-    # per-node packed parameter table for the single take_cols gather:
-    # every field is exact in f32 (ints < 2^24, thresholds already f32)
+    # per-node packed parameter table for the single gather a level
+    # (node_records lays it node-major on the device): every field is
+    # exact in f32 (ints < 2^24, thresholds already f32)
     pack = np.stack([
         feature.reshape(-1).astype(np.float32),       # 0
         threshold.reshape(-1),                        # 1
@@ -211,6 +227,25 @@ def pack_forest_tables(models, num_class: int
         "linear": bool(any_linear), "max_feature": int(max_feature),
     }
     return tables, meta
+
+
+def node_records(fields: torch.Tensor) -> torch.Tensor:
+    """(PACK_FIELDS, R) packed node fields -> (R, PACK_WIDTH) node records
+    on the fields' device: the fields in order, then zero columns (a
+    transpose on the device, once a load or page-in)."""
+    out = fields.new_zeros((fields.shape[1], PACK_WIDTH))
+    out[:, :PACK_FIELDS] = fields.T
+    return out
+
+
+def device_tables(tables: Dict[str, np.ndarray],
+                  device) -> Dict[str, torch.Tensor]:
+    """Host tables (pack_forest_tables') on `device`: each copied as it
+    is, then the pack laid out there as node records."""
+    out = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+           for k, v in tables.items()}
+    out["pack"] = node_records(out["pack"])
+    return out
 
 
 def go_left(v: torch.Tensor, x: torch.Tensor, catw: torch.Tensor,
@@ -272,26 +307,28 @@ def forest_apply(tables: Dict[str, torch.Tensor], X: torch.Tensor,
     stack (stack_tables) and the forest is slot `slot`'s T = len(tree_w)
     trees: every table index is offset on the device. Reads nothing back
     to the host."""
-    from ..learner.histogram import take_cols
+    from ..learner.histogram import take_rows
 
-    pack = tables["pack"]
+    pack = tables["pack"]  # (T_all * M, PACK_WIDTH) node records
     T_all, L = tables["leaf_value"].shape
     T = tree_w.shape[0]
-    M = pack.shape[1] // T_all
+    M = pack.shape[0] // T_all
     K = tables["class_onehot"].shape[1]
     N = X.shape[0]
     dev = X.device
     tree = torch.arange(T, dtype=torch.int32, device=dev)
     cat_base = 0
+    init = tables["init_node"]
     if slot is not None:
         tree = tree + slot * T
         cat_base = slot * (tables["catw"].shape[0] // (T_all // T))
+        init = init[tree]  # the slot's trees (a forest's own: all of it)
     tpos = (tree * M)[None, :]
-    cur = tables["init_node"][tree][None, :].expand(N, T)
+    cur = init[None, :].expand(N, T)
     for _ in range(levels if levels > 0 else M):
         node = cur.clamp(min=0)  # leaf lanes compute a dead decision
         flat = (tpos + node).reshape(-1)  # (N*T,) int32
-        v = take_cols(pack, flat).view(9, N, T)
+        v = take_rows(pack, flat, PACK_FIELDS).view(PACK_FIELDS, N, T)
         x = torch.gather(X, 1, v[0].long())  # (N, T)
         gl = go_left(v, x, tables["catw"], has_cat, cat_base)
         child = torch.where(gl, v[5], v[6]).to(torch.int32)
@@ -415,12 +452,13 @@ def pad_forest_tables(tables, meta, *, num_trees: int, max_nodes: int,
 def stack_tables(padded: Dict[str, np.ndarray], slots: int,
                  device) -> Dict[str, torch.Tensor]:
     """Zeroed device tables for `slots` models of one family, laid out as
-    one forest of slots x T trees: a slot's pack columns, catw words and
-    per-tree rows are contiguous (slot_views)."""
+    one forest of slots x T trees: a slot's node records (PACK_WIDTH
+    floats a node of the padded (9, T*M) pack), catw words and per-tree
+    rows are contiguous (slot_views)."""
     out = {}
     for k, v in padded.items():
         a = np.asarray(v)
-        shape = ((9, slots * a.shape[1]) if k == "pack"
+        shape = ((slots * a.shape[1], PACK_WIDTH) if k == "pack"
                  else (slots * a.shape[0],) + a.shape[1:])
         out[k] = torch.zeros(shape, dtype=torch.from_numpy(a[:0]).dtype,
                              device=device)
@@ -432,12 +470,8 @@ def slot_views(stack: Dict[str, torch.Tensor], slot: int,
     """The views of one slot in stack_tables' layout."""
     out = {}
     for k, t in stack.items():
-        if k == "pack":
-            w = t.shape[1] // slots
-            out[k] = t[:, slot * w:(slot + 1) * w]
-        else:
-            w = t.shape[0] // slots
-            out[k] = t[slot * w:(slot + 1) * w]
+        w = t.shape[0] // slots
+        out[k] = t[slot * w:(slot + 1) * w]
     return out
 
 
@@ -536,7 +570,7 @@ def contrib_apply(tables: Dict[str, torch.Tensor],
     fractions, then the extend / unwound-sum recursion over every (row,
     tree, leaf) lane at one static path depth."""
     T, L = tables["leaf_value"].shape
-    M = tables["pack"].shape[1] // T
+    M = tables["pack"].shape[0] // T
     N, F = X.shape
     K = tables["class_onehot"].shape[1]
     P = ctables["zero"].shape[2]
@@ -545,8 +579,8 @@ def contrib_apply(tables: Dict[str, torch.Tensor],
 
     # the split decision at EVERY node (the traversal evaluates only the
     # visited one; SHAP weighs both branches of every path)
-    v = tables["pack"].view(9, 1, T * M)
-    x_all = torch.index_select(X, 1, tables["pack"][0].long())  # (N, T*M)
+    v = tables["pack"].T[:PACK_FIELDS, None, :]  # (9, 1, T*M) columns
+    x_all = torch.index_select(X, 1, v[0, 0].long())             # (N, T*M)
     gl = go_left(v, x_all, tables["catw"], has_cat)              # (N, T*M)
 
     nodes = ctables["nodes"]
@@ -637,8 +671,7 @@ class TensorForest:
         self.mesh = mesh if mesh is not None and mesh.size > 1 else None
         self.num_devices = 1 if self.mesh is None else self.mesh.size
         self.weight_len = self.num_trees  # the (T,) tree weights apply takes
-        self.tables = {k: torch.from_numpy(np.ascontiguousarray(v))
-                       .to(self.device) for k, v in tables.items()}
+        self.tables = device_tables(tables, self.device)
 
     def bind(self) -> None:
         """Make this forest the one a dispatcher's programs score: a

@@ -1309,6 +1309,104 @@ def test_take_small_k9_unstaged_bitwise(dev):
     assert torch.equal(ht.take_cols(tab.to(dev), idx.to(dev)), out)
 
 
+def _node_rows(rs, L):
+    """An (L, 16) node-major table: k = 9 fields (with -0.0, NaN and
+    infinities), junk in the padding columns."""
+    tab = np.full((L, 16), 7.5, np.float32)
+    tab[:, :9] = rs.randn(L, 9)
+    tab[:4, 0] = [-0.0, np.nan, np.inf, -np.inf]
+    return torch.from_numpy(tab)
+
+
+def _same_bits(a, b):
+    return torch.equal(a.contiguous().view(torch.int32),
+                       b.contiguous().view(torch.int32))
+
+
+def test_take_rows_serving_shape_bitwise(dev):
+    """The forest's gather at the serving shape: 500 trees x 254 nodes,
+    one level of a 4096-row rung (2,048,000 lanes), indices in and out
+    of range; bitwise the plain version's and across launches, one
+    launch a call."""
+    rs = np.random.RandomState(16)
+    L = 500 * 254
+    tab = _node_rows(rs, L)
+    idx = torch.from_numpy(rs.randint(-3, L + 3, 4096 * 500)
+                           .astype(np.int32))
+    td, xd = tab.to(dev), idx.to(dev)
+    before = cuda_hist.LAUNCHES["take_small"]
+    out = ht.take_rows(td, xd, 9)
+    assert cuda_hist.LAUNCHES["take_small"] - before == 1
+    assert out.shape == (9, idx.shape[0]) and out.is_cuda
+    assert _same_bits(out.cpu(), ht.take_rows_plain(tab, idx, 9))
+    assert _same_bits(ht.take_rows(td, xd, 9), out)
+
+
+@pytest.mark.parametrize("n", [1, 3, 5, 1027, 4099, 100_001])
+@pytest.mark.parametrize("k", [1, 9, 16])
+@pytest.mark.parametrize("idx_offset", [0, 1, 3])
+def test_take_rows_ragged_and_misaligned(dev, n, k, idx_offset):
+    """Ragged N (output rows j * N off 16 bytes), idx views 4 and 12
+    bytes off alignment (the scalar loads), k below and at the record
+    width; a small table (past no stage: take_rows has none)."""
+    rs = np.random.RandomState(n + k)
+    L = 700
+    tab = _node_rows(rs, L)
+    full = torch.from_numpy(rs.randint(-2, L + 2, n + idx_offset)
+                            .astype(np.int32))
+    xd = full.to(dev)[idx_offset:]
+    assert (xd.data_ptr() % 16 == 0) == (idx_offset == 0)
+    out = ht.take_rows(tab.to(dev), xd, k)
+    assert _same_bits(out.cpu(), ht.take_rows_plain(tab, full[idx_offset:],
+                                                    k))
+
+
+def test_take_rows_refuses_a_misaligned_table(dev):
+    """A table 4 bytes off 16-byte alignment raises, and nothing is
+    launched or counted."""
+    tab = torch.zeros(64 * 16 + 1, device=dev)[1:].view(64, 16)
+    idx = torch.zeros(16, dtype=torch.int32, device=dev)
+    before = cuda_hist.LAUNCHES["take_small"]
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        ht.take_rows(tab, idx, 9)
+    with pytest.raises(ValueError, match="record of 10"):
+        ht.take_rows(torch.zeros((64, 10), device=dev), idx, 9)
+    assert cuda_hist.LAUNCHES["take_small"] == before
+
+
+def test_fleet_card_scores_a_paged_tenant_as_its_own_forest(dev):
+    """Three tenants (cuts of one model) through a fleet that holds two
+    on the card: every answer, including a tenant paged back in after
+    an eviction, is the bits of the tenant's own TensorForest on the
+    card; the stack holds node records (PACK_WIDTH floats a node)."""
+    from lightgbm_tpu_torch.serving import ModelFleet, TensorForest
+    from lightgbm_tpu_torch.serving.forest import PACK_WIDTH
+
+    bst, Xq = _serve_model()
+    texts = {f"cut{i}": bst.model_to_string(num_iteration=c)
+             for i, c in enumerate((9, 10, 12))}
+    own = {n: TensorForest.from_booster(lgb.Booster(model_str=t),
+                                        device=dev)
+           for n, t in texts.items()}
+    fleet = ModelFleet(buckets=(16, 64), capacity=2, slots_per_family=2,
+                       device=dev)
+    try:
+        for n, t in texts.items():
+            fleet.load(n, t)
+        for n in ("cut0", "cut1", "cut2", "cut0", "cut2"):
+            got = fleet.predict(n, Xq[:40], raw_score=True)
+            np.testing.assert_array_equal(
+                np.asarray(got).reshape(-1),
+                own[n].predict_raw(Xq[:40])[0])
+        fs = fleet.fleet_stats()
+        assert fs["pages_in"] > len(texts) and fs["evictions"] > 0
+        st, = fleet._stacks[fleet._names["cut0"]["versions"][0].family]
+        assert st.tables["pack"].shape[1] == PACK_WIDTH
+        assert st.tables["pack"].is_contiguous()
+    finally:
+        fleet.close()
+
+
 def test_dispatcher_one_capture_per_bucket(dev):
     """100 mixed-size requests (empty, one row, past the top rung): one
     CUDA graph per rung, each answer the unbucketed forest's bits, and

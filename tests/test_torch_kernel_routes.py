@@ -1,7 +1,8 @@
 """The launch decisions of the kernel wrappers (learner/cuda_hist.py),
 which are plain Python and run without a card: hist_nat's f32 grid (one
 pass over the rows at every slot count), its prepass and its 16-byte
-loads; take_small's grid and idx alignment; seg_sum's grid, prepass,
+loads; take_small's grid and idx alignment; take_rows' grid, idx
+alignment and refusals (take_rows_plan); seg_sum's grid, prepass,
 loads, tile and scratch; hist_round's partition blocks, work-list bound,
 column groups, scratch sizes and shared-memory fit, and the refusals
 beyond it; hist's and hist_slots' work list (hist_plan, hist_slots_plan,
@@ -10,6 +11,7 @@ held against their plain versions in tests/test_torch_cuda.py."""
 
 import numpy as np
 import pytest
+import torch
 
 from lightgbm_tpu_torch.learner import cuda_hist as ch
 from _port_threads import one_torch_thread
@@ -75,6 +77,110 @@ def test_take_small_idx_alignment(ptr, vec):
     """idx is read 16 bytes at a time only from a 16-byte-aligned
     pointer; an offset view takes the scalar loads."""
     assert ch.take_small_plan(N_REFIT, SMS, ptr)[1] == vec
+
+
+# ---- take_rows (csrc/take_small.cu): the serving forest's node-major
+# gather; the plan takes CPU tensors (it reads dtypes, shapes, strides
+# and data pointers only)
+SERVE_L, SERVE_LANES = 500 * 254, 4096 * 500  # 500 trees, a 4096-row rung
+
+
+def _rows_table(L=SERVE_L, kp=16, offset=0, dtype=torch.float32):
+    """An (L, kp) table whose data starts `offset` elements into a
+    fresh (64-byte aligned) allocation."""
+    return torch.zeros(L * kp + offset, dtype=dtype)[offset:].view(L, kp)
+
+
+def test_take_rows_plan_at_the_serving_shape():
+    """2,048,000 lanes need 2,000 steps of 1,024 lanes: the grid is one
+    wave of 8 blocks per SM, which strides over the rest; idx is read 16
+    bytes at a time."""
+    idx = torch.zeros(SERVE_LANES, dtype=torch.int32)
+    p = ch.take_rows_plan(_rows_table(), idx, 9, SMS)
+    assert p == dict(blocks=8 * SMS, vec_idx=1, L=SERVE_L, N=SERVE_LANES)
+
+
+@pytest.mark.parametrize("n,blocks", [(1, 1), (1027, 2), (16 * 500, 8),
+                                      (SERVE_LANES, 8 * SMS)])
+def test_take_rows_grid_is_take_smalls(n, blocks):
+    idx = torch.zeros(n, dtype=torch.int32)
+    assert ch.take_rows_plan(_rows_table(), idx, 9, SMS)["blocks"] == blocks
+    assert blocks == ch.take_small_plan(n, SMS, 0)[0]
+
+
+@pytest.mark.parametrize("offset,vec", [(0, 1), (1, 0), (2, 0), (3, 0),
+                                        (4, 1)])
+def test_take_rows_idx_alignment(offset, vec):
+    """An idx view that does not start on 16 bytes takes the scalar
+    loads; the table has no such path (it is refused instead)."""
+    idx = torch.zeros(4096 + offset, dtype=torch.int32)[offset:]
+    assert ch.take_rows_plan(_rows_table(), idx, 9, SMS)["vec_idx"] == vec
+
+
+@pytest.mark.parametrize("kp", [12, 16])
+def test_take_rows_takes_every_compiled_width(kp):
+    """The kernel is compiled for the forest's 16-float records only
+    (TAKE_ROWS_RECORD); 12, which it was timed against, is refused."""
+    idx = torch.zeros(8, dtype=torch.int32)
+    tab = _rows_table(L=64, kp=kp)
+    if kp == ch.TAKE_ROWS_RECORD:
+        assert ch.take_rows_plan(tab, idx, 9, SMS)["L"] == 64
+    else:
+        with pytest.raises(ValueError, match=f"record of {kp}"):
+            ch.take_rows_plan(tab, idx, 9, SMS)
+
+
+@pytest.mark.parametrize("case,exc,match", [
+    ("misaligned", ValueError, "16-byte aligned"),
+    ("kp8", ValueError, "record of 8"),
+    ("kp9", ValueError, "record of 9"),
+    ("kp10", ValueError, "record of 10"),
+    ("kp20", ValueError, "record of 20"),
+    ("k0", ValueError, "outside"),
+    ("k17", ValueError, "outside"),
+    ("f64_table", TypeError, "float32"),
+    ("i64_idx", TypeError, "int32"),
+    ("f32_idx", TypeError, "int32"),
+    ("strided_table", ValueError, "contiguous"),
+    ("strided_idx", ValueError, "contiguous"),
+    ("flat_table", ValueError, "dims|\\(L, kp\\)"),
+])
+def test_take_rows_plan_refuses(case, exc, match):
+    """A table 4 bytes off 16-byte alignment (its records would straddle
+    the kernel's 16-byte loads), a record width other than 16, k outside
+    1..16, wrong dtypes, strided or flat inputs: each raises before any
+    launch."""
+    tab, idx, k = _rows_table(L=64), torch.zeros(64, dtype=torch.int32), 9
+    if case == "misaligned":
+        tab = _rows_table(L=64, offset=1)
+    elif case.startswith("kp"):
+        tab = _rows_table(L=64, kp=int(case[2:]))
+    elif case.startswith("k"):
+        k = int(case[1:])
+    elif case == "f64_table":
+        tab = _rows_table(L=64, dtype=torch.float64)
+    elif case == "i64_idx":
+        idx = idx.long()
+    elif case == "f32_idx":
+        idx = idx.float()
+    elif case == "strided_table":
+        tab = _rows_table(L=64, kp=32)[:, ::2]
+    elif case == "strided_idx":
+        idx = torch.zeros(128, dtype=torch.int32)[::2]
+    elif case == "flat_table":
+        tab = tab.reshape(-1)
+    with pytest.raises(exc, match=match):
+        ch.take_rows_plan(tab, idx, k, SMS)
+
+
+def test_take_rows_wrapper_takes_only_cuda_tensors():
+    """The kernel's wrapper never runs the plain version: a CPU tensor
+    is refused before any launch (histogram.take_rows sends it to
+    take_rows_plain instead)."""
+    before = ch.LAUNCHES["take_small"]
+    with pytest.raises(ValueError, match="CUDA"):
+        ch.take_rows(_rows_table(L=64), torch.zeros(8, dtype=torch.int32), 9)
+    assert ch.LAUNCHES["take_small"] == before
 
 
 # ---- seg_sum (csrc/seg_sum.cu): a prepass and one pass of the sums
